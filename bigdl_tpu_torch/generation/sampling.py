@@ -1,0 +1,94 @@
+"""Host-side token sampling: greedy + temperature/top-k, seeded — a
+copy of ``bigdl_tpu.generation.sampling`` (numpy only, so a sampled
+stream matches the JAX package's bit for bit given equal logits).
+
+Sampling runs on the host over the ``[V]`` logits row each program
+returns — per-request temperature/top-k/seed therefore never become
+program shapes (one request asking for ``top_k=7`` must not compile a
+new decode program), and determinism is trivial: each request owns a
+``numpy`` PCG64 generator seeded at submit, so the same (weights,
+prompt, sampling params, seed) always yields the same token stream, on
+any platform.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional
+
+import numpy as np
+
+
+@dataclass(frozen=True)
+class SamplingParams:
+    """Per-request decoding policy.
+
+    ``temperature <= 0`` is greedy argmax (the default — and the mode
+    the decode-vs-full-forward bit-identity tests pin). With a
+    positive temperature, logits are scaled then sampled; ``top_k``
+    restricts sampling to the k most likely tokens first. ``seed``
+    fixes the request's private RNG stream."""
+    temperature: float = 0.0
+    top_k: Optional[int] = None
+    seed: int = 0
+
+    def validate(self) -> "SamplingParams":
+        """Raise ValueError on a malformed policy (rejected at submit,
+        before the request can occupy a slot)."""
+        if self.top_k is not None and self.top_k < 1:
+            raise ValueError(f"top_k must be >= 1, got {self.top_k}")
+        if not np.isfinite(self.temperature):
+            raise ValueError(f"temperature must be finite, "
+                             f"got {self.temperature}")
+        return self
+
+
+class Sampler:
+    """One request's seeded sampling state (a PCG64 stream consumed
+    one draw per non-greedy token)."""
+
+    def __init__(self, params: SamplingParams):
+        self.params = params
+        self._rng = np.random.Generator(np.random.PCG64(params.seed))
+
+    def probs(self, logits: np.ndarray) -> np.ndarray:
+        """The ``[V]`` float64 sampling distribution this policy
+        induces over one logits row — the EXACT transformation
+        :meth:`sample` draws from (temperature scale, top-k mask,
+        softmax), factored out so speculative decoding's rejection
+        sampling adjudicates against the same numbers the plain
+        sampler would use. Greedy policies return the one-hot argmax
+        distribution (ties to the lowest id, like :meth:`sample`)."""
+        p = self.params
+        if p.temperature <= 0.0:
+            out = np.zeros(np.asarray(logits).shape[0], np.float64)
+            out[int(np.argmax(logits))] = 1.0
+            return out
+        scores = logits.astype(np.float64) / p.temperature
+        if p.top_k is not None and p.top_k < scores.shape[0]:
+            kth = np.partition(scores, -p.top_k)[-p.top_k]
+            scores = np.where(scores >= kth, scores, -np.inf)
+        scores = scores - scores.max()
+        probs = np.exp(scores)
+        probs /= probs.sum()
+        return probs
+
+    def draw(self, probs: np.ndarray) -> int:
+        """One inverse-CDF draw from a ``[V]`` probability vector off
+        this sampler's seeded stream (deterministic given the seed,
+        independent of numpy's ``Generator.choice`` internals)."""
+        u = self._rng.random()
+        return int(np.searchsorted(np.cumsum(probs), u, side="right")
+                   .clip(0, probs.shape[0] - 1))
+
+    def uniform(self) -> float:
+        """One uniform draw off the seeded stream (the rejection-
+        sampling accept coin of speculative decoding)."""
+        return float(self._rng.random())
+
+    def sample(self, logits: np.ndarray) -> int:
+        """Draw the next token id from one ``[V]`` logits row."""
+        if self.params.temperature <= 0.0:
+            # greedy: ties break to the lowest id (np.argmax), which
+            # keeps greedy decode reproducible bit for bit
+            return int(np.argmax(logits))
+        return self.draw(self.probs(logits))
