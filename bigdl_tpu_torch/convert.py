@@ -14,7 +14,7 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 
-__all__ = ["flatten_params", "load_jax_params"]
+__all__ = ["export_params", "flatten_params", "load_jax_params"]
 
 
 def flatten_params(params: Mapping, prefix: str = "") -> Dict[str, object]:
@@ -55,3 +55,18 @@ def load_jax_params(model: torch.nn.Module, params: Mapping
             # np.array copies: JAX hands out read-only buffers
             p.copy_(torch.from_numpy(np.array(arrays[name])))
     return model
+
+
+def export_params(model: torch.nn.Module) -> Dict[str, object]:
+    """The inverse of :func:`load_jax_params`: ``model``'s parameters as
+    the JAX package's nested param tree (``block_0.attn.wq`` →
+    ``{"block_0": {"attn": {"wq": ...}}}``) of numpy arrays, copied to
+    the host in the parameters' dtype."""
+    tree: Dict[str, object] = {}
+    for name, p in model.named_parameters():
+        *path, leaf = name.split(".")
+        node = tree
+        for key in path:
+            node = node.setdefault(key, {})
+        node[leaf] = p.detach().cpu().numpy().copy()
+    return tree

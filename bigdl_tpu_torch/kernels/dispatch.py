@@ -1,28 +1,157 @@
 """The kernel dispatch layer — every hand-written kernel enters here
 (counterpart of ``bigdl_tpu.kernels.dispatch``).
 
-The JAX package's dispatch returns ``None`` on a decline so the caller
-runs its jnp path. The port has no such decline on the card: a CUDA
-tensor reaches the kernel or the call raises, and the plain PyTorch
-version runs only for tensors on the CPU (inside each kernel's
-wrapper). What this layer owns is the structural check of the operands
-before they reach a wrapper.
+Routing follows the JAX package: the active
+:class:`~bigdl_tpu_torch.kernels.config.KernelConfig` and the operands'
+shapes decide, and a decline returns ``None`` so the caller runs its
+einsum path. What differs is what a decline may be on the card:
+
+- ``reason=config`` — the config switched the op off. The einsum path
+  runs: the JAX package's kernels-off configuration, chosen explicitly.
+- ``reason=vmem`` — flash past the working-set budget with
+  ``long_context=False``: the einsum path runs, as in the JAX package.
+- ``reason=shape`` — operands the kernel does not take (on a CUDA
+  tensor, also a dtype or head_dim the CUDA kernel is not built for). On
+  a CUDA tensor this raises; only a CPU tensor declines to the einsum
+  path.
+
+A CUDA tensor that is routed to a kernel launches it or the call raises;
+the plain PyTorch versions run only for tensors on the CPU (inside each
+kernel's wrapper). Every decision is counted: ``kernels/dispatch/kernel``
+(label ``op=flash|decode``) and ``kernels/dispatch/reference`` (labels
+``op=`` and ``reason=config|shape|vmem``), in
+:data:`bigdl_tpu_torch.telemetry.REGISTRY`.
 """
 from __future__ import annotations
 
 from typing import Optional
 
+from bigdl_tpu_torch import telemetry
+from bigdl_tpu_torch.kernels import config as _config
+from bigdl_tpu_torch.kernels.common import fit_block
+from bigdl_tpu_torch.kernels.flash_attention import (cuda_unsupported,
+                                                     flash_attention)
 from bigdl_tpu_torch.kernels.ragged_decode import ragged_decode_attention
 
-__all__ = ["decode_attention"]
+__all__ = ["attention", "decode_attention", "flash_route"]
+
+_C_KERNEL = telemetry.counter(
+    "kernels/dispatch/kernel",
+    "calls routed to a hand-written kernel (label op=flash|decode)")
+_C_REFERENCE = telemetry.counter(
+    "kernels/dispatch/reference",
+    "calls declined to the einsum path (labels op=flash|decode, "
+    "reason=config|shape|vmem)")
+
+#: flash routes: the full-row kernel, the blockwise long-context kernel
+#: (not ported), or a decline with its reason
+ROUTE_K1, ROUTE_K2 = "K1", "K2"
+
+
+def _declined(op: str, reason: str) -> None:
+    _C_REFERENCE.inc(op=op, reason=reason)
+
+
+def _taken(op: str) -> None:
+    _C_KERNEL.inc(op=op)
+
+
+def _flash_vmem_bytes(q, block_q: int) -> int:
+    """The JAX package's working-set estimate of one flash program (the
+    backward's, which dominates): K and V at the input dtype and as f32,
+    the dK/dV accumulators, four f32 ``[block_q, S]`` strips and four
+    f32 ``[block_q, D]`` tiles. The port keeps the estimate and its
+    budget so that one config routes the same shapes to K1 or K2 in both
+    packages."""
+    s, d = q.shape[-2], q.shape[-1]
+    bq = fit_block(s, block_q)
+    kv_inputs = 2 * s * d * q.dtype.itemsize
+    kv_f32 = 2 * s * d * 4
+    scratch = 2 * s * d * 4
+    strips = 4 * bq * s * 4
+    tiles = 4 * bq * d * 4
+    return kv_inputs + kv_f32 + scratch + strips + tiles
+
+
+def flash_route(q, k, v, config: Optional[_config.KernelConfig] = None
+                ) -> str:
+    """Where :func:`attention` sends these operands under ``config``
+    (None: the active one): ``"K1"``, ``"K2"``, or the reason of a
+    decline — ``"config"``, ``"shape"`` or ``"vmem"``. CPU tensors
+    route as the JAX package routes them; CUDA tensors the CUDA kernel
+    does not take (:func:`cuda_unsupported`) route to ``"shape"``."""
+    cfg = _config.get_config() if config is None else config
+    if not cfg.flash_attention:
+        return "config"
+    if (q.ndim != 4 or k.shape != q.shape or v.shape != q.shape
+            or not all(x.dtype.is_floating_point for x in (q, k, v))):
+        return "shape"
+    if q.device.type == "cuda" and (
+            cuda_unsupported(q.shape, q.dtype)
+            or k.dtype != q.dtype or v.dtype != q.dtype):
+        return "shape"
+    if _flash_vmem_bytes(q, cfg.block_q) > cfg.resolve_vmem_budget():
+        return ROUTE_K2 if cfg.long_context else "vmem"
+    return ROUTE_K1
+
+
+def attention(q, k, v, *, causal: bool = False, segment_ids=None,
+              sm_scale: Optional[float] = None):
+    """Flash-attention dispatch for ``[B, H, S, D]`` q/k/v with optional
+    ``[B, S]`` segment ids. Returns the K1 result, or **None** when the
+    config or (on the CPU) the shapes decline, telling the caller to run
+    its einsum path. On a CUDA tensor a shape decline raises ValueError,
+    and the K2 route (past the working-set budget with
+    ``long_context=True``) raises NotImplementedError: K2 is not ported
+    yet. On the CPU the K2 route runs K1's plain version."""
+    cfg = _config.get_config()
+    route = flash_route(q, k, v, cfg)
+    if route not in (ROUTE_K1, ROUTE_K2):
+        _declined("flash", route)
+        if route == "shape" and q.device.type == "cuda":
+            why = (cuda_unsupported(q.shape, q.dtype) if q.ndim == 4
+                   else None)
+            raise ValueError(
+                f"flash attention takes [B, H, S, D] q/k/v of one shape "
+                f"and a floating dtype, got {tuple(q.shape)} / "
+                f"{tuple(k.shape)} / {tuple(v.shape)} ({q.dtype}/"
+                f"{k.dtype}/{v.dtype}){'; ' + why if why else ''}; switch "
+                f"flash off in the KernelConfig to run the einsum path")
+        return None
+    if route == ROUTE_K2 and q.device.type != "cpu":
+        raise NotImplementedError(
+            f"flash attention at S={q.shape[-2]}, D={q.shape[-1]} is past "
+            f"the {cfg.resolve_vmem_budget() >> 20} MiB working-set budget "
+            f"and routes to K2 (blockwise flash attention), which is not "
+            f"ported yet; set KernelConfig(long_context=False) to run the "
+            f"einsum path")
+    _taken("flash")
+    return flash_attention(q, k, v, segment_ids, causal=causal,
+                           sm_scale=sm_scale, block_q=cfg.block_q)
 
 
 def decode_attention(q, k, v, lengths, *,
                      sm_scale: Optional[float] = None):
     """Ragged-decode dispatch: ``q [slots, H, D]`` (one token per slot),
     ``k``/``v`` ``[slots, H, T, D]`` cache slices, ``lengths [slots]``
-    int32 valid-KV rows per slot. Raises ValueError/TypeError on
+    int32 valid-KV rows per slot. Returns the kernel's result, or
+    **None** when the config switches decode off (the caller's
+    length-masked einsum path runs). Raises ValueError/TypeError on
     operands the kernel does not take."""
+    if not _config.enabled("decode"):
+        _declined("decode", "config")
+        return None
+    try:
+        _check_decode_operands(q, k, v, lengths)
+    except (TypeError, ValueError):
+        _declined("decode", "shape")
+        raise
+    _taken("decode")
+    return ragged_decode_attention(q, k, v, lengths, sm_scale=sm_scale,
+                                   block_k=_config.get_config().block_k)
+
+
+def _check_decode_operands(q, k, v, lengths) -> None:
     if k.ndim != 4 or v.shape != k.shape:
         raise ValueError(f"k/v must be [slots, H, T, D] of one shape, got "
                          f"{tuple(k.shape)} / {tuple(v.shape)}")
@@ -37,4 +166,4 @@ def decode_attention(q, k, v, lengths, *,
             and v.dtype == q.dtype):
         raise TypeError(f"q/k/v must share one floating dtype, got "
                         f"{q.dtype}/{k.dtype}/{v.dtype}")
-    return ragged_decode_attention(q, k, v, lengths, sm_scale=sm_scale)
+

@@ -6,8 +6,8 @@ the JAX param tree — ``embed``, ``pos_embed``, ``ln_f/*``,
 ``block_{i}/{ln1,attn,ln2,mlp}/*`` — with ``/`` spelled ``.``, so
 :func:`bigdl_tpu_torch.convert.load_jax_params` is a name map.
 
-Not ported yet: MoE blocks, an untied output head, the packed 3-plane
-input, sequence parallelism and the sharding rules.
+Not ported yet: MoE blocks, an untied output head, dropout (accepted
+only at 0.0), sequence parallelism and the sharding rules.
 """
 from __future__ import annotations
 
@@ -63,15 +63,24 @@ class TransformerBlock(nn.Module):
         self.ln2 = LayerNorm(hidden_size)
         self.mlp = FeedForward(hidden_size, ffn_size, generator=generator)
 
-    def forward(self, x, *, cache=None, positions=None, attend_len=None):
+    def forward(self, x, *, cache=None, positions=None, attend_len=None,
+                attn_segments=None):
         x = x + self.attn(self.ln1(x), cache=cache, positions=positions,
-                          attend_len=attend_len)
+                          attend_len=attend_len, segments=attn_segments)
         return x + self.mlp(self.ln2(x))
 
 
 class TransformerLM(nn.Module):
     """Decoder-only LM over token ids ``[B, S]`` → logits ``[B, S, V]``,
     with the output head tied to the token embedding.
+
+    Also takes the PACKED 3-plane input the datapipe produces
+    (:mod:`bigdl_tpu_torch.datapipe.packing`): a list or tuple
+    ``[tokens, segment_ids, positions]``, each ``[B, S]`` int. Attention
+    is restricted to same-segment (and causal) pairs, and positional
+    embeddings are gathered at the per-document ``positions`` (clipped
+    into ``[0, max_len-1]``). Segment id 0 marks padding; mask its
+    targets with the criterion's ``ignore_index``.
 
     ``device`` defaults to the card (``None`` → ``"cuda"``, raising when
     CUDA is missing); pass ``device="cpu"`` to run on the CPU.
@@ -82,9 +91,14 @@ class TransformerLM(nn.Module):
     def __init__(self, vocab_size: int, hidden_size: int = 512,
                  num_layers: int = 6, num_heads: int = 8,
                  ffn_size: Optional[int] = None, max_len: int = 2048,
+                 dropout: float = 0.0,
                  device: Optional[Union[str, torch.device]] = None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
+        if dropout != 0.0:
+            raise NotImplementedError(
+                f"TransformerLM dropout={dropout}: dropout and its rng "
+                f"through the blocks are not ported yet (use 0.0)")
         device = resolve_device(device)
         self.vocab_size = vocab_size
         self.hidden_size = hidden_size
@@ -93,6 +107,7 @@ class TransformerLM(nn.Module):
         self.head_dim = hidden_size // num_heads
         self.ffn_size = ffn_size or 4 * hidden_size
         self.max_len = max_len
+        self.dropout = dropout
         dt = default_dtype()
         s = 1.0 / math.sqrt(hidden_size)
         self.embed = nn.Parameter(torch.randn(
@@ -119,14 +134,34 @@ class TransformerLM(nn.Module):
         ``[layers, B, H, T, D]`` buffers, updated in place — one
         incremental step whose row ``b`` holds the S tokens at absolute
         positions ``positions[b] ..`` (positional indices clipped into
-        ``[0, max_len-1]``; see :class:`MultiHeadAttention`)."""
-        tokens = tokens.to(device=self.device, dtype=torch.long)
+        ``[0, max_len-1]``; see :class:`MultiHeadAttention`).
+        ``tokens`` may be the packed ``[tokens, segment_ids,
+        positions]`` planes (class docstring), never with ``cache=``."""
+        seg = None
+        if isinstance(tokens, (list, tuple)):
+            if len(tokens) != 3:
+                raise ValueError(
+                    "packed TransformerLM input must be [tokens, "
+                    f"segment_ids, positions]; got {len(tokens)} planes")
+            if cache is not None:
+                raise ValueError(
+                    "packed 3-plane input is a training/scoring layout; "
+                    "the KV-cached decode path takes plain token ids")
+            tokens, seg, packed_pos = (
+                torch.as_tensor(t, device=self.device) for t in tokens)
+            seg = seg.to(torch.int32)
+        tokens = torch.as_tensor(tokens, device=self.device).long()
         _, s = tokens.shape
         if cache is None:
             if s > self.max_len:
                 raise ValueError(f"sequence of {s} exceeds max_len "
                                  f"{self.max_len}")
-            x = self.embed[tokens] + self.pos_embed[:s][None]
+            if seg is None:
+                x = self.embed[tokens] + self.pos_embed[:s][None]
+            else:
+                # per-document positions (restarting at 0 per segment)
+                idx = packed_pos.long().clamp(0, self.max_len - 1)
+                x = self.embed[tokens] + self.pos_embed[idx]
         else:
             positions = positions.to(device=self.device, dtype=torch.int32)
             idx = (positions[:, None] + torch.arange(
@@ -137,5 +172,5 @@ class TransformerLM(nn.Module):
             layer = None if cache is None else \
                 {"k": cache["k"][i], "v": cache["v"][i]}
             x = blk(x, cache=layer, positions=positions,
-                    attend_len=attend_len)
+                    attend_len=attend_len, attn_segments=seg)
         return self.ln_f(x) @ self.embed.T

@@ -4,10 +4,13 @@ Layout convention: ``[batch, seq, model]`` (B, S, E); heads split E.
 Weights keep the JAX package's ``[in, out]`` layout and are applied as
 ``x @ w``, so converted parameters map 1:1 with no transpose.
 
-Ported: the plain ``dot_product_attention`` (causal and boolean mask)
-and :class:`MultiHeadAttention` with its full-sequence and KV-cached
-forwards. Not ported yet: the flash kernel route, packed ``segments``
-and the sequence-parallel (ring / Ulysses) paths.
+Ported: ``dot_product_attention`` with the kernel route first (K1
+through :func:`bigdl_tpu_torch.kernels.attention`), packed ``segments``
+and the einsum path, and :class:`MultiHeadAttention` with its
+full-sequence and KV-cached forwards. Not ported yet: attention dropout,
+the route of score matrices over 2 GiB to a long-context kernel (the JAX
+package's ``_flash_attention_tpu``; its port goes to K2) and the
+sequence-parallel (ring / Ulysses) paths.
 """
 from __future__ import annotations
 
@@ -17,22 +20,53 @@ from typing import Dict, Optional
 import torch
 from torch import nn
 
-from bigdl_tpu_torch.kernels import decode_attention
+from bigdl_tpu_torch import kernels
 from bigdl_tpu_torch.utils.engine import default_dtype
 
 __all__ = ["MultiHeadAttention", "dot_product_attention"]
 
 
-def dot_product_attention(q, k, v, *, causal: bool = False, mask=None):
+def dot_product_attention(q, k, v, *, causal: bool = False, mask=None,
+                          dropout_rate: float = 0.0, rng=None,
+                          training: bool = False, use_flash: bool = True,
+                          segments=None):
     """Scaled dot-product attention over ``[B, H, S, D]`` q/k/v.
 
-    The JAX package's einsum path: scores in float32, divided by
-    ``sqrt(D)`` *after* the product, masked entries filled with the
-    float32 minimum (not ``-inf``), softmax in float32, weights cast to
-    ``v.dtype`` for the second product. ``mask`` is a boolean tensor
-    broadcastable to ``[B, H, Sq, Sk]`` (True = attend), ANDed with the
-    causal structure."""
+    The JAX package's rules: masking is EITHER ``mask`` (a boolean
+    tensor broadcastable to ``[B, H, Sq, Sk]``, True = attend, ANDed
+    with the causal structure; never kernel-eligible) OR ``segments``
+    (the packed slab's ``[B, S]`` segment-id plane); both together
+    raise. With ``use_flash`` and no ``mask`` the kernel dispatch
+    (:func:`bigdl_tpu_torch.kernels.attention`) is tried first; a
+    declined dispatch falls through to the einsum path, which derives
+    the same-segment mask here. Attention dropout is not ported:
+    ``training`` with ``dropout_rate > 0`` raises NotImplementedError
+    (``rng`` is accepted for the signature's sake).
+
+    The einsum path: scores in float32, divided by ``sqrt(D)`` *after*
+    the product, masked entries filled with the float32 minimum (not
+    ``-inf``), softmax in float32, weights cast to ``v.dtype`` for the
+    second product."""
+    if mask is not None and segments is not None:
+        raise ValueError(
+            "pass mask= OR segments=, not both: the kernel path can "
+            "only honor segment equality, so a mask carrying anything "
+            "more would be silently dropped")
+    if training and dropout_rate > 0.0:
+        raise NotImplementedError(
+            "attention dropout is not ported yet (dropout_rate must be "
+            "0.0 in training)")
     d = q.shape[-1]
+    if use_flash and mask is None:
+        out = kernels.attention(q, k, v, causal=causal,
+                                segment_ids=segments,
+                                sm_scale=1.0 / math.sqrt(d))
+        if out is not None:
+            return out
+    if segments is not None:
+        # the einsum path's same-segment mask: its one derivation site
+        seg = segments.to(device=q.device, dtype=torch.int32)
+        mask = seg[:, None, :, None] == seg[:, None, None, :]
     scores = torch.einsum("bhqd,bhkd->bhqk", q.float(),
                           k.float()) / math.sqrt(d)
     fill = torch.finfo(scores.dtype).min
@@ -83,9 +117,15 @@ class MultiHeadAttention(nn.Module):
             .transpose(1, 2)
 
     def forward(self, x, *, cache: Optional[Dict[str, torch.Tensor]] = None,
-                positions=None, attend_len: Optional[int] = None):
+                positions=None, attend_len: Optional[int] = None,
+                segments=None):
         """Full-sequence attention, or — with ``cache=`` — one
         incremental (KV-cached) step.
+
+        ``segments`` is the packed slab's ``[B, S]`` segment-id plane:
+        queries attend only same-segment keys (the raw plane rides into
+        the flash kernel; the einsum path derives the mask). It is a
+        full-sequence (training) input and raises with ``cache=``.
 
         ``cache`` is ``{"k": [B,H,T,D], "v": [B,H,T,D]}``, updated IN
         PLACE (the JAX package returns a new cache; the port writes the
@@ -103,8 +143,13 @@ class MultiHeadAttention(nn.Module):
         k = self._split(self._proj(x, "k"), b, s)
         v = self._split(self._proj(x, "v"), b, s)
         if cache is None:
-            out = dot_product_attention(q, k, v, causal=self.causal)
+            out = dot_product_attention(q, k, v, causal=self.causal,
+                                        segments=segments)
         else:
+            if segments is not None:
+                raise ValueError(
+                    "segment masks are not supported on the KV-cached "
+                    "decode path (pack training slabs, not decode steps)")
             out = self._attend_cached(q, k, v, cache, positions, attend_len)
         out = out.transpose(1, 2).reshape(b, s, e)
         return self._proj(out, "o")
@@ -133,8 +178,11 @@ class MultiHeadAttention(nn.Module):
         if s == 1:
             # the decode step: the ragged kernel reads only
             # positions[b] + 1 valid rows of each slot's cache view
-            return decode_attention(q[:, :, 0, :], ks, vs,
-                                    positions + 1)[:, :, None, :]
+            # (None: decode switched off in the KernelConfig)
+            out = kernels.decode_attention(q[:, :, 0, :], ks, vs,
+                                           positions + 1)
+            if out is not None:
+                return out[:, :, None, :]
         # length-masked causal mask: query i of row b sits at absolute
         # position positions[b] + i and sees cache slots j <= that
         jpos = torch.arange(al, device=q.device)[None, None, None, :]

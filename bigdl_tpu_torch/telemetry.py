@@ -1,6 +1,6 @@
 """Metrics registry: named Counter / Gauge / Histogram instruments with
 label series (the slice of ``bigdl_tpu.telemetry`` the serving path
-reads).
+and the kernel dispatch read).
 
 Names follow ``family/component/metric``; labels are per-call kwargs
 (``requests.inc(model="lm")``) and each distinct label set is its own
@@ -19,8 +19,8 @@ from typing import Dict, List, Tuple
 
 import numpy as np
 
-__all__ = ["Counter", "Gauge", "Histogram", "MetricsRegistry",
-           "percentile_summary"]
+__all__ = ["Counter", "Gauge", "Histogram", "MetricsRegistry", "REGISTRY",
+           "counter", "percentile_summary"]
 
 LabelKey = Tuple[Tuple[str, str], ...]
 
@@ -152,3 +152,13 @@ class MetricsRegistry:
                   reservoir_size: int = 2048) -> Histogram:
         return self._get(Histogram, name, description,
                          reservoir_size=reservoir_size)
+
+
+#: the process-wide registry of module-level instruments (the kernel
+#: dispatch counters); services keep registries of their own
+REGISTRY = MetricsRegistry()
+
+
+def counter(name: str, description: str = "") -> Counter:
+    """A counter in the process-wide :data:`REGISTRY`."""
+    return REGISTRY.counter(name, description)

@@ -11,19 +11,37 @@ Phases (any failure raises and exits non-zero; nothing is caught):
 2. build — every kernel under ``bigdl_tpu_torch/kernels/csrc`` is built
    from source with nvcc (one process per source, all at once);
 3. kernels — each kernel's wrapper against its plain PyTorch version on
-   the same inputs on the card, at the serving slice's shapes, then
-   timed beside the plain version, one PyTorch library call computing
-   the same function (a yardstick only; the port never calls it) and
-   the card's bound for the work;
-4. main path — ``GenerationService`` serving a ``TransformerLM`` at the
+   the same inputs on the card, at its main path's shapes, then timed
+   beside the plain version, one PyTorch library call computing the
+   same function (a yardstick only; the port never calls it) and the
+   card's bound for the work. The ragged decode kernel (K3) at the
+   serving shapes; the flash-attention forward and backward (K1) at the
+   training shapes ``[16, 8, 512, 64]``, float32 and bfloat16, causal,
+   with and without the training batch's packed segment ids, plus ragged
+   edge shapes;
+4. serving — ``GenerationService`` serving a ``TransformerLM`` at the
    generation bench width (vocab 8192, hidden 512, 6 layers, 8 heads,
    max_len 512; random weights from a seed) for 32 greedy and 4 seeded
    top-k requests of 32 new tokens each. Every kernel's launch count is
    set to 0 just before and read just after: the ragged decode kernel
    must have launched once per layer per decode step. The greedy
    streams of 4 prompts must equal a greedy full re-forward without a
-   cache, and every top-k token must lie in the top k of that
-   re-forward's logits.
+   cache (which runs K1's forward), and every top-k token must lie in
+   the top k of that re-forward's logits;
+5. train — ``LocalOptimizer`` training a ``TransformerLM`` at the
+   repository's training width (vocab 32000, hidden 512, 6 layers, 8
+   heads, ffn 2048, seq 512, batch 16; random weights from a seed) with
+   SGD at lr 0.1 on the train CLI's packed synthetic documents, for
+   ``TRAIN_ITERS`` iterations. First, one step from the same weights
+   and batch with flash switched off (the einsum path on the card) must
+   give the kernel step's loss and parameters within 1e-5 and every
+   parameter's gradient within ``TRAIN_GRAD_RTOL`` of that gradient's
+   largest element (floored); the same step with a fault put into K1's backward
+   (dK zeroed, or dQ 1% off) must go past that limit. Then the
+   counts are set to 0 and the run must launch K1's forward and backward
+   once per layer per iteration, with finite losses whose last 5 average
+   below the first 5; tokens/s, ms per step and a profiled window of a
+   few steps (device busy, idle share, top kernels) are printed.
 
 Float32 throughout, with TF32 switched off for matrix products and
 convolutions: the tolerances below assume full float32.
@@ -35,7 +53,9 @@ repository, the script exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import json
+import re
 import subprocess
 import sys
 import time
@@ -48,15 +68,37 @@ SLOTS, PREFILL_ROWS, N_GREEDY, N_TOPK, MAX_NEW = 16, 4, 32, 4, 32
 TOP_K, TEMPERATURE = 20, 0.8
 HEAD_DIM = HIDDEN // HEADS
 
+# ---- the training slice (tools/ceiling.py's TransformerLM row) ----
+TRAIN_VOCAB, TRAIN_SEQ, TRAIN_BATCH = 32000, 512, 16
+TRAIN_ITERS, TRAIN_LR, TRAIN_SYNTHETIC = 30, 0.1, 262144
+PROFILE_STEPS = 3
+
 # ---- the card (NVIDIA's H100 SXM data sheet) ----
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12          # float32 outside the tensor cores
+BF16_FLOPS_PER_S = 989e12        # bfloat16 on the tensor cores
 
 #: kernel vs plain version on the same inputs: float32 absolute (the
 #: JAX kernel contract's row); bfloat16 relative to max(1, |plain|),
 #: i.e. about one bf16 rounding step of the output (the two round the
 #: same float32 value after summing in another order)
 RAGGED_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
+#: K1 vs its plain versions: the forward (O, lse) at the float32
+#: contract's 1e-5 and the gradients at its 2e-4 (docs/kernels.md);
+#: bfloat16 and float16 outputs relative to max(1, |plain|) as for K3,
+#: about one rounding step of each (lse is float32 in every dtype and
+#: keeps 1e-5)
+FLASH_FWD_TOL = {"float32": 1e-5, "bfloat16": 1e-2, "float16": 2e-3}
+FLASH_BWD_TOL = {"float32": 2e-4, "bfloat16": 1e-2, "float16": 2e-3}
+#: one training step, kernel vs einsum path: loss and every parameter
+TRAIN_PARITY_TOL = 1e-5
+#: ... and every parameter's gradient, relative to the largest element of
+#: the einsum path's gradient of that parameter, or to TRAIN_GRAD_FLOOR of
+#: the largest gradient element in the model where that is larger (a key
+#: bias's gradient is zero in exact arithmetic: it shifts a row of scores
+#: by a constant, which the softmax takes out, so it holds only noise)
+TRAIN_GRAD_RTOL = 1e-4
+TRAIN_GRAD_FLOOR = 1e-2
 
 
 def log(phase: str, msg: str) -> None:
@@ -124,13 +166,29 @@ def phase_build():
                  f"{time.perf_counter() - t0:.2f} s with "
                  f"{_build.nvcc_path()} {' '.join(_build.NVCC_FLAGS)}")
     for name in sorted(paths):
-        seen = []    # one line per distinct template instance profile
+        # ptxas -v names each kernel instance, then its registers and
+        # spills: one line per instance
+        fn, lines = None, {}
         for line in _build.build_log(name).splitlines():
+            m = re.search(r"(?:entry function|properties for) '?(\w+)", line)
+            if m:
+                fn = kernel_instance(m.group(1))
+                continue
             line = line.split(":", 1)[-1].strip()
-            if ("registers" in line or "spill" in line) \
-                    and line not in seen:
-                seen.append(line)
-                log("build", f"{name}: {line}")
+            if fn and ("registers" in line or "spill" in line):
+                lines.setdefault(fn, []).append(line)
+        for fn, info in sorted(lines.items()):
+            log("build", f"{name}: {fn}: {'; '.join(info)}")
+
+
+def kernel_instance(mangled: str) -> str:
+    """``flash_fwd_kernel<f32, 64>`` from a kernel's mangled name."""
+    m = re.search(r"([A-Za-z]+(?:_[A-Za-z]+)*_kernel)I"
+                  r"(f|13__nv_bfloat16|6__half)(?:Li(\d+)E)?E", mangled)
+    if not m:
+        return mangled
+    dtype = {"f": "f32", "6__half": "f16"}.get(m.group(2), "bf16")
+    return f"{m.group(1)}<{dtype}{', ' + m.group(3) if m.group(3) else ''}>"
 
 
 def phase_ragged_decode(main_lengths):
@@ -279,12 +337,28 @@ def make_prompts():
     return greedy, topk
 
 
+def device_kernels(prof):
+    """``[(ms, launches, name)]`` of the device kernels and copies in a
+    ``torch.profiler`` window, largest first."""
+    from torch.autograd import DeviceType
+
+    kernels = []
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = ev.self_cuda_time_total
+        kernels.append((us / 1e3, ev.count, ev.key))
+    kernels.sort(reverse=True)
+    return kernels
+
+
 def profile_burst(svc, prompts) -> None:
     """Where a decode burst's time goes: the given prompts once more
     under ``torch.profiler``, reporting wall-clock, device time by
     kernel (summed over the window) and the device's idle share."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     on_card = svc.device.type == "cuda"
@@ -301,15 +375,7 @@ def profile_burst(svc, prompts) -> None:
             torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     steps = svc.metrics("lm")["decode_steps"] - steps0
-    kernels = []
-    for ev in prof.key_averages():
-        if ev.device_type != DeviceType.CUDA:
-            continue
-        us = getattr(ev, "self_device_time_total", None)
-        if us is None:
-            us = ev.self_cuda_time_total
-        kernels.append((us / 1e3, ev.count, ev.key))
-    kernels.sort(reverse=True)
+    kernels = device_kernels(prof)
     busy_ms = sum(k[0] for k in kernels)
     log("profile", json.dumps({
         "requests": len(prompts), "decode_steps": steps,
@@ -401,6 +467,497 @@ def phase_main_path(counters, greedy, topk, device="cuda"):
     return launches, summary
 
 
+def kept_pairs(seg, b: int, s: int, device) -> int:
+    """(batch, query, key) triples a causal K1 call keeps: the work a
+    bound may count (skipped, masked pairs cost the card nothing)."""
+    import torch
+
+    causal = torch.ones((s, s), dtype=torch.bool, device=device).tril()
+    if seg is None:
+        return b * int(causal.sum())
+    same = seg[:, :, None] == seg[:, None, :]
+    return int((same & causal).sum())
+
+
+def flash_bound(kept: int, shape, itemsize: int, segmented: bool,
+                backward: bool, flops_per_s: float):
+    """Least time (ms) the card needs for one K1 call: 4 * D flops per
+    kept pair per head forward and 2.5x that backward, against q, k, v
+    read and O, lse written (forward), or q, k, v, O, dO, lse read and
+    dq, dk, dv written (backward), plus the segment ids."""
+    b, h, s, d = shape
+    n = b * h * s * d
+    flops = 4 * d * h * kept * (2.5 if backward else 1.0)
+    nbytes = ((8 if backward else 4) * n * itemsize + b * h * s * 4
+              + (b * s * 4 if segmented else 0))
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / flops_per_s * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
+def _flash_errors(q, k, v, do, seg, causal):
+    """K1 forward and backward against their plain versions on the same
+    inputs (the backward's from the kernel's own O and lse): max abs
+    errors of O, lse, dq, dk, dv, each relative to max(1, |plain|) when
+    the inputs are bfloat16 or float16."""
+    import torch
+
+    from bigdl_tpu_torch.kernels.flash_attention import (
+        flash_attention_backward, flash_attention_backward_reference,
+        flash_attention_forward, flash_attention_forward_reference)
+
+    rel = q.dtype != torch.float32
+
+    def err(got, want, relative):
+        diff = (got.float() - want.float()).abs()
+        if relative:
+            diff = diff / want.float().abs().clamp(min=1.0)
+        return diff.max().item()
+
+    o, lse = flash_attention_forward(q, k, v, seg, causal=causal)
+    o_r, lse_r = flash_attention_forward_reference(q, k, v, seg,
+                                                   causal=causal)
+    grads = flash_attention_backward(q, k, v, o, do, lse, seg,
+                                     causal=causal)
+    grads_r = flash_attention_backward_reference(q, k, v, o, do, lse, seg,
+                                                 causal=causal)
+    torch.cuda.synchronize()
+    out = {"o": err(o, o_r, rel), "lse": err(lse, lse_r, False)}
+    for name, g, w in zip(("dq", "dk", "dv"), grads, grads_r):
+        out[name] = err(g, w, rel)
+    return out
+
+
+def _check_flash(errs, dtype_name, label):
+    fwd_tol, bwd_tol = FLASH_FWD_TOL[dtype_name], FLASH_BWD_TOL[dtype_name]
+    log("flash_attention", f"{label}: " + ", ".join(
+        f"{k} {v:.3e}" for k, v in errs.items())
+        + f" (tolerance o {fwd_tol}, lse {FLASH_FWD_TOL['float32']}, "
+          f"grads {bwd_tol})")
+    bad = [k for k, v in errs.items()
+           if not v <= {"o": fwd_tol, "lse": FLASH_FWD_TOL["float32"]}
+           .get(k, bwd_tol)]
+    if bad:
+        raise AssertionError(f"flash_attention {label}: {bad} out of "
+                             f"tolerance: {errs}")
+
+
+def phase_flash(train_seg):
+    """K1 forward and backward against their plain versions at the
+    training shapes (strided [B, S, H, D] -> [B, H, S, D] views, as the
+    attention layer hands them over) and at ragged edge shapes, then
+    timed. Returns the two kernels-line entries (launches filled in
+    later)."""
+    import torch
+    import torch.nn.functional as F
+
+    from bigdl_tpu_torch.kernels.flash_attention import (
+        flash_attention_backward, flash_attention_backward_reference,
+        flash_attention_forward, flash_attention_forward_reference)
+    from bigdl_tpu_torch.nn import dot_product_attention
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(1)
+
+    def views(shape, dtype, n=3):
+        b, h, s, d = shape
+        return [torch.randn((b, s, h, d), device=dev, generator=gen)
+                .to(dtype).transpose(1, 2) for _ in range(n)]
+
+    def segments(b, s):
+        cuts = torch.randint(1, 4, (b, s), device=dev, generator=gen)
+        return cuts.sort(dim=1).values.to(torch.int32)
+
+    # ragged edges: S not a multiple of the 64-row tile, one-row tiles,
+    # every tile width (16, 32, 64, 128) and head dims between them that
+    # run zero-padded in the next (hidden 768 / 640 at 8 heads: 96, 80)
+    for (b, h, s, d, causal, segd) in ((2, 3, 19, 64, True, True),
+                                       (2, 2, 48, 32, False, True),
+                                       (1, 2, 130, 64, True, False),
+                                       (2, 1, 1, 16, True, False),
+                                       (1, 2, 200, 128, False, True),
+                                       (3, 2, 77, 16, True, True),
+                                       (2, 8, 512, 96, True, True),
+                                       (1, 3, 70, 80, False, True),
+                                       (2, 2, 33, 8, True, False),
+                                       (1, 2, 65, 100, True, True)):
+        for dtype in (torch.float32, torch.bfloat16, torch.float16):
+            q, k, v = views((b, h, s, d), dtype)
+            do = torch.randn((b, h, s, d), device=dev,
+                             generator=gen).to(dtype)
+            seg = segments(b, s) if segd else None
+            name = str(dtype).split(".")[-1]
+            _check_flash(_flash_errors(q, k, v, do, seg, causal), name,
+                         f"{name} [{b},{h},{s},{d}] causal={causal} "
+                         f"segments={segd}")
+
+    shape = (TRAIN_BATCH, HEADS, TRAIN_SEQ, HEAD_DIM)
+    for dtype in (torch.float32, torch.bfloat16):
+        for seg in (None, train_seg):
+            q, k, v = views(shape, dtype)
+            do = torch.randn(shape, device=dev, generator=gen).to(dtype)
+            name = str(dtype).split(".")[-1]
+            _check_flash(_flash_errors(q, k, v, do, seg, True), name,
+                         f"{name} {list(shape)} causal "
+                         f"segments={seg is not None}")
+
+    # timing: 3 input sets (q, k, v, O, dO: 252 MB in float32, past the
+    # 50 MB L2), causal as in training
+    entries = None
+    for dtype, seg in ((torch.float32, train_seg), (torch.float32, None),
+                       (torch.bfloat16, train_seg)):
+        n_sets = 3
+        sets = [(views(shape, dtype),
+                 torch.randn(shape, device=dev, generator=gen).to(dtype))
+                for _ in range(n_sets)]
+        outs = [flash_attention_forward(*qkv, seg, causal=True)
+                for qkv, _ in sets]
+        if seg is None:
+            sdpa_kw = {"is_causal": True}
+        else:
+            causal_m = torch.ones((TRAIN_SEQ, TRAIN_SEQ), dtype=torch.bool,
+                                  device=dev).tril()
+            sdpa_kw = {"attn_mask": (causal_m & (
+                seg[:, :, None] == seg[:, None, :]))[:, None]}
+        graphs, einsum_graphs = [], []
+        for (q, k, v), _ in sets:
+            leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+            graphs.append((leaves, F.scaled_dot_product_attention(
+                *leaves, **sdpa_kw)))
+            leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+            einsum_graphs.append((leaves, dot_product_attention(
+                *leaves, causal=True, segments=seg, use_flash=False)))
+
+        def kern_f(i):
+            return flash_attention_forward(*sets[i][0], seg, causal=True)
+
+        def plain_f(i):
+            return flash_attention_forward_reference(*sets[i][0], seg,
+                                                     causal=True)
+
+        def lib_f(i):
+            return F.scaled_dot_product_attention(*sets[i][0], **sdpa_kw)
+
+        def kern_b(i):
+            (q, k, v), do = sets[i]
+            o, lse = outs[i]
+            return flash_attention_backward(q, k, v, o, do, lse, seg,
+                                            causal=True)
+
+        def plain_b(i):
+            (q, k, v), do = sets[i]
+            o, lse = outs[i]
+            return flash_attention_backward_reference(q, k, v, o, do, lse,
+                                                      seg, causal=True)
+
+        def lib_b(i):
+            leaves, out = graphs[i]
+            return torch.autograd.grad(out, leaves, sets[i][1],
+                                       retain_graph=True)
+
+        def einsum_f(i):
+            return dot_product_attention(*sets[i][0], causal=True,
+                                         segments=seg, use_flash=False)
+
+        def einsum_b(i):
+            leaves, out = einsum_graphs[i]
+            return torch.autograd.grad(out, leaves, sets[i][1],
+                                       retain_graph=True)
+
+        name = str(dtype).split(".")[-1]
+        kept = kept_pairs(seg, TRAIN_BATCH, TRAIN_SEQ, dev)
+        peak = F32_FLOPS_PER_S if dtype == torch.float32 \
+            else BF16_FLOPS_PER_S
+        itemsize = torch.empty((), dtype=dtype).element_size()
+        rel = dtype == torch.bfloat16
+        o_err = (kern_f(0)[0].float() - plain_f(0)[0].float()).abs()
+        fwd_err = (o_err / plain_f(0)[0].float().abs().clamp(min=1.0)
+                   if rel else o_err).max().item()
+        lib_err = (lib_f(0).float() - plain_f(0)[0].float()).abs() \
+            .max().item()
+        bwd_err = max((g.float() - w.float()).abs().max().item()
+                      for g, w in zip(kern_b(0), plain_b(0)))
+        row = {}
+        for kind, kern, plain, lib, einsum, backward, err in (
+                ("fwd", kern_f, plain_f, lib_f, einsum_f, False, fwd_err),
+                ("bwd", kern_b, plain_b, lib_b, einsum_b, True, bwd_err)):
+            ms = time_ms(kern, n_sets, rounds=10)
+            plain_ms = time_ms(plain, n_sets, rounds=2)
+            library_ms = time_ms(lib, n_sets, rounds=10)
+            einsum_ms = time_ms(einsum, n_sets, rounds=5)
+            bound_ms, bound_by = flash_bound(kept, shape, itemsize,
+                                             seg is not None, backward, peak)
+            row[kind] = {"name": f"flash_attention_{kind}", "route": "cuda",
+                         "source": "bigdl_tpu_torch/kernels/csrc/"
+                                   "flash_attention.cu",
+                         "replaces": "bigdl_tpu/kernels/flash_attention.py:"
+                                     + ("97" if backward else "65"),
+                         "launches": None, "max_abs_err": err, "ms": ms,
+                         "plain_ms": plain_ms, "bound_ms": bound_ms,
+                         "bound_by": bound_by, "library_ms": library_ms}
+            log("flash_attention", json.dumps({
+                "case": f"{kind} {name} {list(shape)} causal segments="
+                        f"{seg is not None}", "kept_pairs": kept,
+                "max_abs_err": err, "kernel_ms": ms, "plain_ms": plain_ms,
+                "library_ms": library_ms, "einsum_path_ms": einsum_ms,
+                "library": "F.scaled_dot_product_attention " + (
+                    "backward (autograd.grad)" if backward else "forward"),
+                "library_fwd_max_abs_err": lib_err, "bound_ms": bound_ms,
+                "bound_by": bound_by, "kernel_over_bound": ms / bound_ms}))
+        if entries is None:
+            entries = row
+    return entries["fwd"], entries["bwd"]
+
+
+def train_corpus():
+    """The training phase's packed synthetic documents, made as the
+    train CLI's ``--synthetic N --inputMode packed`` makes them."""
+    from bigdl_tpu_torch.models.transformer_train import synthetic_corpus
+
+    return synthetic_corpus(TRAIN_SYNTHETIC, TRAIN_VOCAB, TRAIN_SEQ,
+                            "packed", TRAIN_BATCH)
+
+
+def _state(model):
+    return {k: v.detach().clone() for k, v in model.state_dict().items()}
+
+
+def step_differences(model, crit, batch, fault=None):
+    """One SGD step from the model's weights on ``batch`` with K1 and
+    with flash switched off (the einsum path on the card): the loss
+    difference, the largest parameter difference after the update, and
+    per parameter the largest gradient difference over the largest
+    element of the einsum path's gradient (floored at
+    ``TRAIN_GRAD_FLOOR`` of the model's largest). ``fault`` ("dK zeroed"
+    or "dQ 1% off") is put into K1's gradients during the kernel step
+    (the fault check). The model's weights are restored."""
+    from bigdl_tpu_torch import kernels
+    from bigdl_tpu_torch.optim import SGD, build_train_step
+
+    start = _state(model)
+    params = dict(model.named_parameters())
+    results = []
+    for cfg, step_fault in ((kernels.KernelConfig.ported(), fault),
+                            (kernels.KernelConfig(flash_attention=False,
+                                                  decode_attention=True),
+                             None)):
+        model.load_state_dict(start)
+        with kernels.use(cfg), _k1_gradient_fault(step_fault):
+            step = build_train_step(model, crit, SGD(learning_rate=TRAIN_LR))
+            loss = float(step(*batch, TRAIN_LR))
+        results.append((loss, _state(model),
+                        {k: p.grad.detach().clone()
+                         for k, p in params.items()}))
+    model.load_state_dict(start)
+    (loss_k, new_k, grad_k), (loss_e, new_e, grad_e) = results
+    floor = TRAIN_GRAD_FLOOR * max(g.abs().max().item()
+                                   for g in grad_e.values())
+    grad_rel = {k: ((grad_k[k] - grad_e[k]).abs().max()
+                    / grad_e[k].abs().max().clamp(min=floor)).item()
+                for k in grad_e}
+    return {"loss_kernel": loss_k, "loss_einsum": loss_e,
+            "loss_diff": abs(loss_k - loss_e),
+            "param_diff": max((new_k[k] - new_e[k]).abs().max().item()
+                              for k in start),
+            "grad_rel_diff": grad_rel}
+
+
+def step_parity_holds(diffs) -> bool:
+    return (diffs["loss_diff"] <= TRAIN_PARITY_TOL
+            and diffs["param_diff"] <= TRAIN_PARITY_TOL
+            and max(diffs["grad_rel_diff"].values()) <= TRAIN_GRAD_RTOL)
+
+
+def _log_step_diffs(label, diffs) -> None:
+    worst = max(diffs["grad_rel_diff"], key=diffs["grad_rel_diff"].get)
+    log("train", f"one step, {label}: loss {diffs['loss_kernel']:.6f} vs "
+                 f"einsum path {diffs['loss_einsum']:.6f} (|diff| "
+                 f"{diffs['loss_diff']:.3e}), max |param diff| "
+                 f"{diffs['param_diff']:.3e} (tolerance "
+                 f"{TRAIN_PARITY_TOL}), worst gradient {worst} at "
+                 f"{diffs['grad_rel_diff'][worst]:.3e} of its largest "
+                 f"element (tolerance {TRAIN_GRAD_RTOL})")
+
+
+@contextlib.contextmanager
+def _k1_gradient_fault(fault):
+    """Within the block, K1's autograd backward puts ``fault`` into the
+    gradients the kernel returns (None: no fault). The kernel still
+    launches, and counts, as it does on the main path."""
+    import importlib
+
+    import torch
+
+    if fault is None:
+        yield
+        return
+    fn = importlib.import_module(
+        "bigdl_tpu_torch.kernels.flash_attention")._FlashAttention
+    real = fn.backward
+
+    def backward(ctx, do):
+        dq, dk, dv, *rest = real(ctx, do)
+        if fault == "dK zeroed":
+            dk = torch.zeros_like(dk)
+        else:
+            dq = dq * 1.01
+        return (dq, dk, dv, *rest)
+
+    fn.backward = staticmethod(backward)
+    try:
+        yield
+    finally:
+        fn.backward = staticmethod(real)
+
+
+def profile_train(model, crit, batches, device) -> None:
+    """Where a training step's time goes: ``PROFILE_STEPS`` steps under
+    ``torch.profiler``, reporting wall-clock, device time by kernel and
+    the device's idle share."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from bigdl_tpu_torch.optim import SGD, build_train_step
+
+    step = build_train_step(model, crit, SGD(learning_rate=TRAIN_LR))
+    float(step(*batches[0], TRAIN_LR))            # warm
+    on_card = device == "cuda"
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
+                                     if on_card else [])
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for inp, tgt in batches[1:]:
+            float(step(inp, tgt, TRAIN_LR))
+        if on_card:
+            torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = device_kernels(prof)
+    busy_ms = sum(k[0] for k in kernels)
+    log("train-profile", json.dumps({
+        "steps": len(batches) - 1, "wall_ms": wall_ms,
+        "wall_ms_per_step": wall_ms / (len(batches) - 1),
+        "device_busy_ms": busy_ms if kernels else "not measured",
+        "device_idle_share": (1 - busy_ms / wall_ms) if kernels
+        else "not measured"}))
+    for ms, count, key in kernels[:10]:
+        log("train-profile", f"{ms:9.3f} ms {count:6d}x  {key[:90]}")
+
+
+def compare_attention_paths(model, crit, batch, device) -> None:
+    """Wall time of a training step with K1 and with flash switched off
+    (the einsum path), in turns (kernel, einsum, einsum, kernel, ...), one
+    batch throughout: the evidence a later change of the default reads."""
+    import torch
+
+    from bigdl_tpu_torch import kernels
+    from bigdl_tpu_torch.optim import SGD, build_train_step
+
+    step = build_train_step(model, crit, SGD(learning_rate=TRAIN_LR))
+    configs = {"kernel": kernels.KernelConfig.ported(),
+               "einsum": kernels.KernelConfig(flash_attention=False,
+                                              decode_attention=True)}
+    times = {name: [] for name in configs}
+    for name in ("kernel", "einsum"):            # warm both paths
+        with kernels.use(configs[name]):
+            float(step(*batch, TRAIN_LR))
+    for name in ("kernel", "einsum", "einsum", "kernel") * 2:
+        with kernels.use(configs[name]):
+            if device == "cuda":
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            float(step(*batch, TRAIN_LR))
+            times[name].append((time.perf_counter() - t0) * 1e3)
+    log("train", json.dumps({"step_ms_by_attention_path": times,
+                             "median_ms": {k: float(np.median(v))
+                                           for k, v in times.items()}}))
+
+
+def phase_train(counters, corpus, device="cuda"):
+    """LocalOptimizer at the training slice's width (on the card;
+    ``device`` lets a rehearsal run the same phase on the CPU). Returns
+    the launches per kernel and the metrics."""
+    import torch
+
+    from bigdl_tpu_torch.dataset import DataSet, Sample, SampleToMiniBatch
+    from bigdl_tpu_torch.models import TransformerLM
+    from bigdl_tpu_torch.nn import SequenceCrossEntropyCriterion
+    from bigdl_tpu_torch.optim import SGD, LocalOptimizer, max_iteration
+
+    x, y = corpus
+    t0 = time.perf_counter()
+    model = TransformerLM(vocab_size=TRAIN_VOCAB, hidden_size=HIDDEN,
+                          num_layers=LAYERS, num_heads=HEADS, ffn_size=FFN,
+                          max_len=TRAIN_SEQ, device=device,
+                          generator=torch.Generator().manual_seed(21))
+    crit = SequenceCrossEntropyCriterion(ignore_index=-1)
+
+    def batch(i):
+        rows = slice(i * TRAIN_BATCH, (i + 1) * TRAIN_BATCH)
+        return ([torch.from_numpy(p[rows]).to(device) for p in x],
+                torch.from_numpy(y[rows]).to(device))
+
+    log("train", f"model built, {len(y)} packed rows of {TRAIN_SEQ} "
+                 f"({float((x[1] > 0).mean()):.3f} real tokens) in "
+                 f"{time.perf_counter() - t0:.2f} s")
+
+    # one step from the same weights and batch: flash kernel vs einsum,
+    # then the same with a fault in K1's backward, which must show
+    diffs = step_differences(model, crit, batch(0))
+    _log_step_diffs("kernel", diffs)
+    if not step_parity_holds(diffs):
+        raise AssertionError(f"kernel step differs from the einsum step: "
+                             f"{diffs}")
+    for fault in ("dK zeroed", "dQ 1% off"):
+        diffs = step_differences(model, crit, batch(0), fault)
+        _log_step_diffs(f"kernel with {fault}", diffs)
+        if step_parity_holds(diffs):
+            raise AssertionError(f"the one-step check misses a kernel "
+                                 f"with {fault}: {diffs}")
+
+    samples = [Sample([p[i] for p in x], y[i]) for i in range(len(y))]
+    ds = DataSet.array(samples).transform(SampleToMiniBatch(TRAIN_BATCH))
+    opt = LocalOptimizer(model, ds, crit, batch_size=TRAIN_BATCH)
+    opt.set_optim_method(SGD(learning_rate=TRAIN_LR))
+    opt.set_end_when(max_iteration(TRAIN_ITERS))
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    opt.optimize()
+    wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counters.items()}
+
+    losses = [h["loss"] for h in opt.history]
+    step_ms = sorted(h["seconds"] * 1e3 for h in opt.history[2:])
+    median_ms = step_ms[len(step_ms) // 2]
+    slab = TRAIN_BATCH * TRAIN_SEQ
+    real = float((y[:TRAIN_ITERS * TRAIN_BATCH] != -1).sum()) / TRAIN_ITERS
+    summary = {
+        "iterations": len(losses), "seconds": wall,
+        "ms_per_step_median": median_ms,
+        "ms_per_step_first": opt.history[0]["seconds"] * 1e3,
+        "tokens_per_sec": slab / (median_ms / 1e3),
+        "real_tokens_per_sec": real / (median_ms / 1e3),
+        "loss_first": losses[0], "loss_last": losses[-1],
+        "loss_mean_first5": float(np.mean(losses[:5])),
+        "loss_mean_last5": float(np.mean(losses[-5:])),
+        "epoch": opt.driver_state["epoch"], "launches": launches}
+    log("train", json.dumps(summary))
+    if not all(np.isfinite(losses)) or len(losses) != TRAIN_ITERS:
+        raise AssertionError(f"losses: {losses}")
+    if not summary["loss_mean_last5"] < summary["loss_mean_first5"]:
+        raise AssertionError(f"loss did not fall: {losses}")
+    for name in ("flash_attention_fwd", "flash_attention_bwd"):
+        if launches[name] != LAYERS * TRAIN_ITERS:
+            raise AssertionError(f"{name} launched {launches[name]} times "
+                                 f"over {TRAIN_ITERS} iterations x "
+                                 f"{LAYERS} layers")
+    compare_attention_paths(model, crit, batch(TRAIN_ITERS), device)
+    profile_train(model, crit, [batch(TRAIN_ITERS + i)
+                                for i in range(PROFILE_STEPS + 1)], device)
+    return launches, summary
+
+
 def main() -> int:
     import torch
 
@@ -408,6 +965,8 @@ def main() -> int:
         print("chip_smoke: CUDA is not available; this script drives the "
               "port on a CUDA card", file=sys.stderr)
         return 1
+    from bigdl_tpu_torch.kernels.flash_attention import (
+        flash_attention_backward, flash_attention_forward)
     from bigdl_tpu_torch.kernels.ragged_decode import ragged_decode_attention
 
     kind, _ = phase_device()
@@ -416,11 +975,20 @@ def main() -> int:
     # the main path's steady state: the first 16 prompts' lengths,
     # half-way through their 32 new tokens
     main_lengths = [len(p) + MAX_NEW // 2 for p in greedy[:SLOTS]]
-    entry = phase_ragged_decode(main_lengths)
-    counters = {"ragged_decode": ragged_decode_attention}
-    launches, _ = phase_main_path(counters, greedy, topk)
-    entry["launches"] = launches["ragged_decode"]
-    print(json.dumps({"kernels": [entry]}), flush=True)
+    ragged = phase_ragged_decode(main_lengths)
+    corpus = train_corpus()
+    train_seg = torch.from_numpy(corpus[0][1][:TRAIN_BATCH]).cuda()
+    flash_fwd, flash_bwd = phase_flash(train_seg)
+    counters = {"ragged_decode": ragged_decode_attention,
+                "flash_attention_fwd": flash_attention_forward,
+                "flash_attention_bwd": flash_attention_backward}
+    serve_launches, _ = phase_main_path(counters, greedy, topk)
+    train_launches, _ = phase_train(counters, corpus)
+    ragged["launches"] = serve_launches["ragged_decode"]
+    flash_fwd["launches"] = train_launches["flash_attention_fwd"]
+    flash_bwd["launches"] = train_launches["flash_attention_bwd"]
+    print(json.dumps({"kernels": [ragged, flash_fwd, flash_bwd]}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

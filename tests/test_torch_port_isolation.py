@@ -45,7 +45,12 @@ def test_no_jax_or_reference_import(path):
 
 def test_importing_the_port_loads_no_reference_module():
     code = ("import sys, bigdl_tpu_torch, bigdl_tpu_torch.generation, "
-            "bigdl_tpu_torch.kernels._build, bigdl_tpu_torch.convert\n"
+            "bigdl_tpu_torch.kernels._build, bigdl_tpu_torch.convert, "
+            "bigdl_tpu_torch.kernels.config, "
+            "bigdl_tpu_torch.kernels.flash_attention, "
+            "bigdl_tpu_torch.optim, bigdl_tpu_torch.dataset, "
+            "bigdl_tpu_torch.datapipe, "
+            "bigdl_tpu_torch.models.transformer_train\n"
             "bad = sorted(m for m in sys.modules if m == 'bigdl_tpu' "
             "or m.startswith('bigdl_tpu.'))\n"
             "print(bad)\n"
