@@ -7,7 +7,10 @@ Every shape is pinned to a rung of the service's
 - **prefill** runs at ``[prefill_rows, S_b]`` for the prompt bucket
   ``S_b``: the padded-prompt batch computes the prompts' K/V rows and
   the first-token logits in one call and writes the rows of the real
-  prompts into their slots (padding rows write nothing);
+  prompts into their slots (padding rows write nothing). With
+  ``prefill_chunk`` (long context), a rung past the chunk fills in
+  ``[prefill_rows, chunk]`` pieces through the SAME one program per
+  rung, each attending what the earlier chunks wrote;
 - **decode** runs at ``[slots]`` — one token per slot per step — with
   attention restricted to the first ``T_b`` cache positions for the
   bucket ``T_b`` of the longest live row, and each slot's attention
@@ -20,13 +23,14 @@ callable over device tensors (the JAX package's is a jitted function);
 the bound keeps the per-rung structure a later change captures as CUDA
 graphs.
 
-Not ported yet: chunked prefill, the speculative ``verify`` program and
-the static-verifier hook.
+Not ported yet: prefix-cache seeding of a prefill (``start=``, with the
+prefix cache), the speculative ``verify`` program and the
+static-verifier hook.
 """
 from __future__ import annotations
 
 import threading
-from typing import Dict, Sequence, Set, Tuple
+from typing import Dict, Optional, Sequence, Set, Tuple
 
 import numpy as np
 import torch
@@ -46,11 +50,29 @@ class DecodeEngine:
     passes it in."""
 
     def __init__(self, cache: CompileCache, ladder: BucketLadder,
-                 slots: int, prefill_rows: int):
+                 slots: int, prefill_rows: int,
+                 prefill_chunk: Optional[int] = None):
         self.cache = cache
         self.ladder = ladder
         self.slots = slots
         self.prefill_rows = prefill_rows
+        # chunked prefill (long-context serving): prompts whose rung
+        # exceeds ``prefill_chunk`` prefill in fixed [rows, chunk]
+        # pieces against that rung's attend window — still ONE prefill
+        # program per rung, so the <= 2-per-rung bound holds. The chunk
+        # must divide every larger rung, else chunk starts drift off
+        # the attend window.
+        if prefill_chunk is not None:
+            prefill_chunk = int(prefill_chunk)
+            if prefill_chunk < 1:
+                raise ValueError(f"prefill_chunk={prefill_chunk} "
+                                 f"must be >= 1")
+            for rung in ladder:
+                if rung > prefill_chunk and rung % prefill_chunk:
+                    raise ValueError(
+                        f"prefill_chunk={prefill_chunk} must divide "
+                        f"every larger ladder rung (rung {rung})")
+        self.prefill_chunk = prefill_chunk
         # program keys per servable key, so unload drops exactly the
         # programs this engine created; the decode thread registers
         # while metrics readers iterate
@@ -67,22 +89,25 @@ class DecodeEngine:
 
     @staticmethod
     def _prefill_fn(model, slots: int, attend_len: int):
-        """``(k, v, tokens[Bp,S_b], prompt_lens[Bp], slot_ids[Bp],
-        offsets[Bp], real_rows) -> logits[Bp, V]`` (each row's
-        last-prompt-token logits): each row's slot
-        window ``[:attend_len]`` is gathered (the out-of-range padding
-        id clamps to the last slot), run through the cached forward at
-        its offset, and only ``real_rows`` are written back — torch has
-        no scatter that drops out-of-range ids, so padding rows are
-        kept out of the write explicitly."""
-        def fn(k, v, tokens, prompt_lens, slot_ids, offsets, real_rows):
+        """``(k, v, tokens[Bp,Sq], last_in_chunk[Bp], slot_ids[Bp],
+        offsets[Bp], real_rows) -> logits[Bp, V]`` (each row's logits at
+        its last token in this chunk). ``tokens`` is one chunk of each
+        row's prompt (the whole prompt when ``Sq`` is the rung), placed
+        at cache position ``offsets``: each row's slot window
+        ``[:attend_len]`` is gathered (the out-of-range padding id
+        clamps to the last slot), so the chunk attends what earlier
+        chunks wrote there, run through the cached forward at its
+        offset, and only ``real_rows`` are written back — torch has no
+        scatter that drops out-of-range ids, so padding rows are kept
+        out of the write explicitly."""
+        def fn(k, v, tokens, last_in_chunk, slot_ids, offsets, real_rows):
             ids = slot_ids.clamp(max=slots - 1)
             rows_k = k[:, ids, :, :attend_len, :]
             rows_v = v[:, ids, :, :attend_len, :]
             logits = model(tokens, cache={"k": rows_k, "v": rows_v},
                            positions=offsets, attend_len=attend_len)
             rows = torch.arange(tokens.shape[0], device=logits.device)
-            last = logits[rows, prompt_lens.long() - 1]
+            last = logits[rows, last_in_chunk.long() - 1]
             if real_rows.numel():
                 dst = slot_ids[real_rows]
                 k[:, dst, :, :attend_len, :] = rows_k[:, real_rows]
@@ -106,11 +131,19 @@ class DecodeEngine:
         return fn
 
     def prefill_program(self, servable, bucket: int):
-        """The prefill program for prompt bucket ``bucket``."""
+        """The prefill program for prompt bucket ``bucket``; its token
+        width is :meth:`chunk_for` the bucket."""
         model = servable.model
         return self._program(
             servable, "prefill", bucket,
             lambda: self._prefill_fn(model, self.slots, bucket))
+
+    def chunk_for(self, bucket: int) -> int:
+        """The prefill token width for ``bucket``: the bucket itself,
+        or the fixed chunk for rungs past ``prefill_chunk``."""
+        if self.prefill_chunk is None or bucket <= self.prefill_chunk:
+            return bucket
+        return self.prefill_chunk
 
     def decode_program(self, servable, attend_len: int):
         """The decode step for length bucket ``attend_len``."""
@@ -134,32 +167,52 @@ class DecodeEngine:
         last-prompt-token logits (host ndarray) for the ``n`` real rows,
         plus the bucket. Prompts pad to the rung of the longest one;
         rows pad to ``prefill_rows`` with the out-of-range slot id
-        ``slots``."""
+        ``slots``. Past ``prefill_chunk`` the rung fills chunk by chunk
+        through the same program: row ``i`` rides chunk ``c`` while it
+        has tokens there (else its id is out of range and it writes
+        nothing), and its logits come from the chunk holding its last
+        prompt token."""
         n = len(prompts)
         if n == 0 or n > self.prefill_rows:
             raise ValueError(f"prefill batch of {n} rows "
                              f"(prefill_rows={self.prefill_rows})")
         lens = [len(p) for p in prompts]
         bucket = self.ladder.bucket_for(max(lens))
+        sq = self.chunk_for(bucket)
         prog = self.prefill_program(servable, bucket)
-        tokens = np.zeros((self.prefill_rows, bucket), np.int32)
-        last_in = np.ones((self.prefill_rows,), np.int32)
-        ids = np.full((self.prefill_rows,), self.slots, np.int32)  # OOB
-        for i, p in enumerate(prompts):
-            tokens[i, :lens[i]] = p
-            last_in[i] = lens[i]
-            ids[i] = slot_ids[i]
-        offsets = np.zeros((self.prefill_rows,), np.int32)
+        out = [None] * n
         with torch.no_grad():
-            d_last, d_ids, d_off = self._to_device(kv, last_in, ids,
-                                                   offsets)
-            d_tokens = torch.from_numpy(tokens).to(kv.device)
-            real = torch.arange(n, device=kv.device)
-            logits = prog(kv.k, kv.v, d_tokens, d_last, d_ids, d_off, real)
-            out = logits[:n].float().cpu().numpy()
+            for c in range(bucket // sq):
+                off = c * sq
+                tokens = np.zeros((self.prefill_rows, sq), np.int32)
+                last_in = np.ones((self.prefill_rows,), np.int32)
+                ids = np.full((self.prefill_rows,), self.slots,
+                              np.int32)  # out of range: writes nothing
+                offsets = np.zeros((self.prefill_rows,), np.int32)
+                live = [i for i in range(n) if lens[i] > off]
+                if not live:
+                    continue
+                for i in live:
+                    piece = np.asarray(prompts[i][off:off + sq], np.int32)
+                    tokens[i, :len(piece)] = piece
+                    last_in[i] = min(lens[i] - off, sq)
+                    ids[i] = slot_ids[i]
+                    offsets[i] = off
+                d_last, d_ids, d_off = self._to_device(kv, last_in, ids,
+                                                       offsets)
+                d_tokens = torch.from_numpy(tokens).to(kv.device)
+                real = torch.tensor(live, dtype=torch.long,
+                                    device=kv.device)
+                logits = prog(kv.k, kv.v, d_tokens, d_last, d_ids, d_off,
+                              real)
+                done = [i for i in live if (lens[i] - 1) // sq == c]
+                if done:
+                    host = logits[done].float().cpu().numpy()
+                    for j, i in enumerate(done):
+                        out[i] = host[j]
         for i, slot in enumerate(slot_ids):
             kv.lengths[slot] = lens[i]
-        return out, bucket
+        return np.stack(out), bucket
 
     def decode(self, servable, kv: KVCache, tokens: np.ndarray,
                positions: np.ndarray, active: np.ndarray):
@@ -200,7 +253,10 @@ class DecodeEngine:
             none = torch.zeros((0,), dtype=torch.long, device=kv.device)
             for rung in self.ladder:
                 pre = self.prefill_program(servable, rung)
-                prompts = torch.zeros((self.prefill_rows, rung),
+                # the token width serving feeds this rung: the chunk for
+                # rungs past prefill_chunk
+                prompts = torch.zeros((self.prefill_rows,
+                                       self.chunk_for(rung)),
                                       dtype=torch.int32, device=kv.device)
                 pre(kv.k, kv.v, prompts, d_last, d_ids, d_off, none)
                 dec = self.decode_program(servable, rung)

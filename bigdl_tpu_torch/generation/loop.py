@@ -16,8 +16,8 @@ they prefilled on; a swap routes new admissions to the new version
 while the old group keeps decoding until its slots drain, then its
 cache is dropped.
 
-Not ported yet: the prefix cache, chunked-prefill accounting, fault
-points and per-request trace spans.
+Not ported yet: the prefix cache, fault points and per-request trace
+spans.
 """
 from __future__ import annotations
 
@@ -80,6 +80,10 @@ def register_generation_instruments(r: MetricsRegistry) -> Dict[str, object]:
         "prefill_fill": r.histogram(
             "serving/generation/prefill_fill",
             "real rows / padded rows per prefill batch"),
+        "prefill_chunks": r.counter(
+            "serving/generation/prefill_chunks",
+            "prefill chunk programs dispatched (chunked long-prompt "
+            "admission; one per batch when chunking is off)"),
         "preempted": r.counter(
             "serving/generation/preempted",
             "generations failed typed by preemption (their slots freed; "
@@ -158,6 +162,7 @@ class DecodeLoop:
         self._h_ttft = inst["ttft_ms"]
         self._h_token = inst["token_ms"]
         self._h_prefill_fill = inst["prefill_fill"]
+        self._c_prefill_chunks = inst["prefill_chunks"]
         self._c_preempted = inst["preempted"]
 
         self._cond = threading.Condition()
@@ -372,14 +377,25 @@ class DecodeLoop:
             for g in gens:
                 g.slot = group.kv.allocator.alloc()
                 group.gens[g.slot] = g
-        logits, _ = self._engine.prefill(
+        logits, bucket = self._engine.prefill(
             servable, group.kv, [g.prompt for g in gens],
             [g.slot for g in gens])
         self._h_prefill_fill.observe(
             len(gens) / self._engine.prefill_rows, **self._labels)
+        self._c_prefill_chunks.inc(self._chunks_dispatched(bucket, gens),
+                                   **self._labels)
         for i, g in enumerate(gens):
             self._emit(group, g, g.sampler.sample(logits[i]))
         self._g_occupancy.set(group.kv.occupancy(), **self._labels)
+
+    def _chunks_dispatched(self, bucket: int, gens: List[_Gen]) -> int:
+        """How many prefill program calls the engine just ran for this
+        batch — its chunk loop runs chunk ``c`` iff some prompt still
+        has tokens there — for the ``prefill_chunks`` counter."""
+        sq = self._engine.chunk_for(bucket)
+        lens = [int(g.prompt.shape[0]) for g in gens]
+        return sum(1 for c in range(bucket // sq)
+                   if any(n > c * sq for n in lens))
 
     # ---------------------------------------------------- decode step
     def _decode_step(self) -> None:

@@ -23,8 +23,11 @@ for continuous batching::
 The service runs on the card (``device=None`` → ``"cuda"``, raising
 when CUDA is missing) unless the caller passes ``device="cpu"``.
 
-Not ported yet: ``apply_tuned_config``, the prefix cache, chunked
-prefill and loading a version from a checkpoint path.
+Long prompts prefill in fixed chunks with
+``GenerationConfig(prefill_chunk=C)`` (one program per rung still; the
+``prefill_chunks`` metric counts the chunk calls). Not ported yet:
+``apply_tuned_config``, the prefix cache and loading a version from a
+checkpoint path.
 """
 from __future__ import annotations
 
@@ -55,7 +58,10 @@ class GenerationConfig:
     time axis; ``length_buckets`` overrides the powers-of-two ladder
     (K rungs ⇒ ≤ 2K programs per version); ``prefill_rows`` is the
     padded-prompt batch width admissions share; ``timeout_ms`` the
-    default per-request deadline (None = none)."""
+    default per-request deadline (None = none); ``prefill_chunk``
+    (long context) prefills prompts whose rung exceeds it in fixed
+    ``[prefill_rows, chunk]`` pieces through the rung's one prefill
+    program (it must divide every larger rung; None = single-shot)."""
     slots: int = 8
     max_len: int = 256
     length_buckets: Optional[Sequence[int]] = None
@@ -64,6 +70,7 @@ class GenerationConfig:
     eos_token: Optional[int] = None
     max_new_tokens: int = 64
     timeout_ms: Optional[float] = None
+    prefill_chunk: Optional[int] = None
 
 
 class GenerationService:
@@ -89,7 +96,8 @@ class GenerationService:
         self.cache = CompileCache(metrics=self.metrics_registry)
         self.engine = DecodeEngine(self.cache, self.ladder,
                                    self.config.slots,
-                                   self.config.prefill_rows)
+                                   self.config.prefill_rows,
+                                   prefill_chunk=self.config.prefill_chunk)
         self._lock = threading.Lock()
         self._loops: Dict[str, DecodeLoop] = {}
         self._unloading: set = set()
@@ -235,9 +243,9 @@ class GenerationService:
 
     def metrics(self, name: str) -> Dict[str, float]:
         """Point-in-time generation stats for one model name: request
-        and token counts, queue depth, live slots, cache occupancy,
-        padding efficiency, TTFT and per-token-latency percentiles, and
-        the program count."""
+        and token counts, prefill chunk calls, queue depth, live slots,
+        cache occupancy, padding efficiency, TTFT and per-token-latency
+        percentiles, and the program count."""
         labels = {"model": name}
         r = self.metrics_registry
 
@@ -252,6 +260,7 @@ class GenerationService:
             "tokens": count("tokens"),
             "finished": count("finished"),
             "worker_restarts": count("worker_restarts"),
+            "prefill_chunks": count("prefill_chunks"),
             "decode_steps": r.histogram("serving/generation/token_ms")
             .count(**labels),
             "cache_occupancy": float(r.gauge(

@@ -13,7 +13,8 @@ touching code, with the JAX package's grammar:
 - ``BIGDL_KERNELS=flash,decode`` — a comma subset of ``flash`` /
   ``decode`` / ``int8``; an unknown name raises.
 
-The default is **flash + decode**, the kernels the port has (K1 and K3).
+The default is **flash + decode**, the kernels the port has (K1 and K2
+for flash, K3 for decode).
 The JAX package leaves flash opt-in on a TPU on the strength of TPU
 measurements; those do not carry over to the card, and ``chip_smoke.py``
 records K1 against the einsum path on the H100 for a later revisit.
@@ -50,8 +51,9 @@ _DEFAULT_BUDGET_MB = 12
 class KernelConfig:
     """Which kernels the dispatch layer may select.
 
-    ``flash_attention`` — the full-row flash-attention training kernel
-    (K1); ``decode_attention`` — the ragged decode kernel (K3);
+    ``flash_attention`` — the flash-attention training kernels (the
+    full-row K1, and the blockwise K2 past the budget);
+    ``decode_attention`` — the ragged decode kernel (K3);
     ``int8_matmul`` — the int8 GEMM (K5, not ported). ``block_q`` /
     ``block_k`` are the preferred tiles of the plain versions (shrunk to
     a divisor of the dimension) and the unit of the working-set estimate

@@ -17,9 +17,12 @@ einsum path. What differs is what a decline may be on the card:
 
 A CUDA tensor that is routed to a kernel launches it or the call raises;
 the plain PyTorch versions run only for tensors on the CPU (inside each
-kernel's wrapper). Every decision is counted: ``kernels/dispatch/kernel``
-(label ``op=flash|decode``) and ``kernels/dispatch/reference`` (labels
-``op=`` and ``reason=config|shape|vmem``), in
+kernel's wrapper). Flash routes to the full-row kernel K1 inside the
+working-set budget and to the blockwise kernel K2 past it (with
+``long_context=True``), on the CPU and on the card alike. Every decision
+is counted: ``kernels/dispatch/kernel`` (label ``op=flash|decode``) and
+``kernels/dispatch/reference`` (labels ``op=`` and
+``reason=config|shape|vmem``), in
 :data:`bigdl_tpu_torch.telemetry.REGISTRY`.
 """
 from __future__ import annotations
@@ -29,8 +32,8 @@ from typing import Optional
 from bigdl_tpu_torch import telemetry
 from bigdl_tpu_torch.kernels import config as _config
 from bigdl_tpu_torch.kernels.common import fit_block
-from bigdl_tpu_torch.kernels.flash_attention import (cuda_unsupported,
-                                                     flash_attention)
+from bigdl_tpu_torch.kernels.flash_attention import (
+    blockwise_flash_attention, cuda_unsupported, flash_attention)
 from bigdl_tpu_torch.kernels.ragged_decode import ragged_decode_attention
 
 __all__ = ["attention", "decode_attention", "flash_route"]
@@ -43,8 +46,8 @@ _C_REFERENCE = telemetry.counter(
     "calls declined to the einsum path (labels op=flash|decode, "
     "reason=config|shape|vmem)")
 
-#: flash routes: the full-row kernel, the blockwise long-context kernel
-#: (not ported), or a decline with its reason
+#: flash routes: the full-row kernel, the blockwise long-context kernel,
+#: or a decline with its reason
 ROUTE_K1, ROUTE_K2 = "K1", "K2"
 
 
@@ -98,12 +101,12 @@ def flash_route(q, k, v, config: Optional[_config.KernelConfig] = None
 def attention(q, k, v, *, causal: bool = False, segment_ids=None,
               sm_scale: Optional[float] = None):
     """Flash-attention dispatch for ``[B, H, S, D]`` q/k/v with optional
-    ``[B, S]`` segment ids. Returns the K1 result, or **None** when the
-    config or (on the CPU) the shapes decline, telling the caller to run
-    its einsum path. On a CUDA tensor a shape decline raises ValueError,
-    and the K2 route (past the working-set budget with
-    ``long_context=True``) raises NotImplementedError: K2 is not ported
-    yet. On the CPU the K2 route runs K1's plain version."""
+    ``[B, S]`` segment ids. Returns the K1 result, or past the
+    working-set budget the K2 result (:func:`flash_route`; the config's
+    ``block_q`` / ``block_k`` tile the plain versions), or **None** when
+    the config or (on the CPU) the shapes decline, telling the caller
+    to run its einsum path. On a CUDA tensor a shape decline raises
+    ValueError."""
     cfg = _config.get_config()
     route = flash_route(q, k, v, cfg)
     if route not in (ROUTE_K1, ROUTE_K2):
@@ -118,14 +121,11 @@ def attention(q, k, v, *, causal: bool = False, segment_ids=None,
                 f"{k.dtype}/{v.dtype}){'; ' + why if why else ''}; switch "
                 f"flash off in the KernelConfig to run the einsum path")
         return None
-    if route == ROUTE_K2 and q.device.type != "cpu":
-        raise NotImplementedError(
-            f"flash attention at S={q.shape[-2]}, D={q.shape[-1]} is past "
-            f"the {cfg.resolve_vmem_budget() >> 20} MiB working-set budget "
-            f"and routes to K2 (blockwise flash attention), which is not "
-            f"ported yet; set KernelConfig(long_context=False) to run the "
-            f"einsum path")
     _taken("flash")
+    if route == ROUTE_K2:
+        return blockwise_flash_attention(
+            q, k, v, segment_ids, causal=causal, sm_scale=sm_scale,
+            block_q=cfg.block_q, block_k=cfg.block_k)
     return flash_attention(q, k, v, segment_ids, causal=causal,
                            sm_scale=sm_scale, block_q=cfg.block_q)
 

@@ -1,27 +1,33 @@
-"""Full-row flash attention for training, forward and backward
-(counterpart of ``bigdl_tpu.kernels.flash_attention.flash_attention``,
-the K1 kernel pair).
+"""Flash attention for training, forward and backward: the full-row
+kernel pair K1 and the blockwise long-context pair K2 (counterparts of
+``bigdl_tpu.kernels.flash_attention.flash_attention`` and
+``.blockwise_flash_attention``, kept in one module as there).
 
-Each query row is reduced over its whole key row — the row max first,
+K1 reduces each query row over its whole key row — the row max first,
 then exp-sum-accumulate, no online rescaling — so masked lanes are exact
-zeros in every sum, as in the TPU kernel. The forward returns O and the
-float32 log-sum-exp; the backward recomputes p from it. The kernels are
-CUDA C++ for Hopper (``csrc/flash_attention.cu``; its header note has the
-design and the bound). Beside them are their plain PyTorch versions,
-:func:`flash_attention_forward_reference` and
-:func:`flash_attention_backward_reference`, which follow the TPU
-kernel's arithmetic (q scaled before the product, masked scores -inf,
-p = 0 on masked lanes and where lse is not finite), one ``block_q``
-query tile at a time as the TPU grid does.
+zeros in every sum, as in the TPU kernel. K2 tiles the key axis as well
+and carries an online-softmax ``(m, l, acc)`` per query tile, rescaled
+by ``exp(m_old - m_new)`` at each key tile, so no working set grows with
+S; the dispatch layer routes shapes past the working-set budget to it.
+Both forwards return O and the float32 log-sum-exp, and both backwards
+recompute p from it. The kernels are CUDA C++ for Hopper
+(``csrc/flash_attention.cu`` and ``csrc/blockwise_flash_attention.cu``
+over the shared ``csrc/flash_common.cuh``, which holds the tile code and
+the one backward both use; the header notes have the design and the
+bound). Beside them are their plain PyTorch versions
+(``*_forward_reference`` / ``*_backward_reference``), which follow the
+TPU kernels' arithmetic: q scaled before the product, masked scores
+-inf, p = 0 on masked lanes and where lse (or, in K2's forward, the
+running max) is not finite, one ``block_q`` query tile (and, in K2,
+``block_k`` key tile) at a time as the TPU grid does.
 
-:func:`flash_attention` is differentiable (a ``torch.autograd.Function``
-that saves q, k, v, O, lse and the segment ids). The wrappers
-:func:`flash_attention_forward` and :func:`flash_attention_backward`
-run the plain versions for tensors on the CPU, and launch the kernels
-for CUDA tensors or raise: there is no fallback from the card to the
-plain version. Each kernel launch adds one to its wrapper's
-``launches``; one backward launch runs three CUDA kernels (delta, dK/dV,
-dQ) on the current stream.
+:func:`flash_attention` and :func:`blockwise_flash_attention` are
+differentiable (each a ``torch.autograd.Function`` that saves q, k, v,
+O, lse and the segment ids). The wrappers run the plain versions for
+tensors on the CPU, and launch the kernels for CUDA tensors or raise:
+there is no fallback from the card to the plain version. Each kernel
+launch adds one to its wrapper's ``launches``; one backward launch runs
+three CUDA kernels (delta, dK/dV, dQ) on the current stream.
 """
 from __future__ import annotations
 
@@ -34,7 +40,11 @@ import torch
 
 from bigdl_tpu_torch.kernels.common import fit_block
 
-__all__ = ["cuda_unsupported", "flash_attention", "flash_attention_backward",
+__all__ = ["blockwise_flash_attention", "blockwise_flash_attention_backward",
+           "blockwise_flash_attention_backward_reference",
+           "blockwise_flash_attention_forward",
+           "blockwise_flash_attention_forward_reference", "cuda_unsupported",
+           "flash_attention", "flash_attention_backward",
            "flash_attention_backward_reference", "flash_attention_forward",
            "flash_attention_forward_reference"]
 
@@ -149,32 +159,34 @@ def flash_attention_backward_reference(q, k, v, o, do, lse,
 
 _lib_lock = threading.Lock()
 _launch_lock = threading.Lock()
-_lib = None
+_libs = {}
 
 
-def _library():
-    """The built kernel library with its ctypes signatures (built from
-    ``csrc/flash_attention.cu`` at first use)."""
-    global _lib
+def _library(source: str, prefix: str):
+    """The kernel library built from ``csrc/<source>.cu`` (at first
+    use), with the ctypes signatures of its ``<prefix>_*`` entry
+    points."""
     with _lib_lock:
-        if _lib is None:
+        lib = _libs.get(source)
+        if lib is None:
             from bigdl_tpu_torch.kernels import _build
 
-            lib = _build.load("flash_attention")
+            lib = _build.load(source)
             p, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
             for suffix in _CUDA_DTYPES.values():
-                fn = getattr(lib, f"bigdl_flash_fwd_{suffix}")
+                fn = getattr(lib, f"{prefix}_fwd_{suffix}")
                 fn.argtypes = [p, p, p, p, p, p, i32, i32, i32, i32, p,
                                i32, f32, i32, p]
                 fn.restype = i32
-                fn = getattr(lib, f"bigdl_flash_bwd_{suffix}")
+                fn = getattr(lib, f"{prefix}_bwd_{suffix}")
                 fn.argtypes = [p, p, p, p, p, p, p, p, p, p, p, i32, i32,
                                i32, i32, p, i32, f32, i32, p]
                 fn.restype = i32
-            lib.bigdl_flash_error_string.argtypes = [i32]
-            lib.bigdl_flash_error_string.restype = ctypes.c_char_p
-            _lib = lib
-        return _lib
+            err = getattr(lib, f"{prefix}_error_string")
+            err.argtypes = [i32]
+            err.restype = ctypes.c_char_p
+            lib = _libs[source] = lib
+        return lib
 
 
 def _rows_contiguous(x):
@@ -184,9 +196,10 @@ def _rows_contiguous(x):
 
 
 def cuda_unsupported(shape, dtype) -> Optional[str]:
-    """Why the CUDA kernels do not take ``[B, H, S, D]`` operands of this
-    shape and dtype, or None when they do. The plain versions, which
-    CPU tensors run, take any of them."""
+    """Why the CUDA kernels (K1 and K2 take the same operands) do not
+    take ``[B, H, S, D]`` operands of this shape and dtype, or None when
+    they do. The plain versions, which CPU tensors run, take any of
+    them."""
     if dtype not in _CUDA_DTYPES:
         return (f"the flash_attention kernel takes float32, bfloat16 or "
                 f"float16, not {dtype}")
@@ -234,11 +247,11 @@ def _strides(*tensors):
     return (ctypes.c_int64 * 15)(*flat)
 
 
-def _raise_on(rc: int, lib, what: str) -> None:
+def _raise_on(rc: int, lib, prefix: str, what: str) -> None:
     if rc != 0:
-        msg = lib.bigdl_flash_error_string(rc).decode()
-        raise RuntimeError(f"flash_attention {what} kernel launch failed: "
-                           f"{msg} (cudaError {rc})")
+        msg = getattr(lib, f"{prefix}_error_string")(rc).decode()
+        raise RuntimeError(f"{prefix} {what} kernel launch failed: {msg} "
+                           f"(cudaError {rc})")
 
 
 def _device_of(q) -> str:
@@ -248,24 +261,12 @@ def _device_of(q) -> str:
     return q.device.type
 
 
-def flash_attention_forward(q, k, v, segment_ids=None, *,
-                            causal: bool = False,
-                            sm_scale: Optional[float] = None,
-                            block_q: int = 128):
-    """K1 forward: ``(O, lse)`` for ``[B, H, S, D]`` q/k/v and optional
-    ``[B, S]`` segment ids. CPU tensors run
-    :func:`flash_attention_forward_reference` (``block_q`` sets its
-    tiling); CUDA tensors launch the kernel on the current stream (any
-    strides with a contiguous last dimension are read in place) or
-    raise. Each launch adds one to ``flash_attention_forward.launches``.
-    """
+def _launch_forward(source: str, prefix: str, q, k, v, segment_ids,
+                    causal: bool, sm_scale: float):
+    """One forward launch of ``csrc/<source>.cu`` on the current stream:
+    checks the operands (raising on what the kernel does not take),
+    allocates O and lse, and raises if the launch fails."""
     b, h, s, d = q.shape
-    if sm_scale is None:
-        sm_scale = 1.0 / math.sqrt(d)
-    if _device_of(q) == "cpu":
-        return flash_attention_forward_reference(
-            q, k, v, segment_ids, causal=causal, sm_scale=sm_scale,
-            block_q=block_q)
     _check_cuda_operands({"k": k, "v": v}, q.shape, q.dtype, q.device)
     q, k, v = (_rows_contiguous(x) for x in (q, k, v))
     seg = _cuda_segments(segment_ids, b, s, q.device)
@@ -273,34 +274,22 @@ def flash_attention_forward(q, k, v, segment_ids=None, *,
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
     if out.numel() == 0:
         return out, lse
-    lib = _library()
-    fn = getattr(lib, f"bigdl_flash_fwd_{_CUDA_DTYPES[q.dtype]}")
+    lib = _library(source, prefix)
+    fn = getattr(lib, f"{prefix}_fwd_{_CUDA_DTYPES[q.dtype]}")
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
             None if seg is None else seg.data_ptr(),
             out.data_ptr(), lse.data_ptr(), b, h, s, d, _strides(q, k, v),
             int(bool(causal)), float(sm_scale), q.device.index, stream)
-    _raise_on(rc, lib, "forward")
-    with _launch_lock:
-        flash_attention_forward.launches += 1
+    _raise_on(rc, lib, prefix, "forward")
     return out, lse
 
 
-def flash_attention_backward(q, k, v, o, do, lse, segment_ids=None, *,
-                             causal: bool = False,
-                             sm_scale: Optional[float] = None,
-                             block_q: int = 128):
-    """K1 backward: ``(dq, dk, dv)`` in the input dtypes. CPU tensors
-    run :func:`flash_attention_backward_reference`; CUDA tensors launch
-    the three backward kernels on the current stream or raise. Each
-    launch adds one to ``flash_attention_backward.launches``."""
+def _launch_backward(source: str, prefix: str, q, k, v, o, do, lse,
+                     segment_ids, causal: bool, sm_scale: float):
+    """One backward launch (delta, dK/dV and dQ kernels) of
+    ``csrc/<source>.cu`` on the current stream; raises if it fails."""
     b, h, s, d = q.shape
-    if sm_scale is None:
-        sm_scale = 1.0 / math.sqrt(d)
-    if _device_of(q) == "cpu":
-        return flash_attention_backward_reference(
-            q, k, v, o, do, lse, segment_ids, causal=causal,
-            sm_scale=sm_scale, block_q=block_q)
     _check_cuda_operands({"k": k, "v": v, "o": o, "do": do}, q.shape,
                          q.dtype, q.device)
     if tuple(lse.shape) != (b, h, s) or lse.dtype != torch.float32:
@@ -315,8 +304,8 @@ def flash_attention_backward(q, k, v, o, do, lse, segment_ids=None, *,
     if dq.numel() == 0:
         return dq, dk, dv
     delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
-    lib = _library()
-    fn = getattr(lib, f"bigdl_flash_bwd_{_CUDA_DTYPES[q.dtype]}")
+    lib = _library(source, prefix)
+    fn = getattr(lib, f"{prefix}_bwd_{_CUDA_DTYPES[q.dtype]}")
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             do.data_ptr(), lse.data_ptr(),
@@ -324,10 +313,56 @@ def flash_attention_backward(q, k, v, o, do, lse, segment_ids=None, *,
             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), delta.data_ptr(),
             b, h, s, d, _strides(q, k, v, o, do), int(bool(causal)),
             float(sm_scale), q.device.index, stream)
-    _raise_on(rc, lib, "backward")
-    with _launch_lock:
-        flash_attention_backward.launches += 1
+    _raise_on(rc, lib, prefix, "backward")
     return dq, dk, dv
+
+
+def _count(fn) -> None:
+    with _launch_lock:
+        fn.launches += 1
+
+
+def flash_attention_forward(q, k, v, segment_ids=None, *,
+                            causal: bool = False,
+                            sm_scale: Optional[float] = None,
+                            block_q: int = 128):
+    """K1 forward: ``(O, lse)`` for ``[B, H, S, D]`` q/k/v and optional
+    ``[B, S]`` segment ids. CPU tensors run
+    :func:`flash_attention_forward_reference` (``block_q`` sets its
+    tiling); CUDA tensors launch the kernel on the current stream (any
+    strides with a contiguous last dimension are read in place) or
+    raise. Each launch adds one to ``flash_attention_forward.launches``.
+    """
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(q.shape[-1])
+    if _device_of(q) == "cpu":
+        return flash_attention_forward_reference(
+            q, k, v, segment_ids, causal=causal, sm_scale=sm_scale,
+            block_q=block_q)
+    out = _launch_forward("flash_attention", "bigdl_flash", q, k, v,
+                          segment_ids, causal, sm_scale)
+    _count(flash_attention_forward)
+    return out
+
+
+def flash_attention_backward(q, k, v, o, do, lse, segment_ids=None, *,
+                             causal: bool = False,
+                             sm_scale: Optional[float] = None,
+                             block_q: int = 128):
+    """K1 backward: ``(dq, dk, dv)`` in the input dtypes. CPU tensors
+    run :func:`flash_attention_backward_reference`; CUDA tensors launch
+    the three backward kernels on the current stream or raise. Each
+    launch adds one to ``flash_attention_backward.launches``."""
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(q.shape[-1])
+    if _device_of(q) == "cpu":
+        return flash_attention_backward_reference(
+            q, k, v, o, do, lse, segment_ids, causal=causal,
+            sm_scale=sm_scale, block_q=block_q)
+    grads = _launch_backward("flash_attention", "bigdl_flash", q, k, v, o,
+                             do, lse, segment_ids, causal, sm_scale)
+    _count(flash_attention_backward)
+    return grads
 
 
 #: kernel launches so far (plain-version calls on the CPU do not count)
@@ -369,3 +404,252 @@ def flash_attention(q, k, v, segment_ids=None, *, causal: bool = False,
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
     return _FlashAttention.apply(q, k, v, segment_ids, bool(causal),
                                  float(sm_scale), int(block_q))
+
+
+# ------------------------------------------------------------------ K2
+
+def _tile_keep(i0: int, bq: int, j0: int, bk: int, causal: bool,
+               segment_ids, device):
+    """The TPU kernel's tile keep-mask (``_tile_mask``) for query rows
+    ``i0 .. i0+bq-1`` against keys ``j0 .. j0+bk-1``: ``[B or 1, 1, bq,
+    bk]`` bool, or None when nothing masks."""
+    mask = None
+    if causal:
+        rows = torch.arange(i0, i0 + bq, device=device)
+        cols = torch.arange(j0, j0 + bk, device=device)
+        mask = (cols[None, :] <= rows[:, None])[None, None]
+    if segment_ids is not None:
+        seg = segment_ids.to(device=device, dtype=torch.int32)
+        same = (seg[:, i0:i0 + bq, None] == seg[:, None, j0:j0 + bk])[:, None]
+        mask = same if mask is None else mask & same
+    return mask
+
+
+def _tile_live(i0: int, bq: int, j0: int, causal: bool) -> bool:
+    """Whether key tile ``j0`` holds any key the query tile ``i0`` may
+    see: under causal, tiles strictly right of its last row are masked
+    whole and skipped."""
+    return not causal or j0 <= i0 + bq - 1
+
+
+def _online_update(m, l, acc, scores, keep, vt):
+    """One key tile of the forward carry (``_bw_fwd_kernel``'s step):
+    ``(m, l, acc)`` rescaled by ``exp(m_old - m_new)`` and the tile's
+    ``p = exp(s - m_new)`` added. ``m_new`` is -inf only while every
+    lane so far is masked; then p = 0 and alpha = 0, so a fully masked
+    row keeps an exact ``(-inf, 0, 0)`` carry and never a NaN."""
+    if keep is not None:
+        scores = scores.masked_fill(~keep, _NEG_INF)
+    m_new = torch.maximum(m, scores.amax(dim=-1, keepdim=True))
+    p = torch.exp(scores - m_new)
+    if keep is not None:
+        p = torch.where(keep, p, 0.0)
+    p = torch.where(torch.isfinite(m_new), p, 0.0)
+    alpha = torch.where(torch.isfinite(m), torch.exp(m - m_new), 0.0)
+    l = l * alpha + p.sum(dim=-1, keepdim=True)
+    acc = acc * alpha + torch.einsum("bhqk,bhkd->bhqd", p, vt)
+    return m_new, l, acc
+
+
+def _finish(m, l, acc):
+    """O (float32) and lse from a row's final carry: ``acc / l`` and
+    ``m + log l``; ``l = 0`` (a fully masked row) gives O = 0 and
+    lse = -inf."""
+    out = torch.where(l > 0, acc / l, 0.0)
+    lse = torch.where(l[..., 0] > 0, m[..., 0] + torch.log(l[..., 0]),
+                      _NEG_INF)
+    return out, lse
+
+
+def blockwise_flash_attention_forward_reference(
+        q, k, v, segment_ids=None, *, causal: bool = False,
+        sm_scale: Optional[float] = None, block_q: int = 128,
+        block_k: int = 128):
+    """Plain PyTorch K2 forward over ``[B, H, S, D]`` q/k/v: returns
+    ``(O in q.dtype, lse [B, H, S] float32)``. Walks ``block_q`` query
+    tiles against ``block_k`` key tiles (each shrunk to a divisor of S)
+    with the TPU kernel's online-softmax carry, in float32, skipping key
+    tiles right of the query tile under causal."""
+    b, h, s, d = q.shape
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(d)
+    bq, bk = fit_block(s, block_q), fit_block(s, block_k)
+    kf, vf = k.float(), v.float()
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    for i0 in range(0, s, bq):
+        qt = q[:, :, i0:i0 + bq].float() * sm_scale
+        m = torch.full((b, h, bq, 1), _NEG_INF, device=q.device)
+        l = torch.zeros((b, h, bq, 1), device=q.device)
+        acc = torch.zeros((b, h, bq, d), device=q.device)
+        for j0 in range(0, s, bk):
+            if not _tile_live(i0, bq, j0, causal):
+                continue
+            scores = torch.einsum("bhqd,bhkd->bhqk", qt,
+                                  kf[:, :, j0:j0 + bk])
+            keep = _tile_keep(i0, bq, j0, bk, causal, segment_ids, q.device)
+            m, l, acc = _online_update(m, l, acc, scores, keep,
+                                       vf[:, :, j0:j0 + bk])
+        o, lse_t = _finish(m, l, acc)
+        out[:, :, i0:i0 + bq] = o.to(q.dtype)
+        lse[:, :, i0:i0 + bq] = lse_t
+    return out, lse
+
+
+def _tile_grads(qt, kt, vt, dot, delta, lt, keep, sm_scale):
+    """p and dS of one (query tile, key tile) pair, from the saved lse
+    (the TPU kernel's two backward bodies compute the same): ``p =
+    exp(s - lse)`` (0 on masked lanes and where lse is not finite) and
+    ``dS = p * (dO . V^T - delta) * scale``."""
+    scores = torch.einsum("bhqd,bhkd->bhqk", qt * sm_scale, kt)
+    if keep is not None:
+        scores = scores.masked_fill(~keep, _NEG_INF)
+    p = torch.exp(scores - lt[..., None])
+    if keep is not None:
+        p = torch.where(keep, p, 0.0)
+    p = torch.where(torch.isfinite(lt)[..., None], p, 0.0)
+    dp = torch.einsum("bhqd,bhkd->bhqk", dot, vt)
+    return p, p * (dp - delta) * sm_scale
+
+
+def blockwise_flash_attention_backward_reference(
+        q, k, v, o, do, lse, segment_ids=None, *, causal: bool = False,
+        sm_scale: Optional[float] = None, block_q: int = 128,
+        block_k: int = 128):
+    """Plain PyTorch K2 backward: ``(dq, dk, dv)`` in the input dtypes,
+    the TPU kernel's two passes from the saved lse — dQ per query tile
+    with the key tiles streaming (``_bw_dq_kernel``), then dK/dV per key
+    tile with the query tiles streaming (``_bw_dkv_kernel``), each
+    accumulated in float32 in that order. ``delta = rowsum(dO * O)`` is
+    taken once per query tile."""
+    b, h, s, d = q.shape
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(d)
+    bq, bk = fit_block(s, block_q), fit_block(s, block_k)
+    qf, kf, vf = q.float(), k.float(), v.float()
+    dof = do.float()
+    delta = (dof * o.float()).sum(dim=-1, keepdim=True)     # [B,H,S,1]
+    dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    dk = torch.zeros(k.shape, dtype=torch.float32, device=q.device)
+    dv = torch.zeros(v.shape, dtype=torch.float32, device=q.device)
+
+    def pair(i0, j0):
+        qs, ks = slice(i0, i0 + bq), slice(j0, j0 + bk)
+        keep = _tile_keep(i0, bq, j0, bk, causal, segment_ids, q.device)
+        return _tile_grads(qf[:, :, qs], kf[:, :, ks], vf[:, :, ks],
+                           dof[:, :, qs], delta[:, :, qs], lse[:, :, qs],
+                           keep, sm_scale)
+
+    for i0 in range(0, s, bq):                  # pass 1: dQ
+        for j0 in range(0, s, bk):
+            if _tile_live(i0, bq, j0, causal):
+                _, ds = pair(i0, j0)
+                dq[:, :, i0:i0 + bq] += torch.einsum(
+                    "bhqk,bhkd->bhqd", ds, kf[:, :, j0:j0 + bk])
+    for j0 in range(0, s, bk):                  # pass 2: dK, dV
+        for i0 in range(0, s, bq):
+            if _tile_live(i0, bq, j0, causal):
+                p, ds = pair(i0, j0)
+                dv[:, :, j0:j0 + bk] += torch.einsum(
+                    "bhqk,bhqd->bhkd", p, dof[:, :, i0:i0 + bq])
+                dk[:, :, j0:j0 + bk] += torch.einsum(
+                    "bhqk,bhqd->bhkd", ds, qf[:, :, i0:i0 + bq])
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def blockwise_flash_attention_forward(q, k, v, segment_ids=None, *,
+                                      causal: bool = False,
+                                      sm_scale: Optional[float] = None,
+                                      block_q: int = 128,
+                                      block_k: int = 128):
+    """K2 forward: ``(O, lse)`` for ``[B, H, S, D]`` q/k/v and optional
+    ``[B, S]`` segment ids. CPU tensors run
+    :func:`blockwise_flash_attention_forward_reference` with
+    ``block_q`` / ``block_k`` tiles; CUDA tensors launch the kernel
+    (``csrc/blockwise_flash_attention.cu``, whose tiles are 64 x 64
+    whatever ``block_q`` / ``block_k`` say: those are the TPU kernel's
+    VMEM choices) on the current stream, or raise. Each launch adds one
+    to ``blockwise_flash_attention_forward.launches``."""
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(q.shape[-1])
+    if _device_of(q) == "cpu":
+        return blockwise_flash_attention_forward_reference(
+            q, k, v, segment_ids, causal=causal, sm_scale=sm_scale,
+            block_q=block_q, block_k=block_k)
+    out = _launch_forward("blockwise_flash_attention", "bigdl_blockwise",
+                          q, k, v, segment_ids, causal, sm_scale)
+    _count(blockwise_flash_attention_forward)
+    return out
+
+
+def blockwise_flash_attention_backward(q, k, v, o, do, lse,
+                                       segment_ids=None, *,
+                                       causal: bool = False,
+                                       sm_scale: Optional[float] = None,
+                                       block_q: int = 128,
+                                       block_k: int = 128):
+    """K2 backward: ``(dq, dk, dv)`` in the input dtypes. CPU tensors
+    run :func:`blockwise_flash_attention_backward_reference`; CUDA
+    tensors launch the backward kernels (delta, dK/dV, dQ; 64 x 64
+    tiles) on the current stream or raise. Each launch adds one to
+    ``blockwise_flash_attention_backward.launches``."""
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(q.shape[-1])
+    if _device_of(q) == "cpu":
+        return blockwise_flash_attention_backward_reference(
+            q, k, v, o, do, lse, segment_ids, causal=causal,
+            sm_scale=sm_scale, block_q=block_q, block_k=block_k)
+    grads = _launch_backward("blockwise_flash_attention", "bigdl_blockwise",
+                             q, k, v, o, do, lse, segment_ids, causal,
+                             sm_scale)
+    _count(blockwise_flash_attention_backward)
+    return grads
+
+
+#: kernel launches so far (plain-version calls on the CPU do not count)
+blockwise_flash_attention_forward.launches = 0
+blockwise_flash_attention_backward.launches = 0
+
+
+class _BlockwiseFlashAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, segment_ids, causal, sm_scale, block_q,
+                block_k):
+        out, lse = blockwise_flash_attention_forward(
+            q, k, v, segment_ids, causal=causal, sm_scale=sm_scale,
+            block_q=block_q, block_k=block_k)
+        ctx.save_for_backward(q, k, v, out, lse, segment_ids)
+        ctx.causal, ctx.sm_scale = causal, sm_scale
+        ctx.block_q, ctx.block_k = block_q, block_k
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse, segment_ids = ctx.saved_tensors
+        dq, dk, dv = blockwise_flash_attention_backward(
+            q, k, v, out, do, lse, segment_ids, causal=ctx.causal,
+            sm_scale=ctx.sm_scale, block_q=ctx.block_q,
+            block_k=ctx.block_k)
+        return dq, dk, dv, None, None, None, None, None
+
+
+def blockwise_flash_attention(q, k, v, segment_ids=None, *,
+                              causal: bool = False,
+                              sm_scale: Optional[float] = None,
+                              block_q: int = 128, block_k: int = 128):
+    """Differentiable blockwise (online-softmax) flash attention over
+    ``[B, H, S, D]`` q/k/v — the long-context form, with the key axis
+    tiled as well, so no tile's working set grows with S. ``segment_ids``
+    is the packed slab's ``[B, S]`` int32 plane (ANDed with
+    ``causal``). Returns O in q's dtype. ``block_q`` / ``block_k`` tile
+    the plain version (CPU tensors); the CUDA kernel's tiles are 64 x 64.
+    Use through :func:`bigdl_tpu_torch.kernels.attention`, which owns
+    the K1/K2 routing."""
+    if q.ndim != 4:
+        raise ValueError(f"blockwise_flash_attention wants [B,H,S,D], got "
+                         f"{tuple(q.shape)}")
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(q.shape[-1])
+    return _BlockwiseFlashAttention.apply(
+        q, k, v, segment_ids, bool(causal), float(sm_scale), int(block_q),
+        int(block_k))

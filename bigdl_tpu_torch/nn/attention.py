@@ -4,13 +4,14 @@ Layout convention: ``[batch, seq, model]`` (B, S, E); heads split E.
 Weights keep the JAX package's ``[in, out]`` layout and are applied as
 ``x @ w``, so converted parameters map 1:1 with no transpose.
 
-Ported: ``dot_product_attention`` with the kernel route first (K1
-through :func:`bigdl_tpu_torch.kernels.attention`), packed ``segments``
-and the einsum path, and :class:`MultiHeadAttention` with its
-full-sequence and KV-cached forwards. Not ported yet: attention dropout,
-the route of score matrices over 2 GiB to a long-context kernel (the JAX
-package's ``_flash_attention_tpu``; its port goes to K2) and the
-sequence-parallel (ring / Ulysses) paths.
+Ported: ``dot_product_attention`` with the kernel route first (K1 or K2
+through :func:`bigdl_tpu_torch.kernels.attention`), packed ``segments``,
+the route of score matrices over 2 GiB to the blockwise kernel K2 (the
+JAX package sends them to its bundled TPU flash kernel,
+``_flash_attention_tpu``) and the einsum path, and
+:class:`MultiHeadAttention` with its full-sequence and KV-cached
+forwards. Not ported yet: attention dropout and the sequence-parallel
+(ring / Ulysses) paths.
 """
 from __future__ import annotations
 
@@ -25,6 +26,23 @@ from bigdl_tpu_torch.utils.engine import default_dtype
 
 __all__ = ["MultiHeadAttention", "dot_product_attention"]
 
+# Route to the blockwise flash kernel when the materialized [S, S] score
+# matrix would not comfortably fit device memory: the JAX package's
+# memory escape hatch, keyed on bytes (its threshold, kept so both
+# packages take the route at the same shapes).
+_FLASH_SCORE_BYTES = 2 << 30
+
+
+def _flash_eligible(q, mask, dropout_rate, training) -> bool:
+    if q.ndim < 4:  # the kernel needs [B,H,S,D]; lower ranks use einsum
+        return False
+    b, h, seq, d = q.shape[-4], q.shape[-3], q.shape[-2], q.shape[-1]
+    scores_bytes = b * h * seq * seq * q.dtype.itemsize
+    return (mask is None
+            and not (training and dropout_rate > 0.0)
+            and seq % 128 == 0 and d % 128 == 0
+            and scores_bytes > _FLASH_SCORE_BYTES)
+
 
 def dot_product_attention(q, k, v, *, causal: bool = False, mask=None,
                           dropout_rate: float = 0.0, rng=None,
@@ -38,8 +56,17 @@ def dot_product_attention(q, k, v, *, causal: bool = False, mask=None,
     (the packed slab's ``[B, S]`` segment-id plane); both together
     raise. With ``use_flash`` and no ``mask`` the kernel dispatch
     (:func:`bigdl_tpu_torch.kernels.attention`) is tried first; a
-    declined dispatch falls through to the einsum path, which derives
-    the same-segment mask here. Attention dropout is not ported:
+    declined dispatch falls through, and the same-segment mask is
+    derived here. Then, on a CUDA tensor with ``use_flash`` and no mask,
+    a score matrix over 2 GiB (``[B, H, S, S]`` at q's itemsize, S and D
+    multiples of 128) goes to the blockwise kernel K2
+    (:func:`bigdl_tpu_torch.kernels.blockwise_flash_attention`, causal
+    as asked), which launches or raises — the JAX package's route to its
+    bundled TPU flash kernel, taken where the einsum path would not fit;
+    on the CPU it is never taken, as the JAX package takes it on a TPU
+    only. In practice it runs with flash switched off in the
+    ``KernelConfig`` or declined as ``reason=vmem``. Everything else
+    runs the einsum path. Attention dropout is not ported:
     ``training`` with ``dropout_rate > 0`` raises NotImplementedError
     (``rng`` is accepted for the signature's sake).
 
@@ -67,6 +94,10 @@ def dot_product_attention(q, k, v, *, causal: bool = False, mask=None,
         # the einsum path's same-segment mask: its one derivation site
         seg = segments.to(device=q.device, dtype=torch.int32)
         mask = seg[:, None, :, None] == seg[:, None, None, :]
+    if (use_flash and q.device.type == "cuda"
+            and _flash_eligible(q, mask, dropout_rate, training)):
+        return kernels.blockwise_flash_attention(q, k, v, causal=causal,
+                                                 sm_scale=1.0 / math.sqrt(d))
     scores = torch.einsum("bhqd,bhkd->bhqk", q.float(),
                           k.float()) / math.sqrt(d)
     fill = torch.finfo(scores.dtype).min

@@ -18,7 +18,14 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    serving shapes; the flash-attention forward and backward (K1) at the
    training shapes ``[16, 8, 512, 64]``, float32 and bfloat16, causal,
    with and without the training batch's packed segment ids, plus ragged
-   edge shapes;
+   edge shapes; the blockwise flash-attention forward and backward (K2)
+   at ragged edge shapes (S = 1 to 1000, D = 16 to 128, causal and
+   segments on and off, float32/bfloat16/float16) and at ``[1, 8, 2048,
+   64]``, against K1's kernel at the long-context shape ``[1, 8, 8192,
+   64]``, and timed there and at ``[1, 8, 32768, 64]`` beside K1, the
+   SDPA yardstick and (at 8192) the einsum path; then the attention
+   layer's route for score matrices over 2 GiB (flash off, ``[1, 8,
+   16384, 128]``) must launch K2 once and equal a direct call bitwise;
 4. serving — ``GenerationService`` serving a ``TransformerLM`` at the
    generation bench width (vocab 8192, hidden 512, 6 layers, 8 heads,
    max_len 512; random weights from a seed) for 32 greedy and 4 seeded
@@ -41,7 +48,24 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    counts are set to 0 and the run must launch K1's forward and backward
    once per layer per iteration, with finite losses whose last 5 average
    below the first 5; tokens/s, ms per step and a profiled window of a
-   few steps (device busy, idle share, top kernels) are printed.
+   few steps (device busy, idle share, top kernels) are printed;
+6. long-context training — ``LocalOptimizer`` at ``bench.py``'s LONGCTX
+   row (vocab 8192, hidden 512, 2 layers, 8 heads, seq 8192, batch 1,
+   the train CLI's contiguous synthetic stream, SGD lr 0.1) for
+   ``LC_ITERS`` iterations, every attention call routed to K2: the same
+   one-step check against the einsum path, with the two faults now put
+   into K2's backward; K2's forward and backward launched once per
+   layer per iteration and K1 never; falling losses, step time by
+   attention path and a profiled window; then one step at S = 32768
+   (finite loss, peak device memory);
+7. long-context serving — the same configuration behind
+   ``GenerationService(slots=2, max_len=8192, prefill_rows=2,
+   prefill_chunk=2048)``: one seeded 8184-token prompt prefilled in 4
+   chunks, 8 greedy tokens equal to the unchunked service's and to a
+   full re-forward through K2, the first token's logits within
+   ``PREFILL_LOGITS_TOL`` of the unchunked prefill's, at most 2 programs
+   a rung, K3 launched once per layer per decode step; TTFT both ways;
+   then K3 against its plain version at T = 8192.
 
 Float32 throughout, with TF32 switched off for matrix products and
 convolutions: the tolerances below assume full float32.
@@ -73,6 +97,11 @@ TRAIN_VOCAB, TRAIN_SEQ, TRAIN_BATCH = 32000, 512, 16
 TRAIN_ITERS, TRAIN_LR, TRAIN_SYNTHETIC = 30, 0.1, 262144
 PROFILE_STEPS = 3
 
+# ---- the long-context slice (bench.py's LONGCTX row) ----
+LC_VOCAB, LC_LAYERS, LC_SEQ, LC_SEQ_MAX = 8192, 2, 8192, 32768
+LC_ITERS, LC_SYNTHETIC, LC_CHUNK, LC_NEW = 20, 300000, 2048, 8
+LC_K6_SHAPE = (1, 8, 16384, 128)   # [B, H, S, D]: 8.6 GB of f32 scores
+
 # ---- the card (NVIDIA's H100 SXM data sheet) ----
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12          # float32 outside the tensor cores
@@ -92,6 +121,9 @@ FLASH_FWD_TOL = {"float32": 1e-5, "bfloat16": 1e-2, "float16": 2e-3}
 FLASH_BWD_TOL = {"float32": 2e-4, "bfloat16": 1e-2, "float16": 2e-3}
 #: one training step, kernel vs einsum path: loss and every parameter
 TRAIN_PARITY_TOL = 1e-5
+#: the first token's logits, chunked vs single-shot prefill (float32;
+#: two einsum paths over other chunkings of the same sums)
+PREFILL_LOGITS_TOL = 1e-4
 #: ... and every parameter's gradient, relative to the largest element of
 #: the einsum path's gradient of that parameter, or to TRAIN_GRAD_FLOOR of
 #: the largest gradient element in the model where that is larger (a key
@@ -472,18 +504,18 @@ def kept_pairs(seg, b: int, s: int, device) -> int:
     bound may count (skipped, masked pairs cost the card nothing)."""
     import torch
 
-    causal = torch.ones((s, s), dtype=torch.bool, device=device).tril()
     if seg is None:
-        return b * int(causal.sum())
+        return b * s * (s + 1) // 2
+    causal = torch.ones((s, s), dtype=torch.bool, device=device).tril()
     same = seg[:, :, None] == seg[:, None, :]
     return int((same & causal).sum())
 
 
 def flash_bound(kept: int, shape, itemsize: int, segmented: bool,
                 backward: bool, flops_per_s: float):
-    """Least time (ms) the card needs for one K1 call: 4 * D flops per
-    kept pair per head forward and 2.5x that backward, against q, k, v
-    read and O, lse written (forward), or q, k, v, O, dO, lse read and
+    """Least time (ms) the card needs for one K1 or K2 call: 4 * D flops
+    per kept pair per head forward and 2.5x that backward, against q, k,
+    v read and O, lse written (forward), or q, k, v, O, dO, lse read and
     dq, dk, dv written (backward), plus the segment ids."""
     b, h, s, d = shape
     n = b * h * s * d
@@ -496,42 +528,46 @@ def flash_bound(kept: int, shape, itemsize: int, segmented: bool,
                                  else "operations")
 
 
-def _flash_errors(q, k, v, do, seg, causal):
-    """K1 forward and backward against their plain versions on the same
-    inputs (the backward's from the kernel's own O and lse): max abs
-    errors of O, lse, dq, dk, dv, each relative to max(1, |plain|) when
-    the inputs are bfloat16 or float16."""
+def _kernel_pair(kernel: str):
+    """``(forward, forward_reference, backward, backward_reference)`` of
+    K1 (``"flash_attention"``) or K2 (``"blockwise_flash_attention"``)."""
+    import importlib
+
+    fa = importlib.import_module("bigdl_tpu_torch.kernels.flash_attention")
+    return tuple(getattr(fa, f"{kernel}_{part}") for part in (
+        "forward", "forward_reference", "backward", "backward_reference"))
+
+
+def _err(got, want, relative):
+    diff = (got.float() - want.float()).abs()
+    if relative:
+        diff = diff / want.float().abs().clamp(min=1.0)
+    return diff.max().item()
+
+
+def _flash_errors(q, k, v, do, seg, causal, kernel="flash_attention"):
+    """A flash kernel's forward and backward against their plain versions
+    on the same inputs (the backward's from the kernel's own O and lse):
+    max abs errors of O, lse, dq, dk, dv, each relative to max(1,
+    |plain|) when the inputs are bfloat16 or float16."""
     import torch
 
-    from bigdl_tpu_torch.kernels.flash_attention import (
-        flash_attention_backward, flash_attention_backward_reference,
-        flash_attention_forward, flash_attention_forward_reference)
-
+    fwd, fwd_ref, bwd, bwd_ref = _kernel_pair(kernel)
     rel = q.dtype != torch.float32
-
-    def err(got, want, relative):
-        diff = (got.float() - want.float()).abs()
-        if relative:
-            diff = diff / want.float().abs().clamp(min=1.0)
-        return diff.max().item()
-
-    o, lse = flash_attention_forward(q, k, v, seg, causal=causal)
-    o_r, lse_r = flash_attention_forward_reference(q, k, v, seg,
-                                                   causal=causal)
-    grads = flash_attention_backward(q, k, v, o, do, lse, seg,
-                                     causal=causal)
-    grads_r = flash_attention_backward_reference(q, k, v, o, do, lse, seg,
-                                                 causal=causal)
+    o, lse = fwd(q, k, v, seg, causal=causal)
+    o_r, lse_r = fwd_ref(q, k, v, seg, causal=causal)
+    grads = bwd(q, k, v, o, do, lse, seg, causal=causal)
+    grads_r = bwd_ref(q, k, v, o, do, lse, seg, causal=causal)
     torch.cuda.synchronize()
-    out = {"o": err(o, o_r, rel), "lse": err(lse, lse_r, False)}
+    out = {"o": _err(o, o_r, rel), "lse": _err(lse, lse_r, False)}
     for name, g, w in zip(("dq", "dk", "dv"), grads, grads_r):
-        out[name] = err(g, w, rel)
+        out[name] = _err(g, w, rel)
     return out
 
 
-def _check_flash(errs, dtype_name, label):
+def _check_flash(errs, dtype_name, label, phase="flash_attention"):
     fwd_tol, bwd_tol = FLASH_FWD_TOL[dtype_name], FLASH_BWD_TOL[dtype_name]
-    log("flash_attention", f"{label}: " + ", ".join(
+    log(phase, f"{label}: " + ", ".join(
         f"{k} {v:.3e}" for k, v in errs.items())
         + f" (tolerance o {fwd_tol}, lse {FLASH_FWD_TOL['float32']}, "
           f"grads {bwd_tol})")
@@ -539,8 +575,26 @@ def _check_flash(errs, dtype_name, label):
            if not v <= {"o": fwd_tol, "lse": FLASH_FWD_TOL["float32"]}
            .get(k, bwd_tol)]
     if bad:
-        raise AssertionError(f"flash_attention {label}: {bad} out of "
+        raise AssertionError(f"{phase} {label}: {bad} out of "
                              f"tolerance: {errs}")
+
+
+def _views(gen, shape, dtype, n=3):
+    """``n`` seeded [B, H, S, D] tensors on the card, as the attention
+    layer hands them over: [B, S, H, D] -> [B, H, S, D] strided views."""
+    import torch
+
+    b, h, s, d = shape
+    return [torch.randn((b, s, h, d), device="cuda", generator=gen)
+            .to(dtype).transpose(1, 2) for _ in range(n)]
+
+
+def _segments(gen, b, s):
+    """Seeded sorted [B, S] int32 segment ids (1..3)."""
+    import torch
+
+    cuts = torch.randint(1, 4, (b, s), device="cuda", generator=gen)
+    return cuts.sort(dim=1).values.to(torch.int32)
 
 
 def phase_flash(train_seg):
@@ -560,15 +614,6 @@ def phase_flash(train_seg):
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(1)
 
-    def views(shape, dtype, n=3):
-        b, h, s, d = shape
-        return [torch.randn((b, s, h, d), device=dev, generator=gen)
-                .to(dtype).transpose(1, 2) for _ in range(n)]
-
-    def segments(b, s):
-        cuts = torch.randint(1, 4, (b, s), device=dev, generator=gen)
-        return cuts.sort(dim=1).values.to(torch.int32)
-
     # ragged edges: S not a multiple of the 64-row tile, one-row tiles,
     # every tile width (16, 32, 64, 128) and head dims between them that
     # run zero-padded in the next (hidden 768 / 640 at 8 heads: 96, 80)
@@ -583,10 +628,10 @@ def phase_flash(train_seg):
                                        (2, 2, 33, 8, True, False),
                                        (1, 2, 65, 100, True, True)):
         for dtype in (torch.float32, torch.bfloat16, torch.float16):
-            q, k, v = views((b, h, s, d), dtype)
+            q, k, v = _views(gen, (b, h, s, d), dtype)
             do = torch.randn((b, h, s, d), device=dev,
                              generator=gen).to(dtype)
-            seg = segments(b, s) if segd else None
+            seg = _segments(gen, b, s) if segd else None
             name = str(dtype).split(".")[-1]
             _check_flash(_flash_errors(q, k, v, do, seg, causal), name,
                          f"{name} [{b},{h},{s},{d}] causal={causal} "
@@ -595,7 +640,7 @@ def phase_flash(train_seg):
     shape = (TRAIN_BATCH, HEADS, TRAIN_SEQ, HEAD_DIM)
     for dtype in (torch.float32, torch.bfloat16):
         for seg in (None, train_seg):
-            q, k, v = views(shape, dtype)
+            q, k, v = _views(gen, shape, dtype)
             do = torch.randn(shape, device=dev, generator=gen).to(dtype)
             name = str(dtype).split(".")[-1]
             _check_flash(_flash_errors(q, k, v, do, seg, True), name,
@@ -608,7 +653,7 @@ def phase_flash(train_seg):
     for dtype, seg in ((torch.float32, train_seg), (torch.float32, None),
                        (torch.bfloat16, train_seg)):
         n_sets = 3
-        sets = [(views(shape, dtype),
+        sets = [(_views(gen, shape, dtype),
                  torch.randn(shape, device=dev, generator=gen).to(dtype))
                 for _ in range(n_sets)]
         outs = [flash_attention_forward(*qkv, seg, causal=True)
@@ -723,15 +768,18 @@ def _state(model):
     return {k: v.detach().clone() for k, v in model.state_dict().items()}
 
 
-def step_differences(model, crit, batch, fault=None):
-    """One SGD step from the model's weights on ``batch`` with K1 and
-    with flash switched off (the einsum path on the card): the loss
-    difference, the largest parameter difference after the update, and
-    per parameter the largest gradient difference over the largest
-    element of the einsum path's gradient (floored at
+def step_differences(model, crit, batch, fault=None,
+                     function="_FlashAttention"):
+    """One SGD step from the model's weights on ``batch`` with the flash
+    kernels and with flash switched off (the einsum path on the card):
+    the loss difference, the largest parameter difference after the
+    update, and per parameter the largest gradient difference over the
+    largest element of the einsum path's gradient (floored at
     ``TRAIN_GRAD_FLOOR`` of the model's largest). ``fault`` ("dK zeroed"
-    or "dQ 1% off") is put into K1's gradients during the kernel step
-    (the fault check). The model's weights are restored."""
+    or "dQ 1% off") is put into the gradients of the kernel's autograd
+    ``function`` (K1's ``_FlashAttention`` or K2's
+    ``_BlockwiseFlashAttention``) during the kernel step (the fault
+    check). The model's weights are restored."""
     from bigdl_tpu_torch import kernels
     from bigdl_tpu_torch.optim import SGD, build_train_step
 
@@ -743,7 +791,7 @@ def step_differences(model, crit, batch, fault=None):
                                                   decode_attention=True),
                              None)):
         model.load_state_dict(start)
-        with kernels.use(cfg), _k1_gradient_fault(step_fault):
+        with kernels.use(cfg), _gradient_fault(step_fault, function):
             step = build_train_step(model, crit, SGD(learning_rate=TRAIN_LR))
             loss = float(step(*batch, TRAIN_LR))
         results.append((loss, _state(model),
@@ -769,9 +817,9 @@ def step_parity_holds(diffs) -> bool:
             and max(diffs["grad_rel_diff"].values()) <= TRAIN_GRAD_RTOL)
 
 
-def _log_step_diffs(label, diffs) -> None:
+def _log_step_diffs(label, diffs, phase="train") -> None:
     worst = max(diffs["grad_rel_diff"], key=diffs["grad_rel_diff"].get)
-    log("train", f"one step, {label}: loss {diffs['loss_kernel']:.6f} vs "
+    log(phase, f"one step, {label}: loss {diffs['loss_kernel']:.6f} vs "
                  f"einsum path {diffs['loss_einsum']:.6f} (|diff| "
                  f"{diffs['loss_diff']:.3e}), max |param diff| "
                  f"{diffs['param_diff']:.3e} (tolerance "
@@ -781,10 +829,11 @@ def _log_step_diffs(label, diffs) -> None:
 
 
 @contextlib.contextmanager
-def _k1_gradient_fault(fault):
-    """Within the block, K1's autograd backward puts ``fault`` into the
-    gradients the kernel returns (None: no fault). The kernel still
-    launches, and counts, as it does on the main path."""
+def _gradient_fault(fault, function):
+    """Within the block, the flash kernel's autograd backward (the
+    ``function`` class of ``kernels/flash_attention.py``) puts ``fault``
+    into the gradients the kernel returns (None: no fault). The kernel
+    still launches, and counts, as it does on the main path."""
     import importlib
 
     import torch
@@ -792,8 +841,8 @@ def _k1_gradient_fault(fault):
     if fault is None:
         yield
         return
-    fn = importlib.import_module(
-        "bigdl_tpu_torch.kernels.flash_attention")._FlashAttention
+    fn = getattr(importlib.import_module(
+        "bigdl_tpu_torch.kernels.flash_attention"), function)
     real = fn.backward
 
     def backward(ctx, do):
@@ -811,7 +860,8 @@ def _k1_gradient_fault(fault):
         fn.backward = staticmethod(real)
 
 
-def profile_train(model, crit, batches, device) -> None:
+def profile_train(model, crit, batches, device, phase="train-profile"
+                  ) -> None:
     """Where a training step's time goes: ``PROFILE_STEPS`` steps under
     ``torch.profiler``, reporting wall-clock, device time by kernel and
     the device's idle share."""
@@ -834,18 +884,20 @@ def profile_train(model, crit, batches, device) -> None:
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = device_kernels(prof)
     busy_ms = sum(k[0] for k in kernels)
-    log("train-profile", json.dumps({
+    log(phase, json.dumps({
         "steps": len(batches) - 1, "wall_ms": wall_ms,
         "wall_ms_per_step": wall_ms / (len(batches) - 1),
         "device_busy_ms": busy_ms if kernels else "not measured",
         "device_idle_share": (1 - busy_ms / wall_ms) if kernels
         else "not measured"}))
     for ms, count, key in kernels[:10]:
-        log("train-profile", f"{ms:9.3f} ms {count:6d}x  {key[:90]}")
+        log(phase, f"{ms:9.3f} ms {count:6d}x  {key[:90]}")
 
 
-def compare_attention_paths(model, crit, batch, device) -> None:
-    """Wall time of a training step with K1 and with flash switched off
+def compare_attention_paths(model, crit, batch, device, phase="train"
+                            ) -> None:
+    """Wall time of a training step with the flash kernels and with flash
+    switched off
     (the einsum path), in turns (kernel, einsum, einsum, kernel, ...), one
     batch throughout: the evidence a later change of the default reads."""
     import torch
@@ -868,7 +920,7 @@ def compare_attention_paths(model, crit, batch, device) -> None:
             t0 = time.perf_counter()
             float(step(*batch, TRAIN_LR))
             times[name].append((time.perf_counter() - t0) * 1e3)
-    log("train", json.dumps({"step_ms_by_attention_path": times,
+    log(phase, json.dumps({"step_ms_by_attention_path": times,
                              "median_ms": {k: float(np.median(v))
                                            for k, v in times.items()}}))
 
@@ -958,6 +1010,422 @@ def phase_train(counters, corpus, device="cuda"):
     return launches, summary
 
 
+def phase_blockwise():
+    """K2 forward and backward against their plain versions at ragged
+    edge shapes and at [1, 8, 2048, 64], against K1's kernel at the
+    long-context shape [1, 8, 8192, 64] (the plain version is too slow
+    there; K1 and K2 compute one function, so the K1/K2 routing switch is
+    invisible to callers), then timed at [1, 8, 8192, 64] and
+    [1, 8, 32768, 64] float32 causal beside K1's kernel, the SDPA
+    yardstick, the einsum path (8192 only) and the bound. Returns the two
+    kernels-line entries at 8192 (launches filled in later)."""
+    import torch
+    import torch.nn.functional as F
+
+    from bigdl_tpu_torch.nn import dot_product_attention
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    # S = 1, 19, 77, 130, 200, 1000 (ragged tiles), D = 16, 64, 100, 128
+    # (100 runs zero-padded in the 128 tile), causal and segments on and
+    # off; segmented causal rows of a later segment see key tiles masked
+    # whole before their own, so the carry starts at (-inf, 0, 0)
+    for (b, h, s, d, causal, segd) in ((2, 1, 1, 16, True, False),
+                                       (2, 3, 19, 64, True, True),
+                                       (3, 2, 77, 100, True, True),
+                                       (1, 2, 130, 64, False, False),
+                                       (1, 2, 200, 128, False, True),
+                                       (1, 2, 1000, 64, True, True),
+                                       (2, 2, 200, 16, False, False),
+                                       (1, 3, 130, 128, True, False)):
+        for dtype in (torch.float32, torch.bfloat16, torch.float16):
+            q, k, v = _views(gen, (b, h, s, d), dtype)
+            do = torch.randn((b, h, s, d), device="cuda",
+                             generator=gen).to(dtype)
+            seg = _segments(gen, b, s) if segd else None
+            name = str(dtype).split(".")[-1]
+            _check_flash(_flash_errors(q, k, v, do, seg, causal,
+                                       "blockwise_flash_attention"), name,
+                         f"{name} [{b},{h},{s},{d}] causal={causal} "
+                         f"segments={segd}", phase="blockwise")
+    shape = (1, HEADS, 2048, HEAD_DIM)
+    q, k, v = _views(gen, shape, torch.float32)
+    do = torch.randn(shape, device="cuda", generator=gen)
+    _check_flash(_flash_errors(q, k, v, do, None, True,
+                               "blockwise_flash_attention"), "float32",
+                 f"float32 {list(shape)} causal", phase="blockwise")
+
+    k2_fwd, k2_ref_f, k2_bwd, k2_ref_b = _kernel_pair(
+        "blockwise_flash_attention")
+    k1_fwd, _, k1_bwd, _ = _kernel_pair("flash_attention")
+    shape = (1, HEADS, LC_SEQ, HEAD_DIM)
+    q, k, v = _views(gen, shape, torch.float32)
+    do = torch.randn(shape, device="cuda", generator=gen)
+    o2, lse2 = k2_fwd(q, k, v, causal=True)
+    o1, lse1 = k1_fwd(q, k, v, causal=True)
+    g2 = k2_bwd(q, k, v, o2, do, lse2, causal=True)
+    g1 = k1_bwd(q, k, v, o1, do, lse1, causal=True)
+    torch.cuda.synchronize()
+    errs = {"o": _err(o2, o1, False), "lse": _err(lse2, lse1, False)}
+    errs.update({n: _err(a, b_, False)
+                 for n, a, b_ in zip(("dq", "dk", "dv"), g2, g1)})
+    _check_flash(errs, "float32", f"float32 {list(shape)} causal, against "
+                                  f"K1's kernel", phase="blockwise")
+
+    entries = {}
+    for s in (LC_SEQ, LC_SEQ_MAX):
+        shape = (1, HEADS, s, HEAD_DIM)
+        # L2-cold: q, k, v, O, dO of one set are 84 MB at 8192, 336 MB at
+        # 32768, past the 50 MB L2
+        n_sets = 2 if s == LC_SEQ else 1
+        sets = [(_views(gen, shape, torch.float32),
+                 torch.randn(shape, device="cuda", generator=gen))
+                for _ in range(n_sets)]
+        outs = [k2_fwd(*qkv, causal=True) for qkv, _ in sets]
+        outs1 = [k1_fwd(*qkv, causal=True) for qkv, _ in sets]
+        graphs = []
+        for (q, k, v), _ in sets:
+            leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+            graphs.append((leaves, F.scaled_dot_product_attention(
+                *leaves, is_causal=True)))
+
+        def fns(i, which):
+            (q, k, v), do = sets[i]
+            return {
+                "k2_f": lambda: k2_fwd(q, k, v, causal=True),
+                "k2_b": lambda: k2_bwd(q, k, v, outs[i][0], do, outs[i][1],
+                                       causal=True),
+                "k1_f": lambda: k1_fwd(q, k, v, causal=True),
+                "k1_b": lambda: k1_bwd(q, k, v, outs1[i][0], do,
+                                       outs1[i][1], causal=True),
+                "plain_f": lambda: k2_ref_f(q, k, v, causal=True),
+                "plain_b": lambda: k2_ref_b(q, k, v, outs[i][0], do,
+                                            outs[i][1], causal=True),
+                "lib_f": lambda: F.scaled_dot_product_attention(
+                    q, k, v, is_causal=True),
+                "lib_b": lambda: torch.autograd.grad(
+                    graphs[i][1], graphs[i][0], do, retain_graph=True),
+            }[which]()
+
+        def timed(which, rounds):
+            return time_ms(lambda i: fns(i, which), n_sets, rounds)
+
+        kept = kept_pairs(None, 1, s, "cuda")
+        row = {"S": s, "kept_pairs": kept}
+        for kind, backward in (("f", False), ("b", True)):
+            rounds = 3 if s == LC_SEQ else 1
+            row[f"k2_{kind}_ms"] = timed(f"k2_{kind}", rounds)
+            row[f"k1_{kind}_ms"] = timed(f"k1_{kind}", rounds)
+            row[f"sdpa_{kind}_ms"] = timed(f"lib_{kind}", rounds)
+            row[f"bound_{kind}_ms"], row[f"bound_{kind}_by"] = flash_bound(
+                kept, shape, 4, False, backward, F32_FLOPS_PER_S)
+        if s == LC_SEQ:
+            # the plain version (a Python loop over 128 x 128 tiles) and
+            # the einsum path (2.1 GB of f32 scores per call) at 8192
+            # only; the kernel against the plain version on these inputs
+            # is the kernels line's error
+            main_errs = _flash_errors(*sets[0][0], sets[0][1], None, True,
+                                      "blockwise_flash_attention")
+            _check_flash(main_errs, "float32", f"float32 {list(shape)} "
+                         f"causal (the main path's shape)", "blockwise")
+            row["plain_f_ms"] = time_ms(lambda i: fns(0, "plain_f"), 1, 1)
+            row["plain_b_ms"] = time_ms(lambda i: fns(0, "plain_b"), 1, 1)
+            q, k, v = sets[0][0]
+            leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+            ein = dot_product_attention(*leaves, causal=True,
+                                        use_flash=False)
+            row["einsum_f_ms"] = time_ms(
+                lambda i: dot_product_attention(q, k, v, causal=True,
+                                                use_flash=False), 1, 2)
+            row["einsum_b_ms"] = time_ms(
+                lambda i: torch.autograd.grad(ein, leaves, sets[0][1],
+                                              retain_graph=True), 1, 2)
+            del ein, leaves
+            for kind, backward in (("f", False), ("b", True)):
+                entries[kind] = {
+                    "name": "blockwise_flash_attention_"
+                            + ("bwd" if backward else "fwd"),
+                    "route": "cuda",
+                    "source": "bigdl_tpu_torch/kernels/csrc/"
+                              "blockwise_flash_attention.cu",
+                    "replaces": "bigdl_tpu/kernels/flash_attention.py:"
+                                + ("419" if backward else "305"),
+                    "launches": None,
+                    "max_abs_err": max(main_errs[n] for n in (
+                        ("dq", "dk", "dv") if backward else ("o", "lse"))),
+                    "ms": row[f"k2_{kind}_ms"],
+                    "plain_ms": row[f"plain_{kind}_ms"],
+                    "bound_ms": row[f"bound_{kind}_ms"],
+                    "bound_by": row[f"bound_{kind}_by"],
+                    "library_ms": row[f"sdpa_{kind}_ms"]}
+        log("blockwise", json.dumps(row))
+        del sets, outs, outs1, graphs
+        torch.cuda.empty_cache()
+    return entries["f"], entries["b"]
+
+
+def phase_k6_route():
+    """The attention layer's route for score matrices over 2 GiB: with
+    flash switched off, ``dot_product_attention`` at [1, 8, 16384, 128]
+    float32 causal (8.6 GB of scores) must launch K2 once and equal a
+    direct ``blockwise_flash_attention`` call bitwise."""
+    import torch
+
+    from bigdl_tpu_torch import kernels
+    from bigdl_tpu_torch.kernels.flash_attention import (
+        blockwise_flash_attention, blockwise_flash_attention_forward)
+    from bigdl_tpu_torch.nn import dot_product_attention
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    q, k, v = _views(gen, LC_K6_SHAPE, torch.float32)
+    d = LC_K6_SHAPE[-1]
+    before = blockwise_flash_attention_forward.launches
+    with kernels.use(kernels.KernelConfig(flash_attention=False,
+                                          decode_attention=True)):
+        got = dot_product_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    launched = blockwise_flash_attention_forward.launches - before
+    want = blockwise_flash_attention(q, k, v, causal=True,
+                                     sm_scale=1.0 / d ** 0.5)
+    torch.cuda.synchronize()
+    same = torch.equal(got, want)
+    log("k6_route", f"flash off, {list(LC_K6_SHAPE)} float32 causal: K2 "
+                    f"launched {launched} time(s) by dot_product_attention; "
+                    f"bitwise equal to a direct call: {same}")
+    if launched != 1 or not same:
+        raise AssertionError(f"K6 route: {launched} K2 launches, bitwise "
+                             f"equal {same}")
+
+
+def longctx_model(max_len, device="cuda"):
+    """The long-context configuration (bench.py's LONGCTX row): vocab
+    8192, hidden 512, 2 layers, 8 heads, random weights from a seed."""
+    import torch
+
+    from bigdl_tpu_torch.models import TransformerLM
+
+    return TransformerLM(vocab_size=LC_VOCAB, hidden_size=HIDDEN,
+                         num_layers=LC_LAYERS, num_heads=HEADS,
+                         ffn_size=FFN, max_len=max_len, device=device,
+                         generator=torch.Generator().manual_seed(31))
+
+
+def phase_longctx_train(counters, device="cuda"):
+    """LocalOptimizer at the long-context configuration, S = 8192, batch
+    1, on the train CLI's contiguous synthetic stream, SGD lr 0.1, for
+    ``LC_ITERS`` iterations — every attention call through K2, checked
+    against the einsum path in one step (with two faults put into K2's
+    backward, which must show) — then one step at S = 32768. Returns the
+    launches per kernel and the metrics."""
+    import torch
+
+    from bigdl_tpu_torch.dataset import DataSet, Sample, SampleToMiniBatch
+    from bigdl_tpu_torch.kernels import flash_route
+    from bigdl_tpu_torch.models.transformer_train import synthetic_corpus
+    from bigdl_tpu_torch.nn import SequenceCrossEntropyCriterion
+    from bigdl_tpu_torch.optim import (SGD, LocalOptimizer,
+                                       build_train_step, max_iteration)
+
+    t0 = time.perf_counter()
+    x, y = synthetic_corpus(LC_SYNTHETIC, LC_VOCAB, LC_SEQ, "contiguous", 1)
+    model = longctx_model(LC_SEQ, device)
+    crit = SequenceCrossEntropyCriterion()
+
+    def batch(i):
+        return (torch.from_numpy(x[i:i + 1]).to(device),
+                torch.from_numpy(y[i:i + 1]).to(device))
+
+    qkv = torch.empty((1, HEADS, LC_SEQ, HEAD_DIM), device=device)
+    route = flash_route(qkv, qkv, qkv)
+    log("longctx-train", f"model built, {len(y)} windows of {LC_SEQ} in "
+                         f"{time.perf_counter() - t0:.2f} s; attention "
+                         f"operands route to {route}")
+    if route != "K2":
+        raise AssertionError(f"[1, {HEADS}, {LC_SEQ}, {HEAD_DIM}] routes "
+                             f"to {route}")
+
+    diffs = step_differences(model, crit, batch(0),
+                             function="_BlockwiseFlashAttention")
+    _log_step_diffs("K2", diffs, "longctx-train")
+    if not step_parity_holds(diffs):
+        raise AssertionError(f"K2 step differs from the einsum step: "
+                             f"{diffs}")
+    for fault in ("dK zeroed", "dQ 1% off"):
+        diffs = step_differences(model, crit, batch(0), fault,
+                                 "_BlockwiseFlashAttention")
+        _log_step_diffs(f"K2 with {fault}", diffs, "longctx-train")
+        if step_parity_holds(diffs):
+            raise AssertionError(f"the one-step check misses K2 with "
+                                 f"{fault}: {diffs}")
+
+    samples = [Sample(x[i], y[i]) for i in range(len(y))]
+    ds = DataSet.array(samples).transform(SampleToMiniBatch(1))
+    opt = LocalOptimizer(model, ds, crit, batch_size=1)
+    opt.set_optim_method(SGD(learning_rate=TRAIN_LR))
+    opt.set_end_when(max_iteration(LC_ITERS))
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    opt.optimize()
+    wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counters.items()}
+
+    losses = [h["loss"] for h in opt.history]
+    step_ms = sorted(h["seconds"] * 1e3 for h in opt.history[2:])
+    median_ms = step_ms[len(step_ms) // 2]
+    summary = {
+        "iterations": len(losses), "seconds": wall,
+        "ms_per_step_median": median_ms,
+        "ms_per_step_first": opt.history[0]["seconds"] * 1e3,
+        "tokens_per_sec": LC_SEQ / (median_ms / 1e3),
+        "loss_first": losses[0], "loss_last": losses[-1],
+        "loss_mean_first5": float(np.mean(losses[:5])),
+        "loss_mean_last5": float(np.mean(losses[-5:])),
+        "launches": launches}
+    log("longctx-train", json.dumps(summary))
+    if not all(np.isfinite(losses)) or len(losses) != LC_ITERS:
+        raise AssertionError(f"losses: {losses}")
+    if not summary["loss_mean_last5"] < summary["loss_mean_first5"]:
+        raise AssertionError(f"loss did not fall: {losses}")
+    for name, want in (("blockwise_flash_attention_fwd", LC_LAYERS),
+                       ("blockwise_flash_attention_bwd", LC_LAYERS),
+                       ("flash_attention_fwd", 0), ("flash_attention_bwd", 0)):
+        if launches[name] != want * LC_ITERS:
+            raise AssertionError(f"{name} launched {launches[name]} times "
+                                 f"over {LC_ITERS} iterations x "
+                                 f"{LC_LAYERS} layers")
+    compare_attention_paths(model, crit, batch(LC_ITERS), device,
+                            "longctx-train")
+    profile_train(model, crit, [batch(LC_ITERS + 1 + i)
+                                for i in range(PROFILE_STEPS + 1)], device,
+                  "longctx-profile")
+    del model, opt, ds, samples
+    if device == "cuda":
+        torch.cuda.empty_cache()
+
+    # one step at S = 32768 (the einsum path's scores alone would take
+    # 34 GB a layer there; it is not run)
+    xl, yl = synthetic_corpus(2 * LC_SEQ_MAX + 1, LC_VOCAB, LC_SEQ_MAX,
+                              "contiguous", 1)
+    model = longctx_model(LC_SEQ_MAX, device)
+    step = build_train_step(model, crit, SGD(learning_rate=TRAIN_LR))
+    before = {name: fn.launches for name, fn in counters.items()}
+    if device == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    loss = float(step(torch.from_numpy(xl[:1]).to(device),
+                      torch.from_numpy(yl[:1]).to(device), TRAIN_LR))
+    step_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() if device == "cuda" \
+        else "not measured"
+    k2 = {name: counters[name].launches - before[name]
+          for name in ("blockwise_flash_attention_fwd",
+                       "blockwise_flash_attention_bwd")}
+    log("longctx-train", json.dumps({
+        "S": LC_SEQ_MAX, "loss": loss, "step_seconds_first": step_s,
+        "peak_memory_bytes": peak, "k2_launches": k2}))
+    if not np.isfinite(loss) or set(k2.values()) != {LC_LAYERS}:
+        raise AssertionError(f"S={LC_SEQ_MAX} step: loss {loss}, K2 "
+                             f"launches {k2}")
+    return launches, summary
+
+
+def _serve_long(model, prompt, chunk, device, counters):
+    """The long prompt through a fresh ``GenerationService`` with
+    ``prefill_chunk=chunk``: greedy tokens, metrics (with each kernel's
+    launches, counted from 0 after the warm-up), the first token's
+    logits from the service's engine on a fresh cache, and the ladder."""
+    from bigdl_tpu_torch.generation import (GenerationConfig,
+                                            GenerationService, KVCache)
+
+    svc = GenerationService(config=GenerationConfig(
+        slots=2, max_len=LC_SEQ, prefill_rows=2, prefill_chunk=chunk),
+        device=device)
+    try:
+        svc.load("lm", model)
+        for fn in counters.values():
+            fn.launches = 0
+        stream = svc.generate("lm", prompt, max_new_tokens=LC_NEW)
+        tokens = list(map(int, stream.result(timeout=600)))
+        m = svc.metrics("lm")
+        m["launches"] = {name: fn.launches for name, fn in counters.items()}
+        m["ttft_ms"] = stream.ttft_ms
+        kv = KVCache.for_model(model, 2, LC_SEQ)
+        first, _ = svc.engine.prefill(svc.registry.current("lm"), kv,
+                                      [prompt], [0])
+        return tokens, m, first[0], len(svc.ladder)
+    finally:
+        svc.shutdown()
+
+
+def phase_longctx_serve(counters, device="cuda"):
+    """Chunked-prefill serving at the long-context configuration: one
+    seeded prompt of ``LC_SEQ - LC_NEW`` tokens through
+    ``GenerationService(prefill_chunk=2048)`` (4 chunks into the 8192
+    rung), 8 greedy new tokens, against the same service unchunked and a
+    greedy full re-forward (through K2); then K3 against its plain
+    version at T = 8192. Returns the launches and the metrics."""
+    import torch
+
+    from bigdl_tpu_torch.kernels.ragged_decode import (
+        ragged_decode_attention, ragged_decode_attention_reference)
+
+    model = longctx_model(LC_SEQ, device)
+    prompt = np.random.RandomState(44).randint(
+        1, LC_VOCAB, LC_SEQ - LC_NEW).astype(np.int32)
+    tokens, m, first, rungs = _serve_long(model, prompt, LC_CHUNK, device,
+                                          counters)
+    launches = m["launches"]
+    tokens_1, m_1, first_1, _ = _serve_long(model, prompt, None, device,
+                                            counters)
+    want = greedy_reforward(model, prompt, LC_NEW)
+    logits_diff = float(np.abs(first - first_1).max())
+    steps = int(m["decode_steps"])
+    summary = {"prompt_tokens": len(prompt), "new_tokens": LC_NEW,
+               "prefill_chunks": m["prefill_chunks"],
+               "prefill_chunks_unchunked": m_1["prefill_chunks"],
+               "ttft_ms_chunked": m["ttft_ms"],
+               "ttft_ms_unchunked": m_1["ttft_ms"],
+               "programs": int(m["compile_count"]), "ladder_rungs": rungs,
+               "decode_steps": steps,
+               "first_token_logits_max_abs_diff": logits_diff,
+               "tokens": tokens, "launches": launches}
+    log("longctx-serve", json.dumps(summary))
+    if m["prefill_chunks"] != LC_SEQ // LC_CHUNK:
+        raise AssertionError(f"{m['prefill_chunks']} prefill chunks")
+    if summary["programs"] > 2 * rungs:
+        raise AssertionError(f"{summary['programs']} programs > 2 x "
+                             f"{rungs} rungs")
+    if not tokens == tokens_1 == want:
+        raise AssertionError(f"chunked {tokens}, unchunked {tokens_1}, "
+                             f"re-forward {want}")
+    if not logits_diff <= PREFILL_LOGITS_TOL:
+        raise AssertionError(f"first-token logits differ by {logits_diff}")
+    if launches["ragged_decode"] != LC_LAYERS * steps or steps == 0:
+        raise AssertionError(f"ragged_decode launched "
+                             f"{launches['ragged_decode']} times over "
+                             f"{steps} decode steps x {LC_LAYERS} layers")
+    log("longctx-serve", "greedy tokens equal the unchunked service's and "
+                         "the full re-forward's")
+
+    if device == "cuda":
+        gen = torch.Generator(device="cuda").manual_seed(5)
+        lengths = [1, LC_CHUNK - 1, LC_CHUNK, LC_SEQ - 1, LC_SEQ]
+        n = len(lengths)
+        q = torch.randn((n, HEADS, HEAD_DIM), device="cuda", generator=gen)
+        k, v = (torch.randn((n, HEADS, LC_SEQ, HEAD_DIM), device="cuda",
+                            generator=gen) for _ in range(2))
+        lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+        err = _err(ragged_decode_attention(q, k, v, lens),
+                   ragged_decode_attention_reference(q, k, v, lens), False)
+        log("longctx-serve", f"ragged_decode T={LC_SEQ} lengths {lengths}: "
+                             f"max|kernel-plain| = {err:.3e} (tolerance "
+                             f"{RAGGED_TOL['float32']})")
+        if not err <= RAGGED_TOL["float32"]:
+            raise AssertionError(f"ragged_decode at T={LC_SEQ}: {err}")
+    return launches, summary
+
+
 def main() -> int:
     import torch
 
@@ -966,6 +1434,7 @@ def main() -> int:
               "port on a CUDA card", file=sys.stderr)
         return 1
     from bigdl_tpu_torch.kernels.flash_attention import (
+        blockwise_flash_attention_backward, blockwise_flash_attention_forward,
         flash_attention_backward, flash_attention_forward)
     from bigdl_tpu_torch.kernels.ragged_decode import ragged_decode_attention
 
@@ -979,15 +1448,28 @@ def main() -> int:
     corpus = train_corpus()
     train_seg = torch.from_numpy(corpus[0][1][:TRAIN_BATCH]).cuda()
     flash_fwd, flash_bwd = phase_flash(train_seg)
+    blockwise_fwd, blockwise_bwd = phase_blockwise()
+    phase_k6_route()
     counters = {"ragged_decode": ragged_decode_attention,
                 "flash_attention_fwd": flash_attention_forward,
-                "flash_attention_bwd": flash_attention_backward}
+                "flash_attention_bwd": flash_attention_backward,
+                "blockwise_flash_attention_fwd":
+                    blockwise_flash_attention_forward,
+                "blockwise_flash_attention_bwd":
+                    blockwise_flash_attention_backward}
     serve_launches, _ = phase_main_path(counters, greedy, topk)
     train_launches, _ = phase_train(counters, corpus)
+    longctx_launches, _ = phase_longctx_train(counters)
+    phase_longctx_serve(counters)
     ragged["launches"] = serve_launches["ragged_decode"]
     flash_fwd["launches"] = train_launches["flash_attention_fwd"]
     flash_bwd["launches"] = train_launches["flash_attention_bwd"]
-    print(json.dumps({"kernels": [ragged, flash_fwd, flash_bwd]}),
+    blockwise_fwd["launches"] = \
+        longctx_launches["blockwise_flash_attention_fwd"]
+    blockwise_bwd["launches"] = \
+        longctx_launches["blockwise_flash_attention_bwd"]
+    print(json.dumps({"kernels": [ragged, flash_fwd, flash_bwd,
+                                  blockwise_fwd, blockwise_bwd]}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -293,16 +293,27 @@ def test_other_cuda_operands_route_as_shape(shape, k_dtype):
 
 
 def test_k2_route_runs_plain_attention_on_cpu():
+    """Past the budget a CPU tensor runs K2's plain version, with the
+    config's block_q / block_k tiles (as the JAX dispatch passes them);
+    inside it, K1's."""
+    from bigdl_tpu_torch.kernels.flash_attention import (
+        blockwise_flash_attention_forward_reference)
+    big = tuple(_t(a[:1, :1]) for a in _inputs(1024, seed=12,
+                                               segments=False)[:3])
+    cfg = kernels.KernelConfig.ported(vmem_budget_mb=1, block_q=64,
+                                      block_k=32)
+    with kernels.use(cfg):
+        assert dispatch.flash_route(*big) == "K2"
+        out = kernels.attention(*big, causal=True)
+    want, _ = blockwise_flash_attention_forward_reference(
+        *big, causal=True, block_q=64, block_k=32)
+    torch.testing.assert_close(out, want, rtol=0, atol=0)
     q, k, v, seg = (_t(a) for a in _inputs(32, seed=12, segments=True))
-    with kernels.use(kernels.KernelConfig.ported(vmem_budget_mb=1)):
-        big = torch.zeros((1, 1, 1024, 16))
-        assert dispatch.flash_route(big, big, big) == "K2"
-        out = kernels.attention(big, big, big, causal=True)
-    assert out is not None and out.shape == big.shape
     with kernels.use(kernels.KernelConfig.ported()):
-        want = kernels.attention(q, k, v, causal=True, segment_ids=seg)
+        assert dispatch.flash_route(q, k, v) == "K1"
+        got = kernels.attention(q, k, v, causal=True, segment_ids=seg)
     torch.testing.assert_close(
-        want, flash_attention(q, k, v, seg, causal=True), rtol=0, atol=0)
+        got, flash_attention(q, k, v, seg, causal=True), rtol=0, atol=0)
 
 
 # ------------------------------------------------------ nn.attention
