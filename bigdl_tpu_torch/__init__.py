@@ -21,7 +21,18 @@ Ported so far:
   and backward, whose attention runs the flash-attention CUDA kernels
   (K1, forward and backward) through
   :func:`bigdl_tpu_torch.kernels.attention`; the train CLI is
-  :mod:`bigdl_tpu_torch.models.transformer_train`.
+  :mod:`bigdl_tpu_torch.models.transformer_train`;
+- long context: past the flash working-set budget attention runs the
+  blockwise kernels (K2), and generation prefills long prompts in
+  chunks;
+- calibrated int8 serving —
+  :class:`~bigdl_tpu_torch.serving.InferenceService` →
+  :class:`~bigdl_tpu_torch.serving.MicroBatcher` → the registry's
+  quantized load (:func:`~bigdl_tpu_torch.nn.quantized.quantize`,
+  calibration and :class:`~bigdl_tpu_torch.precision.AccuracyGate`) of
+  a :func:`~bigdl_tpu_torch.models.ResNet`, whose classifier runs the
+  fused dequant int8 GEMM (K5); the paged decode kernel (K4) sits
+  behind :func:`bigdl_tpu_torch.kernels.paged_decode_attention`.
 
 Entry points default to ``device="cuda"`` and raise when CUDA is
 missing; they run on the CPU only when the caller passes

@@ -25,13 +25,20 @@ Kernels (port wrapper — CUDA source — the TPU kernel body it replaces):
   ``_bw_dq_kernel`` and ``_bw_dkv_kernel`` (the backward kernels are
   ``csrc/flash_common.cuh``'s, shared with K1);
 - K3: ``decode_attention`` → ``ragged_decode_attention`` —
-  ``csrc/ragged_decode.cu`` — ``bigdl_tpu/kernels/ragged_decode.py``
-  ``_decode_kernel``.
+  ``csrc/ragged_decode.cu`` (over ``csrc/decode_common.cuh``) —
+  ``bigdl_tpu/kernels/ragged_decode.py`` ``_decode_kernel``;
+- K4: ``paged_decode_attention`` (the dispatch function) →
+  ``paged_decode.paged_decode_attention`` — ``csrc/paged_decode.cu``
+  (K3's kernel over ``csrc/decode_common.cuh`` with a paged row
+  addresser) — ``bigdl_tpu/kernels/paged_decode.py`` ``_paged_kernel``;
+- K5: ``int8_matmul`` → ``int8_gemm`` — ``csrc/int8_gemm.cu`` —
+  ``bigdl_tpu/kernels/int8_gemm.py`` ``_qmm_kernel``.
 """
 from bigdl_tpu_torch.kernels.config import (KernelConfig, configure,
                                             enabled, get_config, use)
 from bigdl_tpu_torch.kernels.dispatch import (attention, decode_attention,
-                                              flash_route)
+                                              flash_route, int8_matmul,
+                                              paged_decode_attention)
 from bigdl_tpu_torch.kernels.flash_attention import (
     blockwise_flash_attention, blockwise_flash_attention_backward,
     blockwise_flash_attention_backward_reference,
@@ -40,6 +47,9 @@ from bigdl_tpu_torch.kernels.flash_attention import (
     flash_attention_backward,
     flash_attention_backward_reference, flash_attention_forward,
     flash_attention_forward_reference)
+from bigdl_tpu_torch.kernels.int8_gemm import int8_gemm, int8_gemm_reference
+from bigdl_tpu_torch.kernels.paged_decode import (
+    paged_decode_attention_reference, paged_view)
 from bigdl_tpu_torch.kernels.ragged_decode import (
     ragged_decode_attention, ragged_decode_attention_reference)
 
@@ -52,5 +62,7 @@ __all__ = ["KernelConfig", "attention", "blockwise_flash_attention",
            "enabled", "flash_attention", "flash_attention_backward",
            "flash_attention_backward_reference", "flash_attention_forward",
            "flash_attention_forward_reference", "flash_route", "get_config",
-           "ragged_decode_attention", "ragged_decode_attention_reference",
-           "use"]
+           "int8_gemm", "int8_gemm_reference", "int8_matmul",
+           "paged_decode_attention", "paged_decode_attention_reference",
+           "paged_view", "ragged_decode_attention",
+           "ragged_decode_attention_reference", "use"]

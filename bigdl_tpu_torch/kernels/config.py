@@ -13,13 +13,12 @@ touching code, with the JAX package's grammar:
 - ``BIGDL_KERNELS=flash,decode`` — a comma subset of ``flash`` /
   ``decode`` / ``int8``; an unknown name raises.
 
-The default is **flash + decode**, the kernels the port has (K1 and K2
-for flash, K3 for decode).
-The JAX package leaves flash opt-in on a TPU on the strength of TPU
-measurements; those do not carry over to the card, and ``chip_smoke.py``
-records K1 against the einsum path on the H100 for a later revisit.
-``int8_matmul`` is accepted for the grammar's sake; its kernel (K5) is
-not ported yet and nothing reads the flag.
+The default is **flash + decode + int8**, every kernel the port has
+(K1 and K2 for flash, K3 and K4 for decode, K5 for int8) — the JAX
+package's default on its chip is decode + int8. The JAX package leaves
+flash opt-in on a TPU on the strength of TPU measurements; those do not
+carry over to the card, and ``chip_smoke.py`` records K1 against the
+einsum path on the H100 for a later revisit.
 
 The JAX config's ``interpret`` flag has no meaning here: a kernel's
 wrapper runs its plain PyTorch version for tensors on the CPU and
@@ -53,8 +52,8 @@ class KernelConfig:
 
     ``flash_attention`` — the flash-attention training kernels (the
     full-row K1, and the blockwise K2 past the budget);
-    ``decode_attention`` — the ragged decode kernel (K3);
-    ``int8_matmul`` — the int8 GEMM (K5, not ported). ``block_q`` /
+    ``decode_attention`` — the ragged and paged decode kernels (K3,
+    K4); ``int8_matmul`` — the fused dequant int8 GEMM (K5). ``block_q`` /
     ``block_k`` are the preferred tiles of the plain versions (shrunk to
     a divisor of the dimension) and the unit of the working-set estimate
     that routes between K1 and K2. ``vmem_budget_mb`` is that budget in
@@ -83,8 +82,10 @@ class KernelConfig:
 
     @classmethod
     def ported(cls, **kw) -> "KernelConfig":
-        """The kernels the port has — flash + decode, the default."""
-        return cls(flash_attention=True, decode_attention=True, **kw)
+        """The kernels the port has — flash + decode + int8, the
+        default."""
+        return cls(flash_attention=True, decode_attention=True,
+                   int8_matmul=True, **kw)
 
     @classmethod
     def from_env(cls, value: str) -> "KernelConfig":

@@ -19,8 +19,13 @@ A CUDA tensor that is routed to a kernel launches it or the call raises;
 the plain PyTorch versions run only for tensors on the CPU (inside each
 kernel's wrapper). Flash routes to the full-row kernel K1 inside the
 working-set budget and to the blockwise kernel K2 past it (with
-``long_context=True``), on the CPU and on the card alike. Every decision
-is counted: ``kernels/dispatch/kernel`` (label ``op=flash|decode``) and
+``long_context=True``), on the CPU and on the card alike. Decode routes
+to K3 (:func:`decode_attention`) or, through a page table, to K4
+(:func:`paged_decode_attention`); int8 to K5 (:func:`int8_matmul`) at
+every shape — the JAX package's TPU alignment gate (``M % 256``,
+``N % 256``, ``K % 512``) is not carried over (see
+:mod:`bigdl_tpu_torch.kernels.int8_gemm`). Every decision is counted:
+``kernels/dispatch/kernel`` (label ``op=flash|decode|int8``) and
 ``kernels/dispatch/reference`` (labels ``op=`` and
 ``reason=config|shape|vmem``), in
 :data:`bigdl_tpu_torch.telemetry.REGISTRY`.
@@ -29,21 +34,26 @@ from __future__ import annotations
 
 from typing import Optional
 
+import torch
+
 from bigdl_tpu_torch import telemetry
 from bigdl_tpu_torch.kernels import config as _config
+from bigdl_tpu_torch.kernels import int8_gemm as _int8
+from bigdl_tpu_torch.kernels import paged_decode as _paged
 from bigdl_tpu_torch.kernels.common import fit_block
 from bigdl_tpu_torch.kernels.flash_attention import (
     blockwise_flash_attention, cuda_unsupported, flash_attention)
 from bigdl_tpu_torch.kernels.ragged_decode import ragged_decode_attention
 
-__all__ = ["attention", "decode_attention", "flash_route"]
+__all__ = ["attention", "decode_attention", "flash_route", "int8_matmul",
+           "paged_decode_attention"]
 
 _C_KERNEL = telemetry.counter(
     "kernels/dispatch/kernel",
-    "calls routed to a hand-written kernel (label op=flash|decode)")
+    "calls routed to a hand-written kernel (label op=flash|decode|int8)")
 _C_REFERENCE = telemetry.counter(
     "kernels/dispatch/reference",
-    "calls declined to the einsum path (labels op=flash|decode, "
+    "calls declined to the einsum path (labels op=flash|decode|int8, "
     "reason=config|shape|vmem)")
 
 #: flash routes: the full-row kernel, the blockwise long-context kernel,
@@ -167,3 +177,89 @@ def _check_decode_operands(q, k, v, lengths) -> None:
         raise TypeError(f"q/k/v must share one floating dtype, got "
                         f"{q.dtype}/{k.dtype}/{v.dtype}")
 
+
+def paged_decode_attention(q, k_pages, v_pages, page_table, lengths, *,
+                           sm_scale: Optional[float] = None):
+    """Paged ragged-decode dispatch: ``q [slots, H, D]`` one token per
+    slot, ``k_pages`` / ``v_pages [num_pages, H, page_size, D]`` pools,
+    ``page_table [slots, pages_per_slot]`` page ids, ``lengths`` the
+    ragged bound. Returns K4's result
+    (:mod:`bigdl_tpu_torch.kernels.paged_decode`) when decode is
+    enabled and the shapes qualify, else **None** (the caller gathers
+    its contiguous view and runs its own path): ``reason=config``, or
+    ``reason=shape`` for operands of the wrong rank, heads, head_dim,
+    table rows or a non-floating dtype — which on a CUDA tensor raises
+    ValueError instead."""
+    if not _config.enabled("decode"):
+        _declined("decode", "config")
+        return None
+    if (k_pages.ndim != 4 or v_pages.shape != k_pages.shape
+            or q.ndim != 3
+            or tuple(q.shape[1:]) != (k_pages.shape[1], k_pages.shape[3])
+            or page_table.ndim != 2
+            or page_table.shape[0] != q.shape[0]
+            or lengths.shape != (q.shape[0],)
+            or not all(x.dtype.is_floating_point
+                       for x in (q, k_pages, v_pages))):
+        _declined("decode", "shape")
+        if q.device.type == "cuda":
+            raise ValueError(
+                f"paged decode takes q [slots, H, D], pools [pages, H, P, "
+                f"D] of one shape, a [slots, pages_per_slot] table and "
+                f"[slots] lengths, got {tuple(q.shape)} / "
+                f"{tuple(k_pages.shape)} / {tuple(v_pages.shape)} / "
+                f"{tuple(page_table.shape)} / {tuple(lengths.shape)}")
+        return None
+    if q.device.type == "cuda":
+        why = _paged.cuda_unsupported(q, k_pages, v_pages, page_table,
+                                      lengths)
+        if why is not None:
+            _declined("decode", "shape")
+            raise ValueError(f"paged_decode kernel {why}")
+    _taken("decode")
+    return _paged.paged_decode_attention(q, k_pages, v_pages, page_table,
+                                         lengths, sm_scale=sm_scale)
+
+
+def int8_matmul(x_q, w_q, x_scale, w_scale, bias=None):
+    """Fused dequant-int8-GEMM dispatch: ``x_q [M, K] int8 @ w_q [N, K]
+    int8 ^T`` rescaled by ``x_scale`` (per row, or one calibrated scalar
+    broadcast to the rows) and per-channel ``w_scale``. Returns K5's
+    result — with ``bias`` added OUTSIDE the kernel, in this one add, so
+    the path stays bitwise equal to dequantize-then-matmul — when
+    ``int8`` is enabled, else **None** (the caller runs
+    ``ops.quant.quantized_linear``). Every int8 shape is taken (no
+    alignment gate, module docstring). Operands of the wrong rank or
+    sizes are ``reason=shape``: None on the CPU; on a CUDA tensor, and
+    for CUDA operands the kernel does not take (strided, non-int8),
+    ValueError."""
+    if not _config.enabled("int8"):
+        _declined("int8", "config")
+        return None
+    m = x_q.shape[0] if x_q.ndim == 2 else -1
+    if not hasattr(x_scale, "numel"):
+        x_scale = torch.tensor(x_scale, dtype=torch.float32)
+    if (x_q.ndim != 2 or w_q.ndim != 2 or x_q.shape[1] != w_q.shape[1]
+            or x_scale.numel() not in (1, m)
+            or w_scale.numel() != w_q.shape[0]):
+        _declined("int8", "shape")
+        if x_q.device.type == "cuda":
+            raise ValueError(
+                f"int8_matmul takes x_q [M, K], w_q [N, K], x_scale [M] or "
+                f"a scalar and w_scale [N], got {tuple(x_q.shape)} / "
+                f"{tuple(w_q.shape)} / {tuple(x_scale.shape)} / "
+                f"{tuple(w_scale.shape)}")
+        return None
+    xs = x_scale.to(device=x_q.device, dtype=torch.float32) \
+        .reshape(-1, 1).expand(m, 1).reshape(m).contiguous()
+    if x_q.device.type == "cuda":
+        why = _int8.cuda_unsupported(x_q, w_q, xs, w_scale)
+        if why is not None:
+            _declined("int8", "shape")
+            raise ValueError(f"int8_gemm kernel: {why}")
+    _taken("int8")
+    out = _int8.int8_gemm(x_q, w_q, xs, w_scale)
+    if bias is not None:
+        # the ONE bias add both paths share (docs/kernels.md)
+        out = out + bias.reshape(1, -1).float()
+    return out

@@ -7,14 +7,19 @@ ever runs at. :class:`CompileCache` keeps its role and its counter: in
 the JAX package a "program" is a jitted function and the counter
 counts traces; here a program is a Python callable over device tensors
 (a CUDA graph in a later change) and the counter counts builds — the
-quantity the ≤ 2K-programs-per-version bound is asserted on.
+quantity the ≤ 2K-programs-per-version bound of generation and the
+≤ 1-program-per-rung bound of :meth:`CompileCache.step_for` are
+asserted on.
 """
 from __future__ import annotations
 
 import threading
 from typing import Callable, Dict, Iterator, List, Optional, Sequence
 
+import torch
+
 from bigdl_tpu_torch.telemetry import MetricsRegistry
+from bigdl_tpu_torch.utils.engine import model_device
 
 __all__ = ["BucketLadder", "CompileCache"]
 
@@ -73,8 +78,10 @@ class CompileCache:
     """Per-key programs + a build counter.
 
     Keys are opaque hashables — the generation engine uses ``(name,
-    version, kind, bucket)`` — so two versions never share programs and
-    :meth:`drop` at unload releases them."""
+    version, kind, bucket)``, :meth:`step_for` ``(name, version,
+    "eval", rows)`` — so two versions never share programs, and
+    :meth:`compile_count` / :meth:`drop` of a servable's ``(name,
+    version)`` cover every program keyed under it."""
 
     def __init__(self, metrics: Optional[MetricsRegistry] = None):
         self._lock = threading.Lock()
@@ -115,15 +122,58 @@ class CompileCache:
             self._m_hits.inc(model=label)
         return cached
 
+    def step_for(self, key, model, rows: int) -> Callable:
+        """The eval program of servable ``key`` at one rung of ``rows``
+        (counterpart of the JAX package's jitted eval step, whose
+        per-shape traces this per-rung build count stands for):
+        ``x [rows, ...] -> model(x)`` under ``torch.inference_mode``,
+        entered inside the call because the mode is per thread."""
+        def build():
+            def step(x):
+                with torch.inference_mode():
+                    return model(x)
+            return step
+
+        return self.program_for(tuple(key) + ("eval", int(rows)), build)
+
+    def warmup(self, key, model, feature_shape: Sequence[int],
+               ladder: BucketLadder, dtype=torch.float32) -> int:
+        """Build and run the program of every ladder rung for ``key``
+        (a zeros input of shape ``(rung,) + feature_shape`` on the
+        model's device), so no real request pays a first call. Returns
+        the number of programs this call built."""
+        device = model_device(model)
+        before = self.compile_count(key)
+        for b in ladder:
+            x = torch.zeros((b,) + tuple(feature_shape), dtype=dtype,
+                            device=device)
+            self.step_for(key, model, b)(x)
+        if device.type == "cuda":
+            # warmup gates on every rung having run to the end
+            torch.cuda.synchronize(device)
+        return self.compile_count(key) - before
+
+    @staticmethod
+    def _under(program_key, key) -> bool:
+        if program_key == key:
+            return True
+        return (isinstance(program_key, tuple) and isinstance(key, tuple)
+                and program_key[:len(key)] == key)
+
     def compile_count(self, key=None) -> int:
-        """Programs built so far — for ``key``, or in total."""
+        """Programs built so far — for ``key`` and every program keyed
+        under it (a servable's ``(name, version)``), or in total."""
         with self._lock:
             if key is not None:
-                return self._builds.get(key, 0)
+                return sum(n for k, n in self._builds.items()
+                           if self._under(k, key))
             return sum(self._builds.values())
 
     def drop(self, key) -> None:
-        """Release the programs of an unloaded servable."""
+        """Release the programs of an unloaded servable (``key`` and
+        every program keyed under it)."""
         with self._lock:
-            self._programs.pop(key, None)
-            self._builds.pop(key, None)
+            for k in [k for k in self._programs if self._under(k, key)]:
+                del self._programs[k]
+            for k in [k for k in self._builds if self._under(k, key)]:
+                del self._builds[k]

@@ -8,8 +8,15 @@ resolved and later work sees only the new one.
 
 The JAX package snapshots immutable params at load; a torch module is
 mutable, so the registry holds the module itself and the caller must
-not train it while it serves. Loading from a checkpoint path waits for
-the checkpoint slice of the port.
+not train it while it serves. ``quantize=True`` registers the int8
+rewrite instead (:func:`bigdl_tpu_torch.nn.quantized.quantize`, a new
+tree), optionally calibrated (``calibration=``) and certified against
+the float model by an accuracy gate (``accuracy_gate=``) before
+anything is staged.
+
+Not ported yet: loading from a checkpoint path (``path=``, with the
+checkpoint slice) and the pre-flight shape check (``input_spec=``,
+with the analysis slice); both raise NotImplementedError.
 """
 from __future__ import annotations
 
@@ -55,16 +62,52 @@ class ModelRegistry:
         self._lock = threading.Lock()
         self._models: Dict[str, _Entry] = {}
 
-    def load(self, name: str, model: nn.Module, *,
-             version: Optional[int] = None,
-             activate: bool = True) -> Servable:
+    def load(self, name: str, model: Optional[nn.Module] = None, *,
+             path: Optional[str] = None, version: Optional[int] = None,
+             quantize: bool = False, calibration=None, accuracy_gate=None,
+             activate: bool = True, input_spec=None) -> Servable:
         """Register ``model`` as a version of ``name`` (the next free
         number by default). ``activate=False`` stages it only — even
         for a fresh name — so a caller can warm it before any traffic
-        resolves it; :meth:`swap` makes it current."""
+        resolves it; :meth:`swap` makes it current.
+
+        ``quantize=True`` registers the int8 rewrite of ``model`` (a new
+        tree; ``model`` is untouched). ``calibration`` (an iterable of
+        activation batches) runs the FLOAT model once over the batches
+        and bakes per-layer static activation scales into the int8 twin.
+        ``accuracy_gate`` (a :class:`~bigdl_tpu_torch.precision.
+        AccuracyGate`) evaluates the quantized candidate against the
+        float model BEFORE registration: a delta above the bound raises
+        ``AccuracyGateError`` and stages nothing — the previous version
+        keeps serving."""
+        if (model is None) == (path is None):
+            raise ValueError("pass exactly one of model= or path=")
+        if path is not None:
+            raise NotImplementedError(
+                "ModelRegistry.load(path=): loading a saved module waits "
+                "for the port's checkpoint slice; pass model=")
+        if input_spec is not None:
+            raise NotImplementedError(
+                "ModelRegistry.load(input_spec=): the pre-flight shape "
+                "check waits for the port's analysis slice")
         if not isinstance(model, nn.Module):
             raise TypeError(f"model must be a torch.nn.Module, got "
                             f"{type(model).__name__}")
+        if (calibration is not None or accuracy_gate is not None) \
+                and not quantize:
+            raise ValueError(
+                "calibration=/accuracy_gate= only apply to quantize=True "
+                "loads (they calibrate and certify the int8 rewrite)")
+        if quantize:
+            from bigdl_tpu_torch.nn.quantized import quantize as _quantize
+            from bigdl_tpu_torch.precision.calibrate import maybe_collect
+
+            float_reference = model
+            model = _quantize(model, maybe_collect(model, calibration))
+            if accuracy_gate is not None:
+                # raises AccuracyGateError above the bound — before any
+                # registration; the delta lands in the gauge either way
+                accuracy_gate.check(float_reference, model, label=name)
         with self._lock:
             entry = self._models.setdefault(name, _Entry())
             if version is None:

@@ -20,7 +20,7 @@ from typing import Dict, List, Tuple
 import numpy as np
 
 __all__ = ["Counter", "Gauge", "Histogram", "MetricsRegistry", "REGISTRY",
-           "counter", "percentile_summary"]
+           "counter", "gauge", "percentile_summary"]
 
 LabelKey = Tuple[Tuple[str, str], ...]
 
@@ -155,10 +155,16 @@ class MetricsRegistry:
 
 
 #: the process-wide registry of module-level instruments (the kernel
-#: dispatch counters); services keep registries of their own
+#: dispatch counters, the accuracy gate's gauge); services keep
+#: registries of their own
 REGISTRY = MetricsRegistry()
 
 
 def counter(name: str, description: str = "") -> Counter:
     """A counter in the process-wide :data:`REGISTRY`."""
     return REGISTRY.counter(name, description)
+
+
+def gauge(name: str, description: str = "") -> Gauge:
+    """A gauge in the process-wide :data:`REGISTRY`."""
+    return REGISTRY.gauge(name, description)

@@ -12,7 +12,8 @@ from typing import Optional, Union
 
 import torch
 
-__all__ = ["default_dtype", "resolve_device"]
+__all__ = ["default_dtype", "full_float32", "model_device",
+           "resolve_device"]
 
 #: parameter / activation dtype of every module the port builds (the
 #: JAX package's ``Engine.default_dtype()`` default)
@@ -38,3 +39,25 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def full_float32() -> None:
+    """Run float32 matrix products and convolutions on the card in full
+    float32. PyTorch's cuDNN default (``torch.backends.cudnn.allow_tf32
+    = True``) runs every float32 convolution in TF32 on Hopper, about
+    three decimal digits; the port's float32 models are references (the
+    accuracy gate's float model among them), so the convolution layers
+    call this before their first run on the card. It switches TF32 off
+    for the process and never back on."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def model_device(model: torch.nn.Module) -> torch.device:
+    """Where ``model``'s first parameter (or buffer) lives; the CPU for
+    a model with neither."""
+    for t in model.parameters():
+        return t.device
+    for t in model.buffers():
+        return t.device
+    return torch.device("cpu")

@@ -26,6 +26,14 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    SDPA yardstick and (at 8192) the einsum path; then the attention
    layer's route for score matrices over 2 GiB (flash off, ``[1, 8,
    16384, 128]``) must launch K2 once and equal a direct call bitwise;
+   the fused dequant int8 GEMM (K5) equal to its plain version bitwise
+   at 60 edge shapes (M 1-300, N 1-1024, K 1-4100), at the int8 serving
+   slice's classifier shape ``[64, 2048] x [1000, 2048]^T`` and at
+   4096^3, timed at the last two beside ``torch._int_mm``; the paged
+   decode kernel (K4), through the dispatch function, equal bitwise to
+   K3's kernel on identity and shuffled paged views of the same cache
+   (page sizes 16, 64, 128; ``[16, 8, 512, 64]`` with the serving
+   lengths and T = 8192) and timed beside it;
 4. serving — ``GenerationService`` serving a ``TransformerLM`` at the
    generation bench width (vocab 8192, hidden 512, 6 layers, 8 heads,
    max_len 512; random weights from a seed) for 32 greedy and 4 seeded
@@ -65,10 +73,23 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    full re-forward through K2, the first token's logits within
    ``PREFILL_LOGITS_TOL`` of the unchunked prefill's, at most 2 programs
    a rung, K3 launched once per layer per decode step; TTFT both ways;
-   then K3 against its plain version at T = 8192.
+   then K3 against its plain version at T = 8192;
+8. int8 serving — ``InferenceService(max_batch_size=64)`` serving
+   ResNet-50 (ImageNet, 1000 classes, 224 x 224, random weights from
+   seed 23) under two names: the float model, and its int8 rewrite
+   calibrated on 2 seeded batches of 16 and certified by an
+   ``AccuracyGate`` of 64 seeded rows (max_delta 0.02); a candidate
+   calibrated on the batches x 1000 must be refused while the certified
+   version keeps serving. A seeded burst of single-row and batch
+   requests by both names: K5 launched once per int8 forward, served
+   int8 rows bitwise the direct forward, int8 on and off bitwise equal,
+   at most one program per rung, cuDNN TF32 off; images/s, latency
+   percentiles and a profiled window of each.
 
-Float32 throughout, with TF32 switched off for matrix products and
-convolutions: the tolerances below assume full float32.
+Float32 throughout, with TF32 off for matrix products (set here) and for
+convolutions (PyTorch's default is on; the port's convolution layers
+switch it off, and phase 8 checks that they did): the tolerances below
+assume full float32.
 
 The line before the last is a JSON object ``{"kernels": [...]}`` with
 each kernel's launches, error and times; the last line is
@@ -102,10 +123,24 @@ LC_VOCAB, LC_LAYERS, LC_SEQ, LC_SEQ_MAX = 8192, 2, 8192, 32768
 LC_ITERS, LC_SYNTHETIC, LC_CHUNK, LC_NEW = 20, 300000, 2048, 8
 LC_K6_SHAPE = (1, 8, 16384, 128)   # [B, H, S, D]: 8.6 GB of f32 scores
 
+# ---- the int8 serving slice (bench.py's PRECISION row, serving leg) ----
+RESNET_CLASSES, RESNET_DEPTH, RESNET_DATASET, IMAGE = 1000, 50, "ImageNet", 224
+RESNET_SEED, SERVE_BATCH, CALIB_BATCHES, CALIB_ROWS = 23, 64, 2, 16
+GATE_ROWS, GATE_DELTA = 64, 0.02
+BURST_SINGLES, BURST_BATCHES, FULL_BATCHES, PROFILE_BATCHES = 16, 12, 8, 4
+
+# ---- K5 and K4 shapes ----
+INT8_EDGE_M, INT8_EDGE_N, INT8_EDGE_K = (1, 7, 64, 65, 300), \
+    (1, 1000, 1024), (1, 3, 2048, 4100)
+INT8_MAIN_SHAPE = (SERVE_BATCH, RESNET_CLASSES, 2048)   # (M, N, K)
+INT8_BIG_SHAPE = (4096, 4096, 4096)     # BASELINE.md's int8 sweep
+PAGE_SIZES = (16, 64, 128)
+
 # ---- the card (NVIDIA's H100 SXM data sheet) ----
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12          # float32 outside the tensor cores
 BF16_FLOPS_PER_S = 989e12        # bfloat16 on the tensor cores
+INT8_OPS_PER_S = 1979e12         # int8 on the tensor cores, dense
 
 #: kernel vs plain version on the same inputs: float32 absolute (the
 #: JAX kernel contract's row); bfloat16 relative to max(1, |plain|),
@@ -131,6 +166,10 @@ PREFILL_LOGITS_TOL = 1e-4
 #: by a constant, which the softmax takes out, so it holds only noise)
 TRAIN_GRAD_RTOL = 1e-4
 TRAIN_GRAD_FLOOR = 1e-2
+#: a served float ResNet row against the direct forward of its request
+#: alone, relative to the largest logit: cuDNN picks its algorithm by
+#: batch size, so the two sum in other orders through 53 layers
+F32_SERVE_RTOL = 1e-3
 
 
 def log(phase: str, msg: str) -> None:
@@ -175,8 +214,10 @@ def ragged_bound(lengths, t: int, itemsize: int):
 def phase_device():
     import torch
 
+    # matrix products in full float32 (PyTorch's default, set
+    # explicitly); convolutions are the int8 serving phase's check: the
+    # port must switch cuDNN's TF32 default off itself
     torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -184,7 +225,7 @@ def phase_device():
     kind = torch.cuda.get_device_name(0)
     log("device", f"{kind}; count {torch.cuda.device_count()}; torch "
                   f"{torch.__version__}, CUDA {torch.version.cuda}; "
-                  f"TF32 off")
+                  f"matmul TF32 off")
     print(smi[0], flush=True)
     return kind, smi[0]
 
@@ -214,11 +255,13 @@ def phase_build():
 
 
 def kernel_instance(mangled: str) -> str:
-    """``flash_fwd_kernel<f32, 64>`` from a kernel's mangled name."""
-    m = re.search(r"([A-Za-z]+(?:_[A-Za-z]+)*_kernel)I"
-                  r"(f|13__nv_bfloat16|6__half)(?:Li(\d+)E)?E", mangled)
+    """``flash_fwd_kernel<f32, 64>`` (or ``int8_gemm_kernel``) from a
+    kernel's mangled name."""
+    m = re.search(r"([A-Za-z]+(?:_[A-Za-z0-9]+)*_kernel)I"
+                  r"(f|13__nv_bfloat16|6__half)(?:Li(\d+)E)?", mangled)
     if not m:
-        return mangled
+        m = re.search(r"\d([A-Za-z]\w*_kernel)E", mangled)
+        return m.group(1) if m else mangled
     dtype = {"f": "f32", "6__half": "f16"}.get(m.group(2), "bf16")
     return f"{m.group(1)}<{dtype}{', ' + m.group(3) if m.group(3) else ''}>"
 
@@ -1426,6 +1469,474 @@ def phase_longctx_serve(counters, device="cuda"):
     return launches, summary
 
 
+# ---- K5: the fused dequant int8 GEMM ----
+
+def int8_bound(m: int, n: int, k: int):
+    """Least time (ms) the card needs for one fused int8 GEMM: x_q and
+    w_q read once, the two scale vectors read and the float32 output
+    written once, against 2 * M * N * K int8 operations at the dense
+    int8 tensor-core peak."""
+    nbytes = m * k + n * k + 4 * (m + n) + 4 * m * n
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 2 * m * n * k / INT8_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
+def _int8_operands(gen, m, n, k):
+    import torch
+
+    x = torch.randint(-127, 128, (m, k), dtype=torch.int8, device="cuda",
+                      generator=gen)
+    w = torch.randint(-127, 128, (n, k), dtype=torch.int8, device="cuda",
+                      generator=gen)
+    xs = torch.rand(m, device="cuda", generator=gen) * 0.1 + 1e-3
+    ws = torch.rand(n, device="cuda", generator=gen) * 0.1 + 1e-3
+    return x, w, xs, ws
+
+
+def phase_int8_gemm():
+    """K5 against its plain version, bitwise (``torch.equal``), at edge
+    shapes (M 1-300, N 1-1024, K 1-4100: ragged tiles, K not a multiple
+    of 4 or 16) and at the main path's ``[64, 2048] x [1000, 2048]^T``
+    and 4096^3; then timed L2-cold at those two beside the plain
+    version, ``torch._int_mm`` plus the same epilogue (the library
+    yardstick) and the bound. Returns the kernels-line entry at the main
+    path's shape (launches filled in later)."""
+    import torch
+
+    from bigdl_tpu_torch.kernels.int8_gemm import (int8_gemm,
+                                                   int8_gemm_reference)
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    cases = 0
+    for m in INT8_EDGE_M:
+        for n in INT8_EDGE_N:
+            for k in INT8_EDGE_K:
+                ops = _int8_operands(gen, m, n, k)
+                got, want = int8_gemm(*ops), int8_gemm_reference(*ops)
+                torch.cuda.synchronize()
+                if not torch.equal(got, want):
+                    err = (got - want).abs().max().item()
+                    raise AssertionError(f"int8_gemm [{m},{k}]x[{n},{k}]: "
+                                         f"not bitwise the plain version "
+                                         f"(max diff {err})")
+                cases += 1
+    log("int8_gemm", f"{cases} edge shapes (M {INT8_EDGE_M}, N "
+                     f"{INT8_EDGE_N}, K {INT8_EDGE_K}): kernel bitwise "
+                     f"equal to the plain version")
+
+    def library(x, w, xs, ws):
+        return torch._int_mm(x, w.t()).float() * xs[:, None] * ws[None, :]
+
+    entry = None
+    for (m, n, k), n_sets in ((INT8_MAIN_SHAPE, 32), (INT8_BIG_SHAPE, 3)):
+        # L2-cold: together the sets exceed the 50 MB L2 (32 x 2.2 MB of
+        # operands at the main shape; 3 x 100 MB at 4096^3)
+        sets = [_int8_operands(gen, m, n, k) for _ in range(n_sets)]
+        got = int8_gemm(*sets[0])
+        want = int8_gemm_reference(*sets[0])
+        lib = library(*sets[0])
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"int8_gemm [{m},{k}]x[{n},{k}]: not "
+                                 f"bitwise the plain version")
+        err = (got - want).abs().max().item()
+        row = {"M": m, "N": n, "K": k, "bitwise_equal": True,
+               "max_abs_err": err,
+               "library_bitwise_equal": bool(torch.equal(lib, want)),
+               "kernel_ms": time_ms(lambda i: int8_gemm(*sets[i]),
+                                    n_sets, 20),
+               "plain_ms": time_ms(lambda i: int8_gemm_reference(*sets[i]),
+                                   n_sets, 5),
+               "library_ms": time_ms(lambda i: library(*sets[i]), n_sets,
+                                     20)}
+        row["bound_ms"], row["bound_by"] = int8_bound(m, n, k)
+        row["kernel_over_bound"] = row["kernel_ms"] / row["bound_ms"]
+        row["kernel_over_library"] = row["kernel_ms"] / row["library_ms"]
+        row["kernel_tops"] = 2 * m * n * k / row["kernel_ms"] / 1e9
+        log("int8_gemm", json.dumps(row))
+        if entry is None:
+            entry = {"name": "int8_gemm", "route": "cuda",
+                     "source": "bigdl_tpu_torch/kernels/csrc/int8_gemm.cu",
+                     "replaces": "bigdl_tpu/kernels/int8_gemm.py:39",
+                     "launches": None, "max_abs_err": err,
+                     "ms": row["kernel_ms"], "plain_ms": row["plain_ms"],
+                     "bound_ms": row["bound_ms"],
+                     "bound_by": row["bound_by"],
+                     "library_ms": row["library_ms"]}
+        del sets
+        torch.cuda.empty_cache()
+    return entry
+
+
+# ---- K4: paged decode ----
+
+def _shuffled_pages(gen, k_pages, v_pages, table):
+    """The same paged view with the pool's pages permuted and the table
+    renumbered to follow them."""
+    import torch
+
+    perm = torch.randperm(k_pages.shape[0], device="cuda", generator=gen)
+    inv = torch.empty_like(perm)
+    inv[perm] = torch.arange(perm.numel(), device="cuda")
+    return (k_pages[inv], v_pages[inv],
+            perm[table.long()].to(torch.int32).contiguous())
+
+
+def phase_paged_decode(main_lengths):
+    """K4, through the dispatch function, against K3's kernel bitwise
+    (``torch.equal``) on identity and shuffled paged views of the same
+    cache, at page sizes 16, 64 and 128, at ``[16, 8, 512, 64]`` with
+    the serving lengths and at T = 8192 (float32; bfloat16 at 512), and
+    against its plain version within ``RAGGED_TOL``; then timed L2-cold
+    at the serving shape beside K3 on the same cache and the plain
+    version. K4 has no main-path call site (in neither package), so its
+    launches on a main path are 0. Returns the kernels-line entry at
+    page size 16 (launches filled in later)."""
+    import torch
+
+    from bigdl_tpu_torch import kernels
+    from bigdl_tpu_torch.kernels.paged_decode import (
+        paged_decode_attention, paged_decode_attention_reference,
+        paged_view)
+    from bigdl_tpu_torch.kernels.ragged_decode import ragged_decode_attention
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    long_lengths = [1, 15, 16, 17, 63, 64, 65, 127, 128, 129, 2047, 4097,
+                    8191, 8192, 9000, 0]
+    launches0 = paged_decode_attention.launches
+    checks = 0
+    for t, lengths, dtype in ((MAX_LEN, main_lengths, torch.float32),
+                              (MAX_LEN, main_lengths, torch.bfloat16),
+                              (LC_SEQ, long_lengths, torch.float32)):
+        q = torch.randn((SLOTS, HEADS, HEAD_DIM), device="cuda",
+                        generator=gen).to(dtype)
+        k, v = (torch.randn((SLOTS, HEADS, t, HEAD_DIM), device="cuda",
+                            generator=gen).to(dtype) for _ in range(2))
+        lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+        ref = ragged_decode_attention(q, k, v, lens)
+        name = str(dtype).split(".")[-1]
+        pages = PAGE_SIZES if dtype == torch.float32 else (64,)
+        for page in pages:
+            view = paged_view(k, v, page)
+            for label, (kp, vp, table) in (
+                    ("identity", view),
+                    ("shuffled", _shuffled_pages(gen, *view))):
+                got = kernels.paged_decode_attention(q, kp, vp, table, lens)
+                torch.cuda.synchronize()
+                if not torch.equal(got, ref):
+                    diff = (got.float() - ref.float()).abs().max().item()
+                    raise AssertionError(
+                        f"paged_decode {name} T={t} page={page} {label}: "
+                        f"not bitwise K3's kernel (max diff {diff})")
+                checks += 1
+                if dtype == torch.float32 and label == "shuffled":
+                    plain = paged_decode_attention_reference(q, kp, vp,
+                                                             table, lens)
+                    err = (got - plain).abs().max().item()
+                    log("paged_decode", f"{name} T={t} page={page} "
+                                        f"shuffled: bitwise K3's kernel; "
+                                        f"max|kernel-plain| = {err:.3e} "
+                                        f"(tolerance "
+                                        f"{RAGGED_TOL['float32']})")
+                    if not err <= RAGGED_TOL["float32"]:
+                        raise AssertionError(f"paged_decode T={t} "
+                                             f"page={page}: {err}")
+        del k, v
+    log("paged_decode", f"{checks} paged views (identity and shuffled, "
+                        f"page sizes {list(PAGE_SIZES)}): K4 bitwise "
+                        f"equal to K3's kernel; "
+                        f"{paged_decode_attention.launches - launches0} "
+                        f"K4 launches")
+
+    # timing: 8 caches (268 MB together, past the 50 MB L2), the serving
+    # lengths, K4 over each page size beside K3 on the same caches
+    n_sets, t = 8, MAX_LEN
+    sets = [(torch.randn((SLOTS, HEADS, HEAD_DIM), device="cuda",
+                         generator=gen),
+             torch.randn((SLOTS, HEADS, t, HEAD_DIM), device="cuda",
+                         generator=gen),
+             torch.randn((SLOTS, HEADS, t, HEAD_DIM), device="cuda",
+                         generator=gen)) for _ in range(n_sets)]
+    lens = torch.tensor(main_lengths, dtype=torch.int32, device="cuda")
+    k3_ms = time_ms(lambda i: ragged_decode_attention(
+        sets[i][0], sets[i][1], sets[i][2], lens), n_sets, 50)
+    entry = None
+    for page in PAGE_SIZES:
+        views = [(q,) + paged_view(k, v, page) for q, k, v in sets]
+        err = (paged_decode_attention(*views[0], lens)
+               - paged_decode_attention_reference(*views[0], lens)) \
+            .abs().max().item()
+        row = {"page_size": page, "T": t, "lengths": list(main_lengths),
+               "max_abs_err": err,
+               "kernel_ms": time_ms(lambda i: paged_decode_attention(
+                   *views[i], lens), n_sets, 50),
+               "plain_ms": time_ms(lambda i: paged_decode_attention_reference(
+                   *views[i], lens), n_sets, 3),
+               "k3_kernel_ms": k3_ms}
+        row["bound_ms"], row["bound_by"] = ragged_bound(main_lengths, t, 4)
+        row["kernel_over_bound"] = row["kernel_ms"] / row["bound_ms"]
+        log("paged_decode", json.dumps(row))
+        if not err <= RAGGED_TOL["float32"]:
+            raise AssertionError(f"paged_decode timing inputs: {err}")
+        if entry is None:
+            entry = {"name": "paged_decode", "route": "cuda",
+                     "source": "bigdl_tpu_torch/kernels/csrc/"
+                               "paged_decode.cu",
+                     "replaces": "bigdl_tpu/kernels/paged_decode.py:78",
+                     "launches": None, "max_abs_err": err,
+                     "ms": row["kernel_ms"], "plain_ms": row["plain_ms"],
+                     "bound_ms": row["bound_ms"],
+                     "bound_by": row["bound_by"], "library_ms": None}
+        del views
+    del sets
+    torch.cuda.empty_cache()
+    return entry
+
+
+# ---- the int8 serving slice: calibrated ResNet-50 behind InferenceService
+
+def _images(r, n):
+    return r.rand(n, 3, IMAGE, IMAGE).astype(np.float32)
+
+
+def profile_serving(svc, name, batches, device) -> None:
+    """Where a serving window's time goes: full batches through
+    ``predict_batch`` under ``torch.profiler`` — wall clock, device time
+    by kernel and the device's idle share."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    on_card = device == "cuda"
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
+                                     if on_card else [])
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for x in batches:
+            svc.predict_batch(name, x)
+        if on_card:
+            torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels_ = device_kernels(prof)
+    busy_ms = sum(k[0] for k in kernels_)
+    log("int8-serve-profile", json.dumps({
+        "model": name, "batches": len(batches),
+        "rows": sum(len(x) for x in batches), "wall_ms": wall_ms,
+        "device_busy_ms": busy_ms if kernels_ else "not measured",
+        "device_idle_share": (1 - busy_ms / wall_ms) if kernels_
+        else "not measured"}))
+    for ms, count, key in kernels_[:12]:
+        log("int8-serve-profile", f"{name}: {ms:9.3f} ms {count:6d}x  "
+                                  f"{key[:90]}")
+
+
+def _burst(svc, name, singles, batches):
+    """Every request at once, then every result: ``[(x, rows)]`` in
+    submission order, the wall seconds and the service's metrics."""
+    t0 = time.perf_counter()
+    futs = [(x[None], svc.predict_async(name, x)) for x in singles]
+    futs += [(x, svc.predict_batch_async(name, x)) for x in batches]
+    out = []
+    for x, f in futs:
+        rows = f.result(timeout=600)
+        out.append((x, rows[None] if rows.ndim == 1 else rows))
+    return out, time.perf_counter() - t0, svc.metrics(name)
+
+
+def phase_int8_serve(counters, device="cuda"):
+    """The slice's main path: ResNet-50 (ImageNet, 1000 classes, seed 23,
+    float32) behind ``InferenceService(max_batch_size=64)``, served by
+    two names — the float model, and its int8 rewrite calibrated on 2
+    seeded batches of 16 and certified by an ``AccuracyGate`` of 64
+    seeded rows (max_delta 0.02). A poisoned candidate (the calibration
+    batches x 1000) must be refused with ``AccuracyGateError`` while the
+    certified version keeps serving. Then the kernel counts are set to 0
+    and a seeded burst of single-row and batch requests is served by
+    both names; K5 must have launched once per int8 forward (a hook
+    counts the forwards that reach the QuantizedLinear), each served
+    int8 row must equal the quantized model's direct forward of its
+    request bitwise, int8 on and off must agree bitwise, at most one
+    program per rung, and cuDNN's TF32 must be off (the port switches
+    it off; PyTorch's default is on). Returns the launches and the
+    numbers."""
+    import torch
+
+    from bigdl_tpu_torch import kernels, telemetry
+    from bigdl_tpu_torch.models import ResNet
+    from bigdl_tpu_torch.nn.quantized import QuantizedLinear
+    from bigdl_tpu_torch.precision import AccuracyGate, AccuracyGateError
+    from bigdl_tpu_torch.serving import InferenceService, ServingConfig
+
+    # PyTorch's default: float32 convolutions in TF32 on Hopper. The
+    # port's convolution layers must switch it off themselves.
+    torch.backends.cudnn.allow_tf32 = True
+    t0 = time.perf_counter()
+    model = ResNet(RESNET_CLASSES, depth=RESNET_DEPTH,
+                   dataset=RESNET_DATASET, device=device,
+                   generator=torch.Generator().manual_seed(RESNET_SEED))
+    model.eval()
+    r = np.random.RandomState(RESNET_SEED + 1)
+    calib = [_images(r, CALIB_ROWS) for _ in range(CALIB_BATCHES)]
+    gate_rows = _images(r, GATE_ROWS)
+    svc = InferenceService(config=ServingConfig(max_batch_size=SERVE_BATCH),
+                           device=device)
+    shape = (3, IMAGE, IMAGE)
+    f32, i8 = "resnet_f32", "resnet_int8"
+    try:
+        svc.load(f32, model, warmup_shape=shape)
+        t_f32 = time.perf_counter() - t0
+        tf32_off = not torch.backends.cudnn.allow_tf32
+        t0 = time.perf_counter()
+        honest = svc.load(i8, model, quantize=True, calibration=calib,
+                          accuracy_gate=AccuracyGate(gate_rows,
+                                                     max_delta=GATE_DELTA),
+                          warmup_shape=shape)
+        t_i8 = time.perf_counter() - t0
+        gauge = telemetry.gauge("serving/precision/accuracy_delta")
+        delta = gauge.value(model=i8)
+        log("int8-serve", f"float model loaded and {len(svc.ladder)} rungs "
+                          f"warmed in {t_f32:.2f} s; int8 rewrite "
+                          f"calibrated, gated and warmed in {t_i8:.2f} s; "
+                          f"honest gate delta {delta} (bound {GATE_DELTA}); "
+                          f"cuDNN TF32 off: {tf32_off}")
+        qmodel = honest.model
+        qlinear = [m for m in qmodel.modules()
+                   if isinstance(m, QuantizedLinear)]
+        forwards = [0]
+
+        def count(module, args):
+            forwards[0] += 1
+
+        hooks = [m.register_forward_pre_hook(count) for m in qlinear]
+        rb = np.random.RandomState(RESNET_SEED + 2)
+        singles = [_images(rb, 1)[0] for _ in range(BURST_SINGLES)]
+        batches = [_images(rb, int(n)) for n in
+                   rb.randint(1, SERVE_BATCH + 1, BURST_BATCHES)]
+        rows = len(singles) + sum(len(x) for x in batches)
+        for fn in counters.values():
+            fn.launches = 0
+        served_i8, dt_i8, m_i8 = _burst(svc, i8, singles, batches)
+        served_f32, dt_f32, m_f32 = _burst(svc, f32, singles, batches)
+        launches = {name: fn.launches for name, fn in counters.items()}
+        i8_forwards = forwards[0]
+        for h in hooks:
+            h.remove()
+
+        probe = _images(r, 3)
+        before = svc.predict_batch(i8, probe)
+        try:
+            svc.load(i8, model, quantize=True,
+                     calibration=[b * 1000.0 for b in calib],
+                     accuracy_gate=AccuracyGate(gate_rows,
+                                                max_delta=GATE_DELTA),
+                     warmup_shape=shape)
+            refused = False
+        except AccuracyGateError:
+            refused = True
+        poisoned_delta = gauge.value(model=i8)
+        after = svc.predict_batch(i8, probe)
+        log("int8-serve", f"poisoned candidate (calibration x 1000): "
+                          f"refused {refused}, gate delta {poisoned_delta}; "
+                          f"versions {svc.registry.versions(i8)}; the "
+                          f"certified version answers as before: "
+                          f"{bool(np.array_equal(before, after))}")
+        if device == "cuda" and not tf32_off:
+            raise AssertionError("cuDNN TF32 is still on after the float "
+                                 "model ran")
+        if not refused or svc.registry.current(i8) is not honest \
+                or svc.registry.versions(i8) != [honest.version] \
+                or not np.array_equal(before, after):
+            raise AssertionError("the poisoned candidate was not refused "
+                                 "cleanly")
+
+        full = [_images(rb, SERVE_BATCH) for _ in range(FULL_BATCHES)]
+        rates = {}
+        for name in (f32, i8):
+            svc.predict_batch(name, full[0])
+            t0 = time.perf_counter()
+            for x in full:
+                svc.predict_batch(name, x)
+            rates[name] = len(full) * SERVE_BATCH / (
+                time.perf_counter() - t0)
+        profile_serving(svc, i8, full[:PROFILE_BATCHES], device)
+        profile_serving(svc, f32, full[:PROFILE_BATCHES], device)
+
+        # checks: each served int8 request bitwise the direct forward of
+        # its rows alone; int8 on and off; float rows near the direct
+        # forward; programs per rung
+        with torch.inference_mode():
+            def direct(mdl, x):
+                return mdl(torch.from_numpy(x).to(device)).cpu().numpy()
+
+            for x, got in served_i8:
+                if not np.array_equal(got, direct(qmodel, x)):
+                    raise AssertionError(f"a served int8 request of "
+                                         f"{len(x)} rows is not bitwise "
+                                         f"the direct forward")
+            x = full[0]
+            on = direct(qmodel, x)
+            with kernels.use(kernels.KernelConfig(int8_matmul=False)):
+                off = direct(qmodel, x)
+            f_direct = direct(model, x)
+            f32_err = max(float(np.abs(got - direct(model, xx)).max())
+                          for xx, got in served_f32[-4:])
+        scale = float(np.abs(f_direct).max())
+        i8_vs_f32 = float(np.abs(on - f_direct).max()) / scale
+        agree = float((on.argmax(1) == f_direct.argmax(1)).mean())
+        programs = {name: svc.compile_count(name) for name in (f32, i8)}
+    finally:
+        svc.shutdown()
+
+    summary = {
+        "model": f"ResNet-{RESNET_DEPTH} {RESNET_DATASET} "
+                 f"{RESNET_CLASSES} classes, {IMAGE}x{IMAGE}",
+        "requests_per_model": len(singles) + len(batches),
+        "rows_per_model": rows,
+        "f32_burst_images_per_sec": rows / dt_f32,
+        "int8_burst_images_per_sec": rows / dt_i8,
+        "f32_full_batch_images_per_sec": rates[f32],
+        "int8_full_batch_images_per_sec": rates[i8],
+        "f32_latency_ms_p50": m_f32.get("latency_ms_p50"),
+        "f32_latency_ms_p99": m_f32.get("latency_ms_p99"),
+        "int8_latency_ms_p50": m_i8.get("latency_ms_p50"),
+        "int8_latency_ms_p99": m_i8.get("latency_ms_p99"),
+        "int8_batches": m_i8["batch_count"], "f32_batches":
+            m_f32["batch_count"], "int8_batch_fill": m_i8["batch_fill"],
+        "int8_forwards_reaching_quantized_linear": i8_forwards,
+        "gate_delta": delta, "poisoned_gate_delta": poisoned_delta,
+        "int8_vs_f32_max_rel_diff": i8_vs_f32,
+        "int8_vs_f32_top1_agreement": agree,
+        "f32_distinct_top1_classes": int(len(set(f_direct.argmax(1)))),
+        "f32_served_vs_direct_max_abs_diff": f32_err,
+        "f32_logit_scale": scale,
+        "programs": programs, "ladder_rungs": len(svc.ladder),
+        "launches": launches}
+    log("int8-serve", json.dumps(summary))
+    if not np.array_equal(on, off):
+        raise AssertionError("int8 on and int8 off differ")
+    if not (np.isfinite(on).all() and on.shape == (SERVE_BATCH,
+                                                   RESNET_CLASSES)):
+        raise AssertionError(f"int8 outputs {on.shape}, finite "
+                             f"{np.isfinite(on).all()}")
+    if max(programs.values()) > len(svc.ladder):
+        raise AssertionError(f"{programs} programs > {len(svc.ladder)} "
+                             f"rungs")
+    if launches["int8_gemm"] != i8_forwards or i8_forwards \
+            != m_i8["batch_count"] or i8_forwards == 0:
+        raise AssertionError(f"int8_gemm launched {launches['int8_gemm']} "
+                             f"times for {i8_forwards} forwards through "
+                             f"the QuantizedLinear over "
+                             f"{m_i8['batch_count']} batches")
+    if not f32_err <= F32_SERVE_RTOL * scale:
+        raise AssertionError(f"served float rows {f32_err} from the direct "
+                             f"forward (logit scale {scale})")
+    log("int8-serve", "served int8 rows bitwise the direct forward; int8 "
+                      "on == off bitwise; K5 launched once per int8 "
+                      "forward")
+    return launches, summary
+
+
 def main() -> int:
     import torch
 
@@ -1436,6 +1947,8 @@ def main() -> int:
     from bigdl_tpu_torch.kernels.flash_attention import (
         blockwise_flash_attention_backward, blockwise_flash_attention_forward,
         flash_attention_backward, flash_attention_forward)
+    from bigdl_tpu_torch.kernels.int8_gemm import int8_gemm
+    from bigdl_tpu_torch.kernels.paged_decode import paged_decode_attention
     from bigdl_tpu_torch.kernels.ragged_decode import ragged_decode_attention
 
     kind, _ = phase_device()
@@ -1450,17 +1963,22 @@ def main() -> int:
     flash_fwd, flash_bwd = phase_flash(train_seg)
     blockwise_fwd, blockwise_bwd = phase_blockwise()
     phase_k6_route()
+    int8 = phase_int8_gemm()
+    paged = phase_paged_decode(main_lengths)
     counters = {"ragged_decode": ragged_decode_attention,
                 "flash_attention_fwd": flash_attention_forward,
                 "flash_attention_bwd": flash_attention_backward,
                 "blockwise_flash_attention_fwd":
                     blockwise_flash_attention_forward,
                 "blockwise_flash_attention_bwd":
-                    blockwise_flash_attention_backward}
+                    blockwise_flash_attention_backward,
+                "int8_gemm": int8_gemm,
+                "paged_decode": paged_decode_attention}
     serve_launches, _ = phase_main_path(counters, greedy, topk)
     train_launches, _ = phase_train(counters, corpus)
     longctx_launches, _ = phase_longctx_train(counters)
-    phase_longctx_serve(counters)
+    longserve_launches, _ = phase_longctx_serve(counters)
+    int8_launches, _ = phase_int8_serve(counters)
     ragged["launches"] = serve_launches["ragged_decode"]
     flash_fwd["launches"] = train_launches["flash_attention_fwd"]
     flash_bwd["launches"] = train_launches["flash_attention_bwd"]
@@ -1468,8 +1986,15 @@ def main() -> int:
         longctx_launches["blockwise_flash_attention_fwd"]
     blockwise_bwd["launches"] = \
         longctx_launches["blockwise_flash_attention_bwd"]
+    int8["launches"] = int8_launches["int8_gemm"]
+    # K4 has no main-path call site in either package: no path of this
+    # run launches it (its phase drove it through the dispatch function)
+    paged["launches"] = max(launches["paged_decode"] for launches in (
+        serve_launches, train_launches, longctx_launches,
+        longserve_launches, int8_launches))
     print(json.dumps({"kernels": [ragged, flash_fwd, flash_bwd,
-                                  blockwise_fwd, blockwise_bwd]}),
+                                  blockwise_fwd, blockwise_bwd, int8,
+                                  paged]}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -142,11 +142,13 @@ def test_unknown_kernel_names_raise_in_both(value):
 
 
 def test_default_is_flash_and_decode(monkeypatch):
+    """The default is every kernel the port has: flash and decode, and
+    since K5 was ported, int8."""
     monkeypatch.delenv("BIGDL_KERNELS", raising=False)
     monkeypatch.setattr(kernels.config, "_CONFIG", None)
     cfg = kernels.get_config()
     assert (cfg.flash_attention, cfg.decode_attention, cfg.int8_matmul) \
-        == (True, True, False)
+        == (True, True, True)
     monkeypatch.setenv("BIGDL_KERNELS", "decode")
     monkeypatch.setattr(kernels.config, "_CONFIG", None)
     assert not kernels.get_config().flash_attention
