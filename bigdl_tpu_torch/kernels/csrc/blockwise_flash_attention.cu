@@ -7,33 +7,44 @@
 // Replaces bigdl_tpu/kernels/flash_attention.py's K2: the forward body
 // _bw_fwd_kernel (launched by _bw_fwd_call) and the two backward bodies
 // _bw_dq_kernel and _bw_dkv_kernel (launched by _bw_bwd_call). It
-// computes the same function with the TPU kernel's arithmetic: q is
-// scaled before the product, masked scores are -inf, and each query
-// tile carries a running (m, l, acc) over the key tiles, rescaled by
-// exp(m_old - m_new) at each one (alpha = 0 while every lane so far was
-// masked, p = 0 where m_new is -inf), so a fully masked row gives o = 0
-// and lse = -inf and never NaN. The backward recomputes p from the
-// saved lse. The TPU kernel's block_q / block_k are VMEM choices; here
-// the tiles are 64 x 64, as in K1.
+// computes the same function with the TPU kernel's carry: masked scores
+// are -inf, and each query tile carries a running (m, l, acc) over the
+// key tiles, rescaled by exp(m_old - m_new) at each one (alpha = 0 while
+// every lane so far was masked, p = 0 on masked lanes), so a fully
+// masked row gives o = 0 and lse = -inf and never NaN. The scale
+// multiplies the q . k^T product (the TPU kernel scales q before it:
+// the same value to within a rounding). The backward recomputes p from
+// the saved lse. The TPU kernel's block_q / block_k are VMEM choices;
+// here the tiles are 64 x 64, as in K1.
 //
 // Bound, at the long-context slice's shape (B 1, H 8, S 8192, D 64,
 // f32, causal): arithmetic. The forward does 4 * D flops per kept
-// (query, key) pair: 6.9e10 here, 1.03 ms at the 67 TFLOP/s float32
-// rate the card has outside the tensor cores, against 67 MB of q, k, v
-// and O (20 us at 3.35 TB/s). The backward does about 2.5x the forward's
-// flops (2.6 ms). At S = 32768 both are 16x that.
+// (query, key) pair: 6.9e10 here, 0.42 ms at the 165 TFLOP/s that
+// 3xTF32 gets from the tensor cores' 495 TFLOP/s TF32 rate (1.03 ms at
+// the 67 TFLOP/s float32 SIMT rate), against 67 MB of q, k, v and O (20
+// us at 3.35 TB/s). The backward (flash_common.cuh) does about 2.5x the
+// forward's flops. At S = 32768 both are 16x that.
 //
-// Design against that bound (a first, simple kernel — tensor cores,
-// wgmma, TMA and pipelining are later work):
-//  * forward: one block per (b, h, 64-row query tile) walks the key
-//    tiles ONCE, FlashAttention-2's forward: per tile one q . k^T and
-//    one p . v product (K1's full-row forward walks the key row twice,
-//    three products per tile), the tile's row max taken across the 16
-//    threads of a row group, and the per-thread partial l and the
-//    accumulator rescaled by alpha;
-//  * causal blocks stop at the diagonal tile; segment ids mask per
-//    tile (a key tile wholly of another segment keeps the carry as it
-//    was);
+// Design against that bound:
+//  * one block of four warps per (b, h, 64-row query tile) walks the key
+//    tiles ONCE, FlashAttention-2's forward: per tile S = q . k^T and
+//    acc += P . V, both in 3xTF32 on the tensor cores (flash_common.cuh
+//    has the split). Warp w owns query rows 16w .. 16w + 15, so a row's
+//    max and sum reduce over the 4 lanes of an mma quad, and P goes from
+//    the S accumulators straight into the P . V product as its A operand
+//    (no score tile in shared memory); each tile's P . V is added into
+//    the float32 carry outside the MMA accumulators (flash_common.cuh's
+//    promote); the softmax runs in log2 units (exp2, and lse = (m +
+//    log2 l) ln 2), fewer instructions than exp where instruction
+//    slots are the bound;
+//  * the K and V tiles stream through a ring of two, filled by cp.async
+//    (float32; bfloat16 and float16 convert as they stage), so the next
+//    tile's copy overlaps this tile's products;
+//  * causal blocks stop at the diagonal tile, and the longest query
+//    tiles (the last) start first, so they do not form the tail of the
+//    grid; segment ids mask per element (a key tile wholly of another
+//    segment keeps the carry as it was); tiles that need no mask skip
+//    it;
 //  * O is written in q's dtype and the f32 lse in K1's layout, so the
 //    backward — delta, dK/dV per key tile and dQ per query tile, no
 //    atomics — is flash_common.cuh's, shared with K1;
@@ -45,99 +56,213 @@
 
 namespace {
 
-// grid (query tiles, B * H); one block per 64-row query tile.
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads) blockwise_fwd_kernel(Params p) {
-  constexpr int DC = D / 16;  // output columns per thread
-  extern __shared__ float smem[];
-  float* qs = smem;                        // [64][D+1], q * scale
-  float* ks = qs + kTile * (D + 1);        // [64][D+1]
-  float* vs = ks + kTile * (D + 1);        // [64][D+1]
-  float* ps = vs + kTile * (D + 1);        // [64][65]
-  int* seg_q = reinterpret_cast<int*>(ps + kTile * kLdP);
-  int* seg_k = seg_q + kTile;
+constexpr float kLn2 = 0.6931471805599453f;
 
-  const int bh = blockIdx.y;
+template <int D>
+constexpr size_t blockwise_fwd_smem_bytes() {
+  // q; a ring of two (k, v) tiles; the query and the ring's key
+  // segment ids
+  return sizeof(float) * 5 * kTile * tile_ld<D>() + sizeof(int) * 3 * kTile;
+}
+
+// grid (B * H, query tiles, longest first); one block per 64-row query
+// tile.
+template <typename T, int D>
+__global__ void __launch_bounds__(kMmaThreads) blockwise_fwd_kernel(Params p) {
+  constexpr int LD = tile_ld<D>();
+  constexpr int DN = D / 8;                 // 8-column tiles of O
+  constexpr int KN = kTile / 8;             // 8-key tiles of S
+  extern __shared__ __align__(16) float tc_smem[];
+  float* qs = tc_smem;                      // [64][LD]
+  float* ks = qs + kTile * LD;              // [2][64][LD]
+  float* vs = ks + 2 * kTile * LD;          // [2][64][LD]
+  int* seg_q = reinterpret_cast<int*>(vs + 2 * kTile * LD);
+  int* seg_k = seg_q + kTile;               // [2][64]
+
+  const int bh = blockIdx.x;
   const int b = bh / p.heads;
   const int h = bh % p.heads;
-  const int q0 = blockIdx.x * kTile;
-  const int ty = threadIdx.x / 16;
-  const int tx = threadIdx.x % 16;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kTile;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4;
+  const int t = lane % 4;
+  const int r0 = 16 * warp;
   const int s_len = p.s_len;
   const bool segmented = p.seg != nullptr;
   const int* seg_row = segmented ? p.seg + static_cast<int64_t>(b) * s_len
                                  : nullptr;
-
-  const T* qb = static_cast<const T*>(p.q) + b * p.sq.b + h * p.sq.h;
   const T* kb = static_cast<const T*>(p.k) + b * p.sk.b + h * p.sk.h;
   const T* vb = static_cast<const T*>(p.v) + b * p.sv.b + h * p.sv.h;
 
-  load_tile<T, D>(qs, qb, p.sq.s, q0, s_len, p.d, p.scale);
-  load_seg(seg_q, seg_row, q0, s_len);
+  auto stage_key_side = [&](int kt, int slot) {
+    const int k0 = kt * kTile;
+    stage_tile<T, D>(ks + slot * kTile * LD, kb, p.sk.s, k0, s_len, p.d,
+                     p.vec);
+    stage_tile<T, D>(vs + slot * kTile * LD, vb, p.sv.s, k0, s_len, p.d,
+                     p.vec);
+    if (segmented) stage_rows(seg_k + slot * kTile, seg_row, k0, s_len);
+  };
+
+  stage_tile<T, D>(qs, static_cast<const T*>(p.q) + b * p.sq.b + h * p.sq.h,
+                   p.sq.s, q0, s_len, p.d, p.vec);
+  if (segmented) stage_rows(seg_q, seg_row, q0, s_len);
+  stage_key_side(0, 0);
+  cp_async_commit();
   const int n_kt = key_tiles(q0, s_len, p.causal);
 
-  // the carry: m is the row group's running max (the same in its 16
-  // threads), l each thread's partial sum of p over its columns, acc
-  // its columns of p . v
-  float m[kSub], l[kSub];
-  float acc[kSub][DC];
+  // the carry of rows r0 + g and r0 + g + 8: m the running max in log2
+  // units (the same in the row's 4 lanes), l this lane's partial sum of
+  // p over its columns, acc its columns of p . v
+  const float scale2 = p.scale * kLog2e;
+  float m[2] = {-CUDART_INF_F, -CUDART_INF_F};
+  float l[2] = {0.f, 0.f};
+  float acc[DN][4];
 #pragma unroll
-  for (int i = 0; i < kSub; ++i) {
-    m[i] = -CUDART_INF_F;
-    l[i] = 0.f;
+  for (int n = 0; n < DN; ++n)
 #pragma unroll
-    for (int c = 0; c < DC; ++c) acc[i][c] = 0.f;
-  }
-  float s[kSub][kSub];
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
   for (int kt = 0; kt < n_kt; ++kt) {
-    const int k0 = kt * kTile;
-    __syncthreads();
-    load_tile<T, D>(ks, kb, p.sk.s, k0, s_len, p.d, 1.f);
-    load_tile<T, D>(vs, vb, p.sv.s, k0, s_len, p.d, 1.f);
-    load_seg(seg_k, seg_row, k0, s_len);
-    __syncthreads();
-    tile_abt<D>(s, qs, ks, ty, tx);
-#pragma unroll
-    for (int i = 0; i < kSub; ++i) {
-      const int r = ty + 16 * i;
-      bool kept[kSub];
-      float tile_max = -CUDART_INF_F;
-#pragma unroll
-      for (int j = 0; j < kSub; ++j) {
-        const int c = tx + 16 * j;
-        kept[j] = keep(q0 + r, k0 + c, s_len, p.causal, seg_q, seg_k, r, c,
-                       segmented);
-        if (kept[j]) tile_max = fmaxf(tile_max, s[i][j]);
-      }
-      // m_new is -inf only while every lane so far is masked (a kept
-      // lane's score is finite): then p = 0 on every lane and alpha = 0
-      const float m_new = fmaxf(m[i], group_max(tile_max));
-      const float alpha = m[i] == -CUDART_INF_F ? 0.f : expf(m[i] - m_new);
-      float lsum = 0.f;
-#pragma unroll
-      for (int j = 0; j < kSub; ++j) {
-        const float pv = kept[j] ? expf(s[i][j] - m_new) : 0.f;
-        lsum += pv;
-        ps[r * kLdP + tx + 16 * j] = pv;
-      }
-      l[i] = l[i] * alpha + lsum;
-#pragma unroll
-      for (int c = 0; c < DC; ++c) acc[i][c] *= alpha;
-      m[i] = m_new;
+    const int slot = kt & 1;
+    if (kt + 1 < n_kt) {
+      stage_key_side(kt + 1, slot ^ 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
     __syncthreads();
-    tile_pv<D>(acc, ps, vs, ty, tx);
+    const int k0 = kt * kTile;
+    const float* kt_s = ks + slot * kTile * LD;
+    const float* vt_s = vs + slot * kTile * LD;
+    const int* seg_t = seg_k + slot * kTile;
+
+    float s[KN][4];
+#pragma unroll
+    for (int n = 0; n < KN; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D; kk += 8) {
+      FragA aq;
+      load_a<LD>(aq, qs, r0, kk, lane);
+#pragma unroll
+      for (int n = 0; n < KN; n += 2) {
+        FragB bk[2];
+        load_bt2<LD>(bk[0], bk[1], kt_s, 8 * n, kk, lane);
+        mma3(s[n], aq, bk[0]);
+        mma3(s[n + 1], aq, bk[1]);
+      }
+    }
+
+    // scores in log2 units (s * scale * log2(e), so p = exp2(x - m)),
+    // -inf on masked lanes, and each row's max over this tile
+    const bool masked = tile_masked(q0, k0, s_len, p.causal, segmented);
+    float tile_max[2] = {-CUDART_INF_F, -CUDART_INF_F};
+#pragma unroll
+    for (int n = 0; n < KN; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int half = e >> 1;
+        float x = s[n][e] * scale2;
+        if (masked) {
+          const int r = r0 + g + 8 * half;
+          const int c = 8 * n + 2 * t + (e & 1);
+          if (!keep(q0 + r, k0 + c, s_len, p.causal, seg_q, seg_t, r, c,
+                    segmented))
+            x = -CUDART_INF_F;
+        }
+        s[n][e] = x;
+        tile_max[half] = fmaxf(tile_max[half], x);
+      }
+    // m_new is -inf only while every lane so far is masked: then the
+    // row subtracts 0 instead, so p = exp2(-inf) = 0 on every lane, and
+    // alpha = exp2(-inf) = 0 while m is -inf
+    float m_use[2], alpha[2], lsum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const float m_new = fmaxf(m[half], quad_max(tile_max[half]));
+      m_use[half] = m_new == -CUDART_INF_F ? 0.f : m_new;
+      alpha[half] = exp2f(m[half] - m_use[half]);
+      m[half] = m_new;
+    }
+#pragma unroll
+    for (int n = 0; n < KN; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int half = e >> 1;
+        const float pv = exp2f(s[n][e] - m_use[half]);
+        lsum[half] += pv;
+        s[n][e] = pv;
+      }
+#pragma unroll
+    for (int half = 0; half < 2; ++half)
+      l[half] = l[half] * alpha[half] + lsum[half];
+
+    // acc = acc * alpha + P . V, P straight from the S accumulators; the
+    // tile's P . V goes through a fresh MMA accumulator and is added in
+    // float32 (flash_common.cuh's promote has why)
+    float pv[DN][4];
+#pragma unroll
+    for (int n = 0; n < DN; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) pv[n][e] = 0.f;
+#pragma unroll
+    for (int j = 0; j < KN; ++j) {
+      FragA ap;
+      acc_as_a(ap, s[j]);
+#pragma unroll
+      for (int n = 0; n < DN; ++n) {
+        FragB bv;
+        load_b_perm<LD>(bv, vt_s, 8 * j, 8 * n, g, t);
+        mma3(pv[n], ap, bv);
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < DN; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        acc[n][e] = acc[n][e] * alpha[e >> 1] + pv[n][e];
+    __syncthreads();
   }
 
-  store_forward<T, D>(p, bh, q0, m, l, acc, ty, tx);
+  // O = acc / l and lse = (m + log2(l)) * ln(2) (a fully masked row,
+  // l = 0, gives O = 0 and lse = -inf)
+  T* ob = static_cast<T*>(p.out) + static_cast<int64_t>(bh) * s_len * p.d;
+  float* lb = p.lse + static_cast<int64_t>(bh) * s_len;
+  float lr[2];
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    lr[half] = quad_sum(l[half]);
+    const int row = q0 + r0 + g + 8 * half;
+    if (t == 0 && row < s_len)
+      lb[row] = lr[half] > 0.f ? (m[half] + log2f(lr[half])) * kLn2
+                               : -CUDART_INF_F;
+  }
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = q0 + r0 + g + 8 * half;
+    if (row >= s_len) continue;
+#pragma unroll
+    for (int n = 0; n < DN; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = 8 * n + 2 * t + e;
+        if (col < p.d)
+          ob[static_cast<int64_t>(row) * p.d + col] =
+              from_f32<T>(lr[half] > 0.f ? acc[n][2 * half + e] / lr[half]
+                                         : 0.f);
+      }
+  }
 }
 
 template <typename T, int D>
 struct BlockwiseForward {
   static cudaError_t run(const Params& p, int batch, cudaStream_t stream) {
-    const dim3 grid((p.s_len + kTile - 1) / kTile, batch * p.heads);
-    return launch_with_smem(blockwise_fwd_kernel<T, D>, grid,
-                            fwd_smem_bytes<D>(), stream, p);
+    const dim3 grid(batch * p.heads, (p.s_len + kTile - 1) / kTile);
+    return launch_with_smem(blockwise_fwd_kernel<T, D>, grid, kMmaThreads,
+                            blockwise_fwd_smem_bytes<D>(), stream, p);
   }
 };
 

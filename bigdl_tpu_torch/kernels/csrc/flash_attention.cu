@@ -19,32 +19,36 @@
 // block would not fit the 227 KB of shared memory.
 //
 // Bound, at the training slice's shape (B 16, H 8, S 512, D 64, f32,
-// causal): arithmetic. The forward does 4 * D flops per kept (query,
-// key) pair, 4.3 GFLOP here, 64 us at the 67 TFLOP/s float32 rate the
-// card has outside the tensor cores; q, k, v and o are 67 MB, 20 us at
-// 3.35 TB/s. The backward does about 2.5x the forward's flops.
+// causal, packed segments): the forward does 4 * D flops per kept
+// (query, key) pair, 1.3 GFLOP here, 20 us at the 67 TFLOP/s float32
+// rate the card has outside the tensor cores, which is where this
+// forward runs; q, k, v and o are 67 MB, 20 us at 3.35 TB/s. The
+// backward does about 2.5x the forward's flops on the tensor cores in
+// 3xTF32 (165 TFLOP/s): its 134 MB of bytes bound it, 40 us.
 //
-// Design against that bound (a first, simple kernel — tensor cores,
-// wgmma, TMA and pipelining are later work):
-//  * the TPU kernel holds one [block_q, S] score strip in VMEM; a
-//    block here holds a 64 x 64 tile of scores, so the forward walks
-//    the key tiles twice through shared memory: pass 1 takes each
-//    row's max, pass 2 recomputes the scores and accumulates exp and
-//    p . v. That keeps the full-row semantics at any S (a [64, S] f32
-//    strip would not fit 227 KB past a few thousand keys) at the price
-//    of one extra q . k^T product;
-//  * 256 threads as 16 x 16 over 64 x 64 tiles (flash_common.cuh has
-//    the layout);
+// Design:
+//  * the forward stays on flash_common.cuh's SIMT kit (a first, simple
+//    kernel: tensor cores, TMA and pipelining are its next step). The
+//    TPU kernel holds one [block_q, S] score strip in VMEM; a block here
+//    holds a 64 x 64 tile of scores, so the forward walks the key tiles
+//    twice through shared memory: pass 1 takes each row's max, pass 2
+//    recomputes the scores and accumulates exp and p . v. That keeps
+//    the full-row semantics at any S (a [64, S] f32 strip would not fit
+//    227 KB past a few thousand keys) at the price of one extra q . k^T
+//    product; 256 threads as 16 x 16 over 64 x 64 tiles;
 //  * causal blocks skip the key tiles wholly above the diagonal (they
 //    add exact zeros to the row sums and nothing to the max);
-//  * the TPU grid runs its query tiles in order and carries dK / dV in
-//    scratch across them; GPU blocks run in no order, so the backward
-//    splits without atomics (the gradient is the same from run to run):
-//    a delta = rowsum(dO * O) pass, a dK/dV kernel with one block per
-//    (b, h, key tile) looping over the query tiles that see it, and a
-//    dQ kernel with one block per (b, h, query tile) looping over key
-//    tiles. Both recompute p and dS; 7 tile products where a fused
-//    kernel with atomics would do 5;
+//  * the backward is flash_common.cuh's, on the tensor cores in 3xTF32
+//    (float32 accuracy from tf32 mma.sync, the operands split into hi
+//    and lo halves in registers). The TPU grid runs its query tiles in
+//    order and carries dK / dV in scratch across them; GPU blocks run in
+//    no order, so the backward splits without atomics (the gradient is
+//    bitwise the same from run to run): a delta = rowsum(dO * O) pass, a
+//    dK/dV kernel with one block per (b, h, key tile) streaming the
+//    query tiles that see it through a cp.async ring, and a dQ kernel
+//    with one block per (b, h, query tile) streaming the key tiles,
+//    longest tiles first. Both recompute p and dS: 7 tile products where
+//    a fused kernel with atomics would do 5;
 //  * q, k, v, o and dO are read through their strides (the attention
 //    layer hands over [B, S, H, D] -> [B, H, S, D] transposed views);
 //    only the last dimension must be contiguous.
@@ -156,8 +160,8 @@ template <typename T, int D>
 struct FullRowForward {
   static cudaError_t run(const Params& p, int batch, cudaStream_t stream) {
     const dim3 grid((p.s_len + kTile - 1) / kTile, batch * p.heads);
-    return launch_with_smem(flash_fwd_kernel<T, D>, grid, fwd_smem_bytes<D>(),
-                            stream, p);
+    return launch_with_smem(flash_fwd_kernel<T, D>, grid, kThreads,
+                            fwd_smem_bytes<D>(), stream, p);
   }
 };
 

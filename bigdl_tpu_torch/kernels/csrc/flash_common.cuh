@@ -6,28 +6,71 @@
 // mask) . v over [B, H, S, D] tensors with the float32 log-sum-exp saved
 // for the backward, and both backwards are the same function of (q, k,
 // v, O, dO, lse). So this header holds everything but the two forward
-// kernels: the tile loads, the keep-mask, the score recomputation, the
-// forward epilogue (O and lse from a row's (m, l, acc)), and the whole
+// kernels: the tile loads, the keep-mask, the two tile-product kits
+// (SIMT and tensor-core), the forward epilogue of K1, and the whole
 // backward — a delta = rowsum(dO * O) pass, a dK/dV kernel with one
 // block per (b, h, key tile) streaming the query tiles from the causal
 // diagonal on, and a dQ kernel with one block per (b, h, query tile)
-// streaming the key tiles up to the diagonal. The backward uses no
-// atomics, so a gradient is the same from run to run; it replaces the
-// TPU kernels _bwd_kernel (K1) and _bw_dq_kernel / _bw_dkv_kernel (K2)
-// of bigdl_tpu/kernels/flash_attention.py. Each source keeps its own
+// streaming the key tiles up to the diagonal. It replaces the TPU
+// kernels _bwd_kernel (K1) and _bw_dq_kernel / _bw_dkv_kernel (K2) of
+// bigdl_tpu/kernels/flash_attention.py. Each source keeps its own
 // extern "C" entry points, built into its own library.
 //
-// Layout: a block is 256 threads as 16 x 16 and works on 64 x 64 tiles;
-// thread (ty, tx) owns rows ty + 16 i and columns tx + 16 j (i, j < 4)
-// of a score tile — a 4 x 4 register tile of outer products per step,
-// read from shared-memory rows padded by one float so a warp's 16
-// distinct rows fall in 16 banks. Inputs are float32, bfloat16 or
-// float16; every product and sum is float32. A head_dim d up to 128
+// Two kits of tile products live here:
+//  * SIMT (load_tile, tile_abt, tile_pv, store_forward): 256 threads as
+//    16 x 16, a thread owning a 4 x 4 register tile of float32 outer
+//    products, read from rows padded by one float. Only K1's forward
+//    still runs on it, at most the 67 TFLOP/s this card has outside the
+//    tensor cores, paced by shared-memory loads (2 FMAs a load).
+//  * Tensor cores in 3xTF32 (stage_tile, load_a, load_bt2, load_b_perm,
+//    acc_as_a, mma3): 128 threads, four warps each owning a 16-row strip
+//    of a 64 x 64 tile, through mma.sync m16n8k8 with tf32 operands and
+//    float32 accumulators. TF32 keeps 10 mantissa bits, about 1e-3
+//    relative: too coarse for the float32 contract (lse within 1e-5 at
+//    S = 8192, where lse is ~10). So each float operand is split in
+//    registers, as its fragment is loaded, into hi (x rounded to tf32,
+//    to nearest with ties away from zero, as cvt.rna rounds) and lo = x
+//    - hi, and a product takes a_lo.b_hi + a_hi.b_lo + a_hi.b_hi: float32
+//    accuracy (what is left out is ~2^-22 relative) at a third of the
+//    495 TFLOP/s TF32 rate, 165 TFLOP/s. Shared memory holds the floats
+//    once (splitting into stored hi / lo tiles would double it). Rows
+//    are padded to D + 4 floats, so a fragment read — lane (g, t) at row
+//    g, column t by ldmatrix (four 8 x 4 float blocks an instruction),
+//    or row 2t, column g by plain loads — hits 32 distinct banks. An
+//    accumulator tile feeds the next product as its A operand with no
+//    trip through shared memory: its columns 2t and 2t + 1 become the
+//    product's k = t and t + 4, and load_b_perm reads the other
+//    operand's rows in that order. A sum over many tiles (O, dK, dV,
+//    dQ) is carried in float32 registers, one tile's MMAs at a time
+//    (promote). What bounds these kernels on this card is the rate of
+//    instructions per SM: the splits, address arithmetic and softmax
+//    share each SM's instruction slots with the MMAs, which is why the
+//    split is two integer instructions, the exponentials exp2 and the
+//    fragment loads ldmatrix.
+//
+// The backward (both kernels K1 and K2 launch it) runs on the tensor
+// cores. It splits into a pass per key tile (dV = P^T . dO and dK =
+// dS^T . q) and a pass per query tile (dQ = dS . K), each recomputing S
+// = q . k^T and dP = dO . v^T: 7 tile products where a fused kernel
+// would do 5, but no block ever adds into another's output, so there
+// are no atomics and a gradient is bitwise the same from run to run.
+// The dK/dV block keeps its keys and values and the dQ block its
+// queries and dO; the streamed tiles go through a two-deep ring filled
+// by cp.async (float32) so the next tile's copy overlaps this tile's
+// products. Bound at the long-context shape ([1, 8, 8192, 64] f32
+// causal): operations, 1.04 ms at the 3xTF32 rate (2.6 ms at the SIMT
+// rate); its bytes take 40 us. The dQ kernel starts its longest query
+// tiles (the last, under causal) first; the dK/dV kernel's longest key
+// tiles are its first.
+//
+// Inputs are float32, bfloat16 or float16; every product and sum is
+// float32 (bfloat16 and float16 are converted as they are staged, and
+// then go through the same 3xTF32 products). A head_dim d up to 128
 // runs in the narrowest tile width D of 16, 32, 64 and 128 that holds
-// it, its columns past d loaded as zeros (they add nothing to any
+// it, its columns past d staged as zeros (they add nothing to any
 // product) and never stored. q, k, v, O and dO are read through their
 // (batch, head, row) strides; only the last dimension must be
-// contiguous. Any S is taken: tiles past S load zeros and are masked.
+// contiguous. Any S is taken: tiles past S stage zeros and are masked.
 
 #pragma once
 
@@ -37,13 +80,18 @@
 #include <math_constants.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
 constexpr int kTile = 64;            // query rows and key rows per tile
-constexpr int kThreads = 256;        // 16 x 16
+constexpr int kThreads = 256;        // SIMT blocks: 16 x 16
 constexpr int kSub = kTile / 16;     // rows (cols) of a thread's sub-tile
 constexpr int kLdP = kTile + 1;      // padded row of a 64 x 64 score tile
+constexpr int kWarps = kTile / 16;   // tensor-core blocks: a warp a strip
+constexpr int kMmaThreads = 32 * kWarps;
 constexpr unsigned kFullMask = 0xffffffffu;
+constexpr float kLog2e = 1.4426950408889634f;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
@@ -87,8 +135,11 @@ struct Params {
   void* dv;
   Strides sq, sk, sv, so, sdo;
   int heads, s_len, d, causal;  // d: the head_dim, at most the tile's D
+  int vec;  // float32 operands staged in 16-byte copies (aligned rows)
   float scale;
 };
+
+// ---------------------------------------------------------------- SIMT
 
 // Copy rows [row0, row0 + 64) of one (b, h) slice into a [64][D + 1]
 // float tile, times mul; rows past S and columns past d are zeros.
@@ -157,6 +208,213 @@ __device__ __forceinline__ void tile_pv(float (&acc)[kSub][D / 16],
   }
 }
 
+// ------------------------------------------------- tensor cores, 3xTF32
+
+// Row stride (floats) of a staged [64][D] tile: D + 4 is 4 mod 32 for
+// D = 32, 64, 128 (20 for D = 16), so a warp's fragment reads — lane
+// (g = lane / 4, t = lane % 4) at (row g, column t) or at (row 2t,
+// column g) — fall in 32 distinct banks; rows stay 16-byte aligned for
+// cp.async and ldmatrix.
+template <int D>
+__host__ __device__ constexpr int tile_ld() {
+  return D + 4;
+}
+
+// x = hi + lo for the tensor cores, which read only the top 19 bits
+// (sign, exponent, 10 mantissa bits) of a tf32 operand. hi is x rounded
+// to the nearest tf32 value, ties away from zero — cvt.rna.tf32.f32's
+// rounding, done as an add and a mask on the bits (two instructions;
+// the cvt compiles to about six, and the splits are most of the
+// kernels' non-MMA work). lo = x - hi is exact in float32, |lo| <=
+// 2^-11 |x|; the MMA drops its low 13 bits, which costs under 2^-22 |x|,
+// the size of the lo . lo term 3xTF32 leaves out. (x is finite here.)
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+// An m16n8k8 operand split into tf32 halves: A holds rows g and g + 8,
+// k = t and t + 4 (a0..a3 in the PTX order); B holds k = t and t + 4 of
+// column g.
+struct FragA {
+  uint32_t hi[4], lo[4];
+};
+struct FragB {
+  uint32_t hi[2], lo[2];
+};
+
+__device__ __forceinline__ void mma_tf32(float (&c)[4],
+                                         const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]),
+        "r"(b[1]));
+}
+
+// c += a . b in 3xTF32: the two small cross terms first, then hi . hi.
+__device__ __forceinline__ void mma3(float (&c)[4], const FragA& a,
+                                     const FragB& b) {
+  mma_tf32(c, a.lo, b.hi);
+  mma_tf32(c, a.hi, b.lo);
+  mma_tf32(c, a.hi, b.hi);
+}
+
+// sum += part, in IEEE float32. A sum carried in one MMA accumulator
+// through thousands of MMAs drifts: with dK and dV summed over all 128
+// query tiles at S = 8192 (3,072 MMAs deep), they missed the plain
+// version by 2.5e-4 and 4.1e-4 on an H100, against 7.9e-6 and 9.1e-6
+// with each tile's products in a fresh accumulator (at most 24 MMAs
+// deep) added here — the MMA's float32 adds do not round to nearest.
+__device__ __forceinline__ void promote(float (&sum)[4],
+                                        const float (&part)[4]) {
+#pragma unroll
+  for (int e = 0; e < 4; ++e) sum[e] += part[e];
+}
+
+// Four 8 x 4 float blocks of shared memory in one instruction: lane
+// 8j + r gives the address of row r of block j, and lane 4g + t gets
+// x[j] = row g, column t of block j — the tf32 fragment layout (an 8 x 8
+// b16 matrix is an 8 x 4 float block).
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&x)[4],
+                                            const float* row) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(row));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(x[0]), "=r"(x[1]), "=r"(x[2]), "=r"(x[3])
+      : "r"(a));
+}
+
+// A = rows r0 .. r0 + 15, columns k0 .. k0 + 7 of a row-major tile.
+template <int LD>
+__device__ __forceinline__ void load_a(FragA& f, const float* tile, int r0,
+                                       int k0, int lane) {
+  const int j = lane / 8;
+  uint32_t x[4];
+  ldmatrix_x4(x, tile + (r0 + lane % 8 + 8 * (j & 1)) * LD + k0 +
+                     4 * (j >> 1));
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    split_tf32(__uint_as_float(x[i]), f.hi[i], f.lo[i]);
+}
+
+// B[k][n] = tile[n0 + n][k0 + k] and tile[n0 + 8 + n][k0 + k]: the
+// transposes of two 8-row slices of a row-major tile whose rows are the
+// product's columns (k^T in q . k^T).
+template <int LD>
+__device__ __forceinline__ void load_bt2(FragB& f0, FragB& f1,
+                                         const float* tile, int n0, int k0,
+                                         int lane) {
+  const int j = lane / 8;
+  uint32_t x[4];
+  ldmatrix_x4(x, tile + (n0 + lane % 8 + 8 * (j >> 1)) * LD + k0 +
+                     4 * (j & 1));
+  split_tf32(__uint_as_float(x[0]), f0.hi[0], f0.lo[0]);
+  split_tf32(__uint_as_float(x[1]), f0.hi[1], f0.lo[1]);
+  split_tf32(__uint_as_float(x[2]), f1.hi[0], f1.lo[0]);
+  split_tf32(__uint_as_float(x[3]), f1.hi[1], f1.lo[1]);
+}
+
+// B[k][n] = tile[k0 + 2k or 2(k - 4) + 1][n0 + n]: a row-major tile
+// whose rows are the product's k, in the order acc_as_a gives A's k.
+template <int LD>
+__device__ __forceinline__ void load_b_perm(FragB& f, const float* tile,
+                                            int k0, int n0, int g, int t) {
+  const float* x = tile + (k0 + 2 * t) * LD + n0 + g;
+  split_tf32(x[0], f.hi[0], f.lo[0]);
+  split_tf32(x[LD], f.hi[1], f.lo[1]);
+}
+
+// An accumulator tile (rows g and g + 8, columns 2t and 2t + 1 of its 8)
+// as the A operand of a product over its 8 columns: column 2t is k = t,
+// column 2t + 1 is k = t + 4 (load_b_perm reads B in the same order).
+__device__ __forceinline__ void acc_as_a(FragA& f, const float (&c)[4]) {
+  split_tf32(c[0], f.hi[0], f.lo[0]);
+  split_tf32(c[2], f.hi[1], f.lo[1]);
+  split_tf32(c[1], f.hi[2], f.lo[2]);
+  split_tf32(c[3], f.hi[3], f.lo[3]);
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool in) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(in ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool in) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+               "l"(src), "r"(in ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N of this thread's committed groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Stage rows [row0, row0 + 64) of one (b, h) slice into a [64][D + 4]
+// float tile; rows past S and columns past d are zeros. float32 goes by
+// cp.async (16-byte copies when vec, else 4-byte), to be waited for
+// with cp_async_wait; bfloat16 and float16 are converted on the way,
+// synchronously.
+template <typename T, int D>
+__device__ __forceinline__ void stage_tile(float* dst, const T* src,
+                                           int64_t row_stride, int row0,
+                                           int s_len, int d, bool vec) {
+  constexpr int LD = tile_ld<D>();
+  if constexpr (std::is_same<T, float>::value) {
+    if (vec) {
+      for (int e = threadIdx.x; e < kTile * D / 4; e += kMmaThreads) {
+        const int r = e / (D / 4);
+        const int c = e % (D / 4) * 4;
+        const bool in = row0 + r < s_len && c < d;
+        cp_async16(dst + r * LD + c,
+                   in ? src + (row0 + r) * row_stride + c : src, in);
+      }
+      return;
+    }
+    for (int e = threadIdx.x; e < kTile * D; e += kMmaThreads) {
+      const int r = e / D;
+      const int c = e % D;
+      const bool in = row0 + r < s_len && c < d;
+      cp_async4(dst + r * LD + c,
+                in ? src + (row0 + r) * row_stride + c : src, in);
+    }
+  } else {
+    for (int e = threadIdx.x; e < kTile * D; e += kMmaThreads) {
+      const int r = e / D;
+      const int c = e % D;
+      const int gr = row0 + r;
+      dst[r * LD + c] =
+          gr < s_len && c < d ? to_f32(src[gr * row_stride + c]) : 0.f;
+    }
+  }
+}
+
+// Stage src[row0 .. row0 + 63] (lse, delta or segment ids) by cp.async;
+// zeros past S.
+template <typename U>
+__device__ __forceinline__ void stage_rows(U* dst, const U* src, int row0,
+                                           int s_len) {
+  for (int r = threadIdx.x; r < kTile; r += kMmaThreads) {
+    const bool in = row0 + r < s_len;
+    cp_async4(dst + r, in ? src + row0 + r : src, in);
+  }
+}
+
+// ------------------------------------------------------------- shared
+
 // The TPU kernels' keep-mask (_mask_for / _tile_mask): causal compares
 // absolute positions, segments compare query against key; keys past S
 // never count.
@@ -169,6 +427,14 @@ __device__ __forceinline__ bool keep(int row, int col, int s_len, int causal,
   return true;
 }
 
+// Whether a (query tile q0, key tile k0) pair needs the keep-mask at
+// all: segments, a tile reaching past S, or keys right of a query row.
+__device__ __forceinline__ bool tile_masked(int q0, int k0, int s_len,
+                                            int causal, bool segmented) {
+  return segmented || q0 + kTile > s_len || k0 + kTile > s_len ||
+         (causal && k0 + kTile - 1 > q0);
+}
+
 // Number of key tiles a query tile starting at q0 reads: under causal,
 // the tiles up to the one holding its last row (the rest are masked
 // whole).
@@ -179,7 +445,7 @@ __device__ __forceinline__ int key_tiles(int q0, int s_len, int causal) {
   return min(all, last_row / kTile + 1);
 }
 
-// Reduce over the 16 threads of a row group (tx = lane % 16).
+// Reduce over the 16 threads of a SIMT row group (tx = lane % 16).
 __device__ __forceinline__ float group_max(float x) {
 #pragma unroll
   for (int off = 8; off > 0; off >>= 1)
@@ -193,15 +459,25 @@ __device__ __forceinline__ float group_sum(float x) {
   return x;
 }
 
-// Shared memory of either forward block: q, k and v tiles, one score
-// tile and the two tiles' segment ids.
+// Reduce over the 4 lanes of an mma quad (the lanes holding one row).
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(kFullMask, x, 1));
+  return fmaxf(x, __shfl_xor_sync(kFullMask, x, 2));
+}
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(kFullMask, x, 1);
+  return x + __shfl_xor_sync(kFullMask, x, 2);
+}
+
+// Shared memory of K1's (SIMT) forward block: q, k and v tiles, one
+// score tile and the two tiles' segment ids.
 template <int D>
 constexpr size_t fwd_smem_bytes() {
   return sizeof(float) * (3 * kTile * (D + 1) + kTile * kLdP) +
          sizeof(int) * 2 * kTile;
 }
 
-// The forward epilogue of query tile q0: each row's O = acc / l and
+// K1's forward epilogue for query tile q0: each row's O = acc / l and
 // lse = m + log(l) from the row group's partial sums l (a fully masked
 // row, l = 0, gives O = 0 and lse = -inf).
 template <typename T, int D>
@@ -228,6 +504,31 @@ __device__ __forceinline__ void store_forward(const Params& p, int bh, int q0,
   }
 }
 
+// Store a warp's 16-row strip of a [64][D] accumulator (rows r0 + g and
+// r0 + g + 8, columns 8n + 2t and 8n + 2t + 1), times mul, into rows
+// row0 + r0 .. of a contiguous [S, d] output.
+template <typename T, int D>
+__device__ __forceinline__ void store_strip(T* out, const float (&acc)[D / 8][4],
+                                            int row0, int s_len, int d,
+                                            float mul, int g, int t) {
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = row0 + g + 8 * half;
+    if (row >= s_len) continue;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = 8 * n + 2 * t + e;
+        if (col < d)
+          out[static_cast<int64_t>(row) * d + col] =
+              from_f32<T>(acc[n][2 * half + e] * mul);
+      }
+  }
+}
+
+// ------------------------------------------------------------ backward
+
 // delta[b, h, row] = sum_d dO * O, one warp per row.
 template <typename T>
 __global__ void __launch_bounds__(kThreads) flash_delta_kernel(Params p,
@@ -253,191 +554,252 @@ __global__ void __launch_bounds__(kThreads) flash_delta_kernel(Params p,
   if (lane == 0) p.delta[row_id] = acc;
 }
 
-// p and dp for one (query tile, key tile) pair: P[r][c] and, in ds,
-// p * (dp - delta) * ds_scale on the score tiles' [64][65] layout. p is
-// recomputed from lse (p = 0 on masked lanes and where lse is not
-// finite).
-template <int D>
-__device__ __forceinline__ void grad_tiles(const Params& p, const float* qs,
-                                           const float* dos, const float* ks,
-                                           const float* vs, const float* lse_s,
-                                           const float* delta_s,
-                                           const int* seg_q, const int* seg_k,
-                                           bool segmented, int q0, int k0,
-                                           float ds_scale, float* ps,
-                                           float* dss, int ty, int tx) {
-  float s[kSub][kSub], dp[kSub][kSub];
-  tile_abt<D>(s, qs, ks, ty, tx);
-  tile_abt<D>(dp, dos, vs, ty, tx);
-#pragma unroll
-  for (int i = 0; i < kSub; ++i) {
-    const int r = ty + 16 * i;
-    const float lse = lse_s[r];
-    const bool live = isfinite(lse);
-#pragma unroll
-    for (int j = 0; j < kSub; ++j) {
-      const int c = tx + 16 * j;
-      const float pv = live && keep(q0 + r, k0 + c, p.s_len, p.causal,
-                                    seg_q, seg_k, r, c, segmented)
-                           ? expf(s[i][j] - lse)
-                           : 0.f;
-      if (ps != nullptr) ps[r * kLdP + c] = pv;
-      dss[r * kLdP + c] = pv * (dp[i][j] - delta_s[r]) * ds_scale;
-    }
-  }
-}
-
-// Load the query-side operands of tile q0: q * scale, dO, lse (-inf
-// past S) and delta.
-template <typename T, int D>
-__device__ __forceinline__ void load_query_side(const Params& p, int b, int h,
-                                                int q0, float* qs, float* dos,
-                                                float* lse_s, float* delta_s,
-                                                int* seg_q,
-                                                const int* seg_row) {
-  const int64_t bh = static_cast<int64_t>(b) * p.heads + h;
-  load_tile<T, D>(qs, static_cast<const T*>(p.q) + b * p.sq.b + h * p.sq.h,
-                  p.sq.s, q0, p.s_len, p.d, p.scale);
-  load_tile<T, D>(dos,
-                  static_cast<const T*>(p.dout) + b * p.sdo.b + h * p.sdo.h,
-                  p.sdo.s, q0, p.s_len, p.d, 1.f);
-  for (int r = threadIdx.x; r < kTile; r += kThreads) {
-    const bool in = q0 + r < p.s_len;
-    lse_s[r] = in ? p.lse[bh * p.s_len + q0 + r] : -CUDART_INF_F;
-    delta_s[r] = in ? p.delta[bh * p.s_len + q0 + r] : 0.f;
-  }
-  load_seg(seg_q, seg_row, q0, p.s_len);
-}
-
 template <int D>
 constexpr size_t dkv_smem_bytes() {
-  return sizeof(float) * (4 * kTile * (D + 1) + 2 * kTile * kLdP + 2 * kTile) +
-         sizeof(int) * 2 * kTile;
+  // k and v; a ring of two (q, dO) tiles; two (lse, delta) rows; the
+  // ring's query and the block's key segment ids
+  return sizeof(float) * (6 * kTile * tile_ld<D>() + 4 * kTile) +
+         sizeof(int) * 3 * kTile;
 }
 
-// grid (key tiles, B * H): dV = P^T . dO and dK = dS^T . q over every
-// query tile that sees this key tile. The TPU kernels' dS carries the
-// scale and multiplies the unscaled q; here dS is unscaled and the
-// tile holds q * scale — the same product.
+// grid (B * H, key tiles): dV = P^T . dO and dK = scale * dS^T . q over
+// every query tile that sees this key tile, dS = p * (dp - delta). Warp
+// w owns keys 16w .. 16w + 15: S^T = k . q^T and dP^T = v . dO^T come
+// out with keys as rows, which is the A operand dV and dK need, so p
+// and dS never leave registers. The query tiles stream through a ring
+// of two, QC queries at a time (16 at D = 128 to bound the registers);
+// each chunk's dV and dK go through fresh MMA accumulators and are then
+// added into the running float32 sums (promote).
+// The TPU kernels' dS carries the scale and multiplies the unscaled q;
+// here the scale multiplies dK once at the end — the same product.
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads) flash_dkv_kernel(Params p) {
-  constexpr int DC = D / 16;
-  extern __shared__ float smem[];
-  float* ks = smem;
-  float* vs = ks + kTile * (D + 1);
-  float* qs = vs + kTile * (D + 1);
-  float* dos = qs + kTile * (D + 1);
-  float* ps = dos + kTile * (D + 1);
-  float* dss = ps + kTile * kLdP;
-  float* lse_s = dss + kTile * kLdP;
-  float* delta_s = lse_s + kTile;
-  int* seg_q = reinterpret_cast<int*>(delta_s + kTile);
-  int* seg_k = seg_q + kTile;
+__global__ void __launch_bounds__(kMmaThreads) flash_dkv_kernel(Params p) {
+  constexpr int LD = tile_ld<D>();
+  constexpr int DN = D / 8;                 // 8-column tiles of dK, dV
+  constexpr int QC = D > 64 ? 16 : 32;      // queries per chunk
+  constexpr int QN = QC / 8;
+  extern __shared__ __align__(16) float tc_smem[];
+  float* ks = tc_smem;
+  float* vs = ks + kTile * LD;
+  float* qs = vs + kTile * LD;              // [2][64][LD]
+  float* dos = qs + 2 * kTile * LD;         // [2][64][LD]
+  float* lse_s = dos + 2 * kTile * LD;      // [2][64]
+  float* delta_s = lse_s + 2 * kTile;       // [2][64]
+  int* seg_q = reinterpret_cast<int*>(delta_s + 2 * kTile);  // [2][64]
+  int* seg_k = seg_q + 2 * kTile;
 
-  const int bh = blockIdx.y;
+  const int bh = blockIdx.x;
   const int b = bh / p.heads;
   const int h = bh % p.heads;
-  const int k0 = blockIdx.x * kTile;
-  const int ty = threadIdx.x / 16;
-  const int tx = threadIdx.x % 16;
+  const int k0 = blockIdx.y * kTile;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4;
+  const int t = lane % 4;
+  const int r0 = 16 * warp;
   const int s_len = p.s_len;
   const bool segmented = p.seg != nullptr;
   const int* seg_row = segmented ? p.seg + static_cast<int64_t>(b) * s_len
                                  : nullptr;
+  const T* qb = static_cast<const T*>(p.q) + b * p.sq.b + h * p.sq.h;
+  const T* dob = static_cast<const T*>(p.dout) + b * p.sdo.b + h * p.sdo.h;
+  const float* lseb = p.lse + static_cast<int64_t>(bh) * s_len;
+  const float* deltab = p.delta + static_cast<int64_t>(bh) * s_len;
 
-  load_tile<T, D>(ks, static_cast<const T*>(p.k) + b * p.sk.b + h * p.sk.h,
-                  p.sk.s, k0, s_len, p.d, 1.f);
-  load_tile<T, D>(vs, static_cast<const T*>(p.v) + b * p.sv.b + h * p.sv.h,
-                  p.sv.s, k0, s_len, p.d, 1.f);
-  load_seg(seg_k, seg_row, k0, s_len);
+  auto stage_query_side = [&](int qt, int slot) {
+    const int q0 = qt * kTile;
+    stage_tile<T, D>(qs + slot * kTile * LD, qb, p.sq.s, q0, s_len, p.d,
+                     p.vec);
+    stage_tile<T, D>(dos + slot * kTile * LD, dob, p.sdo.s, q0, s_len, p.d,
+                     p.vec);
+    stage_rows(lse_s + slot * kTile, lseb, q0, s_len);
+    stage_rows(delta_s + slot * kTile, deltab, q0, s_len);
+    if (segmented) stage_rows(seg_q + slot * kTile, seg_row, q0, s_len);
+  };
 
-  float dk[kSub][DC], dv[kSub][DC];
-#pragma unroll
-  for (int i = 0; i < kSub; ++i)
-#pragma unroll
-    for (int c = 0; c < DC; ++c) dk[i][c] = dv[i][c] = 0.f;
-
+  stage_tile<T, D>(ks, static_cast<const T*>(p.k) + b * p.sk.b + h * p.sk.h,
+                   p.sk.s, k0, s_len, p.d, p.vec);
+  stage_tile<T, D>(vs, static_cast<const T*>(p.v) + b * p.sv.b + h * p.sv.h,
+                   p.sv.s, k0, s_len, p.d, p.vec);
+  if (segmented) stage_rows(seg_k, seg_row, k0, s_len);
   const int n_qt = (s_len + kTile - 1) / kTile;
   // causal: query rows below k0 see none of these keys
-  const int qt0 = p.causal ? k0 / kTile : 0;
+  const int qt0 = p.causal ? blockIdx.y : 0;
+  // p = exp(s * scale - lse) = exp2(s * scale2 - lse * log2(e))
+  const float scale2 = p.scale * kLog2e;
+  stage_query_side(qt0, 0);
+  cp_async_commit();
+
+  float dk[DN][4], dv[DN][4];
+#pragma unroll
+  for (int n = 0; n < DN; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
+
   for (int qt = qt0; qt < n_qt; ++qt) {
-    const int q0 = qt * kTile;
-    __syncthreads();
-    load_query_side<T, D>(p, b, h, q0, qs, dos, lse_s, delta_s, seg_q,
-                          seg_row);
-    __syncthreads();
-    grad_tiles<D>(p, qs, dos, ks, vs, lse_s, delta_s, seg_q, seg_k, segmented,
-                  q0, k0, 1.f, ps, dss, ty, tx);
-    __syncthreads();
-    // rows of dK / dV are keys ty + 16 i, columns tx + 16 c
-#pragma unroll 4
-    for (int r = 0; r < kTile; ++r) {
-      float pk[kSub], dsk[kSub], gv[DC], qv[DC];
-#pragma unroll
-      for (int i = 0; i < kSub; ++i) {
-        pk[i] = ps[r * kLdP + ty + 16 * i];
-        dsk[i] = dss[r * kLdP + ty + 16 * i];
-      }
-#pragma unroll
-      for (int c = 0; c < DC; ++c) {
-        gv[c] = dos[r * (D + 1) + tx + 16 * c];
-        qv[c] = qs[r * (D + 1) + tx + 16 * c];
-      }
-#pragma unroll
-      for (int i = 0; i < kSub; ++i)
-#pragma unroll
-        for (int c = 0; c < DC; ++c) {
-          dv[i][c] += pk[i] * gv[c];
-          dk[i][c] += dsk[i] * qv[c];
-        }
+    const int slot = (qt - qt0) & 1;
+    if (qt + 1 < n_qt) {
+      stage_query_side(qt + 1, slot ^ 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
+    __syncthreads();
+    const int q0 = qt * kTile;
+    const float* qt_s = qs + slot * kTile * LD;
+    const float* dot_s = dos + slot * kTile * LD;
+    const float* lse_t = lse_s + slot * kTile;
+    const float* delta_t = delta_s + slot * kTile;
+    const int* seg_t = seg_q + slot * kTile;
+    const bool masked = tile_masked(q0, k0, s_len, p.causal, segmented);
+
+#pragma unroll 1
+    for (int c0 = 0; c0 < kTile; c0 += QC) {
+      float st[QN][4], dpt[QN][4];
+#pragma unroll
+      for (int n = 0; n < QN; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) st[n][e] = dpt[n][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < D; kk += 8) {
+        FragA ak, av;
+        load_a<LD>(ak, ks, r0, kk, lane);
+        load_a<LD>(av, vs, r0, kk, lane);
+#pragma unroll
+        for (int n = 0; n < QN; n += 2) {
+          FragB bq[2], bdo[2];
+          load_bt2<LD>(bq[0], bq[1], qt_s, c0 + 8 * n, kk, lane);
+          load_bt2<LD>(bdo[0], bdo[1], dot_s, c0 + 8 * n, kk, lane);
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            mma3(st[n + i], ak, bq[i]);
+            mma3(dpt[n + i], av, bdo[i]);
+          }
+        }
+      }
+      // p^T and dS^T: element (key r0 + g (+ 8), query c0 + 8n + 2t (+ 1))
+#pragma unroll
+      for (int n = 0; n < QN; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int kr = r0 + g + (e >> 1) * 8;
+          const int qc = c0 + 8 * n + 2 * t + (e & 1);
+          const float lse = lse_t[qc];
+          const bool live =
+              isfinite(lse) &&
+              (!masked || (q0 + qc < s_len &&
+                           keep(q0 + qc, k0 + kr, s_len, p.causal, seg_t,
+                                seg_k, qc, kr, segmented)));
+          const float pv =
+              live ? exp2f(fmaf(st[n][e], scale2, -lse * kLog2e)) : 0.f;
+          st[n][e] = pv;
+          dpt[n][e] = pv * (dpt[n][e] - delta_t[qc]);
+        }
+      if constexpr (DN <= 8) {
+        // every column's partial sums live at once: 2 DN independent
+        // MMA chains (10% faster at D = 64 than the order below, which
+        // has 2)
+        float tv[DN][4], tk[DN][4];
+#pragma unroll
+        for (int n = 0; n < DN; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) tv[n][e] = tk[n][e] = 0.f;
+#pragma unroll
+        for (int j = 0; j < QN; ++j) {
+          FragA ap, ads;
+          acc_as_a(ap, st[j]);
+          acc_as_a(ads, dpt[j]);
+#pragma unroll
+          for (int n = 0; n < DN; ++n) {
+            FragB bdo, bq;
+            load_b_perm<LD>(bdo, dot_s, c0 + 8 * j, 8 * n, g, t);
+            load_b_perm<LD>(bq, qt_s, c0 + 8 * j, 8 * n, g, t);
+            mma3(tv[n], ap, bdo);
+            mma3(tk[n], ads, bq);
+          }
+        }
+#pragma unroll
+        for (int n = 0; n < DN; ++n) {
+          promote(dv[n], tv[n]);
+          promote(dk[n], tk[n]);
+        }
+      } else {
+        // D = 128: dK and dV already hold 128 registers; split p and dS
+        // once and take the columns 8 at a time
+        FragA ap[QN], ads[QN];
+#pragma unroll
+        for (int j = 0; j < QN; ++j) {
+          acc_as_a(ap[j], st[j]);
+          acc_as_a(ads[j], dpt[j]);
+        }
+#pragma unroll
+        for (int n = 0; n < DN; ++n) {
+          float tv[4] = {0.f, 0.f, 0.f, 0.f}, tk[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+          for (int j = 0; j < QN; ++j) {
+            FragB bdo, bq;
+            load_b_perm<LD>(bdo, dot_s, c0 + 8 * j, 8 * n, g, t);
+            load_b_perm<LD>(bq, qt_s, c0 + 8 * j, 8 * n, g, t);
+            mma3(tv, ap[j], bdo);
+            mma3(tk, ads[j], bq);
+          }
+          promote(dv[n], tv);
+          promote(dk[n], tk);
+        }
+      }
+    }
+    __syncthreads();
   }
 
   const int64_t base = static_cast<int64_t>(bh) * s_len * p.d;
-  T* dkb = static_cast<T*>(p.dk) + base;
-  T* dvb = static_cast<T*>(p.dv) + base;
-#pragma unroll
-  for (int i = 0; i < kSub; ++i) {
-    const int row = k0 + ty + 16 * i;
-    if (row >= s_len) continue;
-#pragma unroll
-    for (int c = 0; c < DC; ++c) {
-      const int col = tx + 16 * c;
-      if (col >= p.d) continue;
-      dkb[static_cast<int64_t>(row) * p.d + col] = from_f32<T>(dk[i][c]);
-      dvb[static_cast<int64_t>(row) * p.d + col] = from_f32<T>(dv[i][c]);
-    }
-  }
+  store_strip<T, D>(static_cast<T*>(p.dk) + base, dk, k0 + r0, s_len, p.d,
+                    p.scale, g, t);
+  store_strip<T, D>(static_cast<T*>(p.dv) + base, dv, k0 + r0, s_len, p.d,
+                    1.f, g, t);
 }
 
 template <int D>
 constexpr size_t dq_smem_bytes() {
-  return sizeof(float) * (4 * kTile * (D + 1) + kTile * kLdP + 2 * kTile) +
-         sizeof(int) * 2 * kTile;
+  // q and dO; a ring of two (k, v) tiles; the lse and delta rows; the
+  // block's query and the ring's key segment ids
+  return sizeof(float) * (6 * kTile * tile_ld<D>() + 2 * kTile) +
+         sizeof(int) * 3 * kTile;
 }
 
-// grid (query tiles, B * H): dQ = dS . K with dS = p * (dp - delta) *
-// scale, as the TPU kernels form it.
+// grid (B * H, query tiles, longest first): dQ = dS . K with dS = p *
+// (dp - delta) * scale, as the TPU kernels form it. Warp w owns queries
+// 16w .. 16w + 15; S = q . k^T and dP = dO . v^T come out with queries
+// as rows, the A operand of dS . K, so dS never leaves registers. The
+// key tiles stream through a ring of two, KC keys at a time (32 at D =
+// 128 to bound the registers); each chunk's dQ goes through fresh MMA
+// accumulators and is then added into the running float32 sum.
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads) flash_dq_kernel(Params p) {
-  constexpr int DC = D / 16;
-  extern __shared__ float smem[];
-  float* qs = smem;
-  float* dos = qs + kTile * (D + 1);
-  float* ks = dos + kTile * (D + 1);
-  float* vs = ks + kTile * (D + 1);
-  float* dss = vs + kTile * (D + 1);
-  float* lse_s = dss + kTile * kLdP;
+__global__ void __launch_bounds__(kMmaThreads) flash_dq_kernel(Params p) {
+  constexpr int LD = tile_ld<D>();
+  constexpr int DN = D / 8;
+  constexpr int KC = D > 64 ? 32 : 64;      // keys per chunk
+  constexpr int KN = KC / 8;
+  extern __shared__ __align__(16) float tc_smem[];
+  float* qs = tc_smem;
+  float* dos = qs + kTile * LD;
+  float* ks = dos + kTile * LD;             // [2][64][LD]
+  float* vs = ks + 2 * kTile * LD;          // [2][64][LD]
+  float* lse_s = vs + 2 * kTile * LD;
   float* delta_s = lse_s + kTile;
   int* seg_q = reinterpret_cast<int*>(delta_s + kTile);
-  int* seg_k = seg_q + kTile;
+  int* seg_k = seg_q + kTile;               // [2][64]
 
-  const int bh = blockIdx.y;
+  const int bh = blockIdx.x;
   const int b = bh / p.heads;
   const int h = bh % p.heads;
-  const int q0 = blockIdx.x * kTile;
-  const int ty = threadIdx.x / 16;
-  const int tx = threadIdx.x % 16;
+  // the longest query tiles (under causal, the last) start first
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kTile;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4;
+  const int t = lane % 4;
+  const int r0 = 16 * warp;
   const int s_len = p.s_len;
   const bool segmented = p.seg != nullptr;
   const int* seg_row = segmented ? p.seg + static_cast<int64_t>(b) * s_len
@@ -445,65 +807,151 @@ __global__ void __launch_bounds__(kThreads) flash_dq_kernel(Params p) {
   const T* kb = static_cast<const T*>(p.k) + b * p.sk.b + h * p.sk.h;
   const T* vb = static_cast<const T*>(p.v) + b * p.sv.b + h * p.sv.h;
 
-  load_query_side<T, D>(p, b, h, q0, qs, dos, lse_s, delta_s, seg_q, seg_row);
+  auto stage_key_side = [&](int kt, int slot) {
+    const int k0 = kt * kTile;
+    stage_tile<T, D>(ks + slot * kTile * LD, kb, p.sk.s, k0, s_len, p.d,
+                     p.vec);
+    stage_tile<T, D>(vs + slot * kTile * LD, vb, p.sv.s, k0, s_len, p.d,
+                     p.vec);
+    if (segmented) stage_rows(seg_k + slot * kTile, seg_row, k0, s_len);
+  };
 
-  float dq[kSub][DC];
+  stage_tile<T, D>(qs, static_cast<const T*>(p.q) + b * p.sq.b + h * p.sq.h,
+                   p.sq.s, q0, s_len, p.d, p.vec);
+  stage_tile<T, D>(dos,
+                   static_cast<const T*>(p.dout) + b * p.sdo.b + h * p.sdo.h,
+                   p.sdo.s, q0, s_len, p.d, p.vec);
+  stage_rows(lse_s, p.lse + static_cast<int64_t>(bh) * s_len, q0, s_len);
+  stage_rows(delta_s, p.delta + static_cast<int64_t>(bh) * s_len, q0, s_len);
+  if (segmented) stage_rows(seg_q, seg_row, q0, s_len);
+  stage_key_side(0, 0);
+  cp_async_commit();
+
+  float dq[DN][4];
 #pragma unroll
-  for (int i = 0; i < kSub; ++i)
+  for (int n = 0; n < DN; ++n)
 #pragma unroll
-    for (int c = 0; c < DC; ++c) dq[i][c] = 0.f;
+    for (int e = 0; e < 4; ++e) dq[n][e] = 0.f;
+  // this thread's rows r0 + g and r0 + g + 8: lse, delta, and whether
+  // the row exists and saw any key (lse finite)
+  float lse2_r[2] = {0.f, 0.f}, delta_r[2] = {0.f, 0.f};
+  bool live_r[2] = {false, false};
+  // p = exp(s * scale - lse) = exp2(s * scale2 - lse * log2(e))
+  const float scale2 = p.scale * kLog2e;
 
   const int n_kt = key_tiles(q0, s_len, p.causal);
   for (int kt = 0; kt < n_kt; ++kt) {
-    const int k0 = kt * kTile;
-    __syncthreads();
-    load_tile<T, D>(ks, kb, p.sk.s, k0, s_len, p.d, 1.f);
-    load_tile<T, D>(vs, vb, p.sv.s, k0, s_len, p.d, 1.f);
-    load_seg(seg_k, seg_row, k0, s_len);
-    __syncthreads();
-    grad_tiles<D>(p, qs, dos, ks, vs, lse_s, delta_s, seg_q, seg_k, segmented,
-                  q0, k0, p.scale, nullptr, dss, ty, tx);
-    __syncthreads();
-#pragma unroll 4
-    for (int c = 0; c < kTile; ++c) {
-      float dsr[kSub], kv[DC];
-#pragma unroll
-      for (int i = 0; i < kSub; ++i) dsr[i] = dss[(ty + 16 * i) * kLdP + c];
-#pragma unroll
-      for (int cc = 0; cc < DC; ++cc) kv[cc] = ks[c * (D + 1) + tx + 16 * cc];
-#pragma unroll
-      for (int i = 0; i < kSub; ++i)
-#pragma unroll
-        for (int cc = 0; cc < DC; ++cc) dq[i][cc] += dsr[i] * kv[cc];
+    const int slot = kt & 1;
+    if (kt + 1 < n_kt) {
+      stage_key_side(kt + 1, slot ^ 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
+    __syncthreads();
+    if (kt == 0) {
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int r = r0 + g + 8 * half;
+        lse2_r[half] = lse_s[r] * kLog2e;
+        delta_r[half] = delta_s[r];
+        live_r[half] = q0 + r < s_len && isfinite(lse_s[r]);
+      }
+    }
+    const int k0 = kt * kTile;
+    const float* kt_s = ks + slot * kTile * LD;
+    const float* vt_s = vs + slot * kTile * LD;
+    const int* seg_t = seg_k + slot * kTile;
+    const bool masked = tile_masked(q0, k0, s_len, p.causal, segmented);
+
+#pragma unroll 1
+    for (int c0 = 0; c0 < kTile; c0 += KC) {
+      float s[KN][4], dp[KN][4];
+#pragma unroll
+      for (int n = 0; n < KN; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < D; kk += 8) {
+        FragA aq, ado;
+        load_a<LD>(aq, qs, r0, kk, lane);
+        load_a<LD>(ado, dos, r0, kk, lane);
+#pragma unroll
+        for (int n = 0; n < KN; n += 2) {
+          FragB bk[2], bv[2];
+          load_bt2<LD>(bk[0], bk[1], kt_s, c0 + 8 * n, kk, lane);
+          load_bt2<LD>(bv[0], bv[1], vt_s, c0 + 8 * n, kk, lane);
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            mma3(s[n + i], aq, bk[i]);
+            mma3(dp[n + i], ado, bv[i]);
+          }
+        }
+      }
+      // dS: element (query r0 + g (+ 8), key c0 + 8n + 2t (+ 1))
+#pragma unroll
+      for (int n = 0; n < KN; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int half = e >> 1;
+          const int qr = r0 + g + 8 * half;
+          const int kc = c0 + 8 * n + 2 * t + (e & 1);
+          const bool live =
+              live_r[half] &&
+              (!masked || keep(q0 + qr, k0 + kc, s_len, p.causal, seg_q,
+                               seg_t, qr, kc, segmented));
+          const float pv =
+              live ? exp2f(fmaf(s[n][e], scale2, -lse2_r[half])) : 0.f;
+          s[n][e] = pv * (dp[n][e] - delta_r[half]) * p.scale;
+        }
+      float tq[DN][4];
+#pragma unroll
+      for (int n = 0; n < DN; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) tq[n][e] = 0.f;
+#pragma unroll
+      for (int j = 0; j < KN; ++j) {
+        FragA ads;
+        acc_as_a(ads, s[j]);
+#pragma unroll
+        for (int n = 0; n < DN; ++n) {
+          FragB bk;
+          load_b_perm<LD>(bk, kt_s, c0 + 8 * j, 8 * n, g, t);
+          mma3(tq[n], ads, bk);
+        }
+      }
+#pragma unroll
+      for (int n = 0; n < DN; ++n) promote(dq[n], tq[n]);
+    }
+    __syncthreads();
   }
 
-  T* dqb = static_cast<T*>(p.dq) + static_cast<int64_t>(bh) * s_len * p.d;
-#pragma unroll
-  for (int i = 0; i < kSub; ++i) {
-    const int row = q0 + ty + 16 * i;
-    if (row >= s_len) continue;
-#pragma unroll
-    for (int c = 0; c < DC; ++c) {
-      const int col = tx + 16 * c;
-      if (col < p.d)
-        dqb[static_cast<int64_t>(row) * p.d + col] = from_f32<T>(dq[i][c]);
-    }
-  }
+  store_strip<T, D>(static_cast<T*>(p.dq) + static_cast<int64_t>(bh) *
+                                                s_len * p.d,
+                    dq, q0 + r0, s_len, p.d, 1.f, g, t);
 }
 
-// Launch kernel<<<grid, 256, smem>>> after raising its dynamic shared
-// memory cap (needed past 48 KB; idempotent, so a race between threads
-// setting it is harmless).
+// Launch kernel<<<grid, threads, smem>>> after raising its dynamic
+// shared memory cap (needed past 48 KB; idempotent, so a race between
+// threads setting it is harmless).
 template <typename Kernel>
-cudaError_t launch_with_smem(Kernel kernel, dim3 grid, size_t smem,
-                             cudaStream_t stream, const Params& p) {
+cudaError_t launch_with_smem(Kernel kernel, dim3 grid, int threads,
+                             size_t smem, cudaStream_t stream,
+                             const Params& p) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  kernel<<<grid, kThreads, smem, stream>>>(p);
+  kernel<<<grid, threads, smem, stream>>>(p);
   return cudaGetLastError();
+}
+
+// Whether a float32 operand's rows can be staged in 16-byte copies: a
+// 16-byte aligned base and (batch, head, row) strides of whole 16 bytes.
+bool rows_vec(const void* ptr, const Strides& s) {
+  return reinterpret_cast<uintptr_t>(ptr) % 16 == 0 && s.b % 4 == 0 &&
+         s.h % 4 == 0 && s.s % 4 == 0;
 }
 
 void fill_params(Params& p, const int64_t* strides, int heads, int s_len,
@@ -519,12 +967,16 @@ void fill_params(Params& p, const int64_t* strides, int heads, int s_len,
   p.d = d;
   p.causal = causal;
   p.scale = scale;
+  p.vec = d % 4 == 0 && rows_vec(p.q, p.sq) && rows_vec(p.k, p.sk) &&
+          rows_vec(p.v, p.sv) &&
+          (p.dout == nullptr || rows_vec(p.dout, p.sdo));
 }
 
 bool bad_shape(int batch, int heads, int s_len, int d) {
   return batch < 1 || heads < 1 || s_len < 1 ||
          d < 1 || d > 128 ||
-         static_cast<int64_t>(batch) * heads > 65535;
+         static_cast<int64_t>(batch) * heads > 65535 ||
+         (s_len + kTile - 1) / kTile > 65535;
 }
 
 // The backward's kernels at tile width D: delta, dK/dV and dQ on one
@@ -539,12 +991,12 @@ struct BwdLaunch {
                             kThreads, 0, stream>>>(p, p.d, rows);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
-    const dim3 grid((p.s_len + kTile - 1) / kTile, batch * p.heads);
-    err = launch_with_smem(flash_dkv_kernel<T, D>, grid, dkv_smem_bytes<D>(),
-                           stream, p);
+    const dim3 grid(batch * p.heads, (p.s_len + kTile - 1) / kTile);
+    err = launch_with_smem(flash_dkv_kernel<T, D>, grid, kMmaThreads,
+                           dkv_smem_bytes<D>(), stream, p);
     if (err != cudaSuccess) return err;
-    return launch_with_smem(flash_dq_kernel<T, D>, grid, dq_smem_bytes<D>(),
-                            stream, p);
+    return launch_with_smem(flash_dq_kernel<T, D>, grid, kMmaThreads,
+                            dq_smem_bytes<D>(), stream, p);
   }
 };
 

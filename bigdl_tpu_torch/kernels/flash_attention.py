@@ -53,7 +53,7 @@ _NEG_INF = float("-inf")
 _CUDA_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16",
                 torch.float16: "f16"}
 #: the widest head_dim the CUDA kernels take: a backward block's float32
-#: tiles at 128 columns take 166 KB of the 227 KB of shared memory
+#: tiles at 128 columns take 200 KB of the 227 KB of shared memory
 _CUDA_MAX_HEAD_DIM = 128
 #: the grid's second axis runs over batch x heads
 _CUDA_MAX_BATCH_HEADS = 65535

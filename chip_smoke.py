@@ -9,7 +9,10 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``
    prints them;
 2. build — every kernel under ``bigdl_tpu_torch/kernels/csrc`` is built
-   from source with nvcc (one process per source, all at once);
+   from source with nvcc (one process per source, all at once); the
+   flash libraries' SASS (``cuobjdump -sass``) must show tf32
+   tensor-core MMAs (``HMMA ... TF32``) in K2's forward and in the
+   backward's dK/dV and dQ kernels, which run in 3xTF32;
 3. kernels — each kernel's wrapper against its plain PyTorch version on
    the same inputs on the card, at its main path's shapes, then timed
    beside the plain version, one PyTorch library call computing the
@@ -22,8 +25,11 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    at ragged edge shapes (S = 1 to 1000, D = 16 to 128, causal and
    segments on and off, float32/bfloat16/float16) and at ``[1, 8, 2048,
    64]``, against K1's kernel at the long-context shape ``[1, 8, 8192,
-   64]``, and timed there and at ``[1, 8, 32768, 64]`` beside K1, the
-   SDPA yardstick and (at 8192) the einsum path; then the attention
+   64]``; the backward run twice at ``[1, 8, 8192, 64]`` (K2) and at
+   ``[16, 8, 512, 64]`` with segments (K1) must give bitwise equal
+   gradients (no atomics); timed there and at ``[1, 8, 32768, 64]``
+   beside K1, the SDPA yardstick (whose kernels are logged) and (at
+   8192) the einsum path; then the attention
    layer's route for score matrices over 2 GiB (flash off, ``[1, 8,
    16384, 128]``) must launch K2 once and equal a direct call bitwise;
    the fused dequant int8 GEMM (K5) equal to its plain version bitwise
@@ -139,6 +145,10 @@ PAGE_SIZES = (16, 64, 128)
 # ---- the card (NVIDIA's H100 SXM data sheet) ----
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12          # float32 outside the tensor cores
+#: float32-accurate products on the tensor cores as 3xTF32 (three tf32
+#: MMAs a product, of the 495 TFLOP/s dense TF32 rate): the arithmetic
+#: of K2's forward and of the backward K1 and K2 share
+TF32X3_FLOPS_PER_S = 495e12 / 3
 BF16_FLOPS_PER_S = 989e12        # bfloat16 on the tensor cores
 INT8_OPS_PER_S = 1979e12         # int8 on the tensor cores, dense
 
@@ -252,6 +262,46 @@ def phase_build():
                 lines.setdefault(fn, []).append(line)
         for fn, info in sorted(lines.items()):
             log("build", f"{name}: {fn}: {'; '.join(info)}")
+    check_tf32_mmas(paths)
+
+
+#: the kernels that run their tile products in 3xTF32 on the tensor
+#: cores, by library
+TF32_KERNELS = {"blockwise_flash_attention": ("blockwise_fwd_kernel",
+                                              "flash_dkv_kernel",
+                                              "flash_dq_kernel"),
+                "flash_attention": ("flash_dkv_kernel", "flash_dq_kernel")}
+
+
+def check_tf32_mmas(paths) -> None:
+    """Count the tf32 tensor-core MMAs (SASS ``HMMA ... TF32``) of each
+    kernel instance in the flash libraries with ``cuobjdump -sass``; fail
+    if an instance of a 3xTF32 kernel has none."""
+    import os
+
+    from bigdl_tpu_torch.kernels import _build
+
+    tool = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
+    for name, kernels in sorted(TF32_KERNELS.items()):
+        sass = subprocess.run([tool, "-sass", str(paths[name])],
+                              capture_output=True, text=True, timeout=300,
+                              check=True).stdout
+        counts, fn = {}, None
+        for line in sass.splitlines():
+            m = re.search(r"Function : (\S+)", line)
+            if m:
+                fn = kernel_instance(m.group(1))
+                counts.setdefault(fn, 0)
+            elif fn and re.search(r"\bHMMA\.\S*TF32", line):
+                counts[fn] += 1
+        log("build", f"{name}: tf32 HMMA per kernel instance: "
+                     + json.dumps(counts, sort_keys=True))
+        # an instance's name carries its namespace's mangled prefix
+        ours = [fn for fn in counts if fn.split("<")[0].endswith(kernels)]
+        missing = [fn for fn in ours if counts[fn] == 0]
+        if missing or not ours:
+            raise AssertionError(f"{name}: no tf32 HMMA in "
+                                 f"{missing or kernels}")
 
 
 def kernel_instance(mangled: str) -> str:
@@ -755,8 +805,10 @@ def phase_flash(train_seg):
 
         name = str(dtype).split(".")[-1]
         kept = kept_pairs(seg, TRAIN_BATCH, TRAIN_SEQ, dev)
-        peak = F32_FLOPS_PER_S if dtype == torch.float32 \
-            else BF16_FLOPS_PER_S
+        # float32: K1's forward runs SIMT, the backward 3xTF32
+        peaks = ({"fwd": F32_FLOPS_PER_S, "bwd": TF32X3_FLOPS_PER_S}
+                 if dtype == torch.float32 else
+                 {"fwd": BF16_FLOPS_PER_S, "bwd": BF16_FLOPS_PER_S})
         itemsize = torch.empty((), dtype=dtype).element_size()
         rel = dtype == torch.bfloat16
         o_err = (kern_f(0)[0].float() - plain_f(0)[0].float()).abs()
@@ -775,7 +827,8 @@ def phase_flash(train_seg):
             library_ms = time_ms(lib, n_sets, rounds=10)
             einsum_ms = time_ms(einsum, n_sets, rounds=5)
             bound_ms, bound_by = flash_bound(kept, shape, itemsize,
-                                             seg is not None, backward, peak)
+                                             seg is not None, backward,
+                                             peaks[kind])
             row[kind] = {"name": f"flash_attention_{kind}", "route": "cuda",
                          "source": "bigdl_tpu_torch/kernels/csrc/"
                                    "flash_attention.cu",
@@ -1113,6 +1166,15 @@ def phase_blockwise():
                  for n, a, b_ in zip(("dq", "dk", "dv"), g2, g1)})
     _check_flash(errs, "float32", f"float32 {list(shape)} causal, against "
                                   f"K1's kernel", phase="blockwise")
+    check_deterministic(k2_bwd, q, k, v, o2, do, lse2, None,
+                        "K2 backward")
+    del o1, lse1, g1, g2
+    shape = (TRAIN_BATCH, HEADS, TRAIN_SEQ, HEAD_DIM)
+    q, k, v = _views(gen, shape, torch.float32)
+    do = torch.randn(shape, device="cuda", generator=gen)
+    seg = _segments(gen, TRAIN_BATCH, TRAIN_SEQ)
+    o1, lse1 = k1_fwd(q, k, v, seg, causal=True)
+    check_deterministic(k1_bwd, q, k, v, o1, do, lse1, seg, "K1 backward")
 
     entries = {}
     for s in (LC_SEQ, LC_SEQ_MAX):
@@ -1160,7 +1222,7 @@ def phase_blockwise():
             row[f"k1_{kind}_ms"] = timed(f"k1_{kind}", rounds)
             row[f"sdpa_{kind}_ms"] = timed(f"lib_{kind}", rounds)
             row[f"bound_{kind}_ms"], row[f"bound_{kind}_by"] = flash_bound(
-                kept, shape, 4, False, backward, F32_FLOPS_PER_S)
+                kept, shape, 4, False, backward, TF32X3_FLOPS_PER_S)
         if s == LC_SEQ:
             # the plain version (a Python loop over 128 x 128 tiles) and
             # the einsum path (2.1 GB of f32 scores per call) at 8192
@@ -1170,6 +1232,7 @@ def phase_blockwise():
                                       "blockwise_flash_attention")
             _check_flash(main_errs, "float32", f"float32 {list(shape)} "
                          f"causal (the main path's shape)", "blockwise")
+            log_sdpa_kernels(lambda: (fns(0, "lib_f"), fns(0, "lib_b")))
             row["plain_f_ms"] = time_ms(lambda i: fns(0, "plain_f"), 1, 1)
             row["plain_b_ms"] = time_ms(lambda i: fns(0, "plain_b"), 1, 1)
             q, k, v = sets[0][0]
@@ -1204,6 +1267,36 @@ def phase_blockwise():
         del sets, outs, outs1, graphs
         torch.cuda.empty_cache()
     return entries["f"], entries["b"]
+
+
+def log_sdpa_kernels(run) -> None:
+    """Which kernels the SDPA yardstick runs (one profiled ``run()``):
+    its float32 backend decides what arithmetic its times stand for."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    log("blockwise", "SDPA yardstick's kernels (ms, launches, name): "
+        + json.dumps([(round(ms, 4), n, key[:120])
+                      for ms, n, key in device_kernels(prof)[:6]]))
+
+
+def check_deterministic(bwd, q, k, v, o, do, lse, seg, label) -> None:
+    """The backward twice on the same inputs: dq, dk and dv must be
+    bitwise equal (the kernels add in a fixed order, with no atomics)."""
+    import torch
+
+    first = bwd(q, k, v, o, do, lse, seg, causal=True)
+    second = bwd(q, k, v, o, do, lse, seg, causal=True)
+    torch.cuda.synchronize()
+    same = {n: torch.equal(a, b) for n, a, b in zip(("dq", "dk", "dv"),
+                                                   first, second)}
+    log("blockwise", f"{label} run twice at {list(q.shape)} causal "
+                     f"segments={seg is not None}: bitwise equal {same}")
+    if not all(same.values()):
+        raise AssertionError(f"{label} is not deterministic: {same}")
 
 
 def phase_k6_route():

@@ -1,0 +1,258 @@
+// A CPU stand-in for the CUDA features the port's flash-attention
+// kernels use, so their sources compile with g++ and run on the CPU
+// (tests/test_torch_flash_emulated.py). Each CUDA thread of a block is a
+// fiber (ucontext) on one OS thread, run round robin: a thread that
+// waits at __syncthreads or at a warp collective yields to the next, so
+// an emulation uses one core and runs the same way every time. Blocks
+// run one after another. mma.sync m16n8k8 tf32 and ldmatrix follow the
+// PTX fragment layouts (written here from the PTX ISA, independently of
+// the kernels); a tf32 operand's low 13 bits are dropped, as the tensor
+// cores read it. cp.async copies at once (its ordering is the kernels'
+// own barriers). The test rewrites the kernels' inline PTX, kernel
+// launches and dynamic shared memory into the emu_* calls below;
+// nothing here models timing or the hardware's float32 accumulation
+// inside an MMA.
+#pragma once
+
+#include <ucontext.h>
+
+#include <algorithm>
+#include <cmath>
+#include <cstdint>
+#include <cstring>
+#include <functional>
+#include <type_traits>
+#include <vector>
+
+#define __global__
+#define __device__
+#define __host__
+#define __forceinline__ inline
+#define __launch_bounds__(...)
+#define __shared__
+#define __align__(n)
+#define CUDART_INF_F INFINITY
+
+struct dim3 {
+  unsigned x, y, z;
+  dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
+};
+inline dim3 threadIdx;  // the running fiber's
+inline dim3 blockIdx, blockDim, gridDim;
+
+typedef int cudaError_t;
+typedef void* cudaStream_t;
+enum {
+  cudaSuccess = 0,
+  cudaErrorInvalidValue = 1,
+  cudaFuncAttributeMaxDynamicSharedMemorySize = 8
+};
+template <typename K>
+cudaError_t cudaFuncSetAttribute(K, int, int) { return 0; }
+inline cudaError_t cudaGetLastError() { return 0; }
+inline cudaError_t cudaSetDevice(int) { return 0; }
+inline const char* cudaGetErrorString(cudaError_t) { return "emulated"; }
+
+using std::fmaf;
+using std::isfinite;
+using std::max;
+using std::min;
+inline float fmaxf(float a, float b) { return std::fmax(a, b); }
+inline float exp2f(float x) { return std::exp2(x); }
+inline float __uint_as_float(uint32_t x) {
+  float f;
+  std::memcpy(&f, &x, 4);
+  return f;
+}
+inline uint32_t __float_as_uint(float f) {
+  uint32_t x;
+  std::memcpy(&x, &f, 4);
+  return x;
+}
+inline size_t __cvta_generic_to_shared(const void* p) {
+  return reinterpret_cast<size_t>(p);
+}
+
+struct __nv_bfloat16 {
+  uint16_t x;
+};
+inline float __bfloat162float(__nv_bfloat16 b) {
+  return __uint_as_float(uint32_t(b.x) << 16);
+}
+inline __nv_bfloat16 __float2bfloat16(float f) {  // to nearest, ties even
+  uint32_t u = __float_as_uint(f);
+  u += 0x7fffu + ((u >> 16) & 1u);
+  return {uint16_t(u >> 16)};
+}
+struct __half {
+  _Float16 x;
+};
+inline float __half2float(__half h) { return static_cast<float>(h.x); }
+inline __half __float2half(float f) { return {static_cast<_Float16>(f)}; }
+
+constexpr int kEmuWarps = 32;
+constexpr size_t kEmuStack = 256 << 10;
+
+// The block's fibers: contexts, done flags, and the one running.
+struct EmuBlock {
+  std::vector<ucontext_t> ctx;
+  std::vector<char> done;
+  int running = 0, left = 0;
+  ucontext_t host;
+  std::function<void()> body;
+};
+inline EmuBlock emu_block;
+
+// Switch to the next fiber that has not finished (round robin); when
+// this one resumes, it is the running thread again.
+inline void emu_yield() {
+  EmuBlock& b = emu_block;
+  const int self = b.running;
+  int next = self;
+  do next = (next + 1) % static_cast<int>(b.ctx.size());
+  while (b.done[next]);
+  if (next == self) return;
+  b.running = next;
+  swapcontext(&b.ctx[self], &b.ctx[next]);
+  b.running = self;
+  threadIdx = dim3(self);
+}
+
+struct EmuBarrier {
+  int count = 0, arrived = 0;
+  unsigned generation = 0;
+  void wait() {
+    const unsigned g = generation;
+    if (++arrived == count) {
+      arrived = 0;
+      ++generation;
+      return;
+    }
+    while (generation == g) emu_yield();
+  }
+};
+inline EmuBarrier emu_block_barrier;
+inline EmuBarrier emu_warp_barrier[kEmuWarps];
+inline float* emu_smem;
+// per-warp exchange slots, one per lane
+inline float emu_shfl[kEmuWarps][32];
+inline const float* emu_rows[kEmuWarps][32];
+inline uint32_t emu_a[kEmuWarps][32][4], emu_b[kEmuWarps][32][2];
+inline float emu_c[kEmuWarps][32][4];
+
+inline void emu_warp_sync() { emu_warp_barrier[threadIdx.x / 32].wait(); }
+
+inline void __syncthreads() { emu_block_barrier.wait(); }
+
+inline float __shfl_xor_sync(unsigned, float x, int mask) {
+  const int w = threadIdx.x / 32, l = threadIdx.x % 32;
+  emu_shfl[w][l] = x;
+  emu_warp_sync();
+  const float r = emu_shfl[w][l ^ mask];
+  emu_warp_sync();
+  return r;
+}
+
+// ldmatrix.x4.b16: lane 8j + r holds the address of row r of matrix j;
+// lane i receives the 32-bit word i % 4 of row i / 4 of each matrix.
+inline void emu_ldmatrix_x4(uint32_t (&x)[4], const float* row) {
+  const int w = threadIdx.x / 32, l = threadIdx.x % 32;
+  emu_rows[w][l] = row;
+  emu_warp_sync();
+  for (int j = 0; j < 4; ++j)
+    std::memcpy(&x[j], emu_rows[w][8 * j + l / 4] + l % 4, 4);
+  emu_warp_sync();
+}
+
+// mma.sync.m16n8k8.row.col.f32.tf32.tf32.f32, c += a . b. Lane 4g + t
+// holds A[g][t], A[g + 8][t], A[g][t + 4], A[g + 8][t + 4]; B[t][g],
+// B[t + 4][g]; C[g][2t], C[g][2t + 1], C[g + 8][2t], C[g + 8][2t + 1].
+inline void emu_mma(float (&c)[4], const uint32_t (&a)[4],
+                    const uint32_t (&b)[2]) {
+  const int w = threadIdx.x / 32, l = threadIdx.x % 32;
+  for (int i = 0; i < 4; ++i) {
+    emu_a[w][l][i] = a[i];
+    emu_c[w][l][i] = c[i];
+  }
+  emu_b[w][l][0] = b[0];
+  emu_b[w][l][1] = b[1];
+  emu_warp_sync();
+  float A[16][8], B[8][8], C[16][8];
+  for (int lane = 0; lane < 32; ++lane) {
+    const int g = lane / 4, t = lane % 4;
+    for (int i = 0; i < 4; ++i) {
+      A[g + 8 * (i & 1)][t + 4 * (i >> 1)] =
+          __uint_as_float(emu_a[w][lane][i] & 0xffffe000u);
+      C[g + 8 * (i >> 1)][2 * t + (i & 1)] = emu_c[w][lane][i];
+    }
+    for (int i = 0; i < 2; ++i)
+      B[t + 4 * i][g] = __uint_as_float(emu_b[w][lane][i] & 0xffffe000u);
+  }
+  const int g = l / 4, t = l % 4;
+  float out[4];
+  for (int i = 0; i < 4; ++i) {
+    const int row = g + 8 * (i >> 1), col = 2 * t + (i & 1);
+    float acc = C[row][col];
+    for (int k = 0; k < 8; ++k) acc += A[row][k] * B[k][col];
+    out[i] = acc;
+  }
+  emu_warp_sync();
+  for (int i = 0; i < 4; ++i) c[i] = out[i];
+}
+
+inline void emu_copy(void* dst, const void* src, bool in, size_t bytes) {
+  if (in)
+    std::memcpy(dst, src, bytes);
+  else
+    std::memset(dst, 0, bytes);
+}
+
+inline void emu_fiber_entry() {
+  EmuBlock& b = emu_block;
+  threadIdx = dim3(b.running);
+  b.body();
+  b.done[b.running] = 1;
+  if (--b.left == 0) setcontext(&b.host);
+  int next = b.running;
+  do next = (next + 1) % static_cast<int>(b.ctx.size());
+  while (b.done[next]);
+  b.running = next;
+  threadIdx = dim3(next);
+  setcontext(&b.ctx[next]);
+}
+
+// kernel<<<grid, threads, smem, stream>>>(args...): every block in turn,
+// its threads as fibers, dynamic shared memory filled with NaN first so
+// a read of anything not staged shows.
+template <typename K, typename... A>
+void emu_launch(K kernel, dim3 grid, int threads, size_t smem, cudaStream_t,
+                A... args) {
+  std::vector<float> buf(smem / 4 + 64);
+  std::vector<char> stacks(static_cast<size_t>(threads) * kEmuStack);
+  EmuBlock& b = emu_block;
+  gridDim = grid;
+  blockDim = dim3(threads);
+  b.body = [&] { kernel(args...); };
+  for (unsigned by = 0; by < grid.y; ++by)
+    for (unsigned bx = 0; bx < grid.x; ++bx) {
+      blockIdx = dim3(bx, by);
+      std::fill(buf.begin(), buf.end(), std::nanf(""));
+      emu_smem = buf.data();
+      emu_block_barrier = EmuBarrier{threads};
+      for (int w = 0; w < (threads + 31) / 32; ++w)
+        emu_warp_barrier[w] = EmuBarrier{std::min(32, threads - 32 * w)};
+      b.ctx.assign(threads, ucontext_t{});
+      b.done.assign(threads, 0);
+      b.left = threads;
+      for (int t = 0; t < threads; ++t) {
+        getcontext(&b.ctx[t]);
+        b.ctx[t].uc_stack.ss_sp = stacks.data() + t * kEmuStack;
+        b.ctx[t].uc_stack.ss_size = kEmuStack;
+        b.ctx[t].uc_link = nullptr;
+        makecontext(&b.ctx[t], emu_fiber_entry, 0);
+      }
+      b.running = 0;
+      threadIdx = dim3(0);
+      swapcontext(&b.host, &b.ctx[0]);
+    }
+}
