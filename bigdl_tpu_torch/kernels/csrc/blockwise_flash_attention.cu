@@ -29,7 +29,8 @@
 //  * one block of four warps per (b, h, 64-row query tile) walks the key
 //    tiles ONCE, FlashAttention-2's forward: per tile S = q . k^T and
 //    acc += P . V, both in 3xTF32 on the tensor cores (flash_common.cuh
-//    has the split). Warp w owns query rows 16w .. 16w + 15, so a row's
+//    has the split, and the score_tile, pv_tile and store_forward that
+//    K1's forward shares). Warp w owns query rows 16w .. 16w + 15, so a row's
 //    max and sum reduce over the 4 lanes of an mma quad, and P goes from
 //    the S accumulators straight into the P . V product as its A operand
 //    (no score tile in shared memory); each tile's P . V is added into
@@ -55,15 +56,6 @@
 #include "flash_common.cuh"
 
 namespace {
-
-constexpr float kLn2 = 0.6931471805599453f;
-
-template <int D>
-constexpr size_t blockwise_fwd_smem_bytes() {
-  // q; a ring of two (k, v) tiles; the query and the ring's key
-  // segment ids
-  return sizeof(float) * 5 * kTile * tile_ld<D>() + sizeof(int) * 3 * kTile;
-}
 
 // grid (B * H, query tiles, longest first); one block per 64-row query
 // tile.
@@ -134,27 +126,10 @@ __global__ void __launch_bounds__(kMmaThreads) blockwise_fwd_kernel(Params p) {
     }
     __syncthreads();
     const int k0 = kt * kTile;
-    const float* kt_s = ks + slot * kTile * LD;
-    const float* vt_s = vs + slot * kTile * LD;
     const int* seg_t = seg_k + slot * kTile;
-
     float s[KN][4];
-#pragma unroll
-    for (int n = 0; n < KN; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D; kk += 8) {
-      FragA aq;
-      load_a<LD>(aq, qs, r0, kk, lane);
-#pragma unroll
-      for (int n = 0; n < KN; n += 2) {
-        FragB bk[2];
-        load_bt2<LD>(bk[0], bk[1], kt_s, 8 * n, kk, lane);
-        mma3(s[n], aq, bk[0]);
-        mma3(s[n + 1], aq, bk[1]);
-      }
-    }
+    score_tile<D>(s, q_from_tile<D>(qs, r0, lane), ks + slot * kTile * LD,
+                  lane);
 
     // scores in log2 units (s * scale * log2(e), so p = exp2(x - m)),
     // -inf on masked lanes, and each row's max over this tile
@@ -200,25 +175,9 @@ __global__ void __launch_bounds__(kMmaThreads) blockwise_fwd_kernel(Params p) {
     for (int half = 0; half < 2; ++half)
       l[half] = l[half] * alpha[half] + lsum[half];
 
-    // acc = acc * alpha + P . V, P straight from the S accumulators; the
-    // tile's P . V goes through a fresh MMA accumulator and is added in
-    // float32 (flash_common.cuh's promote has why)
+    // acc = acc * alpha + P . V
     float pv[DN][4];
-#pragma unroll
-    for (int n = 0; n < DN; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) pv[n][e] = 0.f;
-#pragma unroll
-    for (int j = 0; j < KN; ++j) {
-      FragA ap;
-      acc_as_a(ap, s[j]);
-#pragma unroll
-      for (int n = 0; n < DN; ++n) {
-        FragB bv;
-        load_b_perm<LD>(bv, vt_s, 8 * j, 8 * n, g, t);
-        mma3(pv[n], ap, bv);
-      }
-    }
+    pv_tile<D>(pv, s, vs + slot * kTile * LD, g, t);
 #pragma unroll
     for (int n = 0; n < DN; ++n)
 #pragma unroll
@@ -227,34 +186,7 @@ __global__ void __launch_bounds__(kMmaThreads) blockwise_fwd_kernel(Params p) {
     __syncthreads();
   }
 
-  // O = acc / l and lse = (m + log2(l)) * ln(2) (a fully masked row,
-  // l = 0, gives O = 0 and lse = -inf)
-  T* ob = static_cast<T*>(p.out) + static_cast<int64_t>(bh) * s_len * p.d;
-  float* lb = p.lse + static_cast<int64_t>(bh) * s_len;
-  float lr[2];
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    lr[half] = quad_sum(l[half]);
-    const int row = q0 + r0 + g + 8 * half;
-    if (t == 0 && row < s_len)
-      lb[row] = lr[half] > 0.f ? (m[half] + log2f(lr[half])) * kLn2
-                               : -CUDART_INF_F;
-  }
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int row = q0 + r0 + g + 8 * half;
-    if (row >= s_len) continue;
-#pragma unroll
-    for (int n = 0; n < DN; ++n)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int col = 8 * n + 2 * t + e;
-        if (col < p.d)
-          ob[static_cast<int64_t>(row) * p.d + col] =
-              from_f32<T>(lr[half] > 0.f ? acc[n][2 * half + e] / lr[half]
-                                         : 0.f);
-      }
-  }
+  store_forward<T, D>(p, bh, q0 + r0, m, l, acc, g, t);
 }
 
 template <typename T, int D>
@@ -262,7 +194,7 @@ struct BlockwiseForward {
   static cudaError_t run(const Params& p, int batch, cudaStream_t stream) {
     const dim3 grid(batch * p.heads, (p.s_len + kTile - 1) / kTile);
     return launch_with_smem(blockwise_fwd_kernel<T, D>, grid, kMmaThreads,
-                            blockwise_fwd_smem_bytes<D>(), stream, p);
+                            fwd_smem_bytes<D>(), stream, p);
   }
 };
 

@@ -6,162 +6,287 @@
 // Replaces bigdl_tpu/kernels/flash_attention.py: the forward body
 // _fwd_kernel (launched by _fwd_call) and the backward body _bwd_kernel
 // (launched by _bwd_call). It computes the same function with the same
-// arithmetic: q is scaled before the product, masked scores are -inf
-// with p = 0 on masked lanes, each query row is reduced over its FULL
-// key row (row max first, then exp-sum-accumulate; no online
-// rescaling), a fully masked row gives o = 0 and lse = -inf, and the
-// backward recomputes p from lse (p = 0 where lse is not finite).
-// Inputs are float32, bfloat16 or float16; every product and sum is
-// float32. Any head_dim d up to 128 is taken: the kernels are built for
-// tile widths D of 16, 32, 64 and 128, and d runs in the narrowest that
-// holds it, its columns past d loaded as zeros (they add nothing to any
-// product) and never stored. Past 128 the float32 tiles of a backward
-// block would not fit the 227 KB of shared memory.
+// arithmetic: masked scores are -inf with p = 0 on masked lanes, each
+// query row is reduced over its FULL key row (row max first, then
+// exp-sum-accumulate; no online rescaling, docs/kernels.md "Full-row
+// softmax reductions"), a fully masked row gives o = 0 and lse = -inf,
+// and the backward recomputes p from lse (p = 0 where lse is not
+// finite). The scale multiplies the q . k^T product (the TPU kernel
+// scales q before it: the same value to within a rounding). Inputs are
+// float32, bfloat16 or float16; every product and sum is float32. Any
+// head_dim d up to 128 is taken: the kernels are built for tile widths
+// D of 16, 32, 64 and 128, and d runs in the narrowest that holds it,
+// its columns past d staged as zeros (they add nothing to any product)
+// and never stored. Past 128 the float32 tiles of a backward block
+// would not fit the 227 KB of shared memory.
 //
 // Bound, at the training slice's shape (B 16, H 8, S 512, D 64, f32,
-// causal, packed segments): the forward does 4 * D flops per kept
-// (query, key) pair, 1.3 GFLOP here, 20 us at the 67 TFLOP/s float32
-// rate the card has outside the tensor cores, which is where this
-// forward runs; q, k, v and o are 67 MB, 20 us at 3.35 TB/s. The
-// backward does about 2.5x the forward's flops on the tensor cores in
-// 3xTF32 (165 TFLOP/s): its 134 MB of bytes bound it, 40 us.
+// causal, packed segments): bytes. q, k, v and o are 67 MB, 20 us at
+// 3.35 TB/s; the forward's two passes do 6 * D flops per kept (query,
+// key) pair (S twice, P . V once), about 0.005 ms at the 165 TFLOP/s
+// of 3xTF32. The backward does about 2.5x the forward's flops on the
+// tensor cores in 3xTF32: its 134 MB of bytes bound it, 40 us.
 //
-// Design:
-//  * the forward stays on flash_common.cuh's SIMT kit (a first, simple
-//    kernel: tensor cores, TMA and pipelining are its next step). The
-//    TPU kernel holds one [block_q, S] score strip in VMEM; a block here
-//    holds a 64 x 64 tile of scores, so the forward walks the key tiles
-//    twice through shared memory: pass 1 takes each row's max, pass 2
-//    recomputes the scores and accumulates exp and p . v. That keeps
-//    the full-row semantics at any S (a [64, S] f32 strip would not fit
-//    227 KB past a few thousand keys) at the price of one extra q . k^T
-//    product; 256 threads as 16 x 16 over 64 x 64 tiles;
-//  * causal blocks skip the key tiles wholly above the diagonal (they
-//    add exact zeros to the row sums and nothing to the max);
-//  * the backward is flash_common.cuh's, on the tensor cores in 3xTF32
-//    (float32 accuracy from tf32 mma.sync, the operands split into hi
-//    and lo halves in registers). The TPU grid runs its query tiles in
-//    order and carries dK / dV in scratch across them; GPU blocks run in
-//    no order, so the backward splits without atomics (the gradient is
-//    bitwise the same from run to run): a delta = rowsum(dO * O) pass, a
-//    dK/dV kernel with one block per (b, h, key tile) streaming the
-//    query tiles that see it through a cp.async ring, and a dQ kernel
-//    with one block per (b, h, query tile) streaming the key tiles,
-//    longest tiles first. Both recompute p and dS: 7 tile products where
-//    a fused kernel with atomics would do 5;
+// Design of the forward:
+//  * one block of four warps per (b, h, 64-row query tile), the longest
+//    query tiles (the last, under causal) first; the TPU kernel holds a
+//    [block_q, S] score strip in VMEM, which 227 KB of shared memory
+//    cannot hold past a few thousand keys, so the block walks its key
+//    tiles twice: pass 1 takes each row's max, pass 2 recomputes the
+//    scores and accumulates p = exp2(s * scale * log2 e - m) and p . v;
+//    lse = (m + log2 l) ln 2. Both passes run flash_common.cuh's 3xTF32
+//    tensor-core kit, as K2's forward does (score_tile, pv_tile,
+//    store_forward are shared with it): warp w owns query rows 16w ..
+//    16w + 15, a row's max and sum reduce over the 4 lanes of an mma
+//    quad, and P goes from the S accumulators straight into P . V. At
+//    D <= 64 a warp splits its q fragments once and holds them across
+//    every key tile of both passes, rather than loading and splitting
+//    them again for each key tile (faster on an H100 at the training
+//    shape, PERF.md);
+//  * the K tiles (pass 1), then the K and V tiles (pass 2), stream
+//    through cp.async rings of two, so the next tile's copy overlaps
+//    this tile's products;
+//  * causal blocks stop at the diagonal tile. With segment ids, pass 1
+//    tests every key tile exactly — does any key of it share an id with
+//    any query of the block? — and skips the products of the tiles that
+//    share none (they add exact zeros to l and nothing to m); pass 2
+//    neither loads nor computes them. The test is one comparison pass
+//    over the ids (128 threads, a key and half the queries each) and a
+//    __syncthreads_or, so the decision is uniform across the block; a
+//    min/max range test would keep every tile whose id range the pad's
+//    id 0 overlaps. The causal diagonal tile is always kept (query r and
+//    key r share an id), so no row loses all its tiles by skipping. On
+//    the training rows 315 of 576 causal tile pairs are kept.
+//    bigdl_flash_tile_pairs reads the pairs computed so far;
+//  * the backward is flash_common.cuh's, on the tensor cores in 3xTF32.
+//    The TPU grid runs its query tiles in order and carries dK / dV in
+//    scratch across them; GPU blocks run in no order, so the backward
+//    splits without atomics (the gradient is bitwise the same from run
+//    to run): a delta = rowsum(dO * O) pass, a dK/dV kernel with one
+//    block per (b, h, key tile) streaming the query tiles that see it
+//    through a cp.async ring, and a dQ kernel with one block per (b, h,
+//    query tile) streaming the key tiles, longest tiles first. Both
+//    recompute p and dS: 7 tile products where a fused kernel with
+//    atomics would do 5;
 //  * q, k, v, o and dO are read through their strides (the attention
 //    layer hands over [B, S, H, D] -> [B, H, S, D] transposed views);
 //    only the last dimension must be contiguous.
-// Any S is taken: tiles past S load zeros and are masked. Everything
-// but the forward kernel — tile loads, the mask, the epilogue and the
-// three backward kernels — lives in flash_common.cuh, shared with the
-// blockwise kernel K2 (blockwise_flash_attention.cu), whose backward is
-// the same function.
+// Any S is taken: tiles past S stage zeros and are masked. Everything
+// but the forward kernel — tile loads, the mask, the tile products, the
+// epilogue and the three backward kernels — lives in flash_common.cuh,
+// shared with the blockwise kernel K2 (blockwise_flash_attention.cu),
+// whose backward is the same function.
 
 #include "flash_common.cuh"
 
 namespace {
 
-// grid (query tiles, B * H); one block per 64-row query tile.
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Params p) {
-  constexpr int DC = D / 16;  // output columns per thread
-  extern __shared__ float smem[];
-  float* qs = smem;                        // [64][D+1], q * scale
-  float* ks = qs + kTile * (D + 1);        // [64][D+1]
-  float* vs = ks + kTile * (D + 1);        // [64][D+1]
-  float* ps = vs + kTile * (D + 1);        // [64][65]
-  int* seg_q = reinterpret_cast<int*>(ps + kTile * kLdP);
-  int* seg_k = seg_q + kTile;
+// (query tile, key tile) pairs the forward has computed (pass 2) since
+// it was last read: the record that segment skipping ran.
+__device__ unsigned long long g_tile_pairs;
 
-  const int bh = blockIdx.y;
+// 32-bit words of a forward block's kept-key-tile bitmask.
+__host__ __device__ constexpr int keep_words(int s_len) {
+  return ((s_len + kTile - 1) / kTile + 31) / 32;
+}
+
+// Whether any key of the staged key tile k0 shares a segment id with
+// any query of the block's tile q0 (rows and keys past S count for
+// nothing). Thread i compares key i % 64 against half the queries; the
+// block-wide OR is a barrier, so every thread gets the same answer.
+__device__ __forceinline__ bool tile_shares_segment(const int* seg_q,
+                                                    const int* seg_k,
+                                                    int q0, int k0,
+                                                    int s_len) {
+  const int c = threadIdx.x % kTile;
+  const int r_first = threadIdx.x / kTile * (kTile / 2);
+  const int r_end = min(r_first + kTile / 2, s_len - q0);
+  bool found = false;
+  if (k0 + c < s_len) {
+    const int id = seg_k[c];
+    for (int r = r_first; r < r_end && !found; ++r) found = seg_q[r] == id;
+  }
+  return __syncthreads_or(found);
+}
+
+// grid (B * H, query tiles, longest first); one block per 64-row query
+// tile.
+template <typename T, int D>
+__global__ void __launch_bounds__(kMmaThreads) flash_fwd_kernel(Params p) {
+  constexpr int LD = tile_ld<D>();
+  constexpr int DN = D / 8;                 // 8-column tiles of O
+  constexpr int KN = kTile / 8;             // 8-key tiles of S
+  extern __shared__ __align__(16) float tc_smem[];
+  float* qs = tc_smem;                      // [64][LD]
+  float* ks = qs + kTile * LD;              // [2][64][LD]
+  float* vs = ks + 2 * kTile * LD;          // [2][64][LD]
+  int* seg_q = reinterpret_cast<int*>(vs + 2 * kTile * LD);
+  int* seg_k = seg_q + kTile;               // [2][64]
+  unsigned* kept = reinterpret_cast<unsigned*>(seg_k + 2 * kTile);
+
+  const int bh = blockIdx.x;
   const int b = bh / p.heads;
   const int h = bh % p.heads;
-  const int q0 = blockIdx.x * kTile;
-  const int ty = threadIdx.x / 16;
-  const int tx = threadIdx.x % 16;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kTile;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4;
+  const int t = lane % 4;
+  const int r0 = 16 * warp;
   const int s_len = p.s_len;
   const bool segmented = p.seg != nullptr;
   const int* seg_row = segmented ? p.seg + static_cast<int64_t>(b) * s_len
                                  : nullptr;
-
-  const T* qb = static_cast<const T*>(p.q) + b * p.sq.b + h * p.sq.h;
   const T* kb = static_cast<const T*>(p.k) + b * p.sk.b + h * p.sk.h;
   const T* vb = static_cast<const T*>(p.v) + b * p.sv.b + h * p.sv.h;
 
-  load_tile<T, D>(qs, qb, p.sq.s, q0, s_len, p.d, p.scale);
-  load_seg(seg_q, seg_row, q0, s_len);
+  auto stage_key_side = [&](int kt, int slot, bool values) {
+    const int k0 = kt * kTile;
+    stage_tile<T, D>(ks + slot * kTile * LD, kb, p.sk.s, k0, s_len, p.d,
+                     p.vec);
+    if (values)
+      stage_tile<T, D>(vs + slot * kTile * LD, vb, p.sv.s, k0, s_len, p.d,
+                       p.vec);
+    if (segmented) stage_rows(seg_k + slot * kTile, seg_row, k0, s_len);
+  };
+
+  stage_tile<T, D>(qs, static_cast<const T*>(p.q) + b * p.sq.b + h * p.sq.h,
+                   p.sq.s, q0, s_len, p.d, p.vec);
+  if (segmented) stage_rows(seg_q, seg_row, q0, s_len);
+  stage_key_side(0, 0, false);
+  cp_async_commit();
   const int n_kt = key_tiles(q0, s_len, p.causal);
+  if (segmented)
+    for (int w = threadIdx.x; w < keep_words(n_kt * kTile); w += kMmaThreads)
+      kept[w] = 0u;
+  const float scale2 = p.scale * kLog2e;
+  // at D <= 64 the strip's q fragments are split once (at the first key
+  // tile, when q has landed) and held across both passes; at D = 128
+  // they would not fit the registers, and are loaded per key tile
+  constexpr bool kHoldQ = D <= 64;
+  FragA qf[kHoldQ ? D / 8 : 1];
+  const auto q_frag = [&](int kk) {
+    if constexpr (kHoldQ)
+      return qf[kk / 8];
+    else
+      return q_from_tile<D>(qs, r0, lane)(kk);
+  };
 
-  // pass 1: each row's max over its kept keys
-  float m[kSub];
-#pragma unroll
-  for (int i = 0; i < kSub; ++i) m[i] = -CUDART_INF_F;
-  float s[kSub][kSub];
+  // pass 1: each row's max over its kept keys, in log2 units (this
+  // lane's columns, then over the quad)
+  float m[2] = {-CUDART_INF_F, -CUDART_INF_F};
   for (int kt = 0; kt < n_kt; ++kt) {
+    const int slot = kt & 1;
+    if (kt + 1 < n_kt) {
+      stage_key_side(kt + 1, slot ^ 1, false);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    if constexpr (kHoldQ)
+      if (kt == 0) load_q<D>(qf, qs, r0, lane);
     const int k0 = kt * kTile;
-    __syncthreads();
-    load_tile<T, D>(ks, kb, p.sk.s, k0, s_len, p.d, 1.f);
-    load_seg(seg_k, seg_row, k0, s_len);
-    __syncthreads();
-    tile_abt<D>(s, qs, ks, ty, tx);
+    const int* seg_t = seg_k + slot * kTile;
+    bool live = true;
+    if (segmented) {
+      live = (p.causal && kt == n_kt - 1) ||
+             tile_shares_segment(seg_q, seg_t, q0, k0, s_len);
+      if (live && threadIdx.x == 0) kept[kt / 32] |= 1u << (kt % 32);
+    }
+    if (live) {
+      float s[KN][4];
+      score_tile<D>(s, q_frag, ks + slot * kTile * LD, lane);
+      const bool masked = tile_masked(q0, k0, s_len, p.causal, segmented);
 #pragma unroll
-    for (int i = 0; i < kSub; ++i)
+      for (int n = 0; n < KN; ++n)
 #pragma unroll
-      for (int j = 0; j < kSub; ++j) {
-        const int r = ty + 16 * i, c = tx + 16 * j;
-        if (keep(q0 + r, k0 + c, s_len, p.causal, seg_q, seg_k, r, c,
-                 segmented))
-          m[i] = fmaxf(m[i], s[i][j]);
-      }
+        for (int e = 0; e < 4; ++e) {
+          const int half = e >> 1;
+          const int r = r0 + g + 8 * half;
+          const int c = 8 * n + 2 * t + (e & 1);
+          if (!masked || keep(q0 + r, k0 + c, s_len, p.causal, seg_q, seg_t,
+                              r, c, segmented))
+            m[half] = fmaxf(m[half], s[n][e] * scale2);
+        }
+    }
+    __syncthreads();
   }
 #pragma unroll
-  for (int i = 0; i < kSub; ++i) m[i] = group_max(m[i]);
+  for (int half = 0; half < 2; ++half) m[half] = quad_max(m[half]);
 
-  // pass 2: p = exp(s - m) on kept lanes (exact 0 elsewhere, so a
-  // fully masked row never evaluates exp(-inf - -inf)), l = sum p,
-  // acc = p . v
-  float l[kSub];
-  float acc[kSub][DC];
+  // pass 2, over the kept tiles: p = exp2(x - m) on kept lanes (exact 0
+  // elsewhere, so a fully masked row, m = -inf, never evaluates
+  // exp2(-inf - -inf)), l = sum p, acc = p . v
+  auto next_kept = [&](int kt) {
+    if (segmented)
+      while (kt < n_kt && !(kept[kt / 32] >> (kt % 32) & 1u)) ++kt;
+    return kt;
+  };
+  float l[2] = {0.f, 0.f};
+  float acc[DN][4];
 #pragma unroll
-  for (int i = 0; i < kSub; ++i) {
-    l[i] = 0.f;
+  for (int n = 0; n < DN; ++n)
 #pragma unroll
-    for (int c = 0; c < DC; ++c) acc[i][c] = 0.f;
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  int kt = next_kept(0);
+  if (kt < n_kt) {
+    stage_key_side(kt, 0, true);
+    cp_async_commit();
   }
-  for (int kt = 0; kt < n_kt; ++kt) {
+  int pairs = 0;
+  for (int slot = 0; kt < n_kt; slot ^= 1, ++pairs) {
+    const int next = next_kept(kt + 1);
+    if (next < n_kt) {
+      stage_key_side(next, slot ^ 1, true);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
     const int k0 = kt * kTile;
-    __syncthreads();
-    load_tile<T, D>(ks, kb, p.sk.s, k0, s_len, p.d, 1.f);
-    load_tile<T, D>(vs, vb, p.sv.s, k0, s_len, p.d, 1.f);
-    load_seg(seg_k, seg_row, k0, s_len);
-    __syncthreads();
-    tile_abt<D>(s, qs, ks, ty, tx);
+    const int* seg_t = seg_k + slot * kTile;
+    float s[KN][4];
+    score_tile<D>(s, q_frag, ks + slot * kTile * LD, lane);
+    const bool masked = tile_masked(q0, k0, s_len, p.causal, segmented);
 #pragma unroll
-    for (int i = 0; i < kSub; ++i)
+    for (int n = 0; n < KN; ++n)
 #pragma unroll
-      for (int j = 0; j < kSub; ++j) {
-        const int r = ty + 16 * i, c = tx + 16 * j;
-        const float pv = keep(q0 + r, k0 + c, s_len, p.causal, seg_q, seg_k,
-                              r, c, segmented)
-                             ? expf(s[i][j] - m[i])
-                             : 0.f;
-        l[i] += pv;
-        ps[r * kLdP + c] = pv;
+      for (int e = 0; e < 4; ++e) {
+        const int half = e >> 1;
+        const int r = r0 + g + 8 * half;
+        const int c = 8 * n + 2 * t + (e & 1);
+        const float pv =
+            !masked || keep(q0 + r, k0 + c, s_len, p.causal, seg_q, seg_t, r,
+                            c, segmented)
+                ? exp2f(s[n][e] * scale2 - m[half])
+                : 0.f;
+        l[half] += pv;
+        s[n][e] = pv;
       }
+    float pv[DN][4];
+    pv_tile<D>(pv, s, vs + slot * kTile * LD, g, t);
+#pragma unroll
+    for (int n = 0; n < DN; ++n) promote(acc[n], pv[n]);
     __syncthreads();
-    tile_pv<D>(acc, ps, vs, ty, tx);
+    kt = next;
   }
+  if (threadIdx.x == 0 && pairs > 0)
+    atomicAdd(&g_tile_pairs, static_cast<unsigned long long>(pairs));
 
-  store_forward<T, D>(p, bh, q0, m, l, acc, ty, tx);
+  store_forward<T, D>(p, bh, q0 + r0, m, l, acc, g, t);
 }
 
 template <typename T, int D>
 struct FullRowForward {
   static cudaError_t run(const Params& p, int batch, cudaStream_t stream) {
-    const dim3 grid((p.s_len + kTile - 1) / kTile, batch * p.heads);
-    return launch_with_smem(flash_fwd_kernel<T, D>, grid, kThreads,
-                            fwd_smem_bytes<D>(), stream, p);
+    const dim3 grid(batch * p.heads, (p.s_len + kTile - 1) / kTile);
+    return launch_with_smem(
+        flash_fwd_kernel<T, D>, grid, kMmaThreads,
+        fwd_smem_bytes<D>() + sizeof(unsigned) * keep_words(p.s_len),
+        stream, p);
   }
 };
 
@@ -170,3 +295,17 @@ struct FullRowForward {
 // bigdl_flash_{fwd,bwd}_{f32,bf16,f16} and bigdl_flash_error_string
 // (flash_common.cuh has the interface).
 BIGDL_FLASH_ENTRY_POINTS(bigdl_flash, FullRowForward)
+
+// The (query tile, key tile) pairs the forward kernel has computed on
+// `device` since the last call, into *pairs; the count restarts at 0.
+// Synchronises the device. Returns the first cudaError_t that is not
+// cudaSuccess.
+extern "C" int bigdl_flash_tile_pairs(int device, unsigned long long* pairs) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err == cudaSuccess)
+    err = cudaMemcpyFromSymbol(pairs, g_tile_pairs, sizeof(*pairs));
+  const unsigned long long zero = 0;
+  if (err == cudaSuccess)
+    err = cudaMemcpyToSymbol(g_tile_pairs, &zero, sizeof(zero));
+  return static_cast<int>(err);
+}

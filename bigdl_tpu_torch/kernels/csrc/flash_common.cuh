@@ -6,62 +6,63 @@
 // mask) . v over [B, H, S, D] tensors with the float32 log-sum-exp saved
 // for the backward, and both backwards are the same function of (q, k,
 // v, O, dO, lse). So this header holds everything but the two forward
-// kernels: the tile loads, the keep-mask, the two tile-product kits
-// (SIMT and tensor-core), the forward epilogue of K1, and the whole
-// backward — a delta = rowsum(dO * O) pass, a dK/dV kernel with one
-// block per (b, h, key tile) streaming the query tiles from the causal
-// diagonal on, and a dQ kernel with one block per (b, h, query tile)
-// streaming the key tiles up to the diagonal. It replaces the TPU
-// kernels _bwd_kernel (K1) and _bw_dq_kernel / _bw_dkv_kernel (K2) of
+// kernels: the tile loads, the keep-mask, the tensor-core tile products,
+// the pieces both forwards are made of (the score tile, the P . V tile,
+// the epilogue), and the whole backward — a delta = rowsum(dO * O)
+// pass, a dK/dV kernel with one block per (b, h, key tile) streaming
+// the query tiles from the causal diagonal on, and a dQ kernel with one
+// block per (b, h, query tile) streaming the key tiles up to the
+// diagonal. It replaces the TPU kernels _bwd_kernel (K1) and
+// _bw_dq_kernel / _bw_dkv_kernel (K2) of
 // bigdl_tpu/kernels/flash_attention.py. Each source keeps its own
 // extern "C" entry points, built into its own library.
 //
-// Two kits of tile products live here:
-//  * SIMT (load_tile, tile_abt, tile_pv, store_forward): 256 threads as
-//    16 x 16, a thread owning a 4 x 4 register tile of float32 outer
-//    products, read from rows padded by one float. Only K1's forward
-//    still runs on it, at most the 67 TFLOP/s this card has outside the
-//    tensor cores, paced by shared-memory loads (2 FMAs a load).
-//  * Tensor cores in 3xTF32 (stage_tile, load_a, load_bt2, load_b_perm,
-//    acc_as_a, mma3): 128 threads, four warps each owning a 16-row strip
-//    of a 64 x 64 tile, through mma.sync m16n8k8 with tf32 operands and
-//    float32 accumulators. TF32 keeps 10 mantissa bits, about 1e-3
-//    relative: too coarse for the float32 contract (lse within 1e-5 at
-//    S = 8192, where lse is ~10). So each float operand is split in
-//    registers, as its fragment is loaded, into hi (x rounded to tf32,
-//    to nearest with ties away from zero, as cvt.rna rounds) and lo = x
-//    - hi, and a product takes a_lo.b_hi + a_hi.b_lo + a_hi.b_hi: float32
-//    accuracy (what is left out is ~2^-22 relative) at a third of the
-//    495 TFLOP/s TF32 rate, 165 TFLOP/s. Shared memory holds the floats
-//    once (splitting into stored hi / lo tiles would double it). Rows
-//    are padded to D + 4 floats, so a fragment read — lane (g, t) at row
-//    g, column t by ldmatrix (four 8 x 4 float blocks an instruction),
-//    or row 2t, column g by plain loads — hits 32 distinct banks. An
-//    accumulator tile feeds the next product as its A operand with no
-//    trip through shared memory: its columns 2t and 2t + 1 become the
-//    product's k = t and t + 4, and load_b_perm reads the other
-//    operand's rows in that order. A sum over many tiles (O, dK, dV,
-//    dQ) is carried in float32 registers, one tile's MMAs at a time
-//    (promote). What bounds these kernels on this card is the rate of
-//    instructions per SM: the splits, address arithmetic and softmax
-//    share each SM's instruction slots with the MMAs, which is why the
-//    split is two integer instructions, the exponentials exp2 and the
-//    fragment loads ldmatrix.
+// Every tile product runs on the tensor cores in 3xTF32 (stage_tile,
+// load_a, load_bt2, load_b_perm, acc_as_a, mma3): 128 threads, four
+// warps each owning a 16-row strip of a 64 x 64 tile, through mma.sync
+// m16n8k8 with tf32 operands and float32 accumulators. TF32 keeps 10
+// mantissa bits, about 1e-3 relative: too coarse for the float32
+// contract (lse within 1e-5 at S = 8192, where lse is ~10). So each
+// float operand is split in registers, as its fragment is loaded, into
+// hi (x rounded to tf32, to nearest with ties away from zero, as
+// cvt.rna rounds) and lo = x - hi, and a product takes a_lo.b_hi +
+// a_hi.b_lo + a_hi.b_hi: float32 accuracy (what is left out is ~2^-22
+// relative) at a third of the 495 TFLOP/s TF32 rate, 165 TFLOP/s.
+// Shared memory holds the floats once (splitting into stored hi / lo
+// tiles would double it). Rows are padded to D + 4 floats, so a
+// fragment read — lane (g, t) at row g, column t by ldmatrix (four
+// 8 x 4 float blocks an instruction), or row 2t, column g by plain
+// loads — hits 32 distinct banks. An accumulator tile feeds the next
+// product as its A operand with no trip through shared memory: its
+// columns 2t and 2t + 1 become the product's k = t and t + 4, and
+// load_b_perm reads the other operand's rows in that order. A sum over
+// many tiles (O, dK, dV, dQ) is carried in float32 registers, one
+// tile's MMAs at a time (promote). What bounds these kernels on this
+// card is the rate of instructions per SM: the splits, address
+// arithmetic and softmax share each SM's instruction slots with the
+// MMAs, which is why the split is two integer instructions, the
+// exponentials exp2 and the fragment loads ldmatrix.
 //
-// The backward (both kernels K1 and K2 launch it) runs on the tensor
-// cores. It splits into a pass per key tile (dV = P^T . dO and dK =
-// dS^T . q) and a pass per query tile (dQ = dS . K), each recomputing S
-// = q . k^T and dP = dO . v^T: 7 tile products where a fused kernel
-// would do 5, but no block ever adds into another's output, so there
-// are no atomics and a gradient is bitwise the same from run to run.
-// The dK/dV block keeps its keys and values and the dQ block its
-// queries and dO; the streamed tiles go through a two-deep ring filled
-// by cp.async (float32) so the next tile's copy overlaps this tile's
-// products. Bound at the long-context shape ([1, 8, 8192, 64] f32
-// causal): operations, 1.04 ms at the 3xTF32 rate (2.6 ms at the SIMT
-// rate); its bytes take 40 us. The dQ kernel starts its longest query
-// tiles (the last, under causal) first; the dK/dV kernel's longest key
-// tiles are its first.
+// The forwards (K1's full-row two-pass walk, K2's online softmax) share
+// score_tile (S = q . k^T for a warp's strip; K1 at D <= 64 holds the
+// strip's split q fragments across its key tiles), pv_tile (P . V with P
+// straight from the S accumulators), fwd_smem_bytes (q, a cp.async ring
+// of two (k, v) tiles, segment ids) and store_forward (O = acc / l and
+// lse = (m + log2 l) ln 2 from a row max kept in log2 units).
+//
+// The backward (both kernels K1 and K2 launch it) splits into a pass
+// per key tile (dV = P^T . dO and dK = dS^T . q) and a pass per query
+// tile (dQ = dS . K), each recomputing S = q . k^T and dP = dO . v^T: 7
+// tile products where a fused kernel would do 5, but no block ever adds
+// into another's output, so there are no atomics and a gradient is
+// bitwise the same from run to run. The dK/dV block keeps its keys and
+// values and the dQ block its queries and dO; the streamed tiles go
+// through a two-deep ring filled by cp.async (float32) so the next
+// tile's copy overlaps this tile's products. Bound at the long-context
+// shape ([1, 8, 8192, 64] f32 causal): operations, 1.04 ms at the
+// 3xTF32 rate; its bytes take 40 us. The dQ kernel starts its longest
+// query tiles (the last, under causal) first; the dK/dV kernel's
+// longest key tiles are its first.
 //
 // Inputs are float32, bfloat16 or float16; every product and sum is
 // float32 (bfloat16 and float16 are converted as they are staged, and
@@ -85,13 +86,12 @@
 namespace {
 
 constexpr int kTile = 64;            // query rows and key rows per tile
-constexpr int kThreads = 256;        // SIMT blocks: 16 x 16
-constexpr int kSub = kTile / 16;     // rows (cols) of a thread's sub-tile
-constexpr int kLdP = kTile + 1;      // padded row of a 64 x 64 score tile
+constexpr int kThreads = 256;        // the delta kernel: a warp a row
 constexpr int kWarps = kTile / 16;   // tensor-core blocks: a warp a strip
 constexpr int kMmaThreads = 32 * kWarps;
 constexpr unsigned kFullMask = 0xffffffffu;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
@@ -138,75 +138,6 @@ struct Params {
   int vec;  // float32 operands staged in 16-byte copies (aligned rows)
   float scale;
 };
-
-// ---------------------------------------------------------------- SIMT
-
-// Copy rows [row0, row0 + 64) of one (b, h) slice into a [64][D + 1]
-// float tile, times mul; rows past S and columns past d are zeros.
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(float* dst, const T* src,
-                                          int64_t row_stride, int row0,
-                                          int s_len, int d, float mul) {
-  for (int e = threadIdx.x; e < kTile * D; e += kThreads) {
-    const int r = e / D;
-    const int c = e % D;
-    const int gr = row0 + r;
-    dst[r * (D + 1) + c] =
-        gr < s_len && c < d ? to_f32(src[gr * row_stride + c]) * mul : 0.f;
-  }
-}
-
-__device__ __forceinline__ void load_seg(int* dst, const int* seg_row,
-                                         int row0, int s_len) {
-  if (seg_row == nullptr) return;
-  for (int r = threadIdx.x; r < kTile; r += kThreads)
-    dst[r] = row0 + r < s_len ? seg_row[row0 + r] : 0;
-}
-
-// acc[i][j] = sum_d A[ty + 16 i][d] * B[tx + 16 j][d] over two
-// [64][D + 1] tiles (a 64 x 64 tile of A . B^T).
-template <int D>
-__device__ __forceinline__ void tile_abt(float (&acc)[kSub][kSub],
-                                         const float* a, const float* b,
-                                         int ty, int tx) {
-#pragma unroll
-  for (int i = 0; i < kSub; ++i)
-#pragma unroll
-    for (int j = 0; j < kSub; ++j) acc[i][j] = 0.f;
-#pragma unroll 8
-  for (int d = 0; d < D; ++d) {
-    float av[kSub], bv[kSub];
-#pragma unroll
-    for (int i = 0; i < kSub; ++i) av[i] = a[(ty + 16 * i) * (D + 1) + d];
-#pragma unroll
-    for (int j = 0; j < kSub; ++j) bv[j] = b[(tx + 16 * j) * (D + 1) + d];
-#pragma unroll
-    for (int i = 0; i < kSub; ++i)
-#pragma unroll
-      for (int j = 0; j < kSub; ++j) acc[i][j] += av[i] * bv[j];
-  }
-}
-
-// acc[i][c] += sum_jj P[ty + 16 i][jj] * V[jj][tx + 16 c]: a [64][65]
-// probability tile times a [64][D + 1] value tile (the P . V step of a
-// forward).
-template <int D>
-__device__ __forceinline__ void tile_pv(float (&acc)[kSub][D / 16],
-                                        const float* ps, const float* vs,
-                                        int ty, int tx) {
-#pragma unroll 4
-  for (int jj = 0; jj < kTile; ++jj) {
-    float pr[kSub], vr[D / 16];
-#pragma unroll
-    for (int i = 0; i < kSub; ++i) pr[i] = ps[(ty + 16 * i) * kLdP + jj];
-#pragma unroll
-    for (int c = 0; c < D / 16; ++c) vr[c] = vs[jj * (D + 1) + tx + 16 * c];
-#pragma unroll
-    for (int i = 0; i < kSub; ++i)
-#pragma unroll
-      for (int c = 0; c < D / 16; ++c) acc[i][c] += pr[i] * vr[c];
-  }
-}
 
 // ------------------------------------------------- tensor cores, 3xTF32
 
@@ -445,20 +376,6 @@ __device__ __forceinline__ int key_tiles(int q0, int s_len, int causal) {
   return min(all, last_row / kTile + 1);
 }
 
-// Reduce over the 16 threads of a SIMT row group (tx = lane % 16).
-__device__ __forceinline__ float group_max(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(kFullMask, x, off));
-  return x;
-}
-__device__ __forceinline__ float group_sum(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1)
-    x += __shfl_xor_sync(kFullMask, x, off);
-  return x;
-}
-
 // Reduce over the 4 lanes of an mma quad (the lanes holding one row).
 __device__ __forceinline__ float quad_max(float x) {
   x = fmaxf(x, __shfl_xor_sync(kFullMask, x, 1));
@@ -469,38 +386,119 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(kFullMask, x, 2);
 }
 
-// Shared memory of K1's (SIMT) forward block: q, k and v tiles, one
-// score tile and the two tiles' segment ids.
+// ------------------------------------------------------------- forward
+
+// Shared memory of a forward block (K1 and K2): the query tile, a ring
+// of two (k, v) tiles, and the query tile's and the ring's segment ids.
 template <int D>
 constexpr size_t fwd_smem_bytes() {
-  return sizeof(float) * (3 * kTile * (D + 1) + kTile * kLdP) +
-         sizeof(int) * 2 * kTile;
+  return sizeof(float) * 5 * kTile * tile_ld<D>() + sizeof(int) * 3 * kTile;
 }
 
-// K1's forward epilogue for query tile q0: each row's O = acc / l and
-// lse = m + log(l) from the row group's partial sums l (a fully masked
-// row, l = 0, gives O = 0 and lse = -inf).
+// S = q . k^T for a warp's 16-row strip (query rows r0 .. r0 + 15)
+// against the 64 keys of the staged tile ks, in 3xTF32: s[n][e] is (row
+// r0 + g + 8 (e >> 1), key 8n + 2t + (e & 1)). q_frag(kk) gives the
+// strip's split q fragment at columns kk .. kk + 7: loaded from the
+// staged query tile as needed (q_from_tile), or split once per block
+// and held in registers (load_q), which saves the A loads and splits
+// of every key tile at the price of D registers.
+template <int D, typename QFrag>
+__device__ __forceinline__ void score_tile(float (&s)[kTile / 8][4],
+                                           QFrag q_frag, const float* ks,
+                                           int lane) {
+  constexpr int LD = tile_ld<D>();
+#pragma unroll
+  for (int n = 0; n < kTile / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < D; kk += 8) {
+    const FragA aq = q_frag(kk);
+#pragma unroll
+    for (int n = 0; n < kTile / 8; n += 2) {
+      FragB bk[2];
+      load_bt2<LD>(bk[0], bk[1], ks, 8 * n, kk, lane);
+      mma3(s[n], aq, bk[0]);
+      mma3(s[n + 1], aq, bk[1]);
+    }
+  }
+}
+
+// score_tile's q fragments loaded from the staged query tile qs.
+template <int D>
+__device__ __forceinline__ auto q_from_tile(const float* qs, int r0,
+                                            int lane) {
+  return [=](int kk) {
+    FragA a;
+    load_a<tile_ld<D>()>(a, qs, r0, kk, lane);
+    return a;
+  };
+}
+
+// The strip's split q fragments, every column, for score_tile to hold.
+template <int D>
+__device__ __forceinline__ void load_q(FragA (&qf)[D / 8], const float* qs,
+                                       int r0, int lane) {
+#pragma unroll
+  for (int kk = 0; kk < D; kk += 8)
+    load_a<tile_ld<D>()>(qf[kk / 8], qs, r0, kk, lane);
+}
+
+// pv = P . V for the strip, P in score_tile's accumulator layout (it
+// goes straight into the product as its A operand) and V the staged
+// [64][D] tile: a fresh accumulator, which the caller adds into its
+// float32 carry (promote has why).
+template <int D>
+__device__ __forceinline__ void pv_tile(float (&pv)[D / 8][4],
+                                        const float (&p)[kTile / 8][4],
+                                        const float* vs, int g, int t) {
+  constexpr int LD = tile_ld<D>();
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) pv[n][e] = 0.f;
+#pragma unroll
+  for (int j = 0; j < kTile / 8; ++j) {
+    FragA ap;
+    acc_as_a(ap, p[j]);
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      FragB bv;
+      load_b_perm<LD>(bv, vs, 8 * j, 8 * n, g, t);
+      mma3(pv[n], ap, bv);
+    }
+  }
+}
+
+// A forward's epilogue for a warp's strip, query rows row0 + g and
+// row0 + g + 8: O = acc / l and lse = (m + log2(l)) * ln(2), m the row
+// max in log2 units (the same in a row's 4 lanes) and l this lane's
+// partial sum of p; a fully masked row, l = 0, gives O = 0 and
+// lse = -inf.
 template <typename T, int D>
-__device__ __forceinline__ void store_forward(const Params& p, int bh, int q0,
-                                              const float (&m)[kSub],
-                                              const float (&l)[kSub],
-                                              const float (&acc)[kSub][D / 16],
-                                              int ty, int tx) {
+__device__ __forceinline__ void store_forward(const Params& p, int bh,
+                                              int row0, const float (&m)[2],
+                                              const float (&l)[2],
+                                              const float (&acc)[D / 8][4],
+                                              int g, int t) {
   T* ob = static_cast<T*>(p.out) + static_cast<int64_t>(bh) * p.s_len * p.d;
   float* lb = p.lse + static_cast<int64_t>(bh) * p.s_len;
 #pragma unroll
-  for (int i = 0; i < kSub; ++i) {
-    const float li = group_sum(l[i]);
-    const int row = q0 + ty + 16 * i;
+  for (int half = 0; half < 2; ++half) {
+    const float lr = quad_sum(l[half]);
+    const int row = row0 + g + 8 * half;
     if (row >= p.s_len) continue;
+    if (t == 0)
+      lb[row] = lr > 0.f ? (m[half] + log2f(lr)) * kLn2 : -CUDART_INF_F;
 #pragma unroll
-    for (int c = 0; c < D / 16; ++c) {
-      const int col = tx + 16 * c;
-      if (col < p.d)
-        ob[static_cast<int64_t>(row) * p.d + col] =
-            from_f32<T>(li > 0.f ? acc[i][c] / li : 0.f);
-    }
-    if (tx == 0) lb[row] = li > 0.f ? m[i] + logf(li) : -CUDART_INF_F;
+    for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = 8 * n + 2 * t + e;
+        if (col < p.d)
+          ob[static_cast<int64_t>(row) * p.d + col] =
+              from_f32<T>(lr > 0.f ? acc[n][2 * half + e] / lr : 0.f);
+      }
   }
 }
 

@@ -40,10 +40,10 @@ from bigdl_tpu_torch import telemetry
 from bigdl_tpu_torch.kernels import config as _config
 from bigdl_tpu_torch.kernels import int8_gemm as _int8
 from bigdl_tpu_torch.kernels import paged_decode as _paged
+from bigdl_tpu_torch.kernels import ragged_decode as _ragged
 from bigdl_tpu_torch.kernels.common import fit_block
 from bigdl_tpu_torch.kernels.flash_attention import (
     blockwise_flash_attention, cuda_unsupported, flash_attention)
-from bigdl_tpu_torch.kernels.ragged_decode import ragged_decode_attention
 
 __all__ = ["attention", "decode_attention", "flash_route", "int8_matmul",
            "paged_decode_attention"]
@@ -147,7 +147,10 @@ def decode_attention(q, k, v, lengths, *,
     int32 valid-KV rows per slot. Returns the kernel's result, or
     **None** when the config switches decode off (the caller's
     length-masked einsum path runs). Raises ValueError/TypeError on
-    operands the kernel does not take."""
+    operands the kernel does not take — on a CUDA tensor also those the
+    CUDA kernel is not built for (:func:`~bigdl_tpu_torch.kernels.
+    ragged_decode.cuda_unsupported`) — after counting them
+    ``reason=shape``, never as a kernel call."""
     if not _config.enabled("decode"):
         _declined("decode", "config")
         return None
@@ -156,9 +159,15 @@ def decode_attention(q, k, v, lengths, *,
     except (TypeError, ValueError):
         _declined("decode", "shape")
         raise
+    if q.device.type == "cuda":
+        why = _ragged.cuda_unsupported(q, k, v, lengths)
+        if why is not None:
+            _declined("decode", "shape")
+            raise ValueError(f"ragged_decode kernel {why}")
     _taken("decode")
-    return ragged_decode_attention(q, k, v, lengths, sm_scale=sm_scale,
-                                   block_k=_config.get_config().block_k)
+    return _ragged.ragged_decode_attention(
+        q, k, v, lengths, sm_scale=sm_scale,
+        block_k=_config.get_config().block_k)
 
 
 def _check_decode_operands(q, k, v, lengths) -> None:

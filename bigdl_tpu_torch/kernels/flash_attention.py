@@ -46,7 +46,8 @@ __all__ = ["blockwise_flash_attention", "blockwise_flash_attention_backward",
            "blockwise_flash_attention_forward_reference", "cuda_unsupported",
            "flash_attention", "flash_attention_backward",
            "flash_attention_backward_reference", "flash_attention_forward",
-           "flash_attention_forward_reference"]
+           "flash_attention_forward_reference",
+           "flash_attention_forward_tile_pairs"]
 
 _NEG_INF = float("-inf")
 #: input dtypes of the CUDA kernels, by the suffix of their C entry points
@@ -185,6 +186,10 @@ def _library(source: str, prefix: str):
             err = getattr(lib, f"{prefix}_error_string")
             err.argtypes = [i32]
             err.restype = ctypes.c_char_p
+            if source == "flash_attention":
+                lib.bigdl_flash_tile_pairs.argtypes = [
+                    i32, ctypes.POINTER(ctypes.c_ulonglong)]
+                lib.bigdl_flash_tile_pairs.restype = i32
             lib = _libs[source] = lib
         return lib
 
@@ -368,6 +373,23 @@ def flash_attention_backward(q, k, v, o, do, lse, segment_ids=None, *,
 #: kernel launches so far (plain-version calls on the CPU do not count)
 flash_attention_forward.launches = 0
 flash_attention_backward.launches = 0
+
+
+def flash_attention_forward_tile_pairs(device=None) -> int:
+    """The (query tile, key tile) pairs of 64 x 64 that K1's forward
+    kernel has computed on the card ``device`` (default: the current
+    one) since the last call; the count restarts at 0. With segment ids
+    the kernel skips the key tiles that share no id with a query tile,
+    so this is the record that it did (CPU calls compute no tiles).
+    Synchronises the device."""
+    index = torch.device("cuda" if device is None else device).index
+    if index is None:
+        index = torch.cuda.current_device()
+    lib = _library("flash_attention", "bigdl_flash")
+    pairs = ctypes.c_ulonglong(0)
+    rc = lib.bigdl_flash_tile_pairs(index, ctypes.byref(pairs))
+    _raise_on(rc, lib, "bigdl_flash", "tile count")
+    return pairs.value
 
 
 class _FlashAttention(torch.autograd.Function):

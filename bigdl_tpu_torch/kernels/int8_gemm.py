@@ -30,16 +30,50 @@ from __future__ import annotations
 
 import ctypes
 import threading
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
 from bigdl_tpu_torch.ops.quant import int8_matmul
 
-__all__ = ["cuda_unsupported", "int8_gemm", "int8_gemm_reference"]
+__all__ = ["GemmPlan", "cuda_unsupported", "gemm_plan", "int8_gemm",
+           "int8_gemm_reference"]
 
-#: the kernel's grid rows: ceil(M / 64) blocks, at most 65535
-_MAX_ROWS = 65535 * 64
+#: the kernel's block tiles by their rows (its ``tile`` argument): rows,
+#: columns and the bytes of K a pipeline stage holds (split-K splits at
+#: whole stages); ``csrc/int8_gemm.cu``'s SmallTile and LargeTile
+_TILES = {64: (64, 64, 64), 128: (128, 256, 128)}
+#: the kernel's grid rows: ceil(M / 128) blocks past 64 rows, at most
+#: 65535
+_MAX_ROWS = 65535 * 128
+
+
+class GemmPlan(NamedTuple):
+    """How one K5 call runs: block tiles of ``tile`` rows (64 x 64 for
+    M <= 64, else 128 x 256), K split into ``splits`` runs of ``steps``
+    stages, on a ``grid`` of (N tiles, M tiles, splits) blocks."""
+    tile: int
+    splits: int
+    steps: int
+    grid: tuple
+
+
+def gemm_plan(m: int, n: int, k: int, sms: int = 132) -> GemmPlan:
+    """The block tile and the K split of an ``[M, K] x [N, K]^T`` call
+    on a card of ``sms`` SMs: the output tiles alone when they give
+    every SM a block (or K is one stage), else K split into runs of
+    whole stages, enough runs that tiles x runs >= ``sms``."""
+    tile = 64 if m <= 64 else 128
+    rows, cols, stage = _TILES[tile]
+    grid_n, grid_m = -(-n // cols), -(-m // rows)
+    total = -(-k // stage)
+    splits = 1
+    if grid_n * grid_m < sms and total > 1:
+        want = -(-sms // (grid_n * grid_m))
+        steps = max(1, total // want)
+        splits = -(-total // steps)
+    steps = -(-total // splits)
+    return GemmPlan(tile, splits, steps, (grid_n, grid_m, splits))
 
 
 def int8_gemm_reference(x_q, w_q, x_scale, w_scale):
@@ -65,7 +99,7 @@ def _check_shapes(x_q, w_q, x_scale, w_scale) -> None:
 def cuda_unsupported(x_q, w_q, x_scale, w_scale) -> Optional[str]:
     """Why the CUDA kernel does not take these operands (None when it
     does): int8 ``[M, K]`` / ``[N, K]`` contiguous, float32 contiguous
-    scales, one device, ``K >= 1`` and at most ``65535 * 64`` rows."""
+    scales, one device, ``K >= 1`` and at most ``65535 * 128`` rows."""
     if x_q.dtype != torch.int8 or w_q.dtype != torch.int8:
         return f"x_q/w_q must be int8, got {x_q.dtype}/{w_q.dtype}"
     if x_scale.dtype != torch.float32 or w_scale.dtype != torch.float32:
@@ -99,8 +133,8 @@ def _library():
 
             lib = _build.load("int8_gemm")
             p, i32 = ctypes.c_void_p, ctypes.c_int
-            lib.bigdl_int8_gemm.argtypes = [p, p, p, p, p, i32, i32, i32,
-                                            i32, p]
+            lib.bigdl_int8_gemm.argtypes = [p, p, p, p, p, p, i32, i32,
+                                            i32, i32, i32, i32, p]
             lib.bigdl_int8_gemm.restype = i32
             lib.bigdl_cuda_error_string.argtypes = [i32]
             lib.bigdl_cuda_error_string.restype = ctypes.c_char_p
@@ -114,9 +148,11 @@ def int8_gemm(x_q, w_q, x_scale, w_scale):
     float32 → ``[M, N]`` float32 (module docstring has the contract).
 
     CPU tensors run :func:`int8_gemm_reference`. CUDA tensors launch
-    the kernel on the calling thread's current stream, or raise
-    ValueError on operands it does not take (:func:`cuda_unsupported`);
-    each launch adds one to ``int8_gemm.launches``."""
+    the kernel on the calling thread's current stream (split K as
+    :func:`gemm_plan` says, with split-K's partial sums in scratch
+    allocated for the call), or raise ValueError on operands it does not
+    take (:func:`cuda_unsupported`); each launch adds one to
+    ``int8_gemm.launches``."""
     _check_shapes(x_q, w_q, x_scale, w_scale)
     if x_q.device.type == "cpu":
         return int8_gemm_reference(x_q, w_q, x_scale, w_scale)
@@ -131,12 +167,21 @@ def int8_gemm(x_q, w_q, x_scale, w_scale):
     out = torch.empty((m, n), dtype=torch.float32, device=x_q.device)
     if m == 0 or n == 0:
         return out
+    plan = gemm_plan(m, n, k, torch.cuda.get_device_properties(
+        x_q.device).multi_processor_count)
+    # split-K's int32 partial sums: scratch of this call, on the current
+    # stream (nothing is kept across calls)
+    partials = (torch.empty((plan.splits, m, n), dtype=torch.int32,
+                            device=x_q.device) if plan.splits > 1 else None)
     lib = _library()
     stream = torch.cuda.current_stream(x_q.device).cuda_stream
     rc = lib.bigdl_int8_gemm(x_q.data_ptr(), w_q.data_ptr(),
                              x_scale.data_ptr(), w_scale.data_ptr(),
-                             out.data_ptr(), m, n, k, x_q.device.index,
-                             stream)
+                             out.data_ptr(),
+                             None if partials is None
+                             else partials.data_ptr(),
+                             m, n, k, plan.tile, plan.splits,
+                             x_q.device.index, stream)
     if rc != 0:
         msg = lib.bigdl_cuda_error_string(rc).decode()
         raise RuntimeError(f"int8_gemm kernel launch failed: {msg} "

@@ -24,7 +24,8 @@ import torch
 
 from bigdl_tpu_torch.kernels.common import fit_block
 
-__all__ = ["ragged_decode_attention", "ragged_decode_attention_reference"]
+__all__ = ["cuda_unsupported", "ragged_decode_attention",
+           "ragged_decode_attention_reference"]
 
 _NEG_INF = float("-inf")
 
@@ -98,27 +99,35 @@ def _library():
         return _lib
 
 
-def _check_cuda_operands(q, k, v, lengths) -> None:
+def cuda_unsupported(q, k, v, lengths) -> Optional[str]:
+    """Why the CUDA kernel does not take these operands (None when it
+    does): float32 or bfloat16 q/k/v of one dtype, head_dim a multiple
+    of 32 in [32, 256], contiguous last dimensions, contiguous int32
+    lengths, one device."""
     d = k.shape[-1]
     if q.dtype not in _CUDA_DTYPES or k.dtype != q.dtype \
             or v.dtype != q.dtype:
-        raise TypeError(f"ragged_decode kernel takes float32 or bfloat16 "
-                        f"q/k/v of one dtype, got {q.dtype}/{k.dtype}/"
-                        f"{v.dtype}")
+        return (f"takes float32 or bfloat16 q/k/v of one dtype, got "
+                f"{q.dtype}/{k.dtype}/{v.dtype}")
     if d % 32 or not 32 <= d <= 256:
-        raise ValueError(f"ragged_decode kernel needs head_dim a multiple "
-                         f"of 32 in [32, 256], got {d}")
+        return f"needs head_dim a multiple of 32 in [32, 256], got {d}"
     for name, x in (("q", q), ("k", k), ("v", v)):
         if x.device != q.device:
-            raise ValueError(f"{name} is on {x.device}, q on {q.device}")
+            return f"{name} is on {x.device}, q on {q.device}"
         if x.stride(-1) != 1:
-            raise ValueError(f"{name}'s last dimension must be contiguous "
-                             f"(stride {x.stride(-1)})")
+            return (f"{name}'s last dimension must be contiguous (stride "
+                    f"{x.stride(-1)})")
     if lengths.device != q.device or lengths.dtype != torch.int32 \
             or lengths.stride(0) != 1:
-        raise ValueError(f"lengths must be a contiguous int32 tensor on "
-                         f"{q.device}, got {lengths.dtype} on "
-                         f"{lengths.device}")
+        return (f"lengths must be a contiguous int32 tensor on "
+                f"{q.device}, got {lengths.dtype} on {lengths.device}")
+    return None
+
+
+def _check_cuda_operands(q, k, v, lengths) -> None:
+    why = cuda_unsupported(q, k, v, lengths)
+    if why is not None:
+        raise ValueError(f"ragged_decode kernel {why}")
 
 
 def ragged_decode_attention(q, k, v, lengths, *,
@@ -132,8 +141,9 @@ def ragged_decode_attention(q, k, v, lengths, *,
 
     CPU tensors run :func:`ragged_decode_attention_reference`
     (``block_k`` sets its tiling). CUDA tensors launch the kernel on the
-    calling thread's current stream, or raise on what it does not take;
-    each launch adds one to ``ragged_decode_attention.launches``."""
+    calling thread's current stream, or raise ValueError on what it does
+    not take (:func:`cuda_unsupported`); each launch adds one to
+    ``ragged_decode_attention.launches``."""
     slots, h, t, d = k.shape
     if q.shape != (slots, h, d):
         raise ValueError(f"q {tuple(q.shape)} does not match cache "

@@ -11,19 +11,28 @@ Phases (any failure raises and exits non-zero; nothing is caught):
 2. build — every kernel under ``bigdl_tpu_torch/kernels/csrc`` is built
    from source with nvcc (one process per source, all at once); the
    flash libraries' SASS (``cuobjdump -sass``) must show tf32
-   tensor-core MMAs (``HMMA ... TF32``) in K2's forward and in the
-   backward's dK/dV and dQ kernels, which run in 3xTF32;
+   tensor-core MMAs (``HMMA ... TF32``) in K1's and K2's forwards and in
+   the backward's dK/dV and dQ kernels, which run in 3xTF32;
 3. kernels — each kernel's wrapper against its plain PyTorch version on
    the same inputs on the card, at its main path's shapes, then timed
    beside the plain version, one PyTorch library call computing the
    same function (a yardstick only; the port never calls it) and the
-   card's bound for the work. The ragged decode kernel (K3) at the
-   serving shapes; the flash-attention forward and backward (K1) at the
+   card's bound for the work. Each kernel and its library call is timed
+   twice: with CUDA events around the loop of calls (``ms``, the host's
+   launch path included) and as the summed device durations of the
+   kernels the calls launched, read by ``torch.profiler``
+   (``device_ms``). The ragged decode kernel (K3) at the
+   serving shapes (and CUDA operands it does not take, through the
+   decode dispatch: raised and counted ``reason=shape``, never as a
+   kernel call); the flash-attention forward and backward (K1) at the
    training shapes ``[16, 8, 512, 64]``, float32 and bfloat16, causal,
    with and without the training batch's packed segment ids, plus ragged
-   edge shapes; the blockwise flash-attention forward and backward (K2)
-   at ragged edge shapes (S = 1 to 1000, D = 16 to 128, causal and
-   segments on and off, float32/bfloat16/float16) and at ``[1, 8, 2048,
+   edge shapes, and K1's forward must have computed exactly the (query
+   tile, key tile) pairs the training ids keep (it skips the key tiles
+   that share no segment id with a query tile); the blockwise
+   flash-attention forward and backward (K2) at ragged edge shapes (S =
+   1 to 1000, D = 16 to 128, causal and segments on and off,
+   float32/bfloat16/float16) and at ``[1, 8, 2048,
    64]``, against K1's kernel at the long-context shape ``[1, 8, 8192,
    64]``; the backward run twice at ``[1, 8, 8192, 64]`` (K2) and at
    ``[16, 8, 512, 64]`` with segments (K1) must give bitwise equal
@@ -33,9 +42,10 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    layer's route for score matrices over 2 GiB (flash off, ``[1, 8,
    16384, 128]``) must launch K2 once and equal a direct call bitwise;
    the fused dequant int8 GEMM (K5) equal to its plain version bitwise
-   at 60 edge shapes (M 1-300, N 1-1024, K 1-4100), at the int8 serving
-   slice's classifier shape ``[64, 2048] x [1000, 2048]^T`` and at
-   4096^3, timed at the last two beside ``torch._int_mm``; the paged
+   at 60 edge shapes (M 1-300, N 1-1024, K 1-4100, across its tile and
+   split-K choices, which are logged), at the int8 serving slice's
+   classifier shape ``[64, 2048] x [1000, 2048]^T`` and at 4096^3, timed
+   at the last two beside ``torch._int_mm``; the paged
    decode kernel (K4), through the dispatch function, equal bitwise to
    K3's kernel on identity and shuffled paged views of the same cache
    (page sizes 16, 64, 128; ``[16, 8, 512, 64]`` with the serving
@@ -98,7 +108,8 @@ switch it off, and phase 8 checks that they did): the tolerances below
 assume full float32.
 
 The line before the last is a JSON object ``{"kernels": [...]}`` with
-each kernel's launches, error and times; the last line is
+each kernel's launches, error and times (``ms`` and ``device_ms``, and
+``library_ms`` and ``library_device_ms``); the last line is
 ``{"ok": true, "device": {...}}``. Without a card, or run outside the
 repository, the script exits non-zero and prints no result.
 """
@@ -147,7 +158,7 @@ HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12          # float32 outside the tensor cores
 #: float32-accurate products on the tensor cores as 3xTF32 (three tf32
 #: MMAs a product, of the 495 TFLOP/s dense TF32 rate): the arithmetic
-#: of K2's forward and of the backward K1 and K2 share
+#: of K1's and K2's forwards and of the backward they share
 TF32X3_FLOPS_PER_S = 495e12 / 3
 BF16_FLOPS_PER_S = 989e12        # bfloat16 on the tensor cores
 INT8_OPS_PER_S = 1979e12         # int8 on the tensor cores, dense
@@ -204,6 +215,71 @@ def time_ms(fn, n_inputs: int, rounds: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / (rounds * n_inputs)
+
+
+def profiled(run):
+    """``torch.profiler`` (device activity) over one ``run()``, after a
+    warm-up step of one small kernel: a window's first kernel can be
+    lost while the profiler's device tracing starts, which emptied
+    one-kernel windows."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        torch.zeros(1, device="cuda")
+        torch.cuda.synchronize()
+        prof.step()
+        run()
+        torch.cuda.synchronize()
+        prof.step()
+    return prof
+
+
+def device_ms(fn, n_inputs: int, rounds: int):
+    """Mean device time of ``fn(i)`` over the same cycled, L2-cold calls
+    as :func:`time_ms`, without the host's launch path: the durations of
+    the kernels the calls launched, read from ``torch.profiler``
+    (:func:`device_kernels`) and summed — a call of several kernels (a
+    backward, split-K's two, a library call and its float epilogue)
+    counts them all — over the calls. Where the profiler shows no device
+    time, one cycle is captured as a CUDA graph and its replays are
+    timed with events instead. Returns ``(ms, method)``."""
+    import torch
+
+    def cycle():
+        for _ in range(rounds):
+            for i in range(n_inputs):
+                fn(i)
+
+    for i in range(n_inputs):
+        fn(i)
+    torch.cuda.synchronize()
+    calls = rounds * n_inputs
+    total = sum(ms for ms, _, _ in device_kernels(profiled(cycle)))
+    if total > 0:
+        return total / calls, "profiler"
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for i in range(n_inputs):
+            fn(i)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(n_inputs):
+            fn(i)
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(rounds):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / calls, "cuda graph replay"
 
 
 def ragged_bound(lengths, t: int, itemsize: int):
@@ -270,7 +346,8 @@ def phase_build():
 TF32_KERNELS = {"blockwise_flash_attention": ("blockwise_fwd_kernel",
                                               "flash_dkv_kernel",
                                               "flash_dq_kernel"),
-                "flash_attention": ("flash_dkv_kernel", "flash_dq_kernel")}
+                "flash_attention": ("flash_fwd_kernel", "flash_dkv_kernel",
+                                    "flash_dq_kernel")}
 
 
 def check_tf32_mmas(paths) -> None:
@@ -305,11 +382,15 @@ def check_tf32_mmas(paths) -> None:
 
 
 def kernel_instance(mangled: str) -> str:
-    """``flash_fwd_kernel<f32, 64>`` (or ``int8_gemm_kernel``) from a
-    kernel's mangled name."""
+    """``flash_fwd_kernel<f32, 64>``, ``int8_gemm_kernel<128, 128>`` (or
+    ``int8_splitk_reduce_kernel``) from a kernel's mangled name."""
     m = re.search(r"([A-Za-z]+(?:_[A-Za-z0-9]+)*_kernel)I"
                   r"(f|13__nv_bfloat16|6__half)(?:Li(\d+)E)?", mangled)
     if not m:
+        m = re.search(r"\d([A-Za-z]\w*_kernel)I((?:Li\d+E)+)E", mangled)
+        if m:
+            return (f"{m.group(1)}<"
+                    f"{', '.join(re.findall(r'Li(\d+)E', m.group(2)))}>")
         m = re.search(r"\d([A-Za-z]\w*_kernel)E", mangled)
         return m.group(1) if m else mangled
     dtype = {"f": "f32", "6__half": "f16"}.get(m.group(2), "bf16")
@@ -362,6 +443,38 @@ def phase_ragged_decode(main_lengths):
                 raise AssertionError(f"ragged_decode {name} T={t}: "
                                      f"{err} > {tol}")
 
+    # CUDA operands K3 does not take (float16, head_dim 48, int64
+    # lengths): the dispatch counts each reason=shape and raises, and
+    # never counts a kernel call
+    from bigdl_tpu_torch import kernels, telemetry
+
+    refused = telemetry.counter("kernels/dispatch/reference")
+    taken = telemetry.counter("kernels/dispatch/kernel")
+    for dtype, d, len_dtype in ((torch.float16, HEAD_DIM, torch.int32),
+                                (torch.float32, 48, torch.int32),
+                                (torch.float32, HEAD_DIM, torch.int64)):
+        q = torch.randn((SLOTS, HEADS, d), device=dev).to(dtype)
+        k = torch.randn((SLOTS, HEADS, 64, d), device=dev).to(dtype)
+        lengths = torch.full((SLOTS,), 64, dtype=len_dtype, device=dev)
+        r0, t0 = (refused.value(op="decode", reason="shape"),
+                  taken.value(op="decode"))
+        launches0 = ragged_decode_attention.launches
+        with kernels.use(kernels.KernelConfig.ported()):
+            try:
+                kernels.decode_attention(q, k, k, lengths)
+                raised = False
+            except ValueError:
+                raised = True
+        counted = (refused.value(op="decode", reason="shape") - r0,
+                   taken.value(op="decode") - t0,
+                   ragged_decode_attention.launches - launches0)
+        log("ragged_decode", f"{dtype} head_dim {d} {len_dtype} lengths: "
+                             f"raised {raised}; reason=shape, kernel, "
+                             f"launches counted {counted}")
+        if not raised or counted != (1, 0, 0):
+            raise AssertionError(f"decode dispatch of operands K3 does not "
+                                 f"take: raised {raised}, counted {counted}")
+
     # timing: 8 distinct caches (268 MB together, past the 50 MB L2),
     # like the 6 layers' caches a decode step walks through
     n_sets, t = 8, MAX_LEN
@@ -397,15 +510,20 @@ def phase_ragged_decode(main_lengths):
         err = (kern(0) - plain(0)).abs().max().item()
         lib_err = (library(0) - plain(0)).abs().max().item()
         ms = time_ms(kern, n_sets, rounds=50)
+        dev_ms, method = device_ms(kern, n_sets, rounds=50)
         plain_ms = time_ms(plain, n_sets, rounds=10)
         library_ms = time_ms(library, n_sets, rounds=20)
+        library_dev_ms, _ = device_ms(library, n_sets, rounds=20)
         bound_ms, bound_by = ragged_bound(mix, t, 4)
         log("ragged_decode", json.dumps({
             "case": label, "T": t, "lengths": list(map(int, mix)),
             "max_abs_err": err, "library_max_abs_err": lib_err,
-            "kernel_ms": ms, "plain_ms": plain_ms,
-            "library_ms": library_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "kernel_over_bound": ms / bound_ms}))
+            "kernel_ms": ms, "kernel_device_ms": dev_ms,
+            "device_ms_method": method, "plain_ms": plain_ms,
+            "library_ms": library_ms, "library_device_ms": library_dev_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "kernel_over_bound": ms / bound_ms,
+            "kernel_device_over_bound": dev_ms / bound_ms}))
         if not err <= RAGGED_TOL["float32"]:
             raise AssertionError(f"ragged_decode timing inputs: {err}")
         if entry is None:
@@ -414,8 +532,10 @@ def phase_ragged_decode(main_lengths):
                                "ragged_decode.cu",
                      "replaces": "bigdl_tpu/kernels/ragged_decode.py:37",
                      "launches": None, "max_abs_err": err, "ms": ms,
-                     "plain_ms": plain_ms, "bound_ms": bound_ms,
-                     "bound_by": bound_by, "library_ms": library_ms}
+                     "device_ms": dev_ms, "plain_ms": plain_ms,
+                     "bound_ms": bound_ms, "bound_by": bound_by,
+                     "library_ms": library_ms,
+                     "library_device_ms": library_dev_ms}
     return entry
 
 
@@ -604,6 +724,24 @@ def kept_pairs(seg, b: int, s: int, device) -> int:
     return int((same & causal).sum())
 
 
+def kept_tile_pairs(seg, s: int):
+    """``(kept, all)`` causal (query tile, key tile) pairs of 64 x 64, one
+    head: a pair is kept when some query and some key of it share a
+    segment id (the diagonal always) — the tiles K1's forward computes."""
+    import torch
+    import torch.nn.functional as F
+
+    b, n = seg.shape[0], -(-s // 64)
+    pad = n * 64 - s
+    q_ids = F.pad(seg, (0, pad), value=-1).view(b, n, 1, 64, 1)
+    k_ids = F.pad(seg, (0, pad), value=-2).view(b, 1, n, 1, 64)
+    share = (q_ids == k_ids).any(-1).any(-1)
+    causal = torch.ones((n, n), dtype=torch.bool, device=seg.device).tril()
+    diagonal = torch.eye(n, dtype=torch.bool, device=seg.device)
+    kept = int(((share | diagonal) & causal).sum())
+    return kept, b * n * (n + 1) // 2
+
+
 def flash_bound(kept: int, shape, itemsize: int, segmented: bool,
                 backward: bool, flops_per_s: float):
     """Least time (ms) the card needs for one K1 or K2 call: 4 * D flops
@@ -701,7 +839,8 @@ def phase_flash(train_seg):
 
     from bigdl_tpu_torch.kernels.flash_attention import (
         flash_attention_backward, flash_attention_backward_reference,
-        flash_attention_forward, flash_attention_forward_reference)
+        flash_attention_forward, flash_attention_forward_reference,
+        flash_attention_forward_tile_pairs)
     from bigdl_tpu_torch.nn import dot_product_attention
 
     dev = torch.device("cuda")
@@ -739,6 +878,22 @@ def phase_flash(train_seg):
             _check_flash(_flash_errors(q, k, v, do, seg, True), name,
                          f"{name} {list(shape)} causal "
                          f"segments={seg is not None}")
+
+    # K1's forward computes only the key tiles that share a segment id
+    # with the query tile: the pairs it counted against the ids' count
+    q, k, v = _views(gen, shape, torch.float32)
+    flash_attention_forward_tile_pairs()
+    flash_attention_forward(q, k, v, train_seg, causal=True)
+    computed = flash_attention_forward_tile_pairs()
+    kept, causal_pairs = kept_tile_pairs(train_seg, TRAIN_SEQ)
+    log("flash_attention", f"training rows {list(shape)}: the forward "
+                           f"computed {computed} tile pairs = {HEADS} heads "
+                           f"x {computed / HEADS:g} of {causal_pairs} causal "
+                           f"pairs ({computed / (HEADS * causal_pairs):.4f}); "
+                           f"the segment ids keep {kept}")
+    if computed != kept * HEADS:
+        raise AssertionError(f"K1's forward computed {computed} tile pairs, "
+                             f"the segment ids keep {kept} x {HEADS}")
 
     # timing: 3 input sets (q, k, v, O, dO: 252 MB in float32, past the
     # 50 MB L2), causal as in training
@@ -805,8 +960,8 @@ def phase_flash(train_seg):
 
         name = str(dtype).split(".")[-1]
         kept = kept_pairs(seg, TRAIN_BATCH, TRAIN_SEQ, dev)
-        # float32: K1's forward runs SIMT, the backward 3xTF32
-        peaks = ({"fwd": F32_FLOPS_PER_S, "bwd": TF32X3_FLOPS_PER_S}
+        # float32: K1's forward and backward run 3xTF32
+        peaks = ({"fwd": TF32X3_FLOPS_PER_S, "bwd": TF32X3_FLOPS_PER_S}
                  if dtype == torch.float32 else
                  {"fwd": BF16_FLOPS_PER_S, "bwd": BF16_FLOPS_PER_S})
         itemsize = torch.empty((), dtype=dtype).element_size()
@@ -823,8 +978,10 @@ def phase_flash(train_seg):
                 ("fwd", kern_f, plain_f, lib_f, einsum_f, False, fwd_err),
                 ("bwd", kern_b, plain_b, lib_b, einsum_b, True, bwd_err)):
             ms = time_ms(kern, n_sets, rounds=10)
+            dev_ms, method = device_ms(kern, n_sets, rounds=10)
             plain_ms = time_ms(plain, n_sets, rounds=2)
             library_ms = time_ms(lib, n_sets, rounds=10)
+            library_dev_ms, _ = device_ms(lib, n_sets, rounds=10)
             einsum_ms = time_ms(einsum, n_sets, rounds=5)
             bound_ms, bound_by = flash_bound(kept, shape, itemsize,
                                              seg is not None, backward,
@@ -835,17 +992,23 @@ def phase_flash(train_seg):
                          "replaces": "bigdl_tpu/kernels/flash_attention.py:"
                                      + ("97" if backward else "65"),
                          "launches": None, "max_abs_err": err, "ms": ms,
-                         "plain_ms": plain_ms, "bound_ms": bound_ms,
-                         "bound_by": bound_by, "library_ms": library_ms}
+                         "device_ms": dev_ms, "plain_ms": plain_ms,
+                         "bound_ms": bound_ms, "bound_by": bound_by,
+                         "library_ms": library_ms,
+                         "library_device_ms": library_dev_ms}
             log("flash_attention", json.dumps({
                 "case": f"{kind} {name} {list(shape)} causal segments="
                         f"{seg is not None}", "kept_pairs": kept,
-                "max_abs_err": err, "kernel_ms": ms, "plain_ms": plain_ms,
-                "library_ms": library_ms, "einsum_path_ms": einsum_ms,
+                "max_abs_err": err, "kernel_ms": ms,
+                "kernel_device_ms": dev_ms, "device_ms_method": method,
+                "plain_ms": plain_ms, "library_ms": library_ms,
+                "library_device_ms": library_dev_ms,
+                "einsum_path_ms": einsum_ms,
                 "library": "F.scaled_dot_product_attention " + (
                     "backward (autograd.grad)" if backward else "forward"),
                 "library_fwd_max_abs_err": lib_err, "bound_ms": bound_ms,
-                "bound_by": bound_by, "kernel_over_bound": ms / bound_ms}))
+                "bound_by": bound_by, "kernel_over_bound": ms / bound_ms,
+                "kernel_device_over_bound": dev_ms / bound_ms}))
         if entries is None:
             entries = row
     return entries["fwd"], entries["bwd"]
@@ -1214,13 +1377,21 @@ def phase_blockwise():
         def timed(which, rounds):
             return time_ms(lambda i: fns(i, which), n_sets, rounds)
 
+        def device_timed(which, rounds):
+            ms, row["device_ms_method"] = device_ms(
+                lambda i: fns(i, which), n_sets, rounds)
+            return ms
+
         kept = kept_pairs(None, 1, s, "cuda")
         row = {"S": s, "kept_pairs": kept}
         for kind, backward in (("f", False), ("b", True)):
             rounds = 3 if s == LC_SEQ else 1
             row[f"k2_{kind}_ms"] = timed(f"k2_{kind}", rounds)
+            row[f"k2_{kind}_device_ms"] = device_timed(f"k2_{kind}", rounds)
             row[f"k1_{kind}_ms"] = timed(f"k1_{kind}", rounds)
             row[f"sdpa_{kind}_ms"] = timed(f"lib_{kind}", rounds)
+            row[f"sdpa_{kind}_device_ms"] = device_timed(f"lib_{kind}",
+                                                         rounds)
             row[f"bound_{kind}_ms"], row[f"bound_{kind}_by"] = flash_bound(
                 kept, shape, 4, False, backward, TF32X3_FLOPS_PER_S)
         if s == LC_SEQ:
@@ -1232,7 +1403,8 @@ def phase_blockwise():
                                       "blockwise_flash_attention")
             _check_flash(main_errs, "float32", f"float32 {list(shape)} "
                          f"causal (the main path's shape)", "blockwise")
-            log_sdpa_kernels(lambda: (fns(0, "lib_f"), fns(0, "lib_b")))
+            log_kernels("blockwise", "SDPA yardstick's kernels",
+                        lambda: (fns(0, "lib_f"), fns(0, "lib_b")))
             row["plain_f_ms"] = time_ms(lambda i: fns(0, "plain_f"), 1, 1)
             row["plain_b_ms"] = time_ms(lambda i: fns(0, "plain_b"), 1, 1)
             q, k, v = sets[0][0]
@@ -1259,28 +1431,25 @@ def phase_blockwise():
                     "max_abs_err": max(main_errs[n] for n in (
                         ("dq", "dk", "dv") if backward else ("o", "lse"))),
                     "ms": row[f"k2_{kind}_ms"],
+                    "device_ms": row[f"k2_{kind}_device_ms"],
                     "plain_ms": row[f"plain_{kind}_ms"],
                     "bound_ms": row[f"bound_{kind}_ms"],
                     "bound_by": row[f"bound_{kind}_by"],
-                    "library_ms": row[f"sdpa_{kind}_ms"]}
+                    "library_ms": row[f"sdpa_{kind}_ms"],
+                    "library_device_ms": row[f"sdpa_{kind}_device_ms"]}
         log("blockwise", json.dumps(row))
         del sets, outs, outs1, graphs
         torch.cuda.empty_cache()
     return entries["f"], entries["b"]
 
 
-def log_sdpa_kernels(run) -> None:
-    """Which kernels the SDPA yardstick runs (one profiled ``run()``):
-    its float32 backend decides what arithmetic its times stand for."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        run()
-        torch.cuda.synchronize()
-    log("blockwise", "SDPA yardstick's kernels (ms, launches, name): "
-        + json.dumps([(round(ms, 4), n, key[:120])
-                      for ms, n, key in device_kernels(prof)[:6]]))
+def log_kernels(phase: str, what: str, run) -> None:
+    """Which kernels one profiled ``run()`` launches, with their device
+    times (a yardstick's backend decides what arithmetic its times stand
+    for; a kernel of two launches shows each)."""
+    log(phase, f"{what} (ms, launches, name): "
+        + json.dumps([(round(ms, 5), n, key[:120])
+                      for ms, n, key in device_kernels(profiled(run))[:6]]))
 
 
 def check_deterministic(bwd, q, k, v, o, do, lse, seg, label) -> None:
@@ -1598,11 +1767,13 @@ def phase_int8_gemm():
     path's shape (launches filled in later)."""
     import torch
 
-    from bigdl_tpu_torch.kernels.int8_gemm import (int8_gemm,
+    from bigdl_tpu_torch.kernels.int8_gemm import (gemm_plan, int8_gemm,
                                                    int8_gemm_reference)
 
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     gen = torch.Generator(device="cuda").manual_seed(6)
     cases = 0
+    plans = {}
     for m in INT8_EDGE_M:
         for n in INT8_EDGE_N:
             for k in INT8_EDGE_K:
@@ -1615,9 +1786,17 @@ def phase_int8_gemm():
                                          f"not bitwise the plain version "
                                          f"(max diff {err})")
                 cases += 1
+                plan = gemm_plan(m, n, k, sms)
+                plans.setdefault(f"tile {plan.tile} splits {plan.splits}",
+                                 []).append(f"{m}x{n}x{k}")
     log("int8_gemm", f"{cases} edge shapes (M {INT8_EDGE_M}, N "
                      f"{INT8_EDGE_N}, K {INT8_EDGE_K}): kernel bitwise "
                      f"equal to the plain version")
+    # the shapes that cross the split-K choice (M x N x K by plan)
+    log("int8_gemm", f"plans on {sms} SMs: " + json.dumps(
+        {key: [x for x in shapes if x.split("x")[1] == "1000"
+               and x.split("x")[2] in ("2048", "4100")]
+         for key, shapes in sorted(plans.items())}))
 
     def library(x, w, xs, ws):
         return torch._int_mm(x, w.t()).float() * xs[:, None] * ws[None, :]
@@ -1635,7 +1814,10 @@ def phase_int8_gemm():
             raise AssertionError(f"int8_gemm [{m},{k}]x[{n},{k}]: not "
                                  f"bitwise the plain version")
         err = (got - want).abs().max().item()
-        row = {"M": m, "N": n, "K": k, "bitwise_equal": True,
+        plan = gemm_plan(m, n, k, sms)
+        row = {"M": m, "N": n, "K": k, "tile": plan.tile,
+               "splits": plan.splits, "k_steps_per_split": plan.steps,
+               "grid": list(plan.grid), "bitwise_equal": True,
                "max_abs_err": err,
                "library_bitwise_equal": bool(torch.equal(lib, want)),
                "kernel_ms": time_ms(lambda i: int8_gemm(*sets[i]),
@@ -1644,20 +1826,36 @@ def phase_int8_gemm():
                                    n_sets, 5),
                "library_ms": time_ms(lambda i: library(*sets[i]), n_sets,
                                      20)}
+        row["kernel_device_ms"], row["device_ms_method"] = device_ms(
+            lambda i: int8_gemm(*sets[i]), n_sets, 20)
+        row["library_device_ms"], _ = device_ms(
+            lambda i: library(*sets[i]), n_sets, 20)
+        log_kernels("int8_gemm", f"[{m},{k}]x[{n},{k}] kernel",
+                    lambda: int8_gemm(*sets[1]))
+        log_kernels("int8_gemm", f"[{m},{k}]x[{n},{k}] library",
+                    lambda: library(*sets[1]))
         row["bound_ms"], row["bound_by"] = int8_bound(m, n, k)
         row["kernel_over_bound"] = row["kernel_ms"] / row["bound_ms"]
         row["kernel_over_library"] = row["kernel_ms"] / row["library_ms"]
-        row["kernel_tops"] = 2 * m * n * k / row["kernel_ms"] / 1e9
+        row["kernel_device_over_bound"] = (row["kernel_device_ms"]
+                                           / row["bound_ms"])
+        row["kernel_device_over_library_device"] = (
+            row["kernel_device_ms"] / row["library_device_ms"])
+        row["kernel_device_tops"] = (2 * m * n * k / row["kernel_device_ms"]
+                                     / 1e9)
         log("int8_gemm", json.dumps(row))
         if entry is None:
             entry = {"name": "int8_gemm", "route": "cuda",
                      "source": "bigdl_tpu_torch/kernels/csrc/int8_gemm.cu",
                      "replaces": "bigdl_tpu/kernels/int8_gemm.py:39",
                      "launches": None, "max_abs_err": err,
-                     "ms": row["kernel_ms"], "plain_ms": row["plain_ms"],
+                     "ms": row["kernel_ms"],
+                     "device_ms": row["kernel_device_ms"],
+                     "plain_ms": row["plain_ms"],
                      "bound_ms": row["bound_ms"],
                      "bound_by": row["bound_by"],
-                     "library_ms": row["library_ms"]}
+                     "library_ms": row["library_ms"],
+                     "library_device_ms": row["library_device_ms"]}
         del sets
         torch.cuda.empty_cache()
     return entry
@@ -1755,6 +1953,8 @@ def phase_paged_decode(main_lengths):
     lens = torch.tensor(main_lengths, dtype=torch.int32, device="cuda")
     k3_ms = time_ms(lambda i: ragged_decode_attention(
         sets[i][0], sets[i][1], sets[i][2], lens), n_sets, 50)
+    k3_device_ms, _ = device_ms(lambda i: ragged_decode_attention(
+        sets[i][0], sets[i][1], sets[i][2], lens), n_sets, 50)
     entry = None
     for page in PAGE_SIZES:
         views = [(q,) + paged_view(k, v, page) for q, k, v in sets]
@@ -1765,9 +1965,11 @@ def phase_paged_decode(main_lengths):
                "max_abs_err": err,
                "kernel_ms": time_ms(lambda i: paged_decode_attention(
                    *views[i], lens), n_sets, 50),
+               "kernel_device_ms": device_ms(lambda i: paged_decode_attention(
+                   *views[i], lens), n_sets, 50)[0],
                "plain_ms": time_ms(lambda i: paged_decode_attention_reference(
                    *views[i], lens), n_sets, 3),
-               "k3_kernel_ms": k3_ms}
+               "k3_kernel_ms": k3_ms, "k3_kernel_device_ms": k3_device_ms}
         row["bound_ms"], row["bound_by"] = ragged_bound(main_lengths, t, 4)
         row["kernel_over_bound"] = row["kernel_ms"] / row["bound_ms"]
         log("paged_decode", json.dumps(row))
@@ -1779,9 +1981,12 @@ def phase_paged_decode(main_lengths):
                                "paged_decode.cu",
                      "replaces": "bigdl_tpu/kernels/paged_decode.py:78",
                      "launches": None, "max_abs_err": err,
-                     "ms": row["kernel_ms"], "plain_ms": row["plain_ms"],
+                     "ms": row["kernel_ms"],
+                     "device_ms": row["kernel_device_ms"],
+                     "plain_ms": row["plain_ms"],
                      "bound_ms": row["bound_ms"],
-                     "bound_by": row["bound_by"], "library_ms": None}
+                     "bound_by": row["bound_by"], "library_ms": None,
+                     "library_device_ms": None}
         del views
     del sets
     torch.cuda.empty_cache()

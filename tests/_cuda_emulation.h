@@ -1,17 +1,19 @@
-// A CPU stand-in for the CUDA features the port's flash-attention
-// kernels use, so their sources compile with g++ and run on the CPU
-// (tests/test_torch_flash_emulated.py). Each CUDA thread of a block is a
+// A CPU stand-in for the CUDA features the port's flash-attention and
+// int8 GEMM kernels use, so their sources compile with g++ and run on
+// the CPU (tests/test_torch_flash_emulated.py,
+// tests/test_torch_int8_emulated.py). Each CUDA thread of a block is a
 // fiber (ucontext) on one OS thread, run round robin: a thread that
 // waits at __syncthreads or at a warp collective yields to the next, so
 // an emulation uses one core and runs the same way every time. Blocks
-// run one after another. mma.sync m16n8k8 tf32 and ldmatrix follow the
-// PTX fragment layouts (written here from the PTX ISA, independently of
-// the kernels); a tf32 operand's low 13 bits are dropped, as the tensor
+// run one after another, so an atomic is a plain add. mma.sync m16n8k8
+// tf32, mma.sync m16n8k32 s8 and ldmatrix follow the PTX fragment
+// layouts (written here from the PTX ISA, independently of the
+// kernels); a tf32 operand's low 13 bits are dropped, as the tensor
 // cores read it. cp.async copies at once (its ordering is the kernels'
-// own barriers). The test rewrites the kernels' inline PTX, kernel
-// launches and dynamic shared memory into the emu_* calls below;
-// nothing here models timing or the hardware's float32 accumulation
-// inside an MMA.
+// own barriers and waits, which this cannot check). The test rewrites
+// the kernels' inline PTX, kernel launches and dynamic shared memory
+// into the emu_* calls below; nothing here models timing or the
+// hardware's float32 accumulation inside an MMA.
 #pragma once
 
 #include <ucontext.h>
@@ -72,6 +74,43 @@ inline uint32_t __float_as_uint(float f) {
 inline size_t __cvta_generic_to_shared(const void* p) {
   return reinterpret_cast<size_t>(p);
 }
+inline float __fmul_rn(float a, float b) { return a * b; }
+inline float __int2float_rn(int x) { return static_cast<float>(x); }
+
+struct uint4 {
+  unsigned x, y, z, w;
+};
+inline uint4 make_uint4(unsigned x, unsigned y, unsigned z, unsigned w) {
+  return {x, y, z, w};
+}
+struct int2 {
+  int x, y;
+};
+inline int2 make_int2(int x, int y) { return {x, y}; }
+struct float2 {
+  float x, y;
+};
+inline float2 make_float2(float x, float y) { return {x, y}; }
+
+template <typename T>
+T atomicAdd(T* address, T value) {
+  const T old = *address;
+  *address = old + value;
+  return old;
+}
+enum { cudaMemcpyDefault = 4 };
+template <typename T>
+cudaError_t cudaMemcpyFromSymbol(void* dst, const T& symbol, size_t bytes,
+                                 size_t offset = 0, int = 0) {
+  std::memcpy(dst, reinterpret_cast<const char*>(&symbol) + offset, bytes);
+  return 0;
+}
+template <typename T>
+cudaError_t cudaMemcpyToSymbol(T& symbol, const void* src, size_t bytes,
+                               size_t offset = 0, int = 0) {
+  std::memcpy(reinterpret_cast<char*>(&symbol) + offset, src, bytes);
+  return 0;
+}
 
 struct __nv_bfloat16 {
   uint16_t x;
@@ -119,16 +158,21 @@ inline void emu_yield() {
 }
 
 struct EmuBarrier {
-  int count = 0, arrived = 0;
+  int count = 0, arrived = 0, any = 0, result = 0;
   unsigned generation = 0;
-  void wait() {
+  // returns whether any arriving thread's pred was nonzero
+  int wait(int pred = 0) {
     const unsigned g = generation;
+    any |= pred != 0;
     if (++arrived == count) {
       arrived = 0;
+      result = any;
+      any = 0;
       ++generation;
-      return;
+      return result;
     }
     while (generation == g) emu_yield();
+    return result;
   }
 };
 inline EmuBarrier emu_block_barrier;
@@ -136,13 +180,17 @@ inline EmuBarrier emu_warp_barrier[kEmuWarps];
 inline float* emu_smem;
 // per-warp exchange slots, one per lane
 inline float emu_shfl[kEmuWarps][32];
-inline const float* emu_rows[kEmuWarps][32];
+inline const char* emu_rows[kEmuWarps][32];
 inline uint32_t emu_a[kEmuWarps][32][4], emu_b[kEmuWarps][32][2];
 inline float emu_c[kEmuWarps][32][4];
+inline int emu_ci[kEmuWarps][32][4];
 
 inline void emu_warp_sync() { emu_warp_barrier[threadIdx.x / 32].wait(); }
 
 inline void __syncthreads() { emu_block_barrier.wait(); }
+inline int __syncthreads_or(int pred) {
+  return emu_block_barrier.wait(pred);
+}
 
 inline float __shfl_xor_sync(unsigned, float x, int mask) {
   const int w = threadIdx.x / 32, l = threadIdx.x % 32;
@@ -153,15 +201,60 @@ inline float __shfl_xor_sync(unsigned, float x, int mask) {
   return r;
 }
 
-// ldmatrix.x4.b16: lane 8j + r holds the address of row r of matrix j;
-// lane i receives the 32-bit word i % 4 of row i / 4 of each matrix.
-inline void emu_ldmatrix_x4(uint32_t (&x)[4], const float* row) {
+// ldmatrix.x4.b16: lane 8j + r holds the address of row r (16 bytes) of
+// matrix j; lane i receives the 32-bit word i % 4 of row i / 4 of each
+// matrix.
+inline void emu_ldmatrix_x4(uint32_t (&x)[4], const void* row) {
   const int w = threadIdx.x / 32, l = threadIdx.x % 32;
-  emu_rows[w][l] = row;
+  emu_rows[w][l] = static_cast<const char*>(row);
   emu_warp_sync();
   for (int j = 0; j < 4; ++j)
-    std::memcpy(&x[j], emu_rows[w][8 * j + l / 4] + l % 4, 4);
+    std::memcpy(&x[j], emu_rows[w][8 * j + l / 4] + 4 * (l % 4), 4);
   emu_warp_sync();
+}
+
+// mma.sync.m16n8k32.row.col.s32.s8.s8.s32, d += a . b, exact. Each
+// register holds four int8 elements, the lowest index in the lowest
+// byte. Lane 4g + t holds A[g][4t + e] (a0), A[g + 8][4t + e] (a1),
+// A[g][16 + 4t + e] (a2), A[g + 8][16 + 4t + e] (a3); B[4t + e][g] (b0),
+// B[16 + 4t + e][g] (b1); D[g][2t], D[g][2t + 1], D[g + 8][2t],
+// D[g + 8][2t + 1].
+inline void emu_mma_s8(int (&d)[4], const unsigned (&a)[4],
+                       const unsigned (&b)[2]) {
+  const int w = threadIdx.x / 32, l = threadIdx.x % 32;
+  for (int i = 0; i < 4; ++i) {
+    emu_a[w][l][i] = a[i];
+    emu_ci[w][l][i] = d[i];
+  }
+  emu_b[w][l][0] = b[0];
+  emu_b[w][l][1] = b[1];
+  emu_warp_sync();
+  int A[16][32], B[32][8], D[16][8];
+  auto byte = [](uint32_t word, int e) {
+    return static_cast<int>(static_cast<int8_t>(word >> (8 * e)));
+  };
+  for (int lane = 0; lane < 32; ++lane) {
+    const int g = lane / 4, t = lane % 4;
+    for (int i = 0; i < 4; ++i) {
+      for (int e = 0; e < 4; ++e)
+        A[g + 8 * (i & 1)][16 * (i >> 1) + 4 * t + e] =
+            byte(emu_a[w][lane][i], e);
+      D[g + 8 * (i >> 1)][2 * t + (i & 1)] = emu_ci[w][lane][i];
+    }
+    for (int i = 0; i < 2; ++i)
+      for (int e = 0; e < 4; ++e)
+        B[16 * i + 4 * t + e][g] = byte(emu_b[w][lane][i], e);
+  }
+  const int g = l / 4, t = l % 4;
+  int out[4];
+  for (int i = 0; i < 4; ++i) {
+    const int row = g + 8 * (i >> 1), col = 2 * t + (i & 1);
+    int acc = D[row][col];
+    for (int k = 0; k < 32; ++k) acc += A[row][k] * B[k][col];
+    out[i] = acc;
+  }
+  emu_warp_sync();
+  for (int i = 0; i < 4; ++i) d[i] = out[i];
 }
 
 // mma.sync.m16n8k8.row.col.f32.tf32.tf32.f32, c += a . b. Lane 4g + t
@@ -233,9 +326,10 @@ void emu_launch(K kernel, dim3 grid, int threads, size_t smem, cudaStream_t,
   gridDim = grid;
   blockDim = dim3(threads);
   b.body = [&] { kernel(args...); };
+  for (unsigned bz = 0; bz < grid.z; ++bz)
   for (unsigned by = 0; by < grid.y; ++by)
     for (unsigned bx = 0; bx < grid.x; ++bx) {
-      blockIdx = dim3(bx, by);
+      blockIdx = dim3(bx, by, bz);
       std::fill(buf.begin(), buf.end(), std::nanf(""));
       emu_smem = buf.data();
       emu_block_barrier = EmuBarrier{threads};

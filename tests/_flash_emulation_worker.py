@@ -1,8 +1,11 @@
 """One case of tests/test_torch_flash_emulated.py, in its own process (a
 hung emulation cannot stall the suite): the g++-built K1 and K2 libraries
 (``lib<source>.so`` in LIB_DIR) against the port's plain versions on the
-same seeded inputs, forward (O, lse) and backward (dq, dk, dv). Prints
-one JSON object of the largest errors.
+same seeded inputs, forward (O, lse) and backward (dq, dk, dv). SEGMENTS
+is 0 (none), 1 (sorted random ids 1-3) or 2 (packed documents of 20-90
+rows, then pad id 0, as the packed training rows are). For K1 it also
+reports the (query tile, key tile) pairs its forward computed and the
+pairs the segment ids keep. Prints one JSON object.
 
     python _flash_emulation_worker.py LIB_DIR B H S D CAUSAL SEGMENTS DTYPE
 """
@@ -38,6 +41,35 @@ def bind(lib_dir, source, prefix, suffix):
     return fwd, bwd
 
 
+def packed_segments(rng, b, s):
+    """Documents of 20-90 rows numbered from 1, the last 15% pad id 0."""
+    seg = np.zeros((b, s), np.int32)
+    for row in seg:
+        pos, doc = 0, 1
+        while pos < s * 0.85:
+            n = int(rng.integers(20, 91))
+            row[pos:pos + n] = doc
+            pos, doc = pos + n, doc + 1
+        row[int(s * 0.85):] = 0
+    return seg
+
+
+def kept_tile_pairs(seg, b, h, s, causal):
+    """(query tile, key tile) pairs of 64 a K1 forward computes: under
+    causal the tiles up to the diagonal, and with segment ids only those
+    where some query and key share an id (the diagonal always)."""
+    n = -(-s // 64)
+    total = 0
+    for row in range(b):
+        for i in range(n):
+            for j in range(i + 1 if causal else n):
+                total += (seg is None or (causal and j == i)
+                          or np.intersect1d(
+                              seg[row, i * 64:(i + 1) * 64],
+                              seg[row, j * 64:(j + 1) * 64]).size > 0)
+    return total * h
+
+
 def ptr(x):
     return None if x is None else x.data_ptr()
 
@@ -59,8 +91,12 @@ def main(lib_dir, b, h, s, d, causal, segmented, dtype_name):
                for _ in range(3))
     do = torch.from_numpy(rng.standard_normal((b, h, s, d))
                           .astype(np.float32)).to(dtype)
-    seg = (torch.from_numpy(np.sort(rng.integers(1, 4, (b, s)), axis=1)
-                            .astype(np.int32)) if segmented else None)
+    seg = None
+    if segmented == 1:
+        seg = torch.from_numpy(np.sort(rng.integers(1, 4, (b, s)), axis=1)
+                               .astype(np.int32))
+    elif segmented == 2:
+        seg = torch.from_numpy(packed_segments(rng, b, s))
     scale = 1.0 / math.sqrt(d)
     rel = dtype != torch.float32
     out = {}
@@ -88,6 +124,14 @@ def main(lib_dir, b, h, s, d, causal, segmented, dtype_name):
                                         .sum())}
         errs.update({n: err(g, w, rel) for n, g, w in
                      zip(("dq", "dk", "dv"), grads, grads_r)})
+        if source == "flash_attention":
+            pairs = ctypes.c_ulonglong(0)
+            lib = ctypes.CDLL(f"{lib_dir}/lib{source}.so")
+            assert lib.bigdl_flash_tile_pairs(0, ctypes.byref(pairs)) == 0
+            errs["tile_pairs"] = pairs.value
+            errs["kept_tile_pairs"] = kept_tile_pairs(
+                None if seg is None else seg.numpy(), b, h, s, causal)
+            errs["all_tile_pairs"] = kept_tile_pairs(None, b, h, s, causal)
         out[source] = errs
     print(json.dumps(out))
 
@@ -95,4 +139,4 @@ def main(lib_dir, b, h, s, d, causal, segmented, dtype_name):
 if __name__ == "__main__":
     lib_dir, *nums, dtype_name = sys.argv[1:]
     b, h, s, d, causal, segmented = map(int, nums)
-    main(lib_dir, b, h, s, d, bool(causal), bool(segmented), dtype_name)
+    main(lib_dir, b, h, s, d, bool(causal), segmented, dtype_name)

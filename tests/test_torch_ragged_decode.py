@@ -109,3 +109,48 @@ def test_dispatch_rejects_what_the_kernel_does_not_take():
     with pytest.raises(ValueError):                        # no such device
         ragged_decode_attention(q.to("meta"), k.to("meta"), v.to("meta"),
                                 lengths.to("meta"))
+
+
+class _OnCard:
+    """Stands in for a CUDA tensor: the decode dispatch reads only its
+    shape, dtype, device and strides before it would launch, so the
+    card's refusals are checked without a card."""
+
+    def __init__(self, shape, dtype):
+        self.shape, self.dtype = torch.Size(shape), dtype
+        self.ndim, self.device = len(shape), torch.device("cuda", 0)
+
+    def stride(self, dim=None):
+        st = torch.empty(self.shape, device="meta").stride()
+        return st if dim is None else st[dim]
+
+
+@pytest.mark.parametrize("dtype,d,len_dtype", [
+    (torch.float16, 64, torch.int32),     # a dtype K3 is not built for
+    (torch.float32, 48, torch.int32),     # head_dim not a multiple of 32
+    (torch.float32, 64, torch.int64)])    # lengths not int32
+def test_cuda_operands_the_kernel_does_not_take_raise_as_shape(dtype, d,
+                                                                len_dtype):
+    """CUDA operands K3 does not take are a reason=shape decline that
+    raises, and are never counted as a kernel call (as the flash, paged
+    and int8 routes count them)."""
+    from bigdl_tpu_torch import kernels, telemetry
+    from bigdl_tpu_torch.kernels.ragged_decode import cuda_unsupported
+    q = _OnCard((SLOTS, H, d), dtype)
+    k = _OnCard((SLOTS, H, T, d), dtype)
+    lengths = _OnCard((SLOTS,), len_dtype)
+    assert cuda_unsupported(q, k, k, lengths) is not None
+    assert cuda_unsupported(_OnCard((SLOTS, H, 64), torch.float32),
+                            _OnCard((SLOTS, H, T, 64), torch.float32),
+                            _OnCard((SLOTS, H, T, 64), torch.float32),
+                            _OnCard((SLOTS,), torch.int32)) is None
+    ref = telemetry.counter("kernels/dispatch/reference")
+    taken = telemetry.counter("kernels/dispatch/kernel")
+    s0, t0 = ref.value(op="decode", reason="shape"), taken.value(op="decode")
+    launches = ragged_decode_attention.launches
+    with kernels.use(kernels.KernelConfig.ported()):
+        with pytest.raises(ValueError, match="ragged_decode kernel"):
+            decode_attention(q, k, k, lengths)
+    assert ref.value(op="decode", reason="shape") == s0 + 1
+    assert taken.value(op="decode") == t0
+    assert ragged_decode_attention.launches == launches
