@@ -13,7 +13,11 @@ einsum path. What differs is what a decline may be on the card:
 - ``reason=shape`` — operands the kernel does not take (on a CUDA
   tensor, also a dtype or head_dim the CUDA kernel is not built for). On
   a CUDA tensor this raises; only a CPU tensor declines to the einsum
-  path.
+  path, on the JAX package's own conditions (decode: ``k`` not of rank
+  4, ``q`` not ``k``'s shape without T, or a q/k/v dtype that is not
+  floating). Operands the JAX package's kernel fails on too (decode: a
+  ``v`` of another shape than ``k``, ``lengths`` not ``[slots]``) raise
+  on every device.
 
 A CUDA tensor that is routed to a kernel launches it or the call raises;
 the plain PyTorch versions run only for tensors on the CPU (inside each
@@ -145,20 +149,35 @@ def decode_attention(q, k, v, lengths, *,
     """Ragged-decode dispatch: ``q [slots, H, D]`` (one token per slot),
     ``k``/``v`` ``[slots, H, T, D]`` cache slices, ``lengths [slots]``
     int32 valid-KV rows per slot. Returns the kernel's result, or
-    **None** when the config switches decode off (the caller's
-    length-masked einsum path runs). Raises ValueError/TypeError on
-    operands the kernel does not take — on a CUDA tensor also those the
-    CUDA kernel is not built for (:func:`~bigdl_tpu_torch.kernels.
-    ragged_decode.cuda_unsupported`) — after counting them
-    ``reason=shape``, never as a kernel call."""
+    **None** when the config switches decode off, or when on the CPU the
+    operands fail the JAX package's own test (``k`` not of rank 4, ``q``
+    not ``[slots, H, D]`` of ``k``, a q/k/v dtype that is not floating;
+    counted ``reason=shape``): the caller's length-masked einsum path
+    runs. Mixed floating dtypes run the plain version on the CPU, which
+    computes in float32, as the TPU kernel does. Raises ValueError,
+    after counting ``reason=shape`` and never as a kernel call, where
+    the JAX package's kernel fails too (``v`` not ``k``'s shape,
+    ``lengths`` not ``[slots]``) and, on a CUDA tensor, on every operand
+    the CUDA kernel does not take (:func:`~bigdl_tpu_torch.kernels.
+    ragged_decode.cuda_unsupported`)."""
     if not _config.enabled("decode"):
         _declined("decode", "config")
         return None
-    try:
-        _check_decode_operands(q, k, v, lengths)
-    except (TypeError, ValueError):
+    if (k.ndim != 4 or q.shape != k.shape[:2] + k.shape[3:]
+            or not all(x.dtype.is_floating_point for x in (q, k, v))):
         _declined("decode", "shape")
-        raise
+        if q.device.type != "cpu":
+            raise ValueError(
+                f"decode takes q [slots, H, D] and k [slots, H, T, D] of "
+                f"floating dtypes, got {tuple(q.shape)} / {tuple(k.shape)} "
+                f"({q.dtype}/{k.dtype}/{v.dtype}); switch decode off in "
+                f"the KernelConfig to run the einsum path")
+        return None
+    if v.shape != k.shape or lengths.shape != (k.shape[0],):
+        _declined("decode", "shape")
+        raise ValueError(f"decode takes v of k's shape {tuple(k.shape)} and "
+                         f"lengths [slots] = ({k.shape[0]},), got "
+                         f"{tuple(v.shape)} / {tuple(lengths.shape)}")
     if q.device.type == "cuda":
         why = _ragged.cuda_unsupported(q, k, v, lengths)
         if why is not None:
@@ -168,23 +187,6 @@ def decode_attention(q, k, v, lengths, *,
     return _ragged.ragged_decode_attention(
         q, k, v, lengths, sm_scale=sm_scale,
         block_k=_config.get_config().block_k)
-
-
-def _check_decode_operands(q, k, v, lengths) -> None:
-    if k.ndim != 4 or v.shape != k.shape:
-        raise ValueError(f"k/v must be [slots, H, T, D] of one shape, got "
-                         f"{tuple(k.shape)} / {tuple(v.shape)}")
-    slots, h, _, d = k.shape
-    if q.shape != (slots, h, d):
-        raise ValueError(f"q {tuple(q.shape)} must be [slots, H, D] = "
-                         f"{(slots, h, d)}")
-    if lengths.shape != (slots,):
-        raise ValueError(f"lengths {tuple(lengths.shape)} must be "
-                         f"[slots] = ({slots},)")
-    if not (q.dtype.is_floating_point and k.dtype == q.dtype
-            and v.dtype == q.dtype):
-        raise TypeError(f"q/k/v must share one floating dtype, got "
-                        f"{q.dtype}/{k.dtype}/{v.dtype}")
 
 
 def paged_decode_attention(q, k_pages, v_pages, page_table, lengths, *,

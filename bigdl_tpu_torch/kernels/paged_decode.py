@@ -8,8 +8,10 @@ contiguous kernel (K3), clamped into ``[1, pages_per_slot *
 page_size]``. Pages past a slot's length are never read.
 
 The kernel (``csrc/paged_decode.cu``) is K3's with its row address
-made a template parameter, so on a paged view of a cache it is bitwise
-equal to K3's kernel for any page size and any table.
+made a template parameter, run under K3's plan (:func:`~bigdl_tpu_torch.
+kernels.ragged_decode.decode_plan` at ``t_len = pages_per_slot *
+page_size``), so on a paged view of a cache it is bitwise equal to K3's
+kernel for any page size and any table.
 :func:`paged_decode_attention_reference` is its plain PyTorch version:
 it walks the table page by page, each page one online-softmax tile, as
 the TPU kernel does (so at ``page_size == block_k`` it is K3's plain
@@ -32,8 +34,10 @@ from typing import Optional
 
 import torch
 
+from bigdl_tpu_torch.kernels.ragged_decode import decode_plan, sm_count
+
 __all__ = ["paged_decode_attention", "paged_decode_attention_reference",
-           "paged_view"]
+           "paged_plan", "paged_view"]
 
 _NEG_INF = float("-inf")
 
@@ -123,7 +127,8 @@ _lib_lock = threading.Lock()
 _launch_lock = threading.Lock()
 _lib = None
 
-_CUDA_DTYPES = (torch.float32, torch.bfloat16)
+_CUDA_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16",
+                torch.float16: "f16"}
 
 
 def _library():
@@ -136,11 +141,10 @@ def _library():
 
             lib = _build.load("paged_decode")
             p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-            for fn in (lib.bigdl_paged_decode_f32,
-                       lib.bigdl_paged_decode_bf16):
-                fn.argtypes = [p, p, p, p, p, p, i32, i32, i32, i32, i32,
-                               i64, i64, i64, i64, i64, i64, i64, i64,
-                               i64, i64, ctypes.c_float, i32, p]
+            for suffix in _CUDA_DTYPES.values():
+                fn = getattr(lib, f"bigdl_paged_decode_{suffix}")
+                fn.argtypes = [p] * 7 + [i32] * 8 + [i64] * 10 + [
+                    ctypes.c_float, i32, p]
                 fn.restype = i32
             lib.bigdl_cuda_error_string.argtypes = [i32]
             lib.bigdl_cuda_error_string.restype = ctypes.c_char_p
@@ -151,16 +155,16 @@ def _library():
 def cuda_unsupported(q, k_pages, v_pages, page_table, lengths
                      ) -> Optional[str]:
     """Why the CUDA kernel does not take these operands (None when it
-    does): float32 or bfloat16 q and pools of one dtype, head_dim a
-    multiple of 32 in [32, 256], contiguous last dimensions, contiguous
-    int32 table and lengths, one device."""
+    does): float32, bfloat16 or float16 q and pools of one dtype,
+    head_dim 1 to 256, contiguous last dimensions, contiguous int32
+    table and lengths, one device."""
     d = q.shape[-1]
     if q.dtype not in _CUDA_DTYPES or k_pages.dtype != q.dtype \
             or v_pages.dtype != q.dtype:
-        return (f"takes float32 or bfloat16 q/k/v of one dtype, got "
-                f"{q.dtype}/{k_pages.dtype}/{v_pages.dtype}")
-    if d % 32 or not 32 <= d <= 256:
-        return f"needs head_dim a multiple of 32 in [32, 256], got {d}"
+        return (f"takes float32, bfloat16 or float16 q/k/v of one dtype, "
+                f"got {q.dtype}/{k_pages.dtype}/{v_pages.dtype}")
+    if not 1 <= d <= 256:
+        return f"needs head_dim in [1, 256], got {d}"
     for name, x in (("q", q), ("k_pages", k_pages), ("v_pages", v_pages)):
         if x.device != q.device:
             return f"{name} is on {x.device}, q on {q.device}"
@@ -177,6 +181,16 @@ def cuda_unsupported(q, k_pages, v_pages, page_table, lengths
     return None
 
 
+def paged_plan(q, k_pages, page_table, sms: int):
+    """K4's split plan: K3's :func:`~bigdl_tpu_torch.kernels.
+    ragged_decode.decode_plan` at ``t_len = pages_per_slot *
+    page_size``, never a function of the page size itself, so K4 splits
+    a paged view's keys exactly as K3 splits the contiguous cache."""
+    slots, h, d = q.shape
+    return decode_plan(slots, h, page_table.shape[1] * k_pages.shape[2], d,
+                       q.element_size(), sms)
+
+
 def paged_decode_attention(q, k_pages, v_pages, page_table, lengths, *,
                            sm_scale: Optional[float] = None):
     """One decode step of attention over PAGED KV: ``q [slots, H, D]``,
@@ -186,11 +200,12 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, lengths, *,
     rows per slot. Returns ``[slots, H, D]`` in ``q.dtype``.
 
     CPU tensors run :func:`paged_decode_attention_reference`. CUDA
-    tensors launch the kernel on the calling thread's current stream,
-    or raise on what it does not take (:func:`cuda_unsupported`); each
-    launch adds one to ``paged_decode_attention.launches``. Table
-    entries of the pages a slot reads must lie in ``[0, num_pages)``;
-    the kernel does not check them."""
+    tensors launch the kernel on the calling thread's current stream
+    under K3's plan, or raise on what it does not take
+    (:func:`cuda_unsupported`); each call adds one to
+    ``paged_decode_attention.launches`` (the split kernel and its merge
+    count as one). Table entries of the pages a slot reads must lie in
+    ``[0, num_pages)``; the kernel does not check them."""
     _check(q, k_pages, v_pages, page_table, lengths)
     slots, h, d = q.shape
     if sm_scale is None:
@@ -206,16 +221,21 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, lengths, *,
     if why is not None:
         raise ValueError(f"paged_decode kernel {why}")
     out = torch.empty((slots, h, d), dtype=q.dtype, device=q.device)
-    if slots == 0 or h == 0:
-        return out
     pps, page = page_table.shape[1], k_pages.shape[2]
+    if slots == 0 or h == 0 or pps * page == 0:
+        return out
+    plan = paged_plan(q, k_pages, page_table, sm_count(q.device))
+    partials = (torch.empty((slots, h, plan.splits, d + 2),
+                            dtype=torch.float32, device=q.device)
+                if plan.splits > 1 else None)
     lib = _library()
-    fn = (lib.bigdl_paged_decode_f32 if q.dtype == torch.float32
-          else lib.bigdl_paged_decode_bf16)
+    fn = getattr(lib, f"bigdl_paged_decode_{_CUDA_DTYPES[q.dtype]}")
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
             page_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-            slots, h, pps, page, d,
+            None if partials is None else partials.data_ptr(),
+            slots, h, pps, page, d, plan.stage_keys, plan.chunk,
+            plan.splits,
             q.stride(0), q.stride(1),
             k_pages.stride(0), k_pages.stride(1), k_pages.stride(2),
             v_pages.stride(0), v_pages.stride(1), v_pages.stride(2),
@@ -230,5 +250,5 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, lengths, *,
     return out
 
 
-#: kernel launches so far (plain-version calls on the CPU do not count)
+#: kernel calls so far (plain-version calls on the CPU do not count)
 paged_decode_attention.launches = 0

@@ -4,10 +4,13 @@ slot (counterpart of ``bigdl_tpu.kernels.ragged_decode``).
 One decode token per slot attends its slot's cache slice ``[T, D]``
 per head, but only the first ``clamp(lengths[slot], 1, T)`` rows: a
 slot 17 tokens into a 512 bucket reads 17 rows, not 512. The kernel is
-CUDA C++ for Hopper (``csrc/ragged_decode.cu``; its header note has the
-design and the byte bound); :func:`ragged_decode_attention_reference`
-is its plain PyTorch version — the online-softmax recurrence of the
-TPU kernel over ``block_k`` tiles.
+CUDA C++ for Hopper (``csrc/ragged_decode.cu`` over
+``csrc/decode_common.cuh``, whose header note has the design and the
+byte bound): the keys of a (slot, head) are split across blocks as
+:func:`decode_plan` says, and a second kernel merges the blocks'
+partials. :func:`ragged_decode_attention_reference` is its plain
+PyTorch version — the online-softmax recurrence of the TPU kernel over
+``block_k`` tiles.
 
 :func:`ragged_decode_attention` runs the plain version for a tensor on
 the CPU, and launches the kernel for a CUDA tensor or raises: there is
@@ -16,16 +19,18 @@ no fallback from the card to the plain version.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 import threading
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
 from bigdl_tpu_torch.kernels.common import fit_block
 
-__all__ = ["cuda_unsupported", "ragged_decode_attention",
-           "ragged_decode_attention_reference"]
+__all__ = ["DecodePlan", "cuda_unsupported", "decode_plan",
+           "ragged_decode_attention", "ragged_decode_attention_reference",
+           "sm_count", "stage_keys"]
 
 _NEG_INF = float("-inf")
 
@@ -70,11 +75,79 @@ def ragged_decode_attention_reference(q, k, v, lengths,
     return (acc / l).to(q.dtype)
 
 
+#: bytes of one tensor's rows a ring stage holds, and its most keys
+#: (``csrc/decode_common.cuh``'s kStageBytes and Tile)
+_STAGE_BYTES, _STAGE_MAX = 8192, 64
+#: the least keys a block owns, the most splits of a (slot, head) (the
+#: merge's length), and the blocks a plan gives each SM where T allows:
+#: on an H100, 8 timed faster than 4 and 2 at the serving lengths
+_MIN_CHUNK, _MAX_SPLITS, _BLOCKS_PER_SM = 64, 64, 8
+
+
+class DecodePlan(NamedTuple):
+    """How one K3 / K4 call splits its keys: block ``(slot, head,
+    split)`` owns keys ``[split * chunk, (split + 1) * chunk)``, streamed
+    in ring stages of ``stage_keys`` rows; ``grid`` is ``(slots, heads,
+    splits)``. With ``splits > 1`` a second kernel merges the partials."""
+    stage_keys: int
+    chunk: int
+    splits: int
+    grid: tuple
+
+
+def stage_keys(head_dim: int, itemsize: int) -> int:
+    """Keys a ring stage holds for ``head_dim`` of ``itemsize`` bytes:
+    8 KB of one tensor's rows at the kernel's head-dim tile (32, 64, 128
+    or 256), at most 64 keys."""
+    tile = next(t for t in (32, 64, 128, 256) if head_dim <= t or t == 256)
+    return min(_STAGE_MAX, _STAGE_BYTES // (tile * itemsize))
+
+
+@functools.lru_cache(maxsize=256)
+def decode_plan(slots: int, heads: int, t_len: int, head_dim: int,
+                itemsize: int, sms: int = 132, *,
+                blocks_per_sm: int = _BLOCKS_PER_SM) -> DecodePlan:
+    """The key split of a decode call on a card of ``sms`` SMs: chunks
+    of whole ring stages, at least 64 keys, short enough that ``slots *
+    heads * splits >= blocks_per_sm * sms`` where ``t_len`` allows, at
+    most 64 splits. A function of the shapes only — never of the lengths
+    (a device tensor: reading it would sync the decode loop) nor of a
+    page size (K4 plans as K3 at ``t_len = pages_per_slot * page_size``,
+    which keeps the two bitwise equal)."""
+    sk = stage_keys(head_dim, itemsize)
+    want = -(-blocks_per_sm * sms // max(1, slots * heads))
+    if want == 1:
+        chunk = -(-t_len // sk) * sk
+    else:
+        # the longest chunk that still gives ceil(t_len / chunk) >= want
+        chunk = (t_len - 1) // (want - 1) // sk * sk
+    chunk = max(chunk, _MIN_CHUNK, sk)
+    if -(-t_len // chunk) > _MAX_SPLITS:
+        per_split = -(-t_len // _MAX_SPLITS)
+        chunk = -(-per_split // sk) * sk
+    splits = -(-t_len // chunk)
+    return DecodePlan(sk, chunk, splits, (slots, heads, splits))
+
+
 _lib_lock = threading.Lock()
 _launch_lock = threading.Lock()
 _lib = None
+#: multiprocessor count by device index, read once
+_sms = {}
 
-_CUDA_DTYPES = (torch.float32, torch.bfloat16)
+_CUDA_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16",
+                torch.float16: "f16"}
+
+
+def sm_count(device) -> int:
+    """The multiprocessor count of a CUDA ``device``, cached."""
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    sms = _sms.get(index)
+    if sms is None:
+        sms = _sms[index] = torch.cuda.get_device_properties(
+            index).multi_processor_count
+    return sms
 
 
 def _library():
@@ -87,11 +160,10 @@ def _library():
 
             lib = _build.load("ragged_decode")
             p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-            for fn in (lib.bigdl_ragged_decode_f32,
-                       lib.bigdl_ragged_decode_bf16):
-                fn.argtypes = [p, p, p, p, p, i32, i32, i32, i32,
-                               i64, i64, i64, i64, i64, i64, i64, i64,
-                               i64, i64, ctypes.c_float, i32, p]
+            for suffix in _CUDA_DTYPES.values():
+                fn = getattr(lib, f"bigdl_ragged_decode_{suffix}")
+                fn.argtypes = [p] * 6 + [i32] * 7 + [i64] * 10 + [
+                    ctypes.c_float, i32, p]
                 fn.restype = i32
             lib.bigdl_cuda_error_string.argtypes = [i32]
             lib.bigdl_cuda_error_string.restype = ctypes.c_char_p
@@ -101,16 +173,18 @@ def _library():
 
 def cuda_unsupported(q, k, v, lengths) -> Optional[str]:
     """Why the CUDA kernel does not take these operands (None when it
-    does): float32 or bfloat16 q/k/v of one dtype, head_dim a multiple
-    of 32 in [32, 256], contiguous last dimensions, contiguous int32
+    does): float32, bfloat16 or float16 q/k/v of one dtype, head_dim 1
+    to 256, T >= 1, contiguous last dimensions, contiguous int32
     lengths, one device."""
     d = k.shape[-1]
     if q.dtype not in _CUDA_DTYPES or k.dtype != q.dtype \
             or v.dtype != q.dtype:
-        return (f"takes float32 or bfloat16 q/k/v of one dtype, got "
-                f"{q.dtype}/{k.dtype}/{v.dtype}")
-    if d % 32 or not 32 <= d <= 256:
-        return f"needs head_dim a multiple of 32 in [32, 256], got {d}"
+        return (f"takes float32, bfloat16 or float16 q/k/v of one dtype, "
+                f"got {q.dtype}/{k.dtype}/{v.dtype}")
+    if not 1 <= d <= 256:
+        return f"needs head_dim in [1, 256], got {d}"
+    if k.shape[2] < 1:
+        return "needs a cache of T >= 1 rows"
     for name, x in (("q", q), ("k", k), ("v", v)):
         if x.device != q.device:
             return f"{name} is on {x.device}, q on {q.device}"
@@ -132,7 +206,8 @@ def _check_cuda_operands(q, k, v, lengths) -> None:
 
 def ragged_decode_attention(q, k, v, lengths, *,
                             sm_scale: Optional[float] = None,
-                            block_k: int = 128):
+                            block_k: int = 128,
+                            plan: Optional[DecodePlan] = None):
     """One decode step of attention over ragged KV: ``q [slots, H, D]``,
     ``k``/``v`` ``[slots, H, T, D]`` (any strides with a contiguous last
     dimension — the cache view is read in place), ``lengths [slots]``
@@ -141,9 +216,12 @@ def ragged_decode_attention(q, k, v, lengths, *,
 
     CPU tensors run :func:`ragged_decode_attention_reference`
     (``block_k`` sets its tiling). CUDA tensors launch the kernel on the
-    calling thread's current stream, or raise ValueError on what it does
-    not take (:func:`cuda_unsupported`); each launch adds one to
-    ``ragged_decode_attention.launches``."""
+    calling thread's current stream — its keys split as ``plan`` says
+    (default :func:`decode_plan` of these shapes on this card), with the
+    partials in scratch allocated for the call — or raise ValueError on
+    what it does not take (:func:`cuda_unsupported`); each call adds one
+    to ``ragged_decode_attention.launches`` (the split kernel and its
+    merge count as one)."""
     slots, h, t, d = k.shape
     if q.shape != (slots, h, d):
         raise ValueError(f"q {tuple(q.shape)} does not match cache "
@@ -160,12 +238,20 @@ def ragged_decode_attention(q, k, v, lengths, *,
     out = torch.empty((slots, h, d), dtype=q.dtype, device=q.device)
     if slots == 0 or h == 0:
         return out
+    if plan is None:
+        plan = decode_plan(slots, h, t, d, q.element_size(),
+                           sm_count(q.device))
+    # the splits' partials (m, l, acc[d]): scratch of this call, on the
+    # current stream (nothing is kept across calls)
+    partials = (torch.empty((slots, h, plan.splits, d + 2),
+                            dtype=torch.float32, device=q.device)
+                if plan.splits > 1 else None)
     lib = _library()
-    fn = (lib.bigdl_ragged_decode_f32 if q.dtype == torch.float32
-          else lib.bigdl_ragged_decode_bf16)
+    fn = getattr(lib, f"bigdl_ragged_decode_{_CUDA_DTYPES[q.dtype]}")
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
-            out.data_ptr(), slots, h, t, d,
+            out.data_ptr(), None if partials is None else partials.data_ptr(),
+            slots, h, t, d, plan.stage_keys, plan.chunk, plan.splits,
             q.stride(0), q.stride(1),
             k.stride(0), k.stride(1), k.stride(2),
             v.stride(0), v.stride(1), v.stride(2),
@@ -180,5 +266,5 @@ def ragged_decode_attention(q, k, v, lengths, *,
     return out
 
 
-#: kernel launches so far (plain-version calls on the CPU do not count)
+#: kernel calls so far (plain-version calls on the CPU do not count)
 ragged_decode_attention.launches = 0

@@ -21,10 +21,15 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    twice: with CUDA events around the loop of calls (``ms``, the host's
    launch path included) and as the summed device durations of the
    kernels the calls launched, read by ``torch.profiler``
-   (``device_ms``). The ragged decode kernel (K3) at the
-   serving shapes (and CUDA operands it does not take, through the
-   decode dispatch: raised and counted ``reason=shape``, never as a
-   kernel call); the flash-attention forward and backward (K1) at the
+   (``device_ms``). The ragged decode kernel (K3) at the serving
+   shapes in float32, bfloat16 and float16, at head_dim 20, 48 and
+   256, in one split and at T = 8192 (two calls bitwise equal), and
+   CUDA operands it does not take (float64, head_dim 264, int64
+   lengths), through the decode dispatch: raised and counted
+   ``reason=shape``, never as a kernel call; timed at the serving
+   lengths, with every slot full, at ``[1, 8, 8192, 64]`` and four
+   slots of ragged lengths up to 8192, each beside its split plan's
+   variants in turns; the flash-attention forward and backward (K1) at the
    training shapes ``[16, 8, 512, 64]``, float32 and bfloat16, causal,
    with and without the training batch's packed segment ids, plus ragged
    edge shapes, and K1's forward must have computed exactly the (query
@@ -49,7 +54,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    decode kernel (K4), through the dispatch function, equal bitwise to
    K3's kernel on identity and shuffled paged views of the same cache
    (page sizes 16, 64, 128; ``[16, 8, 512, 64]`` with the serving
-   lengths and T = 8192) and timed beside it;
+   lengths in float32, bfloat16, float16 and at head_dim 48, and
+   T = 8192) and timed beside it;
 4. serving — ``GenerationService`` serving a ``TransformerLM`` at the
    generation bench width (vocab 8192, hidden 512, 6 layers, 8 heads,
    max_len 512; random weights from a seed) for 32 greedy and 4 seeded
@@ -109,7 +115,8 @@ assume full float32.
 
 The line before the last is a JSON object ``{"kernels": [...]}`` with
 each kernel's launches, error and times (``ms`` and ``device_ms``, and
-``library_ms`` and ``library_device_ms``); the last line is
+``library_ms`` and ``library_device_ms``; K3's and K4's split plan);
+the last line is
 ``{"ok": true, "device": {...}}``. Without a card, or run outside the
 repository, the script exits non-zero and prints no result.
 """
@@ -164,10 +171,10 @@ BF16_FLOPS_PER_S = 989e12        # bfloat16 on the tensor cores
 INT8_OPS_PER_S = 1979e12         # int8 on the tensor cores, dense
 
 #: kernel vs plain version on the same inputs: float32 absolute (the
-#: JAX kernel contract's row); bfloat16 relative to max(1, |plain|),
-#: i.e. about one bf16 rounding step of the output (the two round the
-#: same float32 value after summing in another order)
-RAGGED_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
+#: JAX kernel contract's row); bfloat16 and float16 relative to max(1,
+#: |plain|), i.e. about one rounding step of the output (the two round
+#: the same float32 value after summing in another order)
+RAGGED_TOL = {"float32": 1e-5, "bfloat16": 1e-2, "float16": 2e-3}
 #: K1 vs its plain versions: the forward (O, lse) at the float32
 #: contract's 1e-5 and the gradients at its 2e-4 (docs/kernels.md);
 #: bfloat16 and float16 outputs relative to max(1, |plain|) as for K3,
@@ -282,15 +289,17 @@ def device_ms(fn, n_inputs: int, rounds: int):
     return start.elapsed_time(end) / calls, "cuda graph replay"
 
 
-def ragged_bound(lengths, t: int, itemsize: int):
+def ragged_bound(lengths, t: int, itemsize: int, heads: int = HEADS,
+                 d: int = HEAD_DIM):
     """Least time (ms) the card needs for one ragged-decode call: each
     valid K and V row read once, q read and the output written once,
     against 4 flops per valid cached element in float32."""
     n = np.clip(np.asarray(lengths, np.int64), 1, t)
-    rows = int(n.sum()) * HEADS
-    nbytes = (rows * HEAD_DIM * 2 * itemsize
-              + 2 * SLOTS * HEADS * HEAD_DIM * itemsize + SLOTS * 4)
-    flops = rows * HEAD_DIM * 4
+    slots = len(n)
+    rows = int(n.sum()) * heads
+    nbytes = (rows * d * 2 * itemsize + 2 * slots * heads * d * itemsize
+              + slots * 4)
+    flops = rows * d * 4
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / F32_FLOPS_PER_S * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
@@ -397,61 +406,114 @@ def kernel_instance(mangled: str) -> str:
     return f"{m.group(1)}<{dtype}{', ' + m.group(3) if m.group(3) else ''}>"
 
 
-def phase_ragged_decode(main_lengths):
-    """K3 against its plain version at the slice's shapes, then timed.
-    Returns the kernels-line entry (launches filled in later)."""
+def _check_ragged_case(label, q, k, v, lengths, plan=None):
+    """K3 (under ``plan``, default its own) against its plain version on
+    one input; fails past ``RAGGED_TOL``. Returns K3's output."""
     import torch
-    import torch.nn.functional as F
 
     from bigdl_tpu_torch.kernels.ragged_decode import (
         ragged_decode_attention, ragged_decode_attention_reference)
 
+    out = ragged_decode_attention(q, k, v, lengths, plan=plan)
+    ref = ragged_decode_attention_reference(q, k, v, lengths)
+    torch.cuda.synchronize()
+    name = str(q.dtype).split(".")[-1]
+    err = _err(out, ref, q.dtype != torch.float32)
+    tol = RAGGED_TOL[name]
+    log("ragged_decode", f"{label} {name} {list(k.shape)}: checked error "
+                         f"{err:.3e} (tolerance {tol})")
+    if not err <= tol:
+        raise AssertionError(f"ragged_decode {label} {name}: {err} > {tol}")
+    return out
+
+
+def check_ragged():
+    """K3 against its plain version on the card: float32, bfloat16 and
+    float16 at T = 128 and 512 (views of a 512-row cache, read in
+    place), head_dim 20, 48 and 256 (off the kernel's head-dim tiles and
+    its widest), one split (its merge-free path) and T = 8192; two calls
+    on the same inputs must be bitwise equal."""
+    import torch
+
+    from bigdl_tpu_torch.kernels.ragged_decode import (
+        decode_plan, ragged_decode_attention, sm_count)
+
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
-    q32 = torch.randn((SLOTS, HEADS, HEAD_DIM), device=dev, generator=gen)
-    k32 = torch.randn((SLOTS, HEADS, MAX_LEN, HEAD_DIM), device=dev,
-                      generator=gen)
-    v32 = torch.randn((SLOTS, HEADS, MAX_LEN, HEAD_DIM), device=dev,
-                      generator=gen)
-    # lengths mix 1, the kernel's 16-key and the plain version's
-    # 128-row step edges, T itself, values over T and 0 (clamped)
+    # lengths mix 1, the plans' chunk edges (64, 96), the ring's stage
+    # edges, the plain version's 128-row steps, T itself, values over T
+    # and 0 (clamped)
     mixes = {128: [1, 2, 15, 16, 17, 63, 64, 65, 100, 127, 128, 129, 700,
                    0, 33, 96],
-             512: [1, 16, 17, 127, 128, 129, 255, 256, 257, 300, 480, 511,
-                   512, 513, 1000, 0]}
-    for dtype in (torch.float32, torch.bfloat16):
+             512: [1, 16, 17, 95, 96, 97, 128, 129, 255, 256, 300, 480,
+                   511, 512, 1000, 0]}
+
+    def cache(d, t=MAX_LEN, slots=SLOTS):
+        return (torch.randn((slots, HEADS, d), device=dev, generator=gen),
+                torch.randn((slots, HEADS, t, d), device=dev, generator=gen),
+                torch.randn((slots, HEADS, t, d), device=dev, generator=gen))
+
+    q32, k32, v32 = cache(HEAD_DIM)
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
         q, k, v = (x.to(dtype) for x in (q32, k32, v32))
         for t, mix in mixes.items():
             lengths = torch.tensor(mix, dtype=torch.int32, device=dev)
             ks, vs = k[:, :, :t], v[:, :, :t]     # views of the cache
             if t < MAX_LEN and ks.is_contiguous():
                 raise AssertionError("the T < max_len view is contiguous")
-            out = ragged_decode_attention(q, ks, vs, lengths)
-            ref = ragged_decode_attention_reference(q, ks, vs, lengths)
-            torch.cuda.synchronize()
-            diff = (out.float() - ref.float()).abs()
-            name = str(dtype).split(".")[-1]
-            if dtype == torch.float32:
-                err = diff.max().item()
-            else:
-                err = (diff / ref.float().abs().clamp(min=1.0)).max().item()
-            tol = RAGGED_TOL[name]
-            log("ragged_decode", f"{name} T={t} max|kernel-plain| = "
-                                 f"{diff.max().item():.3e}, checked error "
-                                 f"{err:.3e} (tolerance {tol})")
-            if not err <= tol:
-                raise AssertionError(f"ragged_decode {name} T={t}: "
-                                     f"{err} > {tol}")
+            _check_ragged_case(f"T={t}", q, ks, vs, lengths)
+    lengths = torch.tensor(mixes[128], dtype=torch.int32, device=dev)
+    one = decode_plan(SLOTS, HEADS, 128, HEAD_DIM, 4, sms=1, blocks_per_sm=1)
+    if one.splits != 1:
+        raise AssertionError(f"{one} is not one split")
+    _check_ragged_case(f"T=128 one split {tuple(one[:3])}", q32,
+                       k32[:, :, :128], v32[:, :, :128], lengths, plan=one)
 
-    # CUDA operands K3 does not take (float16, head_dim 48, int64
+    lengths = torch.tensor(mixes[MAX_LEN], dtype=torch.int32, device=dev)
+    for d, dtype in ((20, torch.float32), (48, torch.float32),
+                     (256, torch.float32), (48, torch.bfloat16),
+                     (20, torch.float16)):
+        q, k, v = (x.to(dtype) for x in cache(d))
+        _check_ragged_case(f"head_dim {d}", q, k, v, lengths)
+
+    long_lengths = [1, 63, 64, 65, 127, 128, 129, 2047, 4097, 8184, 8192,
+                    9000, 0, 5000, 7777, 300]
+    q, k, v = cache(HEAD_DIM, LC_SEQ)
+    lengths = torch.tensor(long_lengths, dtype=torch.int32, device=dev)
+    first = _check_ragged_case(f"T={LC_SEQ}", q, k, v, lengths)
+    again = ragged_decode_attention(q, k, v, lengths)
+    torch.cuda.synchronize()
+    if not torch.equal(first, again):
+        raise AssertionError("two K3 calls on the same inputs differ")
+    plan = decode_plan(SLOTS, HEADS, LC_SEQ, HEAD_DIM, 4, sm_count(dev))
+    log("ragged_decode", f"two calls at T={LC_SEQ} (plan stage_keys, "
+                         f"chunk, splits {tuple(plan[:3])}): bitwise equal")
+    del q, k, v, first, again
+    torch.cuda.empty_cache()
+
+
+def phase_ragged_decode(main_lengths):
+    """K3 against its plain version (:func:`check_ragged`), the decode
+    dispatch's refusals on the card, then timed at the serving and the
+    long-context shapes, and the split plan's variants timed in turns.
+    Returns the kernels-line entry (launches filled in later)."""
+    import torch
+
+    from bigdl_tpu_torch.kernels.ragged_decode import ragged_decode_attention
+
+    check_ragged()
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    # CUDA operands K3 does not take (float64, head_dim 264, int64
     # lengths): the dispatch counts each reason=shape and raises, and
     # never counts a kernel call
     from bigdl_tpu_torch import kernels, telemetry
 
     refused = telemetry.counter("kernels/dispatch/reference")
     taken = telemetry.counter("kernels/dispatch/kernel")
-    for dtype, d, len_dtype in ((torch.float16, HEAD_DIM, torch.int32),
-                                (torch.float32, 48, torch.int32),
+    for dtype, d, len_dtype in ((torch.float64, HEAD_DIM, torch.int32),
+                                (torch.float32, 264, torch.int32),
                                 (torch.float32, HEAD_DIM, torch.int64)):
         q = torch.randn((SLOTS, HEADS, d), device=dev).to(dtype)
         k = torch.randn((SLOTS, HEADS, 64, d), device=dev).to(dtype)
@@ -475,68 +537,142 @@ def phase_ragged_decode(main_lengths):
             raise AssertionError(f"decode dispatch of operands K3 does not "
                                  f"take: raised {raised}, counted {counted}")
 
-    # timing: 8 distinct caches (268 MB together, past the 50 MB L2),
-    # like the 6 layers' caches a decode step walks through
-    n_sets, t = 8, MAX_LEN
-    sets = [(torch.randn((SLOTS, HEADS, HEAD_DIM), device=dev,
-                         generator=gen),
-             torch.randn((SLOTS, HEADS, MAX_LEN, HEAD_DIM), device=dev,
-                         generator=gen),
-             torch.randn((SLOTS, HEADS, MAX_LEN, HEAD_DIM), device=dev,
-                         generator=gen)) for _ in range(n_sets)]
+    # timing, L2-cold: distinct caches past the 50 MB L2 together, as
+    # a decode step walks through its layers' caches. The serving rows
+    # (8 caches, 268 MB), then the long-context rows: one slot at
+    # T = 8192 (4 caches, 134 MB) and four slots of ragged lengths up to
+    # T (2 caches, 268 MB). Then the split rule's variants, in turns on
+    # the same caches.
     entry = None
-    for label, mix in (("main-path lengths", main_lengths),
-                       ("every slot full", [t] * SLOTS)):
-        lengths = torch.tensor(mix, dtype=torch.int32, device=dev)
-        mask = (torch.arange(t, device=dev)[None, :]
-                < lengths.clamp(1, t)[:, None])[:, None, None, :]
-
-        def kern(i):
-            q, k, v = sets[i]
-            return ragged_decode_attention(q, k[:, :, :t], v[:, :, :t],
-                                           lengths)
-
-        def plain(i):
-            q, k, v = sets[i]
-            return ragged_decode_attention_reference(q, k[:, :, :t],
-                                                     v[:, :, :t], lengths)
-
-        def library(i):
-            q, k, v = sets[i]
-            return F.scaled_dot_product_attention(
-                q[:, :, None, :], k[:, :, :t], v[:, :, :t],
-                attn_mask=mask)[:, :, 0, :]
-
-        err = (kern(0) - plain(0)).abs().max().item()
-        lib_err = (library(0) - plain(0)).abs().max().item()
-        ms = time_ms(kern, n_sets, rounds=50)
-        dev_ms, method = device_ms(kern, n_sets, rounds=50)
-        plain_ms = time_ms(plain, n_sets, rounds=10)
-        library_ms = time_ms(library, n_sets, rounds=20)
-        library_dev_ms, _ = device_ms(library, n_sets, rounds=20)
-        bound_ms, bound_by = ragged_bound(mix, t, 4)
-        log("ragged_decode", json.dumps({
-            "case": label, "T": t, "lengths": list(map(int, mix)),
-            "max_abs_err": err, "library_max_abs_err": lib_err,
-            "kernel_ms": ms, "kernel_device_ms": dev_ms,
-            "device_ms_method": method, "plain_ms": plain_ms,
-            "library_ms": library_ms, "library_device_ms": library_dev_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by,
-            "kernel_over_bound": ms / bound_ms,
-            "kernel_device_over_bound": dev_ms / bound_ms}))
-        if not err <= RAGGED_TOL["float32"]:
-            raise AssertionError(f"ragged_decode timing inputs: {err}")
+    for label, slots, t, mix, n_sets in (
+            ("main-path lengths", SLOTS, MAX_LEN, main_lengths, 8),
+            ("every slot full", SLOTS, MAX_LEN, [MAX_LEN] * SLOTS, 8),
+            ("long context", 1, LC_SEQ, [LC_SEQ - 8], 4),
+            ("long context, 4 slots", 4, LC_SEQ, [2047, 4096, 6000, LC_SEQ],
+             2)):
+        sets = [tuple(torch.randn(shape, device=dev, generator=gen)
+                      for shape in ((slots, HEADS, HEAD_DIM),
+                                    (slots, HEADS, t, HEAD_DIM),
+                                    (slots, HEADS, t, HEAD_DIM)))
+                for _ in range(n_sets)]
+        row = time_ragged(label, sets, mix, t)
+        time_plans(label, sets, mix, t)
+        del sets
         if entry is None:
             entry = {"name": "ragged_decode", "route": "cuda",
                      "source": "bigdl_tpu_torch/kernels/csrc/"
                                "ragged_decode.cu",
                      "replaces": "bigdl_tpu/kernels/ragged_decode.py:37",
-                     "launches": None, "max_abs_err": err, "ms": ms,
-                     "device_ms": dev_ms, "plain_ms": plain_ms,
-                     "bound_ms": bound_ms, "bound_by": bound_by,
-                     "library_ms": library_ms,
-                     "library_device_ms": library_dev_ms}
+                     "launches": None, "max_abs_err": row["max_abs_err"],
+                     "ms": row["kernel_ms"],
+                     "device_ms": row["kernel_device_ms"],
+                     "plain_ms": row["plain_ms"],
+                     "bound_ms": row["bound_ms"],
+                     "bound_by": row["bound_by"],
+                     "library_ms": row["library_ms"],
+                     "library_device_ms": row["library_device_ms"],
+                     "plan": row["plan"]}
+    torch.cuda.empty_cache()
     return entry
+
+
+#: the split rule's variants timed beside it: the blocks a plan aims at
+#: per SM (decode_plan's blocks_per_sm)
+PLAN_BLOCKS_PER_SM = (2, 4, 8)
+
+
+def time_plans(label, sets, mix, t):
+    """K3's device time under each of :data:`PLAN_BLOCKS_PER_SM` on the
+    same cycled ``sets``, in turns (a, b, c, c, b, a); logged, the rule's
+    own plan marked."""
+    import torch
+
+    from bigdl_tpu_torch.kernels.ragged_decode import (
+        decode_plan, ragged_decode_attention, sm_count)
+
+    slots, heads, d = sets[0][0].shape
+    lengths = torch.tensor(mix, dtype=torch.int32, device="cuda")
+    rounds = max(2, 400 // len(sets))
+    sms = sm_count(lengths.device)
+    rule = decode_plan(slots, heads, t, d, 4, sms)
+    plans = {}
+    for per_sm in PLAN_BLOCKS_PER_SM:
+        plan = decode_plan(slots, heads, t, d, 4, sms, blocks_per_sm=per_sm)
+        plans[f"{per_sm} blocks/SM{' (the rule)' if plan == rule else ''}"
+              ] = plan
+    times = {name: [] for name in plans}
+    for name in list(plans) + list(reversed(plans)):
+        plan = plans[name]
+        times[name].append(device_ms(lambda i: ragged_decode_attention(
+            *sets[i], lengths, plan=plan), len(sets), rounds)[0])
+    log("ragged_decode", json.dumps({
+        "case": f"{label}: split plans, in turns", "T": t,
+        "device_ms": {name: {"plan": list(plans[name][:3]),
+                             "turns": times[name]} for name in plans}}))
+
+
+def time_ragged(label, sets, mix, t):
+    """One K3 timing row: the kernel (``ms`` and ``device_ms``), its
+    plain version and the SDPA yardstick cycled over ``sets`` of
+    ``(q, k, v)`` at ``lengths = mix``, beside the bound; logged and
+    returned. Fails if the kernel leaves ``RAGGED_TOL`` of the plain
+    version."""
+    import torch
+    import torch.nn.functional as F
+
+    from bigdl_tpu_torch.kernels.ragged_decode import (
+        decode_plan, ragged_decode_attention,
+        ragged_decode_attention_reference, sm_count)
+
+    n_sets = len(sets)
+    dev = sets[0][0].device
+    lengths = torch.tensor(mix, dtype=torch.int32, device=dev)
+    mask = (torch.arange(t, device=dev)[None, :]
+            < lengths.clamp(1, t)[:, None])[:, None, None, :]
+
+    def kern(i):
+        q, k, v = sets[i]
+        return ragged_decode_attention(q, k[:, :, :t], v[:, :, :t], lengths)
+
+    def plain(i):
+        q, k, v = sets[i]
+        return ragged_decode_attention_reference(q, k[:, :, :t],
+                                                 v[:, :, :t], lengths)
+
+    def library(i):
+        q, k, v = sets[i]
+        return F.scaled_dot_product_attention(
+            q[:, :, None, :], k[:, :, :t], v[:, :, :t],
+            attn_mask=mask)[:, :, 0, :]
+
+    err = (kern(0) - plain(0)).abs().max().item()
+    lib_err = (library(0) - plain(0)).abs().max().item()
+    rounds = max(2, 400 // n_sets)
+    ms = time_ms(kern, n_sets, rounds=rounds)
+    dev_ms, method = device_ms(kern, n_sets, rounds=rounds)
+    # the split kernel and the merge, each summed over one cycle
+    log_kernels("ragged_decode", f"{label}: K3 over {n_sets} calls",
+                lambda: [kern(i) for i in range(n_sets)])
+    plain_ms = time_ms(plain, n_sets, rounds=max(1, rounds // 5))
+    library_ms = time_ms(library, n_sets, rounds=max(1, rounds // 2))
+    library_dev_ms, _ = device_ms(library, n_sets, rounds=max(1, rounds // 2))
+    slots, heads, d = sets[0][0].shape
+    bound_ms, bound_by = ragged_bound(mix, t, 4, heads, d)
+    plan = decode_plan(slots, heads, t, d, 4, sm_count(dev))
+    row = {"case": label, "shape": list(sets[0][1].shape), "T": t,
+           "lengths": list(map(int, mix)),
+           "plan": dict(zip(("stage_keys", "chunk", "splits"), plan[:3])),
+           "max_abs_err": err, "library_max_abs_err": lib_err,
+           "kernel_ms": ms, "kernel_device_ms": dev_ms,
+           "device_ms_method": method, "plain_ms": plain_ms,
+           "library_ms": library_ms, "library_device_ms": library_dev_ms,
+           "bound_ms": bound_ms, "bound_by": bound_by,
+           "kernel_over_bound": ms / bound_ms,
+           "kernel_device_over_bound": dev_ms / bound_ms}
+    log("ragged_decode", json.dumps(row))
+    if not err <= RAGGED_TOL["float32"]:
+        raise AssertionError(f"ragged_decode timing inputs ({label}): {err}")
+    return row
 
 
 def greedy_reforward(model, prompt, n):
@@ -1875,16 +2011,13 @@ def _shuffled_pages(gen, k_pages, v_pages, table):
             perm[table.long()].to(torch.int32).contiguous())
 
 
-def phase_paged_decode(main_lengths):
+def check_paged(main_lengths):
     """K4, through the dispatch function, against K3's kernel bitwise
     (``torch.equal``) on identity and shuffled paged views of the same
-    cache, at page sizes 16, 64 and 128, at ``[16, 8, 512, 64]`` with
-    the serving lengths and at T = 8192 (float32; bfloat16 at 512), and
-    against its plain version within ``RAGGED_TOL``; then timed L2-cold
-    at the serving shape beside K3 on the same cache and the plain
-    version. K4 has no main-path call site (in neither package), so its
-    launches on a main path are 0. Returns the kernels-line entry at
-    page size 16 (launches filled in later)."""
+    cache: page sizes 16, 64 and 128 at ``[16, 8, 512, 64]`` with the
+    serving lengths and at T = 8192 (float32), page 64 in bfloat16 and
+    float16, and head_dim 48 (pages 16 and 128); and against its plain
+    version within ``RAGGED_TOL`` on the shuffled views."""
     import torch
 
     from bigdl_tpu_torch import kernels
@@ -1898,17 +2031,19 @@ def phase_paged_decode(main_lengths):
                     8191, 8192, 9000, 0]
     launches0 = paged_decode_attention.launches
     checks = 0
-    for t, lengths, dtype in ((MAX_LEN, main_lengths, torch.float32),
-                              (MAX_LEN, main_lengths, torch.bfloat16),
-                              (LC_SEQ, long_lengths, torch.float32)):
-        q = torch.randn((SLOTS, HEADS, HEAD_DIM), device="cuda",
+    for t, lengths, dtype, d, pages in (
+            (MAX_LEN, main_lengths, torch.float32, HEAD_DIM, PAGE_SIZES),
+            (MAX_LEN, main_lengths, torch.bfloat16, HEAD_DIM, (64,)),
+            (MAX_LEN, main_lengths, torch.float16, HEAD_DIM, (64,)),
+            (MAX_LEN, main_lengths, torch.float32, 48, (16, 128)),
+            (LC_SEQ, long_lengths, torch.float32, HEAD_DIM, PAGE_SIZES)):
+        q = torch.randn((SLOTS, HEADS, d), device="cuda",
                         generator=gen).to(dtype)
-        k, v = (torch.randn((SLOTS, HEADS, t, HEAD_DIM), device="cuda",
+        k, v = (torch.randn((SLOTS, HEADS, t, d), device="cuda",
                             generator=gen).to(dtype) for _ in range(2))
         lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
         ref = ragged_decode_attention(q, k, v, lens)
-        name = str(dtype).split(".")[-1]
-        pages = PAGE_SIZES if dtype == torch.float32 else (64,)
+        name = f"{str(dtype).split('.')[-1]} head_dim {d}"
         for page in pages:
             view = paged_view(k, v, page)
             for label, (kp, vp, table) in (
@@ -1922,24 +2057,44 @@ def phase_paged_decode(main_lengths):
                         f"paged_decode {name} T={t} page={page} {label}: "
                         f"not bitwise K3's kernel (max diff {diff})")
                 checks += 1
-                if dtype == torch.float32 and label == "shuffled":
+                if label == "shuffled":
                     plain = paged_decode_attention_reference(q, kp, vp,
                                                              table, lens)
-                    err = (got - plain).abs().max().item()
+                    tol = RAGGED_TOL[str(dtype).split(".")[-1]]
+                    err = _err(got, plain, dtype != torch.float32)
                     log("paged_decode", f"{name} T={t} page={page} "
                                         f"shuffled: bitwise K3's kernel; "
-                                        f"max|kernel-plain| = {err:.3e} "
-                                        f"(tolerance "
-                                        f"{RAGGED_TOL['float32']})")
-                    if not err <= RAGGED_TOL["float32"]:
-                        raise AssertionError(f"paged_decode T={t} "
+                                        f"checked error against the plain "
+                                        f"version {err:.3e} (tolerance "
+                                        f"{tol})")
+                    if not err <= tol:
+                        raise AssertionError(f"paged_decode {name} T={t} "
                                              f"page={page}: {err}")
         del k, v
     log("paged_decode", f"{checks} paged views (identity and shuffled, "
                         f"page sizes {list(PAGE_SIZES)}): K4 bitwise "
                         f"equal to K3's kernel; "
                         f"{paged_decode_attention.launches - launches0} "
-                        f"K4 launches")
+                        f"K4 calls")
+    torch.cuda.empty_cache()
+
+
+def phase_paged_decode(main_lengths):
+    """K4 against K3's kernel (:func:`check_paged`); then timed L2-cold
+    at the serving shape beside K3 on the same cache and the plain
+    version. K4 has no main-path call site (in neither package), so its
+    launches on a main path are 0. Returns the kernels-line entry at
+    page size 16 (launches filled in later)."""
+    import torch
+
+    from bigdl_tpu_torch.kernels.paged_decode import (
+        paged_decode_attention, paged_decode_attention_reference,
+        paged_view)
+    from bigdl_tpu_torch.kernels.ragged_decode import (
+        decode_plan, ragged_decode_attention, sm_count)
+
+    check_paged(main_lengths)
+    gen = torch.Generator(device="cuda").manual_seed(8)
 
     # timing: 8 caches (268 MB together, past the 50 MB L2), the serving
     # lengths, K4 over each page size beside K3 on the same caches
@@ -1955,6 +2110,9 @@ def phase_paged_decode(main_lengths):
         sets[i][0], sets[i][1], sets[i][2], lens), n_sets, 50)
     k3_device_ms, _ = device_ms(lambda i: ragged_decode_attention(
         sets[i][0], sets[i][1], sets[i][2], lens), n_sets, 50)
+    # K3's plan at T = pages_per_slot * page_size, for every page size
+    plan = dict(zip(("stage_keys", "chunk", "splits"), decode_plan(
+        SLOTS, HEADS, t, HEAD_DIM, 4, sm_count(lens.device))[:3]))
     entry = None
     for page in PAGE_SIZES:
         views = [(q,) + paged_view(k, v, page) for q, k, v in sets]
@@ -1962,7 +2120,7 @@ def phase_paged_decode(main_lengths):
                - paged_decode_attention_reference(*views[0], lens)) \
             .abs().max().item()
         row = {"page_size": page, "T": t, "lengths": list(main_lengths),
-               "max_abs_err": err,
+               "plan": plan, "max_abs_err": err,
                "kernel_ms": time_ms(lambda i: paged_decode_attention(
                    *views[i], lens), n_sets, 50),
                "kernel_device_ms": device_ms(lambda i: paged_decode_attention(
@@ -1986,7 +2144,7 @@ def phase_paged_decode(main_lengths):
                      "plain_ms": row["plain_ms"],
                      "bound_ms": row["bound_ms"],
                      "bound_by": row["bound_by"], "library_ms": None,
-                     "library_device_ms": None}
+                     "library_device_ms": None, "plan": plan}
         del views
     del sets
     torch.cuda.empty_cache()

@@ -165,7 +165,9 @@ class _OnCard:
 
 @pytest.mark.parametrize("d,dtype,takes", [
     (64, torch.float32, True), (128, torch.bfloat16, True),
-    (48, torch.float32, False), (64, torch.float16, False)])
+    (48, torch.float32, True), (64, torch.float16, True),
+    (20, torch.bfloat16, True), (256, torch.float32, True),
+    (264, torch.float32, False), (64, torch.float64, False)])
 def test_cuda_operands_the_kernel_does_not_take(d, dtype, takes):
     q = _OnCard((4, 8, d), dtype)
     pools = _OnCard((32, 8, 16, d), dtype)
@@ -188,3 +190,19 @@ def test_cuda_shape_decline_raises():
             dispatch.paged_decode_attention(
                 q, pools, pools, _OnCard((4, 8), torch.int32),
                 _OnCard((4,), torch.int32))
+
+
+@pytest.mark.parametrize("name", ["page_table", "lengths"])
+def test_cuda_int64_table_or_lengths_raise(name):
+    q = _OnCard((4, 8, 64), torch.float32)
+    pools = _OnCard((32, 8, 16, 64), torch.float32)
+    ops = {"page_table": _OnCard((4, 8), torch.int32),
+           "lengths": _OnCard((4,), torch.int32)}
+    ops[name] = _OnCard(ops[name].shape, torch.int64)
+    assert name in cuda_unsupported(q, pools, pools, ops["page_table"],
+                                    ops["lengths"])
+    with kernels.use(kernels.KernelConfig.ported()):
+        with pytest.raises(ValueError, match="paged_decode kernel"):
+            dispatch.paged_decode_attention(q, pools, pools,
+                                            ops["page_table"],
+                                            ops["lengths"])
