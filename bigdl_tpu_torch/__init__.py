@@ -32,7 +32,18 @@ Ported so far:
   calibration and :class:`~bigdl_tpu_torch.precision.AccuracyGate`) of
   a :func:`~bigdl_tpu_torch.models.ResNet`, whose classifier runs the
   fused dequant int8 GEMM (K5); the paged decode kernel (K4) sits
-  behind :func:`bigdl_tpu_torch.kernels.paged_decode_attention`.
+  behind :func:`bigdl_tpu_torch.kernels.paged_decode_attention`;
+- LeNet-5 training, validation and evaluation (BASELINE config 1) —
+  :func:`~bigdl_tpu_torch.models.LeNet5` on the
+  :class:`~bigdl_tpu_torch.nn.module.Module` contract (captured
+  constructor arguments, names, gradient scales and freezing,
+  regularizers, the JAX package's parameter tree), trained by
+  :class:`~bigdl_tpu_torch.optim.LocalOptimizer` with validation
+  triggers and scored by :class:`~bigdl_tpu_torch.optim.Evaluator` and
+  :class:`~bigdl_tpu_torch.optim.Predictor`; the recipes are
+  :mod:`bigdl_tpu_torch.models.lenet.train` and ``.test``. This path
+  runs PyTorch's own convolutions and GEMMs (no Pallas kernel is on the
+  JAX package's LeNet path either).
 
 Entry points default to ``device="cuda"`` and raise when CUDA is
 missing; they run on the CPU only when the caller passes

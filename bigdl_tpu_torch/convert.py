@@ -17,7 +17,7 @@ import numpy as np
 import torch
 
 __all__ = ["export_params", "export_state", "flatten_params",
-           "load_jax_params"]
+           "load_jax_params", "param_tree"]
 
 
 def flatten_params(params: Mapping, prefix: str = "") -> Dict[str, object]:
@@ -75,7 +75,8 @@ def load_jax_params(model: torch.nn.Module, params: Mapping,
     return model
 
 
-def _tree(named) -> Dict[str, object]:
+def param_tree(named) -> Dict[str, object]:
+    """``[(dotted name, tensor)]`` -> the nested tree of numpy copies."""
     tree: Dict[str, object] = {}
     for name, p in named:
         *path, leaf = name.split(".")
@@ -91,7 +92,7 @@ def export_params(model: torch.nn.Module) -> Dict[str, object]:
     the JAX package's nested param tree (``block_0.attn.wq`` →
     ``{"block_0": {"attn": {"wq": ...}}}``) of numpy arrays, copied to
     the host in the parameters' dtype."""
-    return _tree(model.named_parameters())
+    return param_tree(model.named_parameters())
 
 
 def export_state(model: torch.nn.Module) -> Dict[str, object]:
@@ -99,4 +100,4 @@ def export_state(model: torch.nn.Module) -> Dict[str, object]:
     as the JAX package's nested state tree of numpy arrays (the JAX
     tree also holds empty dicts for stateless modules, which carry no
     leaf)."""
-    return _tree(model.named_buffers())
+    return param_tree(model.named_buffers())

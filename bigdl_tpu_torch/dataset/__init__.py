@@ -3,6 +3,7 @@
 from bigdl_tpu_torch.dataset.dataset import (AbstractDataSet, DataSet,
                                              LocalDataSet,
                                              TransformedDataSet)
+from bigdl_tpu_torch.dataset.image import load_mnist
 from bigdl_tpu_torch.dataset.sample import (MiniBatch, Sample,
                                             samples_to_minibatch)
 from bigdl_tpu_torch.dataset.text import ptb_arrays
@@ -11,4 +12,5 @@ from bigdl_tpu_torch.dataset.transformer import (SampleToMiniBatch,
 
 __all__ = ["AbstractDataSet", "DataSet", "LocalDataSet", "MiniBatch",
            "Sample", "SampleToMiniBatch", "TransformedDataSet",
-           "Transformer", "ptb_arrays", "samples_to_minibatch"]
+           "Transformer", "load_mnist", "ptb_arrays",
+           "samples_to_minibatch"]

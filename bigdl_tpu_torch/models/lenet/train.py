@@ -1,0 +1,74 @@
+"""LeNet-5 MNIST training recipe (counterpart of
+``bigdl_tpu.models.lenet.train``; models/lenet/Train.scala; BASELINE
+config 1)::
+
+    python -m bigdl_tpu_torch.models.lenet.train -f /path/to/mnist -b 12 -e 15
+    python -m bigdl_tpu_torch.models.lenet.train --synthetic 256 -e 1 --device cpu
+
+SGD on ClassNLLCriterion with Top1, Top5 and Loss validation every
+epoch, as the JAX recipe runs. Prints ``final loss`` as the JAX recipe
+does, then the last validation's scores and the training steps'
+throughput.
+
+Not ported yet: ``-g`` (the Graph model, queue item 9) and the
+``--model`` / ``--state`` / ``--checkpoint`` snapshots (queue item 3):
+they raise NotImplementedError.
+"""
+from __future__ import annotations
+
+__all__ = ["main"]
+
+#: seed of the weights' generator: fixed, as the JAX recipe's init key is
+_WEIGHT_SEED = 1
+
+
+def main(argv=None):
+    import torch
+
+    from bigdl_tpu_torch.models._cli import (arrays_to_dataset, base_parser,
+                                             load_model_or, mnist_arrays,
+                                             wire_optimizer)
+
+    ap = base_parser("Train LeNet-5 on MNIST")
+    ap.add_argument("-g", "--graphModel", action="store_true",
+                    help="use the Graph form of LeNet-5 (not ported yet)")
+    args = ap.parse_args(argv)
+    if args.graphModel:
+        raise NotImplementedError(
+            "-g: the Graph form of LeNet-5 waits for nn/graph.py, which "
+            "is not ported yet (ROADMAP queue 1, item 9)")
+
+    from bigdl_tpu_torch import nn
+    from bigdl_tpu_torch.models.lenet import LeNet5
+    from bigdl_tpu_torch.optim import (SGD, LocalOptimizer, Loss,
+                                       Top1Accuracy, Top5Accuracy)
+
+    bs = args.batchSize or 12
+    tr = mnist_arrays(args.folder, True, args.synthetic)
+    va = mnist_arrays(args.folder, False, args.synthetic)
+    model = load_model_or(args, lambda: LeNet5(
+        10, device=args.device,
+        generator=torch.Generator().manual_seed(_WEIGHT_SEED)))
+    optim = SGD(learning_rate=args.learningRate or 0.05,
+                learning_rate_decay=args.learningRateDecay or 0.0)
+    opt = LocalOptimizer(model, arrays_to_dataset(*tr, bs),
+                         nn.ClassNLLCriterion(), batch_size=bs)
+    wire_optimizer(opt, args, optim,
+                   val_ds=arrays_to_dataset(*va, bs),
+                   val_methods=[Top1Accuracy(), Top5Accuracy(), Loss()],
+                   default_epochs=15)
+    opt.optimize()
+    print(f"final loss: {opt.driver_state['Loss']:.4f}")
+    if opt.validation_history:
+        last = opt.validation_history[-1]
+        print("validation: " + " ".join(
+            f"{k} {v:.6f}" for k, v in last.items()))
+    rows = sum(h["rows"] for h in opt.history)
+    seconds = sum(h["seconds"] for h in opt.history)
+    print(f"throughput: {rows / max(seconds, 1e-9):.1f} images/s over "
+          f"{len(opt.history)} steps")
+    return model
+
+
+if __name__ == "__main__":
+    main()

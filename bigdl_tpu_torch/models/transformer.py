@@ -19,13 +19,14 @@ import torch.nn.functional as F
 from torch import nn
 
 from bigdl_tpu_torch.nn.attention import MultiHeadAttention
+from bigdl_tpu_torch.nn.module import Module
 from bigdl_tpu_torch.nn.norm import LayerNorm
 from bigdl_tpu_torch.utils.engine import default_dtype, resolve_device
 
 __all__ = ["FeedForward", "TransformerBlock", "TransformerLM"]
 
 
-class FeedForward(nn.Module):
+class FeedForward(Module):
     """``gelu(x @ w_up + b_up) @ w_down + b_down`` with the tanh
     approximation of GELU (``jax.nn.gelu``'s default)."""
 
@@ -51,7 +52,7 @@ class FeedForward(nn.Module):
         return h @ self.w_down + self.b_down
 
 
-class TransformerBlock(nn.Module):
+class TransformerBlock(Module):
     """Pre-norm causal block: ``x + MHA(LN(x))``; ``x + FFN(LN(x))``."""
 
     def __init__(self, hidden_size: int, num_heads: int, ffn_size: int,
@@ -70,7 +71,7 @@ class TransformerBlock(nn.Module):
         return x + self.mlp(self.ln2(x))
 
 
-class TransformerLM(nn.Module):
+class TransformerLM(Module):
     """Decoder-only LM over token ids ``[B, S]`` → logits ``[B, S, V]``,
     with the output head tied to the token embedding.
 

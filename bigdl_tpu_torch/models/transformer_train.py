@@ -14,7 +14,8 @@ per row (``padded``). Training is ``LocalOptimizer`` with plain SGD
 ``SequenceCrossEntropyCriterion``; the script prints ``final loss`` as
 the JAX CLI does.
 
-Not ported yet: ``-f`` text corpora, snapshots and checkpoints,
+Not ported yet: ``-f`` text corpora, snapshots and checkpoints
+(``--model``, ``--state`` and ``--checkpoint`` raise),
 pipeline (``--pp``), tensor (``--tp``) and sequence (``--sp``)
 parallelism and MoE (``--moeExperts``): those flags raise
 NotImplementedError.
@@ -90,7 +91,8 @@ def synthetic_corpus(n_tokens: int, vocab_size: int, seq_len: int,
 
 
 def main(argv=None):
-    from bigdl_tpu_torch.models._cli import base_parser, wire_optimizer
+    from bigdl_tpu_torch.models._cli import (base_parser, load_model_or,
+                                             wire_optimizer)
 
     ap = base_parser("Train the Transformer language model")
     ap.add_argument("--vocabSize", type=int, default=4000)
@@ -142,12 +144,11 @@ def main(argv=None):
         samples = [Sample(x[i], y[i]) for i in range(len(x))]
         criterion = SequenceCrossEntropyCriterion()
     ds = DataSet.array(samples).transform(SampleToMiniBatch(bs))
-    model = TransformerLM(args.vocabSize, hidden_size=args.hiddenSize,
-                          num_layers=args.layers, num_heads=args.heads,
-                          max_len=args.seqLen, dropout=args.dropout,
-                          device=args.device,
-                          generator=torch.Generator().manual_seed(
-                              _WEIGHT_SEED))
+    model = load_model_or(args, lambda: TransformerLM(
+        args.vocabSize, hidden_size=args.hiddenSize, num_layers=args.layers,
+        num_heads=args.heads, max_len=args.seqLen, dropout=args.dropout,
+        device=args.device,
+        generator=torch.Generator().manual_seed(_WEIGHT_SEED)))
     optim = SGD(learning_rate=args.learningRate or 0.1,
                 learning_rate_decay=args.learningRateDecay or 0.0)
     opt = LocalOptimizer(model, ds, criterion, batch_size=bs)

@@ -1,28 +1,44 @@
 """Layers and criterions of the port (counterpart of
-``bigdl_tpu.nn``)."""
-from bigdl_tpu_torch.nn.activation import Identity, ReLU
+``bigdl_tpu.nn``), all on the :class:`~bigdl_tpu_torch.nn.module.Module`
+contract."""
+from bigdl_tpu_torch.nn.activation import (
+    ELU, Abs, BinaryThreshold, Clamp, Echo, Exp, GaussianSampler,
+    GradientReversal, HardShrink, HardSigmoid, HardTanh, Identity, LeakyReLU,
+    Log, Log1p, LogSigmoid, LogSoftMax, Negative, Power, PReLU, ReLU, ReLU6,
+    RReLU, Sigmoid, SoftMax, SoftMin, SoftPlus, SoftShrink, SoftSign, Sqrt,
+    Square, Tanh, TanhShrink, Threshold)
 from bigdl_tpu_torch.nn.attention import (MultiHeadAttention,
                                           dot_product_attention)
 from bigdl_tpu_torch.nn.container import (Concat, ConcatTable, Container,
                                           Sequential)
 from bigdl_tpu_torch.nn.conv import SpatialConvolution
-from bigdl_tpu_torch.nn.criterion import (Criterion,
+from bigdl_tpu_torch.nn.criterion import (ClassNLLCriterion,
+                                          CrossEntropyCriterion,
                                           SequenceCrossEntropyCriterion)
 from bigdl_tpu_torch.nn.linear import Linear, MulConstant
+from bigdl_tpu_torch.nn.module import (Criterion, Module,
+                                       total_regularization)
 from bigdl_tpu_torch.nn.norm import (BatchNormalization, LayerNorm,
                                      SpatialBatchNormalization)
 from bigdl_tpu_torch.nn.pool import SpatialAveragePooling, SpatialMaxPooling
 from bigdl_tpu_torch.nn.quantized import (QuantizedLinear,
                                           QuantizedSpatialConvolution,
                                           quantize)
-from bigdl_tpu_torch.nn.shape import View
+from bigdl_tpu_torch.nn.shape import Reshape, View
 from bigdl_tpu_torch.nn.table_ops import CAddTable
 
-__all__ = ["BatchNormalization", "CAddTable", "Concat", "ConcatTable",
-           "Container", "Criterion", "Identity", "LayerNorm", "Linear",
-           "MulConstant", "MultiHeadAttention", "QuantizedLinear",
-           "QuantizedSpatialConvolution", "ReLU",
-           "SequenceCrossEntropyCriterion", "Sequential",
-           "SpatialAveragePooling", "SpatialBatchNormalization",
-           "SpatialConvolution", "SpatialMaxPooling", "View",
-           "dot_product_attention", "quantize"]
+__all__ = ["Abs", "BatchNormalization", "BinaryThreshold", "CAddTable",
+           "Clamp", "ClassNLLCriterion", "Concat", "ConcatTable",
+           "Container", "Criterion", "CrossEntropyCriterion", "ELU", "Echo",
+           "Exp", "GaussianSampler", "GradientReversal", "HardShrink",
+           "HardSigmoid", "HardTanh", "Identity", "LayerNorm", "LeakyReLU",
+           "Linear", "Log", "Log1p", "LogSigmoid", "LogSoftMax", "Module",
+           "MulConstant", "MultiHeadAttention", "Negative", "PReLU",
+           "Power", "QuantizedLinear", "QuantizedSpatialConvolution", "RReLU",
+           "ReLU", "ReLU6", "Reshape", "SequenceCrossEntropyCriterion",
+           "Sequential", "Sigmoid", "SoftMax", "SoftMin", "SoftPlus",
+           "SoftShrink", "SoftSign", "SpatialAveragePooling",
+           "SpatialBatchNormalization", "SpatialConvolution",
+           "SpatialMaxPooling", "Sqrt", "Square", "Tanh", "TanhShrink",
+           "Threshold", "View", "dot_product_attention", "quantize",
+           "total_regularization"]

@@ -22,6 +22,7 @@ import torch
 from torch import nn
 
 from bigdl_tpu_torch import kernels
+from bigdl_tpu_torch.nn.module import Module
 from bigdl_tpu_torch.utils.engine import default_dtype
 
 __all__ = ["MultiHeadAttention", "dot_product_attention"]
@@ -112,7 +113,7 @@ def dot_product_attention(q, k, v, *, causal: bool = False, mask=None,
     return torch.einsum("bhqk,bhkd->bhqd", weights, v)
 
 
-class MultiHeadAttention(nn.Module):
+class MultiHeadAttention(Module):
     """Multi-head attention over ``[B, S, E]`` input.
 
     Parameters ``wq, wk, wv, wo`` (``[E, E]``, applied as ``x @ w``)

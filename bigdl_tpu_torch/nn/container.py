@@ -8,29 +8,66 @@ so a JAX tree maps onto the port's parameters and buffers by name
 """
 from __future__ import annotations
 
+from typing import Dict, Optional
+
 import torch
-from torch import nn
+
+from bigdl_tpu_torch.nn.module import Module
 
 __all__ = ["Concat", "ConcatTable", "Container", "Sequential"]
 
 
-class Container(nn.Module):
-    """Base container: ``add`` appends a child under the next index."""
+class Container(Module):
+    """Base container (nn/Container.scala:40): ``add`` appends a child
+    under the next index. Penalties, gradient scales and freezing are
+    the children's."""
 
-    def __init__(self, *modules: nn.Module):
+    def __init__(self, *modules: Module):
         super().__init__()
         for m in modules:
             self.add(m)
 
-    def add(self, module: nn.Module) -> "Container":
+    def add(self, module: Module) -> "Container":
         self.add_module(str(len(self._modules)), module)
         return self
 
-    def __getitem__(self, i: int) -> nn.Module:
+    def __getitem__(self, i: int) -> Module:
         return list(self._modules.values())[i]
 
     def __len__(self) -> int:
         return len(self._modules)
+
+    def regularization_loss(self):
+        return sum(m.regularization_loss() for m in self._modules.values())
+
+    def param_scales(self) -> Dict[str, float]:
+        out: Dict[str, float] = {}
+        for key, m in self._modules.items():
+            out.update((f"{key}.{name}", s)
+                       for name, s in m.param_scales().items())
+        return out
+
+    def freeze(self) -> "Container":
+        for m in self._modules.values():
+            m.freeze()
+        return self
+
+    def unfreeze(self) -> "Container":
+        for m in self._modules.values():
+            m.unfreeze()
+        return self
+
+    def find(self, name: str) -> Optional[Module]:
+        """The first descendant named ``name``, depth first (Container.apply
+        in the reference), or None."""
+        for m in self._modules.values():
+            if m.get_name() == name:
+                return m
+            if isinstance(m, Container):
+                found = m.find(name)
+                if found is not None:
+                    return found
+        return None
 
 
 class Sequential(Container):
@@ -54,7 +91,7 @@ class Concat(Container):
     """Each child applied to the input, the outputs concatenated along
     ``dimension`` (1-based, as in Torch) (nn/Concat.scala)."""
 
-    def __init__(self, dimension: int, *modules: nn.Module):
+    def __init__(self, dimension: int, *modules: Module):
         super().__init__(*modules)
         self.dimension = dimension
 

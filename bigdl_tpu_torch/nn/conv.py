@@ -19,26 +19,30 @@ from torch import nn
 
 from bigdl_tpu_torch.nn.initialization import (InitializationMethod,
                                                RandomUniform)
+from bigdl_tpu_torch.nn.module import Module, weight_penalty
 from bigdl_tpu_torch.utils.engine import full_float32
 
 __all__ = ["SpatialConvolution"]
 
 
-class SpatialConvolution(nn.Module):
+class SpatialConvolution(Module):
     """2-D convolution over NCHW input (nn/SpatialConvolution.scala).
 
     Args follow the reference: ``(n_input_plane, n_output_plane,
     kernel_w, kernel_h, stride_w, stride_h, pad_w, pad_h, n_group)``.
     Weight and bias default to ``U(-1/sqrt(fan_in), 1/sqrt(fan_in))``.
     ``propagate_back=False`` detaches the input (no data gradient), as
-    on the stem conv fed by raw images. Parameters are built on the
-    CPU from ``generator``; move the module after."""
+    on the stem conv fed by raw images. ``w_regularizer`` /
+    ``b_regularizer`` add their penalties to
+    :meth:`regularization_loss`. Parameters are built on the CPU from
+    ``generator``; move the module after."""
 
     def __init__(self, n_input_plane: int, n_output_plane: int,
                  kernel_w: int, kernel_h: int,
                  stride_w: int = 1, stride_h: int = 1,
                  pad_w: int = 0, pad_h: int = 0,
                  n_group: int = 1, propagate_back: bool = True,
+                 w_regularizer=None, b_regularizer=None,
                  init_weight: Optional[InitializationMethod] = None,
                  init_bias: Optional[InitializationMethod] = None,
                  with_bias: bool = True,
@@ -59,6 +63,8 @@ class SpatialConvolution(nn.Module):
         self.n_group = n_group
         self.propagate_back = propagate_back
         self.with_bias = with_bias
+        self.w_regularizer = w_regularizer
+        self.b_regularizer = b_regularizer
         fan_in = n_input_plane // n_group * kernel_h * kernel_w
         fan_out = n_output_plane // n_group * kernel_h * kernel_w
         default = _DefaultConvInit()
@@ -83,6 +89,9 @@ class SpatialConvolution(nn.Module):
         if self.bias is not None:
             y = y + self.bias.reshape(1, -1, 1, 1)
         return y[0] if squeeze else y
+
+    def regularization_loss(self):
+        return weight_penalty(self)
 
 
 class _DefaultConvInit(InitializationMethod):

@@ -1,26 +1,74 @@
-"""Criterions (counterpart of ``bigdl_tpu.nn.criterion``): the slice the
-TransformerLM training path reads.
+"""Criterions (counterpart of ``bigdl_tpu.nn.criterion``): the
+classification pair LeNet trains with and the sequence loss of the
+TransformerLM path. Class labels are 1-based, as in the reference.
 
-Not ported yet: the ~30 classification, regression and ranking losses
-of the JAX package.
+Not ported yet: the other classification, regression and ranking
+losses of the JAX package.
 """
 from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
-from torch import nn
 
-__all__ = ["Criterion", "SequenceCrossEntropyCriterion"]
+from bigdl_tpu_torch.nn.module import Criterion
+from bigdl_tpu_torch.utils.engine import default_dtype
+
+__all__ = ["ClassNLLCriterion", "Criterion", "CrossEntropyCriterion",
+           "SequenceCrossEntropyCriterion"]
 
 
-class Criterion(nn.Module):
-    """Loss contract (``bigdl_tpu.nn.module.Criterion``):
-    ``forward(input, target)`` returns a scalar loss tensor; gradients
-    come from autograd."""
+class ClassNLLCriterion(Criterion):
+    """Negative log-likelihood over log-probabilities
+    (nn/ClassNLLCriterion.scala): input ``[B, C]`` (or ``[C]``), target
+    ``[B]`` 1-based labels (floats are truncated). ``weights`` weights
+    each class; with ``size_average`` the weighted sum is divided by the
+    total weight, else the plain sum is returned. ``logProbAsInput=
+    False`` takes probabilities (``log(max(p, 1e-8))``).
+
+    Labels out of range read as the JAX package's ``take_along_axis``
+    reads them: label 0 (index -1) counts from the end, the last class;
+    a label still outside ``[1, C]`` after that picks NaN, and with
+    ``weights`` a NaN weight too."""
+
+    def __init__(self, weights=None, size_average: bool = True,
+                 logProbAsInput: bool = True):
+        super().__init__()
+        self.weights = None if weights is None else torch.as_tensor(
+            np.asarray(weights), dtype=default_dtype())
+        self.size_average = size_average
+        self.log_prob_as_input = logProbAsInput
 
     def forward(self, input, target):
-        raise NotImplementedError
+        x = input if self.log_prob_as_input \
+            else torch.log(input.clamp(min=1e-8))
+        if x.ndim == 1:
+            x = x[None]
+        c = x.shape[1]
+        t = torch.as_tensor(target, device=x.device).reshape(-1).long() - 1
+        idx = torch.where(t < 0, t + c, t)
+        valid = (idx >= 0) & (idx < c)
+        safe = idx.clamp(0, c - 1)
+        picked = torch.where(valid, x.gather(1, safe[:, None])[:, 0],
+                             float("nan"))
+        if self.weights is not None:
+            w = torch.where(valid, self.weights.to(x.device)[safe],
+                            float("nan"))
+            loss = -(picked * w).sum()
+            return loss / w.sum() if self.size_average else loss
+        return -(picked.mean() if self.size_average else picked.sum())
+
+
+class CrossEntropyCriterion(Criterion):
+    """LogSoftMax and ClassNLL in one (nn/CrossEntropyCriterion.scala)."""
+
+    def __init__(self, weights=None, size_average: bool = True):
+        super().__init__()
+        self.inner = ClassNLLCriterion(weights, size_average)
+
+    def forward(self, input, target):
+        return self.inner(torch.log_softmax(input, dim=-1), target)
 
 
 class SequenceCrossEntropyCriterion(Criterion):

@@ -9,18 +9,22 @@ from torch import nn
 
 from bigdl_tpu_torch.nn.initialization import (InitializationMethod,
                                                RandomUniform)
+from bigdl_tpu_torch.nn.module import Module, weight_penalty
 
 __all__ = ["Linear", "MulConstant"]
 
 
-class Linear(nn.Module):
+class Linear(Module):
     """Fully-connected layer ``y = x W^T + b`` (nn/Linear.scala). The
     weight is stored ``[out, in]`` as in Torch and the JAX package;
-    both default to ``U(-1/sqrt(in), 1/sqrt(in))``. Parameters are
+    both default to ``U(-1/sqrt(in), 1/sqrt(in))``. ``w_regularizer`` /
+    ``b_regularizer`` (:mod:`bigdl_tpu_torch.optim.regularizer`) add
+    their penalties to :meth:`regularization_loss`. Parameters are
     built on the CPU from ``generator``; move the module after."""
 
     def __init__(self, input_size: int, output_size: int,
                  with_bias: bool = True,
+                 w_regularizer=None, b_regularizer=None,
                  init_weight: Optional[InitializationMethod] = None,
                  init_bias: Optional[InitializationMethod] = None,
                  generator: Optional[torch.Generator] = None):
@@ -28,6 +32,8 @@ class Linear(nn.Module):
         self.input_size = input_size
         self.output_size = output_size
         self.with_bias = with_bias
+        self.w_regularizer = w_regularizer
+        self.b_regularizer = b_regularizer
         w_init = init_weight or RandomUniform()
         b_init = init_bias or RandomUniform()
         self.weight = nn.Parameter(w_init((output_size, input_size),
@@ -46,8 +52,11 @@ class Linear(nn.Module):
             y = y + self.bias
         return y[0] if squeeze else y
 
+    def regularization_loss(self):
+        return weight_penalty(self)
 
-class MulConstant(nn.Module):
+
+class MulConstant(Module):
     """``x * scalar`` (nn/MulConstant.scala; ``ip`` is accepted and
     ignored, as in the JAX package)."""
 

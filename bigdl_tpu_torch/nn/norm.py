@@ -7,12 +7,13 @@ import torch
 from torch import nn
 
 from bigdl_tpu_torch.nn.initialization import InitializationMethod
+from bigdl_tpu_torch.nn.module import Module
 from bigdl_tpu_torch.utils.engine import default_dtype
 
 __all__ = ["BatchNormalization", "LayerNorm", "SpatialBatchNormalization"]
 
 
-class LayerNorm(nn.Module):
+class LayerNorm(Module):
     """Layer normalization over the last dim.
 
     Statistics are taken in float32 with the population variance; the
@@ -37,7 +38,7 @@ class LayerNorm(nn.Module):
         return y * self.weight + self.bias
 
 
-class BatchNormalization(nn.Module):
+class BatchNormalization(Module):
     """Batch norm over ``(B, F)`` (nn/BatchNormalization.scala), and over
     ``(B, C, H, W)`` as :class:`SpatialBatchNormalization` — the same
     code: the feature axis is 1 (0 for a 1-D input).

@@ -12,7 +12,8 @@ from __future__ import annotations
 import math
 
 import torch.nn.functional as F
-from torch import nn
+
+from bigdl_tpu_torch.nn.module import Module
 
 __all__ = ["SpatialAveragePooling", "SpatialMaxPooling"]
 
@@ -37,7 +38,7 @@ def _padded(x, kh, kw, dh, dw, pad_h, pad_w, ceil_mode, value):
     return x
 
 
-class SpatialMaxPooling(nn.Module):
+class SpatialMaxPooling(Module):
     """2-D max pool over NCHW (nn/SpatialMaxPooling.scala); ``ceil()``
     / ``floor()`` pick the output-size mode."""
 
@@ -68,7 +69,7 @@ class SpatialMaxPooling(nn.Module):
         return y[0] if squeeze else y
 
 
-class SpatialAveragePooling(nn.Module):
+class SpatialAveragePooling(Module):
     """2-D average pool (nn/SpatialAveragePooling.scala).
 
     ``count_include_pad`` matches the JAX package: padded zeros, the

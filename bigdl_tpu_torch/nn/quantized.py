@@ -30,6 +30,7 @@ from torch import nn
 
 from bigdl_tpu_torch.nn.conv import SpatialConvolution
 from bigdl_tpu_torch.nn.linear import Linear
+from bigdl_tpu_torch.nn.module import Module
 from bigdl_tpu_torch.ops.quant import (quantize_symmetric,
                                        quantize_with_scale,
                                        quantized_conv2d, quantized_linear)
@@ -60,7 +61,7 @@ def _inference_only(module: nn.Module) -> None:
             f"quantized modules have no backward); call .eval()")
 
 
-class QuantizedLinear(nn.Module):
+class QuantizedLinear(Module):
     """Int8 FC (nn/quantized/Linear.scala:77-88). Build it from a float
     :class:`~bigdl_tpu_torch.nn.linear.Linear` with :meth:`from_float`
     or :func:`quantize`."""
@@ -115,7 +116,7 @@ class QuantizedLinear(nn.Module):
                                 x_scale=self.act_scale)
 
 
-class QuantizedSpatialConvolution(nn.Module):
+class QuantizedSpatialConvolution(Module):
     """Int8 NCHW conv (nn/quantized/SpatialConvolution.scala; dilation
     covers SpatialDilatedConvolution too, through a float convolution on
     the dequantized weight, as in the JAX package)."""

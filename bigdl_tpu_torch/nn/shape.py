@@ -1,12 +1,37 @@
-"""Shape layers (counterpart of ``bigdl_tpu.nn.shape``: View so far)."""
+"""Shape layers (counterpart of ``bigdl_tpu.nn.shape``: Reshape and
+View so far)."""
 from __future__ import annotations
 
-from torch import nn
+from typing import Optional, Sequence
 
-__all__ = ["View"]
+from bigdl_tpu_torch.nn.module import Module
+
+__all__ = ["Reshape", "View"]
 
 
-class View(nn.Module):
+class Reshape(Module):
+    """nn/Reshape.scala: reshape to ``size``. ``batch_mode=True`` keeps
+    dim 0 as the batch; ``None`` keeps it only when the element count
+    differs from ``size``'s; ``False`` never does."""
+
+    def __init__(self, size: Sequence[int],
+                 batch_mode: Optional[bool] = None):
+        super().__init__()
+        self.size = tuple(size)
+        self.batch_mode = batch_mode
+
+    def forward(self, x):
+        n = 1
+        for s in self.size:
+            n *= s
+        batched = self.batch_mode is True or (
+            self.batch_mode is None and x.numel() != n)
+        if batched:
+            return x.reshape((x.shape[0],) + self.size)
+        return x.reshape(self.size)
+
+
+class View(Module):
     """nn/View.scala: reshape to ``sizes``, keeping the batch dimension
     when the input has more than ``num_input_dims`` dims (or when the
     element count does not match ``sizes`` alone)."""

@@ -2,12 +2,12 @@
 CAddTable so far). A table is a list or tuple of tensors."""
 from __future__ import annotations
 
-from torch import nn
+from bigdl_tpu_torch.nn.module import Module
 
 __all__ = ["CAddTable"]
 
 
-class CAddTable(nn.Module):
+class CAddTable(Module):
     """nn/CAddTable.scala: the entries summed left to right (``inplace``
     is accepted and ignored, as in the JAX package)."""
 

@@ -1,68 +1,84 @@
 """The training driver (counterpart of ``bigdl_tpu.optim.optimizer``):
-:func:`build_train_step` and :class:`Optimizer` / :class:`LocalOptimizer`.
+:func:`build_train_step`, :func:`build_eval_step` and :class:`Optimizer`
+/ :class:`LocalOptimizer`.
 
 The JAX package compiles loss, gradient and update into one jitted,
 donated program; the port runs the same order eagerly — forward in
-training mode, loss, ``backward()``, optional clipping, then the
-OptimMethod's in-place update — and keeps the driver's host loop:
-per-iteration learning rate from the OptimMethod, ``driver_state``
-counters synced into ``optim_method.state``, a reshuffle at each epoch
-rollover.
+training mode, loss plus the module's regularization penalty,
+``backward()``, the gradients scaled by the module's ``param_scales``,
+optional clipping, then the OptimMethod's in-place update — and keeps
+the driver's host loop: per-iteration learning rate from the
+OptimMethod, ``driver_state`` counters synced into
+``optim_method.state``, a reshuffle at each epoch rollover, then the
+validation trigger.
 
-Not ported yet: validation, checkpoints and resume, train summaries,
-the Optimizer's gradient-clipping setters,
+Not ported yet: checkpoints and resume, train and validation summaries,
 ``set_steps_per_sync`` windows, ZeRO, precision policies and loss
 scaling, sequence parallelism, failure retry and preemption, device-fed
-datasets, and the multi-card ``DistriOptimizer``.
+and device-cached datasets, and the multi-card ``DistriOptimizer``.
 """
 from __future__ import annotations
 
 import logging
 import time
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Sequence
 
 import torch
 
 from bigdl_tpu_torch.dataset.dataset import AbstractDataSet
 from bigdl_tpu_torch.dataset.sample import MiniBatch
-from bigdl_tpu_torch.nn.criterion import Criterion
+from bigdl_tpu_torch.nn.module import Criterion, Module
 from bigdl_tpu_torch.optim.optim_method import SGD, OptimMethod
 from bigdl_tpu_torch.optim.trigger import Trigger, max_epoch
+from bigdl_tpu_torch.optim.validation import ValidationMethod
 
-__all__ = ["LocalOptimizer", "Optimizer", "build_train_step"]
+__all__ = ["LocalOptimizer", "Optimizer", "build_eval_step",
+           "build_train_step"]
 
 logger = logging.getLogger(__name__)
 
 
-def build_train_step(module: torch.nn.Module, criterion: Criterion,
+def build_train_step(module: Module, criterion: Criterion,
                      optim_method: OptimMethod, gradient_clip=None):
     """One training step, ``step(inputs, targets, lr) -> loss``, in the
-    JAX package's order: forward in training mode, loss, backward, then
+    JAX package's order: forward in training mode, loss plus
+    ``module.regularization_loss()``, backward, each gradient times its
+    ``module.param_scales()`` factor (0 for a frozen layer), then
     ``gradient_clip`` — ``("constant", min, max)`` clamps every gradient
     element, ``("l2norm", max_norm)`` scales the gradients so their
     global L2 norm is at most ``max_norm`` — then ``optim_method.update``
-    on the parameters in place. Returns the data loss (a detached 0-d
-    tensor on the module's device; reading it is the caller's sync).
+    on the parameters in place. Returns the data loss, without the
+    penalty (a detached 0-d tensor on the module's device; reading it is
+    the caller's sync).
 
-    The OptimMethod's buffers (``init_state`` over the module's
-    parameters, in ``named_parameters`` order) live in
-    ``step.opt_state``."""
+    The scales are read when the step is built, as the JAX package reads
+    them when it traces its step. The OptimMethod's buffers
+    (``init_state`` over the module's parameters, in ``named_parameters``
+    order) live in ``step.opt_state``."""
     if gradient_clip is not None and gradient_clip[0] not in (
             "constant", "l2norm"):
         raise ValueError(
             f"gradient_clip kind must be 'constant' or 'l2norm', got "
             f"{gradient_clip[0]!r}")
-    params = [p for _, p in module.named_parameters()]
+    named = list(module.named_parameters())
+    params = [p for _, p in named]
     opt_state = optim_method.init_state([p.detach() for p in params])
+    scales = module.param_scales()
+    factors = [scales[name] for name, _ in named]
+    scaled = any(f != 1.0 for f in factors)
 
     def step(inputs, targets, lr: float):
         module.train()
         for p in params:
             p.grad = None
         loss = criterion(module(inputs), targets)
-        loss.backward()
+        reg = module.regularization_loss()
+        (loss + reg if torch.is_tensor(reg) else loss).backward()
         grads = [p.grad if p.grad is not None else torch.zeros_like(p)
                  for p in params]
+        if scaled:
+            grads = [g if f == 1.0 else g * f
+                     for g, f in zip(grads, factors)]
         if gradient_clip is not None:
             with torch.no_grad():
                 if gradient_clip[0] == "constant":
@@ -82,6 +98,18 @@ def build_train_step(module: torch.nn.Module, criterion: Criterion,
     return step
 
 
+def build_eval_step(module: Module):
+    """The evaluation forward, ``eval_step(inputs) -> output``: the
+    module in evaluation mode under ``torch.inference_mode`` (the
+    caller puts it back in training mode)."""
+    def eval_step(inputs):
+        module.eval()
+        with torch.inference_mode():
+            return module(inputs)
+
+    return eval_step
+
+
 def _to_device(x, device):
     if isinstance(x, (list, tuple)):
         return [_to_device(e, device) for e in x]
@@ -99,11 +127,13 @@ class Optimizer:
 
     ``driver_state`` holds ``epoch``, ``neval`` (1-based, the next
     iteration), ``recordsProcessedThisEpoch`` and, after a step,
-    ``Loss``, ``LearningRate`` and ``Throughput``; ``history`` keeps one
-    record per step (``neval``, ``epoch``, ``loss``, ``lr``,
-    ``seconds`` — the step's wall time, batch transfer included)."""
+    ``Loss``, ``LearningRate`` and ``Throughput`` (and ``score`` after a
+    validation); ``history`` keeps one record per step (``neval``,
+    ``epoch``, ``loss``, ``lr``, ``rows``, ``seconds`` — the step's wall
+    time, batch transfer included), ``validation_history`` each
+    validation's ``{method name: value}``."""
 
-    def __init__(self, model: torch.nn.Module, dataset: AbstractDataSet,
+    def __init__(self, model: Module, dataset: AbstractDataSet,
                  criterion: Criterion, batch_size: int = 32):
         self.model = model
         self.dataset = dataset
@@ -111,9 +141,15 @@ class Optimizer:
         self.batch_size = batch_size
         self.optim_method: OptimMethod = SGD()
         self.end_when: Optional[Trigger] = None
+        self.validation_trigger: Optional[Trigger] = None
+        self.validation_dataset = None
+        self.validation_methods: List[ValidationMethod] = []
+        self._val_batch_size = batch_size
+        self._gradient_clip = None
         self.driver_state: Dict[str, Any] = {"epoch": 1, "neval": 1,
                                              "recordsProcessedThisEpoch": 0}
         self.history: List[Dict[str, float]] = []
+        self.validation_history: List[Dict[str, float]] = []
 
     def set_optim_method(self, method: OptimMethod) -> "Optimizer":
         self.optim_method = method
@@ -123,10 +159,46 @@ class Optimizer:
         self.end_when = trigger
         return self
 
+    def set_validation(self, trigger: Trigger, dataset,
+                       methods: Sequence[ValidationMethod],
+                       batch_size: Optional[int] = None) -> "Optimizer":
+        """Score ``dataset`` (MiniBatches or Samples) with ``methods``
+        whenever ``trigger`` fires after a step (Optimizer.scala
+        setValidation); the first method's value becomes
+        ``driver_state["score"]``."""
+        self.validation_trigger = trigger
+        self.validation_dataset = dataset
+        self.validation_methods = list(methods)
+        self._val_batch_size = batch_size or self.batch_size
+        return self
+
+    def set_constant_gradient_clipping(self, min_value: float,
+                                       max_value: float) -> "Optimizer":
+        """Clip every gradient element into ``[min, max]``
+        (setConstantGradientClipping)."""
+        if float(min_value) > float(max_value):
+            raise ValueError(
+                f"constant gradient clipping needs min <= max, got "
+                f"[{min_value}, {max_value}]")
+        self._gradient_clip = ("constant", float(min_value),
+                               float(max_value))
+        return self
+
+    def set_gradient_clipping_by_l2_norm(self,
+                                         clip_norm: float) -> "Optimizer":
+        """Scale the gradients so their global L2 norm never exceeds
+        ``clip_norm`` (setGradientClippingByl2Norm)."""
+        self._gradient_clip = ("l2norm", float(clip_norm))
+        return self
+
+    def disable_gradient_clipping(self) -> "Optimizer":
+        self._gradient_clip = None
+        return self
+
     def _device(self) -> torch.device:
         return next(self.model.parameters()).device
 
-    def optimize(self) -> torch.nn.Module:
+    def optimize(self) -> Module:
         """Run the loop until the end trigger (default ``max_epoch(10)``)
         fires; returns the trained model (updated in place)."""
         model = self.model
@@ -136,7 +208,8 @@ class Optimizer:
         # epoch/iteration-driven schedules read the OptimMethod's state
         for k in ("epoch", "neval"):
             self.optim_method.state[k] = state[k]
-        step = build_train_step(model, self.criterion, self.optim_method)
+        step = build_train_step(model, self.criterion, self.optim_method,
+                                self._gradient_clip)
         end_when = self.end_when or max_epoch(10)
         ds_size = self.dataset.size()
         data_iter = self.dataset.data(train=True)
@@ -162,7 +235,8 @@ class Optimizer:
             state["Throughput"] = bsz / max(1e-9, seconds)
             self.history.append({"neval": state["neval"] - 1,
                                  "epoch": state["epoch"], "loss": loss_f,
-                                 "lr": lr, "seconds": seconds})
+                                 "lr": lr, "rows": bsz,
+                                 "seconds": seconds})
             logger.info(
                 "Epoch %d iter %d: loss %.4f lr %.5f throughput %.1f rec/s",
                 state["epoch"], state["neval"] - 1, loss_f, lr,
@@ -176,9 +250,48 @@ class Optimizer:
                 state["recordsProcessedThisEpoch"] = 0
                 self.dataset.shuffle()
                 data_iter = self.dataset.data(train=True)
+            if (self.validation_trigger is not None
+                    and self.validation_trigger(state)):
+                scores = self._validate()
+                if scores:
+                    self.validation_history.append(scores)
+                    # the first method's value drives max_score and a
+                    # metric-reading schedule (DistriOptimizer.scala:382)
+                    state["score"] = next(iter(scores.values()))
+                    sched = getattr(self.optim_method,
+                                    "learning_rate_schedule", None)
+                    if hasattr(sched, "record_metric"):
+                        sched.record_metric(state["score"])
         logger.info("training done in %.1fs",
                     time.perf_counter() - wall_start)
         return model
+
+    def _validate(self) -> Dict[str, float]:
+        """One pass over the validation set through the Evaluator's
+        sweep (each batch's output copied to the host once and scored
+        there); the model is back in training mode after."""
+        from bigdl_tpu_torch.optim.evaluator import Evaluator
+        try:
+            results = Evaluator(self.model).results(
+                self.validation_dataset, self.validation_methods,
+                self._val_batch_size)
+        finally:
+            self.model.train()
+        return {} if results is None else self._score_summary(results)
+
+    def _score_summary(self, results) -> Dict[str, float]:
+        """``{name: value}`` in the methods' order; a repeated name gets
+        ``-2``, ``-3``... so the first key stays the first method's."""
+        summary: Dict[str, float] = {}
+        for m, r in zip(self.validation_methods, results):
+            value, _ = r.result()
+            key, k = m.name, 2
+            while key in summary:
+                key = f"{m.name}-{k}"
+                k += 1
+            summary[key] = value
+            logger.info("validation %s: %s", key, r)
+        return summary
 
 
 class LocalOptimizer(Optimizer):

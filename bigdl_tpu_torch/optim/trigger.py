@@ -3,15 +3,14 @@ trigger is a predicate over the driver state dict (``epoch``,
 ``neval``, ``Loss``, ...).
 
 Not ported yet: the window-planning ``depends_on`` / ``peek`` surface
-(the port has no fused multi-step windows), ``max_score`` and
-``min_loss``.
+(the port has no fused multi-step windows).
 """
 from __future__ import annotations
 
 from typing import Any, Callable, Dict
 
 __all__ = ["Trigger", "every_epoch", "max_epoch", "max_iteration",
-           "several_iteration"]
+           "max_score", "min_loss", "several_iteration"]
 
 
 class Trigger:
@@ -62,3 +61,14 @@ def max_epoch(m: int) -> Trigger:
 def max_iteration(m: int) -> Trigger:
     """End condition: neval > m."""
     return Trigger(lambda s: s.get("neval", 1) > m)
+
+
+def max_score(m: float) -> Trigger:
+    """End condition: the last validation score (``score``) exceeds
+    ``m``."""
+    return Trigger(lambda s: s.get("score", float("-inf")) > m)
+
+
+def min_loss(m: float) -> Trigger:
+    """End condition: the last training loss (``Loss``) is below ``m``."""
+    return Trigger(lambda s: s.get("Loss", float("inf")) < m)

@@ -1,0 +1,2 @@
+"""Tools of the port (counterpart of ``bigdl_tpu.tools``): the seeded
+synthetic-data generators so far."""

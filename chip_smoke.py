@@ -115,7 +115,9 @@ assume full float32.
 
 The line before the last is a JSON object ``{"kernels": [...]}`` with
 each kernel's launches, error and times (``ms`` and ``device_ms``, and
-``library_ms`` and ``library_device_ms``; K3's and K4's split plan);
+``library_ms`` and ``library_device_ms``; K3's and K4's split plan;
+every profiler window read for a ``device_ms``, with the SM clock
+sampled while it ran);
 the last line is
 ``{"ok": true, "device": {...}}``. Without a card, or run outside the
 repository, the script exits non-zero and prints no result.
@@ -123,10 +125,13 @@ repository, the script exits non-zero and prints no result.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import json
+import math
 import re
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -152,6 +157,17 @@ RESNET_CLASSES, RESNET_DEPTH, RESNET_DATASET, IMAGE = 1000, 50, "ImageNet", 224
 RESNET_SEED, SERVE_BATCH, CALIB_BATCHES, CALIB_ROWS = 23, 64, 2, 16
 GATE_ROWS, GATE_DELTA = 64, 0.02
 BURST_SINGLES, BURST_BATCHES, FULL_BATCHES, PROFILE_BATCHES = 16, 12, 8, 4
+
+# ---- the LeNet-5 slice (BASELINE config 1, MNIST's size, synthetic) ----
+LENET_ROWS, LENET_BATCH, LENET_LR, LENET_MOMENTUM = 60000, 128, 0.05, 0.9
+#: the separable task: training and held-out rows, the Top1 it must
+#: reach, and the epochs it may take
+LENET_TRAIN_ROWS, LENET_HELD_ROWS, LENET_TOP1, LENET_EPOCHS = \
+    2048, 1024, 0.95, 10
+#: card against CPU: steps, and the limits on the losses (relative) and
+#: the parameters (absolute)
+LENET_PARITY_STEPS, LENET_LOSS_RTOL, LENET_PARAM_ATOL = 10, 1e-4, 1e-4
+LENET_PROFILE_STEPS = 20
 
 # ---- K5 and K4 shapes ----
 INT8_EDGE_M, INT8_EDGE_N, INT8_EDGE_K = (1, 7, 64, 65, 300), \
@@ -224,11 +240,19 @@ def time_ms(fn, n_inputs: int, rounds: int) -> float:
     return start.elapsed_time(end) / (rounds * n_inputs)
 
 
-def profiled(run):
+#: seconds a profiler window stays open before the first and after the
+#: last kernel it times. Kernels that end close to a window's edge go
+#: missing from it: on the H100, of windows closed right after a
+#: synchronize 19 of 354 one-call windows lost all their kernels and 15
+#: of 354 400-call windows lost up to 402 of 800; with 50 ms on each
+#: side none of 708 lost any (:func:`probe_windows`, 240 s)
+WINDOW_MARGIN_S = 0.05
+
+
+def profiled(run, margin_s: float = WINDOW_MARGIN_S):
     """``torch.profiler`` (device activity) over one ``run()``, after a
-    warm-up step of one small kernel: a window's first kernel can be
-    lost while the profiler's device tracing starts, which emptied
-    one-kernel windows."""
+    warm-up step of one small kernel, with ``margin_s`` of idle time
+    between the window's edges and the calls."""
     import torch
     from torch.profiler import ProfilerActivity, profile, schedule
 
@@ -238,10 +262,152 @@ def profiled(run):
         torch.zeros(1, device="cuda")
         torch.cuda.synchronize()
         prof.step()
+        time.sleep(margin_s)
         run()
         torch.cuda.synchronize()
+        time.sleep(margin_s)
         prof.step()
     return prof
+
+
+def probe_windows(seconds: float) -> dict:
+    """Do profiler windows lose the kernels at their edges? For
+    ``seconds``, times windows of 1 and of 400 calls (two small
+    elementwise kernels a call) with no margin and with
+    :data:`WINDOW_MARGIN_S`, prints each round's kernels missing from
+    each case, and returns how many windows of each case came up short
+    (``python3 -c "import chip_smoke; chip_smoke.probe_windows(240)"``
+    on one card). Not part of the smoke run."""
+    import torch
+
+    x = torch.randn(256, 256, device="cuda")
+    y = torch.randn(256, 256, device="cuda")
+
+    def run(n):
+        for _ in range(n):
+            torch.add(x, y)
+            torch.mul(x, y)
+
+    cases = [(m, n) for m in (0.0, WINDOW_MARGIN_S) for n in (1, 400)]
+    short = {f"margin {m} s, {n} calls": 0 for m, n in cases}
+    rounds, t0 = 0, time.time()
+    while time.time() - t0 < seconds:
+        row = {"t": round(time.time() - t0, 1)}
+        for m, n in cases:
+            got = sum(count for _, count, _ in device_kernels(
+                profiled(lambda: run(n), m)))
+            row[f"margin {m} s, {n} calls"] = lost = 2 * n - got
+            short[f"margin {m} s, {n} calls"] += lost > 0
+        print(json.dumps(row), flush=True)
+        rounds += 1
+        run(2000)               # keep the card busy between rounds
+        torch.cuda.synchronize()
+    summary = {"device": torch.cuda.get_device_name(0), "rounds": rounds,
+               "short windows": short}
+    print(json.dumps(summary), flush=True)
+    return summary
+
+
+#: NVML, the library nvidia-smi reads the card with: ``(library, handle
+#: of device 0, reasons function)`` once loaded, False where the driver's
+#: library is missing
+_NVML = None
+NVML_CLOCK_SM = 1
+
+
+def sm_clock():
+    """``(SM clock in MHz, clock-event reasons bitmask)`` of card 0 from
+    NVML, or None where NVML is missing. The reasons' bits say why the
+    clock is below its maximum: 0x1 idle, 0x4 the power cap, 0x20 and
+    0x40 thermal slowdown, 0x80 the power brake."""
+    global _NVML
+    if _NVML is None:
+        _NVML = False
+        with contextlib.suppress(OSError, AttributeError):
+            lib = ctypes.CDLL("libnvidia-ml.so.1")
+            # the reasons' function, under its name since NVML 12.2 or
+            # under the older one
+            why = getattr(lib, "nvmlDeviceGetCurrentClocksEventReasons",
+                          None)
+            why = why or lib.nvmlDeviceGetCurrentClocksThrottleReasons
+            handle = ctypes.c_void_p()
+            if lib.nvmlInit_v2() == 0 and lib.nvmlDeviceGetHandleByIndex_v2(
+                    0, ctypes.byref(handle)) == 0:
+                _NVML = (lib, handle, why)
+    if not _NVML:
+        return None
+    lib, handle, why = _NVML
+    mhz, reasons = ctypes.c_uint(), ctypes.c_ulonglong()
+    if lib.nvmlDeviceGetClockInfo(handle, NVML_CLOCK_SM, ctypes.byref(mhz)):
+        return None
+    why(handle, ctypes.byref(reasons))
+    return mhz.value, reasons.value
+
+
+@contextlib.contextmanager
+def clock_samples(every_s: float = 0.005):
+    """:func:`sm_clock` every ``every_s`` seconds on a thread while the
+    block runs; yields the list the samples go to (empty without NVML)."""
+    samples = []
+    if sm_clock() is None:
+        yield samples
+        return
+    stop = threading.Event()
+
+    def sample():
+        while not stop.wait(every_s):
+            got = sm_clock()
+            if got is not None:
+                samples.append(got)
+
+    thread = threading.Thread(target=sample, daemon=True)
+    thread.start()
+    try:
+        yield samples
+    finally:
+        stop.set()
+        thread.join()
+
+
+#: device_ms's profiler windows: how many were read, how many were
+#: retaken because they recorded fewer kernels than the calls launch,
+#: how many rows read their pair of windows again because the two
+#: disagreed, the largest spread of a pair that was kept and of one that
+#: was read again (relative to the smaller window), and the rows timed by
+#: CUDA-graph replays because a single call's windows showed no kernel
+WINDOWS = {"read": 0, "retaken": 0, "pairs read again": 0,
+           "largest spread": 0.0, "largest spread read again": 0.0,
+           "graph rows": 0}
+#: retakes of a window that lost kernels (each window's own); fresh pairs
+#: read after a pair that disagreed; the largest spread of a kept pair
+WINDOW_RETAKES, PAIR_RETAKES, WINDOW_SPREAD = 2, 2, 0.10
+#: least device time (ms) a window times: a row of long calls repeats
+#: its cycle until its window holds this much work, so that one call
+#: that runs a few ms slow moves the window by a few percent (at 32768
+#: tokens one K2 forward window of one call read 22.02 and the next
+#: 25.50 ms on the H100) ...
+WINDOW_MIN_MS = 100.0
+#: ... unless that takes a window past this many kernels
+WINDOW_MAX_KERNELS = 800
+
+
+def _window(run):
+    """``(device ms, kernels launched, SM clock samples)`` of one
+    profiled ``run()``; the clock is sampled from the first call to the
+    synchronize after the last."""
+    import torch
+
+    clocks = []
+
+    def sampled():
+        with clock_samples() as got:
+            run()
+            torch.cuda.synchronize()
+        clocks.extend(got)
+
+    kernels = device_kernels(profiled(sampled))
+    return (sum(ms for ms, _, _ in kernels),
+            sum(count for _, count, _ in kernels), clocks)
 
 
 def device_ms(fn, n_inputs: int, rounds: int):
@@ -250,23 +416,100 @@ def device_ms(fn, n_inputs: int, rounds: int):
     the kernels the calls launched, read from ``torch.profiler``
     (:func:`device_kernels`) and summed — a call of several kernels (a
     backward, split-K's two, a library call and its float epilogue)
-    counts them all — over the calls. Where the profiler shows no device
-    time, one cycle is captured as a CUDA graph and its replays are
-    timed with events instead. Returns ``(ms, method)``."""
-    import torch
+    counts them all — over the calls.
 
-    def cycle():
-        for _ in range(rounds):
-            for i in range(n_inputs):
-                fn(i)
+    A profiler window can lose kernels, so each window's kernel count is
+    held against the calls it timed, at the kernels one call launches
+    (the larger count of two untimed, profiled single calls). A window
+    that recorded fewer is retaken, up to ``WINDOW_RETAKES`` times. Each
+    window times at least ``WINDOW_MIN_MS`` of work where
+    ``WINDOW_MAX_KERNELS`` allows, after two untimed cycles of the same
+    calls that bring the card's clock to where this work holds it. A row
+    reads a pair of windows and returns their median. A pair more than
+    ``WINDOW_SPREAD`` apart is logged whole and a fresh pair read, up to
+    ``PAIR_RETAKES`` times; the phase fails if the last pair still
+    disagrees, or if a window still loses kernels. Every window's reading
+    and the SM clock sampled while it ran (:func:`sm_clock`) are logged
+    and returned. Where the profiler shows no device kernel at all, one
+    cycle is captured as a CUDA graph and its replays are timed with
+    events instead. Returns ``(ms, windows)``; ``windows`` says how the
+    time was read and lists every pair of windows read."""
+    import torch
 
     for i in range(n_inputs):
         fn(i)
     torch.cuda.synchronize()
-    calls = rounds * n_inputs
-    total = sum(ms for ms, _, _ in device_kernels(profiled(cycle)))
-    if total > 0:
-        return total / calls, "profiler"
+    singles = [_window(lambda: fn(0)) for _ in range(2)]
+    per_call = max(count for _, count, _ in singles)
+    if per_call > 0:
+        call_ms = max(ms for ms, _, _ in singles)
+        reps = max(1, min(math.ceil(WINDOW_MIN_MS / (call_ms * rounds
+                                                     * n_inputs)),
+                          WINDOW_MAX_KERNELS // (per_call * rounds
+                                                 * n_inputs)))
+        calls = reps * rounds * n_inputs
+        expected = per_call * calls
+        lost = 0
+
+        def cycle():
+            for _ in range(reps * rounds):
+                for i in range(n_inputs):
+                    fn(i)
+
+        def window():
+            nonlocal lost
+            total, launched, clocks = _window(cycle)
+            for _ in range(WINDOW_RETAKES):
+                if launched >= expected:
+                    break
+                lost += 1
+                total, launched, clocks = _window(cycle)
+            if launched < expected:
+                raise RuntimeError(
+                    f"device_ms: a profiler window recorded {launched} of "
+                    f"the {expected} kernels its {calls} calls launched, "
+                    f"after {WINDOW_RETAKES} retakes")
+            reasons = 0
+            for _, bits in clocks:
+                reasons |= bits
+            return {"ms": total / calls,
+                    "sm_mhz": [min(m for m, _ in clocks),
+                               max(m for m, _ in clocks)] if clocks
+                    else "not sampled",
+                    "clock_events": hex(reasons) if clocks
+                    else "not sampled"}
+
+        cycle()
+        cycle()
+        torch.cuda.synchronize()
+        pairs = []
+        for attempt in range(1 + PAIR_RETAKES):
+            pair = [window(), window()]
+            pairs.append(pair)
+            times = [w["ms"] for w in pair]
+            spread = (max(times) - min(times)) / min(times)
+            log("device_ms", f"profiler, windows of {calls} calls: "
+                             f"{json.dumps(pair)}, spread {spread:.2%}")
+            if spread <= WINDOW_SPREAD or attempt == PAIR_RETAKES:
+                break
+            WINDOWS["pairs read again"] += 1
+            WINDOWS["largest spread read again"] = max(
+                WINDOWS["largest spread read again"], spread)
+            log("device_ms", f"the pair is more than {WINDOW_SPREAD:.0%} "
+                             f"apart: reading a fresh pair")
+        WINDOWS["read"] += 2 * len(pairs) + lost
+        WINDOWS["retaken"] += lost
+        if spread > WINDOW_SPREAD:
+            raise RuntimeError(
+                f"device_ms: {len(pairs)} pairs of windows, the last still "
+                f"more than {WINDOW_SPREAD:.0%} apart: {pairs}")
+        WINDOWS["largest spread"] = max(WINDOWS["largest spread"], spread)
+        return float(np.median(times)), {
+            "by": "profiler", "calls": calls, "retaken_for_lost_kernels":
+                lost, "pairs": pairs}
+    WINDOWS["graph rows"] += 1
+    log("device_ms", "a single call's profiler windows showed no kernel; "
+                     "the next row is timed by CUDA-graph replays")
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -286,7 +529,8 @@ def device_ms(fn, n_inputs: int, rounds: int):
         graph.replay()
     end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / calls, "cuda graph replay"
+    return (start.elapsed_time(end) / (rounds * n_inputs),
+            {"by": "cuda graph replays"})
 
 
 def ragged_bound(lengths, t: int, itemsize: int, heads: int = HEADS,
@@ -571,7 +815,10 @@ def phase_ragged_decode(main_lengths):
                      "bound_by": row["bound_by"],
                      "library_ms": row["library_ms"],
                      "library_device_ms": row["library_device_ms"],
-                     "plan": row["plan"]}
+                     "plan": row["plan"],
+                     "device_ms_windows": row["device_ms_windows"],
+                     "library_device_ms_windows":
+                         row["library_device_ms_windows"]}
     torch.cuda.empty_cache()
     return entry
 
@@ -655,7 +902,8 @@ def time_ragged(label, sets, mix, t):
                 lambda: [kern(i) for i in range(n_sets)])
     plain_ms = time_ms(plain, n_sets, rounds=max(1, rounds // 5))
     library_ms = time_ms(library, n_sets, rounds=max(1, rounds // 2))
-    library_dev_ms, _ = device_ms(library, n_sets, rounds=max(1, rounds // 2))
+    library_dev_ms, library_windows = device_ms(
+        library, n_sets, rounds=max(1, rounds // 2))
     slots, heads, d = sets[0][0].shape
     bound_ms, bound_by = ragged_bound(mix, t, 4, heads, d)
     plan = decode_plan(slots, heads, t, d, 4, sm_count(dev))
@@ -664,8 +912,9 @@ def time_ragged(label, sets, mix, t):
            "plan": dict(zip(("stage_keys", "chunk", "splits"), plan[:3])),
            "max_abs_err": err, "library_max_abs_err": lib_err,
            "kernel_ms": ms, "kernel_device_ms": dev_ms,
-           "device_ms_method": method, "plain_ms": plain_ms,
+           "device_ms_windows": method, "plain_ms": plain_ms,
            "library_ms": library_ms, "library_device_ms": library_dev_ms,
+           "library_device_ms_windows": library_windows,
            "bound_ms": bound_ms, "bound_by": bound_by,
            "kernel_over_bound": ms / bound_ms,
            "kernel_device_over_bound": dev_ms / bound_ms}
@@ -747,6 +996,7 @@ def profile_burst(svc, prompts) -> None:
     acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
                                      if on_card else [])
     with profile(activities=acts) as prof:
+        time.sleep(WINDOW_MARGIN_S)
         t0 = time.perf_counter()
         streams = [svc.generate("lm", p, max_new_tokens=MAX_NEW)
                    for p in prompts]
@@ -755,6 +1005,7 @@ def profile_burst(svc, prompts) -> None:
         if on_card:
             torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+        time.sleep(WINDOW_MARGIN_S)
     steps = svc.metrics("lm")["decode_steps"] - steps0
     kernels = device_kernels(prof)
     busy_ms = sum(k[0] for k in kernels)
@@ -1117,7 +1368,8 @@ def phase_flash(train_seg):
             dev_ms, method = device_ms(kern, n_sets, rounds=10)
             plain_ms = time_ms(plain, n_sets, rounds=2)
             library_ms = time_ms(lib, n_sets, rounds=10)
-            library_dev_ms, _ = device_ms(lib, n_sets, rounds=10)
+            library_dev_ms, library_windows = device_ms(lib, n_sets,
+                                                        rounds=10)
             einsum_ms = time_ms(einsum, n_sets, rounds=5)
             bound_ms, bound_by = flash_bound(kept, shape, itemsize,
                                              seg is not None, backward,
@@ -1131,14 +1383,17 @@ def phase_flash(train_seg):
                          "device_ms": dev_ms, "plain_ms": plain_ms,
                          "bound_ms": bound_ms, "bound_by": bound_by,
                          "library_ms": library_ms,
-                         "library_device_ms": library_dev_ms}
+                         "library_device_ms": library_dev_ms,
+                         "device_ms_windows": method,
+                         "library_device_ms_windows": library_windows}
             log("flash_attention", json.dumps({
                 "case": f"{kind} {name} {list(shape)} causal segments="
                         f"{seg is not None}", "kept_pairs": kept,
                 "max_abs_err": err, "kernel_ms": ms,
-                "kernel_device_ms": dev_ms, "device_ms_method": method,
+                "kernel_device_ms": dev_ms, "device_ms_windows": method,
                 "plain_ms": plain_ms, "library_ms": library_ms,
                 "library_device_ms": library_dev_ms,
+                "library_device_ms_windows": library_windows,
                 "einsum_path_ms": einsum_ms,
                 "library": "F.scaled_dot_product_attention " + (
                     "backward (autograd.grad)" if backward else "forward"),
@@ -1255,38 +1510,43 @@ def _gradient_fault(fault, function):
         fn.backward = staticmethod(real)
 
 
-def profile_train(model, crit, batches, device, phase="train-profile"
-                  ) -> None:
-    """Where a training step's time goes: ``PROFILE_STEPS`` steps under
-    ``torch.profiler``, reporting wall-clock, device time by kernel and
-    the device's idle share."""
+def profile_train(model, crit, batches, device, phase="train-profile",
+                  lr=TRAIN_LR) -> dict:
+    """Where a training step's time goes: the steps of ``batches[1:]``
+    (after one warm step) under ``torch.profiler``, reporting
+    wall-clock, device time by kernel and the device's idle share.
+    Returns the numbers."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from bigdl_tpu_torch.optim import SGD, build_train_step
 
-    step = build_train_step(model, crit, SGD(learning_rate=TRAIN_LR))
-    float(step(*batches[0], TRAIN_LR))            # warm
+    step = build_train_step(model, crit, SGD(learning_rate=lr))
+    float(step(*batches[0], lr))                  # warm
     on_card = device == "cuda"
     acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
                                      if on_card else [])
     with profile(activities=acts) as prof:
+        time.sleep(WINDOW_MARGIN_S)
         t0 = time.perf_counter()
         for inp, tgt in batches[1:]:
-            float(step(inp, tgt, TRAIN_LR))
+            float(step(inp, tgt, lr))
         if on_card:
             torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+        time.sleep(WINDOW_MARGIN_S)
     kernels = device_kernels(prof)
     busy_ms = sum(k[0] for k in kernels)
-    log(phase, json.dumps({
+    numbers = {
         "steps": len(batches) - 1, "wall_ms": wall_ms,
         "wall_ms_per_step": wall_ms / (len(batches) - 1),
         "device_busy_ms": busy_ms if kernels else "not measured",
         "device_idle_share": (1 - busy_ms / wall_ms) if kernels
-        else "not measured"}))
+        else "not measured"}
+    log(phase, json.dumps(numbers))
     for ms, count, key in kernels[:10]:
         log(phase, f"{ms:9.3f} ms {count:6d}x  {key[:90]}")
+    return numbers
 
 
 def compare_attention_paths(model, crit, batch, device, phase="train"
@@ -1514,7 +1774,7 @@ def phase_blockwise():
             return time_ms(lambda i: fns(i, which), n_sets, rounds)
 
         def device_timed(which, rounds):
-            ms, row["device_ms_method"] = device_ms(
+            ms, row[f"{which}_device_ms_windows"] = device_ms(
                 lambda i: fns(i, which), n_sets, rounds)
             return ms
 
@@ -1572,7 +1832,10 @@ def phase_blockwise():
                     "bound_ms": row[f"bound_{kind}_ms"],
                     "bound_by": row[f"bound_{kind}_by"],
                     "library_ms": row[f"sdpa_{kind}_ms"],
-                    "library_device_ms": row[f"sdpa_{kind}_device_ms"]}
+                    "library_device_ms": row[f"sdpa_{kind}_device_ms"],
+                    "device_ms_windows": row[f"k2_{kind}_device_ms_windows"],
+                    "library_device_ms_windows":
+                        row[f"lib_{kind}_device_ms_windows"]}
         log("blockwise", json.dumps(row))
         del sets, outs, outs1, graphs
         torch.cuda.empty_cache()
@@ -1962,10 +2225,10 @@ def phase_int8_gemm():
                                    n_sets, 5),
                "library_ms": time_ms(lambda i: library(*sets[i]), n_sets,
                                      20)}
-        row["kernel_device_ms"], row["device_ms_method"] = device_ms(
+        row["kernel_device_ms"], row["device_ms_windows"] = device_ms(
             lambda i: int8_gemm(*sets[i]), n_sets, 20)
-        row["library_device_ms"], _ = device_ms(
-            lambda i: library(*sets[i]), n_sets, 20)
+        row["library_device_ms"], row["library_device_ms_windows"] = \
+            device_ms(lambda i: library(*sets[i]), n_sets, 20)
         log_kernels("int8_gemm", f"[{m},{k}]x[{n},{k}] kernel",
                     lambda: int8_gemm(*sets[1]))
         log_kernels("int8_gemm", f"[{m},{k}]x[{n},{k}] library",
@@ -1991,7 +2254,10 @@ def phase_int8_gemm():
                      "bound_ms": row["bound_ms"],
                      "bound_by": row["bound_by"],
                      "library_ms": row["library_ms"],
-                     "library_device_ms": row["library_device_ms"]}
+                     "library_device_ms": row["library_device_ms"],
+                     "device_ms_windows": row["device_ms_windows"],
+                     "library_device_ms_windows":
+                         row["library_device_ms_windows"]}
         del sets
         torch.cuda.empty_cache()
     return entry
@@ -2123,11 +2389,11 @@ def phase_paged_decode(main_lengths):
                "plan": plan, "max_abs_err": err,
                "kernel_ms": time_ms(lambda i: paged_decode_attention(
                    *views[i], lens), n_sets, 50),
-               "kernel_device_ms": device_ms(lambda i: paged_decode_attention(
-                   *views[i], lens), n_sets, 50)[0],
                "plain_ms": time_ms(lambda i: paged_decode_attention_reference(
                    *views[i], lens), n_sets, 3),
                "k3_kernel_ms": k3_ms, "k3_kernel_device_ms": k3_device_ms}
+        row["kernel_device_ms"], row["device_ms_windows"] = device_ms(
+            lambda i: paged_decode_attention(*views[i], lens), n_sets, 50)
         row["bound_ms"], row["bound_by"] = ragged_bound(main_lengths, t, 4)
         row["kernel_over_bound"] = row["kernel_ms"] / row["bound_ms"]
         log("paged_decode", json.dumps(row))
@@ -2144,7 +2410,8 @@ def phase_paged_decode(main_lengths):
                      "plain_ms": row["plain_ms"],
                      "bound_ms": row["bound_ms"],
                      "bound_by": row["bound_by"], "library_ms": None,
-                     "library_device_ms": None, "plan": plan}
+                     "library_device_ms": None, "plan": plan,
+                     "device_ms_windows": row["device_ms_windows"]}
         del views
     del sets
     torch.cuda.empty_cache()
@@ -2168,12 +2435,14 @@ def profile_serving(svc, name, batches, device) -> None:
     acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
                                      if on_card else [])
     with profile(activities=acts) as prof:
+        time.sleep(WINDOW_MARGIN_S)
         t0 = time.perf_counter()
         for x in batches:
             svc.predict_batch(name, x)
         if on_card:
             torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+        time.sleep(WINDOW_MARGIN_S)
     kernels_ = device_kernels(prof)
     busy_ms = sum(k[0] for k in kernels_)
     log("int8-serve-profile", json.dumps({
@@ -2393,6 +2662,198 @@ def phase_int8_serve(counters, device="cuda"):
     return launches, summary
 
 
+def separable_digits(n: int, seed: int):
+    """A seeded 10-class task of 28 x 28 rows anyone can learn: uniform
+    noise in [-0.25, 0.25) with a bright 7 x 5 patch (+2) at the class's
+    own place on a 2 x 5 grid. Returns ``(images [n, 1, 28, 28], 1-based
+    float labels)``. (LeNet-5 from seeds 43-45 on the CPU reached a
+    held-out Top1 of 0.95 in 4 to 6 epochs at lr 0.05, momentum 0.9.)"""
+    r = np.random.RandomState(seed)
+    y = r.randint(0, 10, n)
+    x = (r.rand(n, 1, 28, 28) * 0.5 - 0.25).astype(np.float32)
+    for c in range(10):
+        top, left = 3 + (c // 5) * 14, 1 + (c % 5) * 5
+        x[y == c, 0, top:top + 7, left:left + 5] += 2.0
+    return x, (y + 1).astype(np.float32)
+
+
+def _run_cli(phase, main, argv):
+    """``main(argv)`` with its standard output captured and echoed:
+    ``(returned value, printed text)``."""
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        value = main(argv)
+    for line in buf.getvalue().splitlines():
+        log(phase, line)
+    return value, buf.getvalue()
+
+
+def _lenet_steps(model, batches, device):
+    """Losses of SGD steps (``LENET_LR``, momentum) over ``batches`` on
+    ``device``, through the driver's step."""
+    import torch
+
+    from bigdl_tpu_torch.nn import ClassNLLCriterion
+    from bigdl_tpu_torch.optim import SGD, build_train_step
+
+    step = build_train_step(model, ClassNLLCriterion(), SGD(
+        learning_rate=LENET_LR, momentum=LENET_MOMENTUM))
+    return [float(step(torch.from_numpy(x).to(device),
+                       torch.from_numpy(y).to(device), LENET_LR))
+            for x, y in batches]
+
+
+def _max_param_diff(a, b) -> float:
+    from bigdl_tpu_torch.convert import flatten_params
+    fa, fb = flatten_params(a), flatten_params(b)
+    return max(float(np.abs(fa[k] - fb[k]).max()) for k in fa)
+
+
+def phase_lenet(counters, device="cuda"):
+    """The LeNet-5 slice (BASELINE config 1) on ``device``: (a) the
+    recipe's own entry points at MNIST's size on synthetic rows, (b) a
+    separable task learnt to a held-out Top1 of ``LENET_TOP1``, (c) the
+    card against the CPU from the same parameters and batches, with a
+    frozen ``fc2`` as the fault the check must catch, (d) the Evaluator
+    and the Predictor against the driver's validation, (e) a profiled
+    window of training steps. No kernel of the ``kernels`` line is on
+    this path: the counts are set to 0 before (a) and must read 0 after.
+    Returns the launches and the numbers."""
+    import torch
+
+    from bigdl_tpu_torch.models import LeNet5
+    from bigdl_tpu_torch.models._cli import arrays_to_dataset
+    from bigdl_tpu_torch.models.lenet import test as lenet_test
+    from bigdl_tpu_torch.models.lenet import train as lenet_train
+    from bigdl_tpu_torch.nn import ClassNLLCriterion
+    from bigdl_tpu_torch.optim import (SGD, Evaluator, LocalOptimizer, Loss,
+                                       Predictor, Top1Accuracy, every_epoch,
+                                       max_epoch, max_score)
+    from bigdl_tpu_torch.utils.engine import full_float32
+
+    full_float32()
+    summary = {}
+    # (a) the recipe's entry points, validation every epoch
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    model, out = _run_cli("lenet-train", lenet_train.main, [
+        "--synthetic", str(LENET_ROWS), "-b", str(LENET_BATCH), "-e", "1",
+        "--device", device])
+    summary["train_cli_s"] = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counters.items()}
+    loss = float(re.search(r"final loss: (\S+)", out).group(1))
+    scores = dict(re.findall(r"(\w+) ([0-9.]+)", re.search(
+        r"validation: (.*)", out).group(1)))
+    summary.update(final_loss=loss, images_per_s=float(re.search(
+        r"throughput: (\S+) images/s", out).group(1)),
+        val_top1=float(scores["Top1Accuracy"]),
+        val_top5=float(scores["Top5Accuracy"]))
+    results, _ = _run_cli("lenet-test", lenet_test.main, [
+        "--synthetic", str(LENET_ROWS), "-b", str(LENET_BATCH),
+        "--device", device])
+    summary["test_top1"] = results["Top1Accuracy"].result()[0]
+    summary["test_top5"] = results["Top5Accuracy"].result()[0]
+    if not (np.isfinite(loss) and next(model.parameters()).device.type
+            == device and results["Top1Accuracy"].result()[1]
+            == LENET_ROWS):
+        raise AssertionError(f"LeNet recipe: {summary}")
+    if any(launches.values()):
+        raise AssertionError(f"a kernel of the kernels line launched on "
+                             f"the LeNet path: {launches}")
+
+    # (b) a separable task, validation every epoch until max_score
+    x, y = separable_digits(LENET_TRAIN_ROWS, seed=41)
+    hx, hy = separable_digits(LENET_HELD_ROWS, seed=42)
+    model = LeNet5(10, device=device,
+                   generator=torch.Generator().manual_seed(43))
+    opt = LocalOptimizer(model, arrays_to_dataset(x, y, LENET_BATCH),
+                         ClassNLLCriterion(), batch_size=LENET_BATCH)
+    opt.set_optim_method(SGD(learning_rate=LENET_LR,
+                             momentum=LENET_MOMENTUM))
+    held = arrays_to_dataset(hx, hy, LENET_BATCH)
+    opt.set_validation(every_epoch(), held, [Top1Accuracy(), Loss()])
+    opt.set_end_when(max_score(LENET_TOP1).or_(max_epoch(LENET_EPOCHS)))
+    opt.optimize()
+    top1 = opt.driver_state["score"]
+    summary.update(learn_top1=top1, learn_epochs=len(opt.validation_history),
+                   learn_history=opt.validation_history)
+    log("lenet-learn", json.dumps(opt.validation_history))
+    if not top1 >= LENET_TOP1:
+        raise AssertionError(f"held-out Top1 {top1} < {LENET_TOP1} after "
+                             f"{len(opt.validation_history)} epochs")
+
+    # (d) the Evaluator and the Predictor on the same held-out rows
+    ev = Evaluator(model).test(held, [Top1Accuracy()], LENET_BATCH)
+    rows = Predictor(model).predict(held, LENET_BATCH)
+    classes = Predictor(model).predict_class(held, LENET_BATCH)
+    if ev["Top1Accuracy"].result()[0] != top1:
+        raise AssertionError(f"Evaluator Top1 {ev['Top1Accuracy']} != the "
+                             f"driver's last validation {top1}")
+    if classes != [int(np.argmax(r)) + 1 for r in rows] \
+            or len(rows) != LENET_HELD_ROWS:
+        raise AssertionError("predict_class is not the argmax of predict")
+    log("lenet-learn", f"held-out Top1 {top1} in "
+                       f"{len(opt.validation_history)} epochs; Evaluator "
+                       f"and Predictor agree with the driver")
+
+    # (c) the card against the CPU, and a frozen fc2 the check must catch
+    batches = [(x[i * LENET_BATCH:(i + 1) * LENET_BATCH],
+                y[i * LENET_BATCH:(i + 1) * LENET_BATCH])
+               for i in range(LENET_PARITY_STEPS)]
+    start = LeNet5(10, device=device,
+                   generator=torch.Generator().manual_seed(44))
+    params = start.get_parameters()
+    reference = LeNet5(10, device="cpu").set_parameters(params)
+    want = _lenet_steps(reference, batches, "cpu")
+    runs = {}
+    for label in ("as is", "fc2 frozen"):
+        m = LeNet5(10, device=device).set_parameters(params)
+        if label == "fc2 frozen":
+            m.find("fc2").freeze()
+        got = _lenet_steps(m, batches, device)
+        loss_err = max(abs(g - w) / abs(w) for g, w in zip(got, want))
+        param_err = _max_param_diff(m.get_parameters(),
+                                    reference.get_parameters())
+        runs[label] = (loss_err, param_err, m)
+        log("lenet-parity", f"{label}: losses {loss_err:.3e} relative, "
+                            f"parameters {param_err:.3e} from the CPU's")
+    loss_err, param_err, _ = runs["as is"]
+    if not (loss_err <= LENET_LOSS_RTOL and param_err <= LENET_PARAM_ATOL):
+        raise AssertionError(f"card vs CPU: losses {loss_err}, parameters "
+                             f"{param_err}")
+    _, frozen_err, frozen = runs["fc2 frozen"]
+    fc2 = frozen.find("fc2").get_parameters()
+    if frozen_err <= LENET_PARAM_ATOL:
+        raise AssertionError(f"the frozen-fc2 fault passed the parameter "
+                             f"check ({frozen_err})")
+    if not all(np.array_equal(fc2[k], params["10"][k]) for k in fc2):
+        raise AssertionError("a frozen fc2 moved")
+    summary.update(parity_loss_rtol=loss_err, parity_param_atol=param_err,
+                   frozen_fault_param_diff=frozen_err,
+                   cudnn_tf32=torch.backends.cudnn.allow_tf32)
+    if torch.backends.cudnn.allow_tf32:
+        raise AssertionError("cuDNN TF32 is on")
+
+    # (e) where a step's time goes
+    px, py = separable_digits(LENET_BATCH * (LENET_PROFILE_STEPS + 1),
+                              seed=45)
+    prof_batches = [(torch.from_numpy(px[i::LENET_PROFILE_STEPS + 1])
+                     .to(device),
+                     torch.from_numpy(py[i::LENET_PROFILE_STEPS + 1])
+                     .to(device))
+                    for i in range(LENET_PROFILE_STEPS + 1)]
+    prof = profile_train(model, ClassNLLCriterion(), prof_batches, device,
+                         phase="lenet-profile", lr=LENET_LR)
+    summary["profile"] = dict(prof, images_per_s=LENET_BATCH * 1e3
+                              / prof["wall_ms_per_step"])
+    summary["launches"] = launches
+    log("lenet", json.dumps(summary))
+    return launches, summary
+
+
 def main() -> int:
     import torch
 
@@ -2435,6 +2896,7 @@ def main() -> int:
     longctx_launches, _ = phase_longctx_train(counters)
     longserve_launches, _ = phase_longctx_serve(counters)
     int8_launches, _ = phase_int8_serve(counters)
+    lenet_launches, _ = phase_lenet(counters)
     ragged["launches"] = serve_launches["ragged_decode"]
     flash_fwd["launches"] = train_launches["flash_attention_fwd"]
     flash_bwd["launches"] = train_launches["flash_attention_bwd"]
@@ -2447,7 +2909,15 @@ def main() -> int:
     # run launches it (its phase drove it through the dispatch function)
     paged["launches"] = max(launches["paged_decode"] for launches in (
         serve_launches, train_launches, longctx_launches,
-        longserve_launches, int8_launches))
+        longserve_launches, int8_launches, lenet_launches))
+    log("device_ms", f"{WINDOWS['read']} profiler windows read, "
+                     f"{WINDOWS['retaken']} retaken for lost kernels; "
+                     f"{WINDOWS['pairs read again']} pairs read again for "
+                     f"a spread above {WINDOW_SPREAD:.0%} (largest "
+                     f"{WINDOWS['largest spread read again']:.2%}); "
+                     f"largest spread of a kept pair "
+                     f"{WINDOWS['largest spread']:.2%}; "
+                     f"{WINDOWS['graph rows']} rows timed by graph replays")
     print(json.dumps({"kernels": [ragged, flash_fwd, flash_bwd,
                                   blockwise_fwd, blockwise_bwd, int8,
                                   paged]}),

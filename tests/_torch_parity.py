@@ -1,0 +1,147 @@
+"""Shared parity harness for the port's tests: trees carried between the
+JAX package and the port, and :func:`assert_parity`, which holds a port
+module to its JAX counterpart on the same parameters and input — the
+outputs, and the gradients of one scalar loss with respect to the input
+and to every parameter.
+
+The trees are nested dicts, lists, tuples and Tables (either package's)
+with array leaves; numpy is the wire format between the two."""
+from __future__ import annotations
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import torch
+
+from bigdl_tpu.utils.table import Table as JaxTable
+from bigdl_tpu_torch.convert import flatten_params
+from bigdl_tpu_torch.utils.table import Table
+
+__all__ = ["assert_parity", "assert_trees_close", "flat", "to_jax",
+           "to_numpy", "to_torch"]
+
+
+def _map(fn, tree, table):
+    if isinstance(tree, (Table, JaxTable)):
+        return table({k: _map(fn, v, table) for k, v in tree.items()})
+    if isinstance(tree, dict):
+        return {k: _map(fn, v, table) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map(fn, e, table) for e in tree)
+    return fn(tree)
+
+
+def _np(leaf):
+    if isinstance(leaf, torch.Tensor):
+        return leaf.detach().cpu().numpy()
+    return np.asarray(leaf)
+
+
+def to_numpy(tree):
+    """Leaves (torch tensors, JAX arrays, numbers) as numpy arrays; a
+    Table of either package becomes the port's Table."""
+    return _map(_np, tree, Table)
+
+
+def to_torch(tree):
+    """Leaves as CPU torch tensors (copies); Tables as the port's."""
+    return _map(lambda a: torch.from_numpy(np.array(_np(a))), tree, Table)
+
+
+def to_jax(tree):
+    """Leaves as JAX arrays; Tables as the JAX package's."""
+    return _map(lambda a: jnp.asarray(_np(a)), tree, JaxTable)
+
+
+def flat(tree):
+    """``{"a.b": numpy leaf}`` of a nested param tree (empty dicts, the
+    JAX tree's parameterless layers, carry no leaf)."""
+    return {k: _np(v) for k, v in flatten_params(tree).items()}
+
+
+def assert_trees_close(got, want, atol, rtol=0.0):
+    g, w = flat(got), flat(want)
+    assert sorted(g) == sorted(w), (sorted(g), sorted(w))
+    for k in w:
+        np.testing.assert_allclose(g[k], w[k], atol=atol, rtol=rtol,
+                                   err_msg=k)
+
+
+def _floating(x):
+    return np.issubdtype(np.asarray(x).dtype, np.floating)
+
+
+def assert_parity(ref, port, input, atol, rtol=0.0, training=False,
+                  seed=0, rng=None):
+    """Hold ``port`` (a port Module) to ``ref`` (the JAX Module).
+
+    ``ref``'s parameters (initialised if needed) are carried into
+    ``port`` with ``set_parameters``; both run ``input`` (numpy, or a
+    list / Table of numpy) in evaluation mode unless ``training``
+    (``rng``: the JAX apply's key, for a layer that needs one). The
+    outputs must agree, and so must the gradients of
+    ``sum(output * w)``, ``w`` seeded normal of the output's shape, with
+    respect to the floating input and to every parameter: each within
+    ``atol + rtol * |JAX value|``. Returns the port's output."""
+    ref.ensure_initialized()
+    params = jax.tree.map(np.asarray, ref.get_parameters())
+    if flat(params):
+        port.set_parameters(params)
+    port.train(training)
+    state = ref.get_state()
+
+    def jax_out(p, x):
+        return ref.apply(p, state, x, training=training, rng=rng)[0]
+
+    j_in = to_jax(input)
+    j_params = jax.tree.map(jnp.asarray, params)
+    want = np.asarray(jax_out(j_params, j_in))
+    w = np.random.RandomState(seed).standard_normal(want.shape) \
+        .astype(np.float32)
+
+    def j_loss(p, x):
+        return jnp.sum(jax_out(p, x) * w)
+
+    leaves = []
+    _map(leaves.append, input, Table)
+    grad_in = all(_floating(leaf) for leaf in leaves)
+    if grad_in:
+        j_gp, j_gx = jax.grad(j_loss, argnums=(0, 1))(j_params, j_in)
+    else:
+        j_gp = jax.grad(j_loss)(j_params, j_in)
+
+    x = to_torch(input)
+    if grad_in:
+        x = _map(lambda t: t.requires_grad_(), x, Table)
+    for p in port.parameters():
+        p.grad = None
+    got = port(x)
+    np.testing.assert_allclose(_np(got), want, atol=atol, rtol=rtol,
+                               err_msg="output")
+    loss = (got * torch.from_numpy(w)).sum()
+    if loss.requires_grad:     # BinaryThreshold's output has no gradient
+        loss.backward()
+    if flat(params):
+        assert_trees_close(port.get_grad_parameters(), j_gp, atol, rtol)
+    if grad_in:
+        g_x = _map(lambda t: t.grad if t.grad is not None
+                   else torch.zeros_like(t), x, Table)
+        for name, (g, j) in _pairs(g_x, j_gx).items():
+            np.testing.assert_allclose(_np(g), np.asarray(j), atol=atol,
+                                       rtol=rtol, err_msg=f"grad {name}")
+    return got
+
+
+def _pairs(port_tree, jax_tree, prefix="input"):
+    """``{path: (port leaf, JAX leaf)}`` over the input's leaves."""
+    if isinstance(port_tree, (Table, dict)):
+        out = {}
+        for k in port_tree.keys():
+            out.update(_pairs(port_tree[k], jax_tree[k], f"{prefix}.{k}"))
+        return out
+    if isinstance(port_tree, (list, tuple)):
+        out = {}
+        for i, (p, j) in enumerate(zip(port_tree, jax_tree)):
+            out.update(_pairs(p, j, f"{prefix}.{i}"))
+        return out
+    return {prefix: (port_tree, jax_tree)}
