@@ -43,7 +43,15 @@ Ported so far:
   :class:`~bigdl_tpu_torch.optim.Predictor`; the recipes are
   :mod:`bigdl_tpu_torch.models.lenet.train` and ``.test``. This path
   runs PyTorch's own convolutions and GEMMs (no Pallas kernel is on the
-  JAX package's LeNet path either).
+  JAX package's LeNet path either);
+- ResNet training (BASELINE config 3: ResNet-50 on ImageNet shapes,
+  batch 256) — :mod:`bigdl_tpu_torch.models.resnet.train` and
+  ``.test``, BatchNormalization's training mode in the JAX package's op
+  sequence, the ``EpochDecay`` schedules; and checkpoints in the JAX
+  package's format 2 (:mod:`bigdl_tpu_torch.utils.serialization`,
+  :mod:`~bigdl_tpu_torch.utils.module_serializer`): a run checkpointed
+  by either package resumes in the other, and a module saved by either
+  loads in the other (``ModelRegistry.load(path=)`` serves one).
 
 Entry points default to ``device="cuda"`` and raise when CUDA is
 missing; they run on the CPU only when the caller passes

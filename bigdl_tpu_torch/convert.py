@@ -8,6 +8,12 @@ BatchNormalization's ``running_mean`` / ``running_var``) is a second
 tree of the same shape; the port holds it in buffers under the same
 names. numpy is the wire format: the trees' leaves may be numpy arrays
 or anything ``numpy.asarray`` accepts.
+
+The JAX containers key every child by its index, so a child without
+parameters (a ReLU) or without state (a convolution) is an empty dict
+in the JAX trees, and the JAX package's ``apply`` indexes it. The
+exported trees have that full shape (:func:`jax_tree`); the loaders
+ignore empty dicts.
 """
 from __future__ import annotations
 
@@ -16,7 +22,7 @@ from typing import Dict, Mapping, Optional
 import numpy as np
 import torch
 
-__all__ = ["export_params", "export_state", "flatten_params",
+__all__ = ["export_params", "export_state", "flatten_params", "jax_tree",
            "load_jax_params", "param_tree"]
 
 
@@ -53,17 +59,18 @@ def _checked(kind: str, model: torch.nn.Module, tree: Mapping,
     return arrays
 
 
-def load_jax_params(model: torch.nn.Module, params: Mapping,
+def load_jax_params(model: torch.nn.Module, params: Optional[Mapping],
                     state: Optional[Mapping] = None) -> torch.nn.Module:
     """Copy a JAX param tree into ``model``'s parameters in place, and
     with ``state`` the JAX state tree into its buffers, and return the
-    model. Every parameter (and, with ``state``, every buffer) must be
-    covered and every leaf used, with equal shapes; anything else
-    raises before a single value is copied. Values are cast to each
-    tensor's dtype and device."""
-    pairs = [(dict(model.named_parameters()),
-              _checked("param", model, params,
-                       dict(model.named_parameters())))]
+    model (``params=None`` copies the state alone). Every parameter
+    (and, with ``state``, every buffer) must be covered and every leaf
+    used, with equal shapes; anything else raises before a single value
+    is copied. Values are cast to each tensor's dtype and device."""
+    pairs = []
+    if params is not None:
+        own = dict(model.named_parameters())
+        pairs.append((own, _checked("param", model, params, own)))
     if state is not None:
         own = dict(model.named_buffers())
         pairs.append((own, _checked("state", model, state, own)))
@@ -87,17 +94,33 @@ def param_tree(named) -> Dict[str, object]:
     return tree
 
 
+def jax_tree(model: torch.nn.Module, named) -> Dict[str, object]:
+    """:func:`param_tree` of ``named`` (``[(dotted name, tensor)]`` of
+    ``model``'s tensors) in the JAX trees' full shape: every child of a
+    container is present, an empty dict where it holds no leaf."""
+    from bigdl_tpu_torch.nn.container import Container
+
+    tree = param_tree(named)
+    for name, m in model.named_modules():
+        if isinstance(m, Container):
+            node = tree
+            for key in (name.split(".") if name else ()):
+                node = node.setdefault(key, {})
+            for key in m._modules:
+                node.setdefault(key, {})
+    return tree
+
+
 def export_params(model: torch.nn.Module) -> Dict[str, object]:
     """The inverse of :func:`load_jax_params`: ``model``'s parameters as
     the JAX package's nested param tree (``block_0.attn.wq`` →
-    ``{"block_0": {"attn": {"wq": ...}}}``) of numpy arrays, copied to
-    the host in the parameters' dtype."""
-    return param_tree(model.named_parameters())
+    ``{"block_0": {"attn": {"wq": ...}}}``, :func:`jax_tree`) of numpy
+    arrays, copied to the host in the parameters' dtype."""
+    return jax_tree(model, model.named_parameters())
 
 
 def export_state(model: torch.nn.Module) -> Dict[str, object]:
     """The inverse of ``load_jax_params(state=)``: ``model``'s buffers
-    as the JAX package's nested state tree of numpy arrays (the JAX
-    tree also holds empty dicts for stateless modules, which carry no
-    leaf)."""
-    return param_tree(model.named_buffers())
+    as the JAX package's nested state tree (:func:`jax_tree`) of numpy
+    arrays."""
+    return jax_tree(model, model.named_buffers())

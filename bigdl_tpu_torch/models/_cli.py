@@ -1,24 +1,27 @@
 """Shared flags and glue of the recipes' entry points (counterpart of
 ``bigdl_tpu.models._cli``): the reference recipes' ``-f``, ``-b``,
 ``-e``, ``-r``, ``-d``, ``--maxIterations`` and ``--synthetic N``, plus
-the port's ``--device``; MNIST arrays, the in-memory dataset, the
-validation wiring and the Test.scala evaluation main.
+the port's ``--device``; the snapshots: ``--model`` (a module saved by
+either package's ``save_module``), ``--state`` (a pickled optim-method
+state) and ``--checkpoint`` (a checkpoint every epoch, and resume from
+the newest there), with ``--overWrite`` (one checkpoint name, which the
+JAX recipes parse and ignore); MNIST and CIFAR-10 arrays, the in-memory
+dataset, the validation wiring and the Test.scala evaluation main.
 
-``--model``, ``--state`` and ``--checkpoint`` are parsed and raise
-NotImplementedError: snapshots and checkpoints are ROADMAP queue 1,
-item 3. Not ported yet: ``--quantize``, ``--steps-per-sync`` and the
-CIFAR-10 arrays.
+Not ported yet: ``--quantize`` and ``--steps-per-sync``.
 """
 from __future__ import annotations
 
 import argparse
 import os
+import pickle
 from typing import Tuple
 
 import numpy as np
 
-__all__ = ["arrays_to_dataset", "base_parser", "evaluate_cli",
-           "load_model_or", "mnist_arrays", "wire_optimizer"]
+__all__ = ["arrays_to_dataset", "base_parser", "cifar10_arrays",
+           "evaluate_cli", "load_model_or", "mnist_arrays",
+           "wire_optimizer"]
 
 
 def base_parser(desc: str) -> argparse.ArgumentParser:
@@ -30,11 +33,13 @@ def base_parser(desc: str) -> argparse.ArgumentParser:
     ap.add_argument("-r", "--learningRate", type=float, default=None)
     ap.add_argument("-d", "--learningRateDecay", type=float, default=None)
     ap.add_argument("--model", default=None,
-                    help="model snapshot to resume/test (not ported yet)")
+                    help="model snapshot to resume/test")
     ap.add_argument("--state", default=None,
-                    help="optim-method state snapshot (not ported yet)")
+                    help="optim-method state snapshot to resume")
     ap.add_argument("--checkpoint", default=None,
-                    help="directory to write checkpoints (not ported yet)")
+                    help="directory to write checkpoints")
+    ap.add_argument("--overWrite", action="store_true",
+                    help="overwrite checkpoint files")
     ap.add_argument("--maxIterations", type=int, default=None,
                     help="stop after N iterations (overrides maxEpoch)")
     ap.add_argument("--synthetic", type=int, default=0, metavar="N",
@@ -45,30 +50,29 @@ def base_parser(desc: str) -> argparse.ArgumentParser:
     return ap
 
 
-def _not_ported(flag: str):
-    return NotImplementedError(
-        f"{flag}: model and optim-method snapshots and checkpoints are not "
-        f"ported yet (ROADMAP queue 1, item 3)")
-
-
 def load_model_or(args, build):
-    """The fresh model from ``build()``; a ``--model`` snapshot
-    raises."""
+    """The ``--model`` snapshot on ``--device``, else ``build()``."""
     if getattr(args, "model", None):
-        raise _not_ported("--model")
+        from bigdl_tpu_torch.utils.serialization import load_module
+        return load_module(args.model, device=args.device)
     return build()
 
 
 def wire_optimizer(opt, args, optim_method, val_ds=None, val_methods=None,
                    default_epochs: int = 1):
-    """set_optim_method / set_validation (every epoch) / set_end_when in
-    the reference shape."""
+    """``--state``, set_optim_method, ``--checkpoint`` (every epoch) /
+    set_validation (every epoch) / set_end_when in the reference
+    shape."""
     from bigdl_tpu_torch.optim import every_epoch, max_epoch, max_iteration
 
-    for flag in ("state", "checkpoint"):
-        if getattr(args, flag, None):
-            raise _not_ported(f"--{flag}")
+    if args.state:
+        with open(args.state, "rb") as f:
+            optim_method.load_state(pickle.load(f))
     opt.set_optim_method(optim_method)
+    if args.checkpoint:
+        opt.set_checkpoint(args.checkpoint, every_epoch())
+        if args.overWrite:
+            opt.overwrite_checkpoint()
     if val_ds is not None and val_methods:
         opt.set_validation(every_epoch(), val_ds, val_methods)
     if args.maxIterations:
@@ -107,6 +111,31 @@ def mnist_arrays(folder: str, train: bool,
     mean, std = ((0.13066047, 0.3081078) if train
                  else (0.13251461, 0.31048024))
     return ((imgs / 255.0 - mean) / std).astype(np.float32), lbls
+
+
+def cifar10_arrays(folder: str, train: bool, synthetic: int = 0):
+    """CIFAR-10 binary batches under ``folder`` -> normalized ``[N, 3,
+    32, 32]`` images and 1-based labels (the vgg and resnet recipes'
+    per-channel statistics), or with ``synthetic`` N seeded uniform rows
+    as the JAX recipe draws them."""
+    if synthetic:
+        from bigdl_tpu_torch.tools.synthetic import (SEED_EVAL, SEED_TRAIN,
+                                                     image_batch)
+        return image_batch(synthetic, (3, 32, 32), 10,
+                           seed=SEED_TRAIN if train else SEED_EVAL)
+    from bigdl_tpu_torch.dataset.image import load_cifar10
+    names = [f"data_batch_{i}.bin" for i in range(1, 6)] if train \
+        else ["test_batch.bin"]
+    paths = [os.path.join(folder, n) for n in names]
+    missing = [p for p in paths if not os.path.exists(p)]
+    if missing:
+        raise SystemExit(
+            f"CIFAR-10 not found under '{folder}' ({missing[0]}); stage the "
+            f"binary batches there, or use --synthetic N")
+    imgs, lbls = load_cifar10(paths)
+    mean = np.array([125.3, 123.0, 113.9], np.float32).reshape(3, 1, 1)
+    std = np.array([63.0, 62.1, 66.7], np.float32).reshape(3, 1, 1)
+    return ((imgs - mean) / std).astype(np.float32), lbls
 
 
 def arrays_to_dataset(imgs, lbls, batch_size: int):

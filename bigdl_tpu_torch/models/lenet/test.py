@@ -3,8 +3,8 @@
 
     python -m bigdl_tpu_torch.models.lenet.test --synthetic 256 --device cpu
 
-Top1 and Top5 of a freshly built LeNet-5 (``--model`` snapshots wait
-for checkpoints, queue item 3, and raise NotImplementedError).
+Top1 and Top5 of a ``--model`` snapshot saved by either package, or of
+a freshly built LeNet-5.
 """
 from __future__ import annotations
 

@@ -10,9 +10,12 @@ epoch, as the JAX recipe runs. Prints ``final loss`` as the JAX recipe
 does, then the last validation's scores and the training steps'
 throughput.
 
-Not ported yet: ``-g`` (the Graph model, queue item 9) and the
-``--model`` / ``--state`` / ``--checkpoint`` snapshots (queue item 3):
-they raise NotImplementedError.
+``--model`` starts from a module saved by either package,
+``--state`` from a pickled optim-method state, and ``--checkpoint DIR``
+writes a checkpoint every epoch and resumes from the newest one there.
+
+Not ported yet: ``-g`` (the Graph model, queue item 9) raises
+NotImplementedError.
 """
 from __future__ import annotations
 
@@ -59,6 +62,9 @@ def main(argv=None):
                    default_epochs=15)
     opt.optimize()
     print(f"final loss: {opt.driver_state['Loss']:.4f}")
+    if opt.resumed_from is not None:
+        print(f"resumed from {opt.resumed_from['path']} at neval "
+              f"{opt.resumed_from['neval']}")
     if opt.validation_history:
         last = opt.validation_history[-1]
         print("validation: " + " ".join(

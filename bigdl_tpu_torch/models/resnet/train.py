@@ -1,0 +1,151 @@
+"""ResNet training recipes (counterpart of
+``bigdl_tpu.models.resnet.train``; models/resnet/Train.scala:46-99)::
+
+    python -m bigdl_tpu_torch.models.resnet.train -f /path/to/cifar10 --depth 20
+    python -m bigdl_tpu_torch.models.resnet.train --synthetic 256 -e 1 --device cpu
+    python -m bigdl_tpu_torch.models.resnet.train --dataset imagenet --depth 50 \\
+        --synthetic 1024 -b 256 --checkpoint /tmp/ckpt
+
+CIFAR-10: SGD lr 0.1, weight decay 1e-4, momentum 0.9, nesterov,
+``EpochDecay(cifar10_decay)`` (x0.1 at epochs 81 and 122), batch 448,
+165 epochs, Top1, Top5 and Loss validation every epoch. ImageNet
+(BASELINE config 3): ResNet-50, batch 256, the same SGD under
+``EpochDecay(imagenet_decay)`` (x0.1 every 30 epochs), 90 epochs.
+``--synthetic N`` draws N seeded rows as the JAX recipes do (for
+ImageNet ``RandomState(0)``: ``rand`` then ``randint(1, classNum + 1)``).
+With ``--checkpoint DIR`` a checkpoint is written every epoch and a
+second call resumes from the newest one. Prints ``final loss`` as the
+JAX recipe does, then the steps' throughput (and the checkpoint it
+resumed from).
+
+Not ported yet: ImageNet from a folder (``ImageFolderDataSet``, with
+its color jitter and lighting; queue item 10) raises NotImplementedError.
+"""
+from __future__ import annotations
+
+__all__ = ["cifar10_decay", "imagenet_decay", "main"]
+
+#: seed of the weights' generator: fixed, as the JAX recipe's init key is
+_WEIGHT_SEED = 1
+
+
+def cifar10_decay(epoch: int) -> float:
+    """resnet/Train.scala:34 cifar10Decay."""
+    if epoch >= 122:
+        return 2.0
+    if epoch >= 81:
+        return 1.0
+    return 0.0
+
+
+def imagenet_decay(epoch: int) -> float:
+    """fb.resnet's step schedule: x0.1 every 30 epochs."""
+    return float(epoch // 30)
+
+
+def _report(opt) -> None:
+    print(f"final loss: {opt.driver_state['Loss']:.4f}")
+    if opt.resumed_from is not None:
+        print(f"resumed from {opt.resumed_from['path']} at neval "
+              f"{opt.resumed_from['neval']}")
+    rows = sum(h["rows"] for h in opt.history)
+    seconds = sum(h["seconds"] for h in opt.history)
+    print(f"throughput: {rows / max(seconds, 1e-9):.1f} images/s over "
+          f"{len(opt.history)} steps")
+
+
+def _sgd(args, decay):
+    from bigdl_tpu_torch.optim import SGD, EpochDecay
+    return SGD(learning_rate=args.learningRate or 0.1,
+               learning_rate_decay=0.0, weight_decay=args.weightDecay,
+               momentum=0.9, dampening=0.0, nesterov=args.nesterov,
+               learning_rate_schedule=EpochDecay(decay))
+
+
+def _train_imagenet(args, model_of):
+    """The ResNet-50 ImageNet recipe on ``--synthetic`` rows."""
+    import numpy as np
+
+    from bigdl_tpu_torch import nn
+    from bigdl_tpu_torch.models._cli import arrays_to_dataset, wire_optimizer
+    from bigdl_tpu_torch.optim import LocalOptimizer
+
+    bs = args.batchSize or 256
+    depth = args.depth if args.depth is not None else 50
+    if not args.synthetic:
+        raise NotImplementedError(
+            "the ImageNet recipe from a folder (ImageFolderDataSet, color "
+            "jitter, lighting) is not ported yet (ROADMAP queue 1, item "
+            "10); use --synthetic N")
+    rng = np.random.RandomState(0)
+    imgs = rng.rand(args.synthetic, 3, 224, 224).astype(np.float32)
+    lbls = rng.randint(1, args.classNum + 1,
+                       args.synthetic).astype(np.float32)
+    model = model_of(args.classNum, depth, "ImageNet")
+    opt = LocalOptimizer(model, arrays_to_dataset(imgs, lbls, bs),
+                         nn.CrossEntropyCriterion(), batch_size=bs)
+    wire_optimizer(opt, args, _sgd(args, imagenet_decay),
+                   default_epochs=90)
+    opt.optimize()
+    _report(opt)
+    return model
+
+
+def main(argv=None):
+    import argparse
+
+    import torch
+
+    from bigdl_tpu_torch.models._cli import (arrays_to_dataset, base_parser,
+                                             cifar10_arrays, load_model_or,
+                                             wire_optimizer)
+
+    ap = base_parser("Train ResNet on CIFAR-10 / ImageNet")
+    ap.add_argument("--depth", type=int, default=None,
+                    help="default: 20 (cifar10) / 50 (imagenet)")
+    ap.add_argument("--weightDecay", type=float, default=1e-4)
+    ap.add_argument("--nesterov", action=argparse.BooleanOptionalAction,
+                    default=True)
+    ap.add_argument("--dataset", choices=("cifar10", "imagenet"),
+                    default="cifar10")
+    ap.add_argument("--classNum", type=int, default=1000)
+    ap.add_argument("--colorJitter", action=argparse.BooleanOptionalAction,
+                    default=True,
+                    help="ImageNet from a folder only (not ported yet)")
+    ap.add_argument("--lighting", action=argparse.BooleanOptionalAction,
+                    default=True,
+                    help="ImageNet from a folder only (not ported yet)")
+    ap.add_argument("--valFolder", default=None,
+                    help="ImageNet from a folder only (not ported yet)")
+    args = ap.parse_args(argv)
+
+    from bigdl_tpu_torch import nn
+    from bigdl_tpu_torch.models.resnet import ResNet
+    from bigdl_tpu_torch.optim import (LocalOptimizer, Loss, Top1Accuracy,
+                                       Top5Accuracy)
+
+    def model_of(classes, depth, dataset):
+        return load_model_or(args, lambda: ResNet(
+            classes, depth=depth, dataset=dataset, device=args.device,
+            generator=torch.Generator().manual_seed(_WEIGHT_SEED)))
+
+    if args.dataset == "imagenet":
+        return _train_imagenet(args, model_of)
+
+    bs = args.batchSize or 448
+    tr = cifar10_arrays(args.folder, True, args.synthetic)
+    va = cifar10_arrays(args.folder, False, args.synthetic)
+    model = model_of(10, args.depth or 20, "CIFAR10")
+    opt = LocalOptimizer(model, arrays_to_dataset(*tr, bs),
+                         nn.CrossEntropyCriterion(), batch_size=bs)
+    wire_optimizer(opt, args, _sgd(args, cifar10_decay),
+                   val_ds=arrays_to_dataset(*va, bs),
+                   val_methods=[Top1Accuracy(), Top5Accuracy(), Loss()],
+                   default_epochs=165)
+    opt.optimize()
+    _report(opt)
+    return model
+
+
+if __name__ == "__main__":
+    main()

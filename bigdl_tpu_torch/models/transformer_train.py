@@ -125,6 +125,11 @@ def main(argv=None):
     if not args.synthetic:
         raise NotImplementedError(
             "text corpora (-f) are not ported yet; use --synthetic N")
+    for flag in ("model", "state", "checkpoint"):
+        if getattr(args, flag):
+            raise NotImplementedError(
+                f"--{flag}: the TransformerLM recipe's snapshots and "
+                f"checkpoints are not ported yet (ROADMAP queue 1, item 7)")
 
     import torch
 

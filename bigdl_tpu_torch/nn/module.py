@@ -17,9 +17,10 @@ reference contract:
 - weight penalties (:meth:`Module.regularization_loss`,
   :func:`total_regularization`);
 - ``evaluate()`` / ``is_training()``;
-- the parameters as the JAX package's nested numpy tree
-  (``get_parameters`` / ``set_parameters``, through
-  :mod:`bigdl_tpu_torch.convert`), their gradients, and an eager
+- the parameters and the state (buffers) as the JAX package's nested
+  numpy trees (``get_parameters`` / ``set_parameters``, ``get_state``
+  / ``set_state``, through :mod:`bigdl_tpu_torch.convert`), the
+  gradients, and an eager
   ``backward(input, grad_output)`` through autograd;
 - ``predict`` / ``evaluate_on`` sugar over the Predictor and Evaluator.
 
@@ -36,8 +37,8 @@ from typing import Dict, Optional
 import torch
 from torch import nn
 
-from bigdl_tpu_torch.convert import (export_params, load_jax_params,
-                                     param_tree)
+from bigdl_tpu_torch.convert import (export_params, export_state,
+                                     load_jax_params, param_tree)
 from bigdl_tpu_torch.utils.table import Table
 
 __all__ = ["Criterion", "Module", "total_regularization", "weight_penalty"]
@@ -170,6 +171,18 @@ class Module(nn.Module):
         (:func:`bigdl_tpu_torch.convert.load_jax_params`: every
         parameter covered, every leaf used)."""
         load_jax_params(self, params)
+        return self
+
+    def get_state(self) -> Dict[str, object]:
+        """The model state (BatchNormalization's running statistics) as
+        the JAX package's nested state tree of numpy arrays
+        (:func:`bigdl_tpu_torch.convert.export_state`)."""
+        return export_state(self)
+
+    def set_state(self, state) -> "Module":
+        """Copy a JAX-shaped state tree into the buffers in place
+        (every buffer covered, every leaf used)."""
+        load_jax_params(self, None, state)
         return self
 
     def zero_grad_parameters(self) -> "Module":

@@ -3,6 +3,7 @@ from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -44,10 +45,16 @@ class BatchNormalization(Module):
     code: the feature axis is 1 (0 for a 1-D input).
 
     The JAX package's state ``{running_mean, running_var}`` is a pair of
-    buffers here. Evaluation mode normalizes with them in the JAX
-    package's order: ``(x - mean) * rsqrt(var + eps)``, then ``* weight
-    + bias``. Training mode (batch statistics and the running update)
-    comes with the ResNet-50 training step and raises until then. The
+    buffers here. Both modes normalize in the JAX package's order:
+    ``(x - mean) * rsqrt(var + eps)``, then ``* weight + bias``.
+    Evaluation mode takes the running statistics. Training mode takes
+    the batch's, computed as the JAX package computes them: one pass in
+    float32 (a float64 input in float64), ``var = max(E[x^2] - E[x]^2,
+    0)`` (the biased variance normalizes), and updates the buffers in
+    place, outside autograd:
+    ``running = (1 - momentum) * running + momentum * batch``, the
+    variance times the Bessel factor ``n / max(n - 1, 1)``. (Not
+    ``F.batch_norm``: its two-pass variance rounds otherwise.) The
     weight defaults to ``U(0, 1)`` and the bias to zeros, as in the
     reference's ``reset()``; parameters are built on the CPU from
     ``generator``."""
@@ -83,16 +90,39 @@ class BatchNormalization(Module):
         shape[1 if ndim > 1 else 0] = self.n_output
         return v.reshape(shape)
 
-    def forward(self, x):
-        if self.training:
-            raise NotImplementedError(
-                "BatchNormalization training mode (batch statistics and "
-                "the running-average update) is not ported yet; call "
-                ".eval() to normalize with the running statistics")
+    def _batch_statistics(self, x):
+        """The batch's mean and biased variance in ``x``'s dtype, and the
+        running buffers updated in place (the JAX package's op
+        sequence)."""
         ndim = x.ndim
-        inv = torch.rsqrt(self.running_var + self.eps)
-        y = (x - self._reshape(self.running_mean, ndim)) \
-            * self._reshape(inv, ndim)
+        axes = tuple(i for i in range(ndim) if i != (1 if ndim > 1 else 0))
+        # float32 statistics, as the JAX package's; a float64 input keeps
+        # float64, so a float64 run is float64 throughout
+        x32 = x.to(torch.promote_types(x.dtype, torch.float32))
+        mean32 = x32.mean(dim=axes)
+        ex2 = x32.square().mean(dim=axes)
+        var32 = torch.clamp(ex2 - mean32.square(), min=0.0)
+        mean, var = mean32.to(x.dtype), var32.to(x.dtype)
+        n = x.numel() // self.n_output
+        # float32 division, as JAX's; exact in float32, so the scalar
+        # multiplies as the JAX package's cast factor does
+        factor = float(np.float32(n) / np.float32(max(n - 1, 1)))
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.copy_((1 - m) * self.running_mean
+                                    + m * mean.detach())
+            self.running_var.copy_((1 - m) * self.running_var
+                                   + m * (var.detach() * factor))
+        return mean, var
+
+    def forward(self, x):
+        ndim = x.ndim
+        if self.training:
+            mean, var = self._batch_statistics(x)
+        else:
+            mean, var = self.running_mean, self.running_var
+        inv = torch.rsqrt(var + self.eps)
+        y = (x - self._reshape(mean, ndim)) * self._reshape(inv, ndim)
         if self.affine:
             y = y * self._reshape(self.weight, ndim) \
                 + self._reshape(self.bias, ndim)

@@ -2,7 +2,7 @@
 regularizers, triggers, validation methods, the single-card training
 driver, and the local Predictor and Evaluator."""
 from bigdl_tpu_torch.optim.evaluator import Evaluator
-from bigdl_tpu_torch.optim.optim_method import (Default,
+from bigdl_tpu_torch.optim.optim_method import (Default, EpochDecay,
                                                 LearningRateSchedule,
                                                 OptimMethod, SGD)
 from bigdl_tpu_torch.optim.optimizer import (LocalOptimizer, Optimizer,
@@ -20,7 +20,7 @@ from bigdl_tpu_torch.optim.validation import (MAE, AccuracyResult, Loss,
                                               Top5Accuracy, ValidationMethod,
                                               ValidationResult)
 
-__all__ = ["AccuracyResult", "Default", "Evaluator", "L1L2Regularizer",
+__all__ = ["AccuracyResult", "Default", "EpochDecay", "Evaluator", "L1L2Regularizer",
            "L1Regularizer", "L2Regularizer", "LearningRateSchedule",
            "LocalOptimizer", "LocalPredictor", "Loss", "LossResult", "MAE",
            "OptimMethod", "Optimizer", "Predictor", "Regularizer", "SGD",

@@ -7,17 +7,24 @@ returns new parameters and state; the port's updates the parameters and
 the state buffers IN PLACE under ``torch.no_grad()``, so a step
 allocates no second copy of the weights.
 
-Ported: the ``Default`` schedule and :class:`SGD`. Not ported yet: the
-other schedules (Step, MultiStep, EpochStep, Poly, Plateau, Warmup,
-...) and the other methods (Adam, Adagrad, LBFGS, ...).
+A checkpoint holds the method's host state (:meth:`OptimMethod.get_state`)
+and its buffers as the JAX package's opt_state tree: SGD's momentum is
+``{"v": param tree}`` there and one list in ``named_parameters`` order
+here (:meth:`OptimMethod.state_tree`, :meth:`OptimMethod.load_state_tree`).
+
+Ported: the ``Default`` and ``EpochDecay`` schedules and :class:`SGD`.
+Not ported yet: the other schedules (Step, MultiStep, EpochStep, Poly,
+Plateau, Warmup, ...) and the other methods (Adam, Adagrad, LBFGS, ...).
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Sequence
+from typing import Any, Callable, Dict, List, Optional, Sequence
 
+import numpy as np
 import torch
 
-__all__ = ["Default", "LearningRateSchedule", "OptimMethod", "SGD"]
+__all__ = ["Default", "EpochDecay", "LearningRateSchedule", "OptimMethod",
+           "SGD"]
 
 
 class LearningRateSchedule:
@@ -39,6 +46,18 @@ class Default(LearningRateSchedule):
         return lr
 
 
+class EpochDecay(LearningRateSchedule):
+    """``lr * 0.1 ** decay_fn(epoch)`` (SGD.scala EpochDecay), the epoch
+    read from the method's state."""
+
+    def __init__(self, decay_fn: Callable[[int], float]):
+        self.decay_fn = decay_fn
+
+    def update(self, optim):
+        epoch = optim.state.get("epoch", 1)
+        return optim.learning_rate * (0.1 ** self.decay_fn(epoch))
+
+
 class OptimMethod:
     """Base optimizer. ``state`` is the host dict of counters (epoch,
     neval, evalCounter) the driver and the schedule share; the device
@@ -56,6 +75,40 @@ class OptimMethod:
 
     def _compute_lr(self) -> float:
         return 0.0
+
+    def get_state(self) -> Dict[str, Any]:
+        """A copy of the host state (what a checkpoint keeps)."""
+        return dict(self.state)
+
+    def load_state(self, state: Dict[str, Any]) -> "OptimMethod":
+        self.state.update(state)
+        return self
+
+    @staticmethod
+    def state_tree(opt_state: Dict[str, Any],
+                   tree_of: Callable[[Sequence[torch.Tensor]], Any]
+                   ) -> Dict[str, Any]:
+        """The buffers as the JAX package's opt_state tree: each list
+        of per-parameter tensors through ``tree_of`` (tensors in
+        ``named_parameters`` order -> the param tree's shape)."""
+        return {k: tree_of(v) if isinstance(v, list) else v
+                for k, v in opt_state.items()}
+
+    @staticmethod
+    def load_state_tree(opt_state: Dict[str, Any], tree,
+                        leaves_of: Callable[[Any], List[np.ndarray]]
+                        ) -> None:
+        """Copy a JAX opt_state tree into the buffers in place:
+        ``leaves_of`` turns a param-shaped tree into arrays in
+        ``named_parameters`` order. The keys must be the buffers'."""
+        if set(tree) != set(opt_state):
+            raise KeyError(f"optimizer state keys {sorted(tree)} != this "
+                           f"method's {sorted(opt_state)}")
+        with torch.no_grad():
+            for key, bufs in opt_state.items():
+                if isinstance(bufs, list):
+                    for t, a in zip(bufs, leaves_of(tree[key]), strict=True):
+                        t.copy_(torch.from_numpy(np.array(a)))
 
     def init_state(self, params: Sequence[torch.Tensor]) -> Dict[str, Any]:
         """Device buffers for ``params`` (a list of tensors)."""

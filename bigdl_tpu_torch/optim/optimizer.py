@@ -10,9 +10,16 @@ optional clipping, then the OptimMethod's in-place update — and keeps
 the driver's host loop: per-iteration learning rate from the
 OptimMethod, ``driver_state`` counters synced into
 ``optim_method.state``, a reshuffle at each epoch rollover, then the
-validation trigger.
+validation trigger, then the checkpoint trigger.
 
-Not ported yet: checkpoints and resume, train and validation summaries,
+Checkpoints are the JAX package's format 2
+(:mod:`bigdl_tpu_torch.utils.serialization`), written synchronously, and
+``optimize()`` resumes from the newest intact one under the checkpoint
+path (a corrupt one is quarantined and the walk goes back), so a run
+checkpointed by either package resumes in the other.
+
+Not ported yet: the elastic checkpoint options (``keep_last``,
+``async_write``) and fault points, train and validation summaries,
 ``set_steps_per_sync`` windows, ZeRO, precision policies and loss
 scaling, sequence parallelism, failure retry and preemption, device-fed
 and device-cached datasets, and the multi-card ``DistriOptimizer``.
@@ -20,11 +27,15 @@ and device-cached datasets, and the multi-card ``DistriOptimizer``.
 from __future__ import annotations
 
 import logging
+import os
 import time
 from typing import Any, Dict, List, Optional, Sequence
 
 import torch
 
+from bigdl_tpu_torch.convert import (export_params, export_state,
+                                     flatten_params, jax_tree,
+                                     load_jax_params)
 from bigdl_tpu_torch.dataset.dataset import AbstractDataSet
 from bigdl_tpu_torch.dataset.sample import MiniBatch
 from bigdl_tpu_torch.nn.module import Criterion, Module
@@ -41,7 +52,7 @@ logger = logging.getLogger(__name__)
 def build_train_step(module: Module, criterion: Criterion,
                      optim_method: OptimMethod, gradient_clip=None):
     """One training step, ``step(inputs, targets, lr) -> loss``, in the
-    JAX package's order: forward in training mode, loss plus
+    JAX package's order: forward, loss plus
     ``module.regularization_loss()``, backward, each gradient times its
     ``module.param_scales()`` factor (0 for a frozen layer), then
     ``gradient_clip`` — ``("constant", min, max)`` clamps every gradient
@@ -51,10 +62,12 @@ def build_train_step(module: Module, criterion: Criterion,
     penalty (a detached 0-d tensor on the module's device; reading it is
     the caller's sync).
 
-    The scales are read when the step is built, as the JAX package reads
-    them when it traces its step. The OptimMethod's buffers
-    (``init_state`` over the module's parameters, in ``named_parameters``
-    order) live in ``step.opt_state``."""
+    The module is put in training mode when the step is built (a layer
+    set to evaluation mode after that stays so, as in a torch loop);
+    the scales are read then too, as the JAX package reads them when it
+    traces its step. The OptimMethod's buffers (``init_state`` over the
+    module's parameters, in ``named_parameters`` order) live in
+    ``step.opt_state``."""
     if gradient_clip is not None and gradient_clip[0] not in (
             "constant", "l2norm"):
         raise ValueError(
@@ -66,9 +79,9 @@ def build_train_step(module: Module, criterion: Criterion,
     scales = module.param_scales()
     factors = [scales[name] for name, _ in named]
     scaled = any(f != 1.0 for f in factors)
+    module.train()
 
     def step(inputs, targets, lr: float):
-        module.train()
         for p in params:
             p.grad = None
         loss = criterion(module(inputs), targets)
@@ -131,7 +144,9 @@ class Optimizer:
     validation); ``history`` keeps one record per step (``neval``,
     ``epoch``, ``loss``, ``lr``, ``rows``, ``seconds`` — the step's wall
     time, batch transfer included), ``validation_history`` each
-    validation's ``{method name: value}``."""
+    validation's ``{method name: value}``, ``resumed_from`` the
+    checkpoint the last ``optimize()`` resumed from (``{"path",
+    "neval"}``, or None)."""
 
     def __init__(self, model: Module, dataset: AbstractDataSet,
                  criterion: Criterion, batch_size: int = 32):
@@ -150,6 +165,10 @@ class Optimizer:
                                              "recordsProcessedThisEpoch": 0}
         self.history: List[Dict[str, float]] = []
         self.validation_history: List[Dict[str, float]] = []
+        self.checkpoint_path: Optional[str] = None
+        self.checkpoint_trigger: Optional[Trigger] = None
+        self.is_overwrite = False
+        self.resumed_from: Optional[Dict[str, Any]] = None
 
     def set_optim_method(self, method: OptimMethod) -> "Optimizer":
         self.optim_method = method
@@ -170,6 +189,41 @@ class Optimizer:
         self.validation_dataset = dataset
         self.validation_methods = list(methods)
         self._val_batch_size = batch_size or self.batch_size
+        return self
+
+    def set_checkpoint(self, path: str, trigger: Trigger, *,
+                       keep_last: Optional[int] = None,
+                       async_write: bool = False) -> "Optimizer":
+        """Checkpoint into the directory ``path`` whenever ``trigger``
+        fires after a step (Optimizer.scala:207 setCheckpoint), as
+        ``checkpoint.<neval>`` (``checkpoint`` after
+        :meth:`overwrite_checkpoint`); ``optimize()`` resumes from the
+        newest intact checkpoint there. The elastic options
+        (``keep_last``, ``async_write``) are not ported and raise."""
+        if keep_last is not None or async_write:
+            raise NotImplementedError(
+                "set_checkpoint(keep_last=, async_write=): the elastic "
+                "checkpoint writer is not ported yet (ROADMAP queue 1, "
+                "item 12)")
+        from bigdl_tpu_torch.utils import file_io
+        file_io.makedirs(path)
+        self.checkpoint_path = path
+        self.checkpoint_trigger = trigger
+        return self
+
+    def overwrite_checkpoint(self) -> "Optimizer":
+        """Write every checkpoint to the one name ``checkpoint``."""
+        self.is_overwrite = True
+        return self
+
+    def set_state(self, state: Dict[str, Any]) -> "Optimizer":
+        """Seed the driver's counters (Optimizer.scala:240 setState);
+        ``epoch`` and ``neval`` also reach the OptimMethod's state, so a
+        schedule starts from the seeded position."""
+        self.driver_state.update(dict(state))
+        for k in ("epoch", "neval"):
+            if k in state:
+                self.optim_method.state[k] = state[k]
         return self
 
     def set_constant_gradient_clipping(self, min_value: float,
@@ -198,6 +252,54 @@ class Optimizer:
     def _device(self) -> torch.device:
         return next(self.model.parameters()).device
 
+    def _param_names(self) -> List[str]:
+        return [name for name, _ in self.model.named_parameters()]
+
+    def _checkpoint(self, step) -> None:
+        """Write the run's state as a format-2 checkpoint: the params,
+        the OptimMethod's buffers and the model state as the JAX
+        package's trees, its host state and the driver's counters."""
+        from bigdl_tpu_torch.utils.serialization import save_checkpoint
+        suffix = "" if self.is_overwrite else f".{self.driver_state['neval']}"
+        path = os.path.join(self.checkpoint_path, f"checkpoint{suffix}")
+        names = self._param_names()
+        opt_state = self.optim_method.state_tree(
+            step.opt_state, lambda ts: jax_tree(self.model, zip(names, ts)))
+        save_checkpoint(path, params=export_params(self.model),
+                        opt_state=opt_state,
+                        model_state=export_state(self.model),
+                        optim_host_state=self.optim_method.get_state(),
+                        driver_state=dict(self.driver_state))
+        logger.info("checkpointed to %s", path)
+
+    def _try_resume(self) -> Optional[Dict[str, Any]]:
+        """The newest intact checkpoint under the checkpoint path, or
+        None. One that fails to load (a digest that does not match, a
+        missing file) is quarantined to ``*.corrupt-<pid>`` and the walk
+        goes back to the one before; where the quarantine rename fails
+        the error propagates."""
+        from bigdl_tpu_torch.utils.serialization import (
+            LOAD_ERRORS, find_latest_checkpoint, load_checkpoint,
+            quarantine_checkpoint)
+        if not self.checkpoint_path:
+            return None
+        while True:
+            latest = find_latest_checkpoint(self.checkpoint_path)
+            if latest is None:
+                return None
+            try:
+                ck = load_checkpoint(latest)
+            except LOAD_ERRORS as e:
+                logger.warning("checkpoint %s unreadable (%s: %s); "
+                               "quarantining and walking back", latest,
+                               type(e).__name__, e)
+                if quarantine_checkpoint(latest) is None:
+                    raise
+                continue
+            logger.warning("resuming from %s", latest)
+            ck["path"] = latest
+            return ck
+
     def optimize(self) -> Module:
         """Run the loop until the end trigger (default ``max_epoch(10)``)
         fires; returns the trained model (updated in place)."""
@@ -205,11 +307,36 @@ class Optimizer:
         model.train()
         device = self._device()
         state = self.driver_state
+        resumed = self._try_resume()
+        self.resumed_from = None
+        if resumed is not None:
+            load_jax_params(model, resumed["params"],
+                            resumed["model_state"])
+            self.optim_method.load_state(resumed["optim_host_state"])
+            state.update(resumed["driver_state"])
+            # a streaming pipeline's cursor: the port has no pipeline
+            state.pop("datapipe", None)
+            self.resumed_from = {"path": resumed["path"],
+                                 "neval": state["neval"]}
         # epoch/iteration-driven schedules read the OptimMethod's state
         for k in ("epoch", "neval"):
             self.optim_method.state[k] = state[k]
         step = build_train_step(model, self.criterion, self.optim_method,
                                 self._gradient_clip)
+        if resumed is not None:
+            names = self._param_names()
+
+            def leaves_of(tree):
+                flat = flatten_params(tree)
+                if set(flat) != set(names):
+                    raise KeyError(
+                        f"optimizer state tree does not match the "
+                        f"parameters: missing {sorted(set(names) - set(flat))}"
+                        f", unexpected {sorted(set(flat) - set(names))}")
+                return [flat[n] for n in names]
+
+            self.optim_method.load_state_tree(
+                step.opt_state, resumed["opt_state"], leaves_of)
         end_when = self.end_when or max_epoch(10)
         ds_size = self.dataset.size()
         data_iter = self.dataset.data(train=True)
@@ -262,6 +389,9 @@ class Optimizer:
                                     "learning_rate_schedule", None)
                     if hasattr(sched, "record_metric"):
                         sched.record_metric(state["score"])
+            if (self.checkpoint_trigger is not None
+                    and self.checkpoint_trigger(state)):
+                self._checkpoint(step)
         logger.info("training done in %.1fs",
                     time.perf_counter() - wall_start)
         return model

@@ -14,9 +14,12 @@ tree), optionally calibrated (``calibration=``) and certified against
 the float model by an accuracy gate (``accuracy_gate=``) before
 anything is staged.
 
-Not ported yet: loading from a checkpoint path (``path=``, with the
-checkpoint slice) and the pre-flight shape check (``input_spec=``,
-with the analysis slice); both raise NotImplementedError.
+``path=`` loads a module saved by either package's ``save_module``
+(:func:`bigdl_tpu_torch.utils.serialization.load_module`) onto
+``device`` and registers it in evaluation mode.
+
+Not ported yet: the pre-flight shape check (``input_spec=``, with the
+analysis slice); it raises NotImplementedError.
 """
 from __future__ import annotations
 
@@ -65,9 +68,11 @@ class ModelRegistry:
     def load(self, name: str, model: Optional[nn.Module] = None, *,
              path: Optional[str] = None, version: Optional[int] = None,
              quantize: bool = False, calibration=None, accuracy_gate=None,
-             activate: bool = True, input_spec=None) -> Servable:
+             activate: bool = True, input_spec=None,
+             device=None) -> Servable:
         """Register ``model`` as a version of ``name`` (the next free
-        number by default). ``activate=False`` stages it only — even
+        number by default), or the module saved at ``path``, loaded on
+        ``device`` (the card by default) in evaluation mode. ``activate=False`` stages it only — even
         for a fresh name — so a caller can warm it before any traffic
         resolves it; :meth:`swap` makes it current.
 
@@ -83,9 +88,9 @@ class ModelRegistry:
         if (model is None) == (path is None):
             raise ValueError("pass exactly one of model= or path=")
         if path is not None:
-            raise NotImplementedError(
-                "ModelRegistry.load(path=): loading a saved module waits "
-                "for the port's checkpoint slice; pass model=")
+            from bigdl_tpu_torch.utils.serialization import load_module
+            # a fresh instance: the registry owns it
+            model = load_module(path, device=device).eval()
         if input_spec is not None:
             raise NotImplementedError(
                 "ModelRegistry.load(input_spec=): the pre-flight shape "

@@ -113,7 +113,9 @@ class InferenceService:
              warmup_dtype: torch.dtype = torch.float32) -> Servable:
         """Registry load + (optionally) eager per-rung warmup.
 
-        ``model`` must be in evaluation mode on the service's device.
+        ``model`` must be in evaluation mode on the service's device;
+        ``path`` names a module saved by either package's
+        ``save_module``, loaded there in evaluation mode.
         With ``warmup_shape`` (per-sample feature shape, no batch dim)
         the version is registered inactive, every ladder rung is built
         and run once, and only then swapped in — a hot-swap under live
@@ -136,7 +138,7 @@ class InferenceService:
         servable = self.registry.load(
             name, model, path=path, version=version, quantize=quantize,
             calibration=calibration, accuracy_gate=accuracy_gate,
-            activate=False)
+            activate=False, device=self.device)
         if warmup_shape is not None:
             self.cache.warmup(servable.key, servable.model, warmup_shape,
                               self.ladder, warmup_dtype)

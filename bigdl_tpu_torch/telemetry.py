@@ -20,7 +20,7 @@ from typing import Dict, List, Tuple
 import numpy as np
 
 __all__ = ["Counter", "Gauge", "Histogram", "MetricsRegistry", "REGISTRY",
-           "counter", "gauge", "percentile_summary"]
+           "counter", "gauge", "histogram", "percentile_summary"]
 
 LabelKey = Tuple[Tuple[str, str], ...]
 
@@ -168,3 +168,8 @@ def counter(name: str, description: str = "") -> Counter:
 def gauge(name: str, description: str = "") -> Gauge:
     """A gauge in the process-wide :data:`REGISTRY`."""
     return REGISTRY.gauge(name, description)
+
+
+def histogram(name: str, description: str = "") -> Histogram:
+    """A histogram in the process-wide :data:`REGISTRY`."""
+    return REGISTRY.histogram(name, description)

@@ -106,7 +106,29 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    requests by both names: K5 launched once per int8 forward, served
    int8 rows bitwise the direct forward, int8 on and off bitwise equal,
    at most one program per rung, cuDNN TF32 off; images/s, latency
-   percentiles and a profiled window of each.
+   percentiles and a profiled window of each;
+9. LeNet-5 (``phase_lenet``) — the recipe's ``train.main`` and
+   ``test.main`` at MNIST's size on synthetic rows, a separable task to
+   a held-out Top1 of 0.95, 10 steps card against CPU within 1e-4 (a
+   frozen ``fc2`` must fail it), the Evaluator and Predictor against the
+   driver's validation, and a profiled window;
+10. ResNet-50 training (``phase_resnet_train``, BASELINE config 3) — the
+   ImageNet recipe's ``train.main`` at batch 256 on 1024 synthetic rows,
+   2 epochs with a checkpoint at each epoch's end, then a second call
+   with ``-e 3`` that must resume from the newest checkpoint (its neval
+   printed) and take 4 steps; 4 epochs of one 64-row batch straight
+   against 2, a resume and 2 more (parameters and BN statistics within
+   1e-5, the last loss within 1e-5 relative; cuDNN's deterministic
+   algorithms for these runs); a flipped byte in the newest checkpoint
+   raises ``CheckpointCorrupt`` and a fresh run quarantines it and
+   resumes from the one before; 3 steps at batch 4 card against CPU in
+   float64 within 1e-4 (losses relative, parameters and BN statistics
+   absolute; float32's own rounding on this problem is as large as the
+   gap, so float32 is reported, not gated), one BN in evaluation mode
+   must fail it; a profiled window of 10 steps at batch 256 (ms a step,
+   idle share, busiest kernels, peak memory), checkpoint bytes and
+   save / load seconds. No kernel of the ``kernels`` line may launch
+   in phases 9 and 10.
 
 Float32 throughout, with TF32 off for matrix products (set here) and for
 convolutions (PyTorch's default is on; the port's convolution layers
@@ -168,6 +190,19 @@ LENET_TRAIN_ROWS, LENET_HELD_ROWS, LENET_TOP1, LENET_EPOCHS = \
 #: the parameters (absolute)
 LENET_PARITY_STEPS, LENET_LOSS_RTOL, LENET_PARAM_ATOL = 10, 1e-4, 1e-4
 LENET_PROFILE_STEPS = 20
+
+# ---- the ResNet-50 training slice (BASELINE config 3: ImageNet, batch 256,
+# SGD lr 0.1, momentum 0.9, nesterov, weight decay 1e-4, EpochDecay) ----
+RT_ROWS, RT_BATCH, RT_EPOCHS, RT_PROFILE_STEPS = 1024, 256, 2, 10
+#: (b) resume against an uninterrupted run: one batch of rows (an epoch
+#: a step), epochs, and the limits on parameters and BN statistics
+#: (absolute) and the last loss (relative)
+RT_RESUME_BATCH, RT_RESUME_EPOCHS = 64, 4
+RT_RESUME_ATOL, RT_RESUME_LOSS_RTOL = 1e-5, 1e-5
+#: (d) card against CPU: batch, steps, seed of the rows, and the limits
+#: on the losses (relative) and parameters and BN statistics (absolute)
+RT_PARITY_BATCH, RT_PARITY_STEPS, RT_PARITY_SEED = 4, 3, 24
+RT_PARITY_LOSS_RTOL, RT_PARITY_ATOL = 1e-4, 1e-4
 
 # ---- K5 and K4 shapes ----
 INT8_EDGE_M, INT8_EDGE_N, INT8_EDGE_K = (1, 7, 64, 65, 300), \
@@ -1511,17 +1546,18 @@ def _gradient_fault(fault, function):
 
 
 def profile_train(model, crit, batches, device, phase="train-profile",
-                  lr=TRAIN_LR) -> dict:
+                  lr=TRAIN_LR, method=None) -> dict:
     """Where a training step's time goes: the steps of ``batches[1:]``
     (after one warm step) under ``torch.profiler``, reporting
     wall-clock, device time by kernel and the device's idle share.
-    Returns the numbers."""
+    ``method`` is the OptimMethod (default plain SGD at ``lr``).
+    Returns the numbers, the busiest kernels under ``top``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from bigdl_tpu_torch.optim import SGD, build_train_step
 
-    step = build_train_step(model, crit, SGD(learning_rate=lr))
+    step = build_train_step(model, crit, method or SGD(learning_rate=lr))
     float(step(*batches[0], lr))                  # warm
     on_card = device == "cuda"
     acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
@@ -1537,12 +1573,20 @@ def profile_train(model, crit, batches, device, phase="train-profile",
         time.sleep(WINDOW_MARGIN_S)
     kernels = device_kernels(prof)
     busy_ms = sum(k[0] for k in kernels)
+    # more device time than wall time: the window lost or mis-timed
+    # kernels (seen once in a ResNet-50 window of 10 steps, which held 7
+    # steps' convolutions); its busy time measures nothing
+    read = bool(kernels) and busy_ms <= wall_ms
+    if kernels and not read:
+        log(phase, f"the profiler window read {busy_ms:.1f} ms of device "
+                   f"time in {wall_ms:.1f} ms of wall: not measured")
     numbers = {
         "steps": len(batches) - 1, "wall_ms": wall_ms,
         "wall_ms_per_step": wall_ms / (len(batches) - 1),
-        "device_busy_ms": busy_ms if kernels else "not measured",
-        "device_idle_share": (1 - busy_ms / wall_ms) if kernels
-        else "not measured"}
+        "device_busy_ms": busy_ms if read else "not measured",
+        "device_idle_share": (1 - busy_ms / wall_ms) if read
+        else "not measured",
+        "top": [[ms, count, key[:90]] for ms, count, key in kernels[:5]]}
     log(phase, json.dumps(numbers))
     for ms, count, key in kernels[:10]:
         log(phase, f"{ms:9.3f} ms {count:6d}x  {key[:90]}")
@@ -2854,6 +2898,283 @@ def phase_lenet(counters, device="cuda"):
     return launches, summary
 
 
+def _recipe_sgd():
+    """The ImageNet recipe's SGD (``resnet.train``): lr 0.1, momentum
+    0.9, nesterov, weight decay 1e-4, ``EpochDecay(imagenet_decay)``."""
+    from bigdl_tpu_torch.models.resnet.train import imagenet_decay
+    from bigdl_tpu_torch.optim import SGD, EpochDecay
+
+    return SGD(learning_rate=0.1, weight_decay=1e-4, momentum=0.9,
+               dampening=0.0, nesterov=True,
+               learning_rate_schedule=EpochDecay(imagenet_decay))
+
+
+def _resnet50(device, dtype=None):
+    """The recipe's ResNet-50 (ImageNet, 1000 classes, its weight seed)
+    on ``device``, in ``dtype`` if given."""
+    import torch
+
+    from bigdl_tpu_torch.models import ResNet
+    from bigdl_tpu_torch.models.resnet.train import _WEIGHT_SEED
+
+    model = ResNet(RESNET_CLASSES, depth=50, dataset="ImageNet",
+                   device=device,
+                   generator=torch.Generator().manual_seed(_WEIGHT_SEED))
+    return model if dtype is None else model.to(dtype)
+
+
+def _resnet_steps(batches, device, dtype, fault=False):
+    """``RT_PARITY_STEPS`` steps of the recipe's SGD from the recipe's
+    weights on ``batches``, in ``dtype`` on ``device``; ``fault`` sets
+    one BN (layer1's first 1x1 block's) to evaluation mode after the
+    step is built. Returns the losses, params and BN state."""
+    import torch
+
+    from bigdl_tpu_torch.nn import CrossEntropyCriterion
+    from bigdl_tpu_torch.optim import build_train_step
+
+    model, method = _resnet50(device, dtype), _recipe_sgd()
+    step = build_train_step(model, CrossEntropyCriterion(), method)
+    if fault:
+        model[4][0][0][0][1].evaluate()
+    losses = []
+    for x, y in batches:
+        lr = method.update_hyper_parameter()
+        losses.append(float(step(torch.from_numpy(x).to(device, dtype),
+                                 torch.from_numpy(y).to(device, dtype), lr)))
+    return losses, model.get_parameters(), model.get_state()
+
+
+def _resnet_parity(want, got):
+    """(largest relative loss difference, largest absolute parameter or
+    BN-statistic difference) of two ``_resnet_steps`` results."""
+    loss = max(abs(g - w) / abs(w) for g, w in zip(got[0], want[0]))
+    return loss, max(_max_param_diff(got[1], want[1]),
+                     _max_param_diff(got[2], want[2]))
+
+
+def phase_resnet_train(counters, device="cuda"):
+    """The ResNet-50 training slice (BASELINE config 3) on ``device``:
+    (a) the ImageNet recipe at full width, ``-e 2`` with checkpoints,
+    then ``-e 3`` resuming from the newest; (b) a resumed run against an
+    uninterrupted one; (c) a corrupt checkpoint caught and quarantined;
+    (d) the card against the CPU, with one BN in evaluation mode as the
+    fault the check must catch; (e) a profiled window of training
+    steps. No kernel of the ``kernels`` line is on this path: the counts
+    are set to 0 first and must read 0 at the end. Returns the launches
+    and the numbers."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    from bigdl_tpu_torch import telemetry
+    from bigdl_tpu_torch.dataset import DataSet, MiniBatch
+    from bigdl_tpu_torch.models.resnet import train as resnet_train
+    from bigdl_tpu_torch.nn import CrossEntropyCriterion
+    from bigdl_tpu_torch.optim import LocalOptimizer, every_epoch, max_epoch
+    from bigdl_tpu_torch.utils.engine import full_float32
+    from bigdl_tpu_torch.utils.serialization import (
+        CheckpointCorrupt, list_complete_checkpoints, load_checkpoint)
+
+    full_float32()
+    for fn in counters.values():
+        fn.launches = 0
+    saves = telemetry.histogram("train/checkpoint/save_s")
+    loads = telemetry.histogram("train/checkpoint/load_s")
+    summary = {}
+    root = tempfile.mkdtemp(prefix="chip-smoke-resnet-")
+    try:
+        # (a) the recipe: 2 epochs of 4 steps, a checkpoint at each
+        # epoch's end; then -e 3 resumes from the newest and takes 4 more
+        ck = os.path.join(root, "recipe")
+        argv = ["--dataset", "imagenet", "--depth", "50", "--synthetic",
+                str(RT_ROWS), "-b", str(RT_BATCH), "--checkpoint", ck,
+                "--device", device]
+        n_saves, n_loads = saves.count(), loads.count()
+        calls = []
+        for epochs in (RT_EPOCHS, RT_EPOCHS + 1):
+            t0 = time.perf_counter()
+            model, out = _run_cli("resnet-train", resnet_train.main,
+                                  argv + ["-e", str(epochs)])
+            resumed = re.search(r"resumed from (\S+) at neval (\d+)", out)
+            calls.append({
+                "epochs": epochs, "seconds": time.perf_counter() - t0,
+                "final_loss": float(re.search(r"final loss: (\S+)",
+                                              out).group(1)),
+                "images_per_s": float(re.search(
+                    r"throughput: (\S+) images/s", out).group(1)),
+                "steps": int(re.search(r"over (\d+) steps", out).group(1)),
+                "resumed_from": resumed and [resumed.group(1),
+                                             int(resumed.group(2))]})
+        per_epoch = RT_ROWS // RT_BATCH
+        names = sorted(os.listdir(ck))
+        summary["recipe"] = calls
+        if not (calls[0]["resumed_from"] is None
+                and calls[0]["steps"] == RT_EPOCHS * per_epoch
+                and calls[1]["resumed_from"] is not None
+                and calls[1]["resumed_from"][0].endswith(
+                    f"checkpoint.{RT_EPOCHS * per_epoch + 1}")
+                and calls[1]["resumed_from"][1] == RT_EPOCHS * per_epoch + 1
+                and calls[1]["steps"] == per_epoch
+                and names == sorted(f"checkpoint.{e * per_epoch + 1}"
+                                    for e in range(1, RT_EPOCHS + 2))
+                and all(np.isfinite(c["final_loss"]) for c in calls)
+                and next(model.parameters()).device.type == device):
+            raise AssertionError(f"ResNet-50 recipe: {calls}, {names}")
+        newest = os.path.join(ck, names[-1])
+        summary["checkpoint"] = {
+            "bytes": sum(os.path.getsize(os.path.join(newest, f))
+                         for f in os.listdir(newest)),
+            "save_s": saves.samples()[-(saves.count() - n_saves):],
+            "load_s": loads.samples()[-(loads.count() - n_loads):]}
+        del model
+        log("resnet-train", json.dumps(summary))
+
+        # (b) resumed against uninterrupted: 64 rows as one MiniBatch,
+        # so each epoch is one step over the rows in one order; cuDNN's
+        # deterministic algorithms, so two runs over the same state agree
+        r = np.random.RandomState(0)
+        rows = MiniBatch(
+            r.rand(RT_RESUME_BATCH, 3, IMAGE, IMAGE).astype(np.float32),
+            r.randint(1, RESNET_CLASSES + 1,
+                      RT_RESUME_BATCH).astype(np.float32))
+
+        def run(ckdir, epochs):
+            opt = LocalOptimizer(_resnet50(device), DataSet.array([rows]),
+                                 CrossEntropyCriterion(),
+                                 batch_size=RT_RESUME_BATCH)
+            opt.set_optim_method(_recipe_sgd())
+            opt.set_checkpoint(ckdir, every_epoch())
+            opt.set_end_when(max_epoch(epochs))
+            opt.optimize()
+            return opt
+
+        torch.backends.cudnn.deterministic = True
+        try:
+            straight = run(os.path.join(root, "straight"), RT_RESUME_EPOCHS)
+            resumed_dir = os.path.join(root, "resumed")
+            run(resumed_dir, RT_RESUME_EPOCHS // 2)
+            resumed = run(resumed_dir, RT_RESUME_EPOCHS)
+        finally:
+            torch.backends.cudnn.deterministic = False
+        param_err = _max_param_diff(resumed.model.get_parameters(),
+                                    straight.model.get_parameters())
+        state_err = _max_param_diff(resumed.model.get_state(),
+                                    straight.model.get_state())
+        loss_err = abs(resumed.history[-1]["loss"]
+                       - straight.history[-1]["loss"]) \
+            / abs(straight.history[-1]["loss"])
+        summary["resume"] = {
+            "losses_straight": [h["loss"] for h in straight.history],
+            "losses_resumed": [h["loss"] for h in resumed.history],
+            "resumed_from": resumed.resumed_from,
+            "param_diff": param_err, "bn_state_diff": state_err,
+            "last_loss_rel_diff": loss_err}
+        log("resnet-resume", json.dumps(summary["resume"]))
+        if not (resumed.resumed_from["neval"] == RT_RESUME_EPOCHS // 2 + 1
+                and len(resumed.history) == RT_RESUME_EPOCHS // 2
+                and param_err <= RT_RESUME_ATOL
+                and state_err <= RT_RESUME_ATOL
+                and loss_err <= RT_RESUME_LOSS_RTOL):
+            raise AssertionError(f"resumed != uninterrupted: "
+                                 f"{summary['resume']}")
+        del straight, resumed
+
+        # (c) one flipped byte in the newest checkpoint's params.npz; a
+        # fresh run must quarantine it and resume from the one before
+        complete = list_complete_checkpoints(resumed_dir)
+        newest, previous = complete[-1][1], complete[-2]
+        npz = os.path.join(newest, "params.npz")
+        with open(npz, "r+b") as f:
+            f.seek(os.path.getsize(npz) // 2)
+            byte = f.read(1)
+            f.seek(-1, 1)
+            f.write(bytes([byte[0] ^ 0xFF]))
+        try:
+            load_checkpoint(newest)
+        except CheckpointCorrupt as e:
+            log("resnet-corrupt", f"load_checkpoint raised: {e}")
+        else:
+            raise AssertionError("a flipped byte passed load_checkpoint")
+        again = run(resumed_dir, RT_RESUME_EPOCHS + 1)
+        left = sorted(os.listdir(resumed_dir))
+        summary["corrupt"] = {"resumed_from": again.resumed_from,
+                              "dirs": left}
+        log("resnet-corrupt", json.dumps(summary["corrupt"]))
+        if not (again.resumed_from["path"] == previous[1]
+                and again.resumed_from["neval"] == previous[0][0]
+                and any(n.startswith(os.path.basename(newest)
+                                     + ".corrupt-") for n in left)):
+            raise AssertionError(f"corrupt checkpoint: {summary['corrupt']}")
+        del again
+
+        # (d) the card against the CPU, in float64 (gated) and float32
+        # (reported: float32's own rounding on this problem, CPU float32
+        # against CPU float64, is of the same size as their gap)
+        r = np.random.RandomState(RT_PARITY_SEED)
+        batches = [(r.rand(RT_PARITY_BATCH, 3, IMAGE, IMAGE)
+                    .astype(np.float32),
+                    r.randint(1, RESNET_CLASSES + 1, RT_PARITY_BATCH)
+                    .astype(np.float32)) for _ in range(RT_PARITY_STEPS)]
+        cpu64 = _resnet_steps(batches, "cpu", torch.float64)
+        cpu32 = _resnet_steps(batches, "cpu", torch.float32)
+        card64 = _resnet_steps(batches, device, torch.float64)
+        card32 = _resnet_steps(batches, device, torch.float32)
+        fault64 = _resnet_steps(batches, device, torch.float64, fault=True)
+        parity = {
+            "float64": _resnet_parity(cpu64, card64),
+            "float64, one BN in evaluation mode": _resnet_parity(cpu64,
+                                                                 fault64),
+            "float32": _resnet_parity(cpu32, card32),
+            "cpu float32 against cpu float64": _resnet_parity(cpu64, cpu32),
+            "losses": {"cpu64": cpu64[0], "card64": card64[0],
+                       "cpu32": cpu32[0], "card32": card32[0],
+                       "fault64": fault64[0]}}
+        summary["parity"] = parity
+        log("resnet-parity", json.dumps(parity))
+        loss_err, param_err = parity["float64"]
+        if not (loss_err <= RT_PARITY_LOSS_RTOL
+                and param_err <= RT_PARITY_ATOL):
+            raise AssertionError(f"card vs CPU: {parity['float64']}")
+        loss_err, param_err = parity["float64, one BN in evaluation mode"]
+        if loss_err <= RT_PARITY_LOSS_RTOL and param_err <= RT_PARITY_ATOL:
+            raise AssertionError("the BN-in-evaluation-mode fault passed "
+                                 "the card-vs-CPU check")
+        summary["cudnn_tf32"] = torch.backends.cudnn.allow_tf32
+        if torch.backends.cudnn.allow_tf32:
+            raise AssertionError("cuDNN TF32 is on")
+
+        # (e) where a step's time goes, the batches already on the card
+        g = torch.Generator(device=device).manual_seed(RESNET_SEED)
+        prof_batches = [
+            (torch.rand((RT_BATCH, 3, IMAGE, IMAGE), generator=g,
+                        device=device),
+             torch.randint(1, RESNET_CLASSES + 1, (RT_BATCH,), generator=g,
+                           device=device).float())
+            for _ in range(RT_PROFILE_STEPS + 1)]
+        on_card = device == "cuda"
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        prof = profile_train(_resnet50(device), CrossEntropyCriterion(),
+                             prof_batches, device,
+                             phase="resnet-profile", method=_recipe_sgd())
+        summary["profile"] = dict(
+            prof, images_per_s=RT_BATCH * 1e3 / prof["wall_ms_per_step"],
+            max_memory_allocated=torch.cuda.max_memory_allocated()
+            if on_card else "not measured")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    launches = {name: fn.launches for name, fn in counters.items()}
+    summary["launches"] = launches
+    log("resnet", json.dumps(summary))
+    if any(launches.values()):
+        raise AssertionError(f"a kernel of the kernels line launched on "
+                             f"the ResNet training path: {launches}")
+    return launches, summary
+
+
 def main() -> int:
     import torch
 
@@ -2897,6 +3218,7 @@ def main() -> int:
     longserve_launches, _ = phase_longctx_serve(counters)
     int8_launches, _ = phase_int8_serve(counters)
     lenet_launches, _ = phase_lenet(counters)
+    resnet_launches, _ = phase_resnet_train(counters)
     ragged["launches"] = serve_launches["ragged_decode"]
     flash_fwd["launches"] = train_launches["flash_attention_fwd"]
     flash_bwd["launches"] = train_launches["flash_attention_bwd"]
@@ -2909,7 +3231,8 @@ def main() -> int:
     # run launches it (its phase drove it through the dispatch function)
     paged["launches"] = max(launches["paged_decode"] for launches in (
         serve_launches, train_launches, longctx_launches,
-        longserve_launches, int8_launches, lenet_launches))
+        longserve_launches, int8_launches, lenet_launches,
+        resnet_launches))
     log("device_ms", f"{WINDOWS['read']} profiler windows read, "
                      f"{WINDOWS['retaken']} retaken for lost kernels; "
                      f"{WINDOWS['pairs read again']} pairs read again for "

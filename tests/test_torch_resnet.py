@@ -113,11 +113,6 @@ def test_batch_normalization_eval(shape):
     _close(got, want, LAYER_RTOL)
 
 
-def test_batch_normalization_training_mode_raises():
-    with pytest.raises(NotImplementedError, match="training mode"):
-        nn.SpatialBatchNormalization(4)(torch.zeros(2, 4, 3, 3))
-
-
 @pytest.mark.parametrize("args,ceil", [
     ((3, 3, 2, 2, 1, 1), False), ((3, 3, 2, 2, 1, 1), True),
     ((2, 2, 2, 2, 0, 0), True), ((3, 2, 1, 2, 1, 0), False)])

@@ -265,15 +265,21 @@ def test_breaker_sheds_after_failures():
         svc.shutdown()
 
 
-def test_load_checks():
+def test_load_checks(tmp_path):
+    from bigdl_tpu_torch.utils.serialization import save_module
+
     svc = _service()
     try:
         with pytest.raises(ValueError, match="training mode"):
             svc.load("t", _mlp().train())
         with pytest.raises(ValueError, match="model is on"):
             svc.load("m", _mlp().to("meta"))
-        with pytest.raises(NotImplementedError):
-            svc.load("p", path="/nonexistent")
+        saved = _mlp(seed=3)
+        save_module(str(tmp_path / "mlp"), saved)
+        svc.load("p", path=str(tmp_path / "mlp"))
+        x = _rows(4, 3)
+        np.testing.assert_allclose(svc.predict_batch("p", x),
+                                   _direct(saved, x), atol=FLOAT_ATOL)
         with pytest.raises(NotImplementedError):
             svc.registry.load("s", _mlp(), input_spec=(12,))
         with pytest.raises(KeyError):

@@ -317,7 +317,8 @@ def test_train_cli_runs_on_cpu(capsys):
 
 @pytest.mark.parametrize("flag", [["--pp", "2"], ["--tp", "2"],
                                   ["--sp", "ring"], ["--moeExperts", "2"],
-                                  ["--dropout", "0.1"]])
+                                  ["--dropout", "0.1"], ["--model", "m"],
+                                  ["--state", "s"], ["--checkpoint", "ck"]])
 def test_train_cli_unported_options_raise(flag):
     with pytest.raises(NotImplementedError):
         transformer_train.main(["--synthetic", "3000", "--device", "cpu",
