@@ -5,10 +5,12 @@ the port's ``--device``; the snapshots: ``--model`` (a module saved by
 either package's ``save_module``), ``--state`` (a pickled optim-method
 state) and ``--checkpoint`` (a checkpoint every epoch, and resume from
 the newest there), with ``--overWrite`` (one checkpoint name, which the
-JAX recipes parse and ignore); MNIST and CIFAR-10 arrays, the in-memory
-dataset, the validation wiring and the Test.scala evaluation main.
+JAX recipes parse and ignore); ``--steps-per-sync K``
+(``Optimizer.set_steps_per_sync``: K steps a host sync, one CUDA graph a
+window on the card); MNIST and CIFAR-10 arrays, the in-memory dataset,
+the validation wiring and the Test.scala evaluation main.
 
-Not ported yet: ``--quantize`` and ``--steps-per-sync``.
+Not ported yet: ``--quantize``.
 """
 from __future__ import annotations
 
@@ -45,6 +47,9 @@ def base_parser(desc: str) -> argparse.ArgumentParser:
     ap.add_argument("--synthetic", type=int, default=0, metavar="N",
                     help="train on N seeded synthetic samples instead of "
                     "-f data")
+    ap.add_argument("--steps-per-sync", type=int, default=1, metavar="K",
+                    help="run K train steps a host sync, one CUDA graph "
+                    "a window on the card (Optimizer.set_steps_per_sync)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a card) or cpu")
     return ap
@@ -79,6 +84,9 @@ def wire_optimizer(opt, args, optim_method, val_ds=None, val_methods=None,
         opt.set_end_when(max_iteration(args.maxIterations))
     else:
         opt.set_end_when(max_epoch(args.maxEpoch or default_epochs))
+    if getattr(args, "steps_per_sync", 1) != 1:
+        # set_steps_per_sync rejects 0 or a negative K loudly
+        opt.set_steps_per_sync(args.steps_per_sync)
     return opt
 
 

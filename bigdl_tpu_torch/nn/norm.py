@@ -14,6 +14,11 @@ from bigdl_tpu_torch.utils.engine import default_dtype
 __all__ = ["BatchNormalization", "LayerNorm", "SpatialBatchNormalization"]
 
 
+def _in_dtype(value: float, dtype: torch.dtype) -> float:
+    """``value`` rounded to ``dtype`` (a float64 dtype keeps it whole)."""
+    return float(torch.tensor(value, dtype=torch.float64).to(dtype))
+
+
 class LayerNorm(Module):
     """Layer normalization over the last dim.
 
@@ -104,15 +109,24 @@ class BatchNormalization(Module):
         var32 = torch.clamp(ex2 - mean32.square(), min=0.0)
         mean, var = mean32.to(x.dtype), var32.to(x.dtype)
         n = x.numel() // self.n_output
-        # float32 division, as JAX's; exact in float32, so the scalar
-        # multiplies as the JAX package's cast factor does
-        factor = float(np.float32(n) / np.float32(max(n - 1, 1)))
+        # float32 division, as JAX's, then rounded to the statistics'
+        # dtype as the JAX package casts its factor; the momentum is
+        # rounded so too (a Python float meeting a bfloat16 array). The
+        # running update itself is a float32 island: the bfloat16
+        # statistics under a precision policy are widened to the
+        # buffers' dtype before they are blended (the JAX package's
+        # XLA keeps that product in float32, feeding a float32 sum)
+        factor = _in_dtype(float(np.float32(n) / np.float32(max(n - 1, 1))),
+                           var.dtype)
+        m = self.momentum
+        acc = self.running_mean.dtype
         with torch.no_grad():
-            m = self.momentum
-            self.running_mean.copy_((1 - m) * self.running_mean
-                                    + m * mean.detach())
-            self.running_var.copy_((1 - m) * self.running_var
-                                   + m * (var.detach() * factor))
+            self.running_mean.copy_(
+                (1 - m) * self.running_mean
+                + _in_dtype(m, mean.dtype) * mean.detach().to(acc))
+            self.running_var.copy_(
+                (1 - m) * self.running_var
+                + _in_dtype(m, var.dtype) * (var.detach().to(acc) * factor))
         return mean, var
 
     def forward(self, x):

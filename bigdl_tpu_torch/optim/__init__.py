@@ -7,7 +7,9 @@ from bigdl_tpu_torch.optim.optim_method import (Default, EpochDecay,
                                                 OptimMethod, SGD)
 from bigdl_tpu_torch.optim.optimizer import (LocalOptimizer, Optimizer,
                                              build_eval_step,
-                                             build_train_step)
+                                             build_train_step,
+                                             make_host_window,
+                                             seed_precision)
 from bigdl_tpu_torch.optim.predictor import LocalPredictor, Predictor
 from bigdl_tpu_torch.optim.regularizer import (L1L2Regularizer,
                                                L1Regularizer, L2Regularizer,
@@ -26,5 +28,6 @@ __all__ = ["AccuracyResult", "Default", "EpochDecay", "Evaluator", "L1L2Regulari
            "OptimMethod", "Optimizer", "Predictor", "Regularizer", "SGD",
            "Top1Accuracy", "Top5Accuracy", "Trigger", "ValidationMethod",
            "ValidationResult", "build_eval_step", "build_train_step",
+           "make_host_window", "seed_precision",
            "every_epoch", "max_epoch", "max_iteration", "max_score",
            "min_loss", "several_iteration"]

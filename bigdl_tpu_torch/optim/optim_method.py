@@ -11,6 +11,17 @@ A checkpoint holds the method's host state (:meth:`OptimMethod.get_state`)
 and its buffers as the JAX package's opt_state tree: SGD's momentum is
 ``{"v": param tree}`` there and one list in ``named_parameters`` order
 here (:meth:`OptimMethod.state_tree`, :meth:`OptimMethod.load_state_tree`).
+The same tree carries a precision policy's float32 master copy
+(``precision.MASTER_KEY``, a parameter-shaped tree) and the loss
+scaler's state (``precision.SCALER_KEY``, three 0-d arrays).
+
+The learning rate reaches ``update`` as a Python float or as a 0-d
+tensor on the parameters' device (the driver stages it in
+``default_dtype()``, as the JAX package stages its window's rates,
+widened to a float64 model's dtype): a step captured into a CUDA graph
+reads its rate from such a buffer instead of baking a constant in. A
+float32 rate multiplies bitwise alike either way (torch rounds a Python
+scalar to the tensor's dtype first).
 
 Ported: the ``Default`` and ``EpochDecay`` schedules and :class:`SGD`.
 Not ported yet: the other schedules (Step, MultiStep, EpochStep, Poly,
@@ -89,23 +100,58 @@ class OptimMethod:
                    tree_of: Callable[[Sequence[torch.Tensor]], Any]
                    ) -> Dict[str, Any]:
         """The buffers as the JAX package's opt_state tree: each list
-        of per-parameter tensors through ``tree_of`` (tensors in
-        ``named_parameters`` order -> the param tree's shape)."""
-        return {k: tree_of(v) if isinstance(v, list) else v
-                for k, v in opt_state.items()}
+        of per-parameter tensors (the master copy's too) through
+        ``tree_of`` (tensors in ``named_parameters`` order -> the param
+        tree's shape), a dict of tensors (the scaler's state) as numpy
+        arrays."""
+        def host(v):
+            if isinstance(v, list):
+                return tree_of(v)
+            if isinstance(v, dict):
+                return {k: t.detach().cpu().numpy() for k, t in v.items()}
+            return v
+        return {k: host(v) for k, v in opt_state.items()}
 
     @staticmethod
     def load_state_tree(opt_state: Dict[str, Any], tree,
-                        leaves_of: Callable[[Any], List[np.ndarray]]
-                        ) -> None:
+                        leaves_of: Callable[[Any], List[np.ndarray]],
+                        device=None) -> None:
         """Copy a JAX opt_state tree into the buffers in place:
         ``leaves_of`` turns a param-shaped tree into arrays in
-        ``named_parameters`` order. The keys must be the buffers'."""
-        if set(tree) != set(opt_state):
+        ``named_parameters`` order. The method's own keys must be the
+        buffers'. The precision keys (``MASTER_KEY``, ``SCALER_KEY``)
+        the tree carries are copied into ``opt_state``'s entries, or
+        made there on ``device`` (in the checkpoint's dtypes) where
+        ``opt_state`` has none."""
+        from bigdl_tpu_torch.precision.policy import MASTER_KEY, SCALER_KEY
+
+        reserved = (MASTER_KEY, SCALER_KEY)
+        own = {k for k in opt_state if k not in reserved}
+        if {k for k in tree if k not in reserved} != own:
             raise KeyError(f"optimizer state keys {sorted(tree)} != this "
-                           f"method's {sorted(opt_state)}")
+                           f"method's {sorted(own)}")
+
+        def tensor(a):
+            return torch.from_numpy(np.array(a)).to(device)
+
         with torch.no_grad():
-            for key, bufs in opt_state.items():
+            if MASTER_KEY in tree:
+                arrays = leaves_of(tree[MASTER_KEY])
+                if MASTER_KEY in opt_state:
+                    for t, a in zip(opt_state[MASTER_KEY], arrays,
+                                    strict=True):
+                        t.copy_(tensor(a))
+                else:
+                    opt_state[MASTER_KEY] = [tensor(a) for a in arrays]
+            if SCALER_KEY in tree:
+                if SCALER_KEY in opt_state:
+                    for k, t in opt_state[SCALER_KEY].items():
+                        t.copy_(tensor(tree[SCALER_KEY][k]))
+                else:
+                    opt_state[SCALER_KEY] = {
+                        k: tensor(a) for k, a in tree[SCALER_KEY].items()}
+            for key in own:
+                bufs = opt_state[key]
                 if isinstance(bufs, list):
                     for t, a in zip(bufs, leaves_of(tree[key]), strict=True):
                         t.copy_(torch.from_numpy(np.array(a)))
@@ -115,8 +161,10 @@ class OptimMethod:
         return {}
 
     def update(self, grads: Sequence[torch.Tensor], state: Dict[str, Any],
-               params: Sequence[torch.Tensor], lr: float) -> None:
-        """Apply one step to ``params`` and ``state`` in place."""
+               params: Sequence[torch.Tensor], lr) -> None:
+        """Apply one step to ``params`` and ``state`` in place; ``lr`` is
+        a Python float or a 0-d tensor on the parameters' device (module
+        docstring)."""
         raise NotImplementedError
 
 

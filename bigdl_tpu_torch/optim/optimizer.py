@@ -1,6 +1,7 @@
 """The training driver (counterpart of ``bigdl_tpu.optim.optimizer``):
-:func:`build_train_step`, :func:`build_eval_step` and :class:`Optimizer`
-/ :class:`LocalOptimizer`.
+:func:`build_train_step`, :func:`build_eval_step`,
+:func:`make_host_window` and :class:`Optimizer` /
+:class:`LocalOptimizer`.
 
 The JAX package compiles loss, gradient and update into one jitted,
 donated program; the port runs the same order eagerly — forward in
@@ -12,6 +13,23 @@ OptimMethod, ``driver_state`` counters synced into
 ``optim_method.state``, a reshuffle at each epoch rollover, then the
 validation trigger, then the checkpoint trigger.
 
+A precision policy (:class:`~bigdl_tpu_torch.precision.PrecisionPolicy`,
+``set_precision``) casts at the step's boundary: the parameters and the
+inputs to the compute dtype for the forward and backward, the output to
+the output dtype for the loss, the gradients to float32 for the update,
+which runs on float32 weights (the parameters, or the master copy when
+they are stored below float32); a float16 policy scales the loss and
+skips a step whose gradients are not finite (the
+:class:`~bigdl_tpu_torch.precision.DynamicLossScaler` state on the
+device).
+
+``set_steps_per_sync(K)`` runs up to K steps per host sync: on the card
+one window of K steps is one CUDA graph (:func:`make_host_window`),
+captured once per window shape and replayed; on the CPU the same
+planned window runs its steps one by one. The host replays the K
+per-step counter increments, triggers and ``history`` records after the
+window's one loss fetch, so windows are observably the per-step loop.
+
 Checkpoints are the JAX package's format 2
 (:mod:`bigdl_tpu_torch.utils.serialization`), written synchronously, and
 ``optimize()`` resumes from the newest intact one under the checkpoint
@@ -20,12 +38,13 @@ checkpointed by either package resumes in the other.
 
 Not ported yet: the elastic checkpoint options (``keep_last``,
 ``async_write``) and fault points, train and validation summaries,
-``set_steps_per_sync`` windows, ZeRO, precision policies and loss
-scaling, sequence parallelism, failure retry and preemption, device-fed
-and device-cached datasets, and the multi-card ``DistriOptimizer``.
+device-fed and rotating windows (item 10), ZeRO (and with it precision
+under ZeRO), sequence parallelism, failure retry and preemption, and
+the multi-card ``DistriOptimizer``.
 """
 from __future__ import annotations
 
+import functools
 import logging
 import os
 import time
@@ -33,24 +52,62 @@ from typing import Any, Dict, List, Optional, Sequence
 
 import torch
 
+from bigdl_tpu_torch import telemetry
 from bigdl_tpu_torch.convert import (export_params, export_state,
                                      flatten_params, jax_tree,
                                      load_jax_params)
 from bigdl_tpu_torch.dataset.dataset import AbstractDataSet
+from bigdl_tpu_torch.dataset.prefetch import (batch_signature,
+                                              stack_minibatches)
 from bigdl_tpu_torch.dataset.sample import MiniBatch
 from bigdl_tpu_torch.nn.module import Criterion, Module
 from bigdl_tpu_torch.optim.optim_method import SGD, OptimMethod
 from bigdl_tpu_torch.optim.trigger import Trigger, max_epoch
 from bigdl_tpu_torch.optim.validation import ValidationMethod
+from bigdl_tpu_torch.precision.policy import (MASTER_KEY, SCALER_KEY,
+                                              PrecisionPolicy, cast_floating,
+                                              dtype_name)
+from bigdl_tpu_torch.precision.scaler import DynamicLossScaler
+from bigdl_tpu_torch.utils.engine import default_dtype
 
 __all__ = ["LocalOptimizer", "Optimizer", "build_eval_step",
-           "build_train_step"]
+           "build_train_step", "make_host_window", "seed_precision"]
 
 logger = logging.getLogger(__name__)
 
+# mixed-precision gauges (Optimizer.set_precision): the loss scale and
+# the skipped steps are read off the scaler state after each host sync
+# (the loss fetch has already synchronized the device); the policy gauge
+# is set once when a run lays out its state
+_LOSS_SCALE = telemetry.gauge(
+    "train/precision/loss_scale",
+    "current dynamic loss scale (1.0 when the policy does not scale)")
+_SKIPPED_STEPS = telemetry.gauge(
+    "train/precision/skipped_steps",
+    "cumulative optimizer steps skipped on non-finite gradients")
+_POLICY_INFO = telemetry.gauge(
+    "train/precision/policy_info",
+    "active precision policy (labels carry the dtypes); value is 1")
+
+
+class _Body(torch.nn.Module):
+    """``module``'s forward and its regularization penalty in one call,
+    so one ``torch.func.functional_call`` swaps the compute-dtype
+    parameters in for both (the penalty on the compute-dtype
+    parameters, as the JAX package's ``regularization_loss(p_c)``)."""
+
+    def __init__(self, module):
+        super().__init__()
+        self.module = module
+
+    def forward(self, x):
+        return self.module(x), self.module.regularization_loss()
+
 
 def build_train_step(module: Module, criterion: Criterion,
-                     optim_method: OptimMethod, gradient_clip=None):
+                     optim_method: OptimMethod, gradient_clip=None, *,
+                     precision: Optional[PrecisionPolicy] = None,
+                     loss_scaler: Optional[DynamicLossScaler] = None):
     """One training step, ``step(inputs, targets, lr) -> loss``, in the
     JAX package's order: forward, loss plus
     ``module.regularization_loss()``, backward, each gradient times its
@@ -58,67 +115,218 @@ def build_train_step(module: Module, criterion: Criterion,
     ``gradient_clip`` — ``("constant", min, max)`` clamps every gradient
     element, ``("l2norm", max_norm)`` scales the gradients so their
     global L2 norm is at most ``max_norm`` — then ``optim_method.update``
-    on the parameters in place. Returns the data loss, without the
-    penalty (a detached 0-d tensor on the module's device; reading it is
-    the caller's sync).
+    on the parameters in place. ``lr`` is a Python float or a 0-d tensor
+    on the module's device. Returns the data loss, without the penalty
+    (a detached 0-d tensor on the module's device; reading it is the
+    caller's sync).
+
+    ``precision`` (None: ``PrecisionPolicy.from_engine()``, the Engine
+    dtype knobs) casts as the JAX package's step does: the inputs and
+    the floating parameters to ``compute_dtype`` on entry (through
+    ``torch.func.functional_call``; the penalty reads the cast
+    parameters too), the output to ``output_dtype``, the gradients to
+    float32; with a ``loss_scaler`` (made for a policy that scales) the
+    loss is scaled before the backward and the gradients unscaled after
+    it, and a step with a non-finite gradient leaves the parameters,
+    the master copy and every OptimMethod buffer as they were (a
+    ``torch.where`` select over each, no host read) while the scaler
+    state advances. The update runs on the float32 base: the parameters,
+    or the master copy ``step.opt_state[MASTER_KEY]`` (float32 tensors
+    in ``named_parameters`` order), cast down into the parameters after.
+    The scaler state lives in ``step.opt_state[SCALER_KEY]``. The step
+    raises when the policy needs either and it is missing
+    (``Optimizer.set_precision`` seeds both). A policy that changes
+    nothing (float32 throughout) runs the pre-policy step exactly.
 
     The module is put in training mode when the step is built (a layer
     set to evaluation mode after that stays so, as in a torch loop);
     the scales are read then too, as the JAX package reads them when it
     traces its step. The OptimMethod's buffers (``init_state`` over the
     module's parameters, in ``named_parameters`` order) live in
-    ``step.opt_state``."""
+    ``step.opt_state``; ``step.module`` is the module, ``step.lr_dtype``
+    the dtype a driver stages the rate in. Nothing in a step
+    reads a value back to the host, so a step can be captured into a
+    CUDA graph (:func:`make_host_window`)."""
     if gradient_clip is not None and gradient_clip[0] not in (
             "constant", "l2norm"):
         raise ValueError(
             f"gradient_clip kind must be 'constant' or 'l2norm', got "
             f"{gradient_clip[0]!r}")
+    policy = precision if precision is not None \
+        else PrecisionPolicy.from_engine()
+    scaler = None
+    if policy.needs_loss_scaling:
+        scaler = loss_scaler if loss_scaler is not None \
+            else DynamicLossScaler()
+    plain = policy.is_noop and policy.param_dtype == torch.float32
     named = list(module.named_parameters())
     params = [p for _, p in named]
     opt_state = optim_method.init_state([p.detach() for p in params])
     scales = module.param_scales()
     factors = [scales[name] for name, _ in named]
     scaled = any(f != 1.0 for f in factors)
+    body = _Body(module)
     module.train()
 
-    def step(inputs, targets, lr: float):
+    def clip(grads):
+        if gradient_clip is None:
+            return grads
+        with torch.no_grad():
+            if gradient_clip[0] == "constant":
+                lo, hi = gradient_clip[1], gradient_clip[2]
+                return [g.clamp(lo, hi) for g in grads]
+            nrm = torch.sqrt(sum(g.float().square().sum() for g in grads))
+            scale = torch.clamp(
+                gradient_clip[1] / torch.clamp(nrm, min=1e-12), max=1.0)
+            return [g * scale.to(g.dtype) for g in grads]
+
+    def gradients():
+        return [p.grad if p.grad is not None else torch.zeros_like(p)
+                for p in params]
+
+    def scale(grads):
+        if not scaled:
+            return grads
+        return [g if f == 1.0 else g * f for g, f in zip(grads, factors)]
+
+    def plain_step(inputs, targets, lr):
         for p in params:
             p.grad = None
         loss = criterion(module(inputs), targets)
         reg = module.regularization_loss()
         (loss + reg if torch.is_tensor(reg) else loss).backward()
-        grads = [p.grad if p.grad is not None else torch.zeros_like(p)
-                 for p in params]
-        if scaled:
-            grads = [g if f == 1.0 else g * f
-                     for g, f in zip(grads, factors)]
-        if gradient_clip is not None:
-            with torch.no_grad():
-                if gradient_clip[0] == "constant":
-                    lo, hi = gradient_clip[1], gradient_clip[2]
-                    grads = [g.clamp(lo, hi) for g in grads]
-                else:
-                    nrm = torch.sqrt(sum(g.float().square().sum()
-                                         for g in grads))
-                    scale = torch.clamp(
-                        gradient_clip[1] / torch.clamp(nrm, min=1e-12),
-                        max=1.0)
-                    grads = [g * scale.to(g.dtype) for g in grads]
-        optim_method.update(grads, opt_state, params, lr)
+        optim_method.update(clip(scale(gradients())), opt_state, params,
+                            lr)
         return loss.detach()
 
+    def policy_step(inputs, targets, lr):
+        scaler_state = opt_state.get(SCALER_KEY)
+        master = opt_state.get(MASTER_KEY)
+        inner = {k: v for k, v in opt_state.items()
+                 if k not in (SCALER_KEY, MASTER_KEY)}
+        if scaler is not None and scaler_state is None:
+            raise ValueError(
+                "loss-scaling policy needs the scaler state in "
+                "opt_state[precision.SCALER_KEY]; seed it with "
+                "scaler.init_state() (Optimizer.set_precision does "
+                "this automatically)")
+        if policy.needs_master and master is None:
+            raise ValueError(
+                "low-precision param_dtype needs the f32 master copy "
+                "in opt_state[precision.MASTER_KEY] "
+                "(Optimizer.set_precision seeds it automatically)")
+        for p in params:
+            p.grad = None
+        x_c = policy.cast_to_compute(inputs)
+        if any(p.is_floating_point() and p.dtype != policy.compute_dtype
+               for p in params):
+            out, reg = torch.func.functional_call(
+                body, {f"module.{name}": policy.cast_to_compute(p)
+                       for name, p in named}, (x_c,))
+        else:
+            out, reg = body(x_c)
+        loss = criterion(policy.cast_output(out), targets)
+        total = loss + reg if torch.is_tensor(reg) else loss
+        if scaler is not None:
+            total = scaler.scale_loss(total, scaler_state)
+        total.backward()
+        with torch.no_grad():
+            grads = policy.cast_to_accum(gradients())
+            finite = None
+            if scaler is not None:
+                # checked after unscaling, so an overflowed scale's inf
+                # is caught even where the float16 gradients were finite
+                grads = scaler.unscale(grads, scaler_state)
+                finite = scaler.all_finite(grads)
+            grads = clip(scale(grads))
+            base = master if master is not None else params
+            if master is None and policy.param_dtype != policy.accum_dtype:
+                # no master (the legacy Engine path): the update runs in
+                # the parameters' dtype, the pre-policy program
+                grads = cast_floating(grads, policy.param_dtype)
+            kept = []
+            if finite is not None:
+                # the skip-step select's old values: the parameters, the
+                # master and every OptimMethod buffer
+                kept = [(t, t.clone()) for t in
+                        [*params, *(master or []), *_buffers(inner)]]
+            optim_method.update(grads, inner, base, lr)
+            if master is not None:
+                for p, m in zip(params, master):
+                    p.copy_(m)           # the master cast down
+            for t, old in kept:
+                t.copy_(torch.where(finite, t, old))
+            if scaler is not None:
+                scaler.advance(scaler_state, finite)
+        return loss.detach()
+
+    step = plain_step if plain else policy_step
+    # the dtype a driver stages the rate in: default_dtype(), as the JAX
+    # package stages it, widened to a float64 model's dtype
+    step.lr_dtype = functools.reduce(
+        torch.promote_types,
+        (p.dtype for p in params if p.is_floating_point()), default_dtype())
     step.opt_state = opt_state
+    step.module = module
+    step.policy = policy
+    step.scaler = scaler
     return step
 
 
-def build_eval_step(module: Module):
+def seed_precision(step, cast_params: bool = True) -> None:
+    """Give a :func:`build_train_step` step the precision state its
+    policy needs and ``step.opt_state`` lacks (a fresh run, or a
+    checkpoint written without a policy): the float32 master copy (the
+    parameters cast up) and the scaler state on the parameters' device;
+    then, with ``cast_params``, the at-rest parameters in the policy's
+    ``param_dtype`` (``Optimizer.optimize`` does this for a policy set
+    with ``set_precision``; the legacy Engine path keeps the parameters
+    as built)."""
+    policy, scaler, module = step.policy, step.scaler, step.module
+    params = list(module.parameters())
+    with torch.no_grad():
+        if policy.needs_master and MASTER_KEY not in step.opt_state:
+            step.opt_state[MASTER_KEY] = [
+                p.detach().to(policy.accum_dtype).clone() for p in params]
+        if scaler is not None and SCALER_KEY not in step.opt_state:
+            step.opt_state[SCALER_KEY] = scaler.init_state(
+                params[0].device if params else None)
+        if cast_params:
+            for p in params:
+                if p.is_floating_point():
+                    p.data = p.data.to(policy.param_dtype)
+
+
+def _buffers(tree) -> List[torch.Tensor]:
+    """The tensors of an OptimMethod's state (lists and dicts walked)."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _buffers(v)]
+    if isinstance(tree, (list, tuple)):
+        return [t for v in tree for t in _buffers(v)]
+    return []
+
+
+def build_eval_step(module: Module,
+                    precision: Optional[PrecisionPolicy] = None):
     """The evaluation forward, ``eval_step(inputs) -> output``: the
     module in evaluation mode under ``torch.inference_mode`` (the
-    caller puts it back in training mode)."""
-    def eval_step(inputs):
-        module.eval()
-        with torch.inference_mode():
-            return module(inputs)
+    caller puts it back in training mode). ``precision`` (a policy that
+    changes something) runs the forward in its compute dtype with the
+    output cast to its output dtype
+    (:meth:`~bigdl_tpu_torch.precision.PrecisionPolicy.apply_module`), so
+    validation scores the precision that trains."""
+    if precision is not None and not precision.is_noop:
+        def eval_step(inputs):
+            module.eval()
+            with torch.inference_mode():
+                return precision.apply_module(module, inputs)
+    else:
+        def eval_step(inputs):
+            module.eval()
+            with torch.inference_mode():
+                return module(inputs)
 
     return eval_step
 
@@ -129,6 +337,173 @@ def _to_device(x, device):
     if x is None:
         return None
     return torch.as_tensor(x).to(device, non_blocking=True)
+
+
+def _leaf_at(x, i: int):
+    """Row ``i`` of a stacked ``[K, ...]`` leaf (lists walked)."""
+    if isinstance(x, (list, tuple)):
+        return [_leaf_at(e, i) for e in x]
+    return None if x is None else x[i]
+
+
+def _empty_on(x, device):
+    """An uninitialized tensor of ``x``'s shape and dtype on ``device``
+    (lists walked)."""
+    if isinstance(x, (list, tuple)):
+        return [_empty_on(e, device) for e in x]
+    return None if x is None else torch.empty(x.shape, dtype=x.dtype,
+                                              device=device)
+
+
+def _copy_into(dst, src) -> None:
+    if isinstance(dst, (list, tuple)):
+        for d, s in zip(dst, src, strict=True):
+            _copy_into(d, s)
+    elif dst is not None:
+        dst.copy_(src, non_blocking=True)
+
+
+def _as_tensors(x):
+    if isinstance(x, (list, tuple)):
+        return [_as_tensors(e) for e in x]
+    return None if x is None else torch.as_tensor(x)
+
+
+class _Captured:
+    """One captured window: the graph and its static buffers."""
+
+    __slots__ = ("graph", "xs", "ys", "lrs", "losses")
+
+
+class _HostWindow:
+    """K steps of ``step`` per call, ``window(xs, ys, lrs) -> losses``:
+    ``xs`` / ``ys`` are a stacked window (``[K, B, ...]`` arrays or
+    tensors, lists of them for a multi-plane input), ``lrs`` the K
+    learning rates; returns the K data losses as one float32 tensor on
+    the module's device (one fetch a window).
+
+    On a CUDA module one window is one ``torch.cuda.CUDAGraph`` of the K
+    steps, captured at the first window of each ``(K, signature)`` and
+    replayed after: the graph reads static input buffers ``xs[K, B,
+    ...]`` / ``ys[K, B, ...]`` and the rates ``lrs[K]`` (a
+    ``step.lr_dtype`` buffer, never a constant baked in), reads and
+    writes the parameters, the OptimMethod's buffers, the master copy,
+    the scaler state and the module's buffers in place, and writes
+    ``losses[K]``. A call copies the window into the static buffers,
+    fills ``lrs``, replays and returns the losses. Before a capture one
+    step runs on a side stream (the recipe's warm-up: every kernel
+    library, cuBLAS and cuDNN handle and autograd's lazy state made)
+    from a saved copy of every tensor a step changes, which is put back
+    after, so the warm-up does not advance the run. A kernel wrapper
+    counts its calls (``.launches``) in the warm-up and in the capture;
+    a replay calls no wrapper and counts nothing. A capture that fails
+    raises: there is no quiet per-step fallback.
+
+    On the CPU the K steps run one by one (no graph), from the same
+    buffers' values: the planning and the host replay are what the CPU
+    sees."""
+
+    def __init__(self, step):
+        self.step = step
+        self.module = step.module
+        #: ``(K, signature) -> _Captured`` (CUDA only; :meth:`close`
+        #: empties it)
+        self.graphs: Dict[Any, _Captured] = {}
+        #: graphs captured so far (one per window shape on the card)
+        self.captures = 0
+        #: every ``(K, signature)`` a call met, on any device
+        self.shapes = set()
+
+    def close(self) -> None:
+        """Drop the captured graphs and their memory pools (the next call
+        captures again)."""
+        self.graphs.clear()
+
+    def _device(self) -> torch.device:
+        for t in self.module.parameters():
+            return t.device
+        return torch.device("cpu")
+
+    def _state_tensors(self) -> List[torch.Tensor]:
+        """Every tensor a step writes: the parameters, the module's
+        buffers, the OptimMethod buffers, the master copy and the scaler
+        state."""
+        return [*self.module.parameters(), *self.module.buffers(),
+                *_buffers(self.step.opt_state)]
+
+    def __call__(self, xs, ys, lrs: Sequence[float]) -> torch.Tensor:
+        device = self._device()
+        k = len(lrs)
+        key = (k, batch_signature(MiniBatch(xs, ys)))
+        self.shapes.add(key)
+        if device.type != "cuda":
+            xs, ys = _to_device(xs, device), _to_device(ys, device)
+            lr_t = torch.tensor(list(lrs), dtype=self.step.lr_dtype,
+                                device=device)
+            return torch.stack([self.step(_leaf_at(xs, i), _leaf_at(ys, i),
+                                          lr_t[i]) for i in range(k)])
+        xs, ys = _as_tensors(xs), _as_tensors(ys)
+        cap = self.graphs.get(key)
+        if cap is None:
+            cap = self.graphs[key] = self._capture(xs, ys, k, device)
+            self.captures += 1
+        _copy_into(cap.xs, xs)
+        _copy_into(cap.ys, ys)
+        cap.lrs.copy_(torch.tensor(list(lrs), dtype=self.step.lr_dtype))
+        cap.graph.replay()
+        return cap.losses.clone()
+
+    def _capture(self, xs, ys, k: int, device) -> _Captured:
+        cap = _Captured()
+        cap.xs, cap.ys = _empty_on(xs, device), _empty_on(ys, device)
+        _copy_into(cap.xs, xs)
+        _copy_into(cap.ys, ys)
+        cap.lrs = torch.zeros((k,), dtype=self.step.lr_dtype,
+                              device=device)
+        cap.losses = torch.zeros((k,), dtype=torch.float32, device=device)
+
+        # warm-up: one step on a side stream from saved state, put back
+        state = self._state_tensors()
+        saved = [t.detach().clone() for t in state]
+        side = torch.cuda.Stream(device)
+        side.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(side):
+            self.step(_leaf_at(cap.xs, 0), _leaf_at(cap.ys, 0), cap.lrs[0])
+        torch.cuda.current_stream(device).wait_stream(side)
+        with torch.no_grad():
+            for t, s in zip(state, saved):
+                t.copy_(s)
+        del saved
+
+        cap.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(cap.graph):
+            for i in range(k):
+                loss = self.step(_leaf_at(cap.xs, i), _leaf_at(cap.ys, i),
+                                 cap.lrs[i])
+                cap.losses[i].copy_(loss)
+        return cap
+
+
+def make_host_window(step) -> _HostWindow:
+    """The K-step window over ``step`` (a :func:`build_train_step`
+    step): the counterpart of the JAX package's ``lax.scan`` window, as
+    a CUDA graph on the card (see :class:`_HostWindow`)."""
+    return _HostWindow(step)
+
+
+def _window_stackable(batch: MiniBatch) -> bool:
+    """True when every leaf of the MiniBatch is a dense host array (numpy
+    or a CPU tensor): the only thing window stacking takes. A leaf
+    already on the card keeps the per-step path: stacking it on the host
+    would copy it back and forth with a sync a batch, the inverse of
+    what a window buys."""
+    def ok(x):
+        if x is None:
+            return True
+        if isinstance(x, (list, tuple)):
+            return all(ok(e) for e in x)
+        return not (isinstance(x, torch.Tensor) and x.device.type != "cpu")
+    return ok(batch.input) and ok(batch.target)
 
 
 class Optimizer:
@@ -143,10 +518,14 @@ class Optimizer:
     ``Loss``, ``LearningRate`` and ``Throughput`` (and ``score`` after a
     validation); ``history`` keeps one record per step (``neval``,
     ``epoch``, ``loss``, ``lr``, ``rows``, ``seconds`` — the step's wall
-    time, batch transfer included), ``validation_history`` each
-    validation's ``{method name: value}``, ``resumed_from`` the
-    checkpoint the last ``optimize()`` resumed from (``{"path",
-    "neval"}``, or None)."""
+    time, batch transfer included; a window's wall time over its steps
+    in windowed mode), ``validation_history`` each validation's
+    ``{method name: value}``, ``resumed_from`` the checkpoint the last
+    ``optimize()`` resumed from (``{"path", "neval"}``, or None),
+    ``train_step`` the last run's step (its ``opt_state`` holds the
+    OptimMethod's buffers, the master copy and the scaler state) and
+    ``window`` its :func:`make_host_window` window (None in per-step mode; closed
+    when the run ends, its ``captures`` and ``shapes`` kept)."""
 
     def __init__(self, model: Module, dataset: AbstractDataSet,
                  criterion: Criterion, batch_size: int = 32):
@@ -169,6 +548,11 @@ class Optimizer:
         self.checkpoint_trigger: Optional[Trigger] = None
         self.is_overwrite = False
         self.resumed_from: Optional[Dict[str, Any]] = None
+        self.steps_per_sync = 1
+        self._precision: Optional[PrecisionPolicy] = None
+        self._loss_scaler: Optional[DynamicLossScaler] = None
+        self.train_step = None
+        self.window: Optional[_HostWindow] = None
 
     def set_optim_method(self, method: OptimMethod) -> "Optimizer":
         self.optim_method = method
@@ -249,6 +633,119 @@ class Optimizer:
         self._gradient_clip = None
         return self
 
+    def set_steps_per_sync(self, k: int) -> "Optimizer":
+        """Run up to ``k`` train steps per host sync.
+
+        The per-step loop reads the loss back every step, so the card
+        idles while the host does its bookkeeping and launches the next
+        step. With ``k > 1`` a window of steps runs as one CUDA graph
+        (:func:`make_host_window`) and the losses come back once, as a
+        length-``k`` tensor; the driver's counters (``neval``,
+        ``recordsProcessedThisEpoch``), triggers and ``history`` then
+        replay the ``k`` per-step increments, so what a caller observes
+        matches the per-step loop. Windows end early at validation,
+        checkpoint and end-trigger boundaries and at epoch rollovers, and
+        the driver falls back to ``k = 1``, logging why, when a trigger
+        depends on values the device produces (``Loss``, ``score``), a
+        trigger's dependencies are unknown, the learning-rate schedule
+        reads a metric (Plateau), or the batches cannot be stacked."""
+        k = int(k)
+        if k < 1:
+            raise ValueError(f"steps_per_sync must be >= 1, got {k}")
+        self.steps_per_sync = k
+        return self
+
+    def set_precision(self, policy, scaler=None) -> "Optimizer":
+        """Mixed-precision policy for this run
+        (:class:`~bigdl_tpu_torch.precision.PrecisionPolicy`, a preset
+        name such as ``"bf16_mixed"``, or None to go back to float32 /
+        the Engine dtypes).
+
+        The forward and backward run in ``compute_dtype``, the update on
+        float32 weights (a float32 master copy in the optimizer state
+        when ``param_dtype`` is below float32, which ``optimize()``
+        seeds and casts the at-rest parameters to ``param_dtype`` for),
+        and a float16 policy gets a
+        :class:`~bigdl_tpu_torch.precision.DynamicLossScaler` (pass
+        ``scaler`` to tune it) whose state is device tensors in the
+        optimizer state, so ``set_steps_per_sync(K)`` windows carry it and
+        checkpoints keep it. Validation runs under the policy too. When
+        the run ends the model holds the float32 master copy."""
+        if isinstance(policy, str):
+            policy = PrecisionPolicy.named(policy)
+        if policy is not None and not isinstance(policy, PrecisionPolicy):
+            raise TypeError(
+                f"set_precision expects a PrecisionPolicy, a preset "
+                f"name or None, got {type(policy).__name__}")
+        if scaler is not None and not isinstance(scaler,
+                                                 DynamicLossScaler):
+            raise TypeError(
+                f"scaler must be a DynamicLossScaler, got "
+                f"{type(scaler).__name__}")
+        self._precision = policy
+        self._loss_scaler = scaler
+        return self
+
+    # -- windowed driver planning (set_steps_per_sync) ---------------------
+    def _window_limit(self, k: int, end_when):
+        """Run-wide cap on the window size, with the reason for a
+        fallback: windowed execution must be observably the per-step
+        loop, so what the host cannot predict before a window runs
+        (loss-dependent or unknown triggers, metric-driven learning-rate
+        schedules) forces per-step sync."""
+        if k <= 1:
+            return 1, ""
+        for what, t in (("end trigger", end_when),
+                        ("validation trigger", self.validation_trigger),
+                        ("checkpoint trigger", self.checkpoint_trigger)):
+            if t is None or t.plannable():
+                continue
+            dep = sorted(t.depends_on) if t.depends_on is not None else None
+            why = (f"{what} reads runtime state {dep}" if dep
+                   else f"{what} has undeclared dependencies")
+            return 1, why + "; per-step sync keeps its semantics exact"
+        sched = getattr(self.optim_method, "learning_rate_schedule", None)
+        if sched is not None and hasattr(sched, "record_metric"):
+            return 1, ("metric-driven LR schedule (Plateau) adjusts per "
+                       "step; per-step sync keeps it exact")
+        return k, ""
+
+    def _plan_window(self, k_max: int, state, bsz: int, ds_size: int,
+                     end_when) -> int:
+        """Largest ``k <= k_max`` such that the per-step loop would do no
+        host work (a trigger firing, an epoch rollover) after steps
+        1..k-1. The k-th step may land on a boundary: the window ends
+        there and the host replay handles it with the window's final
+        parameters."""
+        if k_max <= 1:
+            return 1
+        n0 = state["neval"]
+        ep0 = state["epoch"]
+        rec = state["recordsProcessedThisEpoch"]
+        for i in range(1, k_max):
+            rec += bsz
+            if rec >= ds_size:
+                return i  # epoch rollover: the reshuffle
+            sim = {"epoch": ep0, "neval": n0 + i,
+                   "recordsProcessedThisEpoch": rec}
+            for t in (end_when, self.validation_trigger,
+                      self.checkpoint_trigger):
+                if t is not None and t.peek(sim):
+                    return i
+        return k_max
+
+    def _window_lrs(self, k: int, state) -> List[float]:
+        """The k learning rates the per-step loop would compute, by k
+        real ``update_hyper_parameter()`` calls (the schedule's counters
+        advance as they would per step; the epoch cannot change inside a
+        window, which ends at a rollover)."""
+        n0 = state["neval"]
+        lrs = []
+        for i in range(k):
+            self.optim_method.state["neval"] = n0 + i
+            lrs.append(self.optim_method.update_hyper_parameter())
+        return lrs
+
     def _device(self) -> torch.device:
         return next(self.model.parameters()).device
 
@@ -322,7 +819,10 @@ class Optimizer:
         for k in ("epoch", "neval"):
             self.optim_method.state[k] = state[k]
         step = build_train_step(model, self.criterion, self.optim_method,
-                                self._gradient_clip)
+                                self._gradient_clip,
+                                precision=self._precision,
+                                loss_scaler=self._loss_scaler)
+        policy, scaler = step.policy, step.scaler
         if resumed is not None:
             names = self._param_names()
 
@@ -336,38 +836,64 @@ class Optimizer:
                 return [flat[n] for n in names]
 
             self.optim_method.load_state_tree(
-                step.opt_state, resumed["opt_state"], leaves_of)
+                step.opt_state, resumed["opt_state"], leaves_of,
+                device=device)
+        seed_precision(step, cast_params=self._precision is not None)
+        self.train_step = step
+        if not policy.is_noop:
+            logger.info("precision policy: %s", policy.describe())
+            # value 1 marks the active policy; series of earlier runs in
+            # this process drop to 0
+            for key in _POLICY_INFO.series():
+                _POLICY_INFO.set(0.0, **dict(key))
+            _POLICY_INFO.set(
+                1.0, policy=policy.name,
+                param=dtype_name(policy.param_dtype),
+                compute=dtype_name(policy.compute_dtype),
+                accum=dtype_name(policy.accum_dtype))
+            _LOSS_SCALE.set(float(scaler.init_scale) if scaler else 1.0)
+            _SKIPPED_STEPS.set(0.0)
         end_when = self.end_when or max_epoch(10)
+        k_cap, why = self._window_limit(self.steps_per_sync, end_when)
+        if k_cap < self.steps_per_sync:
+            logger.info("steps_per_sync=%d: falling back to per-step "
+                        "sync — %s", self.steps_per_sync, why)
+        self.window = make_host_window(step) if k_cap > 1 else None
+        # the per-step rate is staged as the window's are, a 0-d tensor
+        # in step.lr_dtype on the device, so both run one arithmetic
+        lr_t = torch.zeros((), dtype=step.lr_dtype, device=device)
         ds_size = self.dataset.size()
+        plan_bsz = self.batch_size
         data_iter = self.dataset.data(train=True)
-        wall_start = time.perf_counter()
-        while not end_when(state):
-            t0 = time.perf_counter()
-            batch = next(data_iter)
-            if not isinstance(batch, MiniBatch):
+        pending: List[MiniBatch] = []   # batches pulled ahead of a window
+        warned_unstackable = False
+
+        def pull_batch() -> MiniBatch:
+            b = pending.pop(0) if pending else next(data_iter)
+            if not isinstance(b, MiniBatch):
                 raise ValueError(
                     "dataset must yield MiniBatch; add SampleToMiniBatch")
-            inp = _to_device(batch.get_input(), device)
-            tgt = _to_device(batch.get_target(), device)
-            lr = self.optim_method.update_hyper_parameter()
-            loss_f = float(step(inp, tgt, lr))   # the per-step sync
-            seconds = time.perf_counter() - t0
-            bsz = batch.size()
+            return b
 
+        def post_step(loss_f, lr, bsz, throughput, seconds):
+            """One step's host bookkeeping: run after every step by the
+            per-step loop, replayed K times after a window's one loss
+            fetch, so counters, triggers and records see the per-step
+            sequence either way."""
+            nonlocal data_iter
             state["neval"] += 1
             self.optim_method.state["neval"] = state["neval"]
             state["recordsProcessedThisEpoch"] += bsz
             state["Loss"] = loss_f
             state["LearningRate"] = lr
-            state["Throughput"] = bsz / max(1e-9, seconds)
+            state["Throughput"] = throughput
             self.history.append({"neval": state["neval"] - 1,
                                  "epoch": state["epoch"], "loss": loss_f,
                                  "lr": lr, "rows": bsz,
                                  "seconds": seconds})
             logger.info(
                 "Epoch %d iter %d: loss %.4f lr %.5f throughput %.1f rec/s",
-                state["epoch"], state["neval"] - 1, loss_f, lr,
-                state["Throughput"])
+                state["epoch"], state["neval"] - 1, loss_f, lr, throughput)
             # epoch rollover: a fresh permutation and iterator; the
             # overshoot of a batch that straddles the boundary is
             # dropped, as the JAX driver does for restartable iterators
@@ -377,6 +903,8 @@ class Optimizer:
                 state["recordsProcessedThisEpoch"] = 0
                 self.dataset.shuffle()
                 data_iter = self.dataset.data(train=True)
+            # windows end at every plannable trigger boundary, so with
+            # k > 1 these fire only on a window's last replayed step
             if (self.validation_trigger is not None
                     and self.validation_trigger(state)):
                 scores = self._validate()
@@ -392,17 +920,114 @@ class Optimizer:
             if (self.checkpoint_trigger is not None
                     and self.checkpoint_trigger(state)):
                 self._checkpoint(step)
+
+        wall_start = time.perf_counter()
+        while not end_when(state):
+            k_now = 1 if k_cap <= 1 else self._plan_window(
+                k_cap, state, plan_bsz, ds_size, end_when)
+            t0 = time.perf_counter()
+            window = None
+            if k_now > 1:
+                # gather a window of stackable equal-shaped batches; a
+                # shape change, the epoch boundary, a trigger boundary
+                # by the actual sizes or exhaustion ends it early
+                first = pull_batch()
+                window = [first]
+                if not _window_stackable(first) and not warned_unstackable:
+                    warned_unstackable = True
+                    logger.info(
+                        "steps_per_sync=%d: batches are not window-"
+                        "stackable (sparse or device-resident leaves) — "
+                        "running per-step", self.steps_per_sync)
+                if _window_stackable(first):
+                    sig = batch_signature(first)
+                    rec_sim = (state["recordsProcessedThisEpoch"]
+                               + first.size())
+
+                    def boundary_after(steps_done, rec):
+                        # _plan_window simulated the configured batch
+                        # size; re-peek the plannable triggers with the
+                        # actual record counts
+                        sim = {"epoch": state["epoch"],
+                               "neval": state["neval"] + steps_done,
+                               "recordsProcessedThisEpoch": rec}
+                        return any(t is not None and t.peek(sim)
+                                   for t in (end_when,
+                                             self.validation_trigger,
+                                             self.checkpoint_trigger))
+
+                    while len(window) < k_now and rec_sim < ds_size \
+                            and not boundary_after(len(window), rec_sim):
+                        try:
+                            b = pull_batch()
+                        except StopIteration:
+                            break
+                        if not _window_stackable(b) \
+                                or batch_signature(b) != sig:
+                            pending.append(b)
+                            break
+                        window.append(b)
+                        rec_sim += b.size()
+                k_now = len(window)
+
+            if k_now > 1:
+                # one window: one graph replay, one host sync
+                sizes = [b.size() for b in window]
+                stacked = stack_minibatches(window)
+                lr_list = self._window_lrs(k_now, state)
+                losses = self.window(stacked.get_input(),
+                                     stacked.get_target(), lr_list)
+                loss_vals = losses.tolist()     # the one sync a window
+                seconds = time.perf_counter() - t0
+                if scaler is not None:
+                    self._record_scaler(step)
+                rate = sum(sizes) / max(1e-9, seconds)
+                for i in range(k_now):
+                    post_step(loss_vals[i], lr_list[i], sizes[i], rate,
+                              seconds / k_now)
+                continue
+
+            batch = window[0] if window else pull_batch()
+            inp = _to_device(batch.get_input(), device)
+            tgt = _to_device(batch.get_target(), device)
+            lr = self.optim_method.update_hyper_parameter()
+            lr_t.fill_(lr)
+            loss_f = float(step(inp, tgt, lr_t))   # the per-step sync
+            seconds = time.perf_counter() - t0
+            if scaler is not None:
+                self._record_scaler(step)
+            bsz = batch.size()
+            post_step(loss_f, lr, bsz, bsz / max(1e-9, seconds), seconds)
         logger.info("training done in %.1fs",
                     time.perf_counter() - wall_start)
+        if self.window is not None:
+            self.window.close()       # the graphs' memory, not the counts
+        master = step.opt_state.get(MASTER_KEY)
+        if master is not None:
+            # the float32 master is the run's result; the at-rest
+            # low-precision parameters are its rounding
+            with torch.no_grad():
+                for p, m in zip(model.parameters(), master):
+                    p.data = m.detach().clone()
         return model
+
+    @staticmethod
+    def _record_scaler(step) -> None:
+        """The loss-scale and skipped-steps gauges from the scaler state
+        (read after the host sync, so no extra wait)."""
+        ss = step.opt_state.get(SCALER_KEY)
+        if ss is not None:
+            _LOSS_SCALE.set(float(ss["scale"]))
+            _SKIPPED_STEPS.set(float(ss["skipped"]))
 
     def _validate(self) -> Dict[str, float]:
         """One pass over the validation set through the Evaluator's
         sweep (each batch's output copied to the host once and scored
-        there); the model is back in training mode after."""
+        there), under the precision policy when ``set_precision`` set
+        one; the model is back in training mode after."""
         from bigdl_tpu_torch.optim.evaluator import Evaluator
         try:
-            results = Evaluator(self.model).results(
+            results = Evaluator(self.model, self._precision).results(
                 self.validation_dataset, self.validation_methods,
                 self._val_batch_size)
         finally:

@@ -66,16 +66,19 @@ def padded_input(inp, batch_size: int):
 
 class Predictor:
     """Batched evaluation-mode forward of ``model`` over a dataset of
-    MiniBatches or Samples, on the model's device."""
+    MiniBatches or Samples, on the model's device; ``precision`` (a
+    :class:`~bigdl_tpu_torch.precision.PrecisionPolicy`) runs it in the
+    policy's compute dtype (:func:`build_eval_step`)."""
 
-    def __init__(self, model):
+    def __init__(self, model, precision=None):
         self.model = model
+        self.precision = precision
 
     def outputs(self, dataset, batch_size: int = 32):
         """``(host output, batch)`` per batch, pad rows dropped: the one
         sweep :meth:`predict` and the Evaluator share. The model is left
         in evaluation mode."""
-        step = build_eval_step(self.model)
+        step = build_eval_step(self.model, self.precision)
         device = model_device(self.model)
         for b in minibatches(dataset, batch_size):
             out = step(_to_device(padded_input(b.get_input(), batch_size),

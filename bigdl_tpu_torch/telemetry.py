@@ -50,6 +50,12 @@ class _Instrument:
     def __repr__(self) -> str:
         return f"{type(self).__name__}({self.name!r})"
 
+    def series(self) -> Dict[LabelKey, object]:
+        """A copy of ``{label key: value}`` over every series (a label
+        key is the sorted ``((name, value), ...)`` of its labels)."""
+        with self._lock:
+            return dict(self._values)
+
 
 class Counter(_Instrument):
     """Monotonically increasing count."""

@@ -30,7 +30,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    lengths, with every slot full, at ``[1, 8, 8192, 64]`` and four
    slots of ragged lengths up to 8192, each beside its split plan's
    variants in turns; the flash-attention forward and backward (K1) at the
-   training shapes ``[16, 8, 512, 64]``, float32 and bfloat16, causal,
+   training shapes ``[16, 8, 512, 64]``, float32 and bfloat16 (timed in
+   float16 too), causal,
    with and without the training batch's packed segment ids, plus ragged
    edge shapes, and K1's forward must have computed exactly the (query
    tile, key tile) pairs the training ids keep (it skips the key tiles
@@ -128,12 +129,34 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    must fail it; a profiled window of 10 steps at batch 256 (ms a step,
    idle share, busiest kernels, peak memory), checkpoint bytes and
    save / load seconds. No kernel of the ``kernels`` line may launch
-   in phases 9 and 10.
+   in phases 9 and 10;
+11. precision (``phase_precision``) — (a) the training slice's
+   TransformerLM under ``bf16_mixed``: one step with K1 in bfloat16
+   against the einsum path in bfloat16 within ``PREC_*`` (faults in K1's
+   backward must fail it), then ``PREC_ITERS`` iterations through
+   ``LocalOptimizer.set_precision("bf16_mixed").set_steps_per_sync(8)``
+   (each window one CUDA graph) with K1 launched once per layer per
+   iteration through the replays, one graph per window shape, float32
+   parameters at rest and falling losses, profiled at K = 1 and K = 8
+   (K1's bfloat16 instances must show) beside the float32 step; (b)
+   ``f16_mixed`` from ``DynamicLossScaler(init_scale=2**24,
+   growth_interval=4)``, one window of 8 steps equal bitwise to the same
+   steps one by one, each overflowing step leaving the parameters, the
+   master and the momentum bitwise as they were, the at-rest float16
+   parameters the master cast down, K1's float16 instances; (c) windowed
+   (K = 8) against per-step, bitwise, for LeNet-5 under ``f16_mixed``
+   (24 steps, a checkpoint every 12, the scaler backing off inside a
+   window) and a 2-layer TransformerLM under ``bf16_mixed`` (16 steps):
+   losses, parameters, buffers, scaler state, checkpoint names and trees;
+   (d) LeNet-5's profiled step at K = 1 and K = 8; (e) ResNet-50 at
+   batch 64, float32 against ``bf16_mixed``: images/s, idle share, peak
+   memory, float32 BN statistics, falling losses.
 
-Float32 throughout, with TF32 off for matrix products (set here) and for
-convolutions (PyTorch's default is on; the port's convolution layers
-switch it off, and phase 8 checks that they did): the tolerances below
-assume full float32.
+Float32 throughout phases 1–10, with TF32 off for matrix products (set
+here) and for convolutions (PyTorch's default is on; the port's
+convolution layers switch it off, and phase 8 checks that they did): the
+tolerances below assume full float32. Phase 11 runs the precision
+policies, with limits of their own.
 
 The line before the last is a JSON object ``{"kernels": [...]}`` with
 each kernel's launches, error and times (``ms`` and ``device_ms``, and
@@ -203,6 +226,43 @@ RT_RESUME_ATOL, RT_RESUME_LOSS_RTOL = 1e-5, 1e-5
 #: on the losses (relative) and parameters and BN statistics (absolute)
 RT_PARITY_BATCH, RT_PARITY_STEPS, RT_PARITY_SEED = 4, 3, 24
 RT_PARITY_LOSS_RTOL, RT_PARITY_ATOL = 1e-4, 1e-4
+
+# ---- the precision slice (queue 1, item 5): precision policies and
+# windows of steps as CUDA graphs, at the training slice's width ----
+#: (a) bf16_mixed: iterations and steps a window through LocalOptimizer
+PREC_ITERS, PREC_K = 30, 8
+#: (a) one bf16_mixed step, kernel against the einsum path (bf16 too):
+#: the loss (relative), the parameters after the update (the largest
+#: difference over the step's largest update) and every gradient
+#: (relative to its largest element, floored as in the train phase). bfloat16 keeps 8 bits (one rounding: 2^-9 relative);
+#: K1 holds the bf16 contract of 1e-2; the einsum path rounds P and dP
+#: to bfloat16 before its products and the softmax backward's
+#: subtraction, which cancels, so its dQ and dK carry errors of a few
+#: 1e-3 element-wise; summed over the 8192 tokens of a batch into a
+#: weight gradient they shrink. 5e-2 allows 25 roundings; the faults
+#: (dK zeroed, dQ 10% off) move a gradient by 1 and by 0.1 of itself.
+#: The first SGD step's update is the rate times the float32 gradient,
+#: so the parameters' ratio is at most the worst gradient's (its
+#: denominator, the largest update of all, is no smaller): it holds the
+#: update to the gradients' limit, in the update's own unit.
+PREC_LOSS_RTOL, PREC_PARAM_RTOL, PREC_GRAD_RTOL = 1e-2, 5e-2, 5e-2
+PREC_FAULTS = ("dK zeroed", "dQ 10% off")
+#: (b) f16_mixed: one window of steps from this scaler (its first step
+#: must overflow; every step that overflows is checked, and at least
+#: one must apply), SGD with momentum
+F16_ITERS, F16_SCALER = 8, {"init_scale": 2.0 ** 24, "growth_interval": 4}
+F16_MOMENTUM = 0.9
+#: (c) windowed against per-step, bitwise: LeNet-5 f16_mixed (steps, the
+#: checkpoint interval, rows; a scaler that grows every 2 steps, so it
+#: overflows and backs off again and again), TransformerLM bf16_mixed
+WIN_LENET_STEPS, WIN_LENET_CKPT, WIN_LENET_ROWS = 24, 12, 4096
+WIN_LENET_SCALER = {"init_scale": 2.0 ** 20, "growth_interval": 2}
+WIN_LM_LAYERS, WIN_LM_STEPS = 2, 16
+#: (e) ResNet-50 float32 against bf16_mixed: batch, profiled steps and
+#: plain SGD's rate (one batch again and again, a fixed objective, at a
+#: rate small enough that it falls; the recipe's lr 0.1 with nesterov
+#: momentum diverges on one random batch)
+RP_BATCH, RP_STEPS, RP_LR = 64, 5, 0.01
 
 # ---- K5 and K4 shapes ----
 INT8_EDGE_M, INT8_EDGE_N, INT8_EDGE_K = (1, 7, 64, 65, 300), \
@@ -1321,7 +1381,8 @@ def phase_flash(train_seg):
     # 50 MB L2), causal as in training
     entries = None
     for dtype, seg in ((torch.float32, train_seg), (torch.float32, None),
-                       (torch.bfloat16, train_seg)):
+                       (torch.bfloat16, train_seg),
+                       (torch.float16, train_seg)):
         n_sets = 3
         sets = [(_views(gen, shape, dtype),
                  torch.randn(shape, device=dev, generator=gen).to(dtype))
@@ -1387,7 +1448,7 @@ def phase_flash(train_seg):
                  if dtype == torch.float32 else
                  {"fwd": BF16_FLOPS_PER_S, "bwd": BF16_FLOPS_PER_S})
         itemsize = torch.empty((), dtype=dtype).element_size()
-        rel = dtype == torch.bfloat16
+        rel = dtype != torch.float32
         o_err = (kern_f(0)[0].float() - plain_f(0)[0].float()).abs()
         fwd_err = (o_err / plain_f(0)[0].float().abs().clamp(min=1.0)
                    if rel else o_err).max().item()
@@ -1454,17 +1515,19 @@ def _state(model):
 
 
 def step_differences(model, crit, batch, fault=None,
-                     function="_FlashAttention"):
+                     function="_FlashAttention", precision=None):
     """One SGD step from the model's weights on ``batch`` with the flash
     kernels and with flash switched off (the einsum path on the card):
     the loss difference, the largest parameter difference after the
-    update, and per parameter the largest gradient difference over the
+    update (also over the einsum step's largest update), and per
+    parameter the largest gradient difference over the
     largest element of the einsum path's gradient (floored at
     ``TRAIN_GRAD_FLOOR`` of the model's largest). ``fault`` ("dK zeroed"
     or "dQ 1% off") is put into the gradients of the kernel's autograd
     ``function`` (K1's ``_FlashAttention`` or K2's
     ``_BlockwiseFlashAttention``) during the kernel step (the fault
-    check). The model's weights are restored."""
+    check). ``precision`` (a policy) runs both steps under it. The
+    model's weights are restored."""
     from bigdl_tpu_torch import kernels
     from bigdl_tpu_torch.optim import SGD, build_train_step
 
@@ -1477,7 +1540,8 @@ def step_differences(model, crit, batch, fault=None,
                              None)):
         model.load_state_dict(start)
         with kernels.use(cfg), _gradient_fault(step_fault, function):
-            step = build_train_step(model, crit, SGD(learning_rate=TRAIN_LR))
+            step = build_train_step(model, crit, SGD(learning_rate=TRAIN_LR),
+                                    precision=precision)
             loss = float(step(*batch, TRAIN_LR))
         results.append((loss, _state(model),
                         {k: p.grad.detach().clone()
@@ -1489,10 +1553,15 @@ def step_differences(model, crit, batch, fault=None,
     grad_rel = {k: ((grad_k[k] - grad_e[k]).abs().max()
                     / grad_e[k].abs().max().clamp(min=floor)).item()
                 for k in grad_e}
+    param_diff = max((new_k[k] - new_e[k]).abs().max().item()
+                     for k in start)
+    update_max = max((new_e[k] - start[k]).abs().max().item()
+                      for k in params)
     return {"loss_kernel": loss_k, "loss_einsum": loss_e,
             "loss_diff": abs(loss_k - loss_e),
-            "param_diff": max((new_k[k] - new_e[k]).abs().max().item()
-                              for k in start),
+            "loss_rel_diff": abs(loss_k - loss_e) / abs(loss_e),
+            "param_diff": param_diff, "update_max": update_max,
+            "param_rel_diff": param_diff / max(update_max, 1e-30),
             "grad_rel_diff": grad_rel}
 
 
@@ -1517,7 +1586,8 @@ def _log_step_diffs(label, diffs, phase="train") -> None:
 def _gradient_fault(fault, function):
     """Within the block, the flash kernel's autograd backward (the
     ``function`` class of ``kernels/flash_attention.py``) puts ``fault``
-    into the gradients the kernel returns (None: no fault). The kernel
+    into the gradients the kernel returns (None: no fault): ``"dK
+    zeroed"``, or ``"dQ <p>% off"`` (dQ times 1 + p/100). The kernel
     still launches, and counts, as it does on the main path."""
     import importlib
 
@@ -1534,8 +1604,8 @@ def _gradient_fault(fault, function):
         dq, dk, dv, *rest = real(ctx, do)
         if fault == "dK zeroed":
             dk = torch.zeros_like(dk)
-        else:
-            dq = dq * 1.01
+        else:                                   # "dQ <p>% off"
+            dq = dq * (1 + float(fault.split()[1].rstrip("%")) / 100)
         return (dq, dk, dv, *rest)
 
     fn.backward = staticmethod(backward)
@@ -1546,19 +1616,26 @@ def _gradient_fault(fault, function):
 
 
 def profile_train(model, crit, batches, device, phase="train-profile",
-                  lr=TRAIN_LR, method=None) -> dict:
+                  lr=TRAIN_LR, method=None, precision=None,
+                  detail=False) -> dict:
     """Where a training step's time goes: the steps of ``batches[1:]``
     (after one warm step) under ``torch.profiler``, reporting
     wall-clock, device time by kernel and the device's idle share.
-    ``method`` is the OptimMethod (default plain SGD at ``lr``).
-    Returns the numbers, the busiest kernels under ``top``."""
+    ``method`` is the OptimMethod (default plain SGD at ``lr``),
+    ``precision`` a policy for the step. Returns the numbers, the
+    busiest kernels under ``top``; with ``detail`` also every kernel
+    under ``kernels``, the losses (the warm step's first) under
+    ``losses`` and, the same steps run again with no profiler,
+    ``unprofiled_ms_per_step`` (the profiler's own host cost stretches a
+    host-bound window)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from bigdl_tpu_torch.optim import SGD, build_train_step
 
-    step = build_train_step(model, crit, method or SGD(learning_rate=lr))
-    float(step(*batches[0], lr))                  # warm
+    step = build_train_step(model, crit, method or SGD(learning_rate=lr),
+                            precision=precision)
+    losses = [float(step(*batches[0], lr))]       # warm
     on_card = device == "cuda"
     acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
                                      if on_card else [])
@@ -1566,7 +1643,7 @@ def profile_train(model, crit, batches, device, phase="train-profile",
         time.sleep(WINDOW_MARGIN_S)
         t0 = time.perf_counter()
         for inp, tgt in batches[1:]:
-            float(step(inp, tgt, lr))
+            losses.append(float(step(inp, tgt, lr)))
         if on_card:
             torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
@@ -1590,7 +1667,17 @@ def profile_train(model, crit, batches, device, phase="train-profile",
     log(phase, json.dumps(numbers))
     for ms, count, key in kernels[:10]:
         log(phase, f"{ms:9.3f} ms {count:6d}x  {key[:90]}")
-    return numbers
+    if not detail:
+        return numbers
+    t0 = time.perf_counter()
+    for inp, tgt in batches[1:]:
+        float(step(inp, tgt, lr))
+    if on_card:
+        torch.cuda.synchronize()
+    unprofiled = (time.perf_counter() - t0) * 1e3 / (len(batches) - 1)
+    log(phase, f"the same steps with no profiler: {unprofiled:.3f} ms a step")
+    return dict(numbers, kernels=kernels, losses=losses,
+                unprofiled_ms_per_step=unprofiled)
 
 
 def compare_attention_paths(model, crit, batch, device, phase="train"
@@ -1694,6 +1781,7 @@ def phase_train(counters, corpus, device="cuda"):
         "loss_mean_last5": float(np.mean(losses[-5:])),
         "epoch": opt.driver_state["epoch"], "launches": launches}
     log("train", json.dumps(summary))
+    summary["losses"] = losses
     if not all(np.isfinite(losses)) or len(losses) != TRAIN_ITERS:
         raise AssertionError(f"losses: {losses}")
     if not summary["loss_mean_last5"] < summary["loss_mean_first5"]:
@@ -3175,6 +3263,623 @@ def phase_resnet_train(counters, device="cuda"):
     return launches, summary
 
 
+def _train_model(device, layers=None):
+    """The training slice's TransformerLM (its weight seed) on
+    ``device``, ``layers`` deep (default ``LAYERS``)."""
+    import torch
+
+    from bigdl_tpu_torch.models import TransformerLM
+
+    return TransformerLM(vocab_size=TRAIN_VOCAB, hidden_size=HIDDEN,
+                         num_layers=layers or LAYERS, num_heads=HEADS,
+                         ffn_size=FFN,
+                         max_len=TRAIN_SEQ, device=device,
+                         generator=torch.Generator().manual_seed(21))
+
+
+def _corpus_batch(corpus, i, device):
+    """Batch ``i`` of the packed corpus on ``device``: three planes and
+    the targets."""
+    import torch
+
+    x, y = corpus
+    rows = slice(i * TRAIN_BATCH, (i + 1) * TRAIN_BATCH)
+    return ([torch.from_numpy(p[rows]).to(device) for p in x],
+            torch.from_numpy(y[rows]).to(device))
+
+
+def _stack(batches):
+    """``[(input, target)]`` of device batches -> one stacked window
+    ``(xs, ys)`` (``[K, B, ...]``; a list input stacks plane by plane)."""
+    import torch
+
+    xs = [b[0] for b in batches]
+    if isinstance(xs[0], (list, tuple)):
+        xs = [torch.stack(planes) for planes in zip(*xs)]
+    else:
+        xs = torch.stack(xs)
+    return xs, torch.stack([b[1] for b in batches])
+
+
+def _has_instance(kernels, name: str, dtype: str) -> bool:
+    """Whether a profiler window ran an instance of kernel ``name`` in
+    ``dtype`` (``__nv_bfloat16``, ``__half``, ``float``)."""
+    return any(name in key and dtype in key for _, _, key in kernels)
+
+
+def _instances(kernels, name: str) -> int:
+    """How many instances of kernel ``name`` a profiler window ran."""
+    return sum(count for _, count, key in kernels if name in key)
+
+
+def _window_calls(window, steps: int, on_card: bool) -> int:
+    """The calls a kernel wrapper on every step's path gets in a run of
+    ``steps`` steps that all ran in ``window`` (None: one by one): on
+    the card one warm-up step and the K captured steps for each window
+    shape (a replay calls no wrapper), on the CPU every step."""
+    if window is None or not on_card:
+        return steps
+    return sum(1 + k for k, _ in window.shapes)
+
+
+def profile_window(window, stacked, lrs, device, phase) -> dict:
+    """Where a window's time goes: ``window`` (``make_host_window``'s)
+    called
+    once to capture it, then ``len(stacked)`` windows under
+    ``torch.profiler`` (wall-clock, device time by kernel, idle share).
+    ``stacked`` is ``[(xs, ys)]`` on the device. The same windows run
+    again with no profiler give ``unprofiled_ms_per_step``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for xs, ys in stacked:
+        window(xs, ys, lrs[:len(ys)]).tolist()          # capture, warm
+    steps = sum(len(ys) for _, ys in stacked)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        time.sleep(WINDOW_MARGIN_S)
+        t0 = time.perf_counter()
+        losses = [window(xs, ys, lrs[:len(ys)]).tolist()
+                  for xs, ys in stacked]
+        torch.cuda.synchronize(device)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        time.sleep(WINDOW_MARGIN_S)
+    kernels = device_kernels(prof)
+    busy_ms = sum(k[0] for k in kernels)
+    read = bool(kernels) and busy_ms <= wall_ms
+    numbers = {
+        "windows": len(stacked), "steps": steps, "wall_ms": wall_ms,
+        "wall_ms_per_step": wall_ms / steps,
+        "device_busy_ms": busy_ms if read else "not measured",
+        "device_idle_share": (1 - busy_ms / wall_ms) if read
+        else "not measured",
+        "top": [[ms, count, key[:90]] for ms, count, key in kernels[:5]]}
+    log(phase, json.dumps(numbers))
+    for ms, count, key in kernels[:10]:
+        log(phase, f"{ms:9.3f} ms {count:6d}x  {key[:90]}")
+    t0 = time.perf_counter()
+    for xs, ys in stacked:
+        window(xs, ys, lrs[:len(ys)]).tolist()
+    torch.cuda.synchronize(device)
+    unprofiled = (time.perf_counter() - t0) * 1e3 / steps
+    log(phase, f"the same windows with no profiler: {unprofiled:.3f} ms a "
+               f"step")
+    return dict(numbers, kernels=kernels, losses=losses,
+                unprofiled_ms_per_step=unprofiled)
+
+
+def _snapshot(tensors):
+    return [t.detach().clone() for t in tensors]
+
+
+def _bitwise(a, b) -> bool:
+    import torch
+    return len(a) == len(b) and all(
+        x.dtype == y.dtype and torch.equal(x, y) for x, y in zip(a, b))
+
+
+def _windowed_run(build, k, root):
+    """One run of ``build(k, ckdir)`` (a configured LocalOptimizer):
+    returns what (c) compares — losses, the final parameters and buffers,
+    the scaler state, the checkpoint names and trees, and the window's
+    graph and shape counts."""
+    import os
+
+    from bigdl_tpu_torch.precision import SCALER_KEY
+    from bigdl_tpu_torch.utils.serialization import load_checkpoint
+
+    ckdir = os.path.join(root, f"k{k}")
+    opt = build(k, ckdir)
+    model = opt.optimize()
+    names = sorted(os.listdir(ckdir)) if os.path.isdir(ckdir) else []
+    trees = [load_checkpoint(os.path.join(ckdir, n)) for n in names]
+    ss = opt.train_step.opt_state.get(SCALER_KEY, {})
+    return {"losses": [h["loss"] for h in opt.history],
+            "params": _snapshot(model.parameters()),
+            "buffers": _snapshot(model.buffers()),
+            "scaler": _snapshot(ss[key] for key in sorted(ss)),
+            "checkpoints": names, "trees": trees,
+            "graphs": opt.window.captures if opt.window else 0,
+            "shapes": len(opt.window.shapes) if opt.window else 0,
+            "window": opt.window}
+
+
+def _trees_bitwise(a, b) -> bool:
+    from bigdl_tpu_torch.convert import flatten_params
+
+    def flat(tree, prefix=""):
+        out = {}
+        for key, v in tree.items():
+            if isinstance(v, dict):
+                out.update(flat(v, f"{prefix}{key}."))
+            else:
+                out[prefix + key] = np.asarray(v)
+        return out
+    fa, fb = flat(a), flat(b)
+    return fa.keys() == fb.keys() and all(
+        fa[k].dtype == fb[k].dtype and fa[k].tobytes() == fb[k].tobytes()
+        for k in fa)
+
+
+def phase_precision(counters, corpus, f32_train, device="cuda"):
+    """The precision slice (queue 1, item 5) on ``device``: (a)
+    bf16_mixed TransformerLM at the training width through K1 in
+    bfloat16 — one step against the einsum path (and with faults in K1's
+    backward, which must fail it), then ``PREC_ITERS`` iterations through
+    ``LocalOptimizer.set_precision("bf16_mixed").set_steps_per_sync(8)``
+    (K1's wrapper calls exact: a warm-up and the captured steps for each
+    graph), profiled at K = 1 and K = 8 beside the float32 step
+    (``f32_train``, phase_train's summary), K1's kernels in the profiled
+    replays exactly one per layer and step; (b) f16_mixed, one window of
+    ``F16_ITERS`` steps (its first must overflow) against the same steps
+    one by one; (c) windowed
+    against
+    per-step, bitwise, for LeNet-5 under f16_mixed and a 2-layer
+    TransformerLM under bf16_mixed; (d) LeNet-5's host-bound step at K =
+    1 and K = 8; (e) ResNet-50 at batch 64, float32 against bf16_mixed.
+    Returns K1's launches on (a)'s and (b)'s paths and the numbers."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from bigdl_tpu_torch import telemetry
+    from bigdl_tpu_torch.dataset import DataSet, Sample, SampleToMiniBatch
+    from bigdl_tpu_torch.models import LeNet5
+    from bigdl_tpu_torch.models._cli import arrays_to_dataset
+    from bigdl_tpu_torch.nn import (ClassNLLCriterion, CrossEntropyCriterion,
+                                    SequenceCrossEntropyCriterion)
+    from bigdl_tpu_torch.optim import (SGD, LocalOptimizer, Trigger,
+                                       build_train_step, make_host_window,
+                                       max_iteration, seed_precision,
+                                       several_iteration)
+    from bigdl_tpu_torch.precision import (MASTER_KEY, SCALER_KEY,
+                                           DynamicLossScaler,
+                                           PrecisionPolicy)
+
+    x, y = corpus
+    bf16, f16 = PrecisionPolicy.bf16_mixed(), PrecisionPolicy.f16_mixed()
+    crit = SequenceCrossEntropyCriterion(ignore_index=-1)
+    on_card = device == "cuda"
+    summary = {}
+    k1 = ("flash_attention_fwd", "flash_attention_bwd")
+
+    def reset():
+        for fn in counters.values():
+            fn.launches = 0
+
+    def k1_launches():
+        return {name: counters[name].launches for name in k1}
+
+    # (a) one bf16 step, K1 against the einsum path, then with faults
+    model = _train_model(device)
+    batch0 = _corpus_batch(corpus, 0, device)
+    diffs = step_differences(model, crit, batch0, precision=bf16)
+
+    def holds(d):
+        return (d["loss_rel_diff"] <= PREC_LOSS_RTOL
+                and d["param_rel_diff"] <= PREC_PARAM_RTOL
+                and max(d["grad_rel_diff"].values()) <= PREC_GRAD_RTOL)
+
+    def show(label, d):
+        worst = max(d["grad_rel_diff"], key=d["grad_rel_diff"].get)
+        log("precision", f"one bf16_mixed step, {label}: loss "
+                         f"{d['loss_kernel']:.6f} vs einsum path "
+                         f"{d['loss_einsum']:.6f} (relative "
+                         f"{d['loss_rel_diff']:.3e}, limit "
+                         f"{PREC_LOSS_RTOL}), max |param diff| "
+                         f"{d['param_diff']:.3e} over the largest update "
+                         f"{d['update_max']:.3e}: {d['param_rel_diff']:.3e} "
+                         f"(limit {PREC_PARAM_RTOL}), "
+                         f"worst gradient {worst} at "
+                         f"{d['grad_rel_diff'][worst]:.3e} of its largest "
+                         f"element (limit {PREC_GRAD_RTOL})")
+
+    show("kernel", diffs)
+    summary["one_step"] = {k: diffs[k] for k in (
+        "loss_kernel", "loss_einsum", "loss_rel_diff", "param_diff",
+        "update_max", "param_rel_diff")}
+    summary["one_step"]["worst_grad_rel_diff"] = max(
+        diffs["grad_rel_diff"].values())
+    if not holds(diffs):
+        raise AssertionError(f"bf16 kernel step differs from the einsum "
+                             f"step: {diffs}")
+    for fault in PREC_FAULTS:
+        d = step_differences(model, crit, batch0, fault, precision=bf16)
+        show(f"kernel with {fault}", d)
+        summary["one_step"][f"worst_grad_rel_diff with {fault}"] = max(
+            d["grad_rel_diff"].values())
+        if holds(d):
+            raise AssertionError(f"the bf16 one-step check misses a kernel "
+                                 f"with {fault}: {d}")
+
+    # (a) PREC_ITERS iterations, bf16_mixed, windows of PREC_K steps
+    samples = [Sample([p[i] for p in x], y[i]) for i in range(len(y))]
+    ds = DataSet.array(samples).transform(SampleToMiniBatch(TRAIN_BATCH))
+    opt = LocalOptimizer(model, ds, crit, batch_size=TRAIN_BATCH)
+    opt.set_optim_method(SGD(learning_rate=TRAIN_LR))
+    opt.set_end_when(max_iteration(PREC_ITERS))
+    opt.set_precision("bf16_mixed").set_steps_per_sync(PREC_K)
+    reset()
+    t0 = time.perf_counter()
+    opt.optimize()
+    wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counters.items()}
+    losses = [h["loss"] for h in opt.history]
+    f32_losses = f32_train["losses"]
+    gap = [abs(a - b) for a, b in zip(losses, f32_losses)]
+    window_ms = sorted(h["seconds"] * 1e3 for h in opt.history[PREC_K:])
+    a = {"iterations": len(losses), "seconds": wall,
+         "ms_per_step_median_k8": window_ms[len(window_ms) // 2],
+         "graphs": opt.window.captures, "shapes": len(opt.window.shapes),
+         "loss_first": losses[0], "loss_last": losses[-1],
+         "loss_mean_first5": float(np.mean(losses[:5])),
+         "loss_mean_last5": float(np.mean(losses[-5:])),
+         "bf16_vs_f32_loss_gap_max": max(gap),
+         "bf16_vs_f32_loss_gap_mean": float(np.mean(gap)),
+         "launches": launches}
+    log("precision", json.dumps(a))
+    summary["bf16_run"] = a
+    if not all(np.isfinite(losses)) or len(losses) != PREC_ITERS:
+        raise AssertionError(f"bf16 losses: {losses}")
+    if not a["loss_mean_last5"] < a["loss_mean_first5"]:
+        raise AssertionError(f"bf16 loss did not fall: {losses}")
+    calls = LAYERS * _window_calls(opt.window, PREC_ITERS, on_card)
+    for name in k1:
+        if launches[name] != calls:
+            raise AssertionError(f"{name} called {launches[name]} times over "
+                                 f"{PREC_ITERS} windowed iterations x "
+                                 f"{LAYERS} layers, not {calls}")
+    if not all(p.dtype == torch.float32 for p in model.parameters()):
+        raise AssertionError("bf16_mixed parameters are not float32 at rest")
+    if on_card and a["graphs"] != a["shapes"]:
+        raise AssertionError(f"{a['graphs']} graphs for {a['shapes']} "
+                             f"window shapes")
+    a_launches = k1_launches()
+    # the same iterations one step a sync, from the same weights: the
+    # step's wall time with no profiler, and whether the losses match
+    opt1 = LocalOptimizer(_train_model(device), ds, crit,
+                          batch_size=TRAIN_BATCH)
+    opt1.set_optim_method(SGD(learning_rate=TRAIN_LR))
+    opt1.set_end_when(max_iteration(PREC_ITERS))
+    opt1.set_precision("bf16_mixed").optimize()
+    k1_ms = sorted(h["seconds"] * 1e3 for h in opt1.history[2:])
+    a.update(ms_per_step_median_k1=k1_ms[len(k1_ms) // 2],
+             k1_losses_equal_k8=[h["loss"] for h in opt1.history] == losses)
+    log("precision", f"the same {PREC_ITERS} iterations at K = 1: median "
+                     f"{a['ms_per_step_median_k1']:.3f} ms a step, losses "
+                     f"bitwise the K = {PREC_K} run's: "
+                     f"{a['k1_losses_equal_k8']}")
+    del opt1
+
+    # (a) profiles: bf16 at K = 1, then windows of PREC_K
+    # the corpus holds 32 full batches: the profiles take them from the
+    # start again
+    prof_batches = [_corpus_batch(corpus, i, device)
+                    for i in range(2 * PREC_K + 1)]
+    k1_prof = profile_train(model, crit, prof_batches[:PROFILE_STEPS + 1],
+                            device, phase="precision-profile-k1",
+                            precision=bf16, detail=True)
+    step = build_train_step(model, crit, SGD(learning_rate=TRAIN_LR),
+                            precision=bf16)
+    k8_window, k8_prof = make_host_window(step), None
+    k1_names = ("flash_fwd_kernel", "flash_dkv_kernel", "flash_dq_kernel")
+    # K1 ran once a layer and step in the profiled replays (the replays
+    # call no wrapper, so the profiler counts them); a window that lost
+    # kernels at its edge is read again, up to twice
+    for _ in range(3 if on_card else 0):
+        k8_prof = profile_window(
+            k8_window,
+            [_stack(prof_batches[1 + i * PREC_K:1 + (i + 1) * PREC_K])
+             for i in range(2)], [TRAIN_LR] * PREC_K, device,
+            "precision-profile-k8")
+        ran = {name: _instances(k8_prof["kernels"], name)
+               for name in k1_names}
+        want = LAYERS * k8_prof["steps"]
+        log("precision", f"K1 kernels in {k8_prof['steps']} profiled "
+                         f"replayed steps: {ran} (want {want} each)")
+        if any(n > want for n in ran.values()):
+            raise AssertionError(f"K1 kernels ran {ran} times in "
+                                 f"{k8_prof['steps']} replayed steps x "
+                                 f"{LAYERS} layers")
+        if all(n == want for n in ran.values()):
+            a["k1_kernels_in_profiled_replays"] = ran
+            break
+    else:
+        if on_card:
+            raise AssertionError(f"K1 kernels ran {ran} times in "
+                                 f"{k8_prof['steps']} replayed steps x "
+                                 f"{LAYERS} layers, three windows read")
+    slab = TRAIN_BATCH * TRAIN_SEQ
+    summary["bf16_profile"] = {
+        "k1_ms_per_step": k1_prof["wall_ms_per_step"],
+        "k1_tokens_per_s": slab * 1e3 / k1_prof["wall_ms_per_step"],
+        "k1_idle_share": k1_prof["device_idle_share"],
+        "k1_unprofiled_ms_per_step": k1_prof["unprofiled_ms_per_step"],
+        "k8_ms_per_step": k8_prof and k8_prof["wall_ms_per_step"],
+        "k8_tokens_per_s": k8_prof and slab * 1e3
+        / k8_prof["wall_ms_per_step"],
+        "k8_idle_share": k8_prof and k8_prof["device_idle_share"],
+        "k8_unprofiled_ms_per_step": k8_prof
+        and k8_prof["unprofiled_ms_per_step"],
+        "f32_ms_per_step_median": f32_train["ms_per_step_median"],
+        "f32_tokens_per_s": f32_train["tokens_per_sec"]}
+    log("precision", json.dumps(summary["bf16_profile"]))
+    if on_card:
+        for name in k1_names:
+            for prof in (k1_prof, k8_prof):
+                if not _has_instance(prof["kernels"], name,
+                                     "__nv_bfloat16"):
+                    raise AssertionError(f"no bfloat16 {name} in the "
+                                         f"bf16_mixed profile")
+    del model, opt, step, k8_window, k8_prof
+
+    # (b) f16_mixed: one window whose first step overflows, against the
+    # same steps one by one from the same state
+    model = _train_model(device)
+    step = build_train_step(model, crit, SGD(learning_rate=TRAIN_LR,
+                                             momentum=F16_MOMENTUM),
+                            precision=f16,
+                            loss_scaler=DynamicLossScaler(**F16_SCALER))
+    seed_precision(step)
+    params = list(model.parameters())
+    master, moment = step.opt_state[MASTER_KEY], step.opt_state["v"]
+    ss = step.opt_state[SCALER_KEY]
+    state = [*params, *master, *moment, *(ss[k] for k in sorted(ss))]
+    start = _snapshot(state)
+    batches = [_corpus_batch(corpus, i, device) for i in range(F16_ITERS)]
+    window = make_host_window(step)
+    reset()
+    w_losses = window(*_stack(batches), [TRAIN_LR] * F16_ITERS).tolist()
+    b_launches = k1_launches()
+    after_window = _snapshot(state)
+    with torch.no_grad():
+        for t, v in zip(state, start):
+            t.copy_(v)
+    lr_t = torch.full((), TRAIN_LR, device=device)
+    # the same steps one by one: each step that overflows (skipped rises)
+    # must leave the parameters, the master and the momentum bitwise as
+    # they were and halve the scale; each other step must move them
+    p_losses, skipped, scales, kept_by_skip, moved = [], [], [], [], []
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
+                                     if on_card else [])
+    with profile(activities=acts) as prof:
+        for inp, tgt in batches:
+            before = _snapshot([*params, *master, *moment])
+            scale0, skipped0 = float(ss["scale"]), int(ss["skipped"])
+            p_losses.append(float(step(inp, tgt, lr_t)))
+            skipped.append(int(ss["skipped"]))
+            scales.append(float(ss["scale"]))
+            same = _bitwise(_snapshot([*params, *master, *moment]), before)
+            if skipped[-1] > skipped0:
+                kept_by_skip.append(same and scales[-1] == scale0 / 2)
+            else:
+                moved.append(not same)
+    f16_kernels = device_kernels(prof) if on_card else []
+    b = {"window_losses": w_losses, "per_step_losses": p_losses,
+         "skipped_after_each_step": skipped, "scale_after_each_step": scales,
+         "skipped_steps_left_state_unchanged": kept_by_skip,
+         "applied_steps_moved_state": moved,
+         "window_equals_per_step": w_losses == p_losses
+         and _bitwise(after_window, _snapshot(state)),
+         "at_rest_is_master_cast_down": _bitwise(
+             _snapshot(params), [m.to(torch.float16) for m in master]),
+         "launches": b_launches}
+    b["first_step_overflowed"] = skipped[0] == 1
+    log("precision-f16", json.dumps(b))
+    summary["f16"] = b
+    if not (b["first_step_overflowed"] and all(kept_by_skip)):
+        raise AssertionError(f"the first f16 step did not overflow, or a "
+                             f"skipped step changed the state or did not "
+                             f"halve the scale: {b}")
+    if not (moved and all(moved)):
+        raise AssertionError(f"no f16 step of the window applied, or an "
+                             f"applied one changed nothing: {b}")
+    if not (b["window_equals_per_step"] and b["at_rest_is_master_cast_down"]
+            and all(np.isfinite(w_losses))):
+        raise AssertionError(f"f16 window: {b}")
+    calls = LAYERS * _window_calls(window, F16_ITERS, on_card)
+    for name in k1:
+        if b_launches[name] != calls:
+            raise AssertionError(f"{name} called {b_launches[name]} times "
+                                 f"in a window of {F16_ITERS} steps x "
+                                 f"{LAYERS} layers, not {calls}")
+    if on_card:
+        for name in ("flash_fwd_kernel", "flash_dkv_kernel",
+                     "flash_dq_kernel"):
+            if not _has_instance(f16_kernels, name, "__half"):
+                raise AssertionError(f"no float16 {name} ran")
+    del model, step, window, state, start, after_window
+
+    # (c) windowed against per-step, bitwise
+    root = tempfile.mkdtemp(prefix="chip-smoke-precision-")
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        lx, ly = separable_digits(WIN_LENET_ROWS, seed=46)
+        seen = {}
+
+        def lenet(k, ckdir):
+            from bigdl_tpu_torch.utils.random import RandomGenerator
+            RandomGenerator.set_seed(47)
+            record = seen.setdefault(k, [])
+            gauge = telemetry.gauge("train/precision/skipped_steps")
+
+            def end(s):
+                record.append((s["neval"], gauge.value()))
+                return s["neval"] > WIN_LENET_STEPS
+
+            opt = LocalOptimizer(
+                LeNet5(10, device=device,
+                       generator=torch.Generator().manual_seed(1)),
+                arrays_to_dataset(lx, ly, LENET_BATCH), ClassNLLCriterion(),
+                batch_size=LENET_BATCH)
+            opt.set_optim_method(SGD(learning_rate=LENET_LR,
+                                     momentum=LENET_MOMENTUM))
+            opt.set_end_when(Trigger(
+                end, depends_on=frozenset({"neval"}),
+                peek=lambda s: s["neval"] > WIN_LENET_STEPS))
+            opt.set_checkpoint(ckdir, several_iteration(WIN_LENET_CKPT))
+            opt.set_precision("f16_mixed",
+                              DynamicLossScaler(**WIN_LENET_SCALER))
+            return opt.set_steps_per_sync(k)
+
+        def lm(k, ckdir):
+            opt = LocalOptimizer(_train_model(device, WIN_LM_LAYERS), ds,
+                                 crit, batch_size=TRAIN_BATCH)
+            opt.set_optim_method(SGD(learning_rate=TRAIN_LR))
+            opt.set_end_when(max_iteration(WIN_LM_STEPS))
+            opt.set_precision("bf16_mixed")
+            return opt.set_steps_per_sync(k)
+
+        c = {}
+        for name, build, layers in (("lenet_f16", lenet, 0),
+                                    ("transformer_bf16", lm, WIN_LM_LAYERS)):
+            runs = {}
+            for k in (1, PREC_K):
+                reset()
+                runs[k] = _windowed_run(build, k, f"{root}/{name}")
+                runs[k]["k1"] = k1_launches()
+            one, many = runs[1], runs[PREC_K]
+            row = {"losses_equal": one["losses"] == many["losses"],
+                   "params_equal": _bitwise(one["params"], many["params"]),
+                   "buffers_equal": _bitwise(one["buffers"],
+                                             many["buffers"]),
+                   "scaler_equal": _bitwise(one["scaler"], many["scaler"]),
+                   "checkpoints": [one["checkpoints"],
+                                   many["checkpoints"]],
+                   "checkpoint_trees_equal": all(
+                       _trees_bitwise(ta[part], tb[part])
+                       for ta, tb in zip(one["trees"], many["trees"])
+                       for part in ("params", "opt_state", "model_state")),
+                   "graphs": many["graphs"], "shapes": many["shapes"],
+                   "k1_launches": [one["k1"], many["k1"]],
+                   "loss_last": one["losses"][-1]}
+            if name == "lenet_f16":
+                # the end trigger runs before every step (K = 1) or
+                # window (K = 8), after the last one's sync: (neval,
+                # skipped so far) at each
+                rec = seen[1]
+                skips = [n for (n, v), (_, w) in zip(rec, rec[1:]) if w > v]
+                firsts = [n for n, _ in seen[PREC_K][:-1]]
+                row["skipped_steps"] = skips
+                row["window_first_steps"] = firsts
+                row["skips_inside_a_window"] = [n for n in skips
+                                                if n not in firsts]
+            log("precision-windowed", f"{name}: {json.dumps(row)}")
+            c[name] = row
+            ok = (row["losses_equal"] and row["params_equal"]
+                  and row["buffers_equal"] and row["scaler_equal"]
+                  and row["checkpoints"][0] == row["checkpoints"][1]
+                  and row["checkpoint_trees_equal"]
+                  and (not on_card or row["graphs"] == row["shapes"]))
+            if not ok:
+                raise AssertionError(f"{name}: windowed != per-step: {row}")
+            want = [layers * _window_calls(r["window"], WIN_LM_STEPS,
+                                           on_card) for r in (one, many)]
+            if layers and [[r["k1"][n] for n in k1] for r in (one, many)] \
+                    != [[w, w] for w in want]:
+                raise AssertionError(f"{name}: K1 calls {row}, not {want}")
+            if name == "lenet_f16" and not row["skips_inside_a_window"]:
+                raise AssertionError(f"lenet_f16: the scaler never backed "
+                                     f"off inside a window: {row}")
+        summary["windowed"] = c
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+        shutil.rmtree(root, ignore_errors=True)
+
+    # (d) LeNet-5's host-bound step at K = 1 and K = PREC_K (float32)
+    px, py = separable_digits(LENET_BATCH * (LENET_PROFILE_STEPS + 1),
+                              seed=45)
+    lenet_batches = [(torch.from_numpy(px[i::LENET_PROFILE_STEPS + 1])
+                      .to(device),
+                      torch.from_numpy(py[i::LENET_PROFILE_STEPS + 1])
+                      .to(device))
+                     for i in range(LENET_PROFILE_STEPS + 1)]
+    lenet = LeNet5(10, device=device,
+                   generator=torch.Generator().manual_seed(1))
+    d1 = profile_train(lenet, ClassNLLCriterion(), lenet_batches, device,
+                       phase="precision-lenet-k1", lr=LENET_LR, detail=True)
+    d = {"k1_ms_per_step": d1["wall_ms_per_step"],
+         "k1_idle_share": d1["device_idle_share"],
+         "k1_unprofiled_ms_per_step": d1["unprofiled_ms_per_step"]}
+    if on_card:
+        step = build_train_step(lenet, ClassNLLCriterion(),
+                                SGD(learning_rate=LENET_LR))
+        chunks = [lenet_batches[1 + i:1 + i + PREC_K]
+                  for i in range(0, LENET_PROFILE_STEPS, PREC_K)]
+        d8 = profile_window(make_host_window(step),
+                            [_stack(ch) for ch in chunks],
+                            [LENET_LR] * PREC_K, device,
+                            "precision-lenet-k8")
+        d.update(k8_ms_per_step=d8["wall_ms_per_step"],
+                 k8_idle_share=d8["device_idle_share"],
+                 k8_unprofiled_ms_per_step=d8["unprofiled_ms_per_step"])
+    log("precision-lenet", json.dumps(d))
+    summary["lenet_host_bound"] = d
+
+    # (e) ResNet-50 at batch RP_BATCH: float32 against bf16_mixed
+    g = torch.Generator(device=device).manual_seed(RESNET_SEED)
+    one_batch = (torch.rand((RP_BATCH, 3, IMAGE, IMAGE), generator=g,
+                            device=device),
+                 torch.randint(1, RESNET_CLASSES + 1, (RP_BATCH,),
+                               generator=g, device=device).float())
+    e = {}
+    for name, policy in (("float32", None), ("bf16_mixed", bf16)):
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        resnet = _resnet50(device)
+        prof = profile_train(resnet, CrossEntropyCriterion(),
+                             [one_batch] * (RP_STEPS + 1), device,
+                             phase=f"precision-resnet-{name}", lr=RP_LR,
+                             precision=policy, detail=True)
+        e[name] = {
+            "ms_per_step": prof["wall_ms_per_step"],
+            "images_per_s": RP_BATCH * 1e3 / prof["wall_ms_per_step"],
+            "idle_share": prof["device_idle_share"],
+            "unprofiled_ms_per_step": prof["unprofiled_ms_per_step"],
+            "unprofiled_images_per_s": RP_BATCH * 1e3
+            / prof["unprofiled_ms_per_step"],
+            "peak_memory_bytes": torch.cuda.max_memory_allocated()
+            if on_card else "not measured",
+            "losses": prof["losses"],
+            "bn_statistics": sorted({str(b.dtype).split(".")[-1]
+                                     for b in resnet.buffers()})}
+        del resnet
+        losses = prof["losses"]
+        if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+            raise AssertionError(f"ResNet-50 {name} losses: {losses}")
+        if e[name]["bn_statistics"] != ["float32"]:
+            raise AssertionError(f"ResNet-50 {name} BN statistics: "
+                                 f"{e[name]['bn_statistics']}")
+    log("precision-resnet", json.dumps(e))
+    summary["resnet50"] = e
+    launches = {"bf16_mixed": a_launches, "f16_mixed": b_launches}
+    summary["k1_launches"] = launches
+    return launches, summary
+
+
 def main() -> int:
     import torch
 
@@ -3213,12 +3918,13 @@ def main() -> int:
                 "int8_gemm": int8_gemm,
                 "paged_decode": paged_decode_attention}
     serve_launches, _ = phase_main_path(counters, greedy, topk)
-    train_launches, _ = phase_train(counters, corpus)
+    train_launches, train_summary = phase_train(counters, corpus)
     longctx_launches, _ = phase_longctx_train(counters)
     longserve_launches, _ = phase_longctx_serve(counters)
     int8_launches, _ = phase_int8_serve(counters)
     lenet_launches, _ = phase_lenet(counters)
     resnet_launches, _ = phase_resnet_train(counters)
+    phase_precision(counters, corpus, train_summary)
     ragged["launches"] = serve_launches["ragged_decode"]
     flash_fwd["launches"] = train_launches["flash_attention_fwd"]
     flash_bwd["launches"] = train_launches["flash_attention_bwd"]

@@ -38,11 +38,14 @@ from bigdl_tpu_torch.utils import serialization as ser
 from bigdl_tpu_torch.utils.module_serializer import from_spec, to_spec
 from bigdl_tpu_torch.utils.random import RandomGenerator
 
-from _torch_parity import assert_trees_close, to_jax
+from _torch_parity import assert_trees_close, flat, to_jax
 
 RTOL = 1e-5
 MODULE_RTOL = 1e-6
 BATCH = 8
+#: f16_mixed runs: the scale grows every 2 finite steps, so after 3 steps
+#: the state is mid-interval (scale 2048, good_steps 1)
+F16_SCALER = dict(init_scale=2.0 ** 10, growth_interval=2)
 
 
 def _rows(n, seed):
@@ -60,7 +63,7 @@ def _recorder(trigger_cls, record, steps):
     return trigger_cls(fn)
 
 
-def _jax_run(params, rows, ckdir, every, steps, seed):
+def _jax_run(params, rows, ckdir, every, steps, seed, precision=False):
     JaxRandomGenerator.set_seed(seed)
     model = JaxLeNet5(10)
     model.set_parameters(to_jax(params))
@@ -72,13 +75,16 @@ def _jax_run(params, rows, ckdir, every, steps, seed):
         batch_size=BATCH)
     opt.set_optim_method(joptim.SGD(learning_rate=0.05, momentum=0.9))
     opt.set_checkpoint(str(ckdir), joptim.several_iteration(every))
+    if precision:
+        from bigdl_tpu.precision import DynamicLossScaler
+        opt.set_precision("f16_mixed", DynamicLossScaler(**F16_SCALER))
     losses = {}
     opt.set_end_when(_recorder(JaxTrigger, losses, steps))
     opt.optimize()
     return opt, losses
 
 
-def _port_run(params, rows, ckdir, every, steps, seed):
+def _port_run(params, rows, ckdir, every, steps, seed, precision=False):
     RandomGenerator.set_seed(seed)
     model = LeNet5(10, device="cpu").set_parameters(params)
     x, y = rows
@@ -88,6 +94,9 @@ def _port_run(params, rows, ckdir, every, steps, seed):
         batch_size=BATCH)
     opt.set_optim_method(optim.SGD(learning_rate=0.05, momentum=0.9))
     opt.set_checkpoint(str(ckdir), optim.several_iteration(every))
+    if precision:
+        from bigdl_tpu_torch.precision import DynamicLossScaler
+        opt.set_precision("f16_mixed", DynamicLossScaler(**F16_SCALER))
     losses = {}
     opt.set_end_when(_recorder(optim.Trigger, losses, steps))
     opt.optimize()
@@ -154,6 +163,58 @@ def test_resume_continues_a_port_run(tmp_path):
         np.testing.assert_allclose(r_losses[n], s_losses[n], rtol=RTOL)
     assert_trees_close(resumed.model.get_parameters(),
                        straight.model.get_parameters(), atol=1e-6)
+
+
+def test_f16_mixed_checkpoints_resume_across_packages(tmp_path):
+    """f16_mixed LeNet-5 (3 steps of 8 rows, a checkpoint after step 3)
+    in each package: the checkpoints carry the float32 master copy and the
+    scaler state under the JAX package's keys, with equal scaler states.
+    The JAX package resumes from the port's checkpoint and the port from
+    the JAX package's, each for 2 steps, against the writer package's
+    own resumed continuation: losses within 1e-3
+    relative and parameters within 1e-3 (float16 compute in both; the
+    two packages' float16 convolutions round differently)."""
+    import shutil
+
+    from bigdl_tpu_torch.precision import MASTER_KEY, SCALER_KEY
+    params, rows = _start_params(), _rows(32, 4)
+    _port_run(params, rows, tmp_path / "p", 4, 3, seed=5, precision=True)
+    _jax_run(params, rows, tmp_path / "j", 4, 3, seed=5, precision=True)
+    cks = {d: jser.load_checkpoint(str(tmp_path / d / "checkpoint.4"))
+           for d in ("p", "j")}
+    for ck in cks.values():
+        assert set(ck["opt_state"]) == {"v", MASTER_KEY, SCALER_KEY}
+        assert_trees_close(ck["opt_state"][MASTER_KEY], params, atol=0.5)
+        master_dtypes = {np.asarray(a).dtype for a in
+                         flat(ck["opt_state"][MASTER_KEY]).values()}
+        assert master_dtypes == {np.dtype(np.float32)}
+        assert {np.asarray(a).dtype for a in flat(ck["params"]).values()} \
+            == {np.dtype(np.float16)}
+    for k in ("scale", "good_steps", "skipped"):
+        assert np.asarray(cks["p"]["opt_state"][SCALER_KEY][k]).tobytes() \
+            == np.asarray(cks["j"]["opt_state"][SCALER_KEY][k]).tobytes()
+    assert float(cks["p"]["opt_state"][SCALER_KEY]["scale"]) == 2048.0
+
+    runs = {}
+    for writer in ("p", "j"):
+        for reader, run in (("port", _port_run), ("jax", _jax_run)):
+            d = tmp_path / f"{writer}-{reader}"
+            shutil.copytree(tmp_path / writer, d)
+            runs[(writer, reader)] = run(params, rows, d, 1000, 5, 6,
+                                         precision=True)
+    for writer, own in (("p", "port"), ("j", "jax")):
+        other = "jax" if own == "port" else "port"
+        (o_own, l_own), (o_other, l_other) = runs[(writer, own)], \
+            runs[(writer, other)]
+        assert sorted(l_own) == sorted(l_other) == [4, 5, 6]
+        for n in (5, 6):
+            np.testing.assert_allclose(l_other[n], l_own[n], rtol=1e-3,
+                                       err_msg=f"{writer}: loss {n}")
+        assert_trees_close(o_other.model.get_parameters(),
+                           o_own.model.get_parameters(), atol=1e-3)
+    assert runs[("j", "port")][0].resumed_from["neval"] == 4
+    for p in runs[("j", "port")][0].model.parameters():
+        assert p.dtype == torch.float32     # the master, at the end
 
 
 # ------------------------------------------- the format-2 checkpoint rules

@@ -49,6 +49,7 @@ def test_importing_the_port_loads_no_reference_module():
             "bigdl_tpu_torch.kernels.config, "
             "bigdl_tpu_torch.kernels.flash_attention, "
             "bigdl_tpu_torch.optim, bigdl_tpu_torch.dataset, "
+            "bigdl_tpu_torch.precision, bigdl_tpu_torch.dataset.prefetch, "
             "bigdl_tpu_torch.datapipe, "
             "bigdl_tpu_torch.models.transformer_train\n"
             "bad = sorted(m for m in sys.modules if m == 'bigdl_tpu' "
