@@ -17,14 +17,16 @@
 // bigdl_tpu/kernels/flash_attention.py. Each source keeps its own
 // extern "C" entry points, built into its own library.
 //
-// Every tile product runs on the tensor cores in 3xTF32 (stage_tile,
-// load_a, load_bt2, load_b_perm, acc_as_a, mma3): 128 threads, four
-// warps each owning a 16-row strip of a 64 x 64 tile, through mma.sync
-// m16n8k8 with tf32 operands and float32 accumulators. TF32 keeps 10
-// mantissa bits, about 1e-3 relative: too coarse for the float32
-// contract (lse within 1e-5 at S = 8192, where lse is ~10). So each
-// float operand is split in registers, as its fragment is loaded, into
-// hi (x rounded to tf32, to nearest with ties away from zero, as
+// Every tile product runs on the tensor cores, 128 threads a block, four
+// warps each owning a 16-row strip of a 64 x 64 tile, with float32
+// accumulators; how depends on the dtype.
+//
+// float32 operands run 3xTF32 (stage_tile, load_a, load_bt2,
+// load_b_perm, acc_as_a, mma3): mma.sync m16n8k8 with tf32 operands.
+// TF32 keeps 10 mantissa bits, about 1e-3 relative: too coarse for the
+// float32 contract (lse within 1e-5 at S = 8192, where lse is ~10). So
+// each float operand is split in registers, as its fragment is loaded,
+// into hi (x rounded to tf32, to nearest with ties away from zero, as
 // cvt.rna rounds) and lo = x - hi, and a product takes a_lo.b_hi +
 // a_hi.b_lo + a_hi.b_hi: float32 accuracy (what is left out is ~2^-22
 // relative) at a third of the 495 TFLOP/s TF32 rate, 165 TFLOP/s.
@@ -43,35 +45,54 @@
 // MMAs, which is why the split is two integer instructions, the
 // exponentials exp2 and the fragment loads ldmatrix.
 //
+// bfloat16 and float16 operands are exact on the tensor cores, so they
+// go unsplit into mma.sync m16n8k16 (stage_tile16, load_a16, load_bt16,
+// load_b16, acc_as_a16, mma16): twice an m16n8k8's k at the 989 TFLOP/s
+// 16-bit rate, six times fewer MMA instructions than 3xTF32 and no
+// splits of the inputs. Their tiles stay 16-bit in shared memory, rows
+// padded to D + 8 elements (conflict-free ldmatrix, 16-byte aligned
+// rows), filled by 16-byte cp.async where d is a multiple of 8 and the
+// rows are 16-byte aligned, by plain loads elsewhere. Operands whose
+// rows are the product's k (V, dO, q, K in the second products) are
+// read with ldmatrix.trans. p and dS leave the float32 accumulators as
+// the A operand of the next product, split into hi + lo in the input
+// dtype (two MMAs): rounded once, they put the bfloat16 gradients past
+// their 1e-2 contract at the training shape. The row max, l, lse,
+// delta, every accumulator and the promote carries stay float32. These
+// kernels also skip the tile pairs whose queries and keys share no
+// segment id (mark_tiles), in the forward as the float32 one does and
+// in the backward.
+//
 // The forwards (K1's full-row two-pass walk, K2's online softmax) share
 // score_tile (S = q . k^T for a warp's strip; K1 at D <= 64 holds the
 // strip's split q fragments across its key tiles), pv_tile (P . V with P
 // straight from the S accumulators), fwd_smem_bytes (q, a cp.async ring
 // of two (k, v) tiles, segment ids) and store_forward (O = acc / l and
-// lse = (m + log2 l) ln 2 from a row max kept in log2 units).
+// lse = (m + log2 l) ln 2 from a row max kept in log2 units). K1's
+// 16-bit forward shares store_forward and the 16-bit kit
+// (strip_by_rows, strip_times_tile) with the 16-bit backward.
 //
 // The backward (both kernels K1 and K2 launch it) splits into a pass
 // per key tile (dV = P^T . dO and dK = dS^T . q) and a pass per query
 // tile (dQ = dS . K), each recomputing S = q . k^T and dP = dO . v^T: 7
 // tile products where a fused kernel would do 5, but no block ever adds
-// into another's output, so there are no atomics and a gradient is
-// bitwise the same from run to run. The dK/dV block keeps its keys and
-// values and the dQ block its queries and dO; the streamed tiles go
-// through a two-deep ring filled by cp.async (float32) so the next
+// into another's output, so there are no atomics on the gradients and
+// a gradient is bitwise the same from run to run. The dK/dV block keeps
+// its keys and values and the dQ block its queries and dO; the streamed
+// tiles go through a two-deep ring filled by cp.async so the next
 // tile's copy overlaps this tile's products. Bound at the long-context
 // shape ([1, 8, 8192, 64] f32 causal): operations, 1.04 ms at the
 // 3xTF32 rate; its bytes take 40 us. The dQ kernel starts its longest
 // query tiles (the last, under causal) first; the dK/dV kernel's
 // longest key tiles are its first.
 //
-// Inputs are float32, bfloat16 or float16; every product and sum is
-// float32 (bfloat16 and float16 are converted as they are staged, and
-// then go through the same 3xTF32 products). A head_dim d up to 128
-// runs in the narrowest tile width D of 16, 32, 64 and 128 that holds
-// it, its columns past d staged as zeros (they add nothing to any
-// product) and never stored. q, k, v, O and dO are read through their
-// (batch, head, row) strides; only the last dimension must be
-// contiguous. Any S is taken: tiles past S stage zeros and are masked.
+// Inputs are float32, bfloat16 or float16, and every sum is float32.
+// A head_dim d up to 128 runs in the narrowest tile width D of 16, 32,
+// 64 and 128 that holds it, its columns past d staged as zeros (they
+// add nothing to any product) and never stored. q, k, v, O and dO are
+// read through their (batch, head, row) strides; only the last
+// dimension must be contiguous. Any S is taken: tiles past S stage
+// zeros and are masked.
 
 #pragma once
 
@@ -135,7 +156,7 @@ struct Params {
   void* dv;
   Strides sq, sk, sv, so, sdo;
   int heads, s_len, d, causal;  // d: the head_dim, at most the tile's D
-  int vec;  // float32 operands staged in 16-byte copies (aligned rows)
+  int vec;  // operands staged in 16-byte copies (aligned rows)
   float scale;
 };
 
@@ -342,6 +363,387 @@ __device__ __forceinline__ void stage_rows(U* dst, const U* src, int row0,
     const bool in = row0 + r < s_len;
     cp_async4(dst + r, in ? src + row0 + r : src, in);
   }
+}
+
+// ------------------------------------------- tensor cores, 16-bit operands
+
+// bfloat16 and float16 operands need no split: the tensor cores take
+// them exactly, one mma.sync m16n8k16 (twice an m16n8k8's k) with
+// float32 accumulators per product, at the 989 TFLOP/s 16-bit rate.
+// Their tiles stay in the input dtype in shared memory, rows padded to
+// D + 8 elements: a row is then an odd number (D / 8 + 1) of 16-byte
+// chunks, so the 8 rows an ldmatrix phase reads start in 8 distinct
+// 16-byte bank groups, and every row stays 16-byte aligned for cp.async
+// and ldmatrix.
+template <typename T>
+constexpr bool kHalfWidth = !std::is_same<T, float>::value;
+
+template <int D>
+__host__ __device__ constexpr int tile_ld16() {
+  return D + 8;
+}
+
+// An A fragment of m16n8k16: rows g and g + 8, k = 2t, 2t + 1 (a0, a1)
+// and k = 2t + 8, 2t + 9 (a2, a3), two 16-bit values a register, the
+// lower k in the low half.
+struct Frag16 {
+  uint32_t x[4];
+};
+
+__device__ __forceinline__ void mma_bf16(float (&c)[4],
+                                         const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]),
+        "r"(b[1]));
+}
+
+__device__ __forceinline__ void mma_f16(float (&c)[4],
+                                        const uint32_t (&a)[4],
+                                        const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]),
+        "r"(b[1]));
+}
+
+// c += a . b, B's k = 2t, 2t + 1 (b0) and 2t + 8, 2t + 9 (b1) of column g.
+template <typename T>
+__device__ __forceinline__ void mma16(float (&c)[4], const Frag16& a,
+                                      uint32_t b0, uint32_t b1) {
+  const uint32_t b[2] = {b0, b1};
+  if constexpr (std::is_same<T, __half>::value)
+    mma_f16(c, a.x, b);
+  else
+    mma_bf16(c, a.x, b);
+}
+
+// lo and hi rounded to the nearest bfloat16 / float16 (ties to even),
+// packed into one register, lo in the low half.
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  uint32_t r;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;" : "=r"(r) : "f"(hi), "f"(lo));
+  return r;
+}
+
+__device__ __forceinline__ uint32_t pack_f16x2(float lo, float hi) {
+  uint32_t r;
+  asm("cvt.rn.f16x2.f32 %0, %1, %2;" : "=r"(r) : "f"(hi), "f"(lo));
+  return r;
+}
+
+template <typename T>
+__device__ __forceinline__ uint32_t pack16(float lo, float hi) {
+  if constexpr (std::is_same<T, __half>::value)
+    return pack_f16x2(lo, hi);
+  else
+    return pack_bf16x2(lo, hi);
+}
+
+// Four 8 x 8 16-bit matrices of shared memory: lane 8j + r gives the
+// address of row r of matrix j; lane 4g + t gets x[j] = row g, columns
+// 2t and 2t + 1 of matrix j (non-transposed), or rows 2t and 2t + 1 of
+// column g (transposed).
+__device__ __forceinline__ void ldsm_x4(uint32_t (&x)[4], const void* row) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(row));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(x[0]), "=r"(x[1]), "=r"(x[2]), "=r"(x[3])
+      : "r"(a));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&x)[4],
+                                              const void* row) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(row));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(x[0]), "=r"(x[1]), "=r"(x[2]), "=r"(x[3])
+      : "r"(a));
+}
+
+// A = rows r0 .. r0 + 15, columns k0 .. k0 + 15 of a row-major tile:
+// matrix j is rows + 8 (j & 1), columns + 8 (j >> 1).
+template <int LD, typename T>
+__device__ __forceinline__ Frag16 load_a16(const T* tile, int r0, int k0,
+                                           int lane) {
+  const int j = lane / 8;
+  Frag16 f;
+  ldsm_x4(f.x, tile + (r0 + lane % 8 + 8 * (j & 1)) * LD + k0 + 8 * (j >> 1));
+  return f;
+}
+
+// A fragments of a warp's strip (rows r0 .. r0 + 15) of a staged tile,
+// 16 columns at a time: a(kk) is columns 16 kk .. 16 kk + 15.
+template <int LD, typename T>
+__device__ __forceinline__ auto strip_a16(const T* tile, int r0, int lane) {
+  return [=](int kk) { return load_a16<LD>(tile, r0, 16 * kk, lane); };
+}
+
+// B[k][n] = tile[n0 + n][k0 + k] for two 8-column blocks (n0 in b[0..1],
+// n0 + 8 in b[2..3]): a tile whose rows are the product's columns (k^T
+// in q . k^T).
+template <int LD, typename T>
+__device__ __forceinline__ void load_bt16(uint32_t (&b)[4], const T* tile,
+                                          int n0, int k0, int lane) {
+  const int j = lane / 8;
+  ldsm_x4(b, tile + (n0 + lane % 8 + 8 * (j >> 1)) * LD + k0 + 8 * (j & 1));
+}
+
+// B[k][n] = tile[k0 + k][n0 + n] for two 8-column blocks, read
+// transposed: a row-major tile whose rows are the product's k (V in
+// P . V, dO in P^T . dO, q in dS^T . q, K in dS . K).
+template <int LD, typename T>
+__device__ __forceinline__ void load_b16(uint32_t (&b)[4], const T* tile,
+                                         int k0, int n0, int lane) {
+  const int j = lane / 8;
+  ldsm_x4_trans(b, tile + (k0 + lane % 8 + 8 * (j & 1)) * LD + n0 +
+                       8 * (j >> 1));
+}
+
+// The two 16-bit values of a register as floats (exact).
+template <typename T>
+__device__ __forceinline__ void unpack16(uint32_t x, float& lo, float& hi) {
+  if constexpr (std::is_same<T, __half>::value) {
+    lo = __half2float(__ushort_as_half(static_cast<unsigned short>(x)));
+    hi = __half2float(__ushort_as_half(static_cast<unsigned short>(x >> 16)));
+  } else {
+    lo = __uint_as_float(x << 16);
+    hi = __uint_as_float(x & 0xffff0000u);
+  }
+}
+
+// x0, x1 as hi + lo in T: hi = x rounded to T, lo = (x - hi) rounded to
+// T (x - hi is exact in float32), so hi + lo keeps x to about 2^-16
+// relative in bfloat16 (2^-22 in float16) where hi alone keeps 2^-9
+// (2^-12).
+template <typename T>
+__device__ __forceinline__ void split16(uint32_t& hi, uint32_t& lo, float x0,
+                                        float x1) {
+  hi = pack16<T>(x0, x1);
+  float h0, h1;
+  unpack16<T>(hi, h0, h1);
+  lo = pack16<T>(x0 - h0, x1 - h1);
+}
+
+// Two adjacent m16n8 accumulator tiles (columns 8j .. 8j + 7 and the next
+// 8) as the A operand of a k16 product over their 16 columns, split into
+// hi + lo in T: the accumulator layout is exactly the A fragment, so p
+// and dS go from the accumulators into the next product without a trip
+// through shared memory. p or dS rounded to T alone (hi only) puts an
+// error of up to 1.25 output ulps into bfloat16 gradients at the
+// training shape, past the 1e-2 contract (scripts/flash16_rounding.py);
+// with lo it is 0.002 ulps.
+template <typename T>
+__device__ __forceinline__ void acc_as_a16(Frag16& hi, Frag16& lo,
+                                           const float (&c0)[4],
+                                           const float (&c1)[4]) {
+  split16<T>(hi.x[0], lo.x[0], c0[0], c0[1]);
+  split16<T>(hi.x[1], lo.x[1], c0[2], c0[3]);
+  split16<T>(hi.x[2], lo.x[2], c1[0], c1[1]);
+  split16<T>(hi.x[3], lo.x[3], c1[2], c1[3]);
+}
+
+// out[n] = A . B for a warp's 16-row strip over k < D, B[k][n] =
+// tile[c0 + n][k] for n < N: the score-like products q . k^T, dO . v^T
+// (and transposed, k . q^T, v . dO^T). a(kk) gives A at columns 16 kk.
+template <typename T, int D, int N, typename AFrag>
+__device__ __forceinline__ void strip_by_rows(float (&out)[N / 8][4],
+                                              AFrag a, const T* tile,
+                                              int c0, int lane) {
+  constexpr int LD = tile_ld16<D>();
+#pragma unroll
+  for (int n = 0; n < N / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) out[n][e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const Frag16 af = a(kk);
+#pragma unroll
+    for (int n = 0; n < N / 8; n += 2) {
+      uint32_t b[4];
+      load_bt16<LD>(b, tile, c0 + 8 * n, 16 * kk, lane);
+      mma16<T>(out[n], af, b[0], b[1]);
+      mma16<T>(out[n + 1], af, b[2], b[3]);
+    }
+  }
+}
+
+// sum[n] += A . tile[k0 .. k0 + K) for a warp's strip, A = hi + lo the
+// split fragments (k = 16 j .. 16 j + 15) and the tile row-major [k][D]:
+// the P . V-like products, two MMAs each (lo first). Each pair of
+// 8-column blocks goes through fresh accumulators, then into the
+// float32 sum (promote has why).
+template <typename T, int D, int K>
+__device__ __forceinline__ void strip_times_tile(float (&sum)[D / 8][4],
+                                                 const Frag16 (&hi)[K / 16],
+                                                 const Frag16 (&lo)[K / 16],
+                                                 const T* tile, int k0,
+                                                 int lane) {
+  constexpr int LD = tile_ld16<D>();
+#pragma unroll
+  for (int n = 0; n < D / 16; ++n) {
+    float t0[4] = {0.f, 0.f, 0.f, 0.f}, t1[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < K / 16; ++j) {
+      uint32_t b[4];
+      load_b16<LD>(b, tile, k0 + 16 * j, 16 * n, lane);
+      mma16<T>(t0, lo[j], b[0], b[1]);
+      mma16<T>(t1, lo[j], b[2], b[3]);
+      mma16<T>(t0, hi[j], b[0], b[1]);
+      mma16<T>(t1, hi[j], b[2], b[3]);
+    }
+    promote(sum[2 * n], t0);
+    promote(sum[2 * n + 1], t1);
+  }
+}
+
+// 2^x by the MUFU's ex2.approx.ftz: exp2f without its handling of
+// results below float32's normal range, which a probability that small
+// does not need (it flushes to 0).
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Segment ids of the columns a lane holds of an N-column chunk at c0:
+// ids[n].x for column c0 + 8n + 2t, ids[n].y for the next: one 8-byte
+// shared load per pair of columns, compared with the rows' ids held in
+// registers (keep_bits). keep's loads and branches per element cost the
+// 16-bit forward about 40% of its time on an H100 (PERF.md).
+template <int N>
+__device__ __forceinline__ void lane_ids(int2 (&ids)[N / 8], const int* seg,
+                                         int c0, int t) {
+#pragma unroll
+  for (int n = 0; n < N / 8; ++n)
+    ids[n] = *reinterpret_cast<const int2*>(seg + c0 + 8 * n + 2 * t);
+}
+
+// The keep-mask of the elements a lane holds of a warp's strip of one
+// tile pair, bit 4n + e for element [n][e] (N <= 64 columns): rows row0 +
+// g and row0 + g + 8, columns col0 + c0 + 8n + 2t (+ 1), absolute
+// positions, queries or keys as rows_are_queries says. With segment ids
+// (cols_seg, the column tile's staged ids; id_r, the rows' ids) a pair
+// is kept when the ids match; on an edge tile pair (tile_masked without
+// segments: a tile reaching past S, or keys right of a query row) also
+// only when both positions are below S and, under causal, the key is
+// not right of the query: keep's function, with the compares an
+// interior pair does not need left out.
+template <int N>
+__device__ __forceinline__ unsigned keep_bits(const int (&id_r)[2],
+                                              const int* cols_seg, int row0,
+                                              int col0, int c0, bool edge,
+                                              bool rows_are_queries,
+                                              int s_len, int causal, int g,
+                                              int t) {
+  unsigned bits = ~0u;
+  if (cols_seg != nullptr) {
+    int2 ids[N / 8];
+    lane_ids<N>(ids, cols_seg, c0, t);
+    bits = 0u;
+#pragma unroll
+    for (int n = 0; n < N / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        bits |= static_cast<unsigned>(
+                    id_r[e >> 1] == ((e & 1) ? ids[n].y : ids[n].x))
+                << (4 * n + e);
+  }
+  if (edge) {
+#pragma unroll
+    for (int n = 0; n < N / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = row0 + g + 8 * (e >> 1);
+        const int col = col0 + c0 + 8 * n + 2 * t + (e & 1);
+        const int q = rows_are_queries ? row : col;
+        const int k = rows_are_queries ? col : row;
+        if (q >= s_len || k >= s_len || (causal && k > q))
+          bits &= ~(1u << (4 * n + e));
+      }
+  }
+  return bits;
+}
+
+// Stage rows [row0, row0 + 64) of one (b, h) slice into a [64][D + 8]
+// tile of T; rows past S and columns past d are zeros. When vec, by
+// 16-byte cp.async (to be waited for with cp_async_wait); else, with
+// plain loads and stores (any d, any stride).
+template <typename T, int D>
+__device__ __forceinline__ void stage_tile16(T* dst, const T* src,
+                                             int64_t row_stride, int row0,
+                                             int s_len, int d, bool vec) {
+  constexpr int LD = tile_ld16<D>();
+  if (vec) {
+    for (int e = threadIdx.x; e < kTile * D / 8; e += kMmaThreads) {
+      const int r = e / (D / 8);
+      const int c = e % (D / 8) * 8;
+      const bool in = row0 + r < s_len && c < d;
+      cp_async16(dst + r * LD + c,
+                 in ? src + (row0 + r) * row_stride + c : src, in);
+    }
+    return;
+  }
+  for (int e = threadIdx.x; e < kTile * D; e += kMmaThreads) {
+    const int r = e / D;
+    const int c = e % D;
+    const int gr = row0 + r;
+    dst[r * LD + c] =
+        gr < s_len && c < d ? src[gr * row_stride + c] : from_f32<T>(0.f);
+  }
+}
+
+// Shared memory of mark_tiles: the own tile's run heads and their
+// count, and a byte per tile of the row.
+__host__ __device__ constexpr size_t tile_marks_bytes(int s_len) {
+  return sizeof(int) * (kTile + 1) +
+         ((s_len + kTile - 1) / kTile + 15) / 16 * 16;
+}
+
+// flags[t] for the tiles t0 <= t < t1 of the other side (key tiles for a
+// query tile, query tiles for a key tile): 1 when some row of tile t
+// shares a segment id with some row of the block's own tile (its ids
+// staged in own, its first row own0; rows past S count for nothing), or
+// when t is `always` (the causal diagonal), else 0. The forward's exact
+// test, one pass for all the tiles: the own tile's ids reduce first to
+// their run heads (an id that differs from the row before; every id of
+// the tile is one), a few for packed documents, so a row of tile t
+// costs one load and a few compares. Every thread reads the same flags
+// after the closing barrier, so a walk that skips the tiles flagged 0
+// is uniform across the block. own must be staged and visible.
+__device__ __forceinline__ void mark_tiles(unsigned char* flags, int* heads,
+                                           const int* own, int own0,
+                                           const int* seg_row, int t0,
+                                           int t1, int always, int s_len) {
+  if (threadIdx.x < 32) {
+    const int own_rows = min(kTile, s_len - own0);
+    int n = 0;
+    for (int r = threadIdx.x; r < kTile; r += 32) {
+      const bool head = r < own_rows && (r == 0 || own[r] != own[r - 1]);
+      const unsigned mask = __ballot_sync(kFullMask, head);
+      if (head) heads[n + __popc(mask & ((1u << threadIdx.x) - 1u))] = own[r];
+      n += __popc(mask);
+    }
+    if (threadIdx.x == 0) heads[kTile] = n;
+  }
+  for (int t = t0 + threadIdx.x; t < t1; t += kMmaThreads)
+    flags[t] = t == always;
+  __syncthreads();
+  const int n_heads = heads[kTile];
+  const int c = threadIdx.x % kTile;
+#pragma unroll 4
+  for (int t = t0 + threadIdx.x / kTile; t < t1; t += kMmaThreads / kTile) {
+    const int row = t * kTile + c;
+    if (row >= s_len) continue;
+    const int id = seg_row[row];
+    for (int i = 0; i < n_heads; ++i)
+      if (heads[i] == id) flags[t] = 1;
+  }
+  __syncthreads();
 }
 
 // ------------------------------------------------------------- shared
@@ -560,6 +962,349 @@ constexpr size_t dkv_smem_bytes() {
          sizeof(int) * 3 * kTile;
 }
 
+// (query tile, key tile) pairs the 16-bit backward's dK/dV kernel [0]
+// and dQ kernel [1] have computed since they were last read: the record
+// that their segment-tile skipping ran. One add per block when it ends;
+// no block adds into another's gradients.
+__device__ unsigned long long g_bwd_tile_pairs[2];
+
+// The 16-bit dK/dV and dQ blocks: the tiles of the 3xTF32 kernels below
+// in T, with D + 8 rows, the shared row of flags and run heads after
+// them (mark_tiles).
+template <int D>
+constexpr size_t dkv16_smem_bytes(int s_len) {
+  return 2 * (6 * kTile * tile_ld16<D>()) +
+         sizeof(float) * 4 * kTile + sizeof(int) * 3 * kTile +
+         tile_marks_bytes(s_len);
+}
+
+template <int D>
+constexpr size_t dq16_smem_bytes(int s_len) {
+  return 2 * (6 * kTile * tile_ld16<D>()) +
+         sizeof(float) * 2 * kTile + sizeof(int) * 3 * kTile +
+         tile_marks_bytes(s_len);
+}
+
+// flash_dkv_kernel for bfloat16 and float16: the same blocks, warps and
+// two-deep ring, with 16-bit tiles staged by 16-byte cp.async and the
+// products in m16n8k16 MMAs. S^T = k . q^T and dP^T = v . dO^T read q
+// and dO with ldmatrix, one MMA each; dV = P^T . dO and dK = dS^T . q
+// read them with ldmatrix.trans, two MMAs each, p^T and dS^T split into
+// hi + lo in T as they become the A operands. The query tiles that
+// share no segment id with the key tile are skipped (mark_tiles; they
+// add exact zeros). lse, delta, every accumulator and the running sums
+// stay float32.
+template <typename T, int D>
+__device__ __forceinline__ void flash_dkv16(const Params& p) {
+  constexpr int LD = tile_ld16<D>();
+  constexpr int DN = D / 8;                 // 8-column tiles of dK, dV
+  constexpr int QC = D > 64 ? 16 : 32;      // queries per chunk
+  constexpr int QN = QC / 8;
+  extern __shared__ __align__(16) float tc_smem[];
+  T* ks = reinterpret_cast<T*>(tc_smem);
+  T* vs = ks + kTile * LD;
+  T* qs = vs + kTile * LD;                  // [2][64][LD]
+  T* dos = qs + 2 * kTile * LD;             // [2][64][LD]
+  float* lse_s = reinterpret_cast<float*>(dos + 2 * kTile * LD);  // [2][64]
+  float* delta_s = lse_s + 2 * kTile;       // [2][64]
+  int* seg_q = reinterpret_cast<int*>(delta_s + 2 * kTile);  // [2][64]
+  int* seg_k = seg_q + 2 * kTile;
+  int* heads = seg_k + kTile;
+  unsigned char* flags = reinterpret_cast<unsigned char*>(heads + kTile + 1);
+
+  const int bh = blockIdx.x;
+  const int b = bh / p.heads;
+  const int h = bh % p.heads;
+  const int k0 = blockIdx.y * kTile;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4;
+  const int t = lane % 4;
+  const int r0 = 16 * warp;
+  const int s_len = p.s_len;
+  const bool segmented = p.seg != nullptr;
+  const int* seg_row = segmented ? p.seg + static_cast<int64_t>(b) * s_len
+                                 : nullptr;
+  const T* qb = static_cast<const T*>(p.q) + b * p.sq.b + h * p.sq.h;
+  const T* dob = static_cast<const T*>(p.dout) + b * p.sdo.b + h * p.sdo.h;
+  const float* lseb = p.lse + static_cast<int64_t>(bh) * s_len;
+  const float* deltab = p.delta + static_cast<int64_t>(bh) * s_len;
+
+  auto stage_query_side = [&](int qt, int slot) {
+    const int q0 = qt * kTile;
+    stage_tile16<T, D>(qs + slot * kTile * LD, qb, p.sq.s, q0, s_len, p.d,
+                       p.vec);
+    stage_tile16<T, D>(dos + slot * kTile * LD, dob, p.sdo.s, q0, s_len,
+                       p.d, p.vec);
+    stage_rows(lse_s + slot * kTile, lseb, q0, s_len);
+    stage_rows(delta_s + slot * kTile, deltab, q0, s_len);
+    if (segmented) stage_rows(seg_q + slot * kTile, seg_row, q0, s_len);
+  };
+
+  stage_tile16<T, D>(ks,
+                     static_cast<const T*>(p.k) + b * p.sk.b + h * p.sk.h,
+                     p.sk.s, k0, s_len, p.d, p.vec);
+  stage_tile16<T, D>(vs,
+                     static_cast<const T*>(p.v) + b * p.sv.b + h * p.sv.h,
+                     p.sv.s, k0, s_len, p.d, p.vec);
+  if (segmented) stage_rows(seg_k, seg_row, k0, s_len);
+  cp_async_commit();
+  const int n_qt = (s_len + kTile - 1) / kTile;
+  // causal: query rows below k0 see none of these keys
+  const int qt0 = p.causal ? blockIdx.y : 0;
+  if (segmented) {
+    cp_async_wait<0>();
+    __syncthreads();
+    mark_tiles(flags, heads, seg_k, k0, seg_row, qt0, n_qt,
+               p.causal ? static_cast<int>(blockIdx.y) : -1, s_len);
+  }
+  auto next_kept = [&](int qt) {
+    if (segmented)
+      while (qt < n_qt && !flags[qt]) ++qt;
+    return qt;
+  };
+  // p = exp(s * scale - lse) = exp2(s * scale2 - lse * log2(e))
+  const float scale2 = p.scale * kLog2e;
+
+  float dk[DN][4], dv[DN][4];
+#pragma unroll
+  for (int n = 0; n < DN; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
+  int id_r[2] = {0, 0};  // the segment ids of keys r0 + g and r0 + g + 8
+
+  int qt = next_kept(qt0);
+  if (qt < n_qt) {
+    stage_query_side(qt, 0);
+    cp_async_commit();
+  }
+  unsigned pairs = 0;
+  for (int slot = 0; qt < n_qt; slot ^= 1, ++pairs) {
+    const int next = next_kept(qt + 1);
+    if (next < n_qt) {
+      stage_query_side(next, slot ^ 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const int q0 = qt * kTile;
+    const T* qt_s = qs + slot * kTile * LD;
+    const T* dot_s = dos + slot * kTile * LD;
+    const float* lse_t = lse_s + slot * kTile;
+    const float* delta_t = delta_s + slot * kTile;
+    const int* seg_t = seg_q + slot * kTile;
+    const bool edge = tile_masked(q0, k0, s_len, p.causal, false);
+    if (pairs == 0 && segmented) {
+      id_r[0] = seg_k[r0 + g];
+      id_r[1] = seg_k[r0 + g + 8];
+    }
+
+#pragma unroll 1
+    for (int c0 = 0; c0 < kTile; c0 += QC) {
+      float st[QN][4], dpt[QN][4];
+      strip_by_rows<T, D, QC>(st, strip_a16<LD>(ks, r0, lane), qt_s, c0,
+                              lane);
+      strip_by_rows<T, D, QC>(dpt, strip_a16<LD>(vs, r0, lane), dot_s, c0,
+                              lane);
+      const unsigned kept = keep_bits<QC>(
+          id_r, segmented ? seg_t : nullptr, k0 + r0, q0, c0, edge, false,
+          s_len, p.causal, g, t);
+      // p^T and dS^T: element (key r0 + g (+ 8), query c0 + 8n + 2t (+ 1))
+#pragma unroll
+      for (int n = 0; n < QN; ++n) {
+        const float2 lse = *reinterpret_cast<const float2*>(
+            lse_t + c0 + 8 * n + 2 * t);
+        const float2 delta = *reinterpret_cast<const float2*>(
+            delta_t + c0 + 8 * n + 2 * t);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float lse_c = e & 1 ? lse.y : lse.x;
+          const bool live = (kept >> (4 * n + e) & 1u) && isfinite(lse_c);
+          const float pv =
+              live ? exp2_ftz(fmaf(st[n][e], scale2, -lse_c * kLog2e)) : 0.f;
+          st[n][e] = pv;
+          dpt[n][e] = pv * (dpt[n][e] - (e & 1 ? delta.y : delta.x));
+        }
+      }
+      Frag16 ap[QC / 16], ap_lo[QC / 16], ads[QC / 16], ads_lo[QC / 16];
+#pragma unroll
+      for (int j = 0; j < QC / 16; ++j) {
+        acc_as_a16<T>(ap[j], ap_lo[j], st[2 * j], st[2 * j + 1]);
+        acc_as_a16<T>(ads[j], ads_lo[j], dpt[2 * j], dpt[2 * j + 1]);
+      }
+      strip_times_tile<T, D, QC>(dv, ap, ap_lo, dot_s, c0, lane);
+      strip_times_tile<T, D, QC>(dk, ads, ads_lo, qt_s, c0, lane);
+    }
+    __syncthreads();
+    qt = next;
+  }
+  if (threadIdx.x == 0 && pairs > 0)
+    atomicAdd(&g_bwd_tile_pairs[0], static_cast<unsigned long long>(pairs));
+
+  const int64_t base = static_cast<int64_t>(bh) * s_len * p.d;
+  store_strip<T, D>(static_cast<T*>(p.dk) + base, dk, k0 + r0, s_len, p.d,
+                    p.scale, g, t);
+  store_strip<T, D>(static_cast<T*>(p.dv) + base, dv, k0 + r0, s_len, p.d,
+                    1.f, g, t);
+}
+
+// flash_dq_kernel for bfloat16 and float16, as flash_dkv16 is to its
+// kernel: S = q . k^T and dP = dO . v^T read k and v with ldmatrix, dQ =
+// dS . K reads K with ldmatrix.trans, dS (scaled) split into hi + lo in
+// T as it becomes the A operand, and the key tiles that share no segment
+// id with the query tile are skipped.
+template <typename T, int D>
+__device__ __forceinline__ void flash_dq16(const Params& p) {
+  constexpr int LD = tile_ld16<D>();
+  constexpr int DN = D / 8;
+  constexpr int KC = D > 64 ? 32 : 64;      // keys per chunk
+  constexpr int KN = KC / 8;
+  extern __shared__ __align__(16) float tc_smem[];
+  T* qs = reinterpret_cast<T*>(tc_smem);
+  T* dos = qs + kTile * LD;
+  T* ks = dos + kTile * LD;                 // [2][64][LD]
+  T* vs = ks + 2 * kTile * LD;              // [2][64][LD]
+  float* lse_s = reinterpret_cast<float*>(vs + 2 * kTile * LD);
+  float* delta_s = lse_s + kTile;
+  int* seg_q = reinterpret_cast<int*>(delta_s + kTile);
+  int* seg_k = seg_q + kTile;               // [2][64]
+  int* heads = seg_k + 2 * kTile;
+  unsigned char* flags = reinterpret_cast<unsigned char*>(heads + kTile + 1);
+
+  const int bh = blockIdx.x;
+  const int b = bh / p.heads;
+  const int h = bh % p.heads;
+  // the longest query tiles (under causal, the last) start first
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kTile;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4;
+  const int t = lane % 4;
+  const int r0 = 16 * warp;
+  const int s_len = p.s_len;
+  const bool segmented = p.seg != nullptr;
+  const int* seg_row = segmented ? p.seg + static_cast<int64_t>(b) * s_len
+                                 : nullptr;
+  const T* kb = static_cast<const T*>(p.k) + b * p.sk.b + h * p.sk.h;
+  const T* vb = static_cast<const T*>(p.v) + b * p.sv.b + h * p.sv.h;
+
+  auto stage_key_side = [&](int kt, int slot) {
+    const int k0 = kt * kTile;
+    stage_tile16<T, D>(ks + slot * kTile * LD, kb, p.sk.s, k0, s_len, p.d,
+                       p.vec);
+    stage_tile16<T, D>(vs + slot * kTile * LD, vb, p.sv.s, k0, s_len, p.d,
+                       p.vec);
+    if (segmented) stage_rows(seg_k + slot * kTile, seg_row, k0, s_len);
+  };
+
+  stage_tile16<T, D>(qs,
+                     static_cast<const T*>(p.q) + b * p.sq.b + h * p.sq.h,
+                     p.sq.s, q0, s_len, p.d, p.vec);
+  stage_tile16<T, D>(
+      dos, static_cast<const T*>(p.dout) + b * p.sdo.b + h * p.sdo.h,
+      p.sdo.s, q0, s_len, p.d, p.vec);
+  stage_rows(lse_s, p.lse + static_cast<int64_t>(bh) * s_len, q0, s_len);
+  stage_rows(delta_s, p.delta + static_cast<int64_t>(bh) * s_len, q0, s_len);
+  if (segmented) stage_rows(seg_q, seg_row, q0, s_len);
+  cp_async_commit();
+  const int n_kt = key_tiles(q0, s_len, p.causal);
+  if (segmented) {
+    cp_async_wait<0>();
+    __syncthreads();
+    mark_tiles(flags, heads, seg_q, q0, seg_row, 0, n_kt,
+               p.causal ? n_kt - 1 : -1, s_len);
+  }
+  auto next_kept = [&](int kt) {
+    if (segmented)
+      while (kt < n_kt && !flags[kt]) ++kt;
+    return kt;
+  };
+
+  float dq[DN][4];
+#pragma unroll
+  for (int n = 0; n < DN; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dq[n][e] = 0.f;
+  // this thread's rows r0 + g and r0 + g + 8: lse, delta, and whether
+  // the row exists and saw any key (lse finite)
+  float lse2_r[2] = {0.f, 0.f}, delta_r[2] = {0.f, 0.f};
+  bool live_r[2] = {false, false};
+  int id_r[2] = {0, 0};  // and its segment ids
+  // p = exp(s * scale - lse) = exp2(s * scale2 - lse * log2(e))
+  const float scale2 = p.scale * kLog2e;
+
+  int kt = next_kept(0);
+  if (kt < n_kt) {
+    stage_key_side(kt, 0);
+    cp_async_commit();
+  }
+  unsigned pairs = 0;
+  for (int slot = 0; kt < n_kt; slot ^= 1, ++pairs) {
+    const int next = next_kept(kt + 1);
+    if (next < n_kt) {
+      stage_key_side(next, slot ^ 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (pairs == 0) {
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int r = r0 + g + 8 * half;
+        lse2_r[half] = lse_s[r] * kLog2e;
+        delta_r[half] = delta_s[r];
+        live_r[half] = q0 + r < s_len && isfinite(lse_s[r]);
+        if (segmented) id_r[half] = seg_q[r];
+      }
+    }
+    const int k0 = kt * kTile;
+    const T* kt_s = ks + slot * kTile * LD;
+    const T* vt_s = vs + slot * kTile * LD;
+    const int* seg_t = seg_k + slot * kTile;
+    const bool edge = tile_masked(q0, k0, s_len, p.causal, false);
+
+#pragma unroll 1
+    for (int c0 = 0; c0 < kTile; c0 += KC) {
+      float s[KN][4], dp[KN][4];
+      strip_by_rows<T, D, KC>(s, strip_a16<LD>(qs, r0, lane), kt_s, c0,
+                              lane);
+      strip_by_rows<T, D, KC>(dp, strip_a16<LD>(dos, r0, lane), vt_s, c0,
+                              lane);
+      const unsigned kept = keep_bits<KC>(
+          id_r, segmented ? seg_t : nullptr, q0 + r0, k0, c0, edge, true,
+          s_len, p.causal, g, t);
+      // dS: element (query r0 + g (+ 8), key c0 + 8n + 2t (+ 1))
+#pragma unroll
+      for (int n = 0; n < KN; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int half = e >> 1;
+          const bool live = live_r[half] && (kept >> (4 * n + e) & 1u);
+          const float pv =
+              live ? exp2_ftz(fmaf(s[n][e], scale2, -lse2_r[half])) : 0.f;
+          s[n][e] = pv * (dp[n][e] - delta_r[half]) * p.scale;
+        }
+      Frag16 ads[KC / 16], ads_lo[KC / 16];
+#pragma unroll
+      for (int j = 0; j < KC / 16; ++j)
+        acc_as_a16<T>(ads[j], ads_lo[j], s[2 * j], s[2 * j + 1]);
+      strip_times_tile<T, D, KC>(dq, ads, ads_lo, kt_s, c0, lane);
+    }
+    __syncthreads();
+    kt = next;
+  }
+  if (threadIdx.x == 0 && pairs > 0)
+    atomicAdd(&g_bwd_tile_pairs[1], static_cast<unsigned long long>(pairs));
+
+  store_strip<T, D>(static_cast<T*>(p.dq) + static_cast<int64_t>(bh) *
+                                                s_len * p.d,
+                    dq, q0 + r0, s_len, p.d, 1.f, g, t);
+}
+
 // grid (B * H, key tiles): dV = P^T . dO and dK = scale * dS^T . q over
 // every query tile that sees this key tile, dS = p * (dp - delta). Warp
 // w owns keys 16w .. 16w + 15: S^T = k . q^T and dP^T = v . dO^T come
@@ -572,6 +1317,7 @@ constexpr size_t dkv_smem_bytes() {
 // here the scale multiplies dK once at the end — the same product.
 template <typename T, int D>
 __global__ void __launch_bounds__(kMmaThreads) flash_dkv_kernel(Params p) {
+  if constexpr (kHalfWidth<T>) return flash_dkv16<T, D>(p);
   constexpr int LD = tile_ld<D>();
   constexpr int DN = D / 8;                 // 8-column tiles of dK, dV
   constexpr int QC = D > 64 ? 16 : 32;      // queries per chunk
@@ -774,6 +1520,7 @@ constexpr size_t dq_smem_bytes() {
 // accumulators and is then added into the running float32 sum.
 template <typename T, int D>
 __global__ void __launch_bounds__(kMmaThreads) flash_dq_kernel(Params p) {
+  if constexpr (kHalfWidth<T>) return flash_dq16<T, D>(p);
   constexpr int LD = tile_ld<D>();
   constexpr int DN = D / 8;
   constexpr int KC = D > 64 ? 32 : 64;      // keys per chunk
@@ -945,15 +1692,17 @@ cudaError_t launch_with_smem(Kernel kernel, dim3 grid, int threads,
   return cudaGetLastError();
 }
 
-// Whether a float32 operand's rows can be staged in 16-byte copies: a
-// 16-byte aligned base and (batch, head, row) strides of whole 16 bytes.
-bool rows_vec(const void* ptr, const Strides& s) {
-  return reinterpret_cast<uintptr_t>(ptr) % 16 == 0 && s.b % 4 == 0 &&
-         s.h % 4 == 0 && s.s % 4 == 0;
+// Whether an operand's rows can be staged in 16-byte copies of `elems`
+// elements (4 float32, 8 bfloat16 or float16): a 16-byte aligned base
+// and (batch, head, row) strides of whole 16 bytes.
+bool rows_vec(const void* ptr, const Strides& s, int elems) {
+  return reinterpret_cast<uintptr_t>(ptr) % 16 == 0 && s.b % elems == 0 &&
+         s.h % elems == 0 && s.s % elems == 0;
 }
 
+// vec_elems: elements of T in 16 bytes; d must be a whole number of them.
 void fill_params(Params& p, const int64_t* strides, int heads, int s_len,
-                 int d, int causal, float scale) {
+                 int d, int causal, float scale, int vec_elems) {
   Strides* views[5] = {&p.sq, &p.sk, &p.sv, &p.so, &p.sdo};
   for (int t = 0; t < 5; ++t) {
     views[t]->b = strides[3 * t];
@@ -965,9 +1714,9 @@ void fill_params(Params& p, const int64_t* strides, int heads, int s_len,
   p.d = d;
   p.causal = causal;
   p.scale = scale;
-  p.vec = d % 4 == 0 && rows_vec(p.q, p.sq) && rows_vec(p.k, p.sk) &&
-          rows_vec(p.v, p.sv) &&
-          (p.dout == nullptr || rows_vec(p.dout, p.sdo));
+  p.vec = d % vec_elems == 0 && rows_vec(p.q, p.sq, vec_elems) &&
+          rows_vec(p.k, p.sk, vec_elems) && rows_vec(p.v, p.sv, vec_elems) &&
+          (p.dout == nullptr || rows_vec(p.dout, p.sdo, vec_elems));
 }
 
 bool bad_shape(int batch, int heads, int s_len, int d) {
@@ -991,10 +1740,14 @@ struct BwdLaunch {
     if (err != cudaSuccess) return err;
     const dim3 grid(batch * p.heads, (p.s_len + kTile - 1) / kTile);
     err = launch_with_smem(flash_dkv_kernel<T, D>, grid, kMmaThreads,
-                           dkv_smem_bytes<D>(), stream, p);
+                           kHalfWidth<T> ? dkv16_smem_bytes<D>(p.s_len)
+                                         : dkv_smem_bytes<D>(),
+                           stream, p);
     if (err != cudaSuccess) return err;
     return launch_with_smem(flash_dq_kernel<T, D>, grid, kMmaThreads,
-                            dq_smem_bytes<D>(), stream, p);
+                            kHalfWidth<T> ? dq16_smem_bytes<D>(p.s_len)
+                                          : dq_smem_bytes<D>(),
+                            stream, p);
   }
 };
 
@@ -1033,7 +1786,8 @@ int forward(const void* q, const void* k, const void* v, const int* seg,
   p.seg = seg;
   p.out = out;
   p.lse = lse;
-  fill_params(p, strides, heads, s_len, d, causal, scale);
+  fill_params(p, strides, heads, s_len, d, causal, scale,
+              16 / sizeof(T));
   return launch_at_width<T, FwdLaunch>(p, batch, device, stream);
 }
 
@@ -1056,7 +1810,8 @@ int backward(const void* q, const void* k, const void* v, const void* o,
   p.dk = dk;
   p.dv = dv;
   p.delta = delta;
-  fill_params(p, strides, heads, s_len, d, causal, scale);
+  fill_params(p, strides, heads, s_len, d, causal, scale,
+              16 / sizeof(T));
   return launch_at_width<T, BwdLaunch>(p, batch, device, stream);
 }
 

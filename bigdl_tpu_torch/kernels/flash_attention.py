@@ -14,7 +14,15 @@ recompute p from it. The kernels are CUDA C++ for Hopper
 (``csrc/flash_attention.cu`` and ``csrc/blockwise_flash_attention.cu``
 over the shared ``csrc/flash_common.cuh``, which holds the tile code and
 the one backward both use; the header notes have the design and the
-bound). Beside them are their plain PyTorch versions
+bound). float32 operands run their tile products in 3xTF32 on the
+tensor cores (float32 accuracy); bfloat16 and float16 operands run
+16-bit ``mma.sync`` m16n8k16 products with float32 sums, p and dS split
+into hi + lo in the input dtype where they are an operand, within the
+dtype's tolerance of the plain version rather than bitwise. K1's forward
+in every dtype, and its 16-bit backward, skip the 64 x 64 tile pairs
+whose queries and keys share no segment id;
+:func:`flash_attention_forward_tile_pairs` and
+:func:`flash_attention_backward_tile_pairs` read what they computed. Beside them are their plain PyTorch versions
 (``*_forward_reference`` / ``*_backward_reference``), which follow the
 TPU kernels' arithmetic: q scaled before the product, masked scores
 -inf, p = 0 on masked lanes and where lse (or, in K2's forward, the
@@ -46,6 +54,7 @@ __all__ = ["blockwise_flash_attention", "blockwise_flash_attention_backward",
            "blockwise_flash_attention_forward_reference", "cuda_unsupported",
            "flash_attention", "flash_attention_backward",
            "flash_attention_backward_reference", "flash_attention_forward",
+           "flash_attention_backward_tile_pairs",
            "flash_attention_forward_reference",
            "flash_attention_forward_tile_pairs"]
 
@@ -187,9 +196,10 @@ def _library(source: str, prefix: str):
             err.argtypes = [i32]
             err.restype = ctypes.c_char_p
             if source == "flash_attention":
-                lib.bigdl_flash_tile_pairs.argtypes = [
-                    i32, ctypes.POINTER(ctypes.c_ulonglong)]
-                lib.bigdl_flash_tile_pairs.restype = i32
+                for fn in (lib.bigdl_flash_tile_pairs,
+                           lib.bigdl_flash_bwd_tile_pairs):
+                    fn.argtypes = [i32, ctypes.POINTER(ctypes.c_ulonglong)]
+                    fn.restype = i32
             lib = _libs[source] = lib
         return lib
 
@@ -390,6 +400,24 @@ def flash_attention_forward_tile_pairs(device=None) -> int:
     rc = lib.bigdl_flash_tile_pairs(index, ctypes.byref(pairs))
     _raise_on(rc, lib, "bigdl_flash", "tile count")
     return pairs.value
+
+
+def flash_attention_backward_tile_pairs(device=None) -> tuple:
+    """``(dkv, dq)``: the (query tile, key tile) pairs of 64 x 64 that
+    K1's bfloat16 / float16 backward kernels (dK/dV and dQ) have computed
+    on the card ``device`` (default: the current one) since the last
+    call; both counts restart at 0. Like the forward, they skip the
+    tiles whose queries and keys share no segment id, so these are the
+    record that they did; the float32 backward computes every causal
+    pair and counts none. Synchronises the device."""
+    index = torch.device("cuda" if device is None else device).index
+    if index is None:
+        index = torch.cuda.current_device()
+    lib = _library("flash_attention", "bigdl_flash")
+    pairs = (ctypes.c_ulonglong * 2)()
+    rc = lib.bigdl_flash_bwd_tile_pairs(index, pairs)
+    _raise_on(rc, lib, "bigdl_flash", "backward tile count")
+    return pairs[0], pairs[1]
 
 
 class _FlashAttention(torch.autograd.Function):

@@ -11,8 +11,11 @@ Phases (any failure raises and exits non-zero; nothing is caught):
 2. build — every kernel under ``bigdl_tpu_torch/kernels/csrc`` is built
    from source with nvcc (one process per source, all at once); the
    flash libraries' SASS (``cuobjdump -sass``) must show tf32
-   tensor-core MMAs (``HMMA ... TF32``) in K1's and K2's forwards and in
-   the backward's dK/dV and dQ kernels, which run in 3xTF32;
+   tensor-core MMAs (``HMMA ... TF32``) in every float32 instance of
+   K1's and K2's forwards and of the backward's dK/dV and dQ kernels
+   (3xTF32) and in every instance of K2's forward, and 16-bit m16n8k16
+   MMAs (``HMMA.16816``, BF16 or F16) with no TF32 HMMA in the bfloat16
+   and float16 instances of K1's forward and of the backward;
 3. kernels — each kernel's wrapper against its plain PyTorch version on
    the same inputs on the card, at its main path's shapes, then timed
    beside the plain version, one PyTorch library call computing the
@@ -30,12 +33,13 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    lengths, with every slot full, at ``[1, 8, 8192, 64]`` and four
    slots of ragged lengths up to 8192, each beside its split plan's
    variants in turns; the flash-attention forward and backward (K1) at the
-   training shapes ``[16, 8, 512, 64]``, float32 and bfloat16 (timed in
-   float16 too), causal,
-   with and without the training batch's packed segment ids, plus ragged
-   edge shapes, and K1's forward must have computed exactly the (query
-   tile, key tile) pairs the training ids keep (it skips the key tiles
-   that share no segment id with a query tile); the blockwise
+   training shapes ``[16, 8, 512, 64]``, float32, bfloat16 and float16,
+   causal, with and without the training batch's packed segment ids,
+   plus ragged edge shapes; K1's forward in every dtype and its 16-bit
+   backward's dK/dV and dQ kernels must have computed exactly the (query
+   tile, key tile) pairs the training ids keep (they skip the tiles
+   whose queries and keys share no segment id), and the 16-bit backward
+   run twice there must give bitwise equal gradients; the blockwise
    flash-attention forward and backward (K2) at ragged edge shapes (S =
    1 to 1000, D = 16 to 128, causal and segments on and off,
    float32/bfloat16/float16) and at ``[1, 8, 2048,
@@ -686,28 +690,35 @@ def phase_build():
                 lines.setdefault(fn, []).append(line)
         for fn, info in sorted(lines.items()):
             log("build", f"{name}: {fn}: {'; '.join(info)}")
-    check_tf32_mmas(paths)
+    check_mmas(paths)
 
 
-#: the kernels that run their tile products in 3xTF32 on the tensor
-#: cores, by library
-TF32_KERNELS = {"blockwise_flash_attention": ("blockwise_fwd_kernel",
-                                              "flash_dkv_kernel",
-                                              "flash_dq_kernel"),
-                "flash_attention": ("flash_fwd_kernel", "flash_dkv_kernel",
-                                    "flash_dq_kernel")}
+#: the flash kernels by library, and the tensor-core MMAs (SASS
+#: ``HMMA``) their instances must show: "tf32" kernels run their tile
+#: products in 3xTF32 (``HMMA ... TF32``) in every dtype (K2's forward);
+#: "dtype" kernels in their float32 instances, and in their bfloat16 and
+#: float16 instances m16n8k16 on 16-bit operands (``HMMA.16816 ...
+#: BF16``, or without ``BF16`` for float16) and no TF32 HMMA
+FLASH_MMAS = {"blockwise_flash_attention": {"blockwise_fwd_kernel": "tf32",
+                                            "flash_dkv_kernel": "dtype",
+                                            "flash_dq_kernel": "dtype"},
+              "flash_attention": {"flash_fwd_kernel": "dtype",
+                                  "flash_dkv_kernel": "dtype",
+                                  "flash_dq_kernel": "dtype"}}
 
 
-def check_tf32_mmas(paths) -> None:
-    """Count the tf32 tensor-core MMAs (SASS ``HMMA ... TF32``) of each
-    kernel instance in the flash libraries with ``cuobjdump -sass``; fail
-    if an instance of a 3xTF32 kernel has none."""
+def check_mmas(paths) -> None:
+    """Count the tensor-core MMAs (SASS ``HMMA``, by opcode) of each
+    kernel instance in the flash libraries with ``cuobjdump -sass``, log
+    them, and fail unless each instance of a ``FLASH_MMAS`` kernel runs
+    the MMAs its dtype calls for: TF32 in float32 (and in K2's forward),
+    BF16 in bfloat16 and F16 in float16 with no TF32 HMMA."""
     import os
 
     from bigdl_tpu_torch.kernels import _build
 
     tool = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
-    for name, kernels in sorted(TF32_KERNELS.items()):
+    for name, kernels in sorted(FLASH_MMAS.items()):
         sass = subprocess.run([tool, "-sass", str(paths[name])],
                               capture_output=True, text=True, timeout=300,
                               check=True).stdout
@@ -716,17 +727,44 @@ def check_tf32_mmas(paths) -> None:
             m = re.search(r"Function : (\S+)", line)
             if m:
                 fn = kernel_instance(m.group(1))
-                counts.setdefault(fn, 0)
-            elif fn and re.search(r"\bHMMA\.\S*TF32", line):
-                counts[fn] += 1
-        log("build", f"{name}: tf32 HMMA per kernel instance: "
+                counts.setdefault(fn, {})
+                continue
+            m = re.search(r"\b(HMMA\.\S+)", line)
+            if fn and m:
+                counts[fn][m.group(1)] = counts[fn].get(m.group(1), 0) + 1
+        log("build", f"{name}: HMMA opcodes per kernel instance: "
                      + json.dumps(counts, sort_keys=True))
-        # an instance's name carries its namespace's mangled prefix
-        ours = [fn for fn in counts if fn.split("<")[0].endswith(kernels)]
-        missing = [fn for fn in ours if counts[fn] == 0]
-        if missing or not ours:
-            raise AssertionError(f"{name}: no tf32 HMMA in "
-                                 f"{missing or kernels}")
+        seen, bad = set(), []
+        for fn, ops in sorted(counts.items()):
+            # an instance's name carries its namespace's mangled prefix
+            kernel = next((k for k in kernels
+                           if fn.split("<")[0].endswith(k)), None)
+            if kernel is None:
+                continue
+            dtype = fn.split("<")[1].split(",")[0].rstrip(">")
+            seen.add((kernel, dtype))
+            tf32 = sum(n for op, n in ops.items() if "TF32" in op)
+            k16 = {"bf16": sum(n for op, n in ops.items()
+                               if "16816" in op and "BF16" in op),
+                   "f16": sum(n for op, n in ops.items()
+                              if "16816" in op and "BF16" not in op
+                              and "TF32" not in op)}
+            if kernels[kernel] == "tf32" or dtype == "f32":
+                ok = tf32 > 0
+            else:
+                ok = k16[dtype] > 0 and tf32 == 0 and sum(k16.values()) \
+                    == k16[dtype]
+            log("build", f"{name}: {fn}: tf32 HMMA {tf32}, bf16 m16n8k16 "
+                         f"{k16['bf16']}, f16 m16n8k16 {k16['f16']}"
+                         f"{'' if ok else ' -- WRONG'}")
+            if not ok:
+                bad.append(fn)
+        missing = sorted({(k, d) for k in kernels
+                          for d in ("f32", "bf16", "f16")} - seen)
+        if bad or missing:
+            raise AssertionError(f"{name}: instances without the MMAs "
+                                 f"their dtype calls for: {bad}; no "
+                                 f"instance of {missing}")
 
 
 def kernel_instance(mangled: str) -> str:
@@ -1225,11 +1263,12 @@ def kept_tile_pairs(seg, s: int):
 
 
 def flash_bound(kept: int, shape, itemsize: int, segmented: bool,
-                backward: bool, flops_per_s: float):
+                backward: bool, flops_per_s: float, parts: bool = False):
     """Least time (ms) the card needs for one K1 or K2 call: 4 * D flops
     per kept pair per head forward and 2.5x that backward, against q, k,
     v read and O, lse written (forward), or q, k, v, O, dO, lse read and
-    dq, dk, dv written (backward), plus the segment ids."""
+    dq, dk, dv written (backward), plus the segment ids. With ``parts``,
+    the two times ``(bytes, operations)`` instead."""
     b, h, s, d = shape
     n = b * h * s * d
     flops = 4 * d * h * kept * (2.5 if backward else 1.0)
@@ -1237,6 +1276,8 @@ def flash_bound(kept: int, shape, itemsize: int, segmented: bool,
               + (b * s * 4 if segmented else 0))
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / flops_per_s * 1e3
+    if parts:
+        return t_bytes, t_ops
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                  else "operations")
 
@@ -1321,8 +1362,8 @@ def phase_flash(train_seg):
 
     from bigdl_tpu_torch.kernels.flash_attention import (
         flash_attention_backward, flash_attention_backward_reference,
-        flash_attention_forward, flash_attention_forward_reference,
-        flash_attention_forward_tile_pairs)
+        flash_attention_backward_tile_pairs, flash_attention_forward,
+        flash_attention_forward_reference, flash_attention_forward_tile_pairs)
     from bigdl_tpu_torch.nn import dot_product_attention
 
     dev = torch.device("cuda")
@@ -1352,7 +1393,7 @@ def phase_flash(train_seg):
                          f"segments={segd}")
 
     shape = (TRAIN_BATCH, HEADS, TRAIN_SEQ, HEAD_DIM)
-    for dtype in (torch.float32, torch.bfloat16):
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
         for seg in (None, train_seg):
             q, k, v = _views(gen, shape, dtype)
             do = torch.randn(shape, device=dev, generator=gen).to(dtype)
@@ -1361,21 +1402,38 @@ def phase_flash(train_seg):
                          f"{name} {list(shape)} causal "
                          f"segments={seg is not None}")
 
-    # K1's forward computes only the key tiles that share a segment id
-    # with the query tile: the pairs it counted against the ids' count
-    q, k, v = _views(gen, shape, torch.float32)
-    flash_attention_forward_tile_pairs()
-    flash_attention_forward(q, k, v, train_seg, causal=True)
-    computed = flash_attention_forward_tile_pairs()
+    # K1's forward (every dtype) and its 16-bit backward's dK/dV and dQ
+    # kernels compute only the tiles whose queries and keys share a
+    # segment id: the pairs each counted against the ids' count; and the
+    # 16-bit backward, run twice, gives bitwise equal gradients
     kept, causal_pairs = kept_tile_pairs(train_seg, TRAIN_SEQ)
-    log("flash_attention", f"training rows {list(shape)}: the forward "
-                           f"computed {computed} tile pairs = {HEADS} heads "
-                           f"x {computed / HEADS:g} of {causal_pairs} causal "
-                           f"pairs ({computed / (HEADS * causal_pairs):.4f}); "
-                           f"the segment ids keep {kept}")
-    if computed != kept * HEADS:
-        raise AssertionError(f"K1's forward computed {computed} tile pairs, "
-                             f"the segment ids keep {kept} x {HEADS}")
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+        name = str(dtype).split(".")[-1]
+        q, k, v = _views(gen, shape, dtype)
+        do = torch.randn(shape, device=dev, generator=gen).to(dtype)
+        flash_attention_forward_tile_pairs()
+        o, lse = flash_attention_forward(q, k, v, train_seg, causal=True)
+        computed = {"forward": flash_attention_forward_tile_pairs()}
+        if dtype != torch.float32:
+            flash_attention_backward_tile_pairs()
+            flash_attention_backward(q, k, v, o, do, lse, train_seg,
+                                     causal=True)
+            computed["dK/dV"], computed["dQ"] = \
+                flash_attention_backward_tile_pairs()
+        share = computed["forward"] / (HEADS * causal_pairs)
+        log("flash_attention", f"{name} training rows {list(shape)}: "
+                               f"tile pairs computed {computed} = {HEADS} "
+                               f"heads x {computed['forward'] / HEADS:g} of "
+                               f"{causal_pairs} causal pairs ({share:.4f}); "
+                               f"the segment ids keep {kept}")
+        if any(n != kept * HEADS for n in computed.values()):
+            raise AssertionError(f"K1 {name} computed {computed} tile "
+                                 f"pairs, the segment ids keep {kept} x "
+                                 f"{HEADS}")
+        if dtype != torch.float32:
+            check_deterministic(flash_attention_backward, q, k, v, o, do,
+                                lse, train_seg, f"K1 {name} backward",
+                                phase="flash_attention")
 
     # timing: 3 input sets (q, k, v, O, dO: 252 MB in float32, past the
     # 50 MB L2), causal as in training
@@ -1443,7 +1501,8 @@ def phase_flash(train_seg):
 
         name = str(dtype).split(".")[-1]
         kept = kept_pairs(seg, TRAIN_BATCH, TRAIN_SEQ, dev)
-        # float32: K1's forward and backward run 3xTF32
+        # float32: K1's forward and backward run 3xTF32; bfloat16 and
+        # float16 run 16-bit MMAs
         peaks = ({"fwd": TF32X3_FLOPS_PER_S, "bwd": TF32X3_FLOPS_PER_S}
                  if dtype == torch.float32 else
                  {"fwd": BF16_FLOPS_PER_S, "bwd": BF16_FLOPS_PER_S})
@@ -1470,6 +1529,9 @@ def phase_flash(train_seg):
             bound_ms, bound_by = flash_bound(kept, shape, itemsize,
                                              seg is not None, backward,
                                              peaks[kind])
+            bytes_ms, ops_ms = flash_bound(kept, shape, itemsize,
+                                           seg is not None, backward,
+                                           peaks[kind], parts=True)
             row[kind] = {"name": f"flash_attention_{kind}", "route": "cuda",
                          "source": "bigdl_tpu_torch/kernels/csrc/"
                                    "flash_attention.cu",
@@ -1494,7 +1556,8 @@ def phase_flash(train_seg):
                 "library": "F.scaled_dot_product_attention " + (
                     "backward (autograd.grad)" if backward else "forward"),
                 "library_fwd_max_abs_err": lib_err, "bound_ms": bound_ms,
-                "bound_by": bound_by, "kernel_over_bound": ms / bound_ms,
+                "bound_by": bound_by, "bytes_bound_ms": bytes_ms,
+                "ops_bound_ms": ops_ms, "kernel_over_bound": ms / bound_ms,
                 "kernel_device_over_bound": dev_ms / bound_ms}))
         if entries is None:
             entries = row
@@ -1983,7 +2046,8 @@ def log_kernels(phase: str, what: str, run) -> None:
                       for ms, n, key in device_kernels(profiled(run))[:6]]))
 
 
-def check_deterministic(bwd, q, k, v, o, do, lse, seg, label) -> None:
+def check_deterministic(bwd, q, k, v, o, do, lse, seg, label,
+                        phase="blockwise") -> None:
     """The backward twice on the same inputs: dq, dk and dv must be
     bitwise equal (the kernels add in a fixed order, with no atomics)."""
     import torch
@@ -1993,8 +2057,8 @@ def check_deterministic(bwd, q, k, v, o, do, lse, seg, label) -> None:
     torch.cuda.synchronize()
     same = {n: torch.equal(a, b) for n, a, b in zip(("dq", "dk", "dv"),
                                                    first, second)}
-    log("blockwise", f"{label} run twice at {list(q.shape)} causal "
-                     f"segments={seg is not None}: bitwise equal {same}")
+    log(phase, f"{label} run twice at {list(q.shape)} causal "
+               f"segments={seg is not None}: bitwise equal {same}")
     if not all(same.values()):
         raise AssertionError(f"{label} is not deterministic: {same}")
 
@@ -3710,6 +3774,14 @@ def phase_precision(counters, corpus, f32_train, device="cuda"):
                      "flash_dq_kernel"):
             if not _has_instance(f16_kernels, name, "__half"):
                 raise AssertionError(f"no float16 {name} ran")
+    # the window's pace: one more call on the same shapes (a replay of
+    # its graph on the card; the state moves on, nothing below reads it)
+    t0 = time.perf_counter()
+    window(*_stack(batches), [TRAIN_LR] * F16_ITERS).tolist()
+    b["window_replay_ms_per_step"] = ((time.perf_counter() - t0) * 1e3
+                                      / F16_ITERS)
+    log("precision-f16", f"one more window of {F16_ITERS} steps: "
+                         f"{b['window_replay_ms_per_step']:.3f} ms a step")
     del model, step, window, state, start, after_window
 
     # (c) windowed against per-step, bitwise

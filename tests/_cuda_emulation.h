@@ -6,8 +6,10 @@
 // waits at __syncthreads or at a warp collective yields to the next, so
 // an emulation uses one core and runs the same way every time. Blocks
 // run one after another, so an atomic is a plain add. mma.sync m16n8k8
-// tf32, mma.sync m16n8k32 s8 and ldmatrix follow the PTX fragment
-// layouts (written here from the PTX ISA, independently of the
+// tf32, mma.sync m16n8k16 bf16 / f16 (float32 accumulators), mma.sync
+// m16n8k32 s8, ldmatrix (plain and .trans) and the packing conversions
+// cvt.rn.{bf16x2,f16x2}.f32 follow the PTX fragment layouts and
+// definitions (written here from the PTX ISA, independently of the
 // kernels); a tf32 operand's low 13 bits are dropped, as the tensor
 // cores read it. cp.async copies at once (its ordering is the kernels'
 // own barriers and waits, which this cannot check). The test rewrites
@@ -127,6 +129,11 @@ struct __half {
   _Float16 x;
 };
 inline float __half2float(__half h) { return static_cast<float>(h.x); }
+inline __half __ushort_as_half(unsigned short bits) {
+  __half h;
+  std::memcpy(&h, &bits, 2);
+  return h;
+}
 inline __half __float2half(float f) { return {static_cast<_Float16>(f)}; }
 
 constexpr int kEmuWarps = 32;
@@ -185,7 +192,22 @@ inline uint32_t emu_a[kEmuWarps][32][4], emu_b[kEmuWarps][32][2];
 inline float emu_c[kEmuWarps][32][4];
 inline int emu_ci[kEmuWarps][32][4];
 
+inline int emu_pred[kEmuWarps][32];
+
 inline void emu_warp_sync() { emu_warp_barrier[threadIdx.x / 32].wait(); }
+
+// Every lane of the warp takes part (the kernels' only use).
+inline unsigned __ballot_sync(unsigned, int pred) {
+  const int w = threadIdx.x / 32, l = threadIdx.x % 32;
+  emu_pred[w][l] = pred != 0;
+  emu_warp_sync();
+  unsigned mask = 0;
+  for (int lane = 0; lane < 32; ++lane)
+    mask |= static_cast<unsigned>(emu_pred[w][lane]) << lane;
+  emu_warp_sync();
+  return mask;
+}
+inline int __popc(unsigned x) { return __builtin_popcount(x); }
 
 inline void __syncthreads() { emu_block_barrier.wait(); }
 inline int __syncthreads_or(int pred) {
@@ -211,6 +233,104 @@ inline void emu_ldmatrix_x4(uint32_t (&x)[4], const void* row) {
   for (int j = 0; j < 4; ++j)
     std::memcpy(&x[j], emu_rows[w][8 * j + l / 4] + 4 * (l % 4), 4);
   emu_warp_sync();
+}
+
+// ldmatrix.x4.trans.b16: the addresses as in emu_ldmatrix_x4; lane i
+// receives, of each matrix, the 16-bit elements at (row 2 (i % 4),
+// column i / 4) in the low half and (row 2 (i % 4) + 1, column i / 4) in
+// the high half: row i / 4 of the transposed matrix.
+inline void emu_ldmatrix_x4_trans(uint32_t (&x)[4], const void* row) {
+  const int w = threadIdx.x / 32, l = threadIdx.x % 32;
+  emu_rows[w][l] = static_cast<const char*>(row);
+  emu_warp_sync();
+  for (int j = 0; j < 4; ++j) {
+    uint16_t lo, hi;
+    std::memcpy(&lo, emu_rows[w][8 * j + 2 * (l % 4)] + 2 * (l / 4), 2);
+    std::memcpy(&hi, emu_rows[w][8 * j + 2 * (l % 4) + 1] + 2 * (l / 4), 2);
+    x[j] = lo | static_cast<uint32_t>(hi) << 16;
+  }
+  emu_warp_sync();
+}
+
+// ex2.approx.ftz.f32: 2^x, with a subnormal input read as 0 and a
+// subnormal result flushed to 0 (the approximation's own error, about
+// 2^-22 relative, is the card's to show).
+inline float emu_exp2_ftz(float x) {
+  if (std::fpclassify(x) == FP_SUBNORMAL) x = 0.f;
+  const float y = std::exp2(x);
+  return std::fpclassify(y) == FP_SUBNORMAL ? 0.f : y;
+}
+
+// The 16-bit value of type T in the low (half 0) or high (half 1) half
+// of a register, as a float (exact).
+template <typename T>
+inline float emu_b16(uint32_t word, int half) {
+  const uint16_t bits = static_cast<uint16_t>(word >> (16 * half));
+  T v;
+  std::memcpy(&v, &bits, 2);
+  if constexpr (std::is_same<T, __half>::value)
+    return __half2float(v);
+  else
+    return __bfloat162float(v);
+}
+
+// cvt.rn.{bf16x2,f16x2}.f32: lo and hi rounded to nearest even, hi in
+// the high half.
+template <typename T>
+inline uint32_t emu_pack16(float lo, float hi) {
+  T a, b;
+  if constexpr (std::is_same<T, __half>::value) {
+    a = __float2half(lo);
+    b = __float2half(hi);
+  } else {
+    a = __float2bfloat16(lo);
+    b = __float2bfloat16(hi);
+  }
+  uint16_t la, lb;
+  std::memcpy(&la, &a, 2);
+  std::memcpy(&lb, &b, 2);
+  return la | static_cast<uint32_t>(lb) << 16;
+}
+
+// mma.sync.m16n8k16.row.col.f32.{bf16,f16}.{bf16,f16}.f32, c += a . b.
+// Lane 4g + t holds A[g][2t + e] (a0), A[g + 8][2t + e] (a1),
+// A[g][8 + 2t + e] (a2), A[g + 8][8 + 2t + e] (a3), B[2t + e][g] (b0),
+// B[8 + 2t + e][g] (b1), e the register's half; C as in emu_mma. The
+// products are exact in float32; they are summed in k order.
+template <typename T>
+inline void emu_mma16(float (&c)[4], const uint32_t (&a)[4],
+                      const uint32_t (&b)[2]) {
+  const int w = threadIdx.x / 32, l = threadIdx.x % 32;
+  for (int i = 0; i < 4; ++i) {
+    emu_a[w][l][i] = a[i];
+    emu_c[w][l][i] = c[i];
+  }
+  emu_b[w][l][0] = b[0];
+  emu_b[w][l][1] = b[1];
+  emu_warp_sync();
+  float A[16][16], B[16][8], C[16][8];
+  for (int lane = 0; lane < 32; ++lane) {
+    const int g = lane / 4, t = lane % 4;
+    for (int i = 0; i < 4; ++i) {
+      for (int e = 0; e < 2; ++e)
+        A[g + 8 * (i & 1)][8 * (i >> 1) + 2 * t + e] =
+            emu_b16<T>(emu_a[w][lane][i], e);
+      C[g + 8 * (i >> 1)][2 * t + (i & 1)] = emu_c[w][lane][i];
+    }
+    for (int i = 0; i < 2; ++i)
+      for (int e = 0; e < 2; ++e)
+        B[8 * i + 2 * t + e][g] = emu_b16<T>(emu_b[w][lane][i], e);
+  }
+  const int g = l / 4, t = l % 4;
+  float out[4];
+  for (int i = 0; i < 4; ++i) {
+    const int row = g + 8 * (i >> 1), col = 2 * t + (i & 1);
+    float acc = C[row][col];
+    for (int k = 0; k < 16; ++k) acc += A[row][k] * B[k][col];
+    out[i] = acc;
+  }
+  emu_warp_sync();
+  for (int i = 0; i < 4; ++i) c[i] = out[i];
 }
 
 // mma.sync.m16n8k32.row.col.s32.s8.s8.s32, d += a . b, exact. Each

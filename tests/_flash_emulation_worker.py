@@ -4,8 +4,10 @@ hung emulation cannot stall the suite): the g++-built K1 and K2 libraries
 same seeded inputs, forward (O, lse) and backward (dq, dk, dv). SEGMENTS
 is 0 (none), 1 (sorted random ids 1-3) or 2 (packed documents of 20-90
 rows, then pad id 0, as the packed training rows are). For K1 it also
-reports the (query tile, key tile) pairs its forward computed and the
-pairs the segment ids keep. Prints one JSON object.
+reports the (query tile, key tile) pairs its forward computed, the pairs
+its 16-bit backward's dK/dV and dQ kernels computed (the float32
+backward counts none), and the pairs the segment ids keep. Prints one
+JSON object.
 
     python _flash_emulation_worker.py LIB_DIR B H S D CAUSAL SEGMENTS DTYPE
 """
@@ -129,6 +131,9 @@ def main(lib_dir, b, h, s, d, causal, segmented, dtype_name):
             lib = ctypes.CDLL(f"{lib_dir}/lib{source}.so")
             assert lib.bigdl_flash_tile_pairs(0, ctypes.byref(pairs)) == 0
             errs["tile_pairs"] = pairs.value
+            bwd_pairs = (ctypes.c_ulonglong * 2)()
+            assert lib.bigdl_flash_bwd_tile_pairs(0, bwd_pairs) == 0
+            errs["dkv_tile_pairs"], errs["dq_tile_pairs"] = bwd_pairs
             errs["kept_tile_pairs"] = kept_tile_pairs(
                 None if seg is None else seg.numpy(), b, h, s, causal)
             errs["all_tile_pairs"] = kept_tile_pairs(None, b, h, s, causal)
