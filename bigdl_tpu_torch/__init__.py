@@ -51,7 +51,12 @@ Ported so far:
   package's format 2 (:mod:`bigdl_tpu_torch.utils.serialization`,
   :mod:`~bigdl_tpu_torch.utils.module_serializer`): a run checkpointed
   by either package resumes in the other, and a module saved by either
-  loads in the other (``ModelRegistry.load(path=)`` serves one).
+  loads in the other (``ModelRegistry.load(path=)`` serves one);
+- the optimizers — every OptimMethod of the JAX package (SGD, Adam,
+  Adagrad, Adadelta, Adamax, RMSprop, Ftrl; LBFGS with strong-Wolfe)
+  and its learning-rate schedules under :mod:`bigdl_tpu_torch.optim`,
+  and ``Optimizer.optimize()``'s retry from the newest checkpoint with
+  the classified backoff of :mod:`bigdl_tpu_torch.faults`.
 
 Entry points default to ``device="cuda"`` and raise when CUDA is
 missing; they run on the CPU only when the caller passes

@@ -1,10 +1,19 @@
-"""Optimization (counterpart of ``bigdl_tpu.optim``): the OptimMethod,
-regularizers, triggers, validation methods, the single-card training
-driver, and the local Predictor and Evaluator."""
+"""Optimization (counterpart of ``bigdl_tpu.optim``): the OptimMethods
+and their learning-rate schedules, LBFGS, regularizers, triggers,
+validation methods, the single-card training driver, and the local
+Predictor and Evaluator."""
 from bigdl_tpu_torch.optim.evaluator import Evaluator
-from bigdl_tpu_torch.optim.optim_method import (Default, EpochDecay,
+from bigdl_tpu_torch.optim.lbfgs import LBFGS
+from bigdl_tpu_torch.optim.optim_method import (SGD, Adadelta, Adagrad, Adam,
+                                                Adamax, Default, EpochDecay,
+                                                EpochSchedule, EpochStep,
+                                                Exponential, Ftrl,
                                                 LearningRateSchedule,
-                                                OptimMethod, SGD)
+                                                MultiStep, NaturalExp,
+                                                OptimMethod, Plateau, Poly,
+                                                Regime, RMSprop,
+                                                SequentialSchedule, Step,
+                                                Warmup)
 from bigdl_tpu_torch.optim.optimizer import (LocalOptimizer, Optimizer,
                                              build_eval_step,
                                              build_train_step,
@@ -22,12 +31,16 @@ from bigdl_tpu_torch.optim.validation import (MAE, AccuracyResult, Loss,
                                               Top5Accuracy, ValidationMethod,
                                               ValidationResult)
 
-__all__ = ["AccuracyResult", "Default", "EpochDecay", "Evaluator", "L1L2Regularizer",
-           "L1Regularizer", "L2Regularizer", "LearningRateSchedule",
-           "LocalOptimizer", "LocalPredictor", "Loss", "LossResult", "MAE",
-           "OptimMethod", "Optimizer", "Predictor", "Regularizer", "SGD",
-           "Top1Accuracy", "Top5Accuracy", "Trigger", "ValidationMethod",
-           "ValidationResult", "build_eval_step", "build_train_step",
-           "make_host_window", "seed_precision",
-           "every_epoch", "max_epoch", "max_iteration", "max_score",
-           "min_loss", "several_iteration"]
+__all__ = ["AccuracyResult", "Adadelta", "Adagrad", "Adam", "Adamax",
+           "Default", "EpochDecay", "EpochSchedule", "EpochStep",
+           "Evaluator", "Exponential", "Ftrl", "L1L2Regularizer",
+           "L1Regularizer", "L2Regularizer", "LBFGS",
+           "LearningRateSchedule", "LocalOptimizer", "LocalPredictor",
+           "Loss", "LossResult", "MAE", "MultiStep", "NaturalExp",
+           "OptimMethod", "Optimizer", "Plateau", "Poly", "Predictor",
+           "RMSprop", "Regime", "Regularizer", "SGD", "SequentialSchedule",
+           "Step", "Top1Accuracy", "Top5Accuracy", "Trigger",
+           "ValidationMethod", "ValidationResult", "Warmup",
+           "build_eval_step", "build_train_step", "make_host_window",
+           "seed_precision", "every_epoch", "max_epoch", "max_iteration",
+           "max_score", "min_loss", "several_iteration"]

@@ -36,14 +36,25 @@ Checkpoints are the JAX package's format 2
 path (a corrupt one is quarantined and the walk goes back), so a run
 checkpointed by either package resumes in the other.
 
+``optimize()`` retries a failure that
+:func:`bigdl_tpu_torch.faults.retry.classify` calls transient from the
+newest checkpoint, after an exponential, jittered backoff
+(``retry_times``, ``retry_interval_s``, ``retry_max_interval_s``, from
+``BIGDL_FAILURE_RETRY_TIMES``, ``..._INTERVAL`` and
+``..._MAX_INTERVAL``), counting each in ``train/optimizer/recoveries``;
+a fatal failure, one past ``retry_times`` or one with no checkpoint path
+raises at once.
+
 Not ported yet: the elastic checkpoint options (``keep_last``,
-``async_write``) and fault points, train and validation summaries,
-device-fed and rotating windows (item 10), ZeRO (and with it precision
-under ZeRO), sequence parallelism, failure retry and preemption, and
-the multi-card ``DistriOptimizer``.
+``async_write``), fault points and the flight recorder's post-mortem on
+a fatal failure (item 12), train and validation summaries, device-fed
+and rotating windows (item 10), ZeRO (and with it precision under ZeRO),
+sequence parallelism, preemption, and the multi-card
+``DistriOptimizer``.
 """
 from __future__ import annotations
 
+import copy
 import functools
 import logging
 import os
@@ -60,6 +71,7 @@ from bigdl_tpu_torch.dataset.dataset import AbstractDataSet
 from bigdl_tpu_torch.dataset.prefetch import (batch_signature,
                                               stack_minibatches)
 from bigdl_tpu_torch.dataset.sample import MiniBatch
+from bigdl_tpu_torch.faults.retry import backoff_delay, classify
 from bigdl_tpu_torch.nn.module import Criterion, Module
 from bigdl_tpu_torch.optim.optim_method import SGD, OptimMethod
 from bigdl_tpu_torch.optim.trigger import Trigger, max_epoch
@@ -88,6 +100,9 @@ _SKIPPED_STEPS = telemetry.gauge(
 _POLICY_INFO = telemetry.gauge(
     "train/precision/policy_info",
     "active precision policy (labels carry the dtypes); value is 1")
+_RECOVERIES = telemetry.counter(
+    "train/optimizer/recoveries",
+    "retry-from-checkpoint recoveries performed by optimize()")
 
 
 class _Body(torch.nn.Module):
@@ -141,7 +156,14 @@ def build_train_step(module: Module, criterion: Criterion,
     The module is put in training mode when the step is built (a layer
     set to evaluation mode after that stays so, as in a torch loop);
     the scales are read then too, as the JAX package reads them when it
-    traces its step. The OptimMethod's buffers (``init_state`` over the
+    traces its step. The OptimMethod's hyper-parameters (SGD's weight
+    decay, momentum, dampening, nesterov; Adam's betas...) are read from
+    a copy of the method taken at the step's first call, after the
+    driver's first schedule update, as the JAX package's step reads them
+    when it is traced at its first call: an ``EpochSchedule`` regime
+    that changes them in a later epoch changes neither package's step,
+    per step or windowed. Under a policy with a master copy the
+    OptimMethod's buffers are made in the master's dtype. The OptimMethod's buffers (``init_state`` over the
     module's parameters, in ``named_parameters`` order) live in
     ``step.opt_state``; ``step.module`` is the module, ``step.lr_dtype``
     the dtype a driver stages the rate in. Nothing in a step
@@ -161,7 +183,12 @@ def build_train_step(module: Module, criterion: Criterion,
     plain = policy.is_noop and policy.param_dtype == torch.float32
     named = list(module.named_parameters())
     params = [p for _, p in named]
-    opt_state = optim_method.init_state([p.detach() for p in params])
+    # the buffers of an update on the float32 master are float32 too,
+    # whatever dtype the parameters are stored in
+    opt_state = optim_method.init_state([
+        p.detach().to(policy.accum_dtype)
+        if policy.needs_master and p.is_floating_point() else p.detach()
+        for p in params])
     scales = module.param_scales()
     factors = [scales[name] for name, _ in named]
     scaled = any(f != 1.0 for f in factors)
@@ -189,14 +216,24 @@ def build_train_step(module: Module, criterion: Criterion,
             return grads
         return [g if f == 1.0 else g * f for g, f in zip(grads, factors)]
 
+    rule = []
+
+    def update(grads, state, base, lr):
+        # the method as the step's first call finds it: the JAX package
+        # reads the hyper-parameters (an EpochSchedule's weight decay
+        # and momentum) when it traces its step at the first call, and
+        # a captured window keeps what its capture read
+        if not rule:
+            rule.append(copy.copy(optim_method))
+        rule[0].update(grads, state, base, lr)
+
     def plain_step(inputs, targets, lr):
         for p in params:
             p.grad = None
         loss = criterion(module(inputs), targets)
         reg = module.regularization_loss()
         (loss + reg if torch.is_tensor(reg) else loss).backward()
-        optim_method.update(clip(scale(gradients())), opt_state, params,
-                            lr)
+        update(clip(scale(gradients())), opt_state, params, lr)
         return loss.detach()
 
     def policy_step(inputs, targets, lr):
@@ -250,7 +287,7 @@ def build_train_step(module: Module, criterion: Criterion,
                 # master and every OptimMethod buffer
                 kept = [(t, t.clone()) for t in
                         [*params, *(master or []), *_buffers(inner)]]
-            optim_method.update(grads, inner, base, lr)
+            update(grads, inner, base, lr)
             if master is not None:
                 for p, m in zip(params, master):
                     p.copy_(m)           # the master cast down
@@ -553,6 +590,37 @@ class Optimizer:
         self._loss_scaler: Optional[DynamicLossScaler] = None
         self.train_step = None
         self.window: Optional[_HostWindow] = None
+        # retry from the newest checkpoint (optimize): at most
+        # retry_times retries, the first after a jittered wait in
+        # [base / 2, base), doubling per retry up to the cap
+        self.retry_times = int(os.environ.get("BIGDL_FAILURE_RETRY_TIMES",
+                                              5))
+        self.retry_interval_s = float(
+            os.environ.get("BIGDL_FAILURE_RETRY_INTERVAL", 1.0))
+        self.retry_max_interval_s = float(
+            os.environ.get("BIGDL_FAILURE_RETRY_MAX_INTERVAL", 30.0))
+
+    def set_model(self, new_model: Module) -> "Optimizer":
+        """Swap the model before ``optimize()`` (Optimizer.scala:230).
+        The last run's step and window belong to the old model's
+        parameters (a captured graph reads and writes them) and are
+        dropped."""
+        self.model = new_model
+        if self.window is not None:
+            self.window.close()
+        self.window = None
+        self.train_step = None
+        return self
+
+    def set_drop_module_property(self, drop_percentage: float,
+                                 max_drop_percentage: float,
+                                 batchsize: int = 100,
+                                 warmup_iteration: int = 200
+                                 ) -> "Optimizer":
+        """Straggler dropping (Optimizer.scala:276): one card has no
+        stragglers, so this is accepted for the recipes and does
+        nothing."""
+        return self
 
     def set_optim_method(self, method: OptimMethod) -> "Optimizer":
         self.optim_method = method
@@ -799,7 +867,38 @@ class Optimizer:
 
     def optimize(self) -> Module:
         """Run the loop until the end trigger (default ``max_epoch(10)``)
-        fires; returns the trained model (updated in place)."""
+        fires; returns the trained model (updated in place).
+
+        A failure :func:`~bigdl_tpu_torch.faults.retry.classify` calls
+        transient (an ``OSError``, a ``RuntimeError`` such as a CUDA
+        error, an unknown type) starts the run again from the newest
+        checkpoint after :func:`~bigdl_tpu_torch.faults.retry.backoff_delay`
+        seconds, counted in ``train/optimizer/recoveries``, up to
+        ``retry_times`` times; where no checkpoint has been written yet
+        the run goes on from the parameters and counters the failure
+        left. A fatal failure (a ``TypeError``, a shape mismatch...), the
+        failure after the last retry, and any failure of a run with no
+        checkpoint path raise unchanged."""
+        retries = 0
+        while True:
+            try:
+                return self._optimize_impl()
+            except Exception as e:
+                retries += 1
+                if classify(e) == "fatal" or retries > self.retry_times \
+                        or self.checkpoint_path is None:
+                    # the JAX package's flight recorder writes its
+                    # post-mortem here; the port's waits for item 12
+                    raise
+                _RECOVERIES.inc()
+                delay = backoff_delay(retries - 1, self.retry_interval_s,
+                                      self.retry_max_interval_s)
+                logger.exception("training failed (%s); retry %d/%d in "
+                                 "%.2fs", e, retries, self.retry_times,
+                                 delay)
+                time.sleep(delay)
+
+    def _optimize_impl(self) -> Module:
         model = self.model
         model.train()
         device = self._device()
@@ -815,6 +914,9 @@ class Optimizer:
             state.pop("datapipe", None)
             self.resumed_from = {"path": resumed["path"],
                                  "neval": state["neval"]}
+            # the steps a retry redoes are recorded once
+            self.history = [h for h in self.history
+                            if h["neval"] < state["neval"]]
         # epoch/iteration-driven schedules read the OptimMethod's state
         for k in ("epoch", "neval"):
             self.optim_method.state[k] = state[k]

@@ -128,6 +128,10 @@ class CheckpointCorrupt(RuntimeError):
     driver's resume quarantines the directory and walks back to the
     previous intact checkpoint."""
 
+    # it escapes a resume only where the quarantine failed: a retry would
+    # hash the same directory again, so the retry policy fails fast
+    bigdl_fatal = True
+
 
 #: what reading a damaged checkpoint raises (a digest that does not
 #: match, a missing or truncated file, a torn archive or document)

@@ -154,13 +154,40 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    losses, parameters, buffers, scaler state, checkpoint names and trees;
    (d) LeNet-5's profiled step at K = 1 and K = 8; (e) ResNet-50 at
    batch 64, float32 against ``bf16_mixed``: images/s, idle share, peak
-   memory, float32 BN statistics, falling losses.
+   memory, float32 BN statistics, falling losses;
+12. optim (``phase_optim``) — (a) the training slice's TransformerLM
+   under ``bf16_mixed`` with ``Adam(learning_rate=1e-3)``: one step
+   with K1 against the einsum path at phase 11's limits (loss,
+   gradients, Adam's first moment, ``t``, the parameters over the rate
+   where the gradient's sign is fixed), which Adam with ``t`` not
+   advanced must fail; ``OPT_STEPS`` iterations through
+   ``LocalOptimizer`` in windows of 8 (CUDA graphs) and one by one,
+   bitwise alike (losses, parameters, ``m``, ``v``, ``t`` = 16), K1's
+   wrapper calls exact; a profiled window of 8: ms a step profiled and
+   not, tokens/s, idle share, the foreach update's device time, K1's
+   kernels once a layer and replayed step; (b) SGD, Adam, Adagrad,
+   Adadelta, Adamax, RMSprop and Ftrl, 5 float32 LeNet-5 steps at batch
+   128 on the card against the CPU within 1e-4 (Adam with ``t``
+   advanced twice must fail); (c) SGD with
+   ``SequentialSchedule().add(Warmup, 12).add(Poly(0.5, 40), 40)`` in
+   windows of 8 across the warm-up, bitwise the per-step loop; (d)
+   ``Plateau`` on the held-out Top1, validated every epoch: the window
+   falls back per step with the driver's reason, the rate falls tenfold
+   after the patience, as on the CPU; (e) ``LBFGS`` with strong-Wolfe,
+   full batch over 60,000 synthetic rows, 20 iterations, falling, and 3
+   iterations card against CPU in float64 within 1e-10; (f) a run of 12
+   steps with a checkpoint every 4 whose dataset raises ``OSError`` once
+   at step 6: one recovery, bitwise the uninterrupted run; a
+   ``TypeError`` raises at once with no recovery. No kernel of the
+   ``kernels`` line may launch in (b)-(f).
 
 Float32 throughout phases 1–10, with TF32 off for matrix products (set
 here) and for convolutions (PyTorch's default is on; the port's
 convolution layers switch it off, and phase 8 checks that they did): the
 tolerances below assume full float32. Phase 11 runs the precision
-policies, with limits of their own.
+policies, with limits of their own; phase 12 (a) runs bf16_mixed at
+phase 11's limits, (b)-(f) float32 (float64 for LBFGS's card-against-CPU
+check).
 
 The line before the last is a JSON object ``{"kernels": [...]}`` with
 each kernel's launches, error and times (``ms`` and ``device_ms``, and
@@ -267,6 +294,42 @@ WIN_LM_LAYERS, WIN_LM_STEPS = 2, 16
 #: rate small enough that it falls; the recipe's lr 0.1 with nesterov
 #: momentum diverges on one random batch)
 RP_BATCH, RP_STEPS, RP_LR = 64, 5, 0.01
+
+# ---- the optim slice (queue 1, item 6): the other OptimMethods and
+# schedules, LBFGS, retry from checkpoint; Adam at the training width ----
+#: (a) Adam under bf16_mixed: its rate, the steps of the windowed and
+#: the per-step run, the steps a window (the one-step check holds phase
+#: 11's limits, PREC_*)
+ADAM_LR, OPT_STEPS, OPT_K = 1e-3, 16, 8
+#: (b) each method on LeNet-5 (batch LENET_BATCH), card against CPU over
+#: these steps within LENET_LOSS_RTOL / LENET_PARAM_ATOL, at the rates
+#: their users train with
+OPT_PARITY_STEPS = 5
+OPT_METHODS = {
+    "SGD": {"learning_rate": LENET_LR, "momentum": LENET_MOMENTUM},
+    "Adam": {"learning_rate": 1e-3},
+    "Adagrad": {"learning_rate": 1e-2, "weight_decay": 1e-3},
+    "Adadelta": {},
+    "Adamax": {},
+    "RMSprop": {"learning_rate": 1e-3},
+    "Ftrl": {"learning_rate": 0.1, "l1_regularization_strength": 1e-3,
+             "l2_regularization_strength": 1e-3}}
+#: (c) SGD with a warm-up then Poly, windows of OPT_K across the warm-up's
+#: end: warm-up iterations and its delta, Poly's iterations, the steps
+SCHED_WARMUP, SCHED_DELTA, SCHED_POLY, SCHED_STEPS = 12, 0.002, 40, 24
+#: (d) Plateau on the held-out Top1 (mode max; an epsilon no Top1 can
+#: beat, so every record after the first waits): batches an epoch,
+#: epochs, patience, factor
+PLATEAU_BATCHES, PLATEAU_EPOCHS, PLATEAU_PATIENCE, PLATEAU_FACTOR = \
+    3, 4, 2, 0.1
+#: (e) LBFGS with strong-Wolfe, full batch: rows (MNIST's training set)
+#: and iterations in float32; rows, iterations and limit of the float64
+#: card-against-CPU check (relative on f, absolute on the parameters)
+LBFGS_ROWS, LBFGS_ITERS = 60000, 20
+LBFGS_F64_ROWS, LBFGS_F64_ITERS, LBFGS_F64_TOL = 4096, 3, 1e-10
+#: (f) retry: steps, checkpoint interval, the step whose batch raises
+#: once, batches an epoch (checkpoint.4 then falls at an epoch's start)
+RETRY_STEPS, RETRY_CKPT, RETRY_FAIL_AT, RETRY_BATCHES = 12, 4, 6, 3
 
 # ---- K5 and K4 shapes ----
 INT8_EDGE_M, INT8_EDGE_N, INT8_EDGE_K = (1, 7, 64, 65, 300), \
@@ -1578,7 +1641,8 @@ def _state(model):
 
 
 def step_differences(model, crit, batch, fault=None,
-                     function="_FlashAttention", precision=None):
+                     function="_FlashAttention", precision=None,
+                     method=None, lr=TRAIN_LR):
     """One SGD step from the model's weights on ``batch`` with the flash
     kernels and with flash switched off (the einsum path on the card):
     the loss difference, the largest parameter difference after the
@@ -1589,28 +1653,34 @@ def step_differences(model, crit, batch, fault=None,
     or "dQ 1% off") is put into the gradients of the kernel's autograd
     ``function`` (K1's ``_FlashAttention`` or K2's
     ``_BlockwiseFlashAttention``) during the kernel step (the fault
-    check). ``precision`` (a policy) runs both steps under it. The
-    model's weights are restored."""
+    check). ``precision`` (a policy) runs both steps under it.
+    ``method(path)`` ("kernel" or "einsum"), if given, makes each path's
+    OptimMethod in place of SGD at ``TRAIN_LR``, ``lr`` the rate; the
+    result then also holds each path's parameters and optimizer state
+    after the step and the parameters before it (``after``,
+    ``states``, ``start``). The model's weights are restored."""
     from bigdl_tpu_torch import kernels
     from bigdl_tpu_torch.optim import SGD, build_train_step
 
     start = _state(model)
     params = dict(model.named_parameters())
     results = []
-    for cfg, step_fault in ((kernels.KernelConfig.ported(), fault),
-                            (kernels.KernelConfig(flash_attention=False,
-                                                  decode_attention=True),
-                             None)):
+    for path, cfg, step_fault in (
+            ("kernel", kernels.KernelConfig.ported(), fault),
+            ("einsum", kernels.KernelConfig(flash_attention=False,
+                                            decode_attention=True), None)):
         model.load_state_dict(start)
         with kernels.use(cfg), _gradient_fault(step_fault, function):
-            step = build_train_step(model, crit, SGD(learning_rate=TRAIN_LR),
-                                    precision=precision)
-            loss = float(step(*batch, TRAIN_LR))
+            step = build_train_step(
+                model, crit, method(path) if method
+                else SGD(learning_rate=TRAIN_LR), precision=precision)
+            loss = float(step(*batch, lr))
         results.append((loss, _state(model),
                         {k: p.grad.detach().clone()
-                         for k, p in params.items()}))
+                         for k, p in params.items()}, step.opt_state))
     model.load_state_dict(start)
-    (loss_k, new_k, grad_k), (loss_e, new_e, grad_e) = results
+    (loss_k, new_k, grad_k, state_k), (loss_e, new_e, grad_e, state_e) = \
+        results
     floor = TRAIN_GRAD_FLOOR * max(g.abs().max().item()
                                    for g in grad_e.values())
     grad_rel = {k: ((grad_k[k] - grad_e[k]).abs().max()
@@ -1620,12 +1690,16 @@ def step_differences(model, crit, batch, fault=None,
                      for k in start)
     update_max = max((new_e[k] - start[k]).abs().max().item()
                       for k in params)
-    return {"loss_kernel": loss_k, "loss_einsum": loss_e,
-            "loss_diff": abs(loss_k - loss_e),
-            "loss_rel_diff": abs(loss_k - loss_e) / abs(loss_e),
-            "param_diff": param_diff, "update_max": update_max,
-            "param_rel_diff": param_diff / max(update_max, 1e-30),
-            "grad_rel_diff": grad_rel}
+    out = {"loss_kernel": loss_k, "loss_einsum": loss_e,
+           "loss_diff": abs(loss_k - loss_e),
+           "loss_rel_diff": abs(loss_k - loss_e) / abs(loss_e),
+           "param_diff": param_diff, "update_max": update_max,
+           "param_rel_diff": param_diff / max(update_max, 1e-30),
+           "grad_rel_diff": grad_rel}
+    if method:
+        out.update(start=start, after=(new_k, new_e),
+                   states=(state_k, state_e))
+    return out
 
 
 def step_parity_holds(diffs) -> bool:
@@ -3432,6 +3506,35 @@ def profile_window(window, stacked, lrs, device, phase) -> dict:
                 unprofiled_ms_per_step=unprofiled)
 
 
+#: K1's kernels, each launched once a layer and step
+K1_KERNELS = ("flash_fwd_kernel", "flash_dkv_kernel", "flash_dq_kernel")
+
+
+def profile_k1_replays(window, stacked, lrs, device, phase):
+    """:func:`profile_window` over ``window``'s replays of ``stacked``,
+    read until K1's kernels ran exactly once a layer and replayed step
+    (the replays call no wrapper, so the profiler counts them): a window
+    that lost kernels at its edge is read again, up to twice; more
+    kernels than that fail at once. Returns the numbers and the
+    counts."""
+    for _ in range(3):
+        prof = profile_window(window, stacked, lrs, device, phase)
+        ran = {name: _instances(prof["kernels"], name)
+               for name in K1_KERNELS}
+        want = LAYERS * prof["steps"]
+        log(phase, f"K1 kernels in {prof['steps']} profiled replayed "
+                   f"steps: {ran} (want {want} each)")
+        if any(n > want for n in ran.values()):
+            raise AssertionError(f"K1 kernels ran {ran} times in "
+                                 f"{prof['steps']} replayed steps x "
+                                 f"{LAYERS} layers")
+        if all(n == want for n in ran.values()):
+            return prof, ran
+    raise AssertionError(f"K1 kernels ran {ran} times in {prof['steps']} "
+                         f"replayed steps x {LAYERS} layers, three windows "
+                         f"read")
+
+
 def _snapshot(tensors):
     return [t.detach().clone() for t in tensors]
 
@@ -3647,33 +3750,12 @@ def phase_precision(counters, corpus, f32_train, device="cuda"):
     step = build_train_step(model, crit, SGD(learning_rate=TRAIN_LR),
                             precision=bf16)
     k8_window, k8_prof = make_host_window(step), None
-    k1_names = ("flash_fwd_kernel", "flash_dkv_kernel", "flash_dq_kernel")
-    # K1 ran once a layer and step in the profiled replays (the replays
-    # call no wrapper, so the profiler counts them); a window that lost
-    # kernels at its edge is read again, up to twice
-    for _ in range(3 if on_card else 0):
-        k8_prof = profile_window(
+    if on_card:
+        k8_prof, a["k1_kernels_in_profiled_replays"] = profile_k1_replays(
             k8_window,
             [_stack(prof_batches[1 + i * PREC_K:1 + (i + 1) * PREC_K])
              for i in range(2)], [TRAIN_LR] * PREC_K, device,
             "precision-profile-k8")
-        ran = {name: _instances(k8_prof["kernels"], name)
-               for name in k1_names}
-        want = LAYERS * k8_prof["steps"]
-        log("precision", f"K1 kernels in {k8_prof['steps']} profiled "
-                         f"replayed steps: {ran} (want {want} each)")
-        if any(n > want for n in ran.values()):
-            raise AssertionError(f"K1 kernels ran {ran} times in "
-                                 f"{k8_prof['steps']} replayed steps x "
-                                 f"{LAYERS} layers")
-        if all(n == want for n in ran.values()):
-            a["k1_kernels_in_profiled_replays"] = ran
-            break
-    else:
-        if on_card:
-            raise AssertionError(f"K1 kernels ran {ran} times in "
-                                 f"{k8_prof['steps']} replayed steps x "
-                                 f"{LAYERS} layers, three windows read")
     slab = TRAIN_BATCH * TRAIN_SEQ
     summary["bf16_profile"] = {
         "k1_ms_per_step": k1_prof["wall_ms_per_step"],
@@ -3690,7 +3772,7 @@ def phase_precision(counters, corpus, f32_train, device="cuda"):
         "f32_tokens_per_s": f32_train["tokens_per_sec"]}
     log("precision", json.dumps(summary["bf16_profile"]))
     if on_card:
-        for name in k1_names:
+        for name in K1_KERNELS:
             for prof in (k1_prof, k8_prof):
                 if not _has_instance(prof["kernels"], name,
                                      "__nv_bfloat16"):
@@ -3952,6 +4034,517 @@ def phase_precision(counters, corpus, f32_train, device="cuda"):
     return launches, summary
 
 
+def _adam_fault(fault):
+    """An Adam whose step count is faulted: ``"t not advanced"`` (each
+    step corrected as step 0: infinite corrections) or ``"t advanced
+    twice"`` (each step corrected as the next one)."""
+    from bigdl_tpu_torch.optim import Adam
+
+    class FaultyAdam(Adam):
+        def update(self, grads, state, params, lr):
+            state["t"].add_(-1 if fault == "t not advanced" else 1)
+            super().update(grads, state, params, lr)
+
+    return FaultyAdam(learning_rate=ADAM_LR)
+
+
+def adam_step_holds(d, label):
+    """The one-step check of a bf16_mixed Adam step, kernel path against
+    the einsum path (``step_differences(method=...)``), at phase 11's
+    limits: the loss (relative), every gradient and Adam's first moment
+    ``m`` (each relative to its largest element, floored as the
+    gradients are), ``t`` 1 on both paths, and the parameters over the
+    rate where the first moment is above twice the gradient limit. Adam's
+    first update is about ``lr * sign(g)``, so an element whose gradient
+    lies within the two paths' rounding of 0 (the key bias's, 0 in exact
+    arithmetic) may step either way: the parameters are held where the
+    gradient's sign is fixed. Returns the numbers and whether they
+    hold."""
+    import torch
+
+    (sk, se), (ak, ae) = d["states"], d["after"]
+    floor = TRAIN_GRAD_FLOOR * max(float(m.abs().max()) for m in se["m"])
+    m_rel, p_rel = 0.0, 0.0
+    names = list(d["grad_rel_diff"])
+    for name, mk, me in zip(names, sk["m"], se["m"]):
+        scale = max(float(me.abs().max()), floor)
+        m_rel = max(m_rel, float((mk - me).abs().max()) / scale)
+        fixed = me.abs() > 2 * PREC_GRAD_RTOL * scale
+        diff = (ak[name] - ae[name]).abs()[fixed]
+        if diff.numel():
+            p_rel = max(p_rel, float(diff.max()) / ADAM_LR)
+    if not all(bool(torch.isfinite(t).all()) for t in ak.values()):
+        p_rel = float("nan")        # compares False: fails the check
+    out = {"loss_rel_diff": d["loss_rel_diff"],
+           "worst_grad_rel_diff": max(d["grad_rel_diff"].values()),
+           "m_rel_diff": m_rel, "param_diff_over_lr": p_rel,
+           "t": [int(sk["t"]), int(se["t"])],
+           "update_max_over_lr": d["update_max"] / ADAM_LR}
+    ok = (out["loss_rel_diff"] <= PREC_LOSS_RTOL
+          and out["worst_grad_rel_diff"] <= PREC_GRAD_RTOL
+          and m_rel <= PREC_GRAD_RTOL and p_rel <= PREC_PARAM_RTOL
+          and out["t"] == [1, 1])
+    log("optim", f"one bf16_mixed Adam step, {label}: {json.dumps(out)} "
+                 f"(limits: loss {PREC_LOSS_RTOL}, gradients and m "
+                 f"{PREC_GRAD_RTOL}, parameters {PREC_PARAM_RTOL} of the "
+                 f"rate, t [1, 1]): {'holds' if ok else 'fails'}")
+    return out, ok
+
+
+def _method_steps(name, params, batches, device, method=None):
+    """``OPT_PARITY_STEPS`` float32 LeNet-5 steps with OptimMethod
+    ``name`` (``OPT_METHODS``' settings; ``method`` in its place) on
+    ``device`` from ``params``: the losses and the parameters after."""
+    import torch
+
+    from bigdl_tpu_torch import optim
+    from bigdl_tpu_torch.models import LeNet5
+    from bigdl_tpu_torch.nn import ClassNLLCriterion
+
+    model = LeNet5(10, device=device).set_parameters(params)
+    method = method or getattr(optim, name)(**OPT_METHODS[name])
+    step = optim.build_train_step(model, ClassNLLCriterion(), method)
+    lr = torch.zeros((), device=device)
+    losses = []
+    for x, y in batches:
+        lr.fill_(method.update_hyper_parameter())
+        losses.append(float(step(torch.from_numpy(x).to(device),
+                                 torch.from_numpy(y).to(device), lr)))
+    return losses, model.get_parameters()
+
+
+class _FailOnce:
+    """A dataset that raises ``exc`` once, when the run pulls its
+    ``at``-th batch (counted over the whole run)."""
+
+    def __init__(self, base, at, exc):
+        self.base, self.at, self.exc, self.pulled = base, at, exc, 0
+
+    def size(self):
+        return self.base.size()
+
+    def shuffle(self):
+        self.base.shuffle()
+        return self
+
+    def data(self, train):
+        for batch in self.base.data(train):
+            self.pulled += 1
+            if self.pulled == self.at and self.exc is not None:
+                exc, self.exc = self.exc, None
+                raise exc
+            yield batch
+
+
+def phase_optim(counters, corpus, sgd_bf16, device="cuda"):
+    """The optim slice (queue 1, item 6) on ``device``: (a) the training
+    slice's TransformerLM under bf16_mixed with Adam — one step against
+    the einsum path (``adam_step_holds``; Adam with ``t`` not advanced
+    must fail it), ``OPT_STEPS`` iterations through ``LocalOptimizer``
+    at K = ``OPT_K`` and at K = 1 bitwise alike (losses, parameters,
+    ``m``, ``v``, ``t``) with K1's wrapper calls exact, then a profiled
+    window of ``OPT_K`` (ms a step profiled and not, tokens/s, idle
+    share, the update's device time, K1's kernels once a layer and
+    replayed step) beside phase 11's SGD step (``sgd_bf16``); (b) each
+    OptimMethod on LeNet-5, card against CPU, with Adam's ``t`` advanced
+    twice as the fault; (c) a warm-up then Poly across windows, bitwise
+    the per-step loop; (d) Plateau on the held-out Top1 (the window
+    falls back per step; the rate drops after the patience); (e) LBFGS
+    with strong-Wolfe over 60,000 rows, and card against CPU in float64;
+    (f) retry from the newest checkpoint after an injected ``OSError``,
+    bitwise the uninterrupted run, and a ``TypeError`` failing at once.
+    No kernel of the ``kernels`` line may launch in (b)-(f). Returns
+    K1's launches on (a)'s path and the numbers."""
+    import logging
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    from bigdl_tpu_torch import telemetry
+    from bigdl_tpu_torch.dataset import DataSet, Sample, SampleToMiniBatch
+    from bigdl_tpu_torch.models import LeNet5
+    from bigdl_tpu_torch.models._cli import arrays_to_dataset
+    from bigdl_tpu_torch.nn import (ClassNLLCriterion,
+                                    SequenceCrossEntropyCriterion)
+    from bigdl_tpu_torch.optim import (LBFGS, SGD, Adam, LocalOptimizer,
+                                       Plateau, Poly, SequentialSchedule,
+                                       Top1Accuracy, Warmup,
+                                       build_train_step, every_epoch,
+                                       make_host_window, max_iteration,
+                                       several_iteration)
+    from bigdl_tpu_torch.precision import PrecisionPolicy
+    from bigdl_tpu_torch.utils.engine import full_float32
+    from bigdl_tpu_torch.utils.random import RandomGenerator
+
+    x, y = corpus
+    on_card = device == "cuda"
+    crit = SequenceCrossEntropyCriterion(ignore_index=-1)
+    bf16 = PrecisionPolicy.bf16_mixed()
+    summary = {}
+    k1 = ("flash_attention_fwd", "flash_attention_bwd")
+
+    def reset():
+        for fn in counters.values():
+            fn.launches = 0
+
+    def launches():
+        return {name: fn.launches for name, fn in counters.items()}
+
+    # (a) one Adam step, K1 against the einsum path, then with a fault
+    model = _train_model(device)
+    batch0 = _corpus_batch(corpus, 0, device)
+    a_one = {}
+    for label, fault in (("kernel", None), ("t not advanced",
+                                            "t not advanced")):
+        d = step_differences(
+            model, crit, batch0, precision=bf16, lr=ADAM_LR,
+            method=lambda path: _adam_fault(fault)
+            if fault and path == "kernel" else Adam(learning_rate=ADAM_LR))
+        a_one[label], ok = adam_step_holds(d, label)
+        del d
+        if ok != (fault is None):
+            raise AssertionError(f"the Adam one-step check "
+                                 f"{'fails' if fault is None else 'misses'}"
+                                 f" {label}: {a_one[label]}")
+    summary["one_step"] = a_one
+    del model
+
+    # (a) OPT_STEPS iterations, bf16_mixed Adam, at K = OPT_K and K = 1
+    samples = [Sample([p[i] for p in x], y[i]) for i in range(len(y))]
+    ds = DataSet.array(samples).transform(SampleToMiniBatch(TRAIN_BATCH))
+    runs = {}
+    for k in (OPT_K, 1):
+        opt = LocalOptimizer(_train_model(device), ds, crit,
+                             batch_size=TRAIN_BATCH)
+        opt.set_optim_method(Adam(learning_rate=ADAM_LR))
+        opt.set_end_when(max_iteration(OPT_STEPS))
+        opt.set_precision("bf16_mixed").set_steps_per_sync(k)
+        reset()
+        t0 = time.perf_counter()
+        opt.optimize()
+        st = opt.train_step.opt_state
+        runs[k] = {"seconds": time.perf_counter() - t0,
+                   "losses": [h["loss"] for h in opt.history],
+                   "params": _snapshot(opt.model.parameters()),
+                   "state": _snapshot([*st["m"], *st["v"], st["t"]]),
+                   "t": int(st["t"]), "launches": launches(),
+                   "window": opt.window,
+                   "graphs": opt.window.captures if opt.window else 0}
+        del opt, st
+    many, one = runs[OPT_K], runs[1]
+    a = {"steps": OPT_STEPS, "k": OPT_K,
+         "losses_equal": many["losses"] == one["losses"],
+         "params_equal": _bitwise(many["params"], one["params"]),
+         "m_v_t_equal": _bitwise(many["state"], one["state"]),
+         "t": [many["t"], one["t"]], "graphs": many["graphs"],
+         "shapes": len(many["window"].shapes),
+         "loss_first": many["losses"][0], "loss_last": many["losses"][-1],
+         "seconds": [many["seconds"], one["seconds"]],
+         "k1_launches": [{n: r["launches"][n] for n in k1}
+                         for r in (many, one)]}
+    log("optim", json.dumps(a))
+    if not (a["losses_equal"] and a["params_equal"] and a["m_v_t_equal"]
+            and a["t"] == [OPT_STEPS, OPT_STEPS]
+            and all(np.isfinite(many["losses"]))):
+        raise AssertionError(f"Adam at K = {OPT_K} != per step: {a}")
+    if on_card and a["graphs"] != a["shapes"]:
+        raise AssertionError(f"{a['graphs']} graphs for {a['shapes']} "
+                             f"window shapes")
+    for r, window in ((many, many["window"]), (one, None)):
+        want = LAYERS * _window_calls(window, OPT_STEPS, on_card)
+        if any(r["launches"][n] != want for n in k1):
+            raise AssertionError(f"K1 called {r['launches']} times, not "
+                                 f"{want}")
+    a_launches = {n: many["launches"][n] for n in k1}
+    del runs, many, one
+
+    # (a) where the Adam step's time goes: windows of OPT_K, profiled
+    model = _train_model(device)
+    step = build_train_step(model, crit, Adam(learning_rate=ADAM_LR),
+                            precision=bf16)
+    window = make_host_window(step)
+    stacked = [_stack([_corpus_batch(corpus, 1 + i * OPT_K + j, device)
+                       for j in range(OPT_K)]) for i in range(2)]
+    slab = TRAIN_BATCH * TRAIN_SEQ
+    if on_card:
+        # (a graph window is the card's: the CPU runs its steps one by
+        # one, and there is no device time to read)
+        prof, ran = profile_k1_replays(window, stacked, [ADAM_LR] * OPT_K,
+                                       device, "optim-profile-k8")
+        busy = prof["device_busy_ms"]
+        # the update's torch._foreach_* ops run as multi_tensor_apply
+        # kernels
+        update_ms = sum(ms for ms, _, key in prof["kernels"]
+                        if "multi_tensor_apply" in key) / prof["steps"]
+        a_prof = {
+            "ms_per_step": prof["wall_ms_per_step"],
+            "unprofiled_ms_per_step": prof["unprofiled_ms_per_step"],
+            "tokens_per_s": slab * 1e3 / prof["wall_ms_per_step"],
+            "unprofiled_tokens_per_s": slab * 1e3
+            / prof["unprofiled_ms_per_step"],
+            "idle_share": prof["device_idle_share"],
+            "device_busy_ms_per_step": busy / prof["steps"]
+            if isinstance(busy, float) else busy,
+            "update_device_ms_per_step": update_ms,
+            "update_kernels": [[ms, n, key[:90]] for ms, n, key
+                               in prof["kernels"]
+                               if "multi_tensor_apply" in key][:6],
+            "k1_kernels_in_profiled_replays": ran,
+            "sgd_bf16_k8": sgd_bf16}
+        log("optim", json.dumps(a_prof))
+        summary["adam_profile"] = a_prof
+        if not update_ms > 0:
+            raise AssertionError("no foreach update kernel in the Adam "
+                                 "step's profile")
+    summary["adam_windows"] = a
+    del model, step, window, stacked
+
+    # (b)-(f) LeNet-5: no kernel of the kernels line on these paths
+    full_float32()
+    reset()
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    root = tempfile.mkdtemp(prefix="chip-smoke-optim-")
+    try:
+        # (b) each method, card against the CPU; Adam with t advanced
+        # twice as the fault
+        lx, ly = separable_digits(LENET_BATCH * OPT_PARITY_STEPS, seed=48)
+        batches = [(lx[i::OPT_PARITY_STEPS], ly[i::OPT_PARITY_STEPS])
+                   for i in range(OPT_PARITY_STEPS)]
+        params = LeNet5(10, device="cpu", generator=torch.Generator()
+                        .manual_seed(49)).get_parameters()
+        b = {}
+        for name in list(OPT_METHODS) + ["Adam, t advanced twice"]:
+            fault = name.startswith("Adam,")
+            cpu_name = "Adam" if fault else name
+            want_l, want_p = _method_steps(cpu_name, params, batches, "cpu")
+            got_l, got_p = _method_steps(
+                cpu_name, params, batches, device,
+                _adam_fault("t advanced twice") if fault else None)
+            row = {"loss_rel": max(abs(g - w) / abs(w)
+                                   for g, w in zip(got_l, want_l)),
+                   "param_abs": _max_param_diff(got_p, want_p),
+                   "loss_last": got_l[-1]}
+            row["holds"] = (row["loss_rel"] <= LENET_LOSS_RTOL
+                            and row["param_abs"] <= LENET_PARAM_ATOL)
+            b[name] = row
+            log("optim-methods", f"{name}: {json.dumps(row)}")
+            if row["holds"] == fault:
+                raise AssertionError(f"card vs CPU, {name}: {row} (limits "
+                                     f"{LENET_LOSS_RTOL} relative, "
+                                     f"{LENET_PARAM_ATOL})")
+        summary["methods_card_vs_cpu"] = b
+
+        # (c) SGD with a warm-up then Poly, windows across the warm-up
+        cx, cy = separable_digits(LENET_BATCH * SCHED_STEPS, seed=50)
+
+        def sched_run(k):
+            RandomGenerator.set_seed(51)
+            opt = LocalOptimizer(
+                LeNet5(10, device=device).set_parameters(params),
+                arrays_to_dataset(cx, cy, LENET_BATCH), ClassNLLCriterion(),
+                batch_size=LENET_BATCH)
+            opt.set_optim_method(SGD(
+                learning_rate=LENET_LR, momentum=LENET_MOMENTUM,
+                learning_rate_schedule=SequentialSchedule()
+                .add(Warmup(SCHED_DELTA), SCHED_WARMUP)
+                .add(Poly(0.5, SCHED_POLY), SCHED_POLY)))
+            opt.set_end_when(max_iteration(SCHED_STEPS))
+            opt.set_steps_per_sync(k)
+            opt.optimize()
+            return opt
+        s8, s1 = sched_run(OPT_K), sched_run(1)
+        c = {"lrs": [h["lr"] for h in s8.history],
+             "lrs_equal": [h["lr"] for h in s8.history]
+             == [h["lr"] for h in s1.history],
+             "losses_equal": [h["loss"] for h in s8.history]
+             == [h["loss"] for h in s1.history],
+             "params_equal": _bitwise(_snapshot(s8.model.parameters()),
+                                      _snapshot(s1.model.parameters())),
+             "graphs": s8.window.captures if s8.window else 0}
+        log("optim-schedule", json.dumps(c))
+        summary["schedule_windows"] = c
+        if not (c["lrs_equal"] and c["losses_equal"] and c["params_equal"]
+                and s8.window is not None
+                and len(set(c["lrs"][:SCHED_WARMUP])) == SCHED_WARMUP):
+            raise AssertionError(f"warm-up then Poly at K = {OPT_K} != per "
+                                 f"step: {c}")
+        del s8, s1
+
+        # (d) Plateau on the held-out Top1, card and CPU
+        px, py = separable_digits(LENET_BATCH * PLATEAU_BATCHES, seed=52)
+        hx, hy = separable_digits(2 * LENET_BATCH, seed=53)
+
+        def plateau_run(dev, record):
+            RandomGenerator.set_seed(54)
+            opt = LocalOptimizer(
+                LeNet5(10, device=dev).set_parameters(params),
+                arrays_to_dataset(px, py, LENET_BATCH), ClassNLLCriterion(),
+                batch_size=LENET_BATCH)
+            opt.set_optim_method(SGD(
+                learning_rate=LENET_LR, learning_rate_schedule=Plateau(
+                    factor=PLATEAU_FACTOR, patience=PLATEAU_PATIENCE,
+                    mode="max", epsilon=2.0)))
+            opt.set_validation(every_epoch(),
+                               arrays_to_dataset(hx, hy, LENET_BATCH),
+                               [Top1Accuracy()])
+            opt.set_end_when(max_iteration(PLATEAU_BATCHES
+                                           * PLATEAU_EPOCHS))
+            opt.set_steps_per_sync(OPT_K)
+            handler = logging.Handler()
+            handler.emit = lambda r: record.append(r.getMessage())
+            lg = logging.getLogger("bigdl_tpu_torch.optim.optimizer")
+            level = lg.level
+            lg.setLevel(logging.INFO)
+            lg.addHandler(handler)
+            try:
+                opt.optimize()
+            finally:
+                lg.removeHandler(handler)
+                lg.setLevel(level)
+            return opt
+        logs = {"card": [], "cpu": []}
+        pc, pcpu = plateau_run(device, logs["card"]), \
+            plateau_run("cpu", logs["cpu"])
+        why = [m for m in logs["card"] if "Plateau" in m]
+        lrs = [h["lr"] for h in pc.history]
+        drop = 1 + PLATEAU_BATCHES * (PLATEAU_PATIENCE + 1)
+        d = {"lrs": lrs, "lrs_equal_cpu": lrs == [h["lr"] for h
+                                                    in pcpu.history],
+             "loss_rel": max(abs(g["loss"] - w["loss"]) / abs(w["loss"])
+                             for g, w in zip(pc.history, pcpu.history)),
+             "param_abs": _max_param_diff(pc.model.get_parameters(),
+                                          pcpu.model.get_parameters()),
+             "validations": pc.validation_history,
+             "window": pc.window is not None, "fallback_log": why[:1]}
+        log("optim-plateau", json.dumps(d))
+        summary["plateau"] = d
+        if not (why and not d["window"] and d["lrs_equal_cpu"]
+                and all(lr == LENET_LR for lr in lrs[:drop - 1])
+                and all(lr == LENET_LR * PLATEAU_FACTOR
+                        for lr in lrs[drop - 1:])
+                and d["loss_rel"] <= LENET_LOSS_RTOL
+                and d["param_abs"] <= LENET_PARAM_ATOL):
+            raise AssertionError(f"Plateau: {d}")
+        del pc, pcpu
+
+        # (e) LBFGS with strong-Wolfe, full batch
+        e = {}
+        fx, fy = separable_digits(LBFGS_ROWS, seed=55)
+
+        def lbfgs_run(dev, dtype, rows, iters):
+            model = LeNet5(10, device=dev).set_parameters(params).to(dtype)
+            crit_ = ClassNLLCriterion()
+            inp = torch.from_numpy(fx[:rows]).to(dev, dtype)
+            tgt = torch.from_numpy(fy[:rows]).to(dev)
+            evals = []
+
+            def feval(p):
+                leaves = {k: v.detach().requires_grad_()
+                          for k, v in p.items()}
+                loss = crit_(torch.func.functional_call(model, leaves,
+                                                        (inp,)), tgt)
+                grads = torch.autograd.grad(loss, list(leaves.values()))
+                evals.append(1)
+                return loss.detach(), dict(zip(leaves, grads))
+
+            x0 = {k: v.detach().clone()
+                  for k, v in model.named_parameters()}
+            t0 = time.perf_counter()
+            out, hist = LBFGS(max_iter=iters,
+                              max_eval=2 * iters).optimize(feval, x0)
+            if dev == "cuda":
+                torch.cuda.synchronize()
+            return out, hist, len(evals), time.perf_counter() - t0
+
+        _, hist, n_evals, secs = lbfgs_run(device, torch.float32,
+                                           LBFGS_ROWS, LBFGS_ITERS)
+        e["f32"] = {"rows": LBFGS_ROWS, "iterations": len(hist) - 1,
+                    "evaluations": n_evals, "seconds": secs,
+                    "ms_per_evaluation": secs * 1e3 / n_evals,
+                    "f_history": hist,
+                    "input_bytes": LBFGS_ROWS * 28 * 28 * 4}
+        log("optim-lbfgs", json.dumps(e["f32"]))
+        if not (all(np.isfinite(hist)) and hist[-1] < 0.5 * hist[0]
+                and all(b <= a for a, b in zip(hist, hist[1:]))):
+            raise AssertionError(f"LBFGS f history: {hist}")
+        got, g_hist, _, _ = lbfgs_run(device, torch.float64,
+                                      LBFGS_F64_ROWS, LBFGS_F64_ITERS)
+        want, w_hist, _, _ = lbfgs_run("cpu", torch.float64,
+                                       LBFGS_F64_ROWS, LBFGS_F64_ITERS)
+        e["f64"] = {"f_history_card": g_hist, "f_history_cpu": w_hist,
+                    "f_rel": max(abs(a - b) / abs(b)
+                                 for a, b in zip(g_hist, w_hist)),
+                    "param_abs": max(float((got[k].cpu() - want[k])
+                                           .abs().max()) for k in want)}
+        log("optim-lbfgs", json.dumps(e["f64"]))
+        summary["lbfgs"] = e
+        if not (len(g_hist) == len(w_hist)
+                and e["f64"]["f_rel"] <= LBFGS_F64_TOL
+                and e["f64"]["param_abs"] <= LBFGS_F64_TOL):
+            raise AssertionError(f"LBFGS float64, card vs CPU: {e['f64']}")
+
+        # (f) retry from the newest checkpoint
+        rx, ry = separable_digits(LENET_BATCH * RETRY_BATCHES, seed=56)
+        recoveries = telemetry.counter("train/optimizer/recoveries")
+
+        def retry_run(ckdir, exc=None):
+            RandomGenerator.set_seed(57)
+            opt = LocalOptimizer(
+                LeNet5(10, device=device).set_parameters(params),
+                _FailOnce(arrays_to_dataset(rx, ry, LENET_BATCH),
+                          RETRY_FAIL_AT, exc), ClassNLLCriterion(),
+                batch_size=LENET_BATCH)
+            opt.set_optim_method(Adam(learning_rate=ADAM_LR))
+            opt.set_end_when(max_iteration(RETRY_STEPS))
+            opt.set_checkpoint(os.path.join(root, ckdir),
+                               several_iteration(RETRY_CKPT))
+            opt.retry_interval_s = 0.01
+            return opt
+        straight = retry_run("straight")
+        straight.optimize()
+        before = recoveries.value()
+        retried = retry_run("retried", OSError("injected: disk blip"))
+        retried.optimize()
+        f = {"recoveries": recoveries.value() - before,
+             "resumed_from": os.path.basename(
+                 retried.resumed_from["path"]),
+             "params_equal": _bitwise(
+                 _snapshot(retried.model.parameters()),
+                 _snapshot(straight.model.parameters())),
+             "losses_equal": [h["loss"] for h in retried.history]
+             == [h["loss"] for h in straight.history],
+             "t": int(retried.train_step.opt_state["t"])}
+        fatal = retry_run("fatal", TypeError("injected: bad batch"))
+        before = recoveries.value()
+        try:
+            fatal.optimize()
+            f["fatal"] = "did not raise"
+        except TypeError as err:
+            f["fatal"] = f"raised at neval {fatal.driver_state['neval']}: " \
+                         f"{err}"
+        f["fatal_recoveries"] = recoveries.value() - before
+        log("optim-retry", json.dumps(f))
+        summary["retry"] = f
+        if not (f["recoveries"] == 1 and f["params_equal"]
+                and f["losses_equal"] and f["t"] == RETRY_STEPS
+                and f["fatal"].startswith("raised at neval "
+                                          f"{RETRY_FAIL_AT}")
+                and f["fatal_recoveries"] == 0):
+            raise AssertionError(f"retry: {f}")
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+        shutil.rmtree(root, ignore_errors=True)
+    lenet_launches = launches()
+    if any(lenet_launches.values()):
+        raise AssertionError(f"a kernel of the kernels line launched on "
+                             f"(b)-(f)'s paths: {lenet_launches}")
+    summary["k1_launches"] = a_launches
+    return a_launches, summary
+
+
 def main() -> int:
     import torch
 
@@ -3996,7 +4589,12 @@ def main() -> int:
     int8_launches, _ = phase_int8_serve(counters)
     lenet_launches, _ = phase_lenet(counters)
     resnet_launches, _ = phase_resnet_train(counters)
-    phase_precision(counters, corpus, train_summary)
+    _, prec_summary = phase_precision(counters, corpus, train_summary)
+    bf16 = prec_summary["bf16_profile"]
+    phase_optim(counters, corpus, {
+        "ms_per_step": bf16["k8_ms_per_step"],
+        "unprofiled_ms_per_step": bf16["k8_unprofiled_ms_per_step"],
+        "idle_share": bf16["k8_idle_share"]})
     ragged["launches"] = serve_launches["ragged_decode"]
     flash_fwd["launches"] = train_launches["flash_attention_fwd"]
     flash_bwd["launches"] = train_launches["flash_attention_bwd"]
