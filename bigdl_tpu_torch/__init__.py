@@ -21,7 +21,7 @@ Ported so far:
   and backward, whose attention runs the flash-attention CUDA kernels
   (K1, forward and backward) through
   :func:`bigdl_tpu_torch.kernels.attention`; the train CLI is
-  :mod:`bigdl_tpu_torch.models.transformer_train`;
+  :mod:`bigdl_tpu_torch.models.transformer.train`;
 - long context: past the flash working-set budget attention runs the
   blockwise kernels (K2), and generation prefills long prompts in
   chunks;
@@ -56,7 +56,14 @@ Ported so far:
   Adagrad, Adadelta, Adamax, RMSprop, Ftrl; LBFGS with strong-Wolfe)
   and its learning-rate schedules under :mod:`bigdl_tpu_torch.optim`,
   and ``Optimizer.optimize()``'s retry from the newest checkpoint with
-  the classified backoff of :mod:`bigdl_tpu_torch.faults`.
+  the classified backoff of :mod:`bigdl_tpu_torch.faults`;
+- the rest of TransformerLM training — MoE blocks
+  (:class:`~bigdl_tpu_torch.nn.MoE`) with the load-balance term in the
+  train step's objective, attention dropout and the dropout layers on
+  the step's own ``torch.Generator`` (replayed by CUDA-graph windows),
+  an untied head, RMSNorm, the streaming packers, the PTB reader, and
+  the recipes :mod:`bigdl_tpu_torch.models.transformer.train` (``-f``
+  text, snapshots, checkpoints) and ``.test`` (perplexity).
 
 Entry points default to ``device="cuda"`` and raise when CUDA is
 missing; they run on the CPU only when the caller passes

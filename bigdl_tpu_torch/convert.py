@@ -97,16 +97,21 @@ def param_tree(named) -> Dict[str, object]:
 def jax_tree(model: torch.nn.Module, named) -> Dict[str, object]:
     """:func:`param_tree` of ``named`` (``[(dotted name, tensor)]`` of
     ``model``'s tensors) in the JAX trees' full shape: every child of a
-    container is present, an empty dict where it holds no leaf."""
+    container is present, an empty dict where it holds no leaf, and so
+    is every child a module names in its ``jax_tree_children`` (the
+    TransformerLM's blocks and each block's ``mlp``, which the JAX
+    state tree always holds)."""
     from bigdl_tpu_torch.nn.container import Container
 
     tree = param_tree(named)
     for name, m in model.named_modules():
-        if isinstance(m, Container):
+        keys = list(m._modules) if isinstance(m, Container) \
+            else getattr(m, "jax_tree_children", ())
+        if keys:
             node = tree
             for key in (name.split(".") if name else ()):
                 node = node.setdefault(key, {})
-            for key in m._modules:
+            for key in keys:
                 node.setdefault(key, {})
     return tree
 

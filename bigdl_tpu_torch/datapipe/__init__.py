@@ -1,6 +1,9 @@
 """Token data layouts (counterpart of ``bigdl_tpu.datapipe``): packing
-and padding of documents into fixed-width slabs."""
-from bigdl_tpu_torch.datapipe.packing import (pack_documents, pad_documents,
+of documents into fixed-width slabs, and the streaming packing and
+length-bucketing stages."""
+from bigdl_tpu_torch.datapipe.packing import (LengthBucketBatcher,
+                                              SequencePacker, pack_documents,
                                               padding_efficiency)
 
-__all__ = ["pack_documents", "pad_documents", "padding_efficiency"]
+__all__ = ["LengthBucketBatcher", "SequencePacker", "pack_documents",
+           "padding_efficiency"]

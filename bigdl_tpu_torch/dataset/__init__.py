@@ -6,11 +6,12 @@ from bigdl_tpu_torch.dataset.dataset import (AbstractDataSet, DataSet,
 from bigdl_tpu_torch.dataset.image import load_mnist
 from bigdl_tpu_torch.dataset.sample import (MiniBatch, Sample,
                                             samples_to_minibatch)
-from bigdl_tpu_torch.dataset.text import ptb_arrays
+from bigdl_tpu_torch.dataset.text import (Dictionary, load_ptb, ptb_arrays,
+                                          read_words, tokenize)
 from bigdl_tpu_torch.dataset.transformer import (SampleToMiniBatch,
                                                  Transformer)
 
-__all__ = ["AbstractDataSet", "DataSet", "LocalDataSet", "MiniBatch",
-           "Sample", "SampleToMiniBatch", "TransformedDataSet",
-           "Transformer", "load_mnist", "ptb_arrays",
-           "samples_to_minibatch"]
+__all__ = ["AbstractDataSet", "DataSet", "Dictionary", "LocalDataSet",
+           "MiniBatch", "Sample", "SampleToMiniBatch", "TransformedDataSet",
+           "Transformer", "load_mnist", "load_ptb", "ptb_arrays",
+           "read_words", "samples_to_minibatch", "tokenize"]

@@ -1,13 +1,19 @@
 """Transformer LM (counterpart of ``bigdl_tpu.models.transformer``).
 
-Dense decoder-only LM with pre-norm blocks, learned positional
-embeddings and a tied output head. Parameter names mirror
-the JAX param tree — ``embed``, ``pos_embed``, ``ln_f/*``,
+Decoder-only LM with pre-norm blocks, learned positional embeddings,
+attention dropout, MoE blocks (every ``moe_every``-th block, with the
+load-balance term the train step adds to the objective) and a tied or
+untied (``lm_head``) output head. Parameter names mirror the JAX param
+tree — ``embed``, ``pos_embed``, ``ln_f/*``, ``lm_head``,
 ``block_{i}/{ln1,attn,ln2,mlp}/*`` — with ``/`` spelled ``.``, so
-:func:`bigdl_tpu_torch.convert.load_jax_params` is a name map.
+:func:`bigdl_tpu_torch.convert.load_jax_params` is a name map; an MoE
+block's state (``block_{i}/mlp/{__bigdl_aux_loss__,expert_frac}``) is
+its buffers.
 
-Not ported yet: MoE blocks, an untied output head, dropout (accepted
-only at 0.0), sequence parallelism and the sharding rules.
+The recipes are :mod:`bigdl_tpu_torch.models.transformer.train` and
+``.test``. Not ported yet: sequence parallelism (``ring_axis``,
+``mesh``), the sharding rules and the pipelined LM (ROADMAP queue 1,
+item 11).
 """
 from __future__ import annotations
 
@@ -19,6 +25,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from bigdl_tpu_torch.nn.attention import MultiHeadAttention
+from bigdl_tpu_torch.nn.moe import MoE, pop_aux_losses
 from bigdl_tpu_torch.nn.module import Module
 from bigdl_tpu_torch.nn.norm import LayerNorm
 from bigdl_tpu_torch.utils.engine import default_dtype, resolve_device
@@ -53,27 +60,50 @@ class FeedForward(Module):
 
 
 class TransformerBlock(Module):
-    """Pre-norm causal block: ``x + MHA(LN(x))``; ``x + FFN(LN(x))``."""
+    """Pre-norm causal block: ``x + MHA(LN(x))``; ``x + FFN(LN(x))``, the
+    FFN an :class:`~bigdl_tpu_torch.nn.moe.MoE` of ``moe_experts``
+    experts (top ``moe_top_k``) when ``moe_experts > 0``; ``dropout`` is
+    the attention's."""
 
     def __init__(self, hidden_size: int, num_heads: int, ffn_size: int,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 dropout: float = 0.0, moe_experts: int = 0,
+                 moe_top_k: int = 2):
         super().__init__()
         self.ln1 = LayerNorm(hidden_size)
         self.attn = MultiHeadAttention(hidden_size, num_heads,
-                                       causal=True, generator=generator)
+                                       causal=True, generator=generator,
+                                       dropout=dropout)
         self.ln2 = LayerNorm(hidden_size)
-        self.mlp = FeedForward(hidden_size, ffn_size, generator=generator)
+        if moe_experts > 0:
+            self.mlp = MoE(hidden_size, ffn_size, moe_experts, moe_top_k,
+                           generator=generator)
+        else:
+            self.mlp = FeedForward(hidden_size, ffn_size,
+                                   generator=generator)
+        self.moe_experts = moe_experts
+
+    #: the JAX state tree holds ``mlp`` in every block, ``{}`` for a
+    #: dense one (:func:`bigdl_tpu_torch.convert.jax_tree`)
+    jax_tree_children = ("mlp",)
 
     def forward(self, x, *, cache=None, positions=None, attend_len=None,
-                attn_segments=None):
+                attn_segments=None,
+                generator: Optional[torch.Generator] = None):
         x = x + self.attn(self.ln1(x), cache=cache, positions=positions,
-                          attend_len=attend_len, segments=attn_segments)
+                          attend_len=attend_len, segments=attn_segments,
+                          generator=generator)
         return x + self.mlp(self.ln2(x))
 
 
 class TransformerLM(Module):
-    """Decoder-only LM over token ids ``[B, S]`` → logits ``[B, S, V]``,
-    with the output head tied to the token embedding.
+    """Decoder-only LM over token ids ``[B, S]`` → logits ``[B, S, V]``.
+
+    The head is tied to the token embedding (``x @ embed.T``), or with
+    ``tie_embeddings=False`` its own ``lm_head [H, V]``. Block ``i`` is
+    an MoE block of ``moe_experts`` experts when ``moe_experts`` and ``i
+    % moe_every == moe_every - 1``. ``dropout`` is the attention's
+    weight dropout in a training forward given a ``generator``.
 
     Also takes the PACKED 3-plane input the datapipe produces
     (:mod:`bigdl_tpu_torch.datapipe.packing`): a list or tuple
@@ -82,6 +112,11 @@ class TransformerLM(Module):
     embeddings are gathered at the per-document ``positions`` (clipped
     into ``[0, max_len-1]``). Segment id 0 marks padding; mask its
     targets with the criterion's ``ignore_index``.
+
+    ``ring_axis``, ``sp_impl`` and ``mesh`` are the JAX package's
+    sequence-parallel arguments, taken so that a snapshot either package
+    wrote rebuilds here; a ``ring_axis`` or ``mesh`` raises
+    NotImplementedError (ROADMAP queue 1, item 11).
 
     ``device`` defaults to the card (``None`` → ``"cuda"``, raising when
     CUDA is missing); pass ``device="cpu"`` to run on the CPU.
@@ -92,14 +127,19 @@ class TransformerLM(Module):
     def __init__(self, vocab_size: int, hidden_size: int = 512,
                  num_layers: int = 6, num_heads: int = 8,
                  ffn_size: Optional[int] = None, max_len: int = 2048,
-                 dropout: float = 0.0,
+                 dropout: float = 0.0, ring_axis: Optional[str] = None,
+                 sp_impl: str = "ring", mesh=None, moe_experts: int = 0,
+                 moe_every: int = 2, tie_embeddings: bool = True,
                  device: Optional[Union[str, torch.device]] = None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if dropout != 0.0:
+        if ring_axis is not None or mesh is not None:
             raise NotImplementedError(
-                f"TransformerLM dropout={dropout}: dropout and its rng "
-                f"through the blocks are not ported yet (use 0.0)")
+                f"TransformerLM(ring_axis={ring_axis!r}, mesh=...): "
+                f"sequence parallelism and meshes are not ported yet "
+                f"(ROADMAP queue 1, item 11)")
+        if sp_impl not in ("ring", "ulysses"):
+            raise ValueError(f"sp_impl must be ring|ulysses, got {sp_impl}")
         device = resolve_device(device)
         self.vocab_size = vocab_size
         self.hidden_size = hidden_size
@@ -109,6 +149,8 @@ class TransformerLM(Module):
         self.ffn_size = ffn_size or 4 * hidden_size
         self.max_len = max_len
         self.dropout = dropout
+        self.moe_experts = moe_experts
+        self.tie_embeddings = tie_embeddings
         dt = default_dtype()
         s = 1.0 / math.sqrt(hidden_size)
         self.embed = nn.Parameter(torch.randn(
@@ -118,26 +160,49 @@ class TransformerLM(Module):
         self.ln_f = LayerNorm(hidden_size)
         self.blocks = []
         for i in range(num_layers):
+            moe = moe_experts if moe_experts \
+                and i % moe_every == moe_every - 1 else 0
             blk = TransformerBlock(hidden_size, num_heads, self.ffn_size,
-                                   generator=generator)
+                                   generator=generator, dropout=dropout,
+                                   moe_experts=moe)
             # block_{i}, not a ModuleList: the JAX tree's names
             self.add_module(f"block_{i}", blk)
             self.blocks.append(blk)
+        if not tie_embeddings:
+            self.lm_head = nn.Parameter(torch.randn(
+                (hidden_size, vocab_size), generator=generator,
+                dtype=dt) * s)
         self.to(device)
 
     @property
     def device(self) -> torch.device:
         return self.embed.device
 
+    @property
+    def jax_tree_children(self):
+        """Every ``block_{i}``: the JAX state tree holds each block."""
+        return [f"block_{i}" for i in range(self.num_layers)]
+
+    def aux_loss(self):
+        """The sum of the MoE blocks' load-balance terms from the last
+        forward (differentiable; 0.0 without MoE blocks), taken off the
+        blocks (:func:`~bigdl_tpu_torch.nn.moe.pop_aux_losses`)."""
+        return pop_aux_losses(self)
+
     def forward(self, tokens, *, cache: Optional[Dict[str, torch.Tensor]]
-                = None, positions=None, attend_len: Optional[int] = None):
+                = None, positions=None, attend_len: Optional[int] = None,
+                generator: Optional[torch.Generator] = None):
         """Full-sequence logits, or — with ``cache={"k", "v"}`` of
         ``[layers, B, H, T, D]`` buffers, updated in place — one
         incremental step whose row ``b`` holds the S tokens at absolute
         positions ``positions[b] ..`` (positional indices clipped into
         ``[0, max_len-1]``; see :class:`MultiHeadAttention`).
         ``tokens`` may be the packed ``[tokens, segment_ids,
-        positions]`` planes (class docstring), never with ``cache=``."""
+        positions]`` planes (class docstring), never with ``cache=``.
+        ``generator`` (on the model's device) draws every block's
+        attention-dropout masks in a training forward, one stream
+        through the blocks in order (the JAX package splits one key per
+        block)."""
         seg = None
         if isinstance(tokens, (list, tuple)):
             if len(tokens) != 3:
@@ -173,5 +238,7 @@ class TransformerLM(Module):
             layer = None if cache is None else \
                 {"k": cache["k"][i], "v": cache["v"][i]}
             x = blk(x, cache=layer, positions=positions,
-                    attend_len=attend_len, attn_segments=seg)
-        return self.ln_f(x) @ self.embed.T
+                    attend_len=attend_len, attn_segments=seg,
+                    generator=generator)
+        x = self.ln_f(x)
+        return x @ self.embed.T if self.tie_embeddings else x @ self.lm_head

@@ -1,30 +1,40 @@
 """TransformerLM training recipe on one card (counterpart of
 ``bigdl_tpu.models.transformer.train``)::
 
-    python -m bigdl_tpu_torch.models.transformer_train --synthetic 20000
-    python -m bigdl_tpu_torch.models.transformer_train --synthetic 20000 \\
+    python -m bigdl_tpu_torch.models.transformer.train --synthetic 20000
+    python -m bigdl_tpu_torch.models.transformer.train -f ptb/ \\
+        --checkpoint ck/ --inputMode packed --moeExperts 4 --dropout 0.1
+    python -m bigdl_tpu_torch.models.transformer.train --synthetic 20000 \\
         --inputMode packed --device cpu --maxIterations 3
 
-The corpus is the JAX CLI's seeded ``--synthetic N`` token stream:
-contiguous ``ptb_arrays`` windows (``--inputMode contiguous``), or
-documents cut at seeded pseudo-<eos> boundaries and packed into
-``[rows, seqLen]`` slabs with segment masks (``packed``) or padded one
-per row (``padded``). Training is ``LocalOptimizer`` with plain SGD
-(``-r``, default 0.1; ``-d`` decay) on
-``SequenceCrossEntropyCriterion``; the script prints ``final loss`` as
-the JAX CLI does.
+The corpus is ``-f dir``'s ``train.txt`` read through the PTB reader and
+its Dictionary (written to ``--checkpoint``'s ``dictionary.json``, which
+the test main reads), or the JAX CLI's seeded ``--synthetic N`` token
+stream: contiguous ``ptb_arrays`` windows (``--inputMode contiguous``),
+or documents cut at ``<eos>`` (seeded pseudo-<eos> boundaries in the
+synthetic stream) and packed into ``[rows, seqLen]`` slabs with segment
+masks (``packed``) or padded one per row by
+``LengthBucketBatcher([seqLen], documents)`` (``padded``). Training is
+``LocalOptimizer`` with plain SGD (``-r``, default 0.1; ``-d`` decay) on
+``SequenceCrossEntropyCriterion``, with the MoE load-balance term in
+the objective (``--moeExperts``) and attention dropout (``--dropout``);
+``--model``, ``--state`` and ``--checkpoint`` work as in the other
+recipes. The script prints ``final loss`` as the JAX CLI does (and,
+after a resume, the checkpoint it resumed from); like the JAX CLI it
+sets no validation and no summaries.
 
-Not ported yet: ``-f`` text corpora, snapshots and checkpoints
-(``--model``, ``--state`` and ``--checkpoint`` raise),
-pipeline (``--pp``), tensor (``--tp``) and sequence (``--sp``)
-parallelism and MoE (``--moeExperts``): those flags raise
-NotImplementedError.
+Not ported yet: pipeline (``--pp``), tensor (``--tp``) and sequence
+(``--sp``) parallelism, which raise NotImplementedError (ROADMAP queue
+1, item 11). Nothing is downloaded: a missing corpus exits and names
+``--synthetic``.
 """
 from __future__ import annotations
 
+import os
+
 import numpy as np
 
-__all__ = ["main", "synthetic_corpus"]
+__all__ = ["main", "synthetic_corpus", "text_corpus"]
 
 #: seed of the weights' generator: fixed, as the JAX recipe's init key is
 _WEIGHT_SEED = 1
@@ -57,14 +67,30 @@ def _packed_corpus(input_mode, seq_len, stream, eos_index):
         raise SystemExit("corpus has no documents after <eos> splitting")
     lengths = [min(len(d) - 1, seq_len) for d in docs]
     eff_padded = dp.padding_efficiency(lengths, seq_len)
-    layout = dp.pad_documents if input_mode == "padded" \
-        else dp.pack_documents
-    toks, segs, pos, tgt = layout(docs, seq_len)
-    eff = float((segs > 0).mean())
+    if input_mode == "padded":
+        batcher = dp.LengthBucketBatcher([seq_len], len(docs))
+        (mb,) = list(batcher(iter(docs), 0))
+        (toks, segs, pos), tgt = mb.input, mb.target
+        eff = batcher.efficiency
+    else:
+        toks, segs, pos, tgt = dp.pack_documents(docs, seq_len)
+        eff = float((segs > 0).mean())
     print(f"input mode {input_mode}: padding_efficiency {eff:.3f} "
           f"(pad-to-max would be {eff_padded:.3f}) over {len(docs)} "
           f"documents, {len(toks)} rows of {seq_len}")
     return [toks, segs, pos], tgt
+
+
+def _layout(stream, eos_index, seq_len, input_mode, batch_size):
+    """A 1-based token stream in the chosen ``input_mode``: ``(x, y)``
+    0-based int32 windows, or the packed planes and targets."""
+    from bigdl_tpu_torch.dataset import ptb_arrays
+
+    if input_mode != "contiguous":
+        return _packed_corpus(input_mode, seq_len, stream, eos_index)
+    x, y = ptb_arrays(stream, batch_size, seq_len)
+    # ptb_arrays is 1-based; the LM criterion wants 0-based ids
+    return (x - 1).astype(np.int32), (y - 1).astype(np.int32)
 
 
 def synthetic_corpus(n_tokens: int, vocab_size: int, seq_len: int,
@@ -73,10 +99,9 @@ def synthetic_corpus(n_tokens: int, vocab_size: int, seq_len: int,
     int32 0-based windows ``[N, seq_len]`` for ``contiguous``, or
     ``([tokens, segment_ids, positions], targets)`` for ``packed`` /
     ``padded`` (targets -1 at pad and boundary positions)."""
-    from bigdl_tpu_torch.dataset import ptb_arrays
-
     rng = np.random.RandomState(0)
     stream = rng.randint(1, vocab_size + 1, n_tokens).astype(np.float32)
+    eos = None
     if input_mode != "contiguous":
         # ragged synthetic documents: seeded pseudo-<eos> boundaries
         eos = vocab_size
@@ -84,10 +109,27 @@ def synthetic_corpus(n_tokens: int, vocab_size: int, seq_len: int,
                            max(1, n_tokens // 16))
         pos = np.minimum(np.cumsum(cuts), n_tokens - 1)
         stream[pos] = eos
-        return _packed_corpus(input_mode, seq_len, stream, eos)
-    x, y = ptb_arrays(stream, batch_size, seq_len)
-    # ptb_arrays is 1-based; the LM criterion wants 0-based ids
-    return (x - 1).astype(np.int32), (y - 1).astype(np.int32)
+    return _layout(stream, eos, seq_len, input_mode, batch_size)
+
+
+def text_corpus(args):
+    """``-f``'s ``train.txt`` (``-f`` may name the file itself) in the
+    chosen layout, and the Dictionary's vocabulary size; with
+    ``--checkpoint`` the Dictionary is saved there as
+    ``dictionary.json``."""
+    from bigdl_tpu_torch.dataset import load_ptb
+
+    train_txt = args.folder if os.path.isfile(args.folder) else \
+        os.path.join(args.folder, "train.txt")
+    if not os.path.exists(train_txt):
+        raise SystemExit(f"no corpus at '{train_txt}'. Stage a train.txt "
+                         f"there, or use --synthetic N.")
+    splits, d = load_ptb(train_txt, vocab_size=args.vocabSize)
+    if args.checkpoint:
+        os.makedirs(args.checkpoint, exist_ok=True)
+        d.save(os.path.join(args.checkpoint, "dictionary.json"))
+    return _layout(splits["train"], d.get_index("<eos>"), args.seqLen,
+                   args.inputMode, args.batchSize or 8), d.vocab_size()
 
 
 def main(argv=None):
@@ -109,6 +151,7 @@ def main(argv=None):
                     "row padded to seqLen")
     ap.add_argument("--dropout", type=float, default=0.0)
     ap.add_argument("--moeExperts", type=int, default=0)
+    # the JAX CLI's parallelism flags raise (item 11)
     ap.add_argument("--pp", type=int, default=1)
     ap.add_argument("--tp", type=int, default=1)
     ap.add_argument("--sp", choices=("none", "ring", "ulysses"),
@@ -116,20 +159,12 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     for flag, value, default in (("--pp", args.pp, 1), ("--tp", args.tp, 1),
-                                 ("--sp", args.sp, "none"),
-                                 ("--moeExperts", args.moeExperts, 0)):
+                                 ("--sp", args.sp, "none")):
         if value != default:
             raise NotImplementedError(
                 f"{flag} {value}: pipeline, tensor and sequence "
-                f"parallelism and MoE are not ported yet")
-    if not args.synthetic:
-        raise NotImplementedError(
-            "text corpora (-f) are not ported yet; use --synthetic N")
-    for flag in ("model", "state", "checkpoint"):
-        if getattr(args, flag):
-            raise NotImplementedError(
-                f"--{flag}: the TransformerLM recipe's snapshots and "
-                f"checkpoints are not ported yet (ROADMAP queue 1, item 7)")
+                f"parallelism are not ported yet (ROADMAP queue 1, "
+                f"item 11)")
 
     import torch
 
@@ -139,8 +174,12 @@ def main(argv=None):
     from bigdl_tpu_torch.optim import SGD, LocalOptimizer
 
     bs = args.batchSize or 8
-    x, y = synthetic_corpus(args.synthetic, args.vocabSize, args.seqLen,
-                            args.inputMode, bs)
+    if args.synthetic:
+        x, y = synthetic_corpus(args.synthetic, args.vocabSize,
+                                args.seqLen, args.inputMode, bs)
+        vocab = args.vocabSize
+    else:
+        (x, y), vocab = text_corpus(args)
     if isinstance(x, list):
         samples = [Sample([plane[i] for plane in x], y[i])
                    for i in range(len(x[0]))]
@@ -150,9 +189,9 @@ def main(argv=None):
         criterion = SequenceCrossEntropyCriterion()
     ds = DataSet.array(samples).transform(SampleToMiniBatch(bs))
     model = load_model_or(args, lambda: TransformerLM(
-        args.vocabSize, hidden_size=args.hiddenSize, num_layers=args.layers,
+        vocab, hidden_size=args.hiddenSize, num_layers=args.layers,
         num_heads=args.heads, max_len=args.seqLen, dropout=args.dropout,
-        device=args.device,
+        moe_experts=args.moeExperts, device=args.device,
         generator=torch.Generator().manual_seed(_WEIGHT_SEED)))
     optim = SGD(learning_rate=args.learningRate or 0.1,
                 learning_rate_decay=args.learningRateDecay or 0.0)
@@ -161,6 +200,9 @@ def main(argv=None):
     opt.optimize()
     loss = opt.driver_state["Loss"]
     print(f"final loss: {loss:.4f} perplexity: {np.exp(loss):.2f}")
+    if opt.resumed_from is not None:
+        print(f"resumed from {opt.resumed_from['path']} at neval "
+              f"{opt.resumed_from['neval']}")
     return model
 
 

@@ -12,13 +12,15 @@ from bigdl_tpu_torch.nn.attention import (MultiHeadAttention,
 from bigdl_tpu_torch.nn.container import (Concat, ConcatTable, Container,
                                           Sequential)
 from bigdl_tpu_torch.nn.conv import SpatialConvolution
+from bigdl_tpu_torch.nn.dropout import Dropout, L1Penalty, SpatialDropout2D
 from bigdl_tpu_torch.nn.criterion import (ClassNLLCriterion,
                                           CrossEntropyCriterion,
                                           SequenceCrossEntropyCriterion)
 from bigdl_tpu_torch.nn.linear import Linear, MulConstant
 from bigdl_tpu_torch.nn.module import (Criterion, Module,
                                        total_regularization)
-from bigdl_tpu_torch.nn.norm import (BatchNormalization, LayerNorm,
+from bigdl_tpu_torch.nn.moe import MoE
+from bigdl_tpu_torch.nn.norm import (BatchNormalization, LayerNorm, RMSNorm,
                                      SpatialBatchNormalization)
 from bigdl_tpu_torch.nn.pool import SpatialAveragePooling, SpatialMaxPooling
 from bigdl_tpu_torch.nn.quantized import (QuantizedLinear,
@@ -29,15 +31,17 @@ from bigdl_tpu_torch.nn.table_ops import CAddTable
 
 __all__ = ["Abs", "BatchNormalization", "BinaryThreshold", "CAddTable",
            "Clamp", "ClassNLLCriterion", "Concat", "ConcatTable",
-           "Container", "Criterion", "CrossEntropyCriterion", "ELU", "Echo",
-           "Exp", "GaussianSampler", "GradientReversal", "HardShrink",
-           "HardSigmoid", "HardTanh", "Identity", "LayerNorm", "LeakyReLU",
-           "Linear", "Log", "Log1p", "LogSigmoid", "LogSoftMax", "Module",
-           "MulConstant", "MultiHeadAttention", "Negative", "PReLU",
-           "Power", "QuantizedLinear", "QuantizedSpatialConvolution", "RReLU",
-           "ReLU", "ReLU6", "Reshape", "SequenceCrossEntropyCriterion",
-           "Sequential", "Sigmoid", "SoftMax", "SoftMin", "SoftPlus",
-           "SoftShrink", "SoftSign", "SpatialAveragePooling",
+           "Container", "Criterion", "CrossEntropyCriterion", "Dropout",
+           "ELU", "Echo", "Exp", "GaussianSampler", "GradientReversal",
+           "HardShrink", "HardSigmoid", "HardTanh", "Identity", "L1Penalty",
+           "LayerNorm", "LeakyReLU", "Linear", "Log", "Log1p", "LogSigmoid",
+           "LogSoftMax", "MoE", "Module", "MulConstant",
+           "MultiHeadAttention", "Negative", "PReLU", "Power",
+           "QuantizedLinear", "QuantizedSpatialConvolution", "RMSNorm",
+           "RReLU", "ReLU", "ReLU6", "Reshape",
+           "SequenceCrossEntropyCriterion", "Sequential", "Sigmoid",
+           "SoftMax", "SoftMin", "SoftPlus", "SoftShrink", "SoftSign",
+           "SpatialAveragePooling", "SpatialDropout2D",
            "SpatialBatchNormalization", "SpatialConvolution",
            "SpatialMaxPooling", "Sqrt", "Square", "Tanh", "TanhShrink",
            "Threshold", "View", "dot_product_attention", "quantize",

@@ -10,8 +10,10 @@ the route of score matrices over 2 GiB to the blockwise kernel K2 (the
 JAX package sends them to its bundled TPU flash kernel,
 ``_flash_attention_tpu``) and the einsum path, and
 :class:`MultiHeadAttention` with its full-sequence and KV-cached
-forwards. Not ported yet: attention dropout and the sequence-parallel
-(ring / Ulysses) paths.
+forwards, and attention dropout (in training, on the einsum path, with
+masks from :func:`bigdl_tpu_torch.nn.dropout.keep_mask` on a
+``torch.Generator`` the caller passes). Not ported yet: the
+sequence-parallel (ring / Ulysses) paths (ROADMAP queue 1, item 11).
 """
 from __future__ import annotations
 
@@ -22,6 +24,7 @@ import torch
 from torch import nn
 
 from bigdl_tpu_torch import kernels
+from bigdl_tpu_torch.nn import dropout as _dropout
 from bigdl_tpu_torch.nn.module import Module
 from bigdl_tpu_torch.utils.engine import default_dtype
 
@@ -46,7 +49,8 @@ def _flash_eligible(q, mask, dropout_rate, training) -> bool:
 
 
 def dot_product_attention(q, k, v, *, causal: bool = False, mask=None,
-                          dropout_rate: float = 0.0, rng=None,
+                          dropout_rate: float = 0.0,
+                          generator: Optional[torch.Generator] = None,
                           training: bool = False, use_flash: bool = True,
                           segments=None):
     """Scaled dot-product attention over ``[B, H, S, D]`` q/k/v.
@@ -67,25 +71,23 @@ def dot_product_attention(q, k, v, *, causal: bool = False, mask=None,
     on the CPU it is never taken, as the JAX package takes it on a TPU
     only. In practice it runs with flash switched off in the
     ``KernelConfig`` or declined as ``reason=vmem``. Everything else
-    runs the einsum path. Attention dropout is not ported:
-    ``training`` with ``dropout_rate > 0`` raises NotImplementedError
-    (``rng`` is accepted for the signature's sake).
+    runs the einsum path. In ``training`` with ``dropout_rate > 0``
+    neither kernel route is taken: the einsum path runs, and with a
+    ``generator`` it drops attention weights (without one it draws
+    nothing, as the JAX package draws nothing without an ``rng``).
 
     The einsum path: scores in float32, divided by ``sqrt(D)`` *after*
     the product, masked entries filled with the float32 minimum (not
-    ``-inf``), softmax in float32, weights cast to ``v.dtype`` for the
-    second product."""
+    ``-inf``), softmax in float32, weights cast to ``v.dtype``, then
+    (dropout) ``weights * keep / (1 - p)``, for the second product."""
     if mask is not None and segments is not None:
         raise ValueError(
             "pass mask= OR segments=, not both: the kernel path can "
             "only honor segment equality, so a mask carrying anything "
             "more would be silently dropped")
-    if training and dropout_rate > 0.0:
-        raise NotImplementedError(
-            "attention dropout is not ported yet (dropout_rate must be "
-            "0.0 in training)")
+    dropping = training and dropout_rate > 0.0
     d = q.shape[-1]
-    if use_flash and mask is None:
+    if use_flash and mask is None and not dropping:
         out = kernels.attention(q, k, v, causal=causal,
                                 segment_ids=segments,
                                 sm_scale=1.0 / math.sqrt(d))
@@ -110,6 +112,9 @@ def dot_product_attention(q, k, v, *, causal: bool = False, mask=None,
     if mask is not None:
         scores = scores.masked_fill(~mask, fill)
     weights = torch.softmax(scores, dim=-1).to(v.dtype)
+    if dropping and generator is not None:
+        keep = _dropout.keep_mask(weights.shape, dropout_rate, generator)
+        weights = weights * keep / (1.0 - dropout_rate)
     return torch.einsum("bhqk,bhkd->bhqd", weights, v)
 
 
@@ -119,11 +124,13 @@ class MultiHeadAttention(Module):
     Parameters ``wq, wk, wv, wo`` (``[E, E]``, applied as ``x @ w``)
     and ``bq, bk, bv, bo``: the JAX param tree's names. ``generator``
     seeds the uniform(-1/sqrt(E), 1/sqrt(E)) init (None: torch's
-    global generator)."""
+    global generator). ``dropout`` is the attention-weight dropout rate
+    of a training forward (see :func:`dot_product_attention`)."""
 
     def __init__(self, hidden_size: int, num_heads: int,
                  causal: bool = False,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 dropout: float = 0.0):
         super().__init__()
         if hidden_size % num_heads:
             raise ValueError(f"hidden_size {hidden_size} is not a "
@@ -132,6 +139,7 @@ class MultiHeadAttention(Module):
         self.num_heads = num_heads
         self.head_dim = hidden_size // num_heads
         self.causal = causal
+        self.dropout = dropout
         s = 1.0 / math.sqrt(hidden_size)
         for name in ("q", "k", "v", "o"):
             w = torch.empty((hidden_size, hidden_size),
@@ -150,9 +158,11 @@ class MultiHeadAttention(Module):
 
     def forward(self, x, *, cache: Optional[Dict[str, torch.Tensor]] = None,
                 positions=None, attend_len: Optional[int] = None,
-                segments=None):
+                segments=None,
+                generator: Optional[torch.Generator] = None):
         """Full-sequence attention, or — with ``cache=`` — one
-        incremental (KV-cached) step.
+        incremental (KV-cached) step. ``generator`` draws the dropout
+        masks of a training forward.
 
         ``segments`` is the packed slab's ``[B, S]`` segment-id plane:
         queries attend only same-segment keys (the raw plane rides into
@@ -176,7 +186,10 @@ class MultiHeadAttention(Module):
         v = self._split(self._proj(x, "v"), b, s)
         if cache is None:
             out = dot_product_attention(q, k, v, causal=self.causal,
-                                        segments=segments)
+                                        segments=segments,
+                                        dropout_rate=self.dropout,
+                                        generator=generator,
+                                        training=self.training)
         else:
             if segments is not None:
                 raise ValueError(

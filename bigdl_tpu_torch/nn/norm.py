@@ -11,7 +11,8 @@ from bigdl_tpu_torch.nn.initialization import InitializationMethod
 from bigdl_tpu_torch.nn.module import Module
 from bigdl_tpu_torch.utils.engine import default_dtype
 
-__all__ = ["BatchNormalization", "LayerNorm", "SpatialBatchNormalization"]
+__all__ = ["BatchNormalization", "LayerNorm", "RMSNorm",
+           "SpatialBatchNormalization"]
 
 
 def _in_dtype(value: float, dtype: torch.dtype) -> float:
@@ -42,6 +43,25 @@ class LayerNorm(Module):
         var = x32.var(dim=-1, keepdim=True, unbiased=False)
         y = ((x32 - mu) * torch.rsqrt(var + self.eps)).to(x.dtype)
         return y * self.weight + self.bias
+
+
+class RMSNorm(Module):
+    """RMS normalization (LLaMA-style) over the last dim: the mean
+    square accumulates in float32, ``inv = rsqrt(ms + eps)`` is cast
+    back to the input dtype, then ``x * inv * weight`` (the JAX
+    package's order). The weight starts at ones."""
+
+    def __init__(self, hidden_size: int, eps: float = 1e-6):
+        super().__init__()
+        self.hidden_size = hidden_size
+        self.eps = eps
+        self.weight = nn.Parameter(
+            torch.ones(hidden_size, dtype=default_dtype()))
+
+    def forward(self, x):
+        ms = x.float().square().mean(dim=-1, keepdim=True)
+        inv = torch.rsqrt(ms + self.eps).to(x.dtype)
+        return x * inv * self.weight
 
 
 class BatchNormalization(Module):

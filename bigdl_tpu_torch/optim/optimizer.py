@@ -56,6 +56,7 @@ from __future__ import annotations
 
 import copy
 import functools
+import inspect
 import logging
 import os
 import time
@@ -73,6 +74,7 @@ from bigdl_tpu_torch.dataset.prefetch import (batch_signature,
 from bigdl_tpu_torch.dataset.sample import MiniBatch
 from bigdl_tpu_torch.faults.retry import backoff_delay, classify
 from bigdl_tpu_torch.nn.module import Criterion, Module
+from bigdl_tpu_torch.nn.moe import pop_aux_losses
 from bigdl_tpu_torch.optim.optim_method import SGD, OptimMethod
 from bigdl_tpu_torch.optim.trigger import Trigger, max_epoch
 from bigdl_tpu_torch.optim.validation import ValidationMethod
@@ -81,6 +83,7 @@ from bigdl_tpu_torch.precision.policy import (MASTER_KEY, SCALER_KEY,
                                               dtype_name)
 from bigdl_tpu_torch.precision.scaler import DynamicLossScaler
 from bigdl_tpu_torch.utils.engine import default_dtype
+from bigdl_tpu_torch.utils.random import RandomGenerator
 
 __all__ = ["LocalOptimizer", "Optimizer", "build_eval_step",
            "build_train_step", "make_host_window", "seed_precision"]
@@ -109,31 +112,48 @@ class _Body(torch.nn.Module):
     """``module``'s forward and its regularization penalty in one call,
     so one ``torch.func.functional_call`` swaps the compute-dtype
     parameters in for both (the penalty on the compute-dtype
-    parameters, as the JAX package's ``regularization_loss(p_c)``)."""
+    parameters, as the JAX package's ``regularization_loss(p_c)``).
+    ``kw`` goes to the module's forward (the step's generator)."""
 
     def __init__(self, module):
         super().__init__()
         self.module = module
 
-    def forward(self, x):
-        return self.module(x), self.module.regularization_loss()
+    def forward(self, x, **kw):
+        return self.module(x, **kw), self.module.regularization_loss()
+
+
+def _takes_generator(module) -> bool:
+    """Whether ``module``'s forward takes a ``generator=`` keyword."""
+    return "generator" in inspect.signature(module.forward).parameters
 
 
 def build_train_step(module: Module, criterion: Criterion,
                      optim_method: OptimMethod, gradient_clip=None, *,
                      precision: Optional[PrecisionPolicy] = None,
-                     loss_scaler: Optional[DynamicLossScaler] = None):
+                     loss_scaler: Optional[DynamicLossScaler] = None,
+                     aux_loss_weight: float = 0.01):
     """One training step, ``step(inputs, targets, lr) -> loss``, in the
     JAX package's order: forward, loss plus
-    ``module.regularization_loss()``, backward, each gradient times its
+    ``module.regularization_loss()`` plus ``aux_loss_weight`` times the
+    MoE load-balance terms of this forward
+    (:func:`~bigdl_tpu_torch.nn.moe.pop_aux_losses`, which also clears
+    them; none without an MoE), backward, each gradient times its
     ``module.param_scales()`` factor (0 for a frozen layer), then
     ``gradient_clip`` — ``("constant", min, max)`` clamps every gradient
     element, ``("l2norm", max_norm)`` scales the gradients so their
     global L2 norm is at most ``max_norm`` — then ``optim_method.update``
     on the parameters in place. ``lr`` is a Python float or a 0-d tensor
     on the module's device. Returns the data loss, without the penalty
-    (a detached 0-d tensor on the module's device; reading it is the
-    caller's sync).
+    and the load-balance term (a detached 0-d tensor on the module's
+    device; reading it is the caller's sync).
+
+    Where the module's forward takes ``generator=`` (a dropout model),
+    the step passes it ``step.generator``, a ``torch.Generator`` on the
+    module's device seeded at build time from
+    :meth:`~bigdl_tpu_torch.utils.random.RandomGenerator.get_seed`
+    (never torch's global generator), so a run's masks follow from its
+    seed.
 
     ``precision`` (None: ``PrecisionPolicy.from_engine()``, the Engine
     dtype knobs) casts as the JAX package's step does: the inputs and
@@ -194,6 +214,22 @@ def build_train_step(module: Module, criterion: Criterion,
     scaled = any(f != 1.0 for f in factors)
     body = _Body(module)
     module.train()
+    generator = None
+    forward_kw = {}
+    if _takes_generator(module):
+        generator = torch.Generator(
+            device=params[0].device if params else "cpu")
+        generator.manual_seed(RandomGenerator.get_seed())
+        forward_kw = {"generator": generator}
+
+    def objective(loss, reg):
+        """loss + penalty + weighted load-balance terms: what the
+        backward differentiates (the JAX package's ``total``)."""
+        total = loss + reg if torch.is_tensor(reg) else loss
+        aux = pop_aux_losses(module)
+        if torch.is_tensor(aux):
+            total = total + aux_loss_weight * aux
+        return total
 
     def clip(grads):
         if gradient_clip is None:
@@ -230,9 +266,8 @@ def build_train_step(module: Module, criterion: Criterion,
     def plain_step(inputs, targets, lr):
         for p in params:
             p.grad = None
-        loss = criterion(module(inputs), targets)
-        reg = module.regularization_loss()
-        (loss + reg if torch.is_tensor(reg) else loss).backward()
+        loss = criterion(module(inputs, **forward_kw), targets)
+        objective(loss, module.regularization_loss()).backward()
         update(clip(scale(gradients())), opt_state, params, lr)
         return loss.detach()
 
@@ -259,11 +294,11 @@ def build_train_step(module: Module, criterion: Criterion,
                for p in params):
             out, reg = torch.func.functional_call(
                 body, {f"module.{name}": policy.cast_to_compute(p)
-                       for name, p in named}, (x_c,))
+                       for name, p in named}, (x_c,), forward_kw)
         else:
-            out, reg = body(x_c)
+            out, reg = body(x_c, **forward_kw)
         loss = criterion(policy.cast_output(out), targets)
-        total = loss + reg if torch.is_tensor(reg) else loss
+        total = objective(loss, reg)
         if scaler is not None:
             total = scaler.scale_loss(total, scaler_state)
         total.backward()
@@ -307,6 +342,7 @@ def build_train_step(module: Module, criterion: Criterion,
     step.module = module
     step.policy = policy
     step.scaler = scaler
+    step.generator = generator
     return step
 
 
@@ -431,7 +467,12 @@ class _HostWindow:
     step runs on a side stream (the recipe's warm-up: every kernel
     library, cuBLAS and cuDNN handle and autograd's lazy state made)
     from a saved copy of every tensor a step changes, which is put back
-    after, so the warm-up does not advance the run. A kernel wrapper
+    after, so the warm-up does not advance the run; the step's
+    generator's state is put back too, and where the warm-up drew from
+    it the graph registers it
+    (``CUDAGraph.register_generator_state``), so each replay draws fresh
+    masks at the offsets the per-step loop would, and advances the
+    generator as the K steps would. A kernel wrapper
     counts its calls (``.launches``) in the warm-up and in the capture;
     a replay calls no wrapper and counts nothing. A capture that fails
     raises: there is no quiet per-step fallback.
@@ -502,6 +543,8 @@ class _HostWindow:
         # warm-up: one step on a side stream from saved state, put back
         state = self._state_tensors()
         saved = [t.detach().clone() for t in state]
+        gen = self.step.generator
+        gen_saved = None if gen is None else gen.get_state()
         side = torch.cuda.Stream(device)
         side.wait_stream(torch.cuda.current_stream(device))
         with torch.cuda.stream(side):
@@ -511,8 +554,14 @@ class _HostWindow:
             for t, s in zip(state, saved):
                 t.copy_(s)
         del saved
+        drew = gen is not None and not torch.equal(gen.get_state(),
+                                                   gen_saved)
+        if gen is not None:
+            gen.set_state(gen_saved)
 
         cap.graph = torch.cuda.CUDAGraph()
+        if drew:
+            cap.graph.register_generator_state(gen)
         with torch.cuda.graph(cap.graph):
             for i in range(k):
                 loss = self.step(_leaf_at(cap.xs, i), _leaf_at(cap.ys, i),

@@ -21,6 +21,7 @@ Not ported: Graph specs (``nn/graph.py``, ROADMAP queue 1, item 9).
 from __future__ import annotations
 
 import base64
+import inspect
 from typing import Any, Dict, Optional
 
 import numpy as np
@@ -158,6 +159,10 @@ def from_spec(spec: Dict[str, Any]):
     cls = _resolve(spec["class"])
     args = [_decode_value(a) for a in spec.get("args", [])]
     kwargs = {k: _decode_value(v) for k, v in spec.get("kwargs", {}).items()}
+    if "device" in inspect.signature(cls).parameters:
+        # placement is left out of a spec: a class that places itself
+        # (the TransformerLM, on the card by default) is built on the CPU
+        kwargs["device"] = "cpu"
     module = cls(*args, **kwargs)
     if "name" in spec:
         module.set_name(spec["name"])

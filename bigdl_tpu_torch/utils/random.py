@@ -31,6 +31,12 @@ class RandomGenerator:
         return cls
 
     @classmethod
+    def get_seed(cls) -> int:
+        """The process-global seed (a train step seeds its dropout
+        generator from it)."""
+        return cls._seed
+
+    @classmethod
     def numpy(cls) -> np.random.RandomState:
         """Host-side RNG (shuffles, data augmentation)."""
         return cls._numpy

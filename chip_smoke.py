@@ -179,7 +179,34 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    steps with a checkpoint every 4 whose dataset raises ``OSError`` once
    at step 6: one recovery, bitwise the uninterrupted run; a
    ``TypeError`` raises at once with no recovery. No kernel of the
-   ``kernels`` line may launch in (b)-(f).
+   ``kernels`` line may launch in (b)-(f);
+13. the LM slice (``phase_lm``) — (a) the training cell with the moe
+   recipe's layout (4 experts, top 2, blocks 1, 3 and 5) under
+   ``bf16_mixed`` with ``Adam(learning_rate=1e-3)`` and the load-balance
+   term at 0.01: one step with K1 against the einsum path at phase 11's
+   limits, the router's gradients included, with the einsum path's
+   routing pinned to the kernel path's (the tokens a bfloat16 tie routes
+   otherwise, and the unpinned differences, are logged); the term's
+   weight 0 against 0.01 must move the router's gradient; 16 steps at
+   K = 8 and K = 1 bitwise alike (losses, parameters, ``m``, ``v``,
+   ``t``, the MoE buffers), K1's wrapper calls exact, falling losses,
+   ``expert_frac`` summing to 1 in each MoE block; a profiled window of
+   16 replayed steps (K1's bfloat16 kernels once a layer and step; ms a
+   step profiled and not, tokens/s, idle share, peak memory against
+   the dense model's) and one MoE layer's forward and backward device
+   ms against the dense FFN's; (b) the dense training cell in float32
+   at attention dropout 0.1: 16 steps at K = 8 (the graphs replay the
+   step's generator) and K = 1 bitwise alike, no K1 wrapper call in
+   training, another seed other losses, an evaluation forward calling
+   K1 once a layer and equal bitwise to a dropout-0 model's, a drawn
+   mask's keep fraction within 4 sigma of 0.9; and 2 layers with MoE,
+   dropout and the untied head under bf16_mixed Adam, 16 steps at K = 8
+   and K = 1 bitwise alike; (c) ``transformer.train
+   -f`` on a seeded PTB-style corpus with ``--checkpoint --inputMode
+   packed --moeExperts 4 --dropout 0.1 -e 2``, ``transformer.test`` on a
+   snapshot of the result (perplexity within 1e-5 of exp of a direct
+   mean NLL) and training resumed from it with ``--model`` /
+   ``--state`` (its held-out perplexity below the snapshot's).
 
 Float32 throughout phases 1–10, with TF32 off for matrix products (set
 here) and for convolutions (PyTorch's default is on; the port's
@@ -187,7 +214,8 @@ convolution layers switch it off, and phase 8 checks that they did): the
 tolerances below assume full float32. Phase 11 runs the precision
 policies, with limits of their own; phase 12 (a) runs bf16_mixed at
 phase 11's limits, (b)-(f) float32 (float64 for LBFGS's card-against-CPU
-check).
+check); phase 13 (a) runs bf16_mixed at phase 11's limits, (b) and (c)
+float32.
 
 The line before the last is a JSON object ``{"kernels": [...]}`` with
 each kernel's launches, error and times (``ms`` and ``device_ms``, and
@@ -330,6 +358,30 @@ LBFGS_F64_ROWS, LBFGS_F64_ITERS, LBFGS_F64_TOL = 4096, 3, 1e-10
 #: (f) retry: steps, checkpoint interval, the step whose batch raises
 #: once, batches an epoch (checkpoint.4 then falls at an epoch's start)
 RETRY_STEPS, RETRY_CKPT, RETRY_FAIL_AT, RETRY_BATCHES = 12, 4, 6, 3
+
+# ---- the LM slice (queue 1, item 7): MoE blocks with the aux loss,
+# dropout, the text CLIs; the training width ----
+#: (a) the repo's moe recipe's layout (bigdl_tpu/tools/convergence.py:
+#: 336-352: 4 experts, top-2, every 2nd block, Adam 1e-3) at the
+#: training cell's width under bf16_mixed: steps of the windowed and
+#: the per-step run, steps a window, the load-balance weight
+MOE_EXPERTS, MOE_EVERY, MOE_STEPS, MOE_K, AUX_WEIGHT = 4, 2, 16, 8, 0.01
+#: the aux fault: the router gradient's largest change from weight 0 to
+#: AUX_WEIGHT must exceed this fraction of its largest element (a
+#: rounding difference does not)
+AUX_FAULT_MIN_FRACTION = 0.1
+#: (b) the dense training cell in float32 at this attention dropout:
+#: steps, steps a window, the run's seed and the other seed's steps
+DROPOUT, DROP_STEPS, DROP_K, DROP_SEED, DROP_OTHER_STEPS = \
+    0.1, 16, 8, 61, 2
+#: (c) the CLIs on a seeded PTB-style corpus: words a line (range), the
+#: vocabulary drawn from, train and test lines, and the width
+CLI_LINE_WORDS, CLI_VOCAB, CLI_TRAIN_LINES, CLI_TEST_LINES = \
+    (4, 20), 2000, 600, 200
+CLI_WIDTH = ["--hiddenSize", "128", "--layers", "2", "--heads", "4",
+             "--seqLen", "64", "-b", "8", "--vocabSize", "1000"]
+#: the test CLI's perplexity against exp of a direct mean NLL (relative)
+CLI_PPL_RTOL = 1e-5
 
 # ---- K5 and K4 shapes ----
 INT8_EDGE_M, INT8_EDGE_N, INT8_EDGE_K = (1, 7, 64, 65, 300), \
@@ -1630,7 +1682,7 @@ def phase_flash(train_seg):
 def train_corpus():
     """The training phase's packed synthetic documents, made as the
     train CLI's ``--synthetic N --inputMode packed`` makes them."""
-    from bigdl_tpu_torch.models.transformer_train import synthetic_corpus
+    from bigdl_tpu_torch.models.transformer.train import synthetic_corpus
 
     return synthetic_corpus(TRAIN_SYNTHETIC, TRAIN_VOCAB, TRAIN_SEQ,
                             "packed", TRAIN_BATCH)
@@ -2194,7 +2246,7 @@ def phase_longctx_train(counters, device="cuda"):
 
     from bigdl_tpu_torch.dataset import DataSet, Sample, SampleToMiniBatch
     from bigdl_tpu_torch.kernels import flash_route
-    from bigdl_tpu_torch.models.transformer_train import synthetic_corpus
+    from bigdl_tpu_torch.models.transformer.train import synthetic_corpus
     from bigdl_tpu_torch.nn import SequenceCrossEntropyCriterion
     from bigdl_tpu_torch.optim import (SGD, LocalOptimizer,
                                        build_train_step, max_iteration)
@@ -3401,9 +3453,10 @@ def phase_resnet_train(counters, device="cuda"):
     return launches, summary
 
 
-def _train_model(device, layers=None):
+def _train_model(device, layers=None, **kw):
     """The training slice's TransformerLM (its weight seed) on
-    ``device``, ``layers`` deep (default ``LAYERS``)."""
+    ``device``, ``layers`` deep (default ``LAYERS``); ``kw`` goes to the
+    constructor (MoE blocks, dropout)."""
     import torch
 
     from bigdl_tpu_torch.models import TransformerLM
@@ -3412,7 +3465,7 @@ def _train_model(device, layers=None):
                          num_layers=layers or LAYERS, num_heads=HEADS,
                          ffn_size=FFN,
                          max_len=TRAIN_SEQ, device=device,
-                         generator=torch.Generator().manual_seed(21))
+                         generator=torch.Generator().manual_seed(21), **kw)
 
 
 def _corpus_batch(corpus, i, device):
@@ -4545,6 +4598,545 @@ def phase_optim(counters, corpus, sgd_bf16, device="cuda"):
     return a_launches, summary
 
 
+@contextlib.contextmanager
+def _pinned_routing(layers: int):
+    """Within the block, ``torch.topk`` (called only by the MoE layers in
+    a train step) records the routing of the first forward's ``layers``
+    calls and hands it to every later forward: the values gathered at
+    the recorded indices (``topk``'s gradient is the same scatter), so
+    a second path routes every token as the first did. Yields a list
+    that gets, for each replayed call, the number of tokens whose own
+    top-k set differs from the recorded one (the routing flips the pin
+    took out)."""
+    import torch
+
+    real = torch.topk
+    record, flips = [], []
+
+    def topk(x, k, dim=-1, *args, **kw):
+        got = real(x, k, dim, *args, **kw)
+        if len(record) < layers:
+            record.append(got[1])
+            return got
+        idx = record[len(flips) % layers]
+        flips.append(int((got[1].sort(dim)[0] != idx.sort(dim)[0])
+                         .any(dim).sum()))
+        return x.gather(dim, idx), idx
+
+    torch.topk = topk
+    try:
+        yield flips
+    finally:
+        torch.topk = real
+
+
+def _write_ptb(folder, seed):
+    """A seeded PTB-style ``train.txt`` and ``test.txt`` under
+    ``folder``: lines of ``CLI_LINE_WORDS`` words drawn from a Zipf law
+    over ``CLI_VOCAB`` words (PTB's files are one tokenized sentence a
+    line)."""
+    import os
+
+    r = np.random.RandomState(seed)
+    words = np.asarray([f"w{i}" for i in range(CLI_VOCAB)])
+    p = 1.0 / np.arange(1, CLI_VOCAB + 1)
+    p /= p.sum()
+    for name, lines in (("train.txt", CLI_TRAIN_LINES),
+                        ("test.txt", CLI_TEST_LINES)):
+        with open(os.path.join(folder, name), "w") as f:
+            for _ in range(lines):
+                n = r.randint(*CLI_LINE_WORDS)
+                f.write(" ".join(r.choice(words, n, p=p)) + "\n")
+
+
+def _layer_device_ms(layer, x, device, phase, label, iters=10):
+    """Device ms of one forward and backward of ``layer`` on ``x`` (the
+    summed kernel durations of ``iters`` calls under ``torch.profiler``,
+    over ``iters``), after two warm calls."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    g = torch.randn_like(x)
+
+    def run():
+        layer(x).backward(g)
+    for _ in range(2):
+        run()
+    torch.cuda.synchronize(device)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        time.sleep(WINDOW_MARGIN_S)
+        for _ in range(iters):
+            run()
+        torch.cuda.synchronize(device)
+        time.sleep(WINDOW_MARGIN_S)
+    kernels = device_kernels(prof)
+    ms = sum(k[0] for k in kernels) / iters
+    log(phase, f"{label}: {ms:.4f} device ms a forward and backward; "
+               f"busiest: " + json.dumps([[round(k[0] / iters, 4), k[1],
+                                           k[2][:70]] for k in kernels[:4]]))
+    return ms
+
+
+def phase_lm(counters, corpus, device="cuda"):
+    """The LM slice (queue 1, item 7) on ``device``: (a) the training
+    width with the moe recipe's layout (``MOE_EXPERTS`` experts, top 2,
+    every ``MOE_EVERY``-th block) under bf16_mixed with Adam — one step
+    on K1 against the einsum path at phase 11's limits (the router's
+    gradients included); the load-balance weight 0 against
+    ``AUX_WEIGHT`` (the router's gradient must move by more than
+    ``AUX_FAULT_MIN_FRACTION`` of its largest element: a dropped aux
+    term fails); ``MOE_STEPS`` steps through ``LocalOptimizer`` at K =
+    ``MOE_K`` and K = 1 bitwise alike (losses, parameters, ``m``,
+    ``v``, ``t``, the MoE buffers), K1's wrapper calls exact, falling
+    losses, ``expert_frac`` summing to 1 in each MoE block; a profiled
+    window of 16 replayed steps (K1's bfloat16 kernels once a layer and
+    step; ms a step profiled and not, tokens/s, idle share, peak memory
+    against the dense model's), and the MoE layer's forward and backward
+    device ms against the dense FFN's; (b) the dense training cell in
+    float32 at attention dropout ``DROPOUT``: ``DROP_STEPS`` steps at K
+    = ``DROP_K`` (the graphs replay the step's generator) and K = 1
+    bitwise alike, no K1 wrapper call in training, another seed other
+    losses, an evaluation forward calling K1 once a layer and equal
+    bitwise to a dropout-0 model's, a drawn mask's keep fraction within
+    4 sigma of ``1 - DROPOUT``, and every option at once (MoE, dropout,
+    the untied head; 2 layers, bf16_mixed Adam) at K = ``DROP_K`` and
+    K = 1 bitwise alike; (c) the text CLIs on a seeded
+    PTB-style corpus: ``transformer.train -f --checkpoint --inputMode
+    packed --moeExperts 4 --dropout 0.1 -e 2``, ``transformer.test`` on
+    a snapshot of the result (its perplexity within ``CLI_PPL_RTOL`` of
+    exp of a direct mean NLL), and training resumed with ``--model`` /
+    ``--state`` (its held-out perplexity below the snapshot's). Returns
+    K1's launches on (a)'s path and the numbers."""
+    import copy
+    import math
+    import os
+    import pickle
+    import shutil
+    import tempfile
+
+    import torch
+    import torch.nn.functional as F
+
+    from bigdl_tpu_torch.dataset import (DataSet, Dictionary, Sample,
+                                         SampleToMiniBatch, ptb_arrays,
+                                         read_words)
+    from bigdl_tpu_torch.models.transformer import test as lm_test
+    from bigdl_tpu_torch.models.transformer import train as lm_train
+    from bigdl_tpu_torch.nn import MoE, SequenceCrossEntropyCriterion
+    from bigdl_tpu_torch.nn.dropout import keep_mask
+    from bigdl_tpu_torch.optim import (SGD, Adam, LocalOptimizer,
+                                       build_train_step, make_host_window,
+                                       max_iteration)
+    from bigdl_tpu_torch.precision import PrecisionPolicy
+    from bigdl_tpu_torch.utils.engine import full_float32
+    from bigdl_tpu_torch.utils.random import RandomGenerator
+    from bigdl_tpu_torch.utils.serialization import (find_latest_checkpoint,
+                                                     load_checkpoint,
+                                                     load_module,
+                                                     save_module)
+
+    x, y = corpus
+    on_card = device == "cuda"
+    crit = SequenceCrossEntropyCriterion(ignore_index=-1)
+    bf16 = PrecisionPolicy.bf16_mixed()
+    summary = {}
+    k1 = ("flash_attention_fwd", "flash_attention_bwd")
+    moe_blocks = [i for i in range(LAYERS) if i % MOE_EVERY == MOE_EVERY - 1]
+    slab = TRAIN_BATCH * TRAIN_SEQ
+
+    def reset():
+        for fn in counters.values():
+            fn.launches = 0
+
+    def launches():
+        return {name: fn.launches for name, fn in counters.items()}
+
+    def moe_model():
+        return _train_model(device, moe_experts=MOE_EXPERTS,
+                            moe_every=MOE_EVERY)
+
+    def moes(model):
+        return [model.get_submodule(f"block_{i}.mlp") for i in moe_blocks]
+
+    samples = [Sample([p[i] for p in x], y[i]) for i in range(len(y))]
+    ds = DataSet.array(samples).transform(SampleToMiniBatch(TRAIN_BATCH))
+
+    # (a) one bf16 Adam step, K1 against the einsum path. A bfloat16
+    # probability ties its neighbours often enough that the two paths'
+    # last-bit differences route a few tokens to another expert, which
+    # moves the experts' and the router's gradients by more than the
+    # limits; the check pins the einsum path to the kernel path's
+    # routing, and reports the flips and the unpinned differences
+    model = moe_model()
+    if not all(isinstance(m, MoE) for m in moes(model)):
+        raise AssertionError(f"blocks {moe_blocks} are not MoE blocks")
+    batch0 = _corpus_batch(corpus, 0, device)
+
+    def one_step():
+        return step_differences(
+            model, crit, batch0, precision=bf16, lr=ADAM_LR,
+            method=lambda path: Adam(learning_rate=ADAM_LR))
+    with _pinned_routing(len(moe_blocks)) as flips:
+        d = one_step()
+    one, ok = adam_step_holds(d, "MoE model, kernel, routing pinned")
+    one["router_grad_rel_diff"] = {k: v for k, v in
+                                   d["grad_rel_diff"].items()
+                                   if k.endswith(".router")}
+    free = one_step()
+    one["routing_flips_pinned"] = flips
+    one["unpinned"] = {
+        "loss_rel_diff": free["loss_rel_diff"],
+        "worst_grad_rel_diff": max(free["grad_rel_diff"].values()),
+        "router_grad_rel_diff": {k: v for k, v in
+                                 free["grad_rel_diff"].items()
+                                 if k.endswith(".router")}}
+    log("lm-moe", f"one step against the einsum path, router gradients "
+                  f"(routing pinned): "
+                  f"{json.dumps(one['router_grad_rel_diff'])} (limit "
+                  f"{PREC_GRAD_RTOL}); tokens routed otherwise by the "
+                  f"einsum path, a layer: {flips} of {slab}; unpinned: "
+                  f"{json.dumps(one['unpinned'])}")
+    del d, free
+    if not ok or len(one["router_grad_rel_diff"]) != len(moe_blocks) \
+            or len(flips) != len(moe_blocks):
+        raise AssertionError(f"the MoE one-step check fails: {one}")
+    summary["one_step"] = one
+
+    # (a) the load-balance term in the objective: weight 0 against 0.01
+    start = _state(model)
+    aux = {}
+    for w in (0.0, AUX_WEIGHT):
+        model.load_state_dict(start)
+        step = build_train_step(model, crit, Adam(learning_rate=ADAM_LR),
+                                precision=bf16, aux_loss_weight=w)
+        loss = float(step(*batch0, ADAM_LR))
+        aux[w] = (loss, [m.router.grad.detach().clone()
+                         for m in moes(model)])
+    model.load_state_dict(start)
+    fault = {"loss": [aux[0.0][0], aux[AUX_WEIGHT][0]],
+             "router_grad_max_diff": max(
+                 float((a - b).abs().max())
+                 for a, b in zip(aux[0.0][1], aux[AUX_WEIGHT][1])),
+             "router_grad_max": max(float(g.abs().max())
+                                    for g in aux[AUX_WEIGHT][1])}
+    log("lm-moe", f"aux weight 0 against {AUX_WEIGHT}: "
+                  f"{json.dumps(fault)}")
+    if not (fault["loss"][0] == fault["loss"][1]
+            and fault["router_grad_max_diff"]
+            > AUX_FAULT_MIN_FRACTION * fault["router_grad_max"]):
+        raise AssertionError(f"the load-balance term does not reach the "
+                             f"router: {fault}")
+    summary["aux_fault"] = fault
+    del model, start, aux, step
+
+    # (a) MOE_STEPS steps at K = MOE_K and K = 1
+    runs = {}
+    for k in (MOE_K, 1):
+        opt = LocalOptimizer(moe_model(), ds, crit, batch_size=TRAIN_BATCH)
+        opt.set_optim_method(Adam(learning_rate=ADAM_LR))
+        opt.set_end_when(max_iteration(MOE_STEPS))
+        opt.set_precision("bf16_mixed").set_steps_per_sync(k)
+        RandomGenerator.set_seed(DROP_SEED)
+        reset()
+        t0 = time.perf_counter()
+        opt.optimize()
+        st = opt.train_step.opt_state
+        runs[k] = {"seconds": time.perf_counter() - t0,
+                   "losses": [h["loss"] for h in opt.history],
+                   "params": _snapshot(opt.model.parameters()),
+                   "state": _snapshot([*st["m"], *st["v"], st["t"]]),
+                   "buffers": _snapshot(opt.model.buffers()),
+                   "frac_sums": [float(m.expert_frac.sum())
+                                 for m in moes(opt.model)],
+                   "aux": [float(m.get_buffer("__bigdl_aux_loss__"))
+                           for m in moes(opt.model)],
+                   "t": int(st["t"]), "launches": launches(),
+                   "window": opt.window,
+                   "graphs": opt.window.captures if opt.window else 0}
+        del opt, st
+    many, one_by_one = runs[MOE_K], runs[1]
+    a = {"steps": MOE_STEPS, "k": MOE_K,
+         "losses_equal": many["losses"] == one_by_one["losses"],
+         "params_equal": _bitwise(many["params"], one_by_one["params"]),
+         "m_v_t_equal": _bitwise(many["state"], one_by_one["state"]),
+         "moe_buffers_equal": _bitwise(many["buffers"],
+                                       one_by_one["buffers"]),
+         "t": [many["t"], one_by_one["t"]], "graphs": many["graphs"],
+         "shapes": len(many["window"].shapes),
+         "loss_first": many["losses"][0], "loss_last": many["losses"][-1],
+         "expert_frac_sums": many["frac_sums"], "aux_last": many["aux"],
+         "seconds": [many["seconds"], one_by_one["seconds"]],
+         "k1_launches": [{n: r["launches"][n] for n in k1}
+                         for r in (many, one_by_one)]}
+    log("lm-moe", json.dumps(a))
+    if not (a["losses_equal"] and a["params_equal"] and a["m_v_t_equal"]
+            and a["moe_buffers_equal"]
+            and a["t"] == [MOE_STEPS, MOE_STEPS]
+            and all(np.isfinite(many["losses"]))
+            and a["loss_last"] < a["loss_first"]
+            and all(abs(f - 1.0) <= 1e-6 for f in a["expert_frac_sums"])):
+        raise AssertionError(f"MoE at K = {MOE_K} against per step: {a}")
+    if on_card and a["graphs"] != a["shapes"]:
+        raise AssertionError(f"{a['graphs']} graphs for {a['shapes']} "
+                             f"window shapes")
+    for r, window in ((many, many["window"]), (one_by_one, None)):
+        want = LAYERS * _window_calls(window, MOE_STEPS, on_card)
+        if any(r["launches"][n] != want for n in k1):
+            raise AssertionError(f"K1 called {r['launches']} times, not "
+                                 f"{want}")
+    moe_launches = {n: many["launches"][n] for n in k1}
+    summary["moe_windows"] = a
+    del runs, many, one_by_one
+
+    # (a) where the MoE step's time goes: 2 windows of MOE_K, profiled
+    if on_card:
+        stacked = [_stack([_corpus_batch(corpus, 1 + i * MOE_K + j, device)
+                           for j in range(MOE_K)]) for i in range(2)]
+        peaks = {}
+        for name, build in (("dense", lambda: _train_model(device)),
+                            ("moe", moe_model)):
+            model = build()
+            window = make_host_window(build_train_step(
+                model, crit, Adam(learning_rate=ADAM_LR), precision=bf16))
+            torch.cuda.synchronize(device)
+            torch.cuda.reset_peak_memory_stats(device)
+            if name == "moe":
+                prof, ran = profile_k1_replays(window, stacked,
+                                               [ADAM_LR] * MOE_K, device,
+                                               "lm-moe-profile")
+            else:
+                for xs, ys in stacked:
+                    window(xs, ys, [ADAM_LR] * MOE_K).tolist()
+            peaks[name] = torch.cuda.max_memory_allocated(device)
+            window.close()
+            del window
+        bf16_instances = {n: _has_instance(prof["kernels"], n,
+                                           "__nv_bfloat16")
+                          for n in K1_KERNELS}
+        moe_layer = copy.deepcopy(moes(model)[0]).to(torch.bfloat16)
+        ffn_layer = copy.deepcopy(model.block_0.mlp).to(torch.bfloat16)
+        h = torch.randn((TRAIN_BATCH, TRAIN_SEQ, HIDDEN), device=device,
+                        dtype=torch.bfloat16, requires_grad=True)
+        moe_ms = _layer_device_ms(moe_layer, h, device, "lm-moe",
+                                  "one MoE layer (4 experts, dense "
+                                  "dispatch)")
+        ffn_ms = _layer_device_ms(ffn_layer, h, device, "lm-moe",
+                                  "one dense FFN layer")
+        busy = prof["device_busy_ms"]
+        a_prof = {
+            "ms_per_step": prof["wall_ms_per_step"],
+            "unprofiled_ms_per_step": prof["unprofiled_ms_per_step"],
+            "tokens_per_s": slab * 1e3 / prof["wall_ms_per_step"],
+            "unprofiled_tokens_per_s": slab * 1e3
+            / prof["unprofiled_ms_per_step"],
+            "idle_share": prof["device_idle_share"],
+            "device_busy_ms_per_step": busy / prof["steps"]
+            if isinstance(busy, float) else busy,
+            "moe_layer_device_ms": moe_ms, "dense_ffn_device_ms": ffn_ms,
+            "moe_layers_extra_device_ms_per_step":
+                len(moe_blocks) * (moe_ms - ffn_ms),
+            "peak_bytes": peaks["moe"], "dense_peak_bytes": peaks["dense"],
+            "peak_rise_bytes": peaks["moe"] - peaks["dense"],
+            "k1_kernels_in_profiled_replays": ran,
+            "k1_bf16_instances": bf16_instances}
+        log("lm-moe", json.dumps(a_prof))
+        if not all(bf16_instances.values()):
+            raise AssertionError(f"K1's bfloat16 kernels missing from the "
+                                 f"MoE step's replays: {bf16_instances}")
+        summary["moe_profile"] = a_prof
+        del model, moe_layer, ffn_layer, h, stacked
+
+    # (b) dropout in the dense float32 cell
+    full_float32()
+
+    def drop_run(k, seed, steps):
+        RandomGenerator.set_seed(seed)
+        opt = LocalOptimizer(_train_model(device, dropout=DROPOUT), ds,
+                             crit, batch_size=TRAIN_BATCH)
+        opt.set_optim_method(SGD(learning_rate=TRAIN_LR))
+        opt.set_end_when(max_iteration(steps))
+        opt.set_steps_per_sync(k)
+        reset()
+        t0 = time.perf_counter()
+        opt.optimize()
+        return {"seconds": time.perf_counter() - t0,
+                "losses": [h["loss"] for h in opt.history],
+                "step_ms": [h["seconds"] * 1e3 for h in opt.history],
+                "params": _snapshot(opt.model.parameters()),
+                "launches": launches(),
+                "graphs": opt.window.captures if opt.window else 0,
+                "shapes": len(opt.window.shapes) if opt.window else 0}
+    w = drop_run(DROP_K, DROP_SEED, DROP_STEPS)
+    p = drop_run(1, DROP_SEED, DROP_STEPS)
+    o = drop_run(1, DROP_SEED + 1, DROP_OTHER_STEPS)
+    model = _train_model(device, dropout=DROPOUT).evaluate()
+    plain = _train_model(device).evaluate()
+    plain.load_state_dict(model.state_dict())
+    inp = _corpus_batch(corpus, 0, device)[0]
+    reset()
+    with torch.inference_mode():
+        got = model(inp)
+    eval_launches = launches()
+    with torch.inference_mode():
+        want = plain(inp)
+    gen = torch.Generator(device=device).manual_seed(DROP_SEED)
+    mask = keep_mask((TRAIN_BATCH, HEADS, TRAIN_SEQ, TRAIN_SEQ), DROPOUT,
+                     gen)
+    sigma = math.sqrt(DROPOUT * (1 - DROPOUT) / mask.numel())
+    b = {"steps": DROP_STEPS, "k": DROP_K,
+         "losses_equal": w["losses"] == p["losses"],
+         "params_equal": _bitwise(w["params"], p["params"]),
+         "graphs": w["graphs"], "shapes": w["shapes"],
+         "training_k1_launches": [{n: r["launches"][n] for n in k1}
+                                  for r in (w, p, o)],
+         "other_seed_losses": o["losses"],
+         "same_seed_losses": p["losses"][:DROP_OTHER_STEPS],
+         "loss_first": p["losses"][0], "loss_last": p["losses"][-1],
+         # the last window's wall over its steps (the first holds the
+         # capture), and the per-step run's median
+         "ms_per_step": {"k8_last_window": w["step_ms"][-1],
+                         "k1_median": float(np.median(p["step_ms"]))},
+         "seconds": [w["seconds"], p["seconds"]],
+         "eval_k1_launches": {n: eval_launches[n] for n in k1},
+         "eval_logits_equal_dropout_0": bool(torch.equal(got, want)),
+         "keep_fraction": float(mask.float().mean()),
+         "keep_fraction_sigma": sigma}
+    log("lm-dropout", json.dumps(b))
+    if not (b["losses_equal"] and b["params_equal"]
+            and all(np.isfinite(p["losses"]))
+            and all(r[n] == 0 for r in b["training_k1_launches"]
+                    for n in k1)
+            and b["other_seed_losses"] != b["same_seed_losses"]
+            and b["eval_k1_launches"] == {k1[0]: LAYERS, k1[1]: 0}
+            and b["eval_logits_equal_dropout_0"]
+            and abs(b["keep_fraction"] - (1 - DROPOUT)) <= 4 * sigma):
+        raise AssertionError(f"dropout: {b}")
+    if on_card and b["graphs"] != b["shapes"]:
+        raise AssertionError(f"{b['graphs']} graphs for {b['shapes']} "
+                             f"window shapes")
+    summary["dropout"] = b
+    del model, plain, got, want, mask, w, p, o
+
+    # (b) every option at once: MoE, dropout and the untied head, 2
+    # layers under bf16_mixed Adam, windows of DROP_K against per step
+    def all_options_run(k):
+        RandomGenerator.set_seed(DROP_SEED)
+        opt = LocalOptimizer(
+            _train_model(device, layers=2, moe_experts=MOE_EXPERTS,
+                         moe_every=MOE_EVERY, dropout=DROPOUT,
+                         tie_embeddings=False), ds, crit,
+            batch_size=TRAIN_BATCH)
+        opt.set_optim_method(Adam(learning_rate=ADAM_LR))
+        opt.set_end_when(max_iteration(DROP_K * 2))
+        opt.set_precision("bf16_mixed").set_steps_per_sync(k)
+        reset()
+        opt.optimize()
+        return ([h["loss"] for h in opt.history],
+                _snapshot([*opt.model.parameters(), *opt.model.buffers()]),
+                {n: launches()[n] for n in k1})
+    (lw, tw, kw), (lp, tp, kp) = all_options_run(DROP_K), all_options_run(1)
+    ab = {"steps": len(lp), "losses_equal": lw == lp,
+          "state_equal": _bitwise(tw, tp), "k1_launches": [kw, kp],
+          "loss_first": lp[0], "loss_last": lp[-1]}
+    log("lm-dropout", f"MoE + dropout + untied head, 2 layers, "
+                      f"bf16_mixed Adam, K = {DROP_K} against 1: "
+                      f"{json.dumps(ab)}")
+    if not (ab["losses_equal"] and ab["state_equal"]
+            and all(np.isfinite(lp))
+            and all(r[n] == 0 for r in (kw, kp) for n in k1)):
+        raise AssertionError(f"every option at once: {ab}")
+    summary["all_options"] = ab
+    del tw, tp
+
+    # (c) the text CLIs on a seeded corpus
+    root = tempfile.mkdtemp(prefix="chip-smoke-lm-")
+    try:
+        data, ck = os.path.join(root, "ptb"), os.path.join(root, "ck")
+        os.makedirs(data)
+        _write_ptb(data, seed=62)
+        flags = ["--inputMode", "packed", "--moeExperts", str(MOE_EXPERTS),
+                 "--dropout", str(DROPOUT), "--device", device] + CLI_WIDTH
+        t0 = time.perf_counter()
+        trained, out = _run_cli("lm-cli", lm_train.main,
+                                ["-f", data, "--checkpoint", ck, "-e", "2"]
+                                + flags)
+        train_s = time.perf_counter() - t0
+        snap = os.path.join(root, "snapshot")
+        save_module(snap, trained)
+        seq, bs = int(CLI_WIDTH[CLI_WIDTH.index("--seqLen") + 1]), \
+            int(CLI_WIDTH[CLI_WIDTH.index("-b") + 1])
+        ppl, test_out = _run_cli(
+            "lm-cli", lm_test.main,
+            ["-f", data, "--model", snap, "--dictionary",
+             os.path.join(ck, "dictionary.json"), "--seqLen", str(seq),
+             "-b", str(bs), "--device", device])
+        # the direct mean NLL over the test CLI's windows, in float64
+        d = Dictionary.load(os.path.join(ck, "dictionary.json"))
+        stream = [d.get_index(word) for word in
+                  read_words(os.path.join(data, "test.txt"))]
+        tx, ty = ptb_arrays(stream, bs, seq)
+
+        def direct_perplexity(model):
+            total, count = 0.0, 0
+            with torch.inference_mode():
+                for i in range(0, len(tx) - len(tx) % bs, bs):
+                    xb = torch.from_numpy(
+                        (tx[i:i + bs] - 1).astype(np.int64)).to(device)
+                    yb = torch.from_numpy(
+                        (ty[i:i + bs] - 1).astype(np.int64)).to(device)
+                    logits = model(xb).double()
+                    total += float(F.cross_entropy(
+                        logits.reshape(-1, logits.shape[-1]),
+                        yb.reshape(-1), reduction="sum"))
+                    count += yb.numel()
+            return math.exp(total / count), count
+        direct, count = direct_perplexity(
+            load_module(snap, device=device).evaluate())
+        latest = find_latest_checkpoint(ck)
+        state = os.path.join(root, "state.pkl")
+        with open(state, "wb") as f:
+            pickle.dump(load_checkpoint(latest)["optim_host_state"], f)
+        resumed, resumed_out = _run_cli(
+            "lm-cli", lm_train.main,
+            ["-f", data, "--model", snap, "--state", state, "-e", "1"]
+            + flags)
+
+        def final_loss(text):
+            return float(text.split("final loss:")[1].split()[0])
+        c = {"train_seconds": train_s,
+             "checkpoints": sorted(os.listdir(ck)),
+             "final_loss": final_loss(out),
+             "perplexity": ppl, "direct_perplexity": direct,
+             "perplexity_rel_diff": abs(ppl - direct) / direct,
+             "tokens": count,
+             "resumed_final_loss": final_loss(resumed_out),
+             # a step's loss is one batch's, under dropout; the
+             # held-out perplexity says whether training went on from
+             # the snapshot (a fresh model's first epoch is far above)
+             "resumed_perplexity": direct_perplexity(
+                 resumed.evaluate())[0],
+             "resumed_is_moe": isinstance(
+                 resumed.get_submodule("block_1.mlp"), MoE),
+             "resumed_device": str(next(resumed.parameters()).device)}
+        log("lm-cli", json.dumps(c))
+        if not ("dictionary.json" in c["checkpoints"]
+                and any(n.startswith("checkpoint.")
+                        for n in c["checkpoints"])
+                and np.isfinite(c["final_loss"])
+                and np.isfinite(c["resumed_final_loss"])
+                and c["perplexity_rel_diff"] <= CLI_PPL_RTOL
+                and c["resumed_is_moe"]
+                and c["resumed_device"].startswith(device)
+                and c["resumed_perplexity"] < c["direct_perplexity"]):
+            raise AssertionError(f"the LM CLIs: {c}")
+        summary["cli"] = c
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    summary["k1_launches"] = moe_launches
+    return moe_launches, summary
+
+
 def main() -> int:
     import torch
 
@@ -4595,6 +5187,7 @@ def main() -> int:
         "ms_per_step": bf16["k8_ms_per_step"],
         "unprofiled_ms_per_step": bf16["k8_unprofiled_ms_per_step"],
         "idle_share": bf16["k8_idle_share"]})
+    phase_lm(counters, corpus)
     ragged["launches"] = serve_launches["ragged_decode"]
     flash_fwd["launches"] = train_launches["flash_attention_fwd"]
     flash_bwd["launches"] = train_launches["flash_attention_bwd"]

@@ -24,7 +24,7 @@ import math
 
 import torch
 
-from bigdl_tpu_torch.models.transformer_train import synthetic_corpus
+from bigdl_tpu_torch.models.transformer.train import synthetic_corpus
 
 TOL = {"bfloat16": 1e-2, "float16": 2e-3}
 ULP_AT_1 = {"bfloat16": 2.0 ** -7, "float16": 2.0 ** -10}

@@ -344,6 +344,16 @@ def test_einsum_segments_equal_explicit_mask_and_kernel_route():
 
 
 def test_training_dropout_is_not_ported():
-    q = torch.zeros((1, 1, 8, 4))
-    with pytest.raises(NotImplementedError):
-        dot_product_attention(q, q, q, dropout_rate=0.1, training=True)
+    """Training dropout raised here until it was ported (the test keeps
+    its name): in training at a rate above 0 the kernels are bypassed;
+    without a generator nothing is drawn (the einsum path's output,
+    bitwise), with one the weights are dropped."""
+    q = torch.randn((1, 1, 8, 4), generator=torch.Generator().manual_seed(0))
+    with kernels.use(kernels.KernelConfig.off()):
+        plain = dot_product_attention(q, q, q)
+    got = dot_product_attention(q, q, q, dropout_rate=0.1, training=True)
+    torch.testing.assert_close(got, plain, rtol=0, atol=0)
+    dropped = dot_product_attention(
+        q, q, q, dropout_rate=0.5, training=True,
+        generator=torch.Generator().manual_seed(1))
+    assert not torch.equal(dropped, plain)

@@ -47,7 +47,8 @@ from bigdl_tpu_torch.dataset import DataSet, Sample, SampleToMiniBatch
 from bigdl_tpu_torch.generation import (GenerationConfig, GenerationService,
                                         KVCache)
 from bigdl_tpu_torch.generation.engine import DecodeEngine
-from bigdl_tpu_torch.models import TransformerLM, transformer_train
+from bigdl_tpu_torch.models import TransformerLM
+from bigdl_tpu_torch.models.transformer import train as transformer_train
 from bigdl_tpu_torch.nn import SequenceCrossEntropyCriterion
 from bigdl_tpu_torch.optim import SGD, LocalOptimizer, build_train_step
 from bigdl_tpu_torch.optim import max_iteration

@@ -52,7 +52,8 @@ from bigdl_tpu.utils.random import RandomGenerator as JaxRandomGenerator
 from bigdl_tpu_torch import nn, optim
 from bigdl_tpu_torch.convert import export_params, load_jax_params
 from bigdl_tpu_torch.dataset import DataSet, Sample, SampleToMiniBatch
-from bigdl_tpu_torch.models import TransformerLM, transformer_train
+from bigdl_tpu_torch.models import TransformerLM
+from bigdl_tpu_torch.models.transformer import train as transformer_train
 from bigdl_tpu_torch.optim import optim_method as pom
 from bigdl_tpu_torch.precision import (MASTER_KEY, SCALER_KEY,
                                        DynamicLossScaler, PrecisionPolicy)

@@ -51,7 +51,10 @@ def test_importing_the_port_loads_no_reference_module():
             "bigdl_tpu_torch.optim, bigdl_tpu_torch.dataset, "
             "bigdl_tpu_torch.precision, bigdl_tpu_torch.dataset.prefetch, "
             "bigdl_tpu_torch.datapipe, "
-            "bigdl_tpu_torch.models.transformer_train\n"
+            "bigdl_tpu_torch.models.transformer.train, "
+            "bigdl_tpu_torch.models.transformer.test, "
+            "bigdl_tpu_torch.nn.dropout, bigdl_tpu_torch.nn.moe, "
+            "bigdl_tpu_torch.dataset.text\n"
             "bad = sorted(m for m in sys.modules if m == 'bigdl_tpu' "
             "or m.startswith('bigdl_tpu.'))\n"
             "print(bad)\n"

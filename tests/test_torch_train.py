@@ -32,11 +32,12 @@ from bigdl_tpu_torch.convert import export_params, load_jax_params
 from bigdl_tpu_torch.datapipe import pack_documents, padding_efficiency
 from bigdl_tpu_torch.dataset import DataSet, Sample, SampleToMiniBatch
 from bigdl_tpu_torch.models import TransformerLM
-from bigdl_tpu_torch.models import transformer_train
-from bigdl_tpu_torch.nn import SequenceCrossEntropyCriterion
+from bigdl_tpu_torch.models.transformer import train as transformer_train
+from bigdl_tpu_torch.nn import MoE, SequenceCrossEntropyCriterion
 from bigdl_tpu_torch.optim import SGD, LocalOptimizer, build_train_step
 from bigdl_tpu_torch.optim import max_iteration
 from bigdl_tpu_torch.utils.random import RandomGenerator
+from bigdl_tpu_torch.utils.serialization import save_module
 
 ATOL = 1e-5
 VOCAB, SEQ, BATCH = 64, 32, 4
@@ -316,15 +317,93 @@ def test_train_cli_runs_on_cpu(capsys):
 
 
 @pytest.mark.parametrize("flag", [["--pp", "2"], ["--tp", "2"],
-                                  ["--sp", "ring"], ["--moeExperts", "2"],
-                                  ["--dropout", "0.1"], ["--model", "m"],
-                                  ["--state", "s"], ["--checkpoint", "ck"]])
+                                  ["--sp", "ring"]])
 def test_train_cli_unported_options_raise(flag):
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="item 11"):
         transformer_train.main(["--synthetic", "3000", "--device", "cpu",
                                 "--vocabSize", str(VOCAB), "--seqLen",
                                 str(SEQ), "--hiddenSize", "32", "--heads",
                                 "2", "--layers", "1"] + flag)
+
+
+_SMALL_CLI = ["--synthetic", "3000", "--device", "cpu", "--vocabSize",
+              str(VOCAB), "--seqLen", str(SEQ), "--hiddenSize", "32",
+              "--heads", "2", "--layers", "2", "-b", "4",
+              "--maxIterations", "3", "--inputMode", "packed"]
+
+
+def _final_loss(out):
+    return [line for line in out.splitlines()
+            if line.startswith("final loss:")][-1]
+
+
+def test_train_cli_moe_experts(capsys):
+    """``--moeExperts 2``: block 1 of 2 is an MoE block, trained with its
+    load-balance term (its state written by the steps)."""
+    model = transformer_train.main(_SMALL_CLI + ["--moeExperts", "2"])
+    assert isinstance(model.block_1.mlp, MoE)
+    assert not isinstance(model.block_0.mlp, MoE)
+    frac = model.block_1.mlp.expert_frac
+    assert abs(float(frac.sum()) - 1.0) < 1e-6
+    assert "final loss:" in capsys.readouterr().out
+
+
+def test_train_cli_dropout(capsys):
+    """``--dropout 0.1``: the attention drops weights in training (the
+    loss differs from dropout 0's) and two runs from one seed agree."""
+    losses = []
+    for rate in ("0.1", "0.1", "0.0"):
+        model = transformer_train.main(_SMALL_CLI + ["--dropout", rate])
+        losses.append(_final_loss(capsys.readouterr().out))
+    assert model.block_0.attn.dropout == 0.0
+    assert losses[0] == losses[1] != losses[2]
+
+
+def test_train_cli_model_snapshot(tmp_path, capsys):
+    """``--model``: training starts from a saved module (its width, not
+    the flags'), and from its weights."""
+    snap = TransformerLM(**dict(GEOM, hidden_size=16), device="cpu")
+    save_module(str(tmp_path / "snap"), snap)
+    model = transformer_train.main(_SMALL_CLI + ["--model",
+                                                 str(tmp_path / "snap"),
+                                                 "--maxIterations", "1",
+                                                 "-r", "1e-12"])
+    assert model.hidden_size == 16
+    np.testing.assert_allclose(model.embed.detach().numpy(),
+                               snap.embed.detach().numpy(), atol=1e-9)
+
+
+def test_train_cli_optim_state(tmp_path, capsys):
+    """``--state``: the pickled OptimMethod state is read into the
+    method (a missing file raises), and the run goes on from the
+    driver's counters as without it."""
+    import pickle
+
+    state = tmp_path / "state.pkl"
+    with open(state, "wb") as f:
+        pickle.dump({"epoch": 1, "neval": 1}, f)
+    transformer_train.main(_SMALL_CLI)
+    plain = _final_loss(capsys.readouterr().out)
+    transformer_train.main(_SMALL_CLI + ["--state", str(state)])
+    assert _final_loss(capsys.readouterr().out) == plain
+    with pytest.raises(FileNotFoundError):
+        transformer_train.main(_SMALL_CLI + ["--state",
+                                             str(tmp_path / "none")])
+
+
+def test_train_cli_checkpoint_resumes(tmp_path, capsys):
+    """``--checkpoint``: a checkpoint every epoch, and a second call with
+    more epochs resumes from the newest."""
+    ck = tmp_path / "ck"
+    argv = [a for a in _SMALL_CLI if a not in ("--maxIterations", "3")]
+    argv += ["--synthetic", "600", "--checkpoint", str(ck)]
+    transformer_train.main(argv + ["-e", "1"])
+    first = sorted(p.name for p in ck.iterdir())
+    assert first and all(n.startswith("checkpoint.") for n in first)
+    capsys.readouterr()
+    transformer_train.main(argv + ["-e", "2"])
+    out = capsys.readouterr().out
+    assert f"resumed from {ck / first[-1]}" in out
 
 
 def test_packed_input_with_cache_raises():
