@@ -64,9 +64,19 @@ Ported so far:
   an untied head, RMSNorm, the streaming packers, the PTB reader, and
   the recipes :mod:`bigdl_tpu_torch.models.transformer.train` (``-f``
   text, snapshots, checkpoints) and ``.test`` (perplexity).
+- the rest of generation serving — prefix/KV reuse
+  (:class:`~bigdl_tpu_torch.fleet.PrefixCache`, full-prompt and
+  chunk-boundary hits), speculative decoding
+  (:class:`~bigdl_tpu_torch.fleet.SpeculativeDecoder`, whose draft's
+  decode steps run K3), replicas behind
+  :class:`~bigdl_tpu_torch.fleet.FleetRouter`, ``apply_tuned_config``
+  (:mod:`bigdl_tpu_torch.autotune`) and the fault points and seeded
+  schedules of :mod:`bigdl_tpu_torch.faults`.
 
 Entry points default to ``device="cuda"`` and raise when CUDA is
 missing; they run on the CPU only when the caller passes
 ``device="cpu"`` (the CPU path runs each kernel's plain PyTorch
 version).
 """
+
+__version__ = "0.1.0"

@@ -23,9 +23,16 @@ callable over device tensors (the JAX package's is a jitted function);
 the bound keeps the per-rung structure a later change captures as CUDA
 graphs.
 
-Not ported yet: prefix-cache seeding of a prefill (``start=``, with the
-prefix cache), the speculative ``verify`` program and the
-static-verifier hook.
+Speculative decoding (:mod:`bigdl_tpu_torch.fleet.speculative`) adds one
+**verify** program per rung — ``[slots, w]`` draft tokens through the
+same cached forward, on its masked path (no kernel: the ragged kernel
+takes one query a slot) — so the bound is **at most 3 programs per
+(version, bucket)**: prefill, decode, verify, asserted at registration.
+``prefill(start=)`` skips the chunks a prefix-cache seed already wrote
+(:mod:`bigdl_tpu_torch.fleet.prefix`).
+
+Not ported yet: the static-verifier hook (``abstract_programs``, with
+the analysis slice).
 """
 from __future__ import annotations
 
@@ -80,11 +87,20 @@ class DecodeEngine:
         self._keys: Dict[Tuple, Set[Tuple]] = {}
 
     # ------------------------------------------------------- programs
+    #: the program kinds of a ladder rung: the documented
+    #: ≤ 3-programs-per-(version, bucket) bound
+    _KINDS = frozenset({"prefill", "decode", "verify"})
+
     def _program(self, servable, kind: str, bucket: int, build):
         key = servable.key + (kind, bucket)
         prog = self.cache.program_for(key, build)
         with self._lock:
-            self._keys.setdefault(servable.key, set()).add(key)
+            keys = self._keys.setdefault(servable.key, set())
+            keys.add(key)
+            kinds = {k[-2] for k in keys if k[-1] == bucket}
+            assert kinds <= self._KINDS and len(kinds) <= 3, \
+                (f"program kinds {sorted(kinds)} for bucket {bucket} "
+                 f"break the ≤3-per-(version, bucket) bound")
         return prog
 
     @staticmethod
@@ -130,6 +146,19 @@ class DecodeEngine:
 
         return fn
 
+    @staticmethod
+    def _verify_fn(model, attend_len: int):
+        """``(k, v, tokens[slots, w], positions[slots]) -> logits[slots,
+        w, V]``: row ``s`` writes K/V for its ``w`` tokens at
+        ``positions[s] .. positions[s] + w - 1`` and ``logits[s, i]`` is
+        the distribution of the token AFTER input ``i``, through the
+        cached forward's masked path."""
+        def fn(k, v, tokens, positions):
+            return model(tokens, cache={"k": k, "v": v},
+                         positions=positions, attend_len=attend_len)
+
+        return fn
+
     def prefill_program(self, servable, bucket: int):
         """The prefill program for prompt bucket ``bucket``; its token
         width is :meth:`chunk_for` the bucket."""
@@ -152,6 +181,15 @@ class DecodeEngine:
             servable, "decode", attend_len,
             lambda: self._decode_fn(model, attend_len))
 
+    def verify_program(self, servable, attend_len: int):
+        """The speculative-verify step for length bucket ``attend_len``
+        (the third and last program kind of a rung; ``w`` is fixed per
+        decoder, so one verify program a rung)."""
+        model = servable.model
+        return self._program(
+            servable, "verify", attend_len,
+            lambda: self._verify_fn(model, attend_len))
+
     # ------------------------------------------------------ execution
     @staticmethod
     def _to_device(kv: KVCache, *arrays: np.ndarray):
@@ -161,7 +199,8 @@ class DecodeEngine:
         return stacked.to(kv.device).unbind(0)
 
     def prefill(self, servable, kv: KVCache, prompts: Sequence[np.ndarray],
-                slot_ids: Sequence[int]):
+                slot_ids: Sequence[int],
+                start: Optional[Sequence[int]] = None):
         """Run one padded-prompt prefill batch: writes each prompt's K/V
         into its slot's cache rows and returns the ``[n, V]``
         last-prompt-token logits (host ndarray) for the ``n`` real rows,
@@ -169,9 +208,12 @@ class DecodeEngine:
         rows pad to ``prefill_rows`` with the out-of-range slot id
         ``slots``. Past ``prefill_chunk`` the rung fills chunk by chunk
         through the same program: row ``i`` rides chunk ``c`` while it
-        has tokens there (else its id is out of range and it writes
-        nothing), and its logits come from the chunk holding its last
-        prompt token."""
+        has tokens there and its seeded prefix does not cover the chunk
+        (else its id is out of range and it writes nothing), and its
+        logits come from the chunk holding its last prompt token.
+        ``start[i]`` (a chunk multiple below the prompt length; a
+        prefix-cache seed wrote the rows before it) skips the chunks
+        before it."""
         n = len(prompts)
         if n == 0 or n > self.prefill_rows:
             raise ValueError(f"prefill batch of {n} rows "
@@ -179,6 +221,12 @@ class DecodeEngine:
         lens = [len(p) for p in prompts]
         bucket = self.ladder.bucket_for(max(lens))
         sq = self.chunk_for(bucket)
+        starts = [0] * n if start is None else [int(s0) for s0 in start]
+        for i, s0 in enumerate(starts):
+            if s0 % sq or not 0 <= s0 < lens[i]:
+                raise ValueError(
+                    f"start[{i}]={s0} must be a chunk multiple "
+                    f"(chunk {sq}) below the prompt length {lens[i]}")
         prog = self.prefill_program(servable, bucket)
         out = [None] * n
         with torch.no_grad():
@@ -189,7 +237,8 @@ class DecodeEngine:
                 ids = np.full((self.prefill_rows,), self.slots,
                               np.int32)  # out of range: writes nothing
                 offsets = np.zeros((self.prefill_rows,), np.int32)
-                live = [i for i in range(n) if lens[i] > off]
+                live = [i for i in range(n)
+                        if lens[i] > off and starts[i] <= off]
                 if not live:
                     continue
                 for i in live:
@@ -231,6 +280,25 @@ class DecodeEngine:
             logits = prog(kv.k, kv.v, d_tokens, d_pos)
             # sampling is host numpy: the [slots, V] row block comes
             # back every step
+            out = logits.float().cpu().numpy()
+        return out, attend_len
+
+    def verify(self, servable, kv: KVCache, tokens: np.ndarray,
+               positions: np.ndarray, active: np.ndarray):
+        """Run one speculative-verify step (``tokens`` is ``[slots,
+        w]``); returns the ``[slots, w, V]`` logits as a host ndarray
+        and the attend bucket, which covers the deepest write
+        (``positions + w``) of the longest live row."""
+        w = int(tokens.shape[1])
+        longest = int(positions[active].max()) + w if active.any() else w
+        attend_len = self.ladder.bucket_for(longest)
+        prog = self.verify_program(servable, attend_len)
+        pos = np.where(active, positions, 0)
+        with torch.no_grad():
+            d_pos, = self._to_device(kv, pos)
+            d_tokens = torch.from_numpy(
+                np.asarray(tokens, np.int32)).to(kv.device)
+            logits = prog(kv.k, kv.v, d_tokens, d_pos)
             out = logits.float().cpu().numpy()
         return out, attend_len
 

@@ -16,8 +16,14 @@ they prefilled on; a swap routes new admissions to the new version
 while the old group keeps decoding until its slots drain, then its
 cache is dropped.
 
-Not ported yet: the prefix cache, fault points and per-request trace
-spans.
+With a :class:`~bigdl_tpu_torch.fleet.prefix.PrefixCache`, an admission
+whose whole prompt is cached seeds its slot by device copy and emits its
+first token from the cached logits (no prefill); under chunked prefill a
+miss also probes chunk boundaries, seeds the covered chunks and
+prefills the rest (``start=``). Each decode step passes the
+``serving/decode`` fault point.
+
+Not ported yet: per-request trace spans (ROADMAP queue 1, item 12).
 """
 from __future__ import annotations
 
@@ -29,6 +35,7 @@ from typing import Callable, Deque, Dict, List, Optional
 
 import numpy as np
 
+from bigdl_tpu_torch import faults
 from bigdl_tpu_torch.generation.kv_cache import KVCache
 from bigdl_tpu_torch.generation.sampling import Sampler, SamplingParams
 from bigdl_tpu_torch.generation.stream import TokenStream
@@ -95,7 +102,7 @@ class _Gen:
     """One in-flight generation (loop-private)."""
 
     __slots__ = ("prompt", "stream", "sampler", "max_new", "deadline",
-                 "last", "produced", "slot")
+                 "last", "produced", "slot", "prefix_entry")
 
     def __init__(self, prompt: np.ndarray, stream: TokenStream,
                  sampler: Sampler, max_new: int,
@@ -108,6 +115,9 @@ class _Gen:
         self.last: int = -1       # the newest sampled, not-yet-cached token
         self.produced: int = 0
         self.slot: int = -1
+        #: the pinned prefix entry this gen seeded from, released when
+        #: its slot frees
+        self.prefix_entry = None
 
 
 class _Group:
@@ -132,7 +142,8 @@ class DecodeLoop:
                  eos_token: Optional[int] = None, max_queue: int = 256,
                  default_max_new: int = 64,
                  timeout_ms: Optional[float] = None,
-                 metrics: Optional[MetricsRegistry] = None):
+                 metrics: Optional[MetricsRegistry] = None,
+                 prefix_cache=None):
         self._name = name
         self._registry = registry
         self._engine = engine
@@ -140,6 +151,8 @@ class DecodeLoop:
         #: servable -> KVCache for a new group (the service hands over
         #: the cache its load-time warmup already allocated)
         self._cache_provider = cache_provider
+        #: optional fleet.PrefixCache (module docstring)
+        self._prefix = prefix_cache
         self._eos = eos_token
         self._max_queue = max_queue
         self._default_max_new = default_max_new
@@ -297,6 +310,7 @@ class DecodeLoop:
                     f"{type(e).__name__}: {e}")
                 err.__cause__ = e
                 for g in died:
+                    self._unpin(g)
                     g.stream._fail(err)
                 if not restart:
                     return
@@ -335,6 +349,7 @@ class DecodeLoop:
         self._g_depth.set(0, **self._labels)
         self._g_occupancy.set(0.0, **self._labels)
         for g in doomed:
+            self._unpin(g)
             g.stream._fail(err)
 
     def _expire_queued_locked(self, now: float) -> None:
@@ -377,25 +392,84 @@ class DecodeLoop:
             for g in gens:
                 g.slot = group.kv.allocator.alloc()
                 group.gens[g.slot] = g
-        logits, bucket = self._engine.prefill(
-            servable, group.kv, [g.prompt for g in gens],
-            [g.slot for g in gens])
-        self._h_prefill_fill.observe(
-            len(gens) / self._engine.prefill_rows, **self._labels)
-        self._c_prefill_chunks.inc(self._chunks_dispatched(bucket, gens),
-                                   **self._labels)
-        for i, g in enumerate(gens):
+        # prefix/KV reuse: a full-prompt hit seeds its slot and skips
+        # prefill; under chunked prefill a miss probes chunk boundaries,
+        # and a partial hit seeds the covered chunks and prefills the
+        # rest (start=)
+        hits: List[_Gen] = []
+        misses: List[_Gen] = list(gens)
+        starts: List[int] = [0] * len(gens)
+        chunk = self._engine.prefill_chunk
+        if self._prefix is not None:
+            hits, misses, starts = [], [], []
+            for g in gens:
+                g.prefix_entry = self._prefix.lookup(
+                    servable.key, g.prompt, **self._labels)
+                if g.prefix_entry is not None:
+                    hits.append(g)
+                    continue
+                s0 = 0
+                if chunk is not None and g.prompt.shape[0] > chunk:
+                    part = self._prefix.lookup_prefix(
+                        servable.key, g.prompt, chunk, **self._labels)
+                    if part is not None:
+                        g.prefix_entry, s0 = part
+                misses.append(g)
+                starts.append(s0)
+        for g in hits:
+            self._prefix.seed(group.kv, g.slot, g.prefix_entry)
+        if misses:
+            for g, s0 in zip(misses, starts):
+                if s0:  # partial hit: seed the covered chunks first
+                    self._prefix.seed(group.kv, g.slot, g.prefix_entry)
+            logits, bucket = self._engine.prefill(
+                servable, group.kv, [g.prompt for g in misses],
+                [g.slot for g in misses],
+                start=starts if any(starts) else None)
+            self._h_prefill_fill.observe(
+                len(misses) / self._engine.prefill_rows, **self._labels)
+            self._c_prefill_chunks.inc(
+                self._chunks_dispatched(bucket, misses, starts),
+                **self._labels)
+            if self._prefix is not None:
+                self._insert_prefixes(servable, group, misses, logits)
+        for g in hits:
+            self._emit(group, g, g.sampler.sample(g.prefix_entry.logits))
+        for i, g in enumerate(misses):
             self._emit(group, g, g.sampler.sample(logits[i]))
         self._g_occupancy.set(group.kv.occupancy(), **self._labels)
 
-    def _chunks_dispatched(self, bucket: int, gens: List[_Gen]) -> int:
+    def _insert_prefixes(self, servable, group: _Group, misses: List[_Gen],
+                         logits: np.ndarray) -> None:
+        """Commit each freshly prefilled prompt to the prefix cache, and
+        under chunked prefill, for a prompt that seeded nothing, its
+        first chunk alone (logits ``None``: no first token exists
+        mid-prompt), so the next prompt sharing that head
+        partial-hits."""
+        ladder, chunk = self._engine.ladder, self._engine.prefill_chunk
+        for i, g in enumerate(misses):
+            plen = int(g.prompt.shape[0])
+            kr, vr = self._prefix.extract(group.kv, g.slot,
+                                          ladder.bucket_for(plen))
+            self._prefix.insert(servable.key, g.prompt, kr, vr, logits[i],
+                                **self._labels)
+            if (chunk is not None and plen > chunk
+                    and g.prefix_entry is None):
+                kr, vr = self._prefix.extract(group.kv, g.slot, chunk)
+                self._prefix.insert(servable.key, g.prompt[:chunk], kr, vr,
+                                    None, **self._labels)
+
+    def _chunks_dispatched(self, bucket: int, misses: List[_Gen],
+                           starts: List[int]) -> int:
         """How many prefill program calls the engine just ran for this
-        batch — its chunk loop runs chunk ``c`` iff some prompt still
-        has tokens there — for the ``prefill_chunks`` counter."""
+        batch — its chunk loop runs chunk ``c`` iff some row still has
+        tokens there that its seeded prefix does not cover — for the
+        ``prefill_chunks`` counter."""
         sq = self._engine.chunk_for(bucket)
-        lens = [int(g.prompt.shape[0]) for g in gens]
+        lens = [int(g.prompt.shape[0]) for g in misses]
         return sum(1 for c in range(bucket // sq)
-                   if any(n > c * sq for n in lens))
+                   if any(n > c * sq and s0 <= c * sq
+                          for n, s0 in zip(lens, starts)))
 
     # ---------------------------------------------------- decode step
     def _decode_step(self) -> None:
@@ -422,6 +496,9 @@ class DecodeLoop:
                 # kernel reads exactly lengths[slot] + 1 cache rows
                 positions[slot] = kv.lengths[slot]
                 active[slot] = True
+            # the decode-machinery death site (the supervision contract)
+            faults.point("serving/decode", model=self._name,
+                         slots=len(live))
             t0 = time.monotonic()
             logits, attend_len = self._engine.decode(
                 group.servable, kv, tokens, positions, active)
@@ -481,6 +558,15 @@ class DecodeLoop:
         group.kv.allocator.free(g.slot)
         with self._cond:
             self._preempt_marks.pop(id(g.stream), None)
+        self._unpin(g)
+
+    def _unpin(self, g: _Gen) -> None:
+        """Release the gen's pinned prefix entry. Every slot-release
+        path (finish, preemption, deadline, supervisor death, abort)
+        unpins: a leaked pin would make its entry unevictable."""
+        if g.prefix_entry is not None:
+            self._prefix.release(g.prefix_entry)
+            g.prefix_entry = None
 
     # ------------------------------------------------------ shutdown
     def shutdown(self, drain: bool = True,

@@ -25,12 +25,18 @@ when CUDA is missing) unless the caller passes ``device="cpu"``.
 
 Long prompts prefill in fixed chunks with
 ``GenerationConfig(prefill_chunk=C)`` (one program per rung still; the
-``prefill_chunks`` metric counts the chunk calls). Not ported yet:
-``apply_tuned_config``, the prefix cache and loading a version from a
-checkpoint path.
+``prefill_chunks`` metric counts the chunk calls).
+``GenerationConfig(prefix_cache_bytes=N)`` adds a
+:class:`~bigdl_tpu_torch.fleet.prefix.PrefixCache` of N device bytes:
+repeated prompts skip prefill (``prefix_hits`` / ``prefix_misses`` /
+``prefix_entries`` in :meth:`GenerationService.metrics`).
+``load(name, path=...)`` serves a module saved by either package, and
+:func:`apply_tuned_config` builds a config from an autotuner's
+``tuned.json``.
 """
 from __future__ import annotations
 
+import dataclasses
 import threading
 from dataclasses import dataclass
 from typing import Dict, Optional, Sequence, Union
@@ -48,7 +54,7 @@ from bigdl_tpu_torch.serving.registry import ModelRegistry, Servable
 from bigdl_tpu_torch.telemetry import MetricsRegistry, percentile_summary
 from bigdl_tpu_torch.utils.engine import resolve_device
 
-__all__ = ["GenerationConfig", "GenerationService"]
+__all__ = ["GenerationConfig", "GenerationService", "apply_tuned_config"]
 
 
 @dataclass
@@ -61,7 +67,9 @@ class GenerationConfig:
     default per-request deadline (None = none); ``prefill_chunk``
     (long context) prefills prompts whose rung exceeds it in fixed
     ``[prefill_rows, chunk]`` pieces through the rung's one prefill
-    program (it must divide every larger rung; None = single-shot)."""
+    program (it must divide every larger rung; None = single-shot);
+    ``prefix_cache_bytes`` is the device-byte budget of the prefix/KV
+    reuse cache (0 disables it)."""
     slots: int = 8
     max_len: int = 256
     length_buckets: Optional[Sequence[int]] = None
@@ -71,6 +79,50 @@ class GenerationConfig:
     max_new_tokens: int = 64
     timeout_ms: Optional[float] = None
     prefill_chunk: Optional[int] = None
+    prefix_cache_bytes: int = 0
+
+
+def apply_tuned_config(tuned, base: Optional[GenerationConfig] = None,
+                       *, allow_mismatch: bool = False) -> GenerationConfig:
+    """Build a :class:`GenerationConfig` from an autotuner artifact's
+    serving winner.
+
+    ``tuned`` is a ``tuned.json`` path (either package's ``save_tuned``
+    writes the same file) or a loaded
+    :class:`~bigdl_tpu_torch.autotune.config.TunedConfig`; a path is
+    fingerprint-checked on load (``FingerprintMismatchError`` on a
+    foreign environment unless ``allow_mismatch``). The winner's
+    ``length_buckets`` / ``slots`` / ``prefix_cache_bytes`` /
+    ``prefill_chunk`` land on a copy of ``base`` (default: a fresh
+    :class:`GenerationConfig`), with ``max_len`` snapped to the winner's
+    ladder top. A winner tuned for the speculative decoder
+    (``speculation_k > 0``) is refused: that path is configured on
+    :class:`~bigdl_tpu_torch.fleet.speculative.SpeculativeDecoder`."""
+    from bigdl_tpu_torch.autotune.config import (TunedConfig,
+                                                 TunedConfigError,
+                                                 load_tuned)
+
+    if not isinstance(tuned, TunedConfig):
+        tuned = load_tuned(tuned, allow_mismatch=allow_mismatch)
+    winner = tuned.winner("serving")
+    if int(winner.get("speculation_k", 0) or 0) > 0:
+        raise TunedConfigError(
+            f"serving winner has speculation_k="
+            f"{winner['speculation_k']}: apply it to a "
+            f"SpeculativeDecoder, not GenerationConfig")
+    updates: Dict[str, object] = {}
+    if "length_buckets" in winner:
+        ladder = tuple(int(b) for b in winner["length_buckets"])
+        updates["length_buckets"] = ladder
+        updates["max_len"] = ladder[-1]
+    if "slots" in winner:
+        updates["slots"] = int(winner["slots"])
+    if "prefix_cache_bytes" in winner:
+        updates["prefix_cache_bytes"] = int(winner["prefix_cache_bytes"])
+    if "prefill_chunk" in winner:
+        pc = int(winner["prefill_chunk"] or 0)
+        updates["prefill_chunk"] = pc if pc > 0 else None
+    return dataclasses.replace(base or GenerationConfig(), **updates)
 
 
 class GenerationService:
@@ -98,6 +150,12 @@ class GenerationService:
                                    self.config.slots,
                                    self.config.prefill_rows,
                                    prefill_chunk=self.config.prefill_chunk)
+        self.prefix = None
+        if self.config.prefix_cache_bytes > 0:
+            # imported here: the fleet package imports this module
+            from bigdl_tpu_torch.fleet.prefix import PrefixCache
+            self.prefix = PrefixCache(self.config.prefix_cache_bytes,
+                                      metrics=self.metrics_registry)
         self._lock = threading.Lock()
         self._loops: Dict[str, DecodeLoop] = {}
         self._unloading: set = set()
@@ -109,24 +167,29 @@ class GenerationService:
         return KVCache.for_model(servable.model, self.config.slots,
                                  self.config.max_len, device=self.device)
 
-    def load(self, name: str, model: torch.nn.Module, *,
-             version: Optional[int] = None, activate: bool = True,
-             warmup: bool = True) -> Servable:
+    def load(self, name: str, model: Optional[torch.nn.Module] = None, *,
+             path: Optional[str] = None, version: Optional[int] = None,
+             activate: bool = True, warmup: bool = True) -> Servable:
         """Registry load + eager prefill/decode warmup.
 
         The version is registered inactive, its 2K programs are built
         and run once (``warmup=True``), and only then swapped in — a
         hot-swap under live traffic never serves a cold bucket, and
-        in-flight generations keep decoding on the old version. The
-        model must already live on the service's device."""
-        dev = next(model.parameters()).device
-        if dev.type != self.device.type or (
-                self.device.index is not None and dev != self.device):
-            raise ValueError(f"model is on {dev}, the service on "
-                             f"{self.device}: build or move it there "
-                             f"first")
-        servable = self.registry.load(name, model, version=version,
-                                      activate=False)
+        in-flight generations keep decoding on the old version. A
+        ``model`` must already live on the service's device; ``path``
+        names a module saved by either package's ``save_module``, which
+        the registry loads onto the service's device in evaluation
+        mode."""
+        if model is not None:
+            dev = next(model.parameters()).device
+            if dev.type != self.device.type or (
+                    self.device.index is not None and dev != self.device):
+                raise ValueError(f"model is on {dev}, the service on "
+                                 f"{self.device}: build or move it there "
+                                 f"first")
+        servable = self.registry.load(name, model, path=path,
+                                      version=version, activate=False,
+                                      device=self.device)
         if warmup:
             # warm into the cache the decode loop will ADOPT at this
             # version's first admission: one allocation per version
@@ -163,6 +226,8 @@ class GenerationService:
                 self.engine.drop(key)
                 with self._lock:
                     self._warm_caches.pop(key, None)
+                if self.prefix is not None:
+                    self.prefix.drop_version(key)
         finally:
             if version is None:
                 with self._lock:
@@ -196,7 +261,8 @@ class GenerationService:
                     default_max_new=self.config.max_new_tokens,
                     timeout_ms=self.config.timeout_ms,
                     metrics=self.metrics_registry,
-                    cache_provider=self._cache_for)
+                    cache_provider=self._cache_for,
+                    prefix_cache=self.prefix)
                 self._loops[name] = loop
         return loop
 
@@ -245,7 +311,8 @@ class GenerationService:
         """Point-in-time generation stats for one model name: request
         and token counts, prefill chunk calls, queue depth, live slots,
         cache occupancy, padding efficiency, TTFT and per-token-latency
-        percentiles, and the program count."""
+        percentiles, the program count, and with a prefix cache its
+        hits, misses and entries."""
         labels = {"model": name}
         r = self.metrics_registry
 
@@ -274,6 +341,11 @@ class GenerationService:
         if loop is not None:
             out["queue_depth"] = loop.queue_depth()
             out["live_slots"] = loop.live_slots()
+        if self.prefix is not None:
+            for metric in ("hits", "misses"):
+                out[f"prefix_{metric}"] = int(r.counter(
+                    f"fleet/prefix/{metric}").value(**labels))
+            out["prefix_entries"] = len(self.prefix)
         for metric in ("ttft_ms", "token_ms"):
             samples = r.histogram(f"serving/generation/{metric}") \
                 .samples(**labels)

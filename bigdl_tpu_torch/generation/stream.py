@@ -49,6 +49,7 @@ class TokenStream:
         self._token_futures: Dict[int, Future] = {}
         self._t_submit = time.monotonic()
         self._t_first: Optional[float] = None
+        self._observer = None  # the fleet router's hook (see _attach)
 
     # ---------------------------------------------------------- read
     def tokens(self) -> List[int]:
@@ -127,6 +128,26 @@ class TokenStream:
         return (self._t_first - self._t_submit) * 1000.0
 
     # ---------------------------------------------- decode-loop side
+    def _attach(self, observer) -> None:
+        """Fleet-private: register ONE observer (``on_token(i, tok)`` /
+        ``on_finish(reason)`` / ``on_fail(err)``, called from the
+        decode thread outside the stream lock). Tokens already pushed
+        are replayed first, and a stream that already resolved delivers
+        its terminal callback at once, so the router can attach after
+        submit without a race."""
+        with self._cond:
+            self._observer = observer
+            replay = list(enumerate(self._tokens))
+            closed, reason, err = self._closed, self.finish_reason, \
+                self._error
+        for i, tok in replay:
+            observer.on_token(i, tok)
+        if closed:
+            if err is not None:
+                observer.on_fail(err)
+            else:
+                observer.on_finish(reason)
+
     def _push(self, token: int) -> None:
         with self._cond:
             if self._t_first is None:
@@ -136,9 +157,12 @@ class TokenStream:
             # the stream's product, released with the stream object
             self._tokens.append(int(token))
             fut = self._token_futures.pop(i, None)
+            obs = self._observer
             self._cond.notify_all()
         if fut is not None:
             fut.set_result(int(token))
+        if obs is not None:
+            obs.on_token(i, int(token))
 
     def _finish(self, reason: str) -> None:
         with self._cond:
@@ -149,10 +173,13 @@ class TokenStream:
             pending = list(self._token_futures.values())
             self._token_futures.clear()
             out = np.asarray(self._tokens, np.int32)
+            obs = self._observer
             self._cond.notify_all()
         for fut in pending:
             fut.set_result(None)
         self.completion.set_result(out)
+        if obs is not None:
+            obs.on_finish(reason)
 
     def _fail(self, err: BaseException) -> None:
         with self._cond:
@@ -162,7 +189,10 @@ class TokenStream:
             self._error = err
             pending = list(self._token_futures.values())
             self._token_futures.clear()
+            obs = self._observer
             self._cond.notify_all()
         for fut in pending:
             fut.set_exception(err)
         self.completion.set_exception(err)
+        if obs is not None:
+            obs.on_fail(err)

@@ -43,11 +43,13 @@ newest checkpoint, after an exponential, jittered backoff
 ``BIGDL_FAILURE_RETRY_TIMES``, ``..._INTERVAL`` and
 ``..._MAX_INTERVAL``), counting each in ``train/optimizer/recoveries``;
 a fatal failure, one past ``retry_times`` or one with no checkpoint path
-raises at once.
+raises at once. Each pass of the loop goes through the ``train/step``
+fault point (:mod:`bigdl_tpu_torch.faults`), keyed on ``neval`` and
+``epoch``.
 
 Not ported yet: the elastic checkpoint options (``keep_last``,
-``async_write``), fault points and the flight recorder's post-mortem on
-a fatal failure (item 12), train and validation summaries, device-fed
+``async_write``) and the flight recorder's post-mortem on a fatal
+failure (item 12), train and validation summaries, device-fed
 and rotating windows (item 10), ZeRO (and with it precision under ZeRO),
 sequence parallelism, preemption, and the multi-card
 ``DistriOptimizer``.
@@ -64,7 +66,7 @@ from typing import Any, Dict, List, Optional, Sequence
 
 import torch
 
-from bigdl_tpu_torch import telemetry
+from bigdl_tpu_torch import faults, telemetry
 from bigdl_tpu_torch.convert import (export_params, export_state,
                                      flatten_params, jax_tree,
                                      load_jax_params)
@@ -1074,6 +1076,10 @@ class Optimizer:
 
         wall_start = time.perf_counter()
         while not end_when(state):
+            # the scripted worker-death site: a schedule raises here (the
+            # classified retry runs) or SIGKILLs, keyed on the counters
+            faults.point("train/step", neval=state["neval"],
+                         epoch=state["epoch"])
             k_now = 1 if k_cap <= 1 else self._plan_window(
                 k_cap, state, plan_bsz, ds_size, end_when)
             t0 = time.perf_counter()

@@ -30,7 +30,9 @@ timeout paths. The caller's ``run_batch`` runs on the dispatch thread;
 state that PyTorch keeps per thread (``torch.inference_mode``, the
 current CUDA stream) is the caller's to set there.
 
-Not ported yet: the ``serving/take_batch`` fault point, the flight
+Taking a batch off the queue passes the ``serving/take_batch`` fault
+point (:mod:`bigdl_tpu_torch.faults`), where a death would strand popped
+requests: the supervisor fails them typed. Not ported yet: the flight
 recorder's post-mortem on a worker death, and per-request trace ids and
 trace tracks (they wait for the port's tracer).
 """
@@ -44,6 +46,7 @@ from typing import Callable, Deque, Dict, List, Optional
 
 import numpy as np
 
+from bigdl_tpu_torch import faults
 from bigdl_tpu_torch.serving.compile_cache import BucketLadder
 from bigdl_tpu_torch.serving.errors import (DeadlineExceeded, QueueFull,
                                             WorkerDied)
@@ -417,6 +420,9 @@ class MicroBatcher:
             self._queue.popleft()
             batch.append(r)
             rows += r.n_rows
+        # the batching-machinery death site: requests are popped but not
+        # yet dispatched, where an unsupervised loop would strand them
+        faults.point("serving/take_batch", model=self._name, rows=rows)
         return batch, rows
 
     def _supervised(self) -> None:

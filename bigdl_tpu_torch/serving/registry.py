@@ -4,7 +4,9 @@
 A servable is one ``(name, version, model)``; ``current()`` returns one
 object and a swap republishes the name→servable pointer under the
 registry lock, so work already dispatched keeps the snapshot it
-resolved and later work sees only the new one.
+resolved and later work sees only the new one. A swap passes the
+``serving/swap`` fault point first: a fault there leaves the old version
+current.
 
 The JAX package snapshots immutable params at load; a torch module is
 mutable, so the registry holds the module itself and the caller must
@@ -27,6 +29,8 @@ import threading
 from typing import Dict, List, Optional
 
 from torch import nn
+
+from bigdl_tpu_torch import faults
 
 __all__ = ["ModelRegistry", "Servable"]
 
@@ -140,6 +144,9 @@ class ModelRegistry:
 
     def swap(self, name: str, version: int) -> Servable:
         """Atomically repoint ``name`` at an already-loaded version."""
+        # hot-swap failure site: a fault raised here leaves the OLD
+        # version serving (the repoint below is the only mutation)
+        faults.point("serving/swap", name=name, version=version)
         with self._lock:
             entry = self._models.get(name)
             if entry is None or version not in entry.versions:

@@ -31,9 +31,10 @@ its result back on the batcher's dispatch thread, which enters
 ``torch.inference_mode`` itself (the mode is per thread) and launches
 on that thread's current stream (the default stream).
 
-Not ported yet: the ``serving/dispatch`` fault point, the TensorBoard
-export of the metrics, and ``load(path=)`` / ``input_spec=`` (the
-registry raises NotImplementedError for both).
+Each batch passes the ``serving/dispatch`` fault point
+(:mod:`bigdl_tpu_torch.faults`) before it runs. Not ported yet: the
+TensorBoard export of the metrics (``export_metrics``, ROADMAP queue 1,
+item 12) and ``input_spec=`` (the registry raises NotImplementedError).
 """
 from __future__ import annotations
 
@@ -45,6 +46,7 @@ from typing import Dict, Optional, Sequence, Union
 import numpy as np
 import torch
 
+from bigdl_tpu_torch import faults
 from bigdl_tpu_torch.serving.batcher import MicroBatcher
 from bigdl_tpu_torch.serving.breaker import CircuitBreaker, Degraded
 from bigdl_tpu_torch.serving.compile_cache import BucketLadder, CompileCache
@@ -204,7 +206,11 @@ class InferenceService:
                 self._breakers[name] = breaker
 
                 def run_batch(x, name=name, breaker=breaker):
+                    # outcomes feed the breaker; the fault point is the
+                    # dispatch-failure site
                     try:
+                        faults.point("serving/dispatch", model=name,
+                                     rows=int(x.shape[0]))
                         out = self._run(name, x)
                     except Exception:
                         breaker.on_failure()

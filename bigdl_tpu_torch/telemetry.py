@@ -74,6 +74,11 @@ class Counter(_Instrument):
         with self._lock:
             return self._values.get(_label_key(labels), 0.0)
 
+    def total(self) -> float:
+        """The sum over every label series."""
+        with self._lock:
+            return float(sum(self._values.values()))
+
 
 class Gauge(_Instrument):
     """Point-in-time level."""

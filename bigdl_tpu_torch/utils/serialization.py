@@ -20,9 +20,13 @@ loaded trees hold numpy arrays. Save and load seconds go into the
 ``train/checkpoint/save_s`` and ``train/checkpoint/load_s`` histograms
 of :data:`bigdl_tpu_torch.telemetry.REGISTRY`.
 
+The ``ckpt/write_manifest`` fault point sits between the staged files
+and the MANIFEST (the torn-write window).
+
 Not ported: remote paths (:mod:`~bigdl_tpu_torch.utils.file_io`), the
 elastic per-shard format 3 (its MANIFEST raises NotImplementedError),
-and the scripted mid-write crash with its fault point.
+and ``arm_scripted_crash``, the environment-keyed SIGKILL schedule on
+that point (ROADMAP queue 1, item 12).
 """
 from __future__ import annotations
 
@@ -40,7 +44,7 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
-from bigdl_tpu_torch import telemetry
+from bigdl_tpu_torch import faults, telemetry
 from bigdl_tpu_torch.utils import file_io
 from bigdl_tpu_torch.utils.table import Table
 
@@ -220,6 +224,9 @@ def save_checkpoint(path: str, *, params, opt_state, model_state,
             with open(os.path.join(tmp, fname), "wb") as f:
                 f.write(data)
                 _fsync(f)
+        # the torn-write window: payload staged, MANIFEST not yet written
+        faults.point("ckpt/write_manifest",
+                     neval=driver_state.get("neval", -1), path=path)
         with open(os.path.join(tmp, MANIFEST), "w") as f:
             json.dump(manifest, f)
             _fsync(f)

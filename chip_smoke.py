@@ -48,7 +48,10 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    ``[16, 8, 512, 64]`` with segments (K1) must give bitwise equal
    gradients (no atomics); timed there and at ``[1, 8, 32768, 64]``
    beside K1, the SDPA yardstick (whose kernels are logged) and (at
-   8192) the einsum path; then the attention
+   8192) the einsum path, and at ``[1, 8, 8192, 64]`` in bfloat16 and
+   float16 (against K2's float32 kernel on the upcast inputs at the
+   16-bit contract, then timed beside SDPA in the same dtype, bound at
+   the 16-bit rate); then the attention
    layer's route for score matrices over 2 GiB (flash off, ``[1, 8,
    16384, 128]``) must launch K2 once and equal a direct call bitwise;
    the fused dequant int8 GEMM (K5) equal to its plain version bitwise
@@ -206,7 +209,35 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    packed --moeExperts 4 --dropout 0.1 -e 2``, ``transformer.test`` on a
    snapshot of the result (perplexity within 1e-5 of exp of a direct
    mean NLL) and training resumed from it with ``--model`` /
-   ``--state`` (its held-out perplexity below the snapshot's).
+   ``--state`` (its held-out perplexity below the snapshot's);
+14. the rest of generation serving (``phase_fleet``) — (a) the serving
+   width with ``prefix_cache_bytes = 256 MiB``: 8 greedy prompts cold,
+   then again: 8 prefix hits, every hit stream equal to its cold stream,
+   at most 3 programs a rung, K3 once a layer per decode step; TTFT and
+   token_ms p50 cold and hit; (b) the long-context configuration with
+   chunks of 2048 and the cache: a seeded 8184-token prompt A, then B
+   sharing A's first 6144 tokens (a partial hit on A's first-chunk
+   entry: 3 chunks prefilled, not 4), then the 6144-token head H as a
+   request of its own, then D sharing it (a partial hit at 6144: 1
+   chunk); B's and D's streams equal a service without the cache; (c)
+   ``SpeculativeDecoder`` with the serving model as the target and a
+   one-layer, 256-wide draft (head_dim 32), k = 4, 16 slots, the 16
+   greedy prompts cut to 476 tokens, 32 new tokens: streams equal the
+   target-only service's, seeded sampling repeats, at most 3 programs
+   a rung for the target and 2 for the draft, K3 launched draft layers
+   x draft decode steps (the verify runs the masked path); the target
+   as its own draft accepts at least 0.99, every rejection logged with
+   its top-2 gaps and within ``SPEC_TIE_GAP``; accept rate and tokens/s
+   with speculation on and off; (d) the fault points ``fleet/verify``
+   (raises typed, the next generate serves in full), ``serving/decode``
+   (live streams fail ``WorkerDied``, the loop restarts and serves the
+   same tokens) and ``fleet/route`` (raises at submit), 3 fires, 3
+   counted; (e) ``build_replicas(2)`` at the serving width behind a
+   ``FleetRouter``: a seeded burst of 24 requests through 1 and 2
+   replicas (tokens/s), a stream held on r0 when r0 is killed rerouted
+   to r1 and equal to the undisturbed stream, one ``ProcessReplica`` on
+   the card serving its thread twin's tokens and failing typed after
+   ``kill()``; the phase's wall time and peak device memory.
 
 Float32 throughout phases 1–10, with TF32 off for matrix products (set
 here) and for convolutions (PyTorch's default is on; the port's
@@ -215,7 +246,7 @@ tolerances below assume full float32. Phase 11 runs the precision
 policies, with limits of their own; phase 12 (a) runs bf16_mixed at
 phase 11's limits, (b)-(f) float32 (float64 for LBFGS's card-against-CPU
 check); phase 13 (a) runs bf16_mixed at phase 11's limits, (b) and (c)
-float32.
+float32; phase 14 float32.
 
 The line before the last is a JSON object ``{"kernels": [...]}`` with
 each kernel's launches, error and times (``ms`` and ``device_ms``, and
@@ -382,6 +413,22 @@ CLI_WIDTH = ["--hiddenSize", "128", "--layers", "2", "--heads", "4",
              "--seqLen", "64", "-b", "8", "--vocabSize", "1000"]
 #: the test CLI's perplexity against exp of a direct mean NLL (relative)
 CLI_PPL_RTOL = 1e-5
+
+# ---- the fleet slice (queue 1, item 8; bench.py's FLEET row) ----
+#: (a) the prefix cache's budget (bench.py:731) and the prompts served
+#: cold, then again
+FLEET_PREFIX_BYTES, FLEET_HIT_PROMPTS = 256 << 20, 8
+#: (b) the tokens two long prompts share (3 chunks of LC_CHUNK)
+FLEET_SHARED = 6144
+#: (c) the draft (bench.py:758-760: half the width, one layer, its own
+#: seed) and the draft width (bench.py:774-776)
+SPEC_K, SPEC_DRAFT_HIDDEN, SPEC_DRAFT_LAYERS, SPEC_DRAFT_SEED = 4, 256, 1, 13
+#: the target as its own draft: the least accept rate, and the widest
+#: verify top-2 gap a rejection may have (draft decode runs K3, verify
+#: the masked path: only near-ties may disagree)
+SPEC_SELF_ACCEPT, SPEC_TIE_GAP = 0.99, 1e-3
+#: (e) the router's burst: requests (prompts of MAX_LEN // 4), new tokens
+ROUTER_REQUESTS, ROUTER_NEW = 24, 8
 
 # ---- K5 and K4 shapes ----
 INT8_EDGE_M, INT8_EDGE_N, INT8_EDGE_K = (1, 7, 64, 65, 300), \
@@ -2160,7 +2207,79 @@ def phase_blockwise():
         log("blockwise", json.dumps(row))
         del sets, outs, outs1, graphs
         torch.cuda.empty_cache()
+    time_blockwise16(gen)
     return entries["f"], entries["b"]
+
+
+def time_blockwise16(gen):
+    """K2's forward and backward in bfloat16 and float16 at the
+    long-context shape [1, 8, 8192, 64], causal: against K2's float32
+    kernel on the same (upcast) inputs at the 16-bit contract, then
+    timed (``ms``, ``device_ms``) beside SDPA in the same dtype, with the
+    bound at the 16-bit tensor-core rate and at the bytes. K2's 16-bit
+    instances still compute in 3xTF32 (ROADMAP queue 2, item 4)."""
+    import torch
+    import torch.nn.functional as F
+
+    k2_fwd, _, k2_bwd, _ = _kernel_pair("blockwise_flash_attention")
+    shape = (1, HEADS, LC_SEQ, HEAD_DIM)
+    kept = kept_pairs(None, 1, LC_SEQ, "cuda")
+    for dtype in (torch.bfloat16, torch.float16):
+        name = str(dtype).split(".")[-1]
+        # two sets of q, k, v, O, dO (42 MB each): L2-cold
+        sets = [(_views(gen, shape, dtype),
+                 torch.randn(shape, device="cuda", generator=gen).to(dtype))
+                for _ in range(2)]
+        outs = [k2_fwd(*qkv, causal=True) for qkv, _ in sets]
+        (q, k, v), do = sets[0]
+        wide = [x.float() for x in (q, k, v)]
+        o32, lse32 = k2_fwd(*wide, causal=True)
+        g16 = k2_bwd(q, k, v, outs[0][0], do, outs[0][1], causal=True)
+        # the backward from the 16-bit forward's own O and lse, upcast:
+        # only the arithmetic differs
+        g32 = k2_bwd(*wide, outs[0][0].float(), do.float(), outs[0][1],
+                     causal=True)
+        torch.cuda.synchronize()
+        errs = {"o": _err(outs[0][0], o32, True),
+                "lse": _err(outs[0][1], lse32, False)}
+        errs.update({n: _err(a, b, True)
+                     for n, a, b in zip(("dq", "dk", "dv"), g16, g32)})
+        _check_flash(errs, name, f"{name} {list(shape)} causal, against "
+                                 f"K2's float32 kernel", "blockwise")
+        del wide, o32, lse32, g16, g32
+        graphs = []
+        for (q, k, v), _ in sets:
+            leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+            graphs.append((leaves, F.scaled_dot_product_attention(
+                *leaves, is_causal=True)))
+
+        def fns(i, which):
+            (q, k, v), do = sets[i]
+            return {
+                "k2_f": lambda: k2_fwd(q, k, v, causal=True),
+                "k2_b": lambda: k2_bwd(q, k, v, outs[i][0], do, outs[i][1],
+                                       causal=True),
+                "lib_f": lambda: F.scaled_dot_product_attention(
+                    q, k, v, is_causal=True),
+                "lib_b": lambda: torch.autograd.grad(
+                    graphs[i][1], graphs[i][0], do, retain_graph=True),
+            }[which]()
+
+        row = {"dtype": name, "S": LC_SEQ, "kept_pairs": kept}
+        for kind, backward in (("f", False), ("b", True)):
+            for which in (f"k2_{kind}", f"lib_{kind}"):
+                row[f"{which}_ms"] = time_ms(lambda i: fns(i, which), 2, 3)
+                row[f"{which}_device_ms"], row[f"{which}_windows"] = \
+                    device_ms(lambda i: fns(i, which), 2, 3)
+            t_bytes, t_ops = flash_bound(kept, shape, 2, False, backward,
+                                         BF16_FLOPS_PER_S, parts=True)
+            row[f"bound_{kind}_bytes_ms"] = t_bytes
+            row[f"bound_{kind}_ops_ms"] = t_ops
+            row[f"k2_{kind}_over_sdpa"] = (row[f"k2_{kind}_device_ms"]
+                                           / row[f"lib_{kind}_device_ms"])
+        log("blockwise", "16-bit " + json.dumps(row))
+        del sets, outs, graphs
+        torch.cuda.empty_cache()
 
 
 def log_kernels(phase: str, what: str, run) -> None:
@@ -5137,6 +5256,499 @@ def phase_lm(counters, corpus, device="cuda"):
     return moe_launches, summary
 
 
+# ---- phase 14: the rest of generation serving (queue 1, item 8) ----
+
+def _p50(values):
+    return float(np.percentile(np.asarray(values, np.float64), 50)) \
+        if len(values) else float("nan")
+
+
+def _serve_all(svc, prompts, max_new, **kw):
+    """Submit every prompt at once; their token lists, TTFTs and wall
+    seconds."""
+    t0 = time.perf_counter()
+    streams = [svc.generate("lm", p, max_new_tokens=max_new, **kw)
+               for p in prompts]
+    out = [list(map(int, s.result(timeout=600))) for s in streams]
+    return out, [s.ttft_ms for s in streams], time.perf_counter() - t0
+
+
+def _token_ms(svc):
+    return svc.metrics_registry.histogram(
+        "serving/generation/token_ms").samples(model="lm")
+
+
+def _fleet_prefix(counters, model, greedy, device):
+    """(a) full-prompt hits at the serving width: ``FLEET_HIT_PROMPTS``
+    greedy prompts cold, then again; returns the leg's summary."""
+    from bigdl_tpu_torch.generation import GenerationConfig, GenerationService
+
+    svc = GenerationService(config=GenerationConfig(
+        slots=SLOTS, max_len=MAX_LEN, prefill_rows=PREFILL_ROWS,
+        prefix_cache_bytes=FLEET_PREFIX_BYTES), device=device)
+    prompts = greedy[:FLEET_HIT_PROMPTS]
+    try:
+        svc.load("lm", model)
+        # one request first: the decode thread's first call pays its
+        # own CUDA set-up (a cuBLAS handle a thread), not a cold prefill
+        _serve_all(svc, [np.arange(1, 4, dtype=np.int32)], 2)
+        steps0 = svc.metrics("lm")["decode_steps"]
+        for fn in counters.values():
+            fn.launches = 0
+        cold, cold_ttft, _ = _serve_all(svc, prompts, MAX_NEW)
+        n_cold = len(_token_ms(svc))
+        hit, hit_ttft, _ = _serve_all(svc, prompts, MAX_NEW)
+        token_ms = _token_ms(svc)
+        launches = {n: fn.launches for n, fn in counters.items()}
+        m = svc.metrics("lm")
+        with svc.engine._lock:
+            keys = [k for ks in svc.engine._keys.values() for k in ks]
+    finally:
+        svc.shutdown()
+    per_rung = {}
+    for k in keys:
+        per_rung.setdefault(k[-1], set()).add(k[-2])
+    steps = int(m["decode_steps"] - steps0)
+    out = {"prompts": len(prompts), "prefix_hits": m["prefix_hits"],
+           "prefix_misses": m["prefix_misses"],
+           "prefix_entries": m["prefix_entries"],
+           "ttft_ms_p50_cold": _p50(cold_ttft),
+           "ttft_ms_p50_hit": _p50(hit_ttft),
+           "token_ms_p50_cold": _p50(token_ms[:n_cold]),
+           "token_ms_p50_hit": _p50(token_ms[n_cold:]),
+           "programs_per_rung_max": max(map(len, per_rung.values())),
+           "decode_steps": steps,
+           "ragged_decode_launches": launches["ragged_decode"]}
+    log("fleet", "(a) " + json.dumps(out))
+    if m["prefix_hits"] != len(prompts) \
+            or m["prefix_misses"] != len(prompts) + 1:
+        raise AssertionError(f"{m['prefix_hits']} prefix hits and "
+                             f"{m['prefix_misses']} misses, want "
+                             f"{len(prompts)} and {len(prompts) + 1}")
+    bad = [i for i in range(len(prompts)) if hit[i] != cold[i]]
+    if bad:
+        raise AssertionError(f"hit streams {bad} differ from their cold "
+                             f"streams")
+    if out["programs_per_rung_max"] > 3:
+        raise AssertionError(f"programs per rung: {per_rung}")
+    if launches["ragged_decode"] != LAYERS * steps or steps == 0:
+        raise AssertionError(f"ragged_decode launched "
+                             f"{launches['ragged_decode']} times over "
+                             f"{steps} decode steps x {LAYERS} layers")
+    return out
+
+
+def _fleet_partial(device):
+    """(b) chunk-boundary partial hits at the long-context configuration
+    (chunks of ``LC_CHUNK``): A, then B sharing A's first
+    ``FLEET_SHARED`` tokens, which partial-hits A's first-chunk entry
+    (the loop stores a prompt's first chunk, as the JAX package's does)
+    and prefills 3 chunks; then the shared head H as a request of its
+    own (its full entry keys the head), and D sharing the head, which
+    partial-hits at ``FLEET_SHARED`` and prefills 1 chunk. B and D
+    against a service without the cache."""
+    from bigdl_tpu_torch.generation import GenerationConfig, GenerationService
+
+    model = longctx_model(LC_SEQ, device)
+    r = np.random.RandomState(45)
+    a = r.randint(1, LC_VOCAB, LC_SEQ - LC_NEW).astype(np.int32)
+    tail = LC_SEQ - LC_NEW - FLEET_SHARED
+    b, d = (np.concatenate([a[:FLEET_SHARED],
+                            r.randint(1, LC_VOCAB, tail)]).astype(np.int32)
+            for _ in range(2))
+    head = a[:FLEET_SHARED]
+
+    def service(prefix_bytes):
+        svc = GenerationService(config=GenerationConfig(
+            slots=2, max_len=LC_SEQ, prefill_rows=2, prefill_chunk=LC_CHUNK,
+            prefix_cache_bytes=prefix_bytes), device=device)
+        svc.load("lm", model)
+        return svc
+
+    rows = {}
+    svc = service(FLEET_PREFIX_BYTES)
+    try:
+        partial = svc.metrics_registry.counter("fleet/prefix/partial_hits")
+        for name, prompt in (("A", a), ("B", b), ("H", head), ("D", d)):
+            c0 = svc.metrics("lm")["prefill_chunks"]
+            p0 = partial.value(model="lm")
+            s = svc.generate("lm", prompt, max_new_tokens=LC_NEW)
+            rows[name] = {"tokens": list(map(int, s.result(timeout=600))),
+                          "ttft_ms": s.ttft_ms,
+                          "prefill_chunks":
+                              svc.metrics("lm")["prefill_chunks"] - c0,
+                          "partial_hits": partial.value(model="lm") - p0}
+        entries = svc.metrics("lm")["prefix_entries"]
+    finally:
+        svc.shutdown()
+    cold = service(0)
+    try:
+        for name, prompt in (("B", b), ("D", d)):
+            s = cold.generate("lm", prompt, max_new_tokens=LC_NEW)
+            rows[name]["cold_tokens"] = list(map(int,
+                                                 s.result(timeout=600)))
+            rows[name]["cold_ttft_ms"] = s.ttft_ms
+            rows[name]["cold_prefill_chunks"] = \
+                cold.metrics("lm")["prefill_chunks"]
+    finally:
+        cold.shutdown()
+    log("fleet", "(b) " + json.dumps({"entries": entries, "rows": rows}))
+    want = {"A": (4, 0), "B": (3, 1), "H": (2, 1), "D": (1, 1)}
+    got = {n: (row["prefill_chunks"], row["partial_hits"])
+           for n, row in rows.items()}
+    if got != want:
+        raise AssertionError(f"(prefill chunks, partial hits) {got}, "
+                             f"want {want}")
+    for name in ("B", "D"):
+        if rows[name]["tokens"] != rows[name]["cold_tokens"]:
+            raise AssertionError(f"{name}: partial-hit stream "
+                                 f"{rows[name]['tokens']} != cold "
+                                 f"{rows[name]['cold_tokens']}")
+    del model
+    return {f"{n}_{k}": rows[n][k] for n in ("B", "D")
+            for k in ("ttft_ms", "cold_ttft_ms", "prefill_chunks")}
+
+
+class _SpecRecorder:
+    """Wraps a decoder's engine calls to keep each verify step's active
+    mask, the draft's logits of its ``k`` decode steps and the verify
+    logits, so every rejection can be logged with its top-2 gaps."""
+
+    def __init__(self, dec):
+        self.steps, self._draft = [], []
+        self._decode, self._verify = dec.engine.decode, dec.engine.verify
+        self._dec = dec
+        dec.engine.decode, dec.engine.verify = self.decode, self.verify
+
+    def decode(self, servable, kv, tokens, positions, active):
+        out = self._decode(servable, kv, tokens, positions, active)
+        if servable is self._dec.draft:
+            self._draft.append(out[0])
+        return out
+
+    def verify(self, servable, kv, tokens, positions, active):
+        out = self._verify(servable, kv, tokens, positions, active)
+        k = tokens.shape[1]
+        self.steps.append((active.copy(), self._draft[-k:], out[0]))
+        return out
+
+    def rejections(self):
+        """``[(step, slot, position, verify gap, draft gap)]``: the
+        first disagreement of each slot's proposals in each step, with
+        each side's logit gap between its own and the other's choice."""
+        out = []
+        for t, (active, drows, vlog) in enumerate(self.steps):
+            for s in np.flatnonzero(active):
+                for j, drow in enumerate(drows):
+                    d, c = int(np.argmax(drow[s])), int(np.argmax(vlog[s, j]))
+                    if d != c:
+                        out.append((t, int(s), j,
+                                    float(vlog[s, j, c] - vlog[s, j, d]),
+                                    float(drow[s][d] - drow[s][c])))
+                        break
+        return out
+
+
+def _fleet_speculative(counters, model, greedy, device):
+    """(c) speculative decoding: the serving model as the target, a
+    ``SPEC_DRAFT_HIDDEN``-wide ``SPEC_DRAFT_LAYERS``-layer draft of its
+    own seed (head_dim 32), ``SpeculativeConfig(k=SPEC_K,
+    slots=SLOTS, max_len=MAX_LEN)``, the 16 greedy prompts cut to leave
+    room for ``MAX_NEW + SPEC_K``; then the target as its own draft.
+    Returns the leg's summary and the weak-draft decoder."""
+    import torch
+
+    from bigdl_tpu_torch import telemetry
+    from bigdl_tpu_torch.fleet import SpeculativeConfig, SpeculativeDecoder
+    from bigdl_tpu_torch.generation import (GenerationConfig,
+                                            GenerationService,
+                                            SamplingParams)
+    from bigdl_tpu_torch.models import TransformerLM
+
+    prompts = [p[:MAX_LEN - MAX_NEW - SPEC_K] for p in greedy[:SLOTS]]
+    plain = GenerationService(config=GenerationConfig(
+        slots=SLOTS, max_len=MAX_LEN, prefill_rows=PREFILL_ROWS),
+        device=device)
+    try:
+        plain.load("lm", model)
+        _serve_all(plain, prompts[:1], 2)  # the decode thread's set-up
+        want, _, off_s = _serve_all(plain, prompts, MAX_NEW)
+    finally:
+        plain.shutdown()
+    draft = TransformerLM(vocab_size=VOCAB, hidden_size=SPEC_DRAFT_HIDDEN,
+                          num_layers=SPEC_DRAFT_LAYERS, num_heads=HEADS,
+                          max_len=MAX_LEN, device=device,
+                          generator=torch.Generator().manual_seed(
+                              SPEC_DRAFT_SEED)).eval()
+    cfg = SpeculativeConfig(k=SPEC_K, slots=SLOTS, max_len=MAX_LEN,
+                            prefill_rows=PREFILL_ROWS)
+    dec = SpeculativeDecoder(model, draft, cfg,
+                             metrics=telemetry.MetricsRegistry(),
+                             device=device)
+    dec.generate(prompts[:2], max_new_tokens=2)  # builds the programs
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    outs, stats = dec.generate(prompts, max_new_tokens=MAX_NEW)
+    on_s = time.perf_counter() - t0
+    launches = {n: fn.launches for n, fn in counters.items()}
+    got = [list(map(int, o)) for o in outs]
+    sp = SamplingParams(temperature=TEMPERATURE, top_k=TOP_K, seed=7)
+    sampled = [[list(map(int, o)) for o in dec.generate(
+        prompts, max_new_tokens=MAX_NEW, sampling=sp)[0]]
+        for _ in range(2)]
+    with dec.engine._lock:
+        keys = {sv: list(ks) for sv, ks in dec.engine._keys.items()}
+    kinds = {}
+    for sv, ks in keys.items():
+        for k in ks:
+            kinds.setdefault((sv, k[-1]), set()).add(k[-2])
+    over = {f"{sv}@{b}": sorted(v) for (sv, b), v in kinds.items()
+            if len(v) > (3 if sv == dec.target.key else 2)}
+    same = SpeculativeDecoder(model, model, cfg,
+                              metrics=telemetry.MetricsRegistry(),
+                              device=device)
+    rec = _SpecRecorder(same)
+    _, self_stats = same.generate(prompts, max_new_tokens=MAX_NEW)
+    rejections = rec.rejections()
+    tokens = sum(map(len, got))
+    out = {"prompts": len(prompts), "k": SPEC_K,
+           "accept_rate": stats["accept_rate"],
+           "macro_steps": stats["macro_steps"],
+           "tokens_per_sec_on": tokens / on_s,
+           "tokens_per_sec_off": sum(map(len, want)) / off_s,
+           "self_draft_accept_rate": self_stats["accept_rate"],
+           "self_draft_rejections": len(rejections),
+           "programs_target": dec.engine.compile_count(dec.target),
+           "programs_draft": dec.engine.compile_count(dec.draft),
+           "ragged_decode_launches": launches["ragged_decode"]}
+    log("fleet", "(c) " + json.dumps(out))
+    for t, s, j, vgap, dgap in rejections:
+        log("fleet", f"(c) self-draft rejection: verify step {t}, slot "
+                     f"{s}, position {j}: verify top-2 gap {vgap:.3e}, "
+                     f"draft top-2 gap {dgap:.3e}")
+    bad = [i for i in range(len(prompts)) if got[i] != want[i]]
+    if bad:
+        raise AssertionError(f"speculative streams {bad} differ from the "
+                             f"target-only streams")
+    if sampled[0] != sampled[1]:
+        raise AssertionError("seeded speculative sampling is not "
+                             "repeatable")
+    if over:
+        raise AssertionError(f"program kinds over the bound: {over}")
+    draft_steps = stats["macro_steps"] * SPEC_K
+    if launches["ragged_decode"] != SPEC_DRAFT_LAYERS * draft_steps:
+        raise AssertionError(f"ragged_decode launched "
+                             f"{launches['ragged_decode']} times over "
+                             f"{draft_steps} draft decode steps x "
+                             f"{SPEC_DRAFT_LAYERS} layers")
+    if not self_stats["accept_rate"] >= SPEC_SELF_ACCEPT:
+        raise AssertionError(f"self-draft accept rate "
+                             f"{self_stats['accept_rate']}")
+    wide = [r for r in rejections if r[3] > SPEC_TIE_GAP]
+    if wide:
+        raise AssertionError(f"self-draft rejections past a near-tie "
+                             f"({SPEC_TIE_GAP}): {wide}")
+    return out, dec
+
+
+def _fleet_router(model_args, device):
+    """(e) replicas behind the router: a seeded burst through one and
+    two replicas; a stream held on r0 when r0 dies, rerouted; a process
+    replica against its thread twin. Returns the summary and the
+    2-replica router (still serving)."""
+    from bigdl_tpu_torch import faults, telemetry
+    from bigdl_tpu_torch.fleet import FleetRouter, ProcessReplica, build_replicas
+    from bigdl_tpu_torch.serving import WorkerDied
+
+    metrics = telemetry.MetricsRegistry()
+    reps = build_replicas(2, slots=SLOTS, max_len=MAX_LEN, max_queue=64,
+                          metrics=metrics, device=device, **model_args)
+    r = np.random.RandomState(46)
+    burst = [r.randint(1, VOCAB, MAX_LEN // 4).astype(np.int32)
+             for _ in range(ROUTER_REQUESTS)]
+    for rep in reps:  # each decode thread's CUDA set-up
+        rep.submit(burst[0], max_new_tokens=2).result(timeout=600)
+
+    def run_burst(router):
+        t0 = time.perf_counter()
+        streams = [router.submit(p, max_new_tokens=ROUTER_NEW)
+                   for p in burst]
+        toks = sum(len(s.result(timeout=600)) for s in streams)
+        return toks / (time.perf_counter() - t0), sorted(
+            {s._replica.name for s in streams})
+
+    out = {}
+    for n in (1, 2):
+        router = FleetRouter(reps[:n], metrics=metrics)
+        out[f"tokens_per_sec_{n}_replica"], out[f"placed_{n}_replica"] = \
+            run_burst(router)
+    # the same 2-replica burst with a 0.2 ms interpreter switch interval:
+    # a probe of how much the decode threads wait on each other for the
+    # interpreter lock (5 ms by default)
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(2e-4)
+    try:
+        out["tokens_per_sec_2_replica_switch_0.2ms"], _ = run_burst(router)
+    finally:
+        sys.setswitchinterval(interval)
+    prompt = burst[0]
+    ref = list(map(int, router.submit(prompt, max_new_tokens=ROUTER_NEW)
+                   .result(timeout=600)))
+    with faults.armed("serving/decode=delay:25,times:1000000"):
+        router._sessions["held"] = "r0"
+        held = router.submit(prompt, session="held",
+                             max_new_tokens=ROUTER_NEW)
+        held.first(timeout=600)
+        reps[0].kill()
+        rerouted = list(map(int, held.result(timeout=600)))
+    out["rerouted_to"] = held._replica.name
+    out["router"] = router.metrics()
+    if rerouted != ref or held._replica.name != "r1":
+        raise AssertionError(f"rerouted stream {rerouted} on "
+                             f"{held._replica.name} != {ref}")
+    if (out["router"]["evictions"], out["router"]["reroutes"]) != (1, 1):
+        raise AssertionError(f"router metrics {out['router']}")
+
+    spec = dict(seed=11, vocab_size=model_args["vocab"],
+                hidden_size=model_args["hidden"],
+                num_layers=model_args["layers"],
+                num_heads=model_args["heads"], max_len=MAX_LEN)
+    twin = build_replicas(1, slots=2, max_len=MAX_LEN, metrics=metrics,
+                          device=device, **model_args)[0]
+    t0 = time.perf_counter()
+    proc = ProcessReplica("p0", spec, slots=2, max_len=MAX_LEN,
+                          device=device)
+    out["process_replica_start_s"] = time.perf_counter() - t0
+    try:
+        want = list(map(int, twin.submit(prompt, max_new_tokens=ROUTER_NEW)
+                        .result(timeout=600)))
+        got = list(map(int, proc.submit(prompt, max_new_tokens=ROUTER_NEW)
+                       .result(timeout=600)))
+        if got != want:
+            raise AssertionError(f"process replica {got} != thread twin "
+                                 f"{want}")
+        # as many new tokens as the cache holds: the kill lands long
+        # before the stream could finish
+        doomed = proc.submit(prompt, max_new_tokens=MAX_LEN - len(prompt)
+                             - 1)
+        proc.kill()
+        try:
+            doomed.result(timeout=60)
+            raise AssertionError("a killed process replica's stream "
+                                 "finished")
+        except WorkerDied:
+            pass
+        try:
+            proc.submit(prompt, max_new_tokens=2)
+            raise AssertionError("a killed process replica took a request")
+        except WorkerDied:
+            pass
+    finally:
+        twin.shutdown()
+        proc.shutdown(drain=False)
+    log("fleet", "(e) " + json.dumps(out))
+    return out, router
+
+
+def phase_fleet(counters, greedy, device="cuda"):
+    """The rest of generation serving (queue 1, item 8) on ``device``:
+    (a) full-prompt prefix hits, (b) chunk-boundary partial hits at the
+    long-context configuration, (c) speculative decoding, (d) the fault
+    points ``fleet/verify``, ``serving/decode`` and ``fleet/route``,
+    (e) replicas behind the router (module docstring, phase 14). Returns
+    the summary."""
+    import torch
+
+    from bigdl_tpu_torch import faults, telemetry
+    from bigdl_tpu_torch.generation import GenerationConfig, GenerationService
+    from bigdl_tpu_torch.models import TransformerLM
+    from bigdl_tpu_torch.serving import WorkerDied
+
+    on_card = device == "cuda"
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    # the serving model's weights (seed 11; build_replicas and the
+    # process worker take the default FFN width, 4 x hidden = FFN)
+    model_args = dict(vocab=VOCAB, hidden=HIDDEN, layers=LAYERS,
+                      heads=HEADS, seed=11)
+    model = TransformerLM(vocab_size=VOCAB, hidden_size=HIDDEN,
+                          num_layers=LAYERS, num_heads=HEADS, ffn_size=FFN,
+                          max_len=MAX_LEN, device=device,
+                          generator=torch.Generator().manual_seed(11)).eval()
+    summary = {"prefix": _fleet_prefix(counters, model, greedy, device),
+               "partial": _fleet_partial(device)}
+    summary["speculative"], dec = _fleet_speculative(counters, model,
+                                                     greedy, device)
+    summary["router"], router = _fleet_router(model_args, device)
+
+    # (d) fault points: each fires once and surfaces typed
+    injected = telemetry.counter("faults/point/injected")
+    before = injected.total()
+    fires = 0
+    prompts = [p[:MAX_LEN - MAX_NEW - SPEC_K] for p in greedy[:4]]
+    with faults.armed("fleet/verify=nth:1,raise:RuntimeError") as sched:
+        try:
+            dec.generate(prompts, max_new_tokens=MAX_NEW)
+            raise AssertionError("fleet/verify fault did not raise")
+        except RuntimeError as e:
+            if "injected fault" not in str(e):
+                raise
+    fires += sched.total_fired()
+    outs, _ = dec.generate(prompts, max_new_tokens=MAX_NEW)
+    if [len(o) for o in outs] != [MAX_NEW] * len(prompts):
+        raise AssertionError("the generate after a verify fault was cut")
+    svc = GenerationService(config=GenerationConfig(
+        slots=SLOTS, max_len=MAX_LEN, prefill_rows=PREFILL_ROWS),
+        device=device)
+    try:
+        svc.load("lm", model)
+        want, _, _ = _serve_all(svc, prompts, MAX_NEW)
+        with faults.armed("serving/decode=nth:3,raise:RuntimeError") as sched:
+            streams = [svc.generate("lm", p, max_new_tokens=MAX_NEW)
+                       for p in prompts]
+            died = 0
+            for s in streams:
+                try:
+                    s.result(timeout=600)
+                except WorkerDied:
+                    died += 1
+        fires += sched.total_fired()
+        again, _, _ = _serve_all(svc, prompts, MAX_NEW)
+        restarts = svc.metrics("lm")["worker_restarts"]
+    finally:
+        svc.shutdown()
+    if died != len(prompts) or restarts != 1 or again != want:
+        raise AssertionError(f"serving/decode: {died} streams died of "
+                             f"{len(prompts)}, {restarts} restarts, "
+                             f"served again equal: {again == want}")
+    with faults.armed("fleet/route=nth:1,raise:OSError") as sched:
+        try:
+            router.submit(prompts[0], max_new_tokens=2)
+            raise AssertionError("fleet/route fault did not raise")
+        except OSError as e:
+            if "injected fault" not in str(e):
+                raise
+    fires += sched.total_fired()
+    router.shutdown()
+    counted = injected.total() - before
+    summary["faults"] = {"fires": fires, "injected_counter": counted,
+                         "decode_streams_died": died,
+                         "worker_restarts": restarts}
+    log("fleet", "(d) " + json.dumps(summary["faults"]))
+    if fires != 3 or counted != 3:
+        raise AssertionError(f"{fires} faults fired, {counted} counted; "
+                             f"want 3")
+    summary["wall_s"] = time.perf_counter() - t_phase
+    summary["max_memory_allocated"] = \
+        torch.cuda.max_memory_allocated() if on_card else "not measured"
+    log("fleet", f"phase wall {summary['wall_s']:.1f} s, "
+                 f"max_memory_allocated {summary['max_memory_allocated']}")
+    return summary
+
+
 def main() -> int:
     import torch
 
@@ -5188,6 +5800,7 @@ def main() -> int:
         "unprofiled_ms_per_step": bf16["k8_unprofiled_ms_per_step"],
         "idle_share": bf16["k8_idle_share"]})
     phase_lm(counters, corpus)
+    phase_fleet(counters, greedy)
     ragged["launches"] = serve_launches["ragged_decode"]
     flash_fwd["launches"] = train_launches["flash_attention_fwd"]
     flash_bwd["launches"] = train_launches["flash_attention_bwd"]

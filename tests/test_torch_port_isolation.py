@@ -54,7 +54,12 @@ def test_importing_the_port_loads_no_reference_module():
             "bigdl_tpu_torch.models.transformer.train, "
             "bigdl_tpu_torch.models.transformer.test, "
             "bigdl_tpu_torch.nn.dropout, bigdl_tpu_torch.nn.moe, "
-            "bigdl_tpu_torch.dataset.text\n"
+            "bigdl_tpu_torch.dataset.text, bigdl_tpu_torch.faults, "
+            "bigdl_tpu_torch.faults.core, bigdl_tpu_torch.fleet, "
+            "bigdl_tpu_torch.fleet.prefix, bigdl_tpu_torch.fleet.replica, "
+            "bigdl_tpu_torch.fleet.router, bigdl_tpu_torch.fleet.soak, "
+            "bigdl_tpu_torch.fleet.speculative, bigdl_tpu_torch.autotune, "
+            "bigdl_tpu_torch.autotune.config\n"
             "bad = sorted(m for m in sys.modules if m == 'bigdl_tpu' "
             "or m.startswith('bigdl_tpu.'))\n"
             "print(bad)\n"

@@ -4,7 +4,8 @@ agrees with ``bigdl_tpu.faults.retry`` on every exception type and on
 every backoff delay under one seed, ``retry_call`` counts and fails as
 the JAX package's does, and ``Optimizer.optimize()`` retries a
 transient failure from the newest checkpoint, fails fast on a fatal one
-and re-raises where there is no checkpoint path.
+and re-raises where there is no checkpoint path; each failure is
+injected through the ``train/step`` fault point.
 
 Tolerance: none — classes, delays and counters are equal, and a run
 retried from a checkpoint at an epoch boundary is bitwise the
@@ -93,29 +94,8 @@ def test_retry_call_retries_transient_counts_and_fails_fast():
 
 
 # ------------------------------------------------------ optimize() retry
-
-class _FailOnce:
-    """A dataset that raises ``exc`` once, when the run pulls its
-    ``at``-th batch (counting from 1 over the whole run)."""
-
-    def __init__(self, base, at, exc):
-        self.base, self.at, self.exc = base, at, exc
-        self.pulled = 0
-
-    def size(self):
-        return self.base.size()
-
-    def shuffle(self):
-        self.base.shuffle()
-        return self
-
-    def data(self, train):
-        for batch in self.base.data(train):
-            self.pulled += 1
-            if self.pulled == self.at and self.exc is not None:
-                exc, self.exc = self.exc, None
-                raise exc
-            yield batch
+# Failures are injected through the ``train/step`` fault point, as the
+# JAX package's retry tests inject them: ``nth:6`` fires before step 6.
 
 
 def _lenet_like():
@@ -123,7 +103,7 @@ def _lenet_like():
                          nn.LogSoftMax())
 
 
-def _run(tmp_path, fail_at=None, exc=None, checkpoint=True, steps=12):
+def _run(tmp_path, checkpoint=True, steps=12):
     """A 12-step run of a small classifier from seeded weights and
     data, 3 batches of 8 an epoch and a checkpoint every 4 iterations:
     ``checkpoint.4`` is written after step 3, at the first epoch's end
@@ -139,8 +119,8 @@ def _run(tmp_path, fail_at=None, exc=None, checkpoint=True, steps=12):
     with torch.no_grad():
         for p in model.parameters():
             p.copy_(torch.randn(p.shape) * 0.3)
-    data = _FailOnce(DataSet.array([Sample(x[i], y[i]) for i in range(24)])
-                     .transform(SampleToMiniBatch(8)), fail_at, exc)
+    data = DataSet.array([Sample(x[i], y[i]) for i in range(24)]) \
+        .transform(SampleToMiniBatch(8))
     opt = optim.LocalOptimizer(model, data, nn.ClassNLLCriterion(),
                                batch_size=8)
     opt.set_optim_method(optim.Adam(learning_rate=1e-2))
@@ -152,15 +132,16 @@ def _run(tmp_path, fail_at=None, exc=None, checkpoint=True, steps=12):
 
 
 def test_a_transient_failure_resumes_from_the_newest_checkpoint(tmp_path):
-    """An ``OSError`` when step 6's batch is pulled: one recovery, the
-    run resumed from ``checkpoint.4`` (Adam's ``t`` with it), and the
-    final parameters, the losses and ``t`` are bitwise the uninterrupted
-    run's."""
+    """An ``OSError`` before step 6: one recovery, the run resumed from
+    ``checkpoint.4`` (Adam's ``t`` with it), and the final parameters,
+    the losses and ``t`` are bitwise the uninterrupted run's."""
     straight = _run(tmp_path / "a")
     straight.optimize()
     before = _RECOVERIES.value()
-    retried = _run(tmp_path / "b", fail_at=6, exc=OSError("disk blip"))
-    retried.optimize()
+    retried = _run(tmp_path / "b")
+    with faults.armed("train/step=nth:6,raise:OSError") as sched:
+        retried.optimize()
+    assert sched.fired() == {"train/step": 1}
     assert _RECOVERIES.value() - before == 1
     assert retried.resumed_from["path"].endswith("checkpoint.4")
     assert [h["neval"] for h in retried.history] == list(range(1, 13))
@@ -173,19 +154,20 @@ def test_a_transient_failure_resumes_from_the_newest_checkpoint(tmp_path):
 
 def test_a_fatal_failure_raises_at_once(tmp_path):
     before = _RECOVERIES.value()
-    opt = _run(tmp_path, fail_at=6, exc=TypeError("bad batch"))
-    with pytest.raises(TypeError, match="bad batch"):
-        opt.optimize()
+    opt = _run(tmp_path)
+    with faults.armed("train/step=nth:6,raise:TypeError"):
+        with pytest.raises(TypeError, match="injected fault"):
+            opt.optimize()
     assert _RECOVERIES.value() == before
     assert opt.driver_state["neval"] == 6
 
 
 def test_without_a_checkpoint_path_the_failure_raises(tmp_path):
     before = _RECOVERIES.value()
-    opt = _run(tmp_path, fail_at=6, exc=OSError("disk blip"),
-               checkpoint=False)
-    with pytest.raises(OSError, match="disk blip"):
-        opt.optimize()
+    opt = _run(tmp_path, checkpoint=False)
+    with faults.armed("train/step=nth:6,raise:OSError"):
+        with pytest.raises(OSError, match="injected fault"):
+            opt.optimize()
     assert _RECOVERIES.value() == before
 
 
@@ -193,18 +175,13 @@ def test_retries_stop_after_retry_times(tmp_path):
     """A failure on every attempt: ``retry_times`` recoveries, then the
     error itself."""
     before = _RECOVERIES.value()
-    opt = _run(tmp_path, fail_at=2, exc=RuntimeError("CUDA error: lost"))
-
-    class _Always(_FailOnce):
-        def data(self, train):
-            raise RuntimeError("CUDA error: lost")
-            yield
-
-    opt.dataset = _Always(opt.dataset.base, 0, None)
+    opt = _run(tmp_path)
     opt.retry_times = 2
-    with pytest.raises(RuntimeError, match="CUDA error"):
-        opt.optimize()
+    with faults.armed("train/step=raise:RuntimeError") as sched:
+        with pytest.raises(RuntimeError, match="injected fault"):
+            opt.optimize()
     assert _RECOVERIES.value() - before == 2
+    assert sched.fired() == {"train/step": 3}
 
 
 def test_retry_settings_come_from_the_jax_packages_variables(monkeypatch):
