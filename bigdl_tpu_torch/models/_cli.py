@@ -7,10 +7,11 @@ state) and ``--checkpoint`` (a checkpoint every epoch, and resume from
 the newest there), with ``--overWrite`` (one checkpoint name, which the
 JAX recipes parse and ignore); ``--steps-per-sync K``
 (``Optimizer.set_steps_per_sync``: K steps a host sync, one CUDA graph a
-window on the card); MNIST and CIFAR-10 arrays, the in-memory dataset,
-the validation wiring and the Test.scala evaluation main.
-
-Not ported yet: ``--quantize``.
+window on the card); the test mains' ``--quantize`` (:func:`test_parser`;
+they score the int8 rewrite,
+:func:`bigdl_tpu_torch.nn.quantized.quantize`); MNIST and CIFAR-10
+arrays, the in-memory dataset, the validation wiring and the Test.scala
+evaluation main.
 """
 from __future__ import annotations
 
@@ -22,8 +23,8 @@ from typing import Tuple
 import numpy as np
 
 __all__ = ["arrays_to_dataset", "base_parser", "cifar10_arrays",
-           "evaluate_cli", "load_model_or", "mnist_arrays",
-           "wire_optimizer"]
+           "evaluate_cli", "load_model_or", "mnist_arrays", "report",
+           "test_model", "test_parser", "wire_optimizer"]
 
 
 def base_parser(desc: str) -> argparse.ArgumentParser:
@@ -52,6 +53,15 @@ def base_parser(desc: str) -> argparse.ArgumentParser:
                     "a window on the card (Optimizer.set_steps_per_sync)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a card) or cpu")
+    return ap
+
+
+def test_parser(desc: str) -> argparse.ArgumentParser:
+    """:func:`base_parser` plus the test mains' ``--quantize``."""
+    ap = base_parser(desc)
+    ap.add_argument("--quantize", action="store_true",
+                    help="int8-quantize the model before evaluation "
+                    "(AbstractModule.quantize)")
     return ap
 
 
@@ -88,6 +98,24 @@ def wire_optimizer(opt, args, optim_method, val_ds=None, val_methods=None,
         # set_steps_per_sync rejects 0 or a negative K loudly
         opt.set_steps_per_sync(args.steps_per_sync)
     return opt
+
+
+def report(opt) -> None:
+    """What the recipes print after ``optimize()``: ``final loss`` as the
+    JAX recipes print it, the checkpoint a run resumed from, the last
+    validation's scores and the training steps' throughput."""
+    print(f"final loss: {opt.driver_state['Loss']:.4f}")
+    if opt.resumed_from is not None:
+        print(f"resumed from {opt.resumed_from['path']} at neval "
+              f"{opt.resumed_from['neval']}")
+    if opt.validation_history:
+        last = opt.validation_history[-1]
+        print("validation: " + " ".join(
+            f"{k} {v:.6f}" for k, v in last.items()))
+    rows = sum(h["rows"] for h in opt.history)
+    seconds = sum(h["seconds"] for h in opt.history)
+    print(f"throughput: {rows / max(seconds, 1e-9):.1f} images/s over "
+          f"{len(opt.history)} steps")
 
 
 def mnist_arrays(folder: str, train: bool,
@@ -153,12 +181,22 @@ def arrays_to_dataset(imgs, lbls, batch_size: int):
     return DataSet.array(samples).transform(SampleToMiniBatch(batch_size))
 
 
+def test_model(args, build):
+    """The ``--model`` snapshot or ``build()``, in evaluation mode, and
+    its int8 rewrite with ``--quantize``."""
+    model = load_model_or(args, build).evaluate()
+    if args.quantize:
+        from bigdl_tpu_torch.nn.quantized import quantize
+        model = quantize(model)
+    return model
+
+
 def evaluate_cli(args, build, val_data, default_batch: int = 128):
-    """The Test.scala main: Top1 and Top5 of the built model on
-    ``val_data``, printed and returned."""
+    """The Test.scala main: Top1 and Top5 of the built model (int8 with
+    ``--quantize``) on ``val_data``, printed and returned."""
     from bigdl_tpu_torch.optim import Evaluator, Top1Accuracy, Top5Accuracy
 
-    model = load_model_or(args, build).evaluate()
+    model = test_model(args, build)
     imgs, lbls = val_data
     bs = args.batchSize or default_batch
     ds = arrays_to_dataset(imgs, lbls, bs)

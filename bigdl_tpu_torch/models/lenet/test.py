@@ -14,12 +14,12 @@ __all__ = ["main"]
 def main(argv=None):
     import torch
 
-    from bigdl_tpu_torch.models._cli import (base_parser, evaluate_cli,
-                                             mnist_arrays)
+    from bigdl_tpu_torch.models._cli import (evaluate_cli, mnist_arrays,
+                                             test_parser)
     from bigdl_tpu_torch.models.lenet import LeNet5
     from bigdl_tpu_torch.models.lenet.train import _WEIGHT_SEED
 
-    args = base_parser("Test LeNet-5 on MNIST").parse_args(argv)
+    args = test_parser("Test LeNet-5 on MNIST").parse_args(argv)
     return evaluate_cli(args, lambda: LeNet5(
         10, device=args.device,
         generator=torch.Generator().manual_seed(_WEIGHT_SEED)),

@@ -30,7 +30,7 @@ def main(argv=None):
 
     from bigdl_tpu_torch.models._cli import (arrays_to_dataset, base_parser,
                                              load_model_or, mnist_arrays,
-                                             wire_optimizer)
+                                             report, wire_optimizer)
 
     ap = base_parser("Train LeNet-5 on MNIST")
     ap.add_argument("-g", "--graphModel", action="store_true",
@@ -61,18 +61,7 @@ def main(argv=None):
                    val_methods=[Top1Accuracy(), Top5Accuracy(), Loss()],
                    default_epochs=15)
     opt.optimize()
-    print(f"final loss: {opt.driver_state['Loss']:.4f}")
-    if opt.resumed_from is not None:
-        print(f"resumed from {opt.resumed_from['path']} at neval "
-              f"{opt.resumed_from['neval']}")
-    if opt.validation_history:
-        last = opt.validation_history[-1]
-        print("validation: " + " ".join(
-            f"{k} {v:.6f}" for k, v in last.items()))
-    rows = sum(h["rows"] for h in opt.history)
-    seconds = sum(h["seconds"] for h in opt.history)
-    print(f"throughput: {rows / max(seconds, 1e-9):.1f} images/s over "
-          f"{len(opt.history)} steps")
+    report(opt)
     return model
 
 

@@ -15,12 +15,12 @@ __all__ = ["main"]
 def main(argv=None):
     import torch
 
-    from bigdl_tpu_torch.models._cli import (base_parser, cifar10_arrays,
-                                             evaluate_cli)
+    from bigdl_tpu_torch.models._cli import (cifar10_arrays, evaluate_cli,
+                                             test_parser)
     from bigdl_tpu_torch.models.resnet import ResNet
     from bigdl_tpu_torch.models.resnet.train import _WEIGHT_SEED
 
-    ap = base_parser("Test ResNet on CIFAR-10")
+    ap = test_parser("Test ResNet on CIFAR-10")
     ap.add_argument("--depth", type=int, default=20)
     args = ap.parse_args(argv)
     return evaluate_cli(args, lambda: ResNet(

@@ -15,8 +15,8 @@ CIFAR-10: SGD lr 0.1, weight decay 1e-4, momentum 0.9, nesterov,
 ImageNet ``RandomState(0)``: ``rand`` then ``randint(1, classNum + 1)``).
 With ``--checkpoint DIR`` a checkpoint is written every epoch and a
 second call resumes from the newest one. Prints ``final loss`` as the
-JAX recipe does, then the steps' throughput (and the checkpoint it
-resumed from).
+JAX recipe does, then the checkpoint it resumed from, the last
+validation's scores and the steps' throughput.
 
 Not ported yet: ImageNet from a folder (``ImageFolderDataSet``, with
 its color jitter and lighting; queue item 10) raises NotImplementedError.
@@ -43,17 +43,6 @@ def imagenet_decay(epoch: int) -> float:
     return float(epoch // 30)
 
 
-def _report(opt) -> None:
-    print(f"final loss: {opt.driver_state['Loss']:.4f}")
-    if opt.resumed_from is not None:
-        print(f"resumed from {opt.resumed_from['path']} at neval "
-              f"{opt.resumed_from['neval']}")
-    rows = sum(h["rows"] for h in opt.history)
-    seconds = sum(h["seconds"] for h in opt.history)
-    print(f"throughput: {rows / max(seconds, 1e-9):.1f} images/s over "
-          f"{len(opt.history)} steps")
-
-
 def _sgd(args, decay):
     from bigdl_tpu_torch.optim import SGD, EpochDecay
     return SGD(learning_rate=args.learningRate or 0.1,
@@ -67,7 +56,8 @@ def _train_imagenet(args, model_of):
     import numpy as np
 
     from bigdl_tpu_torch import nn
-    from bigdl_tpu_torch.models._cli import arrays_to_dataset, wire_optimizer
+    from bigdl_tpu_torch.models._cli import (arrays_to_dataset, report,
+                                             wire_optimizer)
     from bigdl_tpu_torch.optim import LocalOptimizer
 
     bs = args.batchSize or 256
@@ -87,7 +77,7 @@ def _train_imagenet(args, model_of):
     wire_optimizer(opt, args, _sgd(args, imagenet_decay),
                    default_epochs=90)
     opt.optimize()
-    _report(opt)
+    report(opt)
     return model
 
 
@@ -98,7 +88,7 @@ def main(argv=None):
 
     from bigdl_tpu_torch.models._cli import (arrays_to_dataset, base_parser,
                                              cifar10_arrays, load_model_or,
-                                             wire_optimizer)
+                                             report, wire_optimizer)
 
     ap = base_parser("Train ResNet on CIFAR-10 / ImageNet")
     ap.add_argument("--depth", type=int, default=None,
@@ -109,14 +99,6 @@ def main(argv=None):
     ap.add_argument("--dataset", choices=("cifar10", "imagenet"),
                     default="cifar10")
     ap.add_argument("--classNum", type=int, default=1000)
-    ap.add_argument("--colorJitter", action=argparse.BooleanOptionalAction,
-                    default=True,
-                    help="ImageNet from a folder only (not ported yet)")
-    ap.add_argument("--lighting", action=argparse.BooleanOptionalAction,
-                    default=True,
-                    help="ImageNet from a folder only (not ported yet)")
-    ap.add_argument("--valFolder", default=None,
-                    help="ImageNet from a folder only (not ported yet)")
     args = ap.parse_args(argv)
 
     from bigdl_tpu_torch import nn
@@ -143,7 +125,7 @@ def main(argv=None):
                    val_methods=[Top1Accuracy(), Top5Accuracy(), Loss()],
                    default_epochs=165)
     opt.optimize()
-    _report(opt)
+    report(opt)
     return model
 
 

@@ -13,15 +13,18 @@ from bigdl_tpu_torch.nn.container import (Concat, ConcatTable, Container,
                                           Sequential)
 from bigdl_tpu_torch.nn.conv import SpatialConvolution
 from bigdl_tpu_torch.nn.dropout import Dropout, L1Penalty, SpatialDropout2D
-from bigdl_tpu_torch.nn.criterion import (ClassNLLCriterion,
+from bigdl_tpu_torch.nn.criterion import (BCECriterion, ClassNLLCriterion,
                                           CrossEntropyCriterion,
+                                          MSECriterion,
                                           SequenceCrossEntropyCriterion)
 from bigdl_tpu_torch.nn.linear import Linear, MulConstant
 from bigdl_tpu_torch.nn.module import (Criterion, Module,
                                        total_regularization)
 from bigdl_tpu_torch.nn.moe import MoE
 from bigdl_tpu_torch.nn.norm import (BatchNormalization, LayerNorm, RMSNorm,
-                                     SpatialBatchNormalization)
+                                     SpatialBatchNormalization,
+                                     SpatialCrossMapLRN,
+                                     SpatialWithinChannelLRN)
 from bigdl_tpu_torch.nn.pool import SpatialAveragePooling, SpatialMaxPooling
 from bigdl_tpu_torch.nn.quantized import (QuantizedLinear,
                                           QuantizedSpatialConvolution,
@@ -29,13 +32,14 @@ from bigdl_tpu_torch.nn.quantized import (QuantizedLinear,
 from bigdl_tpu_torch.nn.shape import Reshape, View
 from bigdl_tpu_torch.nn.table_ops import CAddTable
 
-__all__ = ["Abs", "BatchNormalization", "BinaryThreshold", "CAddTable",
+__all__ = ["Abs", "BCECriterion", "BatchNormalization", "BinaryThreshold",
+           "CAddTable",
            "Clamp", "ClassNLLCriterion", "Concat", "ConcatTable",
            "Container", "Criterion", "CrossEntropyCriterion", "Dropout",
            "ELU", "Echo", "Exp", "GaussianSampler", "GradientReversal",
            "HardShrink", "HardSigmoid", "HardTanh", "Identity", "L1Penalty",
            "LayerNorm", "LeakyReLU", "Linear", "Log", "Log1p", "LogSigmoid",
-           "LogSoftMax", "MoE", "Module", "MulConstant",
+           "LogSoftMax", "MSECriterion", "MoE", "Module", "MulConstant",
            "MultiHeadAttention", "Negative", "PReLU", "Power",
            "QuantizedLinear", "QuantizedSpatialConvolution", "RMSNorm",
            "RReLU", "ReLU", "ReLU6", "Reshape",
@@ -43,6 +47,7 @@ __all__ = ["Abs", "BatchNormalization", "BinaryThreshold", "CAddTable",
            "SoftMax", "SoftMin", "SoftPlus", "SoftShrink", "SoftSign",
            "SpatialAveragePooling", "SpatialDropout2D",
            "SpatialBatchNormalization", "SpatialConvolution",
+           "SpatialCrossMapLRN", "SpatialWithinChannelLRN",
            "SpatialMaxPooling", "Sqrt", "Square", "Tanh", "TanhShrink",
            "Threshold", "View", "dot_product_attention", "quantize",
            "total_regularization"]

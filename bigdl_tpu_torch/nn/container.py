@@ -5,9 +5,22 @@ Children are named ``"0"``, ``"1"``, ... in the order they are added —
 the JAX package's param and state trees key containers the same way —
 so a JAX tree maps onto the port's parameters and buffers by name
 (:func:`bigdl_tpu_torch.convert.load_jax_params`), with no transpose.
+
+``Sequential``, ``Concat`` and ``ConcatTable`` take ``forward(x,
+generator=None)`` and hand the one generator to each child whose
+``forward`` takes ``generator=`` (a ``Dropout``, a nested container),
+in the children's order, so the children draw from one stream one after
+the other. The JAX containers split their key instead
+(``bigdl_tpu.nn.container._split_rng``: one key a child). The masks of
+the two packages differ in any case (``jax.random`` against a
+``torch.Generator``); what the port keeps is that a run's masks follow
+from the step's one seeded generator, which a CUDA-graph window
+replays.
 """
 from __future__ import annotations
 
+import functools
+import inspect
 from typing import Dict, Optional
 
 import torch
@@ -15,6 +28,20 @@ import torch
 from bigdl_tpu_torch.nn.module import Module
 
 __all__ = ["Concat", "ConcatTable", "Container", "Sequential"]
+
+
+@functools.lru_cache(maxsize=None)
+def forward_takes_generator(cls: type) -> bool:
+    """Whether ``cls.forward`` takes a ``generator=`` keyword (the
+    containers' hand-off and ``build_train_step`` both ask this)."""
+    return "generator" in inspect.signature(cls.forward).parameters
+
+
+def _run(child, x, generator):
+    """``child(x)``, with ``generator=`` where its forward takes one."""
+    if generator is not None and forward_takes_generator(type(child)):
+        return child(x, generator=generator)
+    return child(x)
 
 
 class Container(Module):
@@ -73,9 +100,9 @@ class Container(Module):
 class Sequential(Container):
     """Feed-forward chain (nn/Sequential.scala:32)."""
 
-    def forward(self, x):
+    def forward(self, x, generator: Optional[torch.Generator] = None):
         for m in self._modules.values():
-            x = m(x)
+            x = _run(m, x, generator)
         return x
 
 
@@ -83,8 +110,8 @@ class ConcatTable(Container):
     """Each child applied to the same input; the outputs as a list (a
     table) (nn/ConcatTable.scala)."""
 
-    def forward(self, x):
-        return [m(x) for m in self._modules.values()]
+    def forward(self, x, generator: Optional[torch.Generator] = None):
+        return [_run(m, x, generator) for m in self._modules.values()]
 
 
 class Concat(Container):
@@ -95,6 +122,7 @@ class Concat(Container):
         super().__init__(*modules)
         self.dimension = dimension
 
-    def forward(self, x):
-        return torch.cat([m(x) for m in self._modules.values()],
+    def forward(self, x, generator: Optional[torch.Generator] = None):
+        return torch.cat([_run(m, x, generator)
+                          for m in self._modules.values()],
                          dim=self.dimension - 1)

@@ -7,6 +7,10 @@ convolution (cuDNN on the card), as the JAX package leaves it to XLA,
 in full float32: the layer switches cuDNN's TF32 default off before its
 first run on the card (:func:`bigdl_tpu_torch.utils.engine.
 full_float32`).
+
+A negative pad crops, as the JAX package's ``lax.conv_general_dilated``
+reads it: the input loses that many rows or columns on each side, and
+the convolution pads that side with nothing.
 """
 from __future__ import annotations
 
@@ -22,7 +26,17 @@ from bigdl_tpu_torch.nn.initialization import (InitializationMethod,
 from bigdl_tpu_torch.nn.module import Module, weight_penalty
 from bigdl_tpu_torch.utils.engine import full_float32
 
-__all__ = ["SpatialConvolution"]
+__all__ = ["SpatialConvolution", "crop_negative_padding"]
+
+
+def crop_negative_padding(x, pad_h: int, pad_w: int):
+    """``(x, pad_h, pad_w)`` with a negative pad applied as a crop of
+    ``x`` (NCHW) on both sides of its dimension and returned as 0: what
+    ``lax.conv_general_dilated`` does with a negative pad."""
+    if pad_h >= 0 and pad_w >= 0:
+        return x, pad_h, pad_w
+    ch, cw = min(pad_h, 0), min(pad_w, 0)
+    return F.pad(x, (cw, cw, ch, ch)), max(pad_h, 0), max(pad_w, 0)
 
 
 class SpatialConvolution(Module):
@@ -32,7 +46,8 @@ class SpatialConvolution(Module):
     kernel_w, kernel_h, stride_w, stride_h, pad_w, pad_h, n_group)``.
     Weight and bias default to ``U(-1/sqrt(fan_in), 1/sqrt(fan_in))``.
     ``propagate_back=False`` detaches the input (no data gradient), as
-    on the stem conv fed by raw images. ``w_regularizer`` /
+    on the stem conv fed by raw images. A negative pad crops the input
+    (module docstring). ``w_regularizer`` /
     ``b_regularizer`` add their penalties to
     :meth:`regularization_loss`. Parameters are built on the CPU from
     ``generator``; move the module after."""
@@ -48,10 +63,6 @@ class SpatialConvolution(Module):
                  with_bias: bool = True,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if pad_w < 0 or pad_h < 0:
-            raise NotImplementedError(
-                f"SpatialConvolution pad ({pad_w}, {pad_h}): negative "
-                f"(SAME) padding is not ported")
         if n_input_plane % n_group or n_output_plane % n_group:
             raise ValueError(f"planes {n_input_plane}/{n_output_plane} do "
                              f"not divide into {n_group} groups")
@@ -84,8 +95,9 @@ class SpatialConvolution(Module):
             x = x.detach()
         if x.is_cuda:
             full_float32()
+        x, pad_h, pad_w = crop_negative_padding(x, self.pad_h, self.pad_w)
         y = F.conv2d(x, self.weight, None, (self.stride_h, self.stride_w),
-                     (self.pad_h, self.pad_w), 1, self.n_group)
+                     (pad_h, pad_w), 1, self.n_group)
         if self.bias is not None:
             y = y + self.bias.reshape(1, -1, 1, 1)
         return y[0] if squeeze else y

@@ -1,6 +1,7 @@
 """Criterions (counterpart of ``bigdl_tpu.nn.criterion``): the
-classification pair LeNet trains with and the sequence loss of the
-TransformerLM path. Class labels are 1-based, as in the reference.
+classification pair LeNet trains with, the sequence loss of the
+TransformerLM path, and the autoencoder's MSE with its binary
+cross-entropy twin. Class labels are 1-based, as in the reference.
 
 Not ported yet: the other classification, regression and ranking
 losses of the JAX package.
@@ -15,8 +16,17 @@ import torch
 from bigdl_tpu_torch.nn.module import Criterion
 from bigdl_tpu_torch.utils.engine import default_dtype
 
-__all__ = ["ClassNLLCriterion", "Criterion", "CrossEntropyCriterion",
+__all__ = ["BCECriterion", "ClassNLLCriterion", "Criterion",
+           "CrossEntropyCriterion", "MSECriterion",
            "SequenceCrossEntropyCriterion"]
+
+
+def _reduce(x, size_average: bool):
+    return x.mean() if size_average else x.sum()
+
+
+def _target(target, like):
+    return torch.as_tensor(target, device=like.device)
 
 
 class ClassNLLCriterion(Criterion):
@@ -69,6 +79,42 @@ class CrossEntropyCriterion(Criterion):
 
     def forward(self, input, target):
         return self.inner(torch.log_softmax(input, dim=-1), target)
+
+
+class MSECriterion(Criterion):
+    """nn/MSECriterion.scala: the mean (``size_average``) or the sum of
+    ``(input - target) ** 2`` over every element."""
+
+    def __init__(self, size_average: bool = True):
+        super().__init__()
+        self.size_average = size_average
+
+    def forward(self, input, target):
+        d = input - _target(target, input)
+        return _reduce(d * d, self.size_average)
+
+
+class BCECriterion(Criterion):
+    """Binary cross-entropy on probabilities (nn/BCECriterion.scala):
+    ``-(t log x + (1 - t) log(1 - x))`` with ``x`` clamped to ``[1e-12,
+    1 - 1e-12]`` in the input's dtype (in float32 the upper bound rounds
+    to 1, as in the JAX package), times ``weights`` (broadcast against
+    the input) where given, then the mean or the sum."""
+
+    def __init__(self, weights=None, size_average: bool = True):
+        super().__init__()
+        self.weights = None if weights is None else torch.as_tensor(
+            np.asarray(weights), dtype=default_dtype())
+        self.size_average = size_average
+
+    def forward(self, input, target):
+        eps = 1e-12
+        t = _target(target, input)
+        x = torch.clamp(input, eps, 1.0 - eps)
+        loss = -(t * torch.log(x) + (1.0 - t) * torch.log(1.0 - x))
+        if self.weights is not None:
+            loss = loss * self.weights.to(input.device)
+        return _reduce(loss, self.size_average)
 
 
 class SequenceCrossEntropyCriterion(Criterion):

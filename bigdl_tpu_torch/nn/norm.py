@@ -1,10 +1,13 @@
-"""Normalization layers (counterpart of ``bigdl_tpu.nn.norm``)."""
+"""Normalization layers (counterpart of ``bigdl_tpu.nn.norm``): batch,
+layer and RMS normalization, and the two local response normalizations
+of AlexNet and GoogLeNet."""
 from __future__ import annotations
 
 from typing import Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from bigdl_tpu_torch.nn.initialization import InitializationMethod
@@ -12,7 +15,8 @@ from bigdl_tpu_torch.nn.module import Module
 from bigdl_tpu_torch.utils.engine import default_dtype
 
 __all__ = ["BatchNormalization", "LayerNorm", "RMSNorm",
-           "SpatialBatchNormalization"]
+           "SpatialBatchNormalization", "SpatialCrossMapLRN",
+           "SpatialWithinChannelLRN"]
 
 
 def _in_dtype(value: float, dtype: torch.dtype) -> float:
@@ -166,3 +170,63 @@ class BatchNormalization(Module):
 class SpatialBatchNormalization(BatchNormalization):
     """BN over ``(B, C, H, W)`` (nn/SpatialBatchNormalization.scala) —
     the same code: the reduction axes follow the input's rank."""
+
+
+def _window_sum(x, dim: int, size: int):
+    """Sums over windows of ``size`` along ``dim``, the input padded with
+    zeros ``(size - 1) // 2`` in front and the rest behind (the JAX
+    package's ``reduce_window`` padding): the same length as ``x``.
+    Shifted slices added in turn, so the backward is plain slicing and
+    adds (deterministic on the card; ``avg_pool3d``'s backward is not)."""
+    front = (size - 1) // 2
+    pads = [0, 0] * (x.ndim - 1 - dim) + [front, size - 1 - front]
+    padded = F.pad(x, pads)
+    n = x.shape[dim]
+    out = padded.narrow(dim, 0, n)
+    for j in range(1, size):
+        out = out + padded.narrow(dim, j, n)
+    return out
+
+
+class SpatialCrossMapLRN(Module):
+    """AlexNet-style local response normalization across channels
+    (nn/SpatialCrossMapLRN.scala) over NCHW: ``y = x / (k + alpha / size
+    * sum x^2) ** beta``, the sum over a window of ``size`` channels
+    padded ``(size - 1) // 2`` in front and ``size - 1 - (size - 1) //
+    2`` behind, as the JAX package pads it (``F.local_response_norm``
+    pads ``size // 2`` in front, another window for an even ``size``)."""
+
+    def __init__(self, size: int = 5, alpha: float = 1.0,
+                 beta: float = 0.75, k: float = 1.0):
+        super().__init__()
+        self.size = size
+        self.alpha = alpha
+        self.beta = beta
+        self.k = k
+
+    def forward(self, x):
+        summed = _window_sum(x * x, 1, self.size)
+        denom = torch.pow(self.k + self.alpha / self.size * summed,
+                          self.beta)
+        return x / denom
+
+
+class SpatialWithinChannelLRN(Module):
+    """Local response normalization within each channel over a ``size``
+    x ``size`` spatial window (nn/SpatialWithinChannelLRN.scala): ``y =
+    x / (1 + alpha / size^2 * sum x^2) ** beta``, the window padded as
+    :class:`SpatialCrossMapLRN`'s, in H and in W."""
+
+    def __init__(self, size: int = 5, alpha: float = 1.0,
+                 beta: float = 0.75):
+        super().__init__()
+        self.size = size
+        self.alpha = alpha
+        self.beta = beta
+
+    def forward(self, x):
+        summed = _window_sum(_window_sum(x * x, x.ndim - 2, self.size),
+                             x.ndim - 1, self.size)
+        denom = torch.pow(
+            1.0 + self.alpha / (self.size * self.size) * summed, self.beta)
+        return x / denom

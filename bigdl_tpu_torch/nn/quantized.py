@@ -28,7 +28,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from bigdl_tpu_torch.nn.conv import SpatialConvolution
+from bigdl_tpu_torch.nn.conv import (SpatialConvolution,
+                                     crop_negative_padding)
 from bigdl_tpu_torch.nn.linear import Linear
 from bigdl_tpu_torch.nn.module import Module
 from bigdl_tpu_torch.ops.quant import (quantize_symmetric,
@@ -158,9 +159,10 @@ class QuantizedSpatialConvolution(Module):
             if x.is_cuda:
                 full_float32()
             w = self.weight_q.float() * self.w_scale.reshape(-1, 1, 1, 1)
-            out = F.conv2d(x.float(), w, None,
-                           (self.stride_h, self.stride_w),
-                           (self.pad_h, self.pad_w),
+            xc, pad_h, pad_w = crop_negative_padding(x.float(), self.pad_h,
+                                                     self.pad_w)
+            out = F.conv2d(xc, w, None,
+                           (self.stride_h, self.stride_w), (pad_h, pad_w),
                            (self.dilation_h, self.dilation_w), self.n_group)
             if self.bias is not None:
                 out = out + self.bias.reshape(1, -1, 1, 1)

@@ -131,15 +131,13 @@ def quantized_conv2d(x, w_q, w_scale, bias=None, *,
         raise ValueError(f"input channels {cin} / weight {tuple(w_q.shape)}"
                          f" do not match n_group={n_group}")
     (pt, pb), (pl, pr) = padding
-    if min(pt, pb, pl, pr) < 0:
-        raise ValueError(f"negative padding {list(padding)}")
     if x_scale is None:
         x_scale = scale_from_amax(x.abs().amax(dim=(1, 2, 3), keepdim=True))
     else:
         x_scale = torch.as_tensor(x_scale, dtype=torch.float32,
                                   device=x.device).reshape(1, 1, 1, 1)
     if pt or pb or pl or pr:
-        x = F.pad(x, (pl, pr, pt, pb))
+        x = F.pad(x, (pl, pr, pt, pb))      # a negative pad crops
     x_q = quantize_with_scale(x, x_scale)                 # [B, C, Hp, Wp]
     ho = (x_q.shape[2] - kh) // stride[0] + 1
     wo = (x_q.shape[3] - kw) // stride[1] + 1

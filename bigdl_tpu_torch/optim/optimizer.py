@@ -58,7 +58,6 @@ from __future__ import annotations
 
 import copy
 import functools
-import inspect
 import logging
 import os
 import time
@@ -75,6 +74,7 @@ from bigdl_tpu_torch.dataset.prefetch import (batch_signature,
                                               stack_minibatches)
 from bigdl_tpu_torch.dataset.sample import MiniBatch
 from bigdl_tpu_torch.faults.retry import backoff_delay, classify
+from bigdl_tpu_torch.nn.container import forward_takes_generator
 from bigdl_tpu_torch.nn.module import Criterion, Module
 from bigdl_tpu_torch.nn.moe import pop_aux_losses
 from bigdl_tpu_torch.optim.optim_method import SGD, OptimMethod
@@ -125,11 +125,6 @@ class _Body(torch.nn.Module):
         return self.module(x, **kw), self.module.regularization_loss()
 
 
-def _takes_generator(module) -> bool:
-    """Whether ``module``'s forward takes a ``generator=`` keyword."""
-    return "generator" in inspect.signature(module.forward).parameters
-
-
 def build_train_step(module: Module, criterion: Criterion,
                      optim_method: OptimMethod, gradient_clip=None, *,
                      precision: Optional[PrecisionPolicy] = None,
@@ -150,8 +145,9 @@ def build_train_step(module: Module, criterion: Criterion,
     and the load-balance term (a detached 0-d tensor on the module's
     device; reading it is the caller's sync).
 
-    Where the module's forward takes ``generator=`` (a dropout model),
-    the step passes it ``step.generator``, a ``torch.Generator`` on the
+    Where the module's forward takes ``generator=`` (a dropout model,
+    and every container, which hands it to its children in order), the
+    step passes it ``step.generator``, a ``torch.Generator`` on the
     module's device seeded at build time from
     :meth:`~bigdl_tpu_torch.utils.random.RandomGenerator.get_seed`
     (never torch's global generator), so a run's masks follow from its
@@ -218,7 +214,7 @@ def build_train_step(module: Module, criterion: Criterion,
     module.train()
     generator = None
     forward_kw = {}
-    if _takes_generator(module):
+    if forward_takes_generator(type(module)):
         generator = torch.Generator(
             device=params[0].device if params else "cpu")
         generator.manual_seed(RandomGenerator.get_seed())

@@ -1,2 +1,2 @@
 """Tools of the port (counterpart of ``bigdl_tpu.tools``): the seeded
-synthetic-data generators so far."""
+synthetic-data generators and ``perf``, the zoo's throughput harness."""

@@ -11,7 +11,8 @@ from typing import Tuple
 
 import numpy as np
 
-__all__ = ["SEED_EVAL", "SEED_TRAIN", "image_batch", "seeded_rng"]
+__all__ = ["SEED_EVAL", "SEED_TRAIN", "image_batch", "seeded_rng",
+           "token_batch"]
 
 SEED_TRAIN = 0
 SEED_EVAL = 1
@@ -29,4 +30,15 @@ def image_batch(n: int, shape: Tuple[int, ...], classes: int,
     rng = seeded_rng(seed)
     x = rng.rand(n, *shape).astype(np.float32)
     y = rng.randint(1, classes + 1, n).astype(np.float32)
+    return x, y
+
+
+def token_batch(n: int, seq_len: int, vocab: int, seed: int = SEED_TRAIN,
+                one_based: bool = False) -> Tuple[np.ndarray, np.ndarray]:
+    """Random token windows ``[n, seq_len]`` and next-token targets of
+    the same shape (the language-model perf feed)."""
+    rng = seeded_rng(seed)
+    lo = 1 if one_based else 0
+    x = rng.randint(lo, vocab + lo, (n, seq_len))
+    y = rng.randint(lo, vocab + lo, (n, seq_len))
     return x, y

@@ -58,7 +58,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    at 60 edge shapes (M 1-300, N 1-1024, K 1-4100, across its tile and
    split-K choices, which are logged), at the int8 serving slice's
    classifier shape ``[64, 2048] x [1000, 2048]^T`` and at 4096^3, timed
-   at the last two beside ``torch._int_mm``; the paged
+   at the last two and at VGG-16's three classifier shapes (phase 15
+   (e)) beside ``torch._int_mm``; the paged
    decode kernel (K4), through the dispatch function, equal bitwise to
    K3's kernel on identity and shuffled paged views of the same cache
    (page sizes 16, 64, 128; ``[16, 8, 512, 64]`` with the serving
@@ -237,7 +238,40 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    replicas (tokens/s), a stream held on r0 when r0 is killed rerouted
    to r1 and equal to the undisturbed stream, one ``ProcessReplica`` on
    the card serving its thread twin's tokens and failing typed after
-   ``kill()``; the phase's wall time and peak device memory.
+   ``kill()``; the phase's wall time and peak device memory;
+15. the image zoo (``phase_zoo``) — (a) one SGD step (lr 0.01, momentum
+   0.9, weight decay 5e-4) in float64 at batch 2 of mean-subtracted
+   pixel rows, card against CPU within ``ZOO_F64_TOL`` (loss relative,
+   parameters absolute), dropout off, for ``Vgg_16``,
+   ``Inception_v1_NoAuxClassifier``, ``Inception_v2_NoAuxClassifier``
+   and ``AlexNet`` at their full input sizes; Inception v1 with one
+   LRN's beta raised by 1e-3 must fail it; (b) ``tools.perf``'s
+   ``prepare`` / ``measure`` for vgg16 at batch 64, inception_v1 and
+   inception_v2 at 128 and alexnet at 128 (227 x 227), float32 and
+   bf16_mixed, 3 warm-up and 10 timed steps: ms a step, images/s, the
+   layer-shape TFLOP/s, peak memory, a profiled window's idle share;
+   (c) ``Inception_v1_NoAuxClassifier`` (its ``Dropout(0.4)`` in the top
+   ``Sequential``, which hands the step's generator on) at batch 32, 16
+   steps at K = 8 (CUDA graphs) and K = 1 bitwise alike under cuDNN's
+   deterministic algorithms, another seed other losses; (d)
+   ``vgg.train --synthetic 1024 -b 112 -e 2`` with a checkpoint an
+   epoch (random labels: finite losses, 2 checkpoints), then 8 epochs
+   on a seeded learnable CIFAR-format folder (losses fall; held-out
+   Top1 above 0.5 with BN's running statistics re-estimated over the
+   training rows, the plain one reported); ``vgg.test --model`` scores
+   each saved trained module at its last validation's Top1,
+   ``inception.train --synthetic 256 -b 64 -e 1`` (finite losses),
+   ``autoencoder.train --synthetic 6000 -b 150 -e 2`` (the MSE falls);
+   no kernel of the ``kernels`` line may launch in (a)-(d); (e) int8
+   VGG-16 at batch 64, the counts set to 0 around 2 int8 forwards: K5
+   launched 3 a forward (fc6 ``[64, 25088] x [4096, 25088]``, fc7, fc8),
+   and 3 K5 GEMM kernels in one profiled forward; each call's operands
+   through K5 bitwise its plain version, a flipped weight byte not; the
+   logits with K5 bitwise those with the kernels off, a flipped fc8
+   byte not; rows ``int8_gemm_vgg16_fc6`` / ``_fc7`` / ``_fc8`` of the
+   kernels line (their times from phase 3, L2-cold, beside K5's plain
+   version and ``torch._int_mm`` + epilogue); int8-against-float top-1
+   agreement printed, not gated.
 
 Float32 throughout phases 1–10, with TF32 off for matrix products (set
 here) and for convolutions (PyTorch's default is on; the port's
@@ -246,7 +280,8 @@ tolerances below assume full float32. Phase 11 runs the precision
 policies, with limits of their own; phase 12 (a) runs bf16_mixed at
 phase 11's limits, (b)-(f) float32 (float64 for LBFGS's card-against-CPU
 check); phase 13 (a) runs bf16_mixed at phase 11's limits, (b) and (c)
-float32; phase 14 float32.
+float32; phase 14 float32; phase 15 float64 in (a), float32 and
+bf16_mixed in (b), float32 in (c)-(e).
 
 The line before the last is a JSON object ``{"kernels": [...]}`` with
 each kernel's launches, error and times (``ms`` and ``device_ms``, and
@@ -429,6 +464,53 @@ SPEC_K, SPEC_DRAFT_HIDDEN, SPEC_DRAFT_LAYERS, SPEC_DRAFT_SEED = 4, 256, 1, 13
 SPEC_SELF_ACCEPT, SPEC_TIE_GAP = 0.99, 1e-3
 #: (e) the router's burst: requests (prompts of MAX_LEN // 4), new tokens
 ROUTER_REQUESTS, ROUTER_NEW = 24, 8
+
+# ---- the image zoo slice (queue 1, item 9; BASELINE.md:11's
+# DistriOptimizerPerf models) ----
+#: (a) one SGD step card against CPU in float64 at batch 2, each model at
+#: its full input size (the weights' seed, the rows' seed): loss
+#: relative and parameters absolute within ZOO_F64_TOL. The rows are
+#: mean-subtracted pixel values (U[0, 255) - 128, the Caffe-era models'
+#: input scale), where the LRNs act: at U[0, 1) a cross-map LRN with
+#: alpha 1e-4 is the identity to 1e-8 and no check can see its beta
+ZOO_PARITY = (("Vgg_16", 224), ("Inception_v1_NoAuxClassifier", 224),
+              ("Inception_v2_NoAuxClassifier", 224), ("AlexNet", 227))
+ZOO_PARITY_BATCH, ZOO_SEED, ZOO_ROWS_SEED = 2, 31, 32
+#: float64 agrees to ~1e-12 on these steps; the planted fault (one LRN's
+#: beta + 1e-3) moves Inception v1's loss by ~1e-5 relative and its
+#: parameters by ~5e-6 (CPU runs of the port), under the 1e-4 a float32
+#: check would need, so float64 is gated at 1e-8
+ZOO_F64_TOL, ZOO_LRN_FAULT = 1e-8, 1e-3
+#: (b) tools/perf at full width: model, batch; 3 warm-up and 10 timed
+#: iterations in float32 and bf16_mixed, a profiled window of 5
+ZOO_PERF = (("vgg16", 64), ("inception_v1", 128), ("inception_v2", 128),
+            ("alexnet", 128))
+ZOO_PERF_WARMUP, ZOO_PERF_ITERS, ZOO_PERF_PROFILE = 3, 10, 5
+#: (c) dropout through the containers: Inception v1 without the aux heads
+#: (its Dropout(0.4) in the top Sequential) at batch 32, steps, window,
+#: seeds, the other seed's steps
+ZOO_DROP_BATCH, ZOO_DROP_STEPS, ZOO_DROP_K = 32, 16, 8
+ZOO_DROP_SEED, ZOO_DROP_OTHER_STEPS = 33, 2
+#: (d) the recipes: vgg.train's rows, batch, epochs (``--synthetic``,
+#: random labels); again on a learnable CIFAR-format folder. There the
+#: evaluation-mode Top1 lags what the weights have learnt, in both
+#: packages: BN's running statistics (momentum 0.1, from a variance of
+#: 1) trail the batches' (after 20 steps a running variance was 12x the
+#: rows' and the Top1 0.11; after 80 steps 0.39 on the CPU, 0.17 on the
+#: card), so the trained module is scored again with its BN statistics
+#: re-estimated over the training rows, which must pass
+#: ZOO_VGG_MIN_TOP1 (chance is 0.1; 0.60 after 20 steps on the CPU);
+#: inception.train's; autoencoder.train's
+ZOO_VGG_RECIPE = (1024, 112, 2)
+ZOO_VGG_LEARN, ZOO_VGG_MIN_TOP1 = (1024, 112, 8), 0.5
+ZOO_INCEPTION_RECIPE = (256, 64, 1)
+ZOO_AE_RECIPE = (6000, 150, 2)
+#: (e) int8 VGG-16 at batch 64: K5 at fc6, fc7 and fc8, the int8
+#: forwards counted, the operand sets fc6 is timed over (3 x 103 MB of
+#: weights, past the 50 MB L2)
+ZOO_INT8_BATCH, ZOO_INT8_FORWARDS, ZOO_INT8_SETS = 64, 2, 3
+ZOO_FC_SHAPES = {"fc6": (64, 4096, 25088), "fc7": (64, 4096, 4096),
+                 "fc8": (64, 1000, 4096)}
 
 # ---- K5 and K4 shapes ----
 INT8_EDGE_M, INT8_EDGE_N, INT8_EDGE_K = (1, 7, 64, 65, 300), \
@@ -771,6 +853,16 @@ def device_ms(fn, n_inputs: int, rounds: int):
     WINDOWS["graph rows"] += 1
     log("device_ms", "a single call's profiler windows showed no kernel; "
                      "the next row is timed by CUDA-graph replays")
+    return graph_ms(fn, n_inputs, rounds)
+
+
+def graph_ms(fn, n_inputs: int, rounds: int):
+    """Mean time of ``fn(i)`` over ``n_inputs`` cycled calls captured as
+    one CUDA graph, its ``rounds`` replays timed with CUDA events (no
+    host launch path): :func:`device_ms`'s reading where the profiler
+    shows nothing. Returns ``(ms, {"by": "cuda graph replays"})``."""
+    import torch
+
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -2601,10 +2693,12 @@ def phase_int8_gemm():
     """K5 against its plain version, bitwise (``torch.equal``), at edge
     shapes (M 1-300, N 1-1024, K 1-4100: ragged tiles, K not a multiple
     of 4 or 16) and at the main path's ``[64, 2048] x [1000, 2048]^T``
-    and 4096^3; then timed L2-cold at those two beside the plain
+    and 4096^3; then timed L2-cold at those two and at VGG-16's three
+    classifier shapes (``ZOO_FC_SHAPES``, phase 15 (e)) beside the plain
     version, ``torch._int_mm`` plus the same epilogue (the library
     yardstick) and the bound. Returns the kernels-line entry at the main
-    path's shape (launches filled in later)."""
+    path's shape and the ``int8_gemm_vgg16_*`` rows, by fc (launches
+    filled in later)."""
     import torch
 
     from bigdl_tpu_torch.kernels.int8_gemm import (gemm_plan, int8_gemm,
@@ -2641,10 +2735,12 @@ def phase_int8_gemm():
     def library(x, w, xs, ws):
         return torch._int_mm(x, w.t()).float() * xs[:, None] * ws[None, :]
 
-    entry = None
-    for (m, n, k), n_sets in ((INT8_MAIN_SHAPE, 32), (INT8_BIG_SHAPE, 3)):
-        # L2-cold: together the sets exceed the 50 MB L2 (32 x 2.2 MB of
-        # operands at the main shape; 3 x 100 MB at 4096^3)
+    # L2-cold: together the sets exceed the 50 MB L2 (32 x 2.2 MB of
+    # operands at the main shape; 3 x 100 MB at 4096^3 and at fc6)
+    timed = {}
+    for (m, n, k), n_sets in ((INT8_MAIN_SHAPE, 32), (INT8_BIG_SHAPE, 3)) \
+            + tuple((shape, ZOO_INT8_SETS if fc == "fc6" else 12)
+                    for fc, shape in ZOO_FC_SHAPES.items()):
         sets = [_int8_operands(gen, m, n, k) for _ in range(n_sets)]
         got = int8_gemm(*sets[0])
         want = int8_gemm_reference(*sets[0])
@@ -2684,24 +2780,33 @@ def phase_int8_gemm():
         row["kernel_device_tops"] = (2 * m * n * k / row["kernel_device_ms"]
                                      / 1e9)
         log("int8_gemm", json.dumps(row))
-        if entry is None:
-            entry = {"name": "int8_gemm", "route": "cuda",
-                     "source": "bigdl_tpu_torch/kernels/csrc/int8_gemm.cu",
-                     "replaces": "bigdl_tpu/kernels/int8_gemm.py:39",
-                     "launches": None, "max_abs_err": err,
-                     "ms": row["kernel_ms"],
-                     "device_ms": row["kernel_device_ms"],
-                     "plain_ms": row["plain_ms"],
-                     "bound_ms": row["bound_ms"],
-                     "bound_by": row["bound_by"],
-                     "library_ms": row["library_ms"],
-                     "library_device_ms": row["library_device_ms"],
-                     "device_ms_windows": row["device_ms_windows"],
-                     "library_device_ms_windows":
-                         row["library_device_ms_windows"]}
+        timed[(m, n, k)] = row
         del sets
         torch.cuda.empty_cache()
-    return entry
+
+    def line_row(name, row):
+        return {"name": name, "route": "cuda",
+                "source": "bigdl_tpu_torch/kernels/csrc/int8_gemm.cu",
+                "replaces": "bigdl_tpu/kernels/int8_gemm.py:39",
+                "launches": None, "max_abs_err": row["max_abs_err"],
+                "shape": [row["M"], row["N"], row["K"]],
+                "tile": row["tile"], "splits": row["splits"],
+                "k_steps_per_split": row["k_steps_per_split"],
+                "ms": row["kernel_ms"], "device_ms": row["kernel_device_ms"],
+                "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+                "bound_by": row["bound_by"],
+                "library_ms": row["library_ms"],
+                "library_device_ms": row["library_device_ms"],
+                "device_over_bound": row["kernel_device_over_bound"],
+                "device_over_library":
+                    row["kernel_device_over_library_device"],
+                "device_ms_windows": row["device_ms_windows"],
+                "library_device_ms_windows":
+                    row["library_device_ms_windows"]}
+
+    return (line_row("int8_gemm", timed[INT8_MAIN_SHAPE]),
+            {fc: line_row(f"int8_gemm_vgg16_{fc}", timed[shape])
+             for fc, shape in ZOO_FC_SHAPES.items()})
 
 
 # ---- K4: paged decode ----
@@ -5749,6 +5854,597 @@ def phase_fleet(counters, greedy, device="cuda"):
     return summary
 
 
+# ---- the image zoo ----
+
+def _zoo_model(name, device, dtype=None, seed=ZOO_SEED, **kw):
+    """A zoo model of the port (1000 classes) from ``seed`` on
+    ``device``, in ``dtype`` if given."""
+    import torch
+
+    from bigdl_tpu_torch import models
+
+    model = getattr(models, name)(1000, device=device,
+                                  generator=torch.Generator().manual_seed(
+                                      seed), **kw)
+    return model if dtype is None else model.to(dtype)
+
+
+def _zoo_step(name, side, device, fault=False):
+    """One SGD step (lr 0.01, momentum 0.9, weight decay 5e-4) of
+    ``name`` in float64 on ``device`` at batch ``ZOO_PARITY_BATCH`` of
+    mean-subtracted pixel rows, dropout off (``p = 0``); ``fault`` adds
+    ``ZOO_LRN_FAULT`` to the first cross-map LRN's beta. Returns the
+    loss and the parameters."""
+    import torch
+
+    from bigdl_tpu_torch import nn
+    from bigdl_tpu_torch.optim import SGD, build_train_step
+
+    model = _zoo_model(name, device, torch.float64)
+    for m in model.modules():
+        if isinstance(m, nn.Dropout):
+            m.set_p(0.0)
+    step = build_train_step(model, nn.ClassNLLCriterion(), SGD(
+        learning_rate=0.01, momentum=0.9, weight_decay=5e-4))
+    if fault:
+        lrn = next(m for m in model.modules()
+                   if isinstance(m, nn.SpatialCrossMapLRN))
+        lrn.beta += ZOO_LRN_FAULT
+    r = np.random.RandomState(ZOO_ROWS_SEED)
+    x = r.rand(ZOO_PARITY_BATCH, 3, side, side) * 255.0 - 128.0
+    y = r.randint(1, 1001, ZOO_PARITY_BATCH).astype(np.float64)
+    loss = float(step(torch.from_numpy(x).to(device, torch.float64),
+                      torch.from_numpy(y).to(device), 0.01))
+    return loss, model.get_parameters()
+
+
+def _zoo_gap(want, got):
+    """(relative loss difference, largest absolute parameter
+    difference) of two ``_zoo_step`` results."""
+    return (abs(got[0] - want[0]) / abs(want[0]),
+            _max_param_diff(got[1], want[1]))
+
+
+def _zoo_parity(device):
+    """(a): each model's float64 step on the card against the CPU, and
+    Inception v1's with the LRN fault, which must fail the check."""
+    out = {}
+    for name, side in ZOO_PARITY:
+        cpu = _zoo_step(name, side, "cpu")
+        gap = _zoo_gap(cpu, _zoo_step(name, side, device))
+        out[name] = {"loss_rel": gap[0], "param_abs": gap[1],
+                     "loss": cpu[0]}
+        if name.startswith("Inception_v1"):
+            fault = _zoo_gap(cpu, _zoo_step(name, side, device, fault=True))
+            out["lrn_fault"] = {"loss_rel": fault[0], "param_abs": fault[1]}
+        log("zoo", f"(a) {name}: " + json.dumps(out[name]))
+    log("zoo", "(a) LRN beta fault: " + json.dumps(out["lrn_fault"]))
+    bad = {k: v for k, v in out.items() if k != "lrn_fault" and not (
+        v["loss_rel"] <= ZOO_F64_TOL and v["param_abs"] <= ZOO_F64_TOL)}
+    if bad:
+        raise AssertionError(f"zoo card vs CPU in float64: {bad}")
+    f = out["lrn_fault"]
+    if f["loss_rel"] <= ZOO_F64_TOL and f["param_abs"] <= ZOO_F64_TOL:
+        raise AssertionError(f"the LRN beta fault passed the card-vs-CPU "
+                             f"check: {f}")
+    return out
+
+
+def _device_union_ms(prof) -> float:
+    """The device's busy time in a ``torch.profiler`` window: the union of
+    its kernels' and copies' intervals (kernels of cuDNN's side streams
+    overlap, so their summed durations can pass the wall time)."""
+    from torch.autograd import DeviceType
+
+    spans = sorted((ev.time_range.start, ev.time_range.end)
+                   for ev in prof.events()
+                   if ev.device_type == DeviceType.CUDA)
+    busy, end = 0.0, None
+    for a, b in spans:
+        if end is None or a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    return busy / 1e3
+
+
+def _zoo_perf(device):
+    """(b): ``tools.perf`` at full width, float32 and bf16_mixed, through
+    its own ``parse_args`` / ``prepare`` / ``measure`` (what its ``main``
+    runs): the median, images/s, the analytic TFLOP/s and the peak
+    memory of its timed iterations, then a profiled window of the same
+    iteration for the idle share (1 - the union of the device's busy
+    intervals over the wall)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from bigdl_tpu_torch.tools import perf
+    from bigdl_tpu_torch.utils import engine
+
+    on_card = device == "cuda"
+    rows = []
+    for model, batch in ZOO_PERF:
+        for prec in (["--dtype", "f32"], ["--precision", "bf16_mixed"]):
+            args = perf.parse_args([
+                "--model", model, "--batch-size", str(batch), "--warmup",
+                str(ZOO_PERF_WARMUP), "--iterations", str(ZOO_PERF_ITERS),
+                "--device", device] + prec)
+            saved = engine.compute_dtype()
+            if args.precision is None:
+                engine.set_compute_dtype(torch.float32)
+            try:
+                if on_card:
+                    torch.cuda.synchronize()
+                    torch.cuda.reset_peak_memory_stats()
+                runner = perf.prepare(args)
+                tail, _ = _run_cli("zoo-perf",
+                                   lambda _: perf.measure(runner, args), [])
+                peak = torch.cuda.max_memory_allocated() if on_card \
+                    else "not measured"
+                acts = [ProfilerActivity.CPU] + (
+                    [ProfilerActivity.CUDA] if on_card else [])
+                with profile(activities=acts) as prof:
+                    time.sleep(WINDOW_MARGIN_S)
+                    t0 = time.perf_counter()
+                    for _ in range(ZOO_PERF_PROFILE):
+                        out = runner.run()
+                    float(out.float().sum())
+                    wall_ms = (time.perf_counter() - t0) * 1e3
+                    time.sleep(WINDOW_MARGIN_S)
+            finally:
+                engine.set_compute_dtype(saved)
+            kernels = device_kernels(prof)
+            busy = _device_union_ms(prof)
+            read = bool(kernels) and busy <= wall_ms
+            row = {"model": model, "batch": batch, "dtype": tail["dtype"],
+                   "ms_per_step": tail["median_s"] * 1e3,
+                   "images_per_s": tail["rate"],
+                   "tflops_analytic": tail["achieved_tflops"],
+                   "gflop_per_step": tail["flops_per_iteration"] / 1e9,
+                   "max_memory_allocated": peak,
+                   "profiled_ms_per_step": wall_ms / ZOO_PERF_PROFILE,
+                   "device_busy_ms_per_step": busy / ZOO_PERF_PROFILE
+                   if read else "not measured",
+                   "kernel_ms_per_step_summed":
+                       sum(k[0] for k in kernels) / ZOO_PERF_PROFILE,
+                   "idle_share": (1 - busy / wall_ms) if read
+                   else "not measured",
+                   "top": [[ms, n, key[:70]] for ms, n, key in kernels[:4]]}
+            log("zoo", "(b) " + json.dumps(row))
+            rows.append(row)
+            del runner, out
+            if on_card:
+                torch.cuda.empty_cache()
+    return rows
+
+
+class _Recorded:
+    """Records the LocalOptimizers a recipe's main builds (their
+    ``history`` holds the losses)."""
+
+    def __init__(self):
+        self.opts = []
+
+    @contextlib.contextmanager
+    def patched(self):
+        from bigdl_tpu_torch import optim
+
+        base = optim.LocalOptimizer
+        record = self.opts
+
+        class Recorded(base):
+            def __init__(self, *a, **kw):
+                super().__init__(*a, **kw)
+                record.append(self)
+
+        optim.LocalOptimizer = Recorded
+        try:
+            yield self
+        finally:
+            optim.LocalOptimizer = base
+
+
+def _falls(losses) -> bool:
+    n = max(1, len(losses) // 4)
+    return float(np.mean(losses[-n:])) < float(np.mean(losses[:n]))
+
+
+def _zoo_dropout(device):
+    """(c): Inception v1 (no aux heads; Dropout(0.4) in its top
+    Sequential) at batch ``ZOO_DROP_BATCH``: K = 8 windows bitwise the
+    per-step run, another seed other losses."""
+    import torch
+
+    from bigdl_tpu_torch import nn
+    from bigdl_tpu_torch.models._cli import arrays_to_dataset
+    from bigdl_tpu_torch.optim import SGD, LocalOptimizer, max_iteration
+    from bigdl_tpu_torch.tools.synthetic import image_batch
+    from bigdl_tpu_torch.utils.random import RandomGenerator
+
+    imgs, lbls = image_batch(ZOO_DROP_BATCH * ZOO_DROP_K, (3, 224, 224),
+                             1000, seed=ZOO_DROP_SEED)
+
+    def run(k, seed, steps):
+        RandomGenerator.set_seed(seed)
+        # a dataset of its own: a run's epochs advance its shuffle
+        opt = LocalOptimizer(
+            _zoo_model("Inception_v1_NoAuxClassifier", device),
+            arrays_to_dataset(imgs, lbls, ZOO_DROP_BATCH),
+            nn.ClassNLLCriterion(), batch_size=ZOO_DROP_BATCH)
+        opt.set_optim_method(SGD(learning_rate=0.01, momentum=0.9))
+        opt.set_end_when(max_iteration(steps))
+        opt.set_steps_per_sync(k)
+        t0 = time.perf_counter()
+        opt.optimize()
+        return {"seconds": time.perf_counter() - t0,
+                "losses": [h["loss"] for h in opt.history],
+                "params": _snapshot(opt.model.parameters()),
+                "generator": opt.train_step.generator is not None,
+                "graphs": opt.window.captures if opt.window else 0}
+
+    deterministic = torch.backends.cudnn.deterministic
+    benchmark = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        w = run(ZOO_DROP_K, ZOO_DROP_SEED, ZOO_DROP_STEPS)
+        p = run(1, ZOO_DROP_SEED, ZOO_DROP_STEPS)
+        o = run(1, ZOO_DROP_SEED + 1, ZOO_DROP_OTHER_STEPS)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+        torch.backends.cudnn.benchmark = benchmark
+    out = {"steps": ZOO_DROP_STEPS, "k": ZOO_DROP_K,
+           "losses_equal": w["losses"] == p["losses"],
+           "params_equal": _bitwise(w["params"], p["params"]),
+           "generator": w["generator"] and p["generator"],
+           "graphs": w["graphs"], "losses": p["losses"],
+           "other_seed_losses": o["losses"],
+           "seconds_k8": w["seconds"], "seconds_k1": p["seconds"]}
+    log("zoo", "(c) " + json.dumps(out))
+    if not (out["losses_equal"] and out["params_equal"]
+            and out["generator"]):
+        raise AssertionError(f"dropout through containers: K = "
+                             f"{ZOO_DROP_K} is not bitwise K = 1: {out}")
+    if device == "cuda" and w["graphs"] < 1:
+        raise AssertionError("the K = 8 run captured no CUDA graph")
+    if o["losses"] == p["losses"][:ZOO_DROP_OTHER_STEPS]:
+        raise AssertionError("another seed drew the same dropout masks")
+    if not all(math.isfinite(v) for v in p["losses"]):
+        raise AssertionError(f"non-finite losses: {p['losses']}")
+    return out
+
+
+def _write_separable_cifar(folder: str, n_train: int, n_test: int,
+                           seed: int) -> None:
+    """A seeded 10-class task in CIFAR-10's binary format under
+    ``folder`` (``data_batch_1..5.bin``, ``test_batch.bin``): pixels
+    uniform in [100, 156) with an 8 x 6 patch of 255 at the class's own
+    place on a 2 x 5 grid, in every channel. Random labels (what
+    ``--synthetic`` draws) leave nothing to learn in a few steps; on
+    this task VggForCifar10's training loss falls within an epoch (its
+    evaluation-mode Top1 lags: ``ZOO_VGG_LEARN``)."""
+    import os
+
+    r = np.random.RandomState(seed)
+
+    def records(n):
+        y = r.randint(0, 10, n)
+        x = r.randint(100, 156, (n, 3, 32, 32)).astype(np.uint8)
+        for c in range(10):
+            top, left = 4 + (c // 5) * 14, 1 + (c % 5) * 6
+            x[y == c, :, top:top + 8, left:left + 6] = 255
+        return np.concatenate([y.astype(np.uint8)[:, None],
+                               x.reshape(n, -1)], axis=1).tobytes()
+
+    per = -(-n_train // 5)
+    for i in range(5):
+        with open(os.path.join(folder, f"data_batch_{i + 1}.bin"),
+                  "wb") as f:
+            f.write(records(min(per, n_train - i * per)))
+    with open(os.path.join(folder, "test_batch.bin"), "wb") as f:
+        f.write(records(n_test))
+
+
+def _bn_reestimated_top1(model, folder: str, bs: int, device) -> float:
+    """Held-out Top1 of the trained ``model`` in evaluation mode after
+    each BN layer's running statistics are re-estimated as the mean of
+    its batch statistics over the training rows (the layer's own update
+    at momentum ``1 / (k + 1)`` for batch k), the weights untouched: a
+    fault in the evaluation path scores low here, statistics that only
+    trail the weights do not."""
+    import torch
+
+    from bigdl_tpu_torch.models._cli import cifar10_arrays
+    from bigdl_tpu_torch.nn import BatchNormalization
+
+    bns = [m for m in model.modules() if isinstance(m, BatchNormalization)]
+    kept = [b.momentum for b in bns]
+    model.evaluate()
+    for b in bns:
+        b.train()
+    x, _ = cifar10_arrays(folder, True)
+    with torch.inference_mode():
+        for k, i in enumerate(range(0, len(x), bs)):
+            for b in bns:
+                b.momentum = 1.0 / (k + 1)
+            model(torch.from_numpy(x[i:i + bs]).to(device))
+        for b, m in zip(bns, kept):
+            b.momentum = m
+        model.evaluate()
+        x, y = cifar10_arrays(folder, False)
+        hits = sum(int((model(torch.from_numpy(x[i:i + bs]).to(device))
+                        .argmax(1).cpu() == torch.from_numpy(
+                            y[i:i + bs]).long() - 1).sum())
+                   for i in range(0, len(x), bs))
+    return hits / len(x)
+
+
+def _zoo_recipes(device):
+    """(d): vgg.train (dropout, BN) as a ``--synthetic`` run with a
+    checkpoint an epoch (random labels: the losses are reported, not
+    gated) and on a learnable CIFAR-format folder (the losses must fall,
+    and the held-out Top1 with BN's statistics re-estimated pass
+    ``ZOO_VGG_MIN_TOP1``); vgg.test on each saved trained module must
+    score its last validation's Top1; inception.train;
+    autoencoder.train (its MSE falls)."""
+    import os
+    import shutil
+    import tempfile
+
+    from bigdl_tpu_torch.models.autoencoder import train as ae_train
+    from bigdl_tpu_torch.models.inception import train as inception_train
+    from bigdl_tpu_torch.models.vgg import test as vgg_test
+    from bigdl_tpu_torch.models.vgg import train as vgg_train
+    from bigdl_tpu_torch.utils.serialization import save_module
+
+    out = {}
+    root = tempfile.mkdtemp(prefix="zoo-")
+    try:
+        data = os.path.join(root, "cifar")
+        os.makedirs(data)
+        _write_separable_cifar(data, ZOO_VGG_LEARN[0], ZOO_VGG_LEARN[0],
+                               ZOO_SEED)
+        for label, source, (rows, bs, epochs) in (
+                ("synthetic", ["--synthetic", str(ZOO_VGG_RECIPE[0])],
+                 ZOO_VGG_RECIPE),
+                ("separable", ["-f", data], ZOO_VGG_LEARN)):
+            ck = os.path.join(root, f"vgg-{label}")
+            flags = ["--checkpoint", ck] if label == "synthetic" else []
+            with _Recorded().patched() as rec:
+                t0 = time.perf_counter()
+                model, _ = _run_cli("zoo-vgg", vgg_train.main, source + [
+                    "-b", str(bs), "-e", str(epochs), "--device",
+                    device] + flags)
+                seconds = time.perf_counter() - t0
+            opt = rec.opts[-1]
+            losses = [h["loss"] for h in opt.history]
+            saved = os.path.join(root, f"vgg-module-{label}")
+            save_module(saved, model.evaluate())
+            scores, _ = _run_cli("zoo-vgg", vgg_test.main, source + [
+                "-b", str(bs), "--model", saved, "--device", device])
+            out[f"vgg_{label}"] = {
+                "steps": len(losses), "loss_first": losses[0],
+                "loss_last": losses[-1], "falls": _falls(losses),
+                "finite": all(math.isfinite(v) for v in losses),
+                "checkpoints": sorted(os.listdir(ck)) if flags else [],
+                "validation": opt.validation_history[-1],
+                "test_top1": scores["Top1Accuracy"].result()[0],
+                "seconds": seconds}
+            if label == "separable":
+                out["vgg_separable"]["top1_bn_reestimated"] = \
+                    _bn_reestimated_top1(model, data, bs, device)
+        rows, bs, epochs = ZOO_INCEPTION_RECIPE
+        with _Recorded().patched() as rec:
+            _run_cli("zoo-inception", inception_train.main, [
+                "--synthetic", str(rows), "-b", str(bs), "-e", str(epochs),
+                "--device", device])
+        losses = [h["loss"] for h in rec.opts[-1].history]
+        out["inception"] = {"steps": len(losses), "losses": losses}
+        rows, bs, epochs = ZOO_AE_RECIPE
+        with _Recorded().patched() as rec:
+            _run_cli("zoo-autoencoder", ae_train.main, [
+                "--synthetic", str(rows), "-b", str(bs), "-e", str(epochs),
+                "--device", device])
+        losses = [h["loss"] for h in rec.opts[-1].history]
+        out["autoencoder"] = {"steps": len(losses), "loss_first": losses[0],
+                              "loss_last": losses[-1],
+                              "falls": _falls(losses)}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log("zoo", "(d) " + json.dumps(out))
+    for label in ("synthetic", "separable"):
+        v = out[f"vgg_{label}"]
+        held = v["finite"] and (
+            v["test_top1"] == v["validation"]["Top1Accuracy"])
+        if label == "synthetic":
+            held = held and len(v["checkpoints"]) == ZOO_VGG_RECIPE[2]
+        else:
+            held = held and v["falls"] and (
+                v["top1_bn_reestimated"] > ZOO_VGG_MIN_TOP1)
+        if not held:
+            raise AssertionError(f"vgg.train ({label}): {v}")
+    if not all(math.isfinite(x) for x in out["inception"]["losses"]):
+        raise AssertionError(f"inception.train: {out['inception']}")
+    if not out["autoencoder"]["falls"]:
+        raise AssertionError(f"autoencoder.train: the MSE did not fall: "
+                             f"{out['autoencoder']}")
+    return out
+
+
+def _flip_byte(w, j: int):
+    """A copy of int8 ``w`` with the byte at ``[0, j]`` flipped."""
+    import torch
+
+    out = w.clone()
+    out[0, j] = (out[0, j].view(torch.uint8) ^ 0x40).view(torch.int8)
+    return out
+
+
+def _zoo_int8(counters, k5_rows, device):
+    """(e): int8 VGG-16 at batch ``ZOO_INT8_BATCH`` — the main path: the
+    counts are set to 0, ``ZOO_INT8_FORWARDS`` int8 forwards run, K5
+    must have launched 3 a forward; the profiler counts one forward's
+    K5 kernels; each recorded call bitwise the plain version, a flipped
+    weight byte not; logits with K5 bitwise those with the kernels off,
+    a flipped fc8 byte not. ``k5_rows`` (by fc: phase 3's timed rows at
+    these shapes) get this run's launches and errors. Returns the
+    kernels-line rows and the numbers."""
+    import sys as _sys
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from bigdl_tpu_torch import kernels
+    from bigdl_tpu_torch.nn.quantized import QuantizedLinear, quantize
+    from bigdl_tpu_torch.tools.synthetic import image_batch
+
+    k5 = _sys.modules["bigdl_tpu_torch.kernels.int8_gemm"]
+    gemm, reference = k5.int8_gemm, k5.int8_gemm_reference
+    model = _zoo_model("Vgg_16", device).evaluate()
+    q = quantize(model)
+    x = torch.from_numpy(image_batch(ZOO_INT8_BATCH, (3, 224, 224), 1000,
+                                     seed=ZOO_SEED)[0]).to(device)
+    # the dispatch's operands, recorded where QuantizedLinear calls it
+    # (K5's own name stays: its wrapper counts through it)
+    dispatch = kernels.int8_matmul
+    calls = []
+
+    def recording(x_q, w_q, x_scale, w_scale, bias=None):
+        calls.append((x_q, w_q, x_scale, w_scale))
+        return dispatch(x_q, w_q, x_scale, w_scale, bias)
+
+    kernels.int8_matmul = recording
+    try:
+        with torch.inference_mode():
+            float(q(x).sum())                      # warm
+            calls.clear()
+            for fn in counters.values():
+                fn.launches = 0
+            for _ in range(ZOO_INT8_FORWARDS):
+                logits = q(x)
+            torch.cuda.synchronize() if device == "cuda" else None
+            launches = {name: fn.launches for name, fn in counters.items()}
+    finally:
+        kernels.int8_matmul = dispatch
+    shapes = [(a[0].shape[0], a[1].shape[0], a[0].shape[1]) for a in calls]
+    per_shape = {fc: shapes.count(s) for fc, s in ZOO_FC_SHAPES.items()}
+    out = {"launches": launches, "calls_by_shape": per_shape,
+           "forwards": ZOO_INT8_FORWARDS}
+    on_card = device == "cuda"
+    if on_card and launches["int8_gemm"] != 3 * ZOO_INT8_FORWARDS:
+        raise AssertionError(f"K5 launched {launches['int8_gemm']} times "
+                             f"in {ZOO_INT8_FORWARDS} int8 forwards")
+    if any(n != ZOO_INT8_FORWARDS for n in per_shape.values()):
+        raise AssertionError(f"K5 calls by shape: {per_shape}")
+    others = {n: v for n, v in launches.items() if n != "int8_gemm" and v}
+    if others:
+        raise AssertionError(f"int8 VGG-16 launched {others}")
+
+    # the profiler's count of one forward's K5 kernels
+    if on_card:
+        for attempt in range(3):
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                time.sleep(WINDOW_MARGIN_S)
+                with torch.inference_mode():
+                    float(q(x).sum())
+                torch.cuda.synchronize()
+                time.sleep(WINDOW_MARGIN_S)
+            found = {key: n for _, n, key in device_kernels(prof)
+                     if "int8_gemm_kernel" in key
+                     or "int8_splitk_reduce" in key}
+            gemms = sum(n for key, n in found.items()
+                        if "int8_gemm_kernel" in key)
+            if gemms >= 3:
+                break
+        out["profiled_k5_kernels"] = {k[:80]: n for k, n in found.items()}
+        out["profiled_k5_gemms"] = gemms
+        if gemms != 3:
+            raise AssertionError(f"the profiler counted {gemms} K5 GEMM "
+                                 f"kernels in one int8 forward: {found}")
+
+    # each recorded call's operands: the kernel bitwise its plain version
+    by_fc = {}
+    for fc, shape in ZOO_FC_SHAPES.items():
+        args = calls[shapes.index(shape)]
+        got, want = gemm(*args), reference(*args)
+        j = int(args[0][0].abs().argmax())
+        flipped = gemm(args[0], _flip_byte(args[1], j), *args[2:])
+        if on_card:
+            torch.cuda.synchronize()
+        by_fc[fc] = {"bitwise": bool(torch.equal(got, want)),
+                     "flipped_byte_differs": not torch.equal(flipped, want),
+                     "max_abs_err": float((got - want).abs().max())}
+    out["bitwise"] = by_fc
+    if not all(v["bitwise"] and v["flipped_byte_differs"]
+               for v in by_fc.values()):
+        raise AssertionError(f"K5 at VGG-16's classifier: {by_fc}")
+
+    # int8 on == off, a flipped fc8 byte not; int8 against float top-1
+    with torch.inference_mode():
+        on = q(x)
+        with kernels.use(kernels.KernelConfig.off()):
+            off = q(x)
+        # the byte meets row 0's largest input to fc8 (an fc6 or fc7
+        # byte may feed a unit the Threshold then zeroes)
+        fc8 = [m for m in q.modules() if isinstance(m, QuantizedLinear)][-1]
+        j = int(calls[shapes.index(ZOO_FC_SHAPES["fc8"])][0][0].abs()
+                .argmax())
+        kept = fc8.weight_q.clone()
+        fc8.weight_q.copy_(_flip_byte(kept, j))
+        faulty = q(x)
+        fc8.weight_q.copy_(kept)
+        agree = float((model(x).argmax(1) == on.argmax(1)).float().mean())
+    out["on_equals_off"] = bool(torch.equal(on, off))
+    out["flipped_fc8_byte_differs"] = not torch.equal(faulty, off)
+    out["top1_agreement_int8_vs_float"] = agree
+    if not (out["on_equals_off"] and out["flipped_fc8_byte_differs"]):
+        raise AssertionError(f"int8 VGG-16 logits, kernels on vs off: "
+                             f"{out}")
+
+    rows = []
+    for fc, row in k5_rows.items():
+        row.update(launches=per_shape[fc],
+                   max_abs_err=by_fc[fc]["max_abs_err"])
+        log("zoo", "(e) " + json.dumps(
+            {k: v for k, v in row.items() if "windows" not in k}))
+        rows.append(row)
+    log("zoo", "(e) " + json.dumps(out))
+    return rows, out
+
+
+def phase_zoo(counters, k5_rows, device="cuda"):
+    """The classic image zoo (queue 1, item 9) on ``device``: (a) card
+    against CPU in float64 with an LRN fault, (b) tools/perf throughput
+    at full width, (c) dropout through containers windowed, (d) the
+    recipes, (e) int8 VGG-16 through K5 (module docstring, phase 15).
+    Returns the kernels-line rows of K5 at VGG-16's classifier
+    (``k5_rows``, phase 3's timings, with (e)'s launches and errors)
+    and the summary."""
+    import torch
+
+    on_card = device == "cuda"
+    t_phase = time.perf_counter()
+    for fn in counters.values():
+        fn.launches = 0
+    summary = {"parity": _zoo_parity(device)}
+    summary["perf"] = _zoo_perf(device)
+    summary["dropout"] = _zoo_dropout(device)
+    summary["recipes"] = _zoo_recipes(device)
+    training = {name: fn.launches for name, fn in counters.items()}
+    if any(training.values()):
+        raise AssertionError(f"a kernel of the kernels line launched in "
+                             f"the zoo's training: {training}")
+    rows, summary["int8"] = _zoo_int8(counters, k5_rows, device)
+    summary["wall_s"] = time.perf_counter() - t_phase
+    summary["max_memory_allocated"] = \
+        torch.cuda.max_memory_allocated() if on_card else "not measured"
+    log("zoo", f"phase wall {summary['wall_s']:.1f} s")
+    return rows, summary
+
+
 def main() -> int:
     import torch
 
@@ -5775,7 +6471,7 @@ def main() -> int:
     flash_fwd, flash_bwd = phase_flash(train_seg)
     blockwise_fwd, blockwise_bwd = phase_blockwise()
     phase_k6_route()
-    int8 = phase_int8_gemm()
+    int8, k5_vgg_rows = phase_int8_gemm()
     paged = phase_paged_decode(main_lengths)
     counters = {"ragged_decode": ragged_decode_attention,
                 "flash_attention_fwd": flash_attention_forward,
@@ -5801,6 +6497,7 @@ def main() -> int:
         "idle_share": bf16["k8_idle_share"]})
     phase_lm(counters, corpus)
     phase_fleet(counters, greedy)
+    zoo_rows, _ = phase_zoo(counters, k5_vgg_rows)
     ragged["launches"] = serve_launches["ragged_decode"]
     flash_fwd["launches"] = train_launches["flash_attention_fwd"]
     flash_bwd["launches"] = train_launches["flash_attention_bwd"]
@@ -5825,7 +6522,7 @@ def main() -> int:
                      f"{WINDOWS['graph rows']} rows timed by graph replays")
     print(json.dumps({"kernels": [ragged, flash_fwd, flash_bwd,
                                   blockwise_fwd, blockwise_bwd, int8,
-                                  paged]}),
+                                  paged] + zoo_rows}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -17,8 +17,8 @@ from bigdl_tpu.utils.table import Table as JaxTable
 from bigdl_tpu_torch.convert import flatten_params
 from bigdl_tpu_torch.utils.table import Table
 
-__all__ = ["assert_parity", "assert_trees_close", "flat", "to_jax",
-           "to_numpy", "to_torch"]
+__all__ = ["assert_parity", "assert_trees_close", "flat", "jax_eval",
+           "to_jax", "to_numpy", "to_torch"]
 
 
 def _map(fn, tree, table):
@@ -59,6 +59,15 @@ def flat(tree):
     return {k: _np(v) for k, v in flatten_params(tree).items()}
 
 
+def jax_eval(ref, x):
+    """``ref``'s (a JAX Module's) evaluation forward of ``x`` as one
+    compiled program: op-by-op dispatch compiles each layer's shapes
+    apart, seconds for a deep model."""
+    fwd = jax.jit(lambda p, s, a: ref.apply(p, s, a, training=False)[0])
+    return np.asarray(fwd(ref.get_parameters(), ref.get_state(),
+                          jnp.asarray(x)))
+
+
 def assert_trees_close(got, want, atol, rtol=0.0):
     g, w = flat(got), flat(want)
     assert sorted(g) == sorted(w), (sorted(g), sorted(w))
@@ -72,7 +81,7 @@ def _floating(x):
 
 
 def assert_parity(ref, port, input, atol, rtol=0.0, training=False,
-                  seed=0, rng=None):
+                  seed=0, rng=None, jit=False):
     """Hold ``port`` (a port Module) to ``ref`` (the JAX Module).
 
     ``ref``'s parameters (initialised if needed) are carried into
@@ -82,7 +91,9 @@ def assert_parity(ref, port, input, atol, rtol=0.0, training=False,
     outputs must agree, and so must the gradients of
     ``sum(output * w)``, ``w`` seeded normal of the output's shape, with
     respect to the floating input and to every parameter: each within
-    ``atol + rtol * |JAX value|``. Returns the port's output."""
+    ``atol + rtol * |JAX value|``. With ``jit`` the JAX side runs as
+    one compiled program (cheaper than op-by-op dispatch for a deep
+    block). Returns the port's output."""
     ref.ensure_initialized()
     params = jax.tree.map(np.asarray, ref.get_parameters())
     if flat(params):
@@ -93,9 +104,11 @@ def assert_parity(ref, port, input, atol, rtol=0.0, training=False,
     def jax_out(p, x):
         return ref.apply(p, state, x, training=training, rng=rng)[0]
 
+    compiled = jax.jit if jit else (lambda f: f)
+
     j_in = to_jax(input)
     j_params = jax.tree.map(jnp.asarray, params)
-    want = np.asarray(jax_out(j_params, j_in))
+    want = np.asarray(compiled(jax_out)(j_params, j_in))
     w = np.random.RandomState(seed).standard_normal(want.shape) \
         .astype(np.float32)
 
@@ -106,9 +119,10 @@ def assert_parity(ref, port, input, atol, rtol=0.0, training=False,
     _map(leaves.append, input, Table)
     grad_in = all(_floating(leaf) for leaf in leaves)
     if grad_in:
-        j_gp, j_gx = jax.grad(j_loss, argnums=(0, 1))(j_params, j_in)
+        j_gp, j_gx = compiled(jax.grad(j_loss, argnums=(0, 1)))(j_params,
+                                                                 j_in)
     else:
-        j_gp = jax.grad(j_loss)(j_params, j_in)
+        j_gp = compiled(jax.grad(j_loss))(j_params, j_in)
 
     x = to_torch(input)
     if grad_in:

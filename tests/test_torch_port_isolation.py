@@ -59,7 +59,16 @@ def test_importing_the_port_loads_no_reference_module():
             "bigdl_tpu_torch.fleet.prefix, bigdl_tpu_torch.fleet.replica, "
             "bigdl_tpu_torch.fleet.router, bigdl_tpu_torch.fleet.soak, "
             "bigdl_tpu_torch.fleet.speculative, bigdl_tpu_torch.autotune, "
-            "bigdl_tpu_torch.autotune.config\n"
+            "bigdl_tpu_torch.autotune.config, bigdl_tpu_torch.models, "
+            "bigdl_tpu_torch.models.vgg.train, "
+            "bigdl_tpu_torch.models.vgg.test, "
+            "bigdl_tpu_torch.models.inception.train, "
+            "bigdl_tpu_torch.models.inception.test, "
+            "bigdl_tpu_torch.models.alexnet, "
+            "bigdl_tpu_torch.models.autoencoder.train, "
+            "bigdl_tpu_torch.models.autoencoder.test, "
+            "bigdl_tpu_torch.nn.norm, bigdl_tpu_torch.nn.criterion, "
+            "bigdl_tpu_torch.nn.initialization, bigdl_tpu_torch.tools.perf\n"
             "bad = sorted(m for m in sys.modules if m == 'bigdl_tpu' "
             "or m.startswith('bigdl_tpu.'))\n"
             "print(bad)\n"
