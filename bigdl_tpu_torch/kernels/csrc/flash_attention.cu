@@ -15,9 +15,10 @@
 // scales q before it: the same value to within a rounding). Inputs are
 // float32, bfloat16 or float16; every sum is float32. float32 products
 // run 3xTF32 (float32 accuracy); bfloat16 and float16 products run one
-// m16n8k16 MMA on the 16-bit operands as they are, two where p or dS
-// (float32 accumulators) is the operand, split into hi + lo in the
-// input dtype (flash_common.cuh has why). Any head_dim d up to 128 is
+// 16-bit MMA on the operands as they are (m16n8k16 in the forward,
+// wgmma m64nNk16 in the backward), two where p or dS (float32
+// accumulators) is the operand, split into hi + lo in the input dtype
+// (flash_common.cuh has why). Any head_dim d up to 128 is
 // taken: the kernels are built for tile widths D of 16, 32, 64 and 128,
 // and d runs in the narrowest that holds it, its columns past d staged
 // as zeros (they add nothing to any product) and never stored. Past 128
@@ -74,8 +75,10 @@
 //    ids (mark_tiles, the same exact test), so neither pass loads the
 //    others;
 //  * the backward is flash_common.cuh's, on the tensor cores (3xTF32,
-//    or m16n8k16 in 16 bits, where it skips the unshared tile pairs too
-//    and bigdl_flash_bwd_tile_pairs reads the pairs it computed).
+//    or wgmma in 16 bits, where it skips the unshared tile pairs too and
+//    bigdl_flash_bwd_tile_pairs reads the pairs it computed; wgmma ran
+//    K1's 16-bit backward 10% faster than mma.sync m16n8k16 at the
+//    training shape on an H100, PERF.md).
 //    The TPU grid runs its query tiles in order and carries dK / dV in
 //    scratch across them; GPU blocks run in no order, so the backward
 //    splits without atomics (the gradient is bitwise the same from run
@@ -97,10 +100,6 @@
 #include "flash_common.cuh"
 
 namespace {
-
-// (query tile, key tile) pairs the forward has computed (pass 2) since
-// it was last read: the record that segment skipping ran.
-__device__ unsigned long long g_tile_pairs;
 
 // 32-bit words of a forward block's kept-key-tile bitmask.
 __host__ __device__ constexpr int keep_words(int s_len) {
@@ -493,37 +492,10 @@ struct FullRowForward {
 
 }  // namespace
 
-// bigdl_flash_{fwd,bwd}_{f32,bf16,f16} and bigdl_flash_error_string
-// (flash_common.cuh has the interface).
+// bigdl_flash_{fwd,bwd}_{f32,bf16,f16}, bigdl_flash_error_string and
+// bigdl_flash_{tile_pairs,bwd_tile_pairs} (flash_common.cuh has the
+// interface): the forward's computed (query tile, key tile) pairs, and
+// the 16-bit backward's dK/dV [0] and dQ [1] pairs (the float32 backward
+// counts none). Each read synchronises the device and restarts its
+// counts at 0.
 BIGDL_FLASH_ENTRY_POINTS(bigdl_flash, FullRowForward)
-
-// The (query tile, key tile) pairs the forward kernel has computed on
-// `device` since the last call, into *pairs; the count restarts at 0.
-// Synchronises the device. Returns the first cudaError_t that is not
-// cudaSuccess.
-extern "C" int bigdl_flash_tile_pairs(int device, unsigned long long* pairs) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err == cudaSuccess)
-    err = cudaMemcpyFromSymbol(pairs, g_tile_pairs, sizeof(*pairs));
-  const unsigned long long zero = 0;
-  if (err == cudaSuccess)
-    err = cudaMemcpyToSymbol(g_tile_pairs, &zero, sizeof(zero));
-  return static_cast<int>(err);
-}
-
-// The (query tile, key tile) pairs the 16-bit backward's dK/dV kernel
-// (pairs[0]) and dQ kernel (pairs[1]) have computed on `device` since
-// the last call; both counts restart at 0. The float32 backward computes
-// every causal pair and counts none. Synchronises the device. Returns
-// the first cudaError_t that is not cudaSuccess.
-extern "C" int bigdl_flash_bwd_tile_pairs(int device,
-                                          unsigned long long* pairs) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err == cudaSuccess)
-    err = cudaMemcpyFromSymbol(pairs, g_bwd_tile_pairs,
-                               sizeof(g_bwd_tile_pairs));
-  const unsigned long long zero[2] = {0, 0};
-  if (err == cudaSuccess)
-    err = cudaMemcpyToSymbol(g_bwd_tile_pairs, zero, sizeof(zero));
-  return static_cast<int>(err);
-}

@@ -46,31 +46,33 @@
 // exponentials exp2 and the fragment loads ldmatrix.
 //
 // bfloat16 and float16 operands are exact on the tensor cores, so they
-// go unsplit into mma.sync m16n8k16 (stage_tile16, load_a16, load_bt16,
-// load_b16, acc_as_a16, mma16): twice an m16n8k8's k at the 989 TFLOP/s
+// go unsplit into 16-bit MMAs: twice an m16n8k8's k at the 989 TFLOP/s
 // 16-bit rate, six times fewer MMA instructions than 3xTF32 and no
-// splits of the inputs. Their tiles stay 16-bit in shared memory, rows
-// padded to D + 8 elements (conflict-free ldmatrix, 16-byte aligned
-// rows), filled by 16-byte cp.async where d is a multiple of 8 and the
-// rows are 16-byte aligned, by plain loads elsewhere. Operands whose
-// rows are the product's k (V, dO, q, K in the second products) are
-// read with ldmatrix.trans. p and dS leave the float32 accumulators as
-// the A operand of the next product, split into hi + lo in the input
-// dtype (two MMAs): rounded once, they put the bfloat16 gradients past
-// their 1e-2 contract at the training shape. The row max, l, lse,
-// delta, every accumulator and the promote carries stay float32. These
-// kernels also skip the tile pairs whose queries and keys share no
-// segment id (mark_tiles), in the forward as the float32 one does and
-// in the backward.
+// splits of the inputs. The two forwards run mma.sync m16n8k16
+// (stage_tile16, load_a16, load_bt16, load_b16, acc_as_a16, mma16):
+// their tiles stay 16-bit in shared memory, rows padded to D + 8
+// elements (conflict-free ldmatrix, 16-byte aligned rows), filled by
+// 16-byte cp.async where d is a multiple of 8 and the rows are 16-byte
+// aligned, by plain loads elsewhere; operands whose rows are the
+// product's k (V) are read with ldmatrix.trans. The 16-bit backward runs
+// wgmma.mma_async m64nNk16, the block's four warps one warpgroup (the
+// wgmma kit below: swizzled tiles read through matrix descriptors, p^T
+// and dS^T the register A operand). p and dS leave the float32
+// accumulators as the A operand of the next product, split into hi + lo
+// in the input dtype (two MMAs): rounded once, they put the bfloat16
+// gradients past their 1e-2 contract at the training shape. The row
+// max, l, lse, delta and every accumulator stay float32. These kernels
+// also skip the tile pairs whose queries and keys share no segment id
+// (mark_tiles), in both forwards and in the backward.
 //
 // The forwards (K1's full-row two-pass walk, K2's online softmax) share
 // score_tile (S = q . k^T for a warp's strip; K1 at D <= 64 holds the
 // strip's split q fragments across its key tiles), pv_tile (P . V with P
 // straight from the S accumulators), fwd_smem_bytes (q, a cp.async ring
 // of two (k, v) tiles, segment ids) and store_forward (O = acc / l and
-// lse = (m + log2 l) ln 2 from a row max kept in log2 units). K1's
-// 16-bit forward shares store_forward and the 16-bit kit
-// (strip_by_rows, strip_times_tile) with the 16-bit backward.
+// lse = (m + log2 l) ln 2 from a row max kept in log2 units). The 16-bit
+// forwards share store_forward and the 16-bit kit (strip_by_rows,
+// strip_times_tile).
 //
 // The backward (both kernels K1 and K2 launch it) splits into a pass
 // per key tile (dV = P^T . dO and dK = dS^T . q) and a pass per query
@@ -79,12 +81,16 @@
 // into another's output, so there are no atomics on the gradients and
 // a gradient is bitwise the same from run to run. The dK/dV block keeps
 // its keys and values and the dQ block its queries and dO; the streamed
-// tiles go through a two-deep ring filled by cp.async so the next
-// tile's copy overlaps this tile's products. Bound at the long-context
-// shape ([1, 8, 8192, 64] f32 causal): operations, 1.04 ms at the
-// 3xTF32 rate; its bytes take 40 us. The dQ kernel starts its longest
-// query tiles (the last, under causal) first; the dK/dV kernel's
-// longest key tiles are its first.
+// tiles go through a cp.async ring (two deep in float32, three in 16
+// bits) so the next tiles' copies overlap this tile's products. Bound at
+// the long-context shape ([1, 8, 8192, 64] causal): operations, 1.04 ms
+// at the 3xTF32 rate in float32, 0.174 ms at the 16-bit rate (its bytes
+// take 40 and 20 us); with p and dS split, the 16-bit kernels issue 10
+// products of 64^3 per tile pair to the bound's 5. On an H100 the 16-bit
+// backward takes about 1.10 ms there (2.2x SDPA; 1.54 on mma.sync) and
+// 0.14 ms at K1's [16, 8, 512, 64] (0.153 on mma.sync; PERF.md). The dQ
+// kernel starts its longest query tiles (the last, under causal) first;
+// the dK/dV kernel's longest key tiles are its first.
 //
 // Inputs are float32, bfloat16 or float16, and every sum is float32.
 // A head_dim d up to 128 runs in the narrowest tile width D of 16, 32,
@@ -476,13 +482,6 @@ __device__ __forceinline__ Frag16 load_a16(const T* tile, int r0, int k0,
   return f;
 }
 
-// A fragments of a warp's strip (rows r0 .. r0 + 15) of a staged tile,
-// 16 columns at a time: a(kk) is columns 16 kk .. 16 kk + 15.
-template <int LD, typename T>
-__device__ __forceinline__ auto strip_a16(const T* tile, int r0, int lane) {
-  return [=](int kk) { return load_a16<LD>(tile, r0, 16 * kk, lane); };
-}
-
 // B[k][n] = tile[n0 + n][k0 + k] for two 8-column blocks (n0 in b[0..1],
 // n0 + 8 in b[2..3]): a tile whose rows are the product's columns (k^T
 // in q . k^T).
@@ -670,20 +669,31 @@ __device__ __forceinline__ unsigned keep_bits(const int (&id_r)[2],
 }
 
 // Stage rows [row0, row0 + 64) of one (b, h) slice into a [64][D + 8]
-// tile of T; rows past S and columns past d are zeros. When vec, by
-// 16-byte cp.async (to be waited for with cp_async_wait); else, with
-// plain loads and stores (any d, any stride).
-template <typename T, int D>
+// tile of T, or (Swizzled) into a swizzled [64][D] one (sw_offset,
+// below: a 16-byte chunk stays whole under the swizzle); rows past S and
+// columns past d are zeros. When vec, by 16-byte cp.async (to be waited
+// for with cp_async_wait); else, with plain loads and stores (any d, any
+// stride).
+template <int D>
+__device__ __forceinline__ int sw_offset(int r, int c);
+
+template <typename T, int D, bool Swizzled = false>
 __device__ __forceinline__ void stage_tile16(T* dst, const T* src,
                                              int64_t row_stride, int row0,
                                              int s_len, int d, bool vec) {
   constexpr int LD = tile_ld16<D>();
+  const auto at = [](int r, int c) {
+    if constexpr (Swizzled)
+      return sw_offset<D>(r, c);
+    else
+      return r * LD + c;
+  };
   if (vec) {
     for (int e = threadIdx.x; e < kTile * D / 8; e += kMmaThreads) {
       const int r = e / (D / 8);
       const int c = e % (D / 8) * 8;
       const bool in = row0 + r < s_len && c < d;
-      cp_async16(dst + r * LD + c,
+      cp_async16(dst + at(r, c),
                  in ? src + (row0 + r) * row_stride + c : src, in);
     }
     return;
@@ -692,7 +702,7 @@ __device__ __forceinline__ void stage_tile16(T* dst, const T* src,
     const int r = e / D;
     const int c = e % D;
     const int gr = row0 + r;
-    dst[r * LD + c] =
+    dst[at(r, c)] =
         gr < s_len && c < d ? src[gr * row_stride + c] : from_f32<T>(0.f);
   }
 }
@@ -744,6 +754,357 @@ __device__ __forceinline__ void mark_tiles(unsigned char* flags, int* heads,
       if (heads[i] == id) flags[t] = 1;
   }
   __syncthreads();
+}
+
+// ------------------------------------------ tensor cores, wgmma (Hopper)
+
+// The 16-bit backward of K2 runs its tile products as wgmma.mma_async
+// m64nNk16: the block's four warps are one warpgroup, and warp w's part
+// of the 64-row accumulator is rows 16w .. 16w + 15 in the m16n8
+// accumulator layout (d[4j + e] is element [j][e] of the mma.sync
+// kit's [N / 8][4] arrays), so keep_bits, acc_as_a16 and store_strip
+// carry over. B, and the A of the score-like products, come from
+// shared memory through matrix descriptors; p^T and dS^T are the
+// register A operand (the m16n8k16 A layout, which acc_as_a16 builds).
+//
+// The descriptors read a swizzled tile: a [64][D] tile of 16-bit values
+// is D * 2 / R atoms of 64 rows x R bytes (R = min(2 D, 128): the 32-,
+// 64- or 128-byte swizzle), a row's R bytes in 16-byte chunks, chunk c
+// of row r stored at chunk c ^ (r / (128 / R) % (R / 16)): the address
+// bits [4, 4 + log2(R / 16)) XORed with bits [7, ...), as the hardware
+// reads them. The same tile is read K-major (rows are the product's M
+// or N, its k contiguous: q, dO, k, v in S^T = k . q^T, dP^T = v . dO^T,
+// S = q . k^T, dP = dO . v^T) and MN-major (rows are its k: dO, q in
+// dV = P^T . dO, dK = dS^T . q, k in dQ = dS . K). Atoms start on
+// 1024-byte boundaries (sw_base), so the swizzle of an address is that
+// of its offset in the atom.
+template <int D>
+__host__ __device__ constexpr int sw_row_bytes() {
+  return 2 * D < 128 ? 2 * D : 128;
+}
+
+// Element offset of (row r, column c) in a swizzled [64][D] tile.
+template <int D>
+__device__ __forceinline__ int sw_offset(int r, int c) {
+  constexpr int R = sw_row_bytes<D>();
+  const int byte = 2 * c;
+  int o = r * R + byte % R;
+  o ^= ((o >> 7) & (R / 16 - 1)) << 4;
+  return (byte / R * kTile * R + o) / 2;
+}
+
+// The first 1024-byte boundary of the block's dynamic shared memory at
+// or past smem (the launch asks for 1024 bytes more than it lays out).
+template <typename T>
+__device__ __forceinline__ T* sw_base(void* smem) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  return reinterpret_cast<T*>(static_cast<char*>(smem) +
+                              ((1024u - a % 1024u) % 1024u));
+}
+
+// A wgmma matrix descriptor of a swizzled tile: bits 0-13 the start
+// address / 16, 16-29 the leading byte offset / 16, 32-45 the stride
+// byte offset / 16 (8 rows: 8 R bytes, in both readings), 62-63 the
+// swizzle (1: 128 bytes, 2: 64, 3: 32).
+template <int D>
+__device__ __forceinline__ uint64_t sw_desc(const void* start,
+                                            uint32_t lbo) {
+  constexpr int R = sw_row_bytes<D>();
+  constexpr uint64_t layout = R == 128 ? 1 : R == 64 ? 2 : 3;
+  const uint32_t a =
+      static_cast<uint32_t>(__cvta_generic_to_shared(start));
+  return static_cast<uint64_t>((a >> 4) & 0x3fffu) |
+         static_cast<uint64_t>((lbo >> 4) & 0x3fffu) << 16 |
+         static_cast<uint64_t>(((8 * R) >> 4) & 0x3fff) << 32 |
+         layout << 62;
+}
+
+// K-major: the operand whose rows r0 .. are its M (or N) and whose k
+// is the tile's columns 16 kk .. 16 kk + 15 (the leading byte offset is
+// unused under a swizzle).
+template <typename T, int D>
+__device__ __forceinline__ uint64_t desc_k(const T* tile, int r0, int kk) {
+  constexpr int R = sw_row_bytes<D>();
+  return sw_desc<D>(reinterpret_cast<const char*>(tile) +
+                        (32 * kk / R) * kTile * R + r0 * R + 32 * kk % R,
+                    16);
+}
+
+// MN-major: the operand whose k is the tile's rows k0 .. k0 + 15 and
+// whose N is its columns; the leading byte offset steps from one atom
+// of R / 2 columns to the next.
+template <typename T, int D>
+__device__ __forceinline__ uint64_t desc_mn(const T* tile, int k0) {
+  constexpr int R = sw_row_bytes<D>();
+  return sw_desc<D>(reinterpret_cast<const char*>(tile) + k0 * R,
+                    kTile * R);
+}
+
+// wgmma.fence: the registers an ordinary instruction wrote (accumulators,
+// A fragments) are in place before the next wgmma reads them.
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// Wait until at most N of the warpgroup's committed wgmma groups are in
+// flight.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Generic-proxy writes to shared memory (cp.async, stores) made visible
+// to the async proxy that wgmma reads it through; before the barrier.
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Keep the compiler from moving reads or writes of an accumulator
+// across an asynchronous wgmma (after wgmma_wait, before the next one).
+template <int N>
+__device__ __forceinline__ void fence_operands(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d (the warpgroup's 64 x N accumulator, N / 2 floats a thread) = A .
+// B, plus d when accumulate: A [64][16] and B [16][N] from shared
+// memory, K-major (0) or MN-major (1) as TransA / TransB say.
+template <typename T, int N, int TransA, int TransB>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t desc_a,
+                                         uint64_t desc_b, int accumulate) {
+  constexpr bool kF16 = std::is_same<T, __half>::value;
+  static_assert(N == 32 || N == 64, "the score-like products' widths");
+  if constexpr (N == 32 && !kF16)
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7,"
+        " %8, %9, %10, %11, %12, %13, %14, %15},"
+        " %16, %17, p, 1, 1, %19, %20;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "l"(desc_a), "l"(desc_b), "r"(accumulate), "n"(TransA),
+          "n"(TransB));
+  else if constexpr (N == 32 && kF16)
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.f16.f16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7,"
+        " %8, %9, %10, %11, %12, %13, %14, %15},"
+        " %16, %17, p, 1, 1, %19, %20;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "l"(desc_a), "l"(desc_b), "r"(accumulate), "n"(TransA),
+          "n"(TransB));
+  else if constexpr (N == 64 && !kF16)
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7,"
+        " %8, %9, %10, %11, %12, %13, %14, %15,"
+        " %16, %17, %18, %19, %20, %21, %22, %23,"
+        " %24, %25, %26, %27, %28, %29, %30, %31},"
+        " %32, %33, p, 1, 1, %35, %36;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "l"(desc_a), "l"(desc_b), "r"(accumulate), "n"(TransA),
+          "n"(TransB));
+  else if constexpr (N == 64 && kF16)
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7,"
+        " %8, %9, %10, %11, %12, %13, %14, %15,"
+        " %16, %17, %18, %19, %20, %21, %22, %23,"
+        " %24, %25, %26, %27, %28, %29, %30, %31},"
+        " %32, %33, p, 1, 1, %35, %36;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "l"(desc_a), "l"(desc_b), "r"(accumulate), "n"(TransA),
+          "n"(TransB));
+}
+
+// d = A . B (+ d): A [64][16] from registers (a: this thread's m16n8k16
+// A fragment of its warp's 16 rows), B [16][N] from shared memory.
+template <typename T, int N, int TransB>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
+                                         const uint32_t (&a)[4],
+                                         uint64_t desc_b, int accumulate) {
+  constexpr bool kF16 = std::is_same<T, __half>::value;
+  static_assert(N == 16 || N == 32 || N == 64 || N == 128, "a tile width");
+  if constexpr (N == 16 && !kF16)
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7},"
+        " {%8, %9, %10, %11}, %12, p, 1, 1, %14;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+          "r"(accumulate), "n"(TransB));
+  else if constexpr (N == 16 && kF16)
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.f16.f16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7},"
+        " {%8, %9, %10, %11}, %12, p, 1, 1, %14;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+          "r"(accumulate), "n"(TransB));
+  else if constexpr (N == 32 && !kF16)
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7,"
+        " %8, %9, %10, %11, %12, %13, %14, %15},"
+        " {%16, %17, %18, %19}, %20, p, 1, 1, %22;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+          "r"(accumulate), "n"(TransB));
+  else if constexpr (N == 32 && kF16)
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.f16.f16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7,"
+        " %8, %9, %10, %11, %12, %13, %14, %15},"
+        " {%16, %17, %18, %19}, %20, p, 1, 1, %22;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+          "r"(accumulate), "n"(TransB));
+  else if constexpr (N == 64 && !kF16)
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7,"
+        " %8, %9, %10, %11, %12, %13, %14, %15,"
+        " %16, %17, %18, %19, %20, %21, %22, %23,"
+        " %24, %25, %26, %27, %28, %29, %30, %31},"
+        " {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+          "r"(accumulate), "n"(TransB));
+  else if constexpr (N == 64 && kF16)
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7,"
+        " %8, %9, %10, %11, %12, %13, %14, %15,"
+        " %16, %17, %18, %19, %20, %21, %22, %23,"
+        " %24, %25, %26, %27, %28, %29, %30, %31},"
+        " {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+          "r"(accumulate), "n"(TransB));
+  else if constexpr (N == 128 && !kF16)
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7,"
+        " %8, %9, %10, %11, %12, %13, %14, %15,"
+        " %16, %17, %18, %19, %20, %21, %22, %23,"
+        " %24, %25, %26, %27, %28, %29, %30, %31,"
+        " %32, %33, %34, %35, %36, %37, %38, %39,"
+        " %40, %41, %42, %43, %44, %45, %46, %47,"
+        " %48, %49, %50, %51, %52, %53, %54, %55,"
+        " %56, %57, %58, %59, %60, %61, %62, %63},"
+        " {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+          "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+          "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+          "r"(accumulate), "n"(TransB));
+  else if constexpr (N == 128 && kF16)
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.f16.f16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7,"
+        " %8, %9, %10, %11, %12, %13, %14, %15,"
+        " %16, %17, %18, %19, %20, %21, %22, %23,"
+        " %24, %25, %26, %27, %28, %29, %30, %31,"
+        " %32, %33, %34, %35, %36, %37, %38, %39,"
+        " %40, %41, %42, %43, %44, %45, %46, %47,"
+        " %48, %49, %50, %51, %52, %53, %54, %55,"
+        " %56, %57, %58, %59, %60, %61, %62, %63},"
+        " {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+          "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+          "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+          "r"(accumulate), "n"(TransB));
+}
+
+// A [rows][4] array of m16n8 accumulator tiles as wgmma's flat operand.
+template <int N>
+__device__ __forceinline__ float (&flat(float (&acc)[N][4]))[4 * N] {
+  return reinterpret_cast<float(&)[4 * N]>(acc);
 }
 
 // ------------------------------------------------------------- shared
@@ -962,53 +1323,57 @@ constexpr size_t dkv_smem_bytes() {
          sizeof(int) * 3 * kTile;
 }
 
+// (query tile, key tile) pairs the 16-bit forward has computed since it
+// was last read (K1's forward counts in every dtype): the record that its
+// tile skipping ran.
+__device__ unsigned long long g_tile_pairs;
+
 // (query tile, key tile) pairs the 16-bit backward's dK/dV kernel [0]
 // and dQ kernel [1] have computed since they were last read: the record
 // that their segment-tile skipping ran. One add per block when it ends;
 // no block adds into another's gradients.
 __device__ unsigned long long g_bwd_tile_pairs[2];
 
-// The 16-bit dK/dV and dQ blocks: the tiles of the 3xTF32 kernels below
-// in T, with D + 8 rows, the shared row of flags and run heads after
-// them (mark_tiles).
+// Depth of the 16-bit backward's ring of streamed tiles: the copies of
+// the next kRingBwd - 1 kept tiles are in flight while one is computed.
+constexpr int kRingBwd = 3;
+
+// Shared memory of the 16-bit dK/dV and dQ blocks: two resident and
+// 2 kRingBwd streamed swizzled tiles, the ring's (and the resident
+// tile's) rows of lse, delta and segment ids, mark_tiles' heads and
+// flags, and 1024 bytes to align the tiles on (sw_base).
 template <int D>
-constexpr size_t dkv16_smem_bytes(int s_len) {
-  return 2 * (6 * kTile * tile_ld16<D>()) +
-         sizeof(float) * 4 * kTile + sizeof(int) * 3 * kTile +
-         tile_marks_bytes(s_len);
+constexpr size_t bwd16_smem_bytes(int s_len) {
+  return 1024 + 2 * (2 + 2 * kRingBwd) * kTile * D +
+         (sizeof(float) * 2 + sizeof(int)) * kRingBwd * kTile +
+         sizeof(int) * kTile + tile_marks_bytes(s_len);
 }
 
-template <int D>
-constexpr size_t dq16_smem_bytes(int s_len) {
-  return 2 * (6 * kTile * tile_ld16<D>()) +
-         sizeof(float) * 2 * kTile + sizeof(int) * 3 * kTile +
-         tile_marks_bytes(s_len);
-}
-
-// flash_dkv_kernel for bfloat16 and float16: the same blocks, warps and
-// two-deep ring, with 16-bit tiles staged by 16-byte cp.async and the
-// products in m16n8k16 MMAs. S^T = k . q^T and dP^T = v . dO^T read q
-// and dO with ldmatrix, one MMA each; dV = P^T . dO and dK = dS^T . q
-// read them with ldmatrix.trans, two MMAs each, p^T and dS^T split into
-// hi + lo in T as they become the A operands. The query tiles that
-// share no segment id with the key tile are skipped (mark_tiles; they
-// add exact zeros). lse, delta, every accumulator and the running sums
-// stay float32.
+// flash_dkv_kernel for bfloat16 and float16, on wgmma: the same grid,
+// masks and float32 lse, delta and sums, with the 16-bit tiles swizzled
+// for the descriptors and the query tiles streamed through a ring of
+// kRingBwd. Per chunk of QC queries: S^T = k . q^T and dP^T = v . dO^T
+// as wgmma m64nQCk16 with both operands in shared memory (one group),
+// then dV += P^T . dO and dK += dS^T . q as m64nDk16 with p^T and dS^T
+// split into hi + lo in T (two products each) as the register A
+// operand, accumulated by the wgmma in dV and dK themselves across the
+// sweep. The next tiles' copies run under both groups. The query tiles
+// that share no segment id with the key tile are skipped (mark_tiles;
+// they add exact zeros).
 template <typename T, int D>
 __device__ __forceinline__ void flash_dkv16(const Params& p) {
-  constexpr int LD = tile_ld16<D>();
-  constexpr int DN = D / 8;                 // 8-column tiles of dK, dV
-  constexpr int QC = D > 64 ? 16 : 32;      // queries per chunk
+  constexpr int TILE = kTile * D;           // elements of a swizzled tile
+  constexpr int QC = D > 64 ? 32 : 64;      // queries per chunk
   constexpr int QN = QC / 8;
   extern __shared__ __align__(16) float tc_smem[];
-  T* ks = reinterpret_cast<T*>(tc_smem);
-  T* vs = ks + kTile * LD;
-  T* qs = vs + kTile * LD;                  // [2][64][LD]
-  T* dos = qs + 2 * kTile * LD;             // [2][64][LD]
-  float* lse_s = reinterpret_cast<float*>(dos + 2 * kTile * LD);  // [2][64]
-  float* delta_s = lse_s + 2 * kTile;       // [2][64]
-  int* seg_q = reinterpret_cast<int*>(delta_s + 2 * kTile);  // [2][64]
-  int* seg_k = seg_q + 2 * kTile;
+  T* ks = sw_base<T>(tc_smem);
+  T* vs = ks + TILE;
+  T* qs = vs + TILE;                        // [kRingBwd][TILE]
+  T* dos = qs + kRingBwd * TILE;            // [kRingBwd][TILE]
+  float* lse_s = reinterpret_cast<float*>(dos + kRingBwd * TILE);
+  float* delta_s = lse_s + kRingBwd * kTile;
+  int* seg_q = reinterpret_cast<int*>(delta_s + kRingBwd * kTile);
+  int* seg_k = seg_q + kRingBwd * kTile;
   int* heads = seg_k + kTile;
   unsigned char* flags = reinterpret_cast<unsigned char*>(heads + kTile + 1);
 
@@ -1032,21 +1397,21 @@ __device__ __forceinline__ void flash_dkv16(const Params& p) {
 
   auto stage_query_side = [&](int qt, int slot) {
     const int q0 = qt * kTile;
-    stage_tile16<T, D>(qs + slot * kTile * LD, qb, p.sq.s, q0, s_len, p.d,
-                       p.vec);
-    stage_tile16<T, D>(dos + slot * kTile * LD, dob, p.sdo.s, q0, s_len,
-                       p.d, p.vec);
+    stage_tile16<T, D, true>(qs + slot * TILE, qb, p.sq.s, q0, s_len, p.d,
+                             p.vec);
+    stage_tile16<T, D, true>(dos + slot * TILE, dob, p.sdo.s, q0, s_len,
+                             p.d, p.vec);
     stage_rows(lse_s + slot * kTile, lseb, q0, s_len);
     stage_rows(delta_s + slot * kTile, deltab, q0, s_len);
     if (segmented) stage_rows(seg_q + slot * kTile, seg_row, q0, s_len);
   };
 
-  stage_tile16<T, D>(ks,
-                     static_cast<const T*>(p.k) + b * p.sk.b + h * p.sk.h,
-                     p.sk.s, k0, s_len, p.d, p.vec);
-  stage_tile16<T, D>(vs,
-                     static_cast<const T*>(p.v) + b * p.sv.b + h * p.sv.h,
-                     p.sv.s, k0, s_len, p.d, p.vec);
+  stage_tile16<T, D, true>(
+      ks, static_cast<const T*>(p.k) + b * p.sk.b + h * p.sk.h,
+      p.sk.s, k0, s_len, p.d, p.vec);
+  stage_tile16<T, D, true>(
+      vs, static_cast<const T*>(p.v) + b * p.sv.b + h * p.sv.h,
+      p.sv.s, k0, s_len, p.d, p.vec);
   if (segmented) stage_rows(seg_k, seg_row, k0, s_len);
   cp_async_commit();
   const int n_qt = (s_len + kTile - 1) / kTile;
@@ -1063,40 +1428,48 @@ __device__ __forceinline__ void flash_dkv16(const Params& p) {
       while (qt < n_qt && !flags[qt]) ++qt;
     return qt;
   };
+  // the ring: one group a step (empty past the last kept tile)
+  int fetch = next_kept(qt0);
+  for (int slot = 0; slot < kRingBwd - 1; ++slot) {
+    if (fetch < n_qt) {
+      stage_query_side(fetch, slot);
+      fetch = next_kept(fetch + 1);
+    }
+    cp_async_commit();
+  }
   // p = exp(s * scale - lse) = exp2(s * scale2 - lse * log2(e))
   const float scale2 = p.scale * kLog2e;
 
-  float dk[DN][4], dv[DN][4];
+  float dk[D / 8][4], dv[D / 8][4];
 #pragma unroll
-  for (int n = 0; n < DN; ++n)
+  for (int n = 0; n < D / 8; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
   int id_r[2] = {0, 0};  // the segment ids of keys r0 + g and r0 + g + 8
 
-  int qt = next_kept(qt0);
-  if (qt < n_qt) {
-    stage_query_side(qt, 0);
-    cp_async_commit();
-  }
   unsigned pairs = 0;
-  for (int slot = 0; qt < n_qt; slot ^= 1, ++pairs) {
-    const int next = next_kept(qt + 1);
-    if (next < n_qt) {
-      stage_query_side(next, slot ^ 1);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
+  for (int qt = next_kept(qt0), i = 0; qt < n_qt;
+       qt = next_kept(qt + 1), ++i) {
+    const int slot = i % kRingBwd;
+    cp_async_wait<kRingBwd - 2>();
+    fence_async_shared();
+    // tile i has landed for every thread (and for wgmma), and every
+    // thread's products of step i - 1 are done with the slot the next
+    // copy refills
     __syncthreads();
+    if (fetch < n_qt) {
+      stage_query_side(fetch, (i + kRingBwd - 1) % kRingBwd);
+      fetch = next_kept(fetch + 1);
+    }
+    cp_async_commit();
     const int q0 = qt * kTile;
-    const T* qt_s = qs + slot * kTile * LD;
-    const T* dot_s = dos + slot * kTile * LD;
+    const T* qt_s = qs + slot * TILE;
+    const T* dot_s = dos + slot * TILE;
     const float* lse_t = lse_s + slot * kTile;
     const float* delta_t = delta_s + slot * kTile;
     const int* seg_t = seg_q + slot * kTile;
     const bool edge = tile_masked(q0, k0, s_len, p.causal, false);
-    if (pairs == 0 && segmented) {
+    if (i == 0 && segmented) {
       id_r[0] = seg_k[r0 + g];
       id_r[1] = seg_k[r0 + g + 8];
     }
@@ -1104,10 +1477,18 @@ __device__ __forceinline__ void flash_dkv16(const Params& p) {
 #pragma unroll 1
     for (int c0 = 0; c0 < kTile; c0 += QC) {
       float st[QN][4], dpt[QN][4];
-      strip_by_rows<T, D, QC>(st, strip_a16<LD>(ks, r0, lane), qt_s, c0,
-                              lane);
-      strip_by_rows<T, D, QC>(dpt, strip_a16<LD>(vs, r0, lane), dot_s, c0,
-                              lane);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        wgmma_ss<T, QC, 0, 0>(flat(st), desc_k<T, D>(ks, 0, kk),
+                              desc_k<T, D>(qt_s, c0, kk), kk > 0);
+        wgmma_ss<T, QC, 0, 0>(flat(dpt), desc_k<T, D>(vs, 0, kk),
+                              desc_k<T, D>(dot_s, c0, kk), kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_operands(flat(st));
+      fence_operands(flat(dpt));
       const unsigned kept = keep_bits<QC>(
           id_r, segmented ? seg_t : nullptr, k0 + r0, q0, c0, edge, false,
           s_len, p.causal, g, t);
@@ -1134,11 +1515,22 @@ __device__ __forceinline__ void flash_dkv16(const Params& p) {
         acc_as_a16<T>(ap[j], ap_lo[j], st[2 * j], st[2 * j + 1]);
         acc_as_a16<T>(ads[j], ads_lo[j], dpt[2 * j], dpt[2 * j + 1]);
       }
-      strip_times_tile<T, D, QC>(dv, ap, ap_lo, dot_s, c0, lane);
-      strip_times_tile<T, D, QC>(dk, ads, ads_lo, qt_s, c0, lane);
+      wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < QC / 16; ++j) {
+        const uint64_t bdo = desc_mn<T, D>(dot_s, c0 + 16 * j);
+        const uint64_t bq = desc_mn<T, D>(qt_s, c0 + 16 * j);
+        wgmma_rs<T, D, 1>(flat(dv), ap_lo[j].x, bdo, 1);
+        wgmma_rs<T, D, 1>(flat(dv), ap[j].x, bdo, 1);
+        wgmma_rs<T, D, 1>(flat(dk), ads_lo[j].x, bq, 1);
+        wgmma_rs<T, D, 1>(flat(dk), ads[j].x, bq, 1);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_operands(flat(dv));
+      fence_operands(flat(dk));
     }
-    __syncthreads();
-    qt = next;
+    ++pairs;
   }
   if (threadIdx.x == 0 && pairs > 0)
     atomicAdd(&g_bwd_tile_pairs[0], static_cast<unsigned long long>(pairs));
@@ -1151,26 +1543,25 @@ __device__ __forceinline__ void flash_dkv16(const Params& p) {
 }
 
 // flash_dq_kernel for bfloat16 and float16, as flash_dkv16 is to its
-// kernel: S = q . k^T and dP = dO . v^T read k and v with ldmatrix, dQ =
-// dS . K reads K with ldmatrix.trans, dS (scaled) split into hi + lo in
-// T as it becomes the A operand, and the key tiles that share no segment
-// id with the query tile are skipped.
+// kernel: per key tile S = q . k^T and dP = dO . v^T as wgmma m64n64k16
+// from shared memory, then dQ += dS . K as m64nDk16 with dS (scaled,
+// hi + lo in T) the register A operand and K read MN-major; the key
+// tiles stream through a ring of kRingBwd, those that share no segment
+// id with the query tile skipped.
 template <typename T, int D>
 __device__ __forceinline__ void flash_dq16(const Params& p) {
-  constexpr int LD = tile_ld16<D>();
-  constexpr int DN = D / 8;
-  constexpr int KC = D > 64 ? 32 : 64;      // keys per chunk
-  constexpr int KN = KC / 8;
+  constexpr int TILE = kTile * D;
+  constexpr int KN = kTile / 8;
   extern __shared__ __align__(16) float tc_smem[];
-  T* qs = reinterpret_cast<T*>(tc_smem);
-  T* dos = qs + kTile * LD;
-  T* ks = dos + kTile * LD;                 // [2][64][LD]
-  T* vs = ks + 2 * kTile * LD;              // [2][64][LD]
-  float* lse_s = reinterpret_cast<float*>(vs + 2 * kTile * LD);
+  T* qs = sw_base<T>(tc_smem);
+  T* dos = qs + TILE;
+  T* ks = dos + TILE;                       // [kRingBwd][TILE]
+  T* vs = ks + kRingBwd * TILE;             // [kRingBwd][TILE]
+  float* lse_s = reinterpret_cast<float*>(vs + kRingBwd * TILE);
   float* delta_s = lse_s + kTile;
   int* seg_q = reinterpret_cast<int*>(delta_s + kTile);
-  int* seg_k = seg_q + kTile;               // [2][64]
-  int* heads = seg_k + 2 * kTile;
+  int* seg_k = seg_q + kTile;               // [kRingBwd][64]
+  int* heads = seg_k + kRingBwd * kTile;
   unsigned char* flags = reinterpret_cast<unsigned char*>(heads + kTile + 1);
 
   const int bh = blockIdx.x;
@@ -1192,17 +1583,17 @@ __device__ __forceinline__ void flash_dq16(const Params& p) {
 
   auto stage_key_side = [&](int kt, int slot) {
     const int k0 = kt * kTile;
-    stage_tile16<T, D>(ks + slot * kTile * LD, kb, p.sk.s, k0, s_len, p.d,
-                       p.vec);
-    stage_tile16<T, D>(vs + slot * kTile * LD, vb, p.sv.s, k0, s_len, p.d,
-                       p.vec);
+    stage_tile16<T, D, true>(ks + slot * TILE, kb, p.sk.s, k0, s_len, p.d,
+                             p.vec);
+    stage_tile16<T, D, true>(vs + slot * TILE, vb, p.sv.s, k0, s_len, p.d,
+                             p.vec);
     if (segmented) stage_rows(seg_k + slot * kTile, seg_row, k0, s_len);
   };
 
-  stage_tile16<T, D>(qs,
-                     static_cast<const T*>(p.q) + b * p.sq.b + h * p.sq.h,
-                     p.sq.s, q0, s_len, p.d, p.vec);
-  stage_tile16<T, D>(
+  stage_tile16<T, D, true>(
+      qs, static_cast<const T*>(p.q) + b * p.sq.b + h * p.sq.h,
+      p.sq.s, q0, s_len, p.d, p.vec);
+  stage_tile16<T, D, true>(
       dos, static_cast<const T*>(p.dout) + b * p.sdo.b + h * p.sdo.h,
       p.sdo.s, q0, s_len, p.d, p.vec);
   stage_rows(lse_s, p.lse + static_cast<int64_t>(bh) * s_len, q0, s_len);
@@ -1221,10 +1612,18 @@ __device__ __forceinline__ void flash_dq16(const Params& p) {
       while (kt < n_kt && !flags[kt]) ++kt;
     return kt;
   };
+  int fetch = next_kept(0);
+  for (int slot = 0; slot < kRingBwd - 1; ++slot) {
+    if (fetch < n_kt) {
+      stage_key_side(fetch, slot);
+      fetch = next_kept(fetch + 1);
+    }
+    cp_async_commit();
+  }
 
-  float dq[DN][4];
+  float dq[D / 8][4];
 #pragma unroll
-  for (int n = 0; n < DN; ++n)
+  for (int n = 0; n < D / 8; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) dq[n][e] = 0.f;
   // this thread's rows r0 + g and r0 + g + 8: lse, delta, and whether
@@ -1235,23 +1634,19 @@ __device__ __forceinline__ void flash_dq16(const Params& p) {
   // p = exp(s * scale - lse) = exp2(s * scale2 - lse * log2(e))
   const float scale2 = p.scale * kLog2e;
 
-  int kt = next_kept(0);
-  if (kt < n_kt) {
-    stage_key_side(kt, 0);
-    cp_async_commit();
-  }
   unsigned pairs = 0;
-  for (int slot = 0; kt < n_kt; slot ^= 1, ++pairs) {
-    const int next = next_kept(kt + 1);
-    if (next < n_kt) {
-      stage_key_side(next, slot ^ 1);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
+  for (int kt = next_kept(0), i = 0; kt < n_kt;
+       kt = next_kept(kt + 1), ++i) {
+    const int slot = i % kRingBwd;
+    cp_async_wait<kRingBwd - 2>();
+    fence_async_shared();
     __syncthreads();
-    if (pairs == 0) {
+    if (fetch < n_kt) {
+      stage_key_side(fetch, (i + kRingBwd - 1) % kRingBwd);
+      fetch = next_kept(fetch + 1);
+    }
+    cp_async_commit();
+    if (i == 0) {
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
         const int r = r0 + g + 8 * half;
@@ -1262,40 +1657,53 @@ __device__ __forceinline__ void flash_dq16(const Params& p) {
       }
     }
     const int k0 = kt * kTile;
-    const T* kt_s = ks + slot * kTile * LD;
-    const T* vt_s = vs + slot * kTile * LD;
+    const T* kt_s = ks + slot * TILE;
+    const T* vt_s = vs + slot * TILE;
     const int* seg_t = seg_k + slot * kTile;
     const bool edge = tile_masked(q0, k0, s_len, p.causal, false);
 
-#pragma unroll 1
-    for (int c0 = 0; c0 < kTile; c0 += KC) {
-      float s[KN][4], dp[KN][4];
-      strip_by_rows<T, D, KC>(s, strip_a16<LD>(qs, r0, lane), kt_s, c0,
-                              lane);
-      strip_by_rows<T, D, KC>(dp, strip_a16<LD>(dos, r0, lane), vt_s, c0,
-                              lane);
-      const unsigned kept = keep_bits<KC>(
-          id_r, segmented ? seg_t : nullptr, q0 + r0, k0, c0, edge, true,
-          s_len, p.causal, g, t);
-      // dS: element (query r0 + g (+ 8), key c0 + 8n + 2t (+ 1))
+    float s[KN][4], dp[KN][4];
+    wgmma_fence();
 #pragma unroll
-      for (int n = 0; n < KN; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int half = e >> 1;
-          const bool live = live_r[half] && (kept >> (4 * n + e) & 1u);
-          const float pv =
-              live ? exp2_ftz(fmaf(s[n][e], scale2, -lse2_r[half])) : 0.f;
-          s[n][e] = pv * (dp[n][e] - delta_r[half]) * p.scale;
-        }
-      Frag16 ads[KC / 16], ads_lo[KC / 16];
-#pragma unroll
-      for (int j = 0; j < KC / 16; ++j)
-        acc_as_a16<T>(ads[j], ads_lo[j], s[2 * j], s[2 * j + 1]);
-      strip_times_tile<T, D, KC>(dq, ads, ads_lo, kt_s, c0, lane);
+    for (int kk = 0; kk < D / 16; ++kk) {
+      wgmma_ss<T, kTile, 0, 0>(flat(s), desc_k<T, D>(qs, 0, kk),
+                               desc_k<T, D>(kt_s, 0, kk), kk > 0);
+      wgmma_ss<T, kTile, 0, 0>(flat(dp), desc_k<T, D>(dos, 0, kk),
+                               desc_k<T, D>(vt_s, 0, kk), kk > 0);
     }
-    __syncthreads();
-    kt = next;
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_operands(flat(s));
+    fence_operands(flat(dp));
+    const unsigned kept = keep_bits<kTile>(
+        id_r, segmented ? seg_t : nullptr, q0 + r0, k0, 0, edge, true, s_len,
+        p.causal, g, t);
+    // dS: element (query r0 + g (+ 8), key 8n + 2t (+ 1))
+#pragma unroll
+    for (int n = 0; n < KN; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int half = e >> 1;
+        const bool live = live_r[half] && (kept >> (4 * n + e) & 1u);
+        const float pv =
+            live ? exp2_ftz(fmaf(s[n][e], scale2, -lse2_r[half])) : 0.f;
+        s[n][e] = pv * (dp[n][e] - delta_r[half]) * p.scale;
+      }
+    Frag16 ads[kTile / 16], ads_lo[kTile / 16];
+#pragma unroll
+    for (int j = 0; j < kTile / 16; ++j)
+      acc_as_a16<T>(ads[j], ads_lo[j], s[2 * j], s[2 * j + 1]);
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < kTile / 16; ++j) {
+      const uint64_t bk = desc_mn<T, D>(kt_s, 16 * j);
+      wgmma_rs<T, D, 1>(flat(dq), ads_lo[j].x, bk, 1);
+      wgmma_rs<T, D, 1>(flat(dq), ads[j].x, bk, 1);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_operands(flat(dq));
+    ++pairs;
   }
   if (threadIdx.x == 0 && pairs > 0)
     atomicAdd(&g_bwd_tile_pairs[1], static_cast<unsigned long long>(pairs));
@@ -1740,12 +2148,12 @@ struct BwdLaunch {
     if (err != cudaSuccess) return err;
     const dim3 grid(batch * p.heads, (p.s_len + kTile - 1) / kTile);
     err = launch_with_smem(flash_dkv_kernel<T, D>, grid, kMmaThreads,
-                           kHalfWidth<T> ? dkv16_smem_bytes<D>(p.s_len)
+                           kHalfWidth<T> ? bwd16_smem_bytes<D>(p.s_len)
                                          : dkv_smem_bytes<D>(),
                            stream, p);
     if (err != cudaSuccess) return err;
     return launch_with_smem(flash_dq_kernel<T, D>, grid, kMmaThreads,
-                            kHalfWidth<T> ? dq16_smem_bytes<D>(p.s_len)
+                            kHalfWidth<T> ? bwd16_smem_bytes<D>(p.s_len)
                                           : dq_smem_bytes<D>(),
                             stream, p);
   }
@@ -1815,6 +2223,20 @@ int backward(const void* q, const void* k, const void* v, const void* o,
   return launch_at_width<T, BwdLaunch>(p, batch, device, stream);
 }
 
+// Copy `n` tile-pair counters from `counter` on `device` into pairs and
+// set them to 0 (synchronises the device); the first cudaError_t that is
+// not cudaSuccess.
+int read_tile_pairs(int device, unsigned long long* counter,
+                    unsigned long long* pairs, int n) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err == cudaSuccess)
+    err = cudaMemcpyFromSymbol(pairs, *counter, n * sizeof(*pairs));
+  const unsigned long long zero[2] = {0, 0};
+  if (err == cudaSuccess)
+    err = cudaMemcpyToSymbol(*counter, zero, n * sizeof(*pairs));
+  return static_cast<int>(err);
+}
+
 }  // namespace
 
 // Plain C interface of each source, bound with ctypes. Every tensor
@@ -1826,8 +2248,9 @@ int backward(const void* q, const void* k, const void* v, const void* o,
 // launch's cudaError_t that is not cudaSuccess (0 = every kernel
 // launched). PREFIX names a source's entry points
 // (PREFIX_fwd_{f32,bf16,f16}, PREFIX_bwd_{f32,bf16,f16},
-// PREFIX_error_string); FWD_LAUNCH is its forward launcher, a template
-// FWD_LAUNCH<T, D> with a static run(params, batch, stream).
+// PREFIX_error_string, and PREFIX_tile_pairs / PREFIX_bwd_tile_pairs);
+// FWD_LAUNCH is its forward launcher, a template FWD_LAUNCH<T, D> with a
+// static run(params, batch, stream).
 #define BIGDL_FLASH_FWD_ENTRY(PREFIX, SUFFIX, T, FWD_LAUNCH)              \
   extern "C" int PREFIX##_fwd_##SUFFIX(                                   \
       const void* q, const void* k, const void* v, const int* seg,        \
@@ -1839,7 +2262,7 @@ int backward(const void* q, const void* k, const void* v, const void* o,
                                   device, stream);                        \
   }
 
-#define BIGDL_FLASH_BWD_ENTRY(PREFIX, SUFFIX, T)                           \
+#define BIGDL_FLASH_BWD_ENTRY(PREFIX, SUFFIX, T)                          \
   extern "C" int PREFIX##_bwd_##SUFFIX(                                   \
       const void* q, const void* k, const void* v, const void* o,         \
       const void* dout, const float* lse, const int* seg, void* dq,       \
@@ -1860,4 +2283,12 @@ int backward(const void* q, const void* k, const void* v, const void* o,
   BIGDL_FLASH_BWD_ENTRY(PREFIX, f16, __half)                              \
   extern "C" const char* PREFIX##_error_string(int code) {                \
     return cudaGetErrorString(static_cast<cudaError_t>(code));            \
+  }                                                                       \
+  extern "C" int PREFIX##_tile_pairs(int device,                          \
+                                     unsigned long long* pairs) {         \
+    return read_tile_pairs(device, &g_tile_pairs, pairs, 1);              \
+  }                                                                       \
+  extern "C" int PREFIX##_bwd_tile_pairs(int device,                      \
+                                         unsigned long long* pairs) {     \
+    return read_tile_pairs(device, g_bwd_tile_pairs, pairs, 2);           \
   }

@@ -16,13 +16,16 @@ over the shared ``csrc/flash_common.cuh``, which holds the tile code and
 the one backward both use; the header notes have the design and the
 bound). float32 operands run their tile products in 3xTF32 on the
 tensor cores (float32 accuracy); bfloat16 and float16 operands run
-16-bit ``mma.sync`` m16n8k16 products with float32 sums, p and dS split
-into hi + lo in the input dtype where they are an operand, within the
-dtype's tolerance of the plain version rather than bitwise. K1's forward
-in every dtype, and its 16-bit backward, skip the 64 x 64 tile pairs
-whose queries and keys share no segment id;
-:func:`flash_attention_forward_tile_pairs` and
-:func:`flash_attention_backward_tile_pairs` read what they computed. Beside them are their plain PyTorch versions
+16-bit products with float32 sums — ``mma.sync`` m16n8k16 in both
+forwards, ``wgmma`` m64nNk16 in the backward — p and dS split into hi +
+lo in the input dtype where they are an operand, within the dtype's
+tolerance of the plain version rather than bitwise. K1's forward in
+every dtype, K2's 16-bit forward and the 16-bit backward skip the 64 x
+64 tile pairs whose queries and keys share no segment id;
+:func:`flash_attention_forward_tile_pairs`,
+:func:`flash_attention_backward_tile_pairs` and their
+``blockwise_`` twins read what they computed. Beside them are their
+plain PyTorch versions
 (``*_forward_reference`` / ``*_backward_reference``), which follow the
 TPU kernels' arithmetic: q scaled before the product, masked scores
 -inf, p = 0 on masked lanes and where lse (or, in K2's forward, the
@@ -50,8 +53,10 @@ from bigdl_tpu_torch.kernels.common import fit_block
 
 __all__ = ["blockwise_flash_attention", "blockwise_flash_attention_backward",
            "blockwise_flash_attention_backward_reference",
+           "blockwise_flash_attention_backward_tile_pairs",
            "blockwise_flash_attention_forward",
-           "blockwise_flash_attention_forward_reference", "cuda_unsupported",
+           "blockwise_flash_attention_forward_reference",
+           "blockwise_flash_attention_forward_tile_pairs", "cuda_unsupported",
            "flash_attention", "flash_attention_backward",
            "flash_attention_backward_reference", "flash_attention_forward",
            "flash_attention_backward_tile_pairs",
@@ -195,11 +200,10 @@ def _library(source: str, prefix: str):
             err = getattr(lib, f"{prefix}_error_string")
             err.argtypes = [i32]
             err.restype = ctypes.c_char_p
-            if source == "flash_attention":
-                for fn in (lib.bigdl_flash_tile_pairs,
-                           lib.bigdl_flash_bwd_tile_pairs):
-                    fn.argtypes = [i32, ctypes.POINTER(ctypes.c_ulonglong)]
-                    fn.restype = i32
+            for what in ("tile_pairs", "bwd_tile_pairs"):
+                fn = getattr(lib, f"{prefix}_{what}")
+                fn.argtypes = [i32, ctypes.POINTER(ctypes.c_ulonglong)]
+                fn.restype = i32
             lib = _libs[source] = lib
         return lib
 
@@ -385,6 +389,19 @@ flash_attention_forward.launches = 0
 flash_attention_backward.launches = 0
 
 
+def _tile_pairs(source: str, prefix: str, what: str, n: int, device):
+    """Read (and zero) ``n`` tile-pair counters of a kernel library on
+    the card ``device`` (default: the current one)."""
+    index = torch.device("cuda" if device is None else device).index
+    if index is None:
+        index = torch.cuda.current_device()
+    lib = _library(source, prefix)
+    pairs = (ctypes.c_ulonglong * n)()
+    rc = getattr(lib, f"{prefix}_{what}")(index, pairs)
+    _raise_on(rc, lib, prefix, what.replace("_", " "))
+    return tuple(pairs)
+
+
 def flash_attention_forward_tile_pairs(device=None) -> int:
     """The (query tile, key tile) pairs of 64 x 64 that K1's forward
     kernel has computed on the card ``device`` (default: the current
@@ -392,14 +409,8 @@ def flash_attention_forward_tile_pairs(device=None) -> int:
     the kernel skips the key tiles that share no id with a query tile,
     so this is the record that it did (CPU calls compute no tiles).
     Synchronises the device."""
-    index = torch.device("cuda" if device is None else device).index
-    if index is None:
-        index = torch.cuda.current_device()
-    lib = _library("flash_attention", "bigdl_flash")
-    pairs = ctypes.c_ulonglong(0)
-    rc = lib.bigdl_flash_tile_pairs(index, ctypes.byref(pairs))
-    _raise_on(rc, lib, "bigdl_flash", "tile count")
-    return pairs.value
+    return _tile_pairs("flash_attention", "bigdl_flash", "tile_pairs", 1,
+                       device)[0]
 
 
 def flash_attention_backward_tile_pairs(device=None) -> tuple:
@@ -410,14 +421,8 @@ def flash_attention_backward_tile_pairs(device=None) -> tuple:
     tiles whose queries and keys share no segment id, so these are the
     record that they did; the float32 backward computes every causal
     pair and counts none. Synchronises the device."""
-    index = torch.device("cuda" if device is None else device).index
-    if index is None:
-        index = torch.cuda.current_device()
-    lib = _library("flash_attention", "bigdl_flash")
-    pairs = (ctypes.c_ulonglong * 2)()
-    rc = lib.bigdl_flash_bwd_tile_pairs(index, pairs)
-    _raise_on(rc, lib, "bigdl_flash", "backward tile count")
-    return pairs[0], pairs[1]
+    return _tile_pairs("flash_attention", "bigdl_flash", "bwd_tile_pairs",
+                       2, device)
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -659,6 +664,25 @@ def blockwise_flash_attention_backward(q, k, v, o, do, lse,
 #: kernel launches so far (plain-version calls on the CPU do not count)
 blockwise_flash_attention_forward.launches = 0
 blockwise_flash_attention_backward.launches = 0
+
+
+def blockwise_flash_attention_forward_tile_pairs(device=None) -> int:
+    """The (query tile, key tile) pairs of 64 x 64 that K2's bfloat16 /
+    float16 forward kernel has computed on the card ``device`` since the
+    last call (the count restarts at 0): it skips the key tiles that
+    share no segment id with a query tile, as K1's forward does; the
+    float32 kernel counts none. Synchronises the device."""
+    return _tile_pairs("blockwise_flash_attention", "bigdl_blockwise",
+                       "tile_pairs", 1, device)[0]
+
+
+def blockwise_flash_attention_backward_tile_pairs(device=None) -> tuple:
+    """``(dkv, dq)``: the pairs K2's bfloat16 / float16 backward kernels
+    (dK/dV and dQ, on wgmma) have computed on the card ``device`` since
+    the last call; both restart at 0; the float32 backward counts none.
+    Synchronises the device."""
+    return _tile_pairs("blockwise_flash_attention", "bigdl_blockwise",
+                       "bwd_tile_pairs", 2, device)
 
 
 class _BlockwiseFlashAttention(torch.autograd.Function):

@@ -13,9 +13,11 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    flash libraries' SASS (``cuobjdump -sass``) must show tf32
    tensor-core MMAs (``HMMA ... TF32``) in every float32 instance of
    K1's and K2's forwards and of the backward's dK/dV and dQ kernels
-   (3xTF32) and in every instance of K2's forward, and 16-bit m16n8k16
-   MMAs (``HMMA.16816``, BF16 or F16) with no TF32 HMMA in the bfloat16
-   and float16 instances of K1's forward and of the backward;
+   (3xTF32), 16-bit m16n8k16 MMAs (``HMMA.16816``, BF16 or F16) with no
+   TF32 HMMA in the bfloat16 and float16 instances of both forwards,
+   and wgmma (``HGMMA``, BF16 or F16) with no TF32 HMMA and no
+   HMMA.16816 in the 16-bit instances of the backward's dK/dV and dQ
+   kernels;
 3. kernels — each kernel's wrapper against its plain PyTorch version on
    the same inputs on the card, at its main path's shapes, then timed
    beside the plain version, one PyTorch library call computing the
@@ -49,9 +51,11 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    gradients (no atomics); timed there and at ``[1, 8, 32768, 64]``
    beside K1, the SDPA yardstick (whose kernels are logged) and (at
    8192) the einsum path, and at ``[1, 8, 8192, 64]`` in bfloat16 and
-   float16 (against K2's float32 kernel on the upcast inputs at the
-   16-bit contract, then timed beside SDPA in the same dtype, bound at
-   the 16-bit rate); then the attention
+   float16 (against K2's float32 kernel on the upcast inputs and
+   against the plain version at the 16-bit contract, then timed beside
+   SDPA in the same dtype and the plain version, bound at the 16-bit
+   rate; the bfloat16 forward and backward are rows of the kernels
+   line); then the attention
    layer's route for score matrices over 2 GiB (flash off, ``[1, 8,
    16384, 128]``) must launch K2 once and equal a direct call bitwise;
    the fused dequant int8 GEMM (K5) equal to its plain version bitwise
@@ -271,7 +275,19 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    byte not; rows ``int8_gemm_vgg16_fc6`` / ``_fc7`` / ``_fc8`` of the
    kernels line (their times from phase 3, L2-cold, beside K5's plain
    version and ``torch._int_mm`` + epilogue); int8-against-float top-1
-   agreement printed, not gated.
+   agreement printed, not gated;
+16. long-context training in bf16_mixed (``phase_longctx_bf16``, run
+   after phase 6) — the LONGCTX row through
+   ``LocalOptimizer(...).set_precision("bf16_mixed")`` at K = 1, SGD lr
+   0.1, phase 6's stream, ``LC_ITERS`` iterations: one step with K2 in
+   bfloat16 against the einsum path (bfloat16 too) at phase 11's limits,
+   which ``PREC_FAULTS`` put into K2's backward must fail; K2's forward
+   and backward launched once a layer and iteration and K1 never;
+   falling losses; ms a step and tokens/s; a profiled window whose K2
+   kernels are all bfloat16 instances, once a layer and step (idle
+   share, K2's device ms a step); then one bf16_mixed step at S = 32768
+   with its peak memory. Its K2 launches are the bfloat16 rows'
+   ``launches`` in the kernels line.
 
 Float32 throughout phases 1–10, with TF32 off for matrix products (set
 here) and for convolutions (PyTorch's default is on; the port's
@@ -281,7 +297,8 @@ policies, with limits of their own; phase 12 (a) runs bf16_mixed at
 phase 11's limits, (b)-(f) float32 (float64 for LBFGS's card-against-CPU
 check); phase 13 (a) runs bf16_mixed at phase 11's limits, (b) and (c)
 float32; phase 14 float32; phase 15 float64 in (a), float32 and
-bf16_mixed in (b), float32 in (c)-(e).
+bf16_mixed in (b), float32 in (c)-(e); phase 16 bf16_mixed at phase
+11's limits.
 
 The line before the last is a JSON object ``{"kernels": [...]}`` with
 each kernel's launches, error and times (``ms`` and ``device_ms``, and
@@ -717,13 +734,16 @@ def clock_samples(every_s: float = 0.005):
 #: how many rows read their pair of windows again because the two
 #: disagreed, the largest spread of a pair that was kept and of one that
 #: was read again (relative to the smaller window), and the rows timed by
-#: CUDA-graph replays because a single call's windows showed no kernel
+#: CUDA-graph replays because a single call's windows showed no kernel,
+#: and the rows whose single-call windows did not all count the same
 WINDOWS = {"read": 0, "retaken": 0, "pairs read again": 0,
            "largest spread": 0.0, "largest spread read again": 0.0,
-           "graph rows": 0}
+           "graph rows": 0, "singles disagreed": 0}
 #: retakes of a window that lost kernels (each window's own); fresh pairs
 #: read after a pair that disagreed; the largest spread of a kept pair
 WINDOW_RETAKES, PAIR_RETAKES, WINDOW_SPREAD = 2, 2, 0.10
+#: single-call windows whose median count is the kernels a call launches
+SINGLES = 3
 #: least device time (ms) a window times: a row of long calls repeats
 #: its cycle until its window holds this much work, so that one call
 #: that runs a few ms slow moves the window by a few percent (at 32768
@@ -735,9 +755,10 @@ WINDOW_MAX_KERNELS = 800
 
 
 def _window(run):
-    """``(device ms, kernels launched, SM clock samples)`` of one
-    profiled ``run()``; the clock is sampled from the first call to the
-    synchronize after the last."""
+    """``(device ms, kernels launched, SM clock samples, kernels)`` of
+    one profiled ``run()`` (``kernels`` as :func:`device_kernels` lists
+    them); the clock is sampled from the first call to the synchronize
+    after the last."""
     import torch
 
     clocks = []
@@ -750,7 +771,7 @@ def _window(run):
 
     kernels = device_kernels(profiled(sampled))
     return (sum(ms for ms, _, _ in kernels),
-            sum(count for _, count, _ in kernels), clocks)
+            sum(count for _, count, _ in kernels), clocks, kernels)
 
 
 def device_ms(fn, n_inputs: int, rounds: int):
@@ -762,8 +783,12 @@ def device_ms(fn, n_inputs: int, rounds: int):
     counts them all — over the calls.
 
     A profiler window can lose kernels, so each window's kernel count is
-    held against the calls it timed, at the kernels one call launches
-    (the larger count of two untimed, profiled single calls). A window
+    held against the calls it timed, at the kernels one call launches:
+    the median count of ``SINGLES`` untimed, profiled single calls, so
+    that one single window that lost its kernels, or caught a kernel
+    that is not the call's (one did: a library call of 4 kernels read 5,
+    and every window of 240 calls then read 960 of "1200"), sets
+    neither; singles that disagree are logged with their kernels. A window
     that recorded fewer is retaken, up to ``WINDOW_RETAKES`` times. Each
     window times at least ``WINDOW_MIN_MS`` of work where
     ``WINDOW_MAX_KERNELS`` allows, after two untimed cycles of the same
@@ -782,10 +807,17 @@ def device_ms(fn, n_inputs: int, rounds: int):
     for i in range(n_inputs):
         fn(i)
     torch.cuda.synchronize()
-    singles = [_window(lambda: fn(0)) for _ in range(2)]
-    per_call = max(count for _, count, _ in singles)
+    singles = [_window(lambda: fn(0)) for _ in range(SINGLES)]
+    per_call = int(np.median([single[1] for single in singles]))
+    if any(single[1] != per_call for single in singles):
+        WINDOWS["singles disagreed"] += 1
+        log("device_ms", f"single-call windows disagree, {per_call} "
+                         f"kernels a call taken: " + json.dumps(
+                             [[(n, key[:80]) for _, n, key in single[3]]
+                              for single in singles]))
     if per_call > 0:
-        call_ms = max(ms for ms, _, _ in singles)
+        call_ms = max(ms for ms, count, _, _ in singles
+                      if count == per_call)
         reps = max(1, min(math.ceil(WINDOW_MIN_MS / (call_ms * rounds
                                                      * n_inputs)),
                           WINDOW_MAX_KERNELS // (per_call * rounds
@@ -801,12 +833,12 @@ def device_ms(fn, n_inputs: int, rounds: int):
 
         def window():
             nonlocal lost
-            total, launched, clocks = _window(cycle)
+            total, launched, clocks, _ = _window(cycle)
             for _ in range(WINDOW_RETAKES):
                 if launched >= expected:
                     break
                 lost += 1
-                total, launched, clocks = _window(cycle)
+                total, launched, clocks, _ = _window(cycle)
             if launched < expected:
                 raise RuntimeError(
                     f"device_ms: a profiler window recorded {launched} of "
@@ -948,25 +980,27 @@ def phase_build():
 
 
 #: the flash kernels by library, and the tensor-core MMAs (SASS
-#: ``HMMA``) their instances must show: "tf32" kernels run their tile
-#: products in 3xTF32 (``HMMA ... TF32``) in every dtype (K2's forward);
-#: "dtype" kernels in their float32 instances, and in their bfloat16 and
-#: float16 instances m16n8k16 on 16-bit operands (``HMMA.16816 ...
-#: BF16``, or without ``BF16`` for float16) and no TF32 HMMA
-FLASH_MMAS = {"blockwise_flash_attention": {"blockwise_fwd_kernel": "tf32",
-                                            "flash_dkv_kernel": "dtype",
-                                            "flash_dq_kernel": "dtype"},
-              "flash_attention": {"flash_fwd_kernel": "dtype",
-                                  "flash_dkv_kernel": "dtype",
-                                  "flash_dq_kernel": "dtype"}}
+#: ``HMMA``, ``HGMMA``) their instances must show: in float32 every
+#: kernel runs 3xTF32 (``HMMA ... TF32``); in bfloat16 and float16
+#: "dtype" kernels run m16n8k16 on 16-bit operands (``HMMA.16816 ...
+#: BF16``, or without ``BF16`` for float16) and "wgmma" kernels run
+#: ``wgmma.mma_async`` (``HGMMA ... BF16``, or without ``BF16``), either
+#: with no TF32 HMMA: both forwards on mma.sync, the backward both
+#: libraries build (flash_common.cuh) on wgmma
+FLASH_MMAS = {name: {fwd: "dtype", "flash_dkv_kernel": "wgmma",
+                     "flash_dq_kernel": "wgmma"}
+              for name, fwd in (
+                  ("blockwise_flash_attention", "blockwise_fwd_kernel"),
+                  ("flash_attention", "flash_fwd_kernel"))}
 
 
 def check_mmas(paths) -> None:
-    """Count the tensor-core MMAs (SASS ``HMMA``, by opcode) of each
-    kernel instance in the flash libraries with ``cuobjdump -sass``, log
-    them, and fail unless each instance of a ``FLASH_MMAS`` kernel runs
-    the MMAs its dtype calls for: TF32 in float32 (and in K2's forward),
-    BF16 in bfloat16 and F16 in float16 with no TF32 HMMA."""
+    """Count the tensor-core MMAs (SASS ``HMMA`` and ``HGMMA``, by
+    opcode) of each kernel instance in the flash libraries with
+    ``cuobjdump -sass``, log them, and fail unless each instance of a
+    ``FLASH_MMAS`` kernel runs the MMAs its dtype calls for: TF32 in
+    float32; in bfloat16 and float16, m16n8k16 HMMAs ("dtype") or
+    HGMMAs ("wgmma") of that dtype and no TF32 HMMA."""
     import os
 
     from bigdl_tpu_torch.kernels import _build
@@ -983,10 +1017,10 @@ def check_mmas(paths) -> None:
                 fn = kernel_instance(m.group(1))
                 counts.setdefault(fn, {})
                 continue
-            m = re.search(r"\b(HMMA\.\S+)", line)
+            m = re.search(r"\b(H(?:G)?MMA\.\S+)", line)
             if fn and m:
                 counts[fn][m.group(1)] = counts[fn].get(m.group(1), 0) + 1
-        log("build", f"{name}: HMMA opcodes per kernel instance: "
+        log("build", f"{name}: HMMA / HGMMA opcodes per kernel instance: "
                      + json.dumps(counts, sort_keys=True))
         seen, bad = set(), []
         for fn, ops in sorted(counts.items()):
@@ -1003,13 +1037,21 @@ def check_mmas(paths) -> None:
                    "f16": sum(n for op, n in ops.items()
                               if "16816" in op and "BF16" not in op
                               and "TF32" not in op)}
-            if kernels[kernel] == "tf32" or dtype == "f32":
+            wg = {"bf16": sum(n for op, n in ops.items()
+                              if op.startswith("HGMMA") and "BF16" in op),
+                  "f16": sum(n for op, n in ops.items()
+                             if op.startswith("HGMMA") and "BF16" not in op)}
+            if dtype == "f32":
                 ok = tf32 > 0
+            elif kernels[kernel] == "wgmma":
+                ok = wg[dtype] > 0 and tf32 == 0 and sum(wg.values()) \
+                    == wg[dtype] and sum(k16.values()) == 0
             else:
                 ok = k16[dtype] > 0 and tf32 == 0 and sum(k16.values()) \
                     == k16[dtype]
             log("build", f"{name}: {fn}: tf32 HMMA {tf32}, bf16 m16n8k16 "
-                         f"{k16['bf16']}, f16 m16n8k16 {k16['f16']}"
+                         f"{k16['bf16']}, f16 m16n8k16 {k16['f16']}, bf16 "
+                         f"HGMMA {wg['bf16']}, f16 HGMMA {wg['f16']}"
                          f"{'' if ok else ' -- WRONG'}")
             if not ok:
                 bad.append(fn)
@@ -1899,6 +1941,27 @@ def step_parity_holds(diffs) -> bool:
             and max(diffs["grad_rel_diff"].values()) <= TRAIN_GRAD_RTOL)
 
 
+def bf16_step_holds(d) -> bool:
+    """One bf16_mixed step against the einsum path within phase 11's
+    limits (``PREC_*``)."""
+    return (d["loss_rel_diff"] <= PREC_LOSS_RTOL
+            and d["param_rel_diff"] <= PREC_PARAM_RTOL
+            and max(d["grad_rel_diff"].values()) <= PREC_GRAD_RTOL)
+
+
+def _log_bf16_step(phase, label, d) -> None:
+    worst = max(d["grad_rel_diff"], key=d["grad_rel_diff"].get)
+    log(phase, f"one bf16_mixed step, {label}: loss "
+               f"{d['loss_kernel']:.6f} vs einsum path "
+               f"{d['loss_einsum']:.6f} (relative "
+               f"{d['loss_rel_diff']:.3e}, limit {PREC_LOSS_RTOL}), max "
+               f"|param diff| {d['param_diff']:.3e} over the largest "
+               f"update {d['update_max']:.3e}: {d['param_rel_diff']:.3e} "
+               f"(limit {PREC_PARAM_RTOL}), worst gradient {worst} at "
+               f"{d['grad_rel_diff'][worst]:.3e} of its largest element "
+               f"(limit {PREC_GRAD_RTOL})")
+
+
 def _log_step_diffs(label, diffs, phase="train") -> None:
     worst = max(diffs["grad_rel_diff"], key=diffs["grad_rel_diff"].get)
     log(phase, f"one step, {label}: loss {diffs['loss_kernel']:.6f} vs "
@@ -2132,8 +2195,10 @@ def phase_blockwise():
     there; K1 and K2 compute one function, so the K1/K2 routing switch is
     invisible to callers), then timed at [1, 8, 8192, 64] and
     [1, 8, 32768, 64] float32 causal beside K1's kernel, the SDPA
-    yardstick, the einsum path (8192 only) and the bound. Returns the two
-    kernels-line entries at 8192 (launches filled in later)."""
+    yardstick, the einsum path (8192 only) and the bound; then its 16-bit
+    instances (``time_blockwise16``). Returns the kernels-line entries:
+    float32 forward and backward at 8192, then bfloat16's (launches
+    filled in later)."""
     import torch
     import torch.nn.functional as F
 
@@ -2261,8 +2326,12 @@ def phase_blockwise():
                          f"causal (the main path's shape)", "blockwise")
             log_kernels("blockwise", "SDPA yardstick's kernels",
                         lambda: (fns(0, "lib_f"), fns(0, "lib_b")))
-            row["plain_f_ms"] = time_ms(lambda i: fns(0, "plain_f"), 1, 1)
-            row["plain_b_ms"] = time_ms(lambda i: fns(0, "plain_b"), 1, 1)
+            # one timed call each: every call of the plain version
+            # launches tens of thousands of small kernels, and after a
+            # few such storms an H100's profiler windows recorded none
+            # of K2's (PERF.md)
+            _, row["plain_f_ms"] = _timed_once(lambda: fns(0, "plain_f"))
+            _, row["plain_b_ms"] = _timed_once(lambda: fns(0, "plain_b"))
             q, k, v = sets[0][0]
             leaves = [x.detach().requires_grad_() for x in (q, k, v)]
             ein = dot_product_attention(*leaves, causal=True,
@@ -2299,23 +2368,49 @@ def phase_blockwise():
         log("blockwise", json.dumps(row))
         del sets, outs, outs1, graphs
         torch.cuda.empty_cache()
-    time_blockwise16(gen)
-    return entries["f"], entries["b"]
+    return (entries["f"], entries["b"]) + time_blockwise16(gen)
+
+
+def _timed_once(fn):
+    """``(fn(), ms)``: one call timed with CUDA events (the host's launch
+    path included), for a plain version that launches thousands of
+    kernels a call."""
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
 
 
 def time_blockwise16(gen):
     """K2's forward and backward in bfloat16 and float16 at the
     long-context shape [1, 8, 8192, 64], causal: against K2's float32
-    kernel on the same (upcast) inputs at the 16-bit contract, then
-    timed (``ms``, ``device_ms``) beside SDPA in the same dtype, with the
-    bound at the 16-bit tensor-core rate and at the bytes. K2's 16-bit
-    instances still compute in 3xTF32 (ROADMAP queue 2, item 4)."""
+    kernel on the same (upcast) inputs at the 16-bit contract, the
+    backward run twice bitwise equal (bfloat16 with segments too, where
+    the forward and the backward must compute exactly the tile pairs the
+    ids keep), then timed (``ms``, ``device_ms``) beside SDPA in the same
+    dtype (a yardstick: the port never calls it), with the bound at the
+    16-bit tensor-core rate and at the bytes. Last, after every profiled window
+    (a window read after the plain version's storm of small kernels has
+    recorded none of K2's on an H100), bfloat16 against the plain version
+    on the same inputs, each way one call, timed. Returns the bfloat16
+    forward's and backward's kernels-line entries (launches filled in by
+    phase 16)."""
+    import importlib
+
     import torch
     import torch.nn.functional as F
 
-    k2_fwd, _, k2_bwd, _ = _kernel_pair("blockwise_flash_attention")
+    fa = importlib.import_module("bigdl_tpu_torch.kernels.flash_attention")
+    k2_fwd, k2_ref_f, k2_bwd, k2_ref_b = _kernel_pair(
+        "blockwise_flash_attention")
     shape = (1, HEADS, LC_SEQ, HEAD_DIM)
     kept = kept_pairs(None, 1, LC_SEQ, "cuda")
+    rows = {}
     for dtype in (torch.bfloat16, torch.float16):
         name = str(dtype).split(".")[-1]
         # two sets of q, k, v, O, dO (42 MB each): L2-cold
@@ -2339,6 +2434,35 @@ def time_blockwise16(gen):
         _check_flash(errs, name, f"{name} {list(shape)} causal, against "
                                  f"K2's float32 kernel", "blockwise")
         del wide, o32, lse32, g16, g32
+        check_deterministic(k2_bwd, q, k, v, outs[0][0], do, outs[0][1],
+                            None, f"K2 {name} backward")
+        if dtype == torch.bfloat16:
+            # with segment ids, the forward and the backward's dK/dV and
+            # dQ kernels (run twice) compute only the tile pairs the ids
+            # keep
+            seg = _segments(gen, 1, LC_SEQ)
+            seg_kept, causal_pairs = kept_tile_pairs(seg, LC_SEQ)
+            fa.blockwise_flash_attention_forward_tile_pairs()
+            fa.blockwise_flash_attention_backward_tile_pairs()
+            o_s, lse_s = k2_fwd(q, k, v, seg, causal=True)
+            computed = {
+                "forward": fa.blockwise_flash_attention_forward_tile_pairs()}
+            check_deterministic(k2_bwd, q, k, v, o_s, do, lse_s, seg,
+                                f"K2 {name} backward")
+            computed["dK/dV x 2"], computed["dQ x 2"] = \
+                fa.blockwise_flash_attention_backward_tile_pairs()
+            log("blockwise", f"{name} {list(shape)} segments: tile pairs "
+                             f"computed {computed}; the ids keep {HEADS} "
+                             f"heads x {seg_kept} of {causal_pairs} causal "
+                             f"pairs")
+            if computed != {"forward": seg_kept * HEADS,
+                            "dK/dV x 2": 2 * seg_kept * HEADS,
+                            "dQ x 2": 2 * seg_kept * HEADS}:
+                raise AssertionError(f"K2 {name} computed {computed} tile "
+                                     f"pairs, the segment ids keep "
+                                     f"{seg_kept} x {HEADS}")
+            del o_s, lse_s
+            main = (q, k, v, do) + tuple(outs[0])
         graphs = []
         for (q, k, v), _ in sets:
             leaves = [x.detach().requires_grad_() for x in (q, k, v)]
@@ -2357,7 +2481,7 @@ def time_blockwise16(gen):
                     graphs[i][1], graphs[i][0], do, retain_graph=True),
             }[which]()
 
-        row = {"dtype": name, "S": LC_SEQ, "kept_pairs": kept}
+        row = rows[name] = {"dtype": name, "S": LC_SEQ, "kept_pairs": kept}
         for kind, backward in (("f", False), ("b", True)):
             for which in (f"k2_{kind}", f"lib_{kind}"):
                 row[f"{which}_ms"] = time_ms(lambda i: fns(i, which), 2, 3)
@@ -2369,9 +2493,56 @@ def time_blockwise16(gen):
             row[f"bound_{kind}_ops_ms"] = t_ops
             row[f"k2_{kind}_over_sdpa"] = (row[f"k2_{kind}_device_ms"]
                                            / row[f"lib_{kind}_device_ms"])
-        log("blockwise", "16-bit " + json.dumps(row))
+        if dtype == torch.float16:
+            log("blockwise", "16-bit " + json.dumps(row))
         del sets, outs, graphs
         torch.cuda.empty_cache()
+
+    # bfloat16 against the plain version (a Python loop over 128 x 128
+    # tiles), the kernel's O and lse from the rows' first set
+    q, k, v, do, o, lse = main
+    row = rows["bfloat16"]
+    (o_r, lse_r), row["plain_f_ms"] = _timed_once(
+        lambda: k2_ref_f(q, k, v, causal=True))
+    grads_r, row["plain_b_ms"] = _timed_once(
+        lambda: k2_ref_b(q, k, v, o, do, lse, causal=True))
+    grads = k2_bwd(q, k, v, o, do, lse, causal=True)
+    torch.cuda.synchronize()
+    plain_errs = {"o": _err(o, o_r, True), "lse": _err(lse, lse_r, False)}
+    plain_errs.update({n: _err(g, w, True) for n, g, w in
+                       zip(("dq", "dk", "dv"), grads, grads_r)})
+    _check_flash(plain_errs, "bfloat16", f"bfloat16 {list(shape)} causal, "
+                                         f"against the plain version",
+                 "blockwise")
+    log("blockwise", "16-bit " + json.dumps(row))
+    entries = {}
+    for kind, backward in (("f", False), ("b", True)):
+        t_bytes = row[f"bound_{kind}_bytes_ms"]
+        t_ops = row[f"bound_{kind}_ops_ms"]
+        entries[kind] = {
+            "name": "blockwise_flash_attention_"
+                    + ("bwd" if backward else "fwd") + "_bf16",
+            "route": "cuda",
+            "source": "bigdl_tpu_torch/kernels/csrc/"
+                      + ("flash_common.cuh" if backward
+                         else "blockwise_flash_attention.cu"),
+            "replaces": "bigdl_tpu/kernels/flash_attention.py:"
+                        + ("419" if backward else "305"),
+            "launches": None,
+            "max_abs_err": max(plain_errs[n] for n in (
+                ("dq", "dk", "dv") if backward else ("o", "lse"))),
+            "ms": row[f"k2_{kind}_ms"],
+            "device_ms": row[f"k2_{kind}_device_ms"],
+            "plain_ms": row[f"plain_{kind}_ms"],
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": row[f"lib_{kind}_ms"],
+            "library_device_ms": row[f"lib_{kind}_device_ms"],
+            "device_ms_windows": row[f"k2_{kind}_windows"],
+            "library_device_ms_windows": row[f"lib_{kind}_windows"]}
+    del main, q, k, v, do, o, lse, o_r, lse_r, grads_r, grads
+    torch.cuda.empty_cache()
+    return entries["f"], entries["b"]
 
 
 def log_kernels(phase: str, what: str, run) -> None:
@@ -2446,6 +2617,98 @@ def longctx_model(max_len, device="cuda"):
                          generator=torch.Generator().manual_seed(31))
 
 
+def _longctx_optimize(model, crit, x, y, counters, phase,
+                      precision=None):
+    """``LocalOptimizer`` over the stream's windows (batch 1, SGD at
+    ``TRAIN_LR``, ``LC_ITERS`` iterations, under the ``precision``
+    preset if given), every kernel's count set to 0 just before: finite
+    losses that fall, and K2's forward and backward launched once a layer
+    and iteration and K1 never. Returns the launches and the numbers
+    (ms a step, tokens/s, losses)."""
+    from bigdl_tpu_torch.dataset import DataSet, Sample, SampleToMiniBatch
+    from bigdl_tpu_torch.optim import SGD, LocalOptimizer, max_iteration
+
+    samples = [Sample(x[i], y[i]) for i in range(len(y))]
+    ds = DataSet.array(samples).transform(SampleToMiniBatch(1))
+    opt = LocalOptimizer(model, ds, crit, batch_size=1)
+    opt.set_optim_method(SGD(learning_rate=TRAIN_LR))
+    opt.set_end_when(max_iteration(LC_ITERS))
+    if precision is not None:
+        opt.set_precision(precision)
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    opt.optimize()
+    wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counters.items()}
+
+    losses = [h["loss"] for h in opt.history]
+    step_ms = sorted(h["seconds"] * 1e3 for h in opt.history[2:])
+    median_ms = step_ms[len(step_ms) // 2]
+    summary = {
+        "iterations": len(losses), "seconds": wall,
+        "ms_per_step_median": median_ms,
+        "ms_per_step_first": opt.history[0]["seconds"] * 1e3,
+        "tokens_per_sec": LC_SEQ / (median_ms / 1e3),
+        "loss_first": losses[0], "loss_last": losses[-1],
+        "loss_mean_first5": float(np.mean(losses[:5])),
+        "loss_mean_last5": float(np.mean(losses[-5:])),
+        "launches": launches}
+    log(phase, json.dumps(summary))
+    if not all(np.isfinite(losses)) or len(losses) != LC_ITERS:
+        raise AssertionError(f"{phase} losses: {losses}")
+    if not summary["loss_mean_last5"] < summary["loss_mean_first5"]:
+        raise AssertionError(f"{phase} loss did not fall: {losses}")
+    for name, want in (("blockwise_flash_attention_fwd", LC_LAYERS),
+                       ("blockwise_flash_attention_bwd", LC_LAYERS),
+                       ("flash_attention_fwd", 0), ("flash_attention_bwd", 0)):
+        if launches[name] != want * LC_ITERS:
+            raise AssertionError(f"{phase}: {name} launched "
+                                 f"{launches[name]} times over {LC_ITERS} "
+                                 f"iterations x {LC_LAYERS} layers")
+    return launches, summary
+
+
+def _longctx_long_step(crit, counters, phase, device, precision=None):
+    """One SGD step of the long-context configuration at S =
+    ``LC_SEQ_MAX`` (under ``precision``, a policy, if given): a finite
+    loss, K2 launched once a layer each way, and its peak device memory.
+    Returns the numbers."""
+    import torch
+
+    from bigdl_tpu_torch.models.transformer.train import synthetic_corpus
+    from bigdl_tpu_torch.optim import SGD, build_train_step
+
+    xl, yl = synthetic_corpus(2 * LC_SEQ_MAX + 1, LC_VOCAB, LC_SEQ_MAX,
+                              "contiguous", 1)
+    model = longctx_model(LC_SEQ_MAX, device)
+    step = build_train_step(model, crit, SGD(learning_rate=TRAIN_LR),
+                            precision=precision)
+    before = {name: fn.launches for name, fn in counters.items()}
+    on_card = device == "cuda"
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    loss = float(step(torch.from_numpy(xl[:1]).to(device),
+                      torch.from_numpy(yl[:1]).to(device), TRAIN_LR))
+    step_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() if on_card else "not measured"
+    k2 = {name: counters[name].launches - before[name]
+          for name in ("blockwise_flash_attention_fwd",
+                       "blockwise_flash_attention_bwd")}
+    out = {"S": LC_SEQ_MAX, "loss": loss, "step_seconds_first": step_s,
+           "peak_memory_bytes": peak, "k2_launches": k2}
+    log(phase, json.dumps(out))
+    if not np.isfinite(loss) or set(k2.values()) != {LC_LAYERS}:
+        raise AssertionError(f"{phase}: S={LC_SEQ_MAX} step: loss {loss}, "
+                             f"K2 launches {k2}")
+    del model, step
+    if on_card:
+        torch.cuda.empty_cache()
+    return out
+
+
 def phase_longctx_train(counters, device="cuda"):
     """LocalOptimizer at the long-context configuration, S = 8192, batch
     1, on the train CLI's contiguous synthetic stream, SGD lr 0.1, for
@@ -2455,12 +2718,9 @@ def phase_longctx_train(counters, device="cuda"):
     launches per kernel and the metrics."""
     import torch
 
-    from bigdl_tpu_torch.dataset import DataSet, Sample, SampleToMiniBatch
     from bigdl_tpu_torch.kernels import flash_route
     from bigdl_tpu_torch.models.transformer.train import synthetic_corpus
     from bigdl_tpu_torch.nn import SequenceCrossEntropyCriterion
-    from bigdl_tpu_torch.optim import (SGD, LocalOptimizer,
-                                       build_train_step, max_iteration)
 
     t0 = time.perf_counter()
     x, y = synthetic_corpus(LC_SYNTHETIC, LC_VOCAB, LC_SEQ, "contiguous", 1)
@@ -2494,76 +2754,128 @@ def phase_longctx_train(counters, device="cuda"):
             raise AssertionError(f"the one-step check misses K2 with "
                                  f"{fault}: {diffs}")
 
-    samples = [Sample(x[i], y[i]) for i in range(len(y))]
-    ds = DataSet.array(samples).transform(SampleToMiniBatch(1))
-    opt = LocalOptimizer(model, ds, crit, batch_size=1)
-    opt.set_optim_method(SGD(learning_rate=TRAIN_LR))
-    opt.set_end_when(max_iteration(LC_ITERS))
-    for fn in counters.values():
-        fn.launches = 0
-    t0 = time.perf_counter()
-    opt.optimize()
-    wall = time.perf_counter() - t0
-    launches = {name: fn.launches for name, fn in counters.items()}
-
-    losses = [h["loss"] for h in opt.history]
-    step_ms = sorted(h["seconds"] * 1e3 for h in opt.history[2:])
-    median_ms = step_ms[len(step_ms) // 2]
-    summary = {
-        "iterations": len(losses), "seconds": wall,
-        "ms_per_step_median": median_ms,
-        "ms_per_step_first": opt.history[0]["seconds"] * 1e3,
-        "tokens_per_sec": LC_SEQ / (median_ms / 1e3),
-        "loss_first": losses[0], "loss_last": losses[-1],
-        "loss_mean_first5": float(np.mean(losses[:5])),
-        "loss_mean_last5": float(np.mean(losses[-5:])),
-        "launches": launches}
-    log("longctx-train", json.dumps(summary))
-    if not all(np.isfinite(losses)) or len(losses) != LC_ITERS:
-        raise AssertionError(f"losses: {losses}")
-    if not summary["loss_mean_last5"] < summary["loss_mean_first5"]:
-        raise AssertionError(f"loss did not fall: {losses}")
-    for name, want in (("blockwise_flash_attention_fwd", LC_LAYERS),
-                       ("blockwise_flash_attention_bwd", LC_LAYERS),
-                       ("flash_attention_fwd", 0), ("flash_attention_bwd", 0)):
-        if launches[name] != want * LC_ITERS:
-            raise AssertionError(f"{name} launched {launches[name]} times "
-                                 f"over {LC_ITERS} iterations x "
-                                 f"{LC_LAYERS} layers")
+    launches, summary = _longctx_optimize(model, crit, x, y, counters,
+                                          "longctx-train")
     compare_attention_paths(model, crit, batch(LC_ITERS), device,
                             "longctx-train")
     profile_train(model, crit, [batch(LC_ITERS + 1 + i)
                                 for i in range(PROFILE_STEPS + 1)], device,
                   "longctx-profile")
-    del model, opt, ds, samples
+    del model
     if device == "cuda":
         torch.cuda.empty_cache()
-
     # one step at S = 32768 (the einsum path's scores alone would take
     # 34 GB a layer there; it is not run)
-    xl, yl = synthetic_corpus(2 * LC_SEQ_MAX + 1, LC_VOCAB, LC_SEQ_MAX,
-                              "contiguous", 1)
-    model = longctx_model(LC_SEQ_MAX, device)
-    step = build_train_step(model, crit, SGD(learning_rate=TRAIN_LR))
-    before = {name: fn.launches for name, fn in counters.items()}
-    if device == "cuda":
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
+    _longctx_long_step(crit, counters, "longctx-train", device)
+    return launches, summary
+
+
+#: K2's kernels as the profiler names them: the forward, and the
+#: backward's delta, dK/dV and dQ kernels (K1 runs the same backward
+#: kernel names: a window that reads these launches no K1)
+K2_KERNELS = ("blockwise_fwd_kernel", "flash_delta_kernel",
+              "flash_dkv_kernel", "flash_dq_kernel")
+
+
+def phase_longctx_bf16(counters, device="cuda"):
+    """Phase 16: bf16_mixed long-context training through K2 in
+    bfloat16 — the LONGCTX row (``longctx_model(LC_SEQ)``) through
+    ``LocalOptimizer(...).set_precision("bf16_mixed")``, SGD lr 0.1, on
+    phase 6's contiguous synthetic stream for ``LC_ITERS`` iterations at
+    K = 1. One step against the einsum path (bf16 too) at phase 11's
+    limits, which ``PREC_FAULTS`` put into K2's backward must fail; K2's
+    forward and backward launched once a layer and iteration and K1
+    never; falling losses; a profiled window (idle share, K2's bfloat16
+    kernels and their device ms a step); then one bf16_mixed step at S =
+    32768 with its peak memory. Returns the launches and the numbers."""
+    import torch
+
+    from bigdl_tpu_torch.kernels import flash_route
+    from bigdl_tpu_torch.models.transformer.train import synthetic_corpus
+    from bigdl_tpu_torch.nn import SequenceCrossEntropyCriterion
+    from bigdl_tpu_torch.precision import PrecisionPolicy
+
+    phase = "longctx-bf16"
     t0 = time.perf_counter()
-    loss = float(step(torch.from_numpy(xl[:1]).to(device),
-                      torch.from_numpy(yl[:1]).to(device), TRAIN_LR))
-    step_s = time.perf_counter() - t0
-    peak = torch.cuda.max_memory_allocated() if device == "cuda" \
-        else "not measured"
-    k2 = {name: counters[name].launches - before[name]
-          for name in ("blockwise_flash_attention_fwd",
-                       "blockwise_flash_attention_bwd")}
-    log("longctx-train", json.dumps({
-        "S": LC_SEQ_MAX, "loss": loss, "step_seconds_first": step_s,
-        "peak_memory_bytes": peak, "k2_launches": k2}))
-    if not np.isfinite(loss) or set(k2.values()) != {LC_LAYERS}:
-        raise AssertionError(f"S={LC_SEQ_MAX} step: loss {loss}, K2 "
-                             f"launches {k2}")
+    on_card = device == "cuda"
+    x, y = synthetic_corpus(LC_SYNTHETIC, LC_VOCAB, LC_SEQ, "contiguous", 1)
+    model = longctx_model(LC_SEQ, device)
+    crit = SequenceCrossEntropyCriterion()
+    bf16 = PrecisionPolicy.bf16_mixed()
+
+    def batch(i):
+        return (torch.from_numpy(x[i:i + 1]).to(device),
+                torch.from_numpy(y[i:i + 1]).to(device))
+
+    qkv = torch.empty((1, HEADS, LC_SEQ, HEAD_DIM), device=device,
+                      dtype=torch.bfloat16)
+    route = flash_route(qkv, qkv, qkv)
+    log(phase, f"model built in {time.perf_counter() - t0:.2f} s; bfloat16 "
+               f"attention operands route to {route}")
+    if route != "K2":
+        raise AssertionError(f"bfloat16 [1, {HEADS}, {LC_SEQ}, {HEAD_DIM}] "
+                             f"routes to {route}")
+
+    summary = {}
+    d = step_differences(model, crit, batch(0), precision=bf16,
+                         function="_BlockwiseFlashAttention")
+    _log_bf16_step(phase, "K2", d)
+    summary["one_step"] = {k: d[k] for k in (
+        "loss_kernel", "loss_einsum", "loss_rel_diff", "param_rel_diff")}
+    summary["one_step"]["worst_grad_rel_diff"] = max(
+        d["grad_rel_diff"].values())
+    if not bf16_step_holds(d):
+        raise AssertionError(f"bf16 K2 step differs from the einsum step: "
+                             f"{d}")
+    for fault in PREC_FAULTS:
+        d = step_differences(model, crit, batch(0), fault, precision=bf16,
+                             function="_BlockwiseFlashAttention")
+        _log_bf16_step(phase, f"K2 with {fault}", d)
+        summary["one_step"][f"worst_grad_rel_diff with {fault}"] = max(
+            d["grad_rel_diff"].values())
+        if bf16_step_holds(d):
+            raise AssertionError(f"the bf16 one-step check misses K2 with "
+                                 f"{fault}: {d}")
+
+    launches, summary["run"] = _longctx_optimize(
+        model, crit, x, y, counters, phase, precision="bf16_mixed")
+
+    # where a step's time goes: K2's kernels must all be bfloat16
+    # instances, once a layer and step
+    prof = profile_train(model, crit, [batch(LC_ITERS + 1 + i)
+                                       for i in range(PROFILE_STEPS + 1)],
+                         device, f"{phase}-profile", precision=bf16,
+                         detail=True)
+    if on_card:
+        steps = prof["steps"]
+        k2 = [(ms, n, key) for ms, n, key in prof["kernels"]
+              if any(name in key for name in K2_KERNELS)]
+        wrong = [key for _, _, key in k2 if "__nv_bfloat16" not in key]
+        counts = {name: _instances(k2, name) for name in K2_KERNELS}
+        prof_k2 = {"k2_device_ms_per_step": sum(ms for ms, _, _ in k2)
+                   / steps,
+                   "k2_fwd_device_ms_per_step": sum(
+                       ms for ms, _, key in k2 if K2_KERNELS[0] in key)
+                   / steps,
+                   "k2_bwd_device_ms_per_step": sum(
+                       ms for ms, _, key in k2 if K2_KERNELS[0] not in key)
+                   / steps,
+                   "k2_kernel_counts": counts}
+        log(phase, json.dumps(prof_k2))
+        summary["profile"] = dict(
+            prof_k2, idle_share=prof["device_idle_share"],
+            wall_ms_per_step=prof["wall_ms_per_step"],
+            unprofiled_ms_per_step=prof["unprofiled_ms_per_step"])
+        if wrong or set(counts.values()) != {LC_LAYERS * steps}:
+            raise AssertionError(f"K2 in the bf16_mixed window: kernels "
+                                 f"{counts} over {steps} steps x "
+                                 f"{LC_LAYERS} layers; not bfloat16: "
+                                 f"{wrong}")
+    del model
+    if on_card:
+        torch.cuda.empty_cache()
+    summary["long"] = _longctx_long_step(crit, counters, phase, device,
+                                         precision=bf16)
     return launches, summary
 
 
@@ -3920,40 +4232,21 @@ def phase_precision(counters, corpus, f32_train, device="cuda"):
     batch0 = _corpus_batch(corpus, 0, device)
     diffs = step_differences(model, crit, batch0, precision=bf16)
 
-    def holds(d):
-        return (d["loss_rel_diff"] <= PREC_LOSS_RTOL
-                and d["param_rel_diff"] <= PREC_PARAM_RTOL
-                and max(d["grad_rel_diff"].values()) <= PREC_GRAD_RTOL)
-
-    def show(label, d):
-        worst = max(d["grad_rel_diff"], key=d["grad_rel_diff"].get)
-        log("precision", f"one bf16_mixed step, {label}: loss "
-                         f"{d['loss_kernel']:.6f} vs einsum path "
-                         f"{d['loss_einsum']:.6f} (relative "
-                         f"{d['loss_rel_diff']:.3e}, limit "
-                         f"{PREC_LOSS_RTOL}), max |param diff| "
-                         f"{d['param_diff']:.3e} over the largest update "
-                         f"{d['update_max']:.3e}: {d['param_rel_diff']:.3e} "
-                         f"(limit {PREC_PARAM_RTOL}), "
-                         f"worst gradient {worst} at "
-                         f"{d['grad_rel_diff'][worst]:.3e} of its largest "
-                         f"element (limit {PREC_GRAD_RTOL})")
-
-    show("kernel", diffs)
+    _log_bf16_step("precision", "kernel", diffs)
     summary["one_step"] = {k: diffs[k] for k in (
         "loss_kernel", "loss_einsum", "loss_rel_diff", "param_diff",
         "update_max", "param_rel_diff")}
     summary["one_step"]["worst_grad_rel_diff"] = max(
         diffs["grad_rel_diff"].values())
-    if not holds(diffs):
+    if not bf16_step_holds(diffs):
         raise AssertionError(f"bf16 kernel step differs from the einsum "
                              f"step: {diffs}")
     for fault in PREC_FAULTS:
         d = step_differences(model, crit, batch0, fault, precision=bf16)
-        show(f"kernel with {fault}", d)
+        _log_bf16_step("precision", f"kernel with {fault}", d)
         summary["one_step"][f"worst_grad_rel_diff with {fault}"] = max(
             d["grad_rel_diff"].values())
-        if holds(d):
+        if bf16_step_holds(d):
             raise AssertionError(f"the bf16 one-step check misses a kernel "
                                  f"with {fault}: {d}")
 
@@ -6469,7 +6762,7 @@ def main() -> int:
     corpus = train_corpus()
     train_seg = torch.from_numpy(corpus[0][1][:TRAIN_BATCH]).cuda()
     flash_fwd, flash_bwd = phase_flash(train_seg)
-    blockwise_fwd, blockwise_bwd = phase_blockwise()
+    blockwise_fwd, blockwise_bwd, bf16_fwd, bf16_bwd = phase_blockwise()
     phase_k6_route()
     int8, k5_vgg_rows = phase_int8_gemm()
     paged = phase_paged_decode(main_lengths)
@@ -6485,6 +6778,7 @@ def main() -> int:
     serve_launches, _ = phase_main_path(counters, greedy, topk)
     train_launches, train_summary = phase_train(counters, corpus)
     longctx_launches, _ = phase_longctx_train(counters)
+    bf16_launches, _ = phase_longctx_bf16(counters)
     longserve_launches, _ = phase_longctx_serve(counters)
     int8_launches, _ = phase_int8_serve(counters)
     lenet_launches, _ = phase_lenet(counters)
@@ -6505,11 +6799,13 @@ def main() -> int:
         longctx_launches["blockwise_flash_attention_fwd"]
     blockwise_bwd["launches"] = \
         longctx_launches["blockwise_flash_attention_bwd"]
+    bf16_fwd["launches"] = bf16_launches["blockwise_flash_attention_fwd"]
+    bf16_bwd["launches"] = bf16_launches["blockwise_flash_attention_bwd"]
     int8["launches"] = int8_launches["int8_gemm"]
     # K4 has no main-path call site in either package: no path of this
     # run launches it (its phase drove it through the dispatch function)
     paged["launches"] = max(launches["paged_decode"] for launches in (
-        serve_launches, train_launches, longctx_launches,
+        serve_launches, train_launches, longctx_launches, bf16_launches,
         longserve_launches, int8_launches, lenet_launches,
         resnet_launches))
     log("device_ms", f"{WINDOWS['read']} profiler windows read, "
@@ -6519,10 +6815,12 @@ def main() -> int:
                      f"{WINDOWS['largest spread read again']:.2%}); "
                      f"largest spread of a kept pair "
                      f"{WINDOWS['largest spread']:.2%}; "
-                     f"{WINDOWS['graph rows']} rows timed by graph replays")
+                     f"{WINDOWS['graph rows']} rows timed by graph "
+                     f"replays; {WINDOWS['singles disagreed']} rows whose "
+                     f"single-call windows disagreed")
     print(json.dumps({"kernels": [ragged, flash_fwd, flash_bwd,
-                                  blockwise_fwd, blockwise_bwd, int8,
-                                  paged] + zoo_rows}),
+                                  blockwise_fwd, blockwise_bwd, bf16_fwd,
+                                  bf16_bwd, int8, paged] + zoo_rows}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -7,7 +7,9 @@
 // an emulation uses one core and runs the same way every time. Blocks
 // run one after another, so an atomic is a plain add. mma.sync m16n8k8
 // tf32, mma.sync m16n8k16 bf16 / f16 (float32 accumulators), mma.sync
-// m16n8k32 s8, ldmatrix (plain and .trans) and the packing conversions
+// m16n8k32 s8, wgmma.mma_async m64nNk16 bf16 / f16 (operands in
+// registers or read through shared-memory matrix descriptors, swizzles
+// decoded), ldmatrix (plain and .trans) and the packing conversions
 // cvt.rn.{bf16x2,f16x2}.f32 follow the PTX fragment layouts and
 // definitions (written here from the PTX ISA, independently of the
 // kernels); a tf32 operand's low 13 bits are dropped, as the tensor
@@ -15,7 +17,8 @@
 // own barriers and waits, which this cannot check). The test rewrites
 // the kernels' inline PTX, kernel launches and dynamic shared memory
 // into the emu_* calls below; nothing here models timing or the
-// hardware's float32 accumulation inside an MMA.
+// hardware's float32 accumulation inside an MMA; a wgmma completes when
+// it is issued, so its commit, wait and fences are no-ops here.
 #pragma once
 
 #include <ucontext.h>
@@ -23,6 +26,7 @@
 #include <algorithm>
 #include <cmath>
 #include <cstdint>
+#include <cstdlib>
 #include <cstring>
 #include <functional>
 #include <type_traits>
@@ -73,7 +77,15 @@ inline uint32_t __float_as_uint(float f) {
   std::memcpy(&x, &f, 4);
   return x;
 }
+inline float* emu_smem;
+inline size_t emu_smem_bytes;
+// A pointer into the block's dynamic shared memory as its offset there
+// (the shared window's address; anything else as the pointer itself).
 inline size_t __cvta_generic_to_shared(const void* p) {
+  const char* c = static_cast<const char*>(p);
+  const char* base = reinterpret_cast<const char*>(emu_smem);
+  if (base != nullptr && c >= base && c < base + emu_smem_bytes)
+    return static_cast<size_t>(c - base);
   return reinterpret_cast<size_t>(p);
 }
 inline float __fmul_rn(float a, float b) { return a * b; }
@@ -184,7 +196,7 @@ struct EmuBarrier {
 };
 inline EmuBarrier emu_block_barrier;
 inline EmuBarrier emu_warp_barrier[kEmuWarps];
-inline float* emu_smem;
+inline EmuBarrier emu_wg_barrier[kEmuWarps / 4];
 // per-warp exchange slots, one per lane
 inline float emu_shfl[kEmuWarps][32];
 inline const char* emu_rows[kEmuWarps][32];
@@ -413,6 +425,86 @@ inline void emu_mma(float (&c)[4], const uint32_t (&a)[4],
   for (int i = 0; i < 4; ++i) c[i] = out[i];
 }
 
+// wgmma.mma_async.sync.aligned.m64nNk16.f32.{bf16,f16}: D (64 x N) = A
+// (64 x 16) . B (16 x N), plus D when scale_d; the warpgroup's 128
+// threads take part together. Thread (warp w, lane 4g + t) holds D[16w +
+// g + 8 (i >> 1)][8j + 2t + (i & 1)] in d[4j + i]. A from registers
+// holds rows 16w + g (a0, a2) and 16w + g + 8 (a1, a3), k = 2t + e (a0,
+// a1) and 8 + 2t + e (a2, a3), e the register's half: the m16n8k16 A
+// layout. An operand in shared memory is read through its matrix
+// descriptor: bits 0-13 the start address >> 4, 16-29 the leading byte
+// offset >> 4, 32-45 the stride byte offset >> 4, 62-63 the swizzle
+// (1: 128 bytes, 2: 64, 3: 32; 0, none, is not emulated). With R the
+// swizzle's bytes, element (mn, k) of a K-major operand (transpose 0:
+// its k contiguous) sits at start + (mn / 8) SBO + (mn % 8) R + 2k; of
+// an MN-major one (transpose 1) at start + (mn / (R / 2)) LBO + (k / 8)
+// SBO + (k % 8) R + 2 (mn % (R / 2)); and the swizzle XORs address bits
+// [4, 4 + log2(R / 16)) with bits [7, 7 + log2(R / 16)). The products
+// are exact in float32 and summed in k order.
+template <typename T>
+inline float emu_wg_element(uint64_t desc, int mn, int k, int trans) {
+  const uint32_t start = static_cast<uint32_t>(desc & 0x3fffu) << 4;
+  const uint32_t lbo = static_cast<uint32_t>((desc >> 16) & 0x3fffu) << 4;
+  const uint32_t sbo = static_cast<uint32_t>((desc >> 32) & 0x3fffu) << 4;
+  const int mode = static_cast<int>(desc >> 62);
+  if (mode == 0) std::abort();
+  const uint32_t R = mode == 1 ? 128 : mode == 2 ? 64 : 32;
+  uint32_t a = trans ? start + mn / (R / 2) * lbo + k / 8 * sbo + k % 8 * R +
+                           2 * (mn % (R / 2))
+                     : start + mn / 8 * sbo + mn % 8 * R + 2 * k;
+  a ^= ((a >> 7) & (R / 16 - 1)) << 4;
+  if (a + 2 > emu_smem_bytes) std::abort();
+  uint16_t bits;
+  std::memcpy(&bits, reinterpret_cast<const char*>(emu_smem) + a, 2);
+  return emu_b16<T>(bits, 0);
+}
+
+inline uint32_t emu_wg_a[128][4];
+
+template <typename T, int N>
+inline void emu_wgmma_any(float (&d)[N / 2], const uint32_t* a_regs,
+                          uint64_t desc_a, int trans_a, uint64_t desc_b,
+                          int trans_b, int scale_d) {
+  const int wg = threadIdx.x / 128, me = threadIdx.x % 128;
+  if (a_regs != nullptr)
+    for (int i = 0; i < 4; ++i) emu_wg_a[me][i] = a_regs[i];
+  emu_wg_barrier[wg].wait();
+  const int w = me / 32, g = me % 32 / 4, t = me % 4;
+  float out[N / 2];
+  for (int j = 0; j < N / 8; ++j)
+    for (int i = 0; i < 4; ++i) {
+      const int row = 16 * w + g + 8 * (i >> 1), col = 8 * j + 2 * t + (i & 1);
+      float acc = scale_d ? d[4 * j + i] : 0.f;
+      for (int k = 0; k < 16; ++k) {
+        float av;
+        if (a_regs != nullptr) {
+          // the register of row `row`, column k: its warp, lane, index
+          const int r = row % 16, lane = 4 * (r % 8) + k % 8 / 2;
+          const int reg = r / 8 + 2 * (k / 8);
+          av = emu_b16<T>(emu_wg_a[32 * (row / 16) + lane][reg], k % 2);
+        } else {
+          av = emu_wg_element<T>(desc_a, row, k, trans_a);
+        }
+        acc += av * emu_wg_element<T>(desc_b, col, k, trans_b);
+      }
+      out[4 * j + i] = acc;
+    }
+  emu_wg_barrier[wg].wait();
+  for (int i = 0; i < N / 2; ++i) d[i] = out[i];
+}
+
+template <typename T, int N, int TransA, int TransB>
+inline void emu_wgmma_ss(float (&d)[N / 2], uint64_t desc_a, uint64_t desc_b,
+                         int scale_d) {
+  emu_wgmma_any<T, N>(d, nullptr, desc_a, TransA, desc_b, TransB, scale_d);
+}
+
+template <typename T, int N, int TransB>
+inline void emu_wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4],
+                         uint64_t desc_b, int scale_d) {
+  emu_wgmma_any<T, N>(d, a, 0, 0, desc_b, TransB, scale_d);
+}
+
 inline void emu_copy(void* dst, const void* src, bool in, size_t bytes) {
   if (in)
     std::memcpy(dst, src, bytes);
@@ -452,9 +544,12 @@ void emu_launch(K kernel, dim3 grid, int threads, size_t smem, cudaStream_t,
       blockIdx = dim3(bx, by, bz);
       std::fill(buf.begin(), buf.end(), std::nanf(""));
       emu_smem = buf.data();
+      emu_smem_bytes = smem;
       emu_block_barrier = EmuBarrier{threads};
       for (int w = 0; w < (threads + 31) / 32; ++w)
         emu_warp_barrier[w] = EmuBarrier{std::min(32, threads - 32 * w)};
+      for (int w = 0; w < (threads + 127) / 128; ++w)
+        emu_wg_barrier[w] = EmuBarrier{std::min(128, threads - 128 * w)};
       b.ctx.assign(threads, ucontext_t{});
       b.done.assign(threads, 0);
       b.left = threads;
@@ -469,4 +564,5 @@ void emu_launch(K kernel, dim3 grid, int threads, size_t smem, cudaStream_t,
       threadIdx = dim3(0);
       swapcontext(&b.host, &b.ctx[0]);
     }
+  emu_smem = nullptr;
 }

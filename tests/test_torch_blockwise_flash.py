@@ -352,6 +352,24 @@ def test_k2_route_on_the_card_reaches_the_kernel_launch(on_card,
     assert blockwise_flash_attention_backward.launches == b0 + 1
 
 
+@pytest.mark.parametrize("reader,entry,n", [
+    ("flash_attention_forward_tile_pairs", "bigdl_flash_tile_pairs", 1),
+    ("flash_attention_backward_tile_pairs", "bigdl_flash_bwd_tile_pairs", 2),
+    ("blockwise_flash_attention_forward_tile_pairs",
+     "bigdl_blockwise_tile_pairs", 1),
+    ("blockwise_flash_attention_backward_tile_pairs",
+     "bigdl_blockwise_bwd_tile_pairs", 2)])
+def test_tile_pair_readers_reach_their_library_entry(reader, entry, n,
+                                                     on_card):
+    """The tile-pair readers of K1 and K2 (the record that the 16-bit
+    kernels skipped the unshared tile pairs) call their own library's
+    entry point once, for the card named, and return its counts: one
+    for a forward, (dK/dV, dQ) for a backward."""
+    got = getattr(fa, reader)(device="cuda:0")
+    assert on_card.calls == [entry]
+    assert got == (0 if n == 1 else (0, 0))
+
+
 @pytest.mark.parametrize("d,dtype", [(129, torch.float32),
                                      (256, torch.bfloat16),
                                      (64, torch.float64)])

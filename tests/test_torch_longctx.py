@@ -24,6 +24,7 @@ import pytest
 import torch
 
 import bigdl_tpu.nn as jnn
+import bigdl_tpu.precision as jprec
 from bigdl_tpu import kernels as jax_kernels
 from bigdl_tpu.dataset import DataSet as JaxDataSet
 from bigdl_tpu.dataset import Sample as JaxSample
@@ -42,6 +43,7 @@ from bigdl_tpu.serving.compile_cache import BucketLadder as JaxBucketLadder
 from bigdl_tpu.serving.compile_cache import CompileCache as JaxCompileCache
 from bigdl_tpu.utils.random import RandomGenerator as JaxRandomGenerator
 from bigdl_tpu_torch import kernels
+from bigdl_tpu_torch import precision as prec
 from bigdl_tpu_torch.convert import export_params, load_jax_params
 from bigdl_tpu_torch.dataset import DataSet, Sample, SampleToMiniBatch
 from bigdl_tpu_torch.generation import (GenerationConfig, GenerationService,
@@ -138,6 +140,68 @@ def test_three_train_steps_through_k2_match_jax(monkeypatch):
     np.testing.assert_allclose(p_losses, j_losses, atol=ATOL, rtol=0)
     _assert_trees_close(export_params(port),
                         jax.tree.map(np.asarray, j_params))
+
+
+#: bf16_mixed steps through K2 against the JAX package's: losses
+#: relative and parameters absolute, the limits of
+#: test_torch_precision.py's bf16_mixed TransformerLM steps (bfloat16
+#: rounds at other places in the two packages)
+BF16_LOSS_RTOL, BF16_PARAM_ATOL = 5e-3, 2e-3
+
+
+def test_three_bf16_mixed_train_steps_through_k2_match_jax(monkeypatch):
+    """``test_three_train_steps_through_k2_match_jax`` under bf16_mixed:
+    three SGD steps at seq 512 with both packages' steps built with
+    ``PrecisionPolicy.bf16_mixed()``, every attention call routed to K2
+    (spied) with bfloat16 operands — the port's plain K2 in bfloat16,
+    the JAX package's K2 in interpret mode, which takes bfloat16. Losses
+    within 5e-3 relative (measured 6.6e-5) and parameters within 2e-3
+    (measured 2.0e-4), float32 at rest."""
+    x, y = _corpus()
+    ref, params = _train_params(seed=3)
+    port = load_jax_params(TransformerLM(**TRAIN_GEOM, device="cpu"),
+                           params)
+
+    def spied(fn, seen):
+        def call(q, *a, **kw):
+            seen.append(q.dtype)
+            return fn(q, *a, **kw)
+        return _Spy(call)
+
+    j_seen, p_seen = [], []
+    j_spy = spied(jax_fa.blockwise_flash_attention, j_seen)
+    p_spy = spied(dispatch.blockwise_flash_attention, p_seen)
+    monkeypatch.setattr(jax_fa, "blockwise_flash_attention", j_spy)
+    monkeypatch.setattr(dispatch, "blockwise_flash_attention", p_spy)
+    j_sgd, p_sgd = JaxSGD(learning_rate=0.1), SGD(learning_rate=0.1)
+    with jax_kernels.use(JAX_K2):
+        j_step = jax_build_step(ref, jnn.SequenceCrossEntropyCriterion(),
+                                j_sgd,
+                                precision=jprec.PrecisionPolicy.bf16_mixed())
+        j_params = jax.tree.map(jnp.asarray, params)
+        j_opt, m_state = j_sgd.init_state(j_params), ref.get_state()
+        j_losses = []
+        for i in range(3):
+            j_params, j_opt, m_state, loss = j_step(
+                j_params, j_opt, m_state, jax.random.PRNGKey(0), 0.1,
+                jnp.asarray(x[i:i + 1]), jnp.asarray(y[i:i + 1]))
+            j_losses.append(float(loss))
+    p_step = build_train_step(port, SequenceCrossEntropyCriterion(), p_sgd,
+                              precision=prec.PrecisionPolicy.bf16_mixed())
+    with kernels.use(PORT_K2):
+        p_losses = [float(p_step(torch.from_numpy(x[i:i + 1]),
+                                 torch.from_numpy(y[i:i + 1]), 0.1))
+                    for i in range(3)]
+    assert j_spy.calls >= TRAIN_GEOM["num_layers"]     # traced, not run
+    assert p_spy.calls == 3 * TRAIN_GEOM["num_layers"]
+    assert set(map(str, j_seen)) == {"bfloat16"}
+    assert set(p_seen) == {torch.bfloat16}
+    np.testing.assert_allclose(p_losses, j_losses, rtol=BF16_LOSS_RTOL,
+                               atol=0)
+    _assert_trees_close(export_params(port),
+                        jax.tree.map(np.asarray, j_params),
+                        atol=BF16_PARAM_ATOL)
+    assert all(p.dtype == torch.float32 for p in port.parameters())
 
 
 def test_local_optimizer_through_k2_matches_jax():
