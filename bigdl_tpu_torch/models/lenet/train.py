@@ -10,12 +10,10 @@ epoch, as the JAX recipe runs. Prints ``final loss`` as the JAX recipe
 does, then the last validation's scores and the training steps'
 throughput.
 
+``-g`` trains the Graph form (``LeNet5_graph``, the same weights).
 ``--model`` starts from a module saved by either package,
 ``--state`` from a pickled optim-method state, and ``--checkpoint DIR``
 writes a checkpoint every epoch and resumes from the newest one there.
-
-Not ported yet: ``-g`` (the Graph model, queue item 9) raises
-NotImplementedError.
 """
 from __future__ import annotations
 
@@ -34,22 +32,19 @@ def main(argv=None):
 
     ap = base_parser("Train LeNet-5 on MNIST")
     ap.add_argument("-g", "--graphModel", action="store_true",
-                    help="use the Graph form of LeNet-5 (not ported yet)")
+                    help="use the Graph form of LeNet-5")
     args = ap.parse_args(argv)
-    if args.graphModel:
-        raise NotImplementedError(
-            "-g: the Graph form of LeNet-5 waits for nn/graph.py, which "
-            "is not ported yet (ROADMAP queue 1, item 9)")
 
     from bigdl_tpu_torch import nn
-    from bigdl_tpu_torch.models.lenet import LeNet5
+    from bigdl_tpu_torch.models.lenet import LeNet5, LeNet5_graph
     from bigdl_tpu_torch.optim import (SGD, LocalOptimizer, Loss,
                                        Top1Accuracy, Top5Accuracy)
 
     bs = args.batchSize or 12
     tr = mnist_arrays(args.folder, True, args.synthetic)
     va = mnist_arrays(args.folder, False, args.synthetic)
-    model = load_model_or(args, lambda: LeNet5(
+    build = LeNet5_graph if args.graphModel else LeNet5
+    model = load_model_or(args, lambda: build(
         10, device=args.device,
         generator=torch.Generator().manual_seed(_WEIGHT_SEED)))
     optim = SGD(learning_rate=args.learningRate or 0.05,

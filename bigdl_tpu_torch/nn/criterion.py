@@ -5,6 +5,9 @@ cross-entropy twin. Class labels are 1-based, as in the reference.
 
 Not ported yet: the other classification, regression and ranking
 losses of the JAX package.
+
+:class:`TimeDistributedCriterion` applies any of them at every time
+step of a recurrent model's ``(B, T, ...)`` output.
 """
 from __future__ import annotations
 
@@ -18,7 +21,7 @@ from bigdl_tpu_torch.utils.engine import default_dtype
 
 __all__ = ["BCECriterion", "ClassNLLCriterion", "Criterion",
            "CrossEntropyCriterion", "MSECriterion",
-           "SequenceCrossEntropyCriterion"]
+           "SequenceCrossEntropyCriterion", "TimeDistributedCriterion"]
 
 
 def _reduce(x, size_average: bool):
@@ -152,3 +155,51 @@ class SequenceCrossEntropyCriterion(Criterion):
         keep = t != self.ignore_index
         count = keep.sum().clamp(min=1)
         return torch.where(keep, nll, 0.0).sum() / count
+
+
+class TimeDistributedCriterion(Criterion):
+    """``critrn`` at every time step of ``(B, T, ...)`` input
+    (nn/TimeDistributedCriterion.scala), the steps' losses summed (the
+    sum divided by T with ``size_average``). ``dimension`` is the
+    1-based time axis.
+
+    With the time axis second, a per-step target and an unweighted
+    mean- or sum-reducing inner criterion (``ClassNLLCriterion``,
+    ``CrossEntropyCriterion``, ``MSECriterion``...), the time axis folds
+    into the batch and ``critrn`` runs once: ``sum_t mean_B`` is ``T *
+    mean_{B,T}``. Class weights break that identity (each step divides
+    by its own batch's total weight), so a weighted criterion runs the
+    per-step loop, as in the JAX package. With ``CrossEntropyCriterion``
+    and ``size_average=False`` the loss is the sum over time of the
+    per-step means, which the rnn recipes report ``exp`` of as the
+    perplexity (the JAX package's behaviour, mirrored)."""
+
+    def __init__(self, critrn: Criterion, size_average: bool = False,
+                 dimension: int = 2):
+        super().__init__()
+        self.critrn = critrn
+        self.size_average = size_average
+        self.dimension = dimension
+
+    def forward(self, input, target):
+        axis = self.dimension - 1
+        steps = input.shape[axis]
+        target = _target(target, input)
+        inner = getattr(self.critrn, "inner", None)
+        sa = getattr(self.critrn, "size_average", None)
+        if sa is None:          # CrossEntropyCriterion wraps ClassNLL
+            sa = getattr(inner, "size_average", None)
+        weighted = getattr(self.critrn, "weights", None) is not None \
+            or getattr(inner, "weights", None) is not None
+        if axis == 1 and sa is not None and not weighted \
+                and target.ndim > 1 and target.shape[1] == steps:
+            flat = self.critrn(input.reshape((-1,) + input.shape[2:]),
+                               target.reshape((-1,) + target.shape[2:]))
+            total = steps * flat if sa else flat
+        else:
+            per_step = target.ndim > axis and target.shape[axis] == steps
+            total = 0.0
+            for i in range(steps):
+                ti = target.select(axis, i) if per_step else target
+                total = total + self.critrn(input.select(axis, i), ti)
+        return total / steps if self.size_average else total

@@ -1,5 +1,5 @@
 """Linear layers (counterpart of ``bigdl_tpu.nn.linear``; BigDL
-nn/{Linear,MulConstant}.scala)."""
+nn/{Linear,AddConstant,MulConstant}.scala)."""
 from __future__ import annotations
 
 from typing import Optional
@@ -11,7 +11,7 @@ from bigdl_tpu_torch.nn.initialization import (InitializationMethod,
                                                RandomUniform)
 from bigdl_tpu_torch.nn.module import Module, weight_penalty
 
-__all__ = ["Linear", "MulConstant"]
+__all__ = ["AddConstant", "Linear", "MulConstant"]
 
 
 class Linear(Module):
@@ -66,3 +66,15 @@ class MulConstant(Module):
 
     def forward(self, x):
         return x * self.scalar
+
+
+class AddConstant(Module):
+    """``x + scalar`` (nn/AddConstant.scala; ``ip`` is accepted and
+    ignored, as in the JAX package)."""
+
+    def __init__(self, constant_scalar: float, ip: bool = False):
+        super().__init__()
+        self.constant_scalar = constant_scalar
+
+    def forward(self, x):
+        return x + self.constant_scalar

@@ -22,7 +22,12 @@ reference contract:
   / ``set_state``, through :mod:`bigdl_tpu_torch.convert`), the
   gradients, and an eager
   ``backward(input, grad_output)`` through autograd;
-- ``predict`` / ``evaluate_on`` sugar over the Predictor and Evaluator.
+- ``predict`` / ``evaluate_on`` sugar over the Predictor and Evaluator,
+  and ``quantize()`` over :func:`bigdl_tpu_torch.nn.quantized.quantize`;
+- the Graph wiring sugar: a module called with no argument, or with a
+  graph :class:`~bigdl_tpu_torch.utils.directed_graph.Node` (or a
+  ``(node, slot)`` pair) first, returns a new Node wired after those
+  (the JAX package's ``Module.__call__``); any other call is torch's.
 
 Where torch's names clash, torch's stay: ``training`` is torch's mode
 flag (the JAX ``training()`` method is torch's ``train()``), and
@@ -39,6 +44,7 @@ from torch import nn
 
 from bigdl_tpu_torch.convert import (export_params, export_state,
                                      load_jax_params, param_tree)
+from bigdl_tpu_torch.utils.directed_graph import Node
 from bigdl_tpu_torch.utils.table import Table
 
 __all__ = ["Criterion", "Module", "total_regularization", "weight_penalty"]
@@ -215,6 +221,30 @@ class Module(nn.Module):
         return _map(_grad_of, x)
 
     # ---- sugar -----------------------------------------------------------
+    def __call__(self, *args, **kwargs):
+        """A Node of this module wired after the given nodes when the
+        first argument is a graph Node (or a ``(node, slot)`` pair) or
+        there is no argument at all (Graph API sugar, ``Linear(4,
+        3)(node)``, ``Input()()``); otherwise torch's call. The common
+        case costs two type tests, then does what torch's ``__call__``
+        (``_wrapped_call_impl``) does, in this frame."""
+        if args:
+            a = args[0]
+            if type(a) is Node or (type(a) is tuple and a
+                                   and type(a[0]) is Node):
+                return Node(self)(*args)
+        elif not kwargs:
+            return Node(self)
+        if self._compiled_call_impl is not None:
+            return self._compiled_call_impl(*args, **kwargs)
+        return self._call_impl(*args, **kwargs)
+
+    def quantize(self) -> "Module":
+        """The int8 inference rewrite (AbstractModule.quantize :708;
+        :func:`bigdl_tpu_torch.nn.quantized.quantize`)."""
+        from bigdl_tpu_torch.nn.quantized import quantize
+        return quantize(self)
+
     def predict(self, dataset, batch_size: int = 32):
         """Batched predictions (optim/Predictor.scala:35), local path."""
         from bigdl_tpu_torch.optim.predictor import Predictor

@@ -28,13 +28,16 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from bigdl_tpu_torch.nn.container import Container
 from bigdl_tpu_torch.nn.conv import (SpatialConvolution,
                                      crop_negative_padding)
+from bigdl_tpu_torch.nn.graph import Graph
 from bigdl_tpu_torch.nn.linear import Linear
 from bigdl_tpu_torch.nn.module import Module
 from bigdl_tpu_torch.ops.quant import (quantize_symmetric,
                                        quantize_with_scale,
                                        quantized_conv2d, quantized_linear)
+from bigdl_tpu_torch.utils.directed_graph import Edge, Node
 from bigdl_tpu_torch.utils.engine import full_float32
 
 __all__ = ["QuantizedLinear", "QuantizedSpatialConvolution", "quantize"]
@@ -83,6 +86,7 @@ class QuantizedLinear(Module):
         no amax reduce on the serving path."""
         m = cls(linear.input_size, linear.output_size, linear.with_bias)
         _quantized_state(m, linear.weight, linear.bias, act_scale)
+        m._name = linear._name
         return m.train(linear.training)
 
     def forward(self, x):
@@ -146,6 +150,7 @@ class QuantizedSpatialConvolution(Module):
                 conv.pad_h, conv.n_group, getattr(conv, "dilation_w", 1),
                 getattr(conv, "dilation_h", 1), conv.with_bias)
         _quantized_state(m, conv.weight, conv.bias, act_scale)
+        m._name = conv._name
         return m.train(conv.training)
 
     def forward(self, x):
@@ -188,23 +193,47 @@ def quantize(model: nn.Module,
              act_scales: Optional[Dict[int, float]] = None) -> nn.Module:
     """Rewrite a trained model for int8 inference (Quantization.scala:
     168). Returns a NEW module tree in evaluation mode; ``model`` is
-    untouched (the layers that stay float are copies).
+    untouched.
+
+    The walk is the JAX package's ``convert``: the model itself when it
+    is a Linear or an ungrouped SpatialConvolution, else the children of
+    a container (``Sequential``, ``Concat``, ``ConcatTable``) and the
+    nodes of a ``Graph``, recursively. Any other module is copied float
+    with everything inside it: a ``Recurrent``'s cell, a
+    ``TimeDistributed``'s Linear, a ``TransformerLM``'s products stay
+    float, as in the JAX package.
 
     ``act_scales`` — ``{id(module): activation_scale}`` from
     :func:`bigdl_tpu_torch.precision.calibrate.
     collect_activation_scales`, keyed by the FLOAT model's modules:
     calibrated layers bake their static activation scale in; absent
     layers keep the dynamic per-batch estimate."""
-    act_scales = act_scales or {}
-    out = copy.deepcopy(model)
-    # deepcopy keeps the tree's shape, so the two traversals pair up
-    original = {id(c): id(o) for c, o in zip(out.modules(), model.modules())}
-    top = _convert(out, act_scales.get(id(model)))
-    if top is not None:
-        return top.eval()
-    for parent in list(out.modules()):
-        for name, child in list(parent.named_children()):
-            q = _convert(child, act_scales.get(original[id(child)]))
-            if q is not None:
-                setattr(parent, name, q)
-    return out.eval()
+    return _rewrite(model, act_scales or {}).eval()
+
+
+def _rewrite(m: nn.Module, act_scales: Dict[int, float]) -> nn.Module:
+    q = _convert(m, act_scales.get(id(m)))
+    if q is not None:
+        return q
+    if isinstance(m, Graph):
+        # new nodes and edges, so the original graph stays as it is
+        new = [Node(_rewrite(n.element, act_scales)) for n in m.exec_order]
+        pos = {id(n): i for i, n in enumerate(m.exec_order)}
+        for n in m.exec_order:
+            for p, e in n.prevs:
+                new[pos[id(p)]].add(new[pos[id(n)]], Edge(e.from_index))
+        return Graph([new[pos[id(n)]] for n in m.input_nodes],
+                     [new[pos[id(n)]] for n in m.output_nodes])
+    if isinstance(m, Container):
+        out = copy.copy(m)
+        out.__dict__.update(
+            _parameters=dict(m._parameters), _buffers=dict(m._buffers),
+            _modules={k: _rewrite(c, act_scales)
+                      for k, c in m._modules.items()})
+        # the children given to the constructor are arguments of the
+        # spec (module_serializer.to_spec): the rewritten ones
+        children = iter(out._modules.values())
+        out._init_args = tuple(next(children) if isinstance(a, Module)
+                               else a for a in m._init_args)
+        return out
+    return copy.deepcopy(m)

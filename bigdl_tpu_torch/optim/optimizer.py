@@ -763,7 +763,9 @@ class Optimizer:
         the driver falls back to ``k = 1``, logging why, when a trigger
         depends on values the device produces (``Loss``, ``score``), a
         trigger's dependencies are unknown, the learning-rate schedule
-        reads a metric (Plateau), or the batches cannot be stacked."""
+        reads a metric (Plateau), the model holds a module whose forward
+        reads the device on the host (``IfThenElse``: its
+        ``window_fallback``), or the batches cannot be stacked."""
         k = int(k)
         if k < 1:
             raise ValueError(f"steps_per_sync must be >= 1, got {k}")
@@ -823,6 +825,12 @@ class Optimizer:
         if sched is not None and hasattr(sched, "record_metric"):
             return 1, ("metric-driven LR schedule (Plateau) adjusts per "
                        "step; per-step sync keeps it exact")
+        for m in self.model.modules():
+            why = getattr(m, "window_fallback", None)
+            if why:
+                # a host read in the forward (IfThenElse's predicate)
+                # cannot be captured into a window's graph
+                return 1, why + "; per-step sync runs it"
         return k, ""
 
     def _plan_window(self, k_max: int, state, bsz: int, ds_size: int,

@@ -14,9 +14,12 @@ attributes, which the port's classes share with the JAX package's.
 Placement is not identity: a ``generator`` or ``device`` argument is
 left out.
 
+A Graph's spec is its nodes' specs in execution order, its edges
+``[source, destination, slot]`` by those positions, and its input and
+output positions, as the JAX package writes it.
+
 Classes resolve through :func:`register_module_class`'s registry, then
 the port's ``nn``, initialization methods, regularizers and models.
-Not ported: Graph specs (``nn/graph.py``, ROADMAP queue 1, item 9).
 """
 from __future__ import annotations
 
@@ -123,8 +126,11 @@ def _decode_value(v):
 def to_spec(module) -> Dict[str, Any]:
     """The JSON-able spec of a module tree."""
     from bigdl_tpu_torch.nn.container import Container
+    from bigdl_tpu_torch.nn.graph import Graph
     from bigdl_tpu_torch.nn.module import Module
 
+    if isinstance(module, Graph):
+        return _graph_to_spec(module)
     args = [a for a in getattr(module, "_init_args", ())
             if not _placement(a)]
     kwargs = {k: v for k, v in getattr(module, "_init_kwargs", {}).items()
@@ -134,12 +140,7 @@ def to_spec(module) -> Dict[str, Any]:
         "args": [_encode_value(a) for a in args],
         "kwargs": {k: _encode_value(v) for k, v in kwargs.items()},
     }
-    if module._name is not None:
-        spec["name"] = module._name
-    if module.scale_w != 1.0 or module.scale_b != 1.0:
-        spec["scales"] = [module.scale_w, module.scale_b]
-    if not module.training:
-        spec["eval_mode"] = True
+    _meta_to_spec(module, spec)
     if isinstance(module, Container):
         n_ctor = sum(1 for a in args if isinstance(a, Module))
         extra = list(module._modules.values())[n_ctor:]
@@ -149,13 +150,57 @@ def to_spec(module) -> Dict[str, Any]:
     return spec
 
 
+def _meta_to_spec(module, spec: Dict[str, Any]) -> None:
+    if module._name is not None:
+        spec["name"] = module._name
+    if module.scale_w != 1.0 or module.scale_b != 1.0:
+        spec["scales"] = [module.scale_w, module.scale_b]
+    if not module.training:
+        spec["eval_mode"] = True
+
+
+def _meta_from_spec(module, spec: Dict[str, Any]) -> None:
+    if "name" in spec:
+        module.set_name(spec["name"])
+    if "scales" in spec:
+        module.scale_w, module.scale_b = spec["scales"]
+    if spec.get("eval_mode"):
+        # this module's flag only; each child restores its own
+        module.training = False
+
+
+def _graph_to_spec(g) -> Dict[str, Any]:
+    pos = {id(n): i for i, n in enumerate(g.exec_order)}
+    spec = {
+        "class": "Graph",
+        "nodes": [to_spec(n.element) for n in g.exec_order],
+        "edges": [[pos[id(p)], pos[id(n)], e.from_index]
+                  for n in g.exec_order for p, e in n.prevs],
+        "inputs": [pos[id(n)] for n in g.input_nodes],
+        "outputs": [pos[id(n)] for n in g.output_nodes],
+    }
+    _meta_to_spec(g, spec)
+    return spec
+
+
+def _graph_from_spec(spec: Dict[str, Any]):
+    from bigdl_tpu_torch.nn.graph import Graph
+    from bigdl_tpu_torch.utils.directed_graph import Edge, Node
+
+    nodes = [Node(from_spec(s)) for s in spec["nodes"]]
+    for src, dst, from_index in spec["edges"]:
+        nodes[src].add(nodes[dst], Edge(from_index))
+    g = Graph([nodes[i] for i in spec["inputs"]],
+              [nodes[i] for i in spec["outputs"]])
+    _meta_from_spec(g, spec)
+    return g
+
+
 def from_spec(spec: Dict[str, Any]):
     """Rebuild a module tree (on the CPU, in the spec's modes) from its
     spec; its weights come separately."""
     if spec.get("class") == "Graph":
-        raise NotImplementedError(
-            "a Graph spec: nn/graph.py is not ported yet (ROADMAP queue 1, "
-            "item 9)")
+        return _graph_from_spec(spec)
     cls = _resolve(spec["class"])
     args = [_decode_value(a) for a in spec.get("args", [])]
     kwargs = {k: _decode_value(v) for k, v in spec.get("kwargs", {}).items()}
@@ -164,13 +209,7 @@ def from_spec(spec: Dict[str, Any]):
         # (the TransformerLM, on the card by default) is built on the CPU
         kwargs["device"] = "cpu"
     module = cls(*args, **kwargs)
-    if "name" in spec:
-        module.set_name(spec["name"])
-    if "scales" in spec:
-        module.scale_w, module.scale_b = spec["scales"]
-    if spec.get("eval_mode"):
-        # this module's flag only; each child restores its own
-        module.training = False
+    _meta_from_spec(module, spec)
     children = spec.get("children", [])
     if children:
         # a constructor may have built children of its own beyond those

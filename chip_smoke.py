@@ -287,7 +287,43 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    kernels are all bfloat16 instances, once a layer and step (idle
    share, K2's device ms a step); then one bf16_mixed step at S = 32768
    with its peak memory. Its K2 launches are the bfloat16 rows'
-   ``launches`` in the kernels line.
+   ``launches`` in the kernels line;
+17. the recurrent family and Graph (``phase_rnn``) — (a) the PTB LSTM at
+   the reference's width (``PTBModel(10000, 650, 10000, 2 layers)``,
+   ``tools/ceiling.py:710-750``: 35 steps a window, batch 64,
+   ``TimeDistributedCriterion(CrossEntropyCriterion())``, SGD lr 0.1,
+   Zipf-distributed integer ids from a seed, their own targets) through
+   ``Optimizer.optimize()`` for 20 steps in float32 at K = 1 and K = 8
+   and in bf16_mixed at K = 8: falling losses, K = 8 bitwise K = 1
+   (losses, parameters), ms a step, tokens/s; profiled windows at K = 1
+   and 8 of each dtype (idle share, device kernels a step; at K = 1 the
+   device ms a step by role: the hoisted input products, the recurrent
+   products, the gate passes, the head's product, its log-softmax);
+   3 steps at batch 4 card against CPU in float64 within 1e-9, which
+   layer 2's ``w_hh`` gradient zeroed must fail; ``torch.nn.LSTM``
+   (cuDNN) forward and backward at the same shape printed as a
+   yardstick; (b) ``rnn.train --synthetic`` with ``--checkpoint``, its
+   snapshot through ``rnn.test`` (the printed perplexity within 1e-5
+   relative of exp of a direct float64 evaluation of the same windows),
+   ``--numOfWords 5`` twice (the same completions), ``--quantize``
+   (WordRNN stays float: the same logits and perplexity, no K5); (c) one
+   LSTM layer at the PTB width with ``p = 0.1``, 16 steps at K = 8
+   bitwise K = 1, another seed other losses, a drawn mask's keep
+   fraction within 4 sigma of 0.9, an evaluation forward bitwise a
+   ``p = 0`` model's; (d) ``LeNet5_graph`` against ``LeNet5`` from one
+   seed: bitwise forwards and 10 bitwise SGD steps (cuDNN's
+   deterministic algorithms), ``lenet.train -g`` on a separable
+   MNIST-format folder to a held-out Top1 of 0.95, and the host µs
+   the Node check in ``Module.__call__`` adds to a forward (in turns
+   against torch's own ``__call__``); no kernel of the
+   kernels line may launch in (a)-(d); (e) ``quantize`` over the trained
+   ``LeNet5_graph`` at batch 128: K5 launched 2 times an int8 forward
+   (fc1 ``[128, 192] x [100, 192]``, fc2 ``[128, 100] x [10, 100]``) and 2
+   K5 GEMMs in one profiled forward, a Graph with fc2 left float failing
+   that gate; each call bitwise K5's plain version; the logits bitwise
+   the quantized Sequential's and the kernels-off path's; int8-against-
+   float top-1 agreement printed. Rows ``int8_gemm_lenet5_graph_fc1`` /
+   ``_fc2`` of the kernels line (timed in phase 3).
 
 Float32 throughout phases 1–10, with TF32 off for matrix products (set
 here) and for convolutions (PyTorch's default is on; the port's
@@ -298,9 +334,10 @@ phase 11's limits, (b)-(f) float32 (float64 for LBFGS's card-against-CPU
 check); phase 13 (a) runs bf16_mixed at phase 11's limits, (b) and (c)
 float32; phase 14 float32; phase 15 float64 in (a), float32 and
 bf16_mixed in (b), float32 in (c)-(e); phase 16 bf16_mixed at phase
-11's limits.
+11's limits; phase 17 float32 (and bf16_mixed, float64 where (a) says).
 
-The line before the last is a JSON object ``{"kernels": [...]}`` with
+After the phases the card's name and power limit print again; then the
+line before the last is a JSON object ``{"kernels": [...]}`` with
 each kernel's launches, error and times (``ms`` and ``device_ms``, and
 ``library_ms`` and ``library_device_ms``; K3's and K4's split plan;
 every profiler window read for a ``device_ms``, with the SM clock
@@ -2396,8 +2433,9 @@ def time_blockwise16(gen):
     dtype (a yardstick: the port never calls it), with the bound at the
     16-bit tensor-core rate and at the bytes. Last, after every profiled window
     (a window read after the plain version's storm of small kernels has
-    recorded none of K2's on an H100), bfloat16 against the plain version
-    on the same inputs, each way one call, timed. Returns the bfloat16
+    recorded none of K2's on an H100), each dtype against the plain
+    version on the same inputs, each way one call, timed. Returns the
+    bfloat16
     forward's and backward's kernels-line entries (launches filled in by
     phase 16)."""
     import importlib
@@ -2410,7 +2448,7 @@ def time_blockwise16(gen):
         "blockwise_flash_attention")
     shape = (1, HEADS, LC_SEQ, HEAD_DIM)
     kept = kept_pairs(None, 1, LC_SEQ, "cuda")
-    rows = {}
+    rows, mains = {}, {}
     for dtype in (torch.bfloat16, torch.float16):
         name = str(dtype).split(".")[-1]
         # two sets of q, k, v, O, dO (42 MB each): L2-cold
@@ -2462,7 +2500,7 @@ def time_blockwise16(gen):
                                      f"pairs, the segment ids keep "
                                      f"{seg_kept} x {HEADS}")
             del o_s, lse_s
-            main = (q, k, v, do) + tuple(outs[0])
+        mains[name] = (q, k, v, do) + tuple(outs[0])
         graphs = []
         for (q, k, v), _ in sets:
             leaves = [x.detach().requires_grad_() for x in (q, k, v)]
@@ -2493,28 +2531,30 @@ def time_blockwise16(gen):
             row[f"bound_{kind}_ops_ms"] = t_ops
             row[f"k2_{kind}_over_sdpa"] = (row[f"k2_{kind}_device_ms"]
                                            / row[f"lib_{kind}_device_ms"])
-        if dtype == torch.float16:
-            log("blockwise", "16-bit " + json.dumps(row))
         del sets, outs, graphs
         torch.cuda.empty_cache()
 
-    # bfloat16 against the plain version (a Python loop over 128 x 128
+    # each dtype against the plain version (a Python loop over 128 x 128
     # tiles), the kernel's O and lse from the rows' first set
-    q, k, v, do, o, lse = main
+    for name, (q, k, v, do, o, lse) in mains.items():
+        row = rows[name]
+        (o_r, lse_r), row["plain_f_ms"] = _timed_once(
+            lambda: k2_ref_f(q, k, v, causal=True))
+        grads_r, row["plain_b_ms"] = _timed_once(
+            lambda: k2_ref_b(q, k, v, o, do, lse, causal=True))
+        grads = k2_bwd(q, k, v, o, do, lse, causal=True)
+        torch.cuda.synchronize()
+        errs = {"o": _err(o, o_r, True), "lse": _err(lse, lse_r, False)}
+        errs.update({n: _err(g, w, True) for n, g, w in
+                     zip(("dq", "dk", "dv"), grads, grads_r)})
+        _check_flash(errs, name, f"{name} {list(shape)} causal, against "
+                                 f"the plain version", "blockwise")
+        log("blockwise", "16-bit " + json.dumps(row))
+        if name == "bfloat16":
+            plain_errs = errs
+        del o_r, lse_r, grads_r, grads
+    # the kernels line's rows are bfloat16's
     row = rows["bfloat16"]
-    (o_r, lse_r), row["plain_f_ms"] = _timed_once(
-        lambda: k2_ref_f(q, k, v, causal=True))
-    grads_r, row["plain_b_ms"] = _timed_once(
-        lambda: k2_ref_b(q, k, v, o, do, lse, causal=True))
-    grads = k2_bwd(q, k, v, o, do, lse, causal=True)
-    torch.cuda.synchronize()
-    plain_errs = {"o": _err(o, o_r, True), "lse": _err(lse, lse_r, False)}
-    plain_errs.update({n: _err(g, w, True) for n, g, w in
-                       zip(("dq", "dk", "dv"), grads, grads_r)})
-    _check_flash(plain_errs, "bfloat16", f"bfloat16 {list(shape)} causal, "
-                                         f"against the plain version",
-                 "blockwise")
-    log("blockwise", "16-bit " + json.dumps(row))
     entries = {}
     for kind, backward in (("f", False), ("b", True)):
         t_bytes = row[f"bound_{kind}_bytes_ms"]
@@ -2540,7 +2580,7 @@ def time_blockwise16(gen):
             "library_device_ms": row[f"lib_{kind}_device_ms"],
             "device_ms_windows": row[f"k2_{kind}_windows"],
             "library_device_ms_windows": row[f"lib_{kind}_windows"]}
-    del main, q, k, v, do, o, lse, o_r, lse_r, grads_r, grads
+    del mains, q, k, v, do, o, lse
     torch.cuda.empty_cache()
     return entries["f"], entries["b"]
 
@@ -3008,9 +3048,11 @@ def phase_int8_gemm():
     and 4096^3; then timed L2-cold at those two and at VGG-16's three
     classifier shapes (``ZOO_FC_SHAPES``, phase 15 (e)) beside the plain
     version, ``torch._int_mm`` plus the same epilogue (the library
-    yardstick) and the bound. Returns the kernels-line entry at the main
-    path's shape and the ``int8_gemm_vgg16_*`` rows, by fc (launches
-    filled in later)."""
+    yardstick) and the bound; the same at LeNet5_graph's fc1 and fc2
+    (``LENET_G_FC_SHAPES``, phase 17 (e)). Returns the kernels-line
+    entry at the main path's shape and the ``int8_gemm_vgg16_*`` and
+    ``int8_gemm_lenet5_graph_*`` rows, by fc (launches filled in
+    later)."""
     import torch
 
     from bigdl_tpu_torch.kernels.int8_gemm import (gemm_plan, int8_gemm,
@@ -3052,11 +3094,15 @@ def phase_int8_gemm():
     timed = {}
     for (m, n, k), n_sets in ((INT8_MAIN_SHAPE, 32), (INT8_BIG_SHAPE, 3)) \
             + tuple((shape, ZOO_INT8_SETS if fc == "fc6" else 12)
-                    for fc, shape in ZOO_FC_SHAPES.items()):
+                    for fc, shape in ZOO_FC_SHAPES.items()) \
+            + tuple((shape, 12) for shape in LENET_G_FC_SHAPES.values()):
         sets = [_int8_operands(gen, m, n, k) for _ in range(n_sets)]
         got = int8_gemm(*sets[0])
         want = int8_gemm_reference(*sets[0])
-        lib = library(*sets[0])
+        # torch._int_mm takes M > 16 and N, K multiples of 8 on the card:
+        # at LeNet5_graph's fc1 / fc2 there is no one library call
+        has_library = m > 16 and n % 8 == 0 and k % 8 == 0
+        lib = library(*sets[0]) if has_library else None
         torch.cuda.synchronize()
         if not torch.equal(got, want):
             raise AssertionError(f"int8_gemm [{m},{k}]x[{n},{k}]: not "
@@ -3067,28 +3113,32 @@ def phase_int8_gemm():
                "splits": plan.splits, "k_steps_per_split": plan.steps,
                "grid": list(plan.grid), "bitwise_equal": True,
                "max_abs_err": err,
-               "library_bitwise_equal": bool(torch.equal(lib, want)),
+               "library_bitwise_equal": bool(torch.equal(lib, want))
+               if has_library else None,
                "kernel_ms": time_ms(lambda i: int8_gemm(*sets[i]),
                                     n_sets, 20),
                "plain_ms": time_ms(lambda i: int8_gemm_reference(*sets[i]),
                                    n_sets, 5),
                "library_ms": time_ms(lambda i: library(*sets[i]), n_sets,
-                                     20)}
+                                     20) if has_library else None}
         row["kernel_device_ms"], row["device_ms_windows"] = device_ms(
             lambda i: int8_gemm(*sets[i]), n_sets, 20)
         row["library_device_ms"], row["library_device_ms_windows"] = \
-            device_ms(lambda i: library(*sets[i]), n_sets, 20)
+            device_ms(lambda i: library(*sets[i]), n_sets, 20) \
+            if has_library else (None, None)
         log_kernels("int8_gemm", f"[{m},{k}]x[{n},{k}] kernel",
                     lambda: int8_gemm(*sets[1]))
-        log_kernels("int8_gemm", f"[{m},{k}]x[{n},{k}] library",
-                    lambda: library(*sets[1]))
+        if has_library:
+            log_kernels("int8_gemm", f"[{m},{k}]x[{n},{k}] library",
+                        lambda: library(*sets[1]))
         row["bound_ms"], row["bound_by"] = int8_bound(m, n, k)
         row["kernel_over_bound"] = row["kernel_ms"] / row["bound_ms"]
-        row["kernel_over_library"] = row["kernel_ms"] / row["library_ms"]
         row["kernel_device_over_bound"] = (row["kernel_device_ms"]
                                            / row["bound_ms"])
-        row["kernel_device_over_library_device"] = (
-            row["kernel_device_ms"] / row["library_device_ms"])
+        if has_library:
+            row["kernel_over_library"] = row["kernel_ms"] / row["library_ms"]
+            row["kernel_device_over_library_device"] = (
+                row["kernel_device_ms"] / row["library_device_ms"])
         row["kernel_device_tops"] = (2 * m * n * k / row["kernel_device_ms"]
                                      / 1e9)
         log("int8_gemm", json.dumps(row))
@@ -3111,14 +3161,16 @@ def phase_int8_gemm():
                 "library_device_ms": row["library_device_ms"],
                 "device_over_bound": row["kernel_device_over_bound"],
                 "device_over_library":
-                    row["kernel_device_over_library_device"],
+                    row.get("kernel_device_over_library_device"),
                 "device_ms_windows": row["device_ms_windows"],
                 "library_device_ms_windows":
                     row["library_device_ms_windows"]}
 
     return (line_row("int8_gemm", timed[INT8_MAIN_SHAPE]),
             {fc: line_row(f"int8_gemm_vgg16_{fc}", timed[shape])
-             for fc, shape in ZOO_FC_SHAPES.items()})
+             for fc, shape in ZOO_FC_SHAPES.items()},
+            {fc: line_row(f"int8_gemm_lenet5_graph_{fc}", timed[shape])
+             for fc, shape in LENET_G_FC_SHAPES.items()})
 
 
 # ---- K4: paged decode ----
@@ -6738,6 +6790,814 @@ def phase_zoo(counters, k5_rows, device="cuda"):
     return rows, summary
 
 
+# ---- phase 17: the recurrent family (BASELINE config 5) and Graph ----
+
+#: the reference's PTB configuration (bigdl_tpu/tools/ceiling.py:710-750):
+#: PTBModel(10000, 650, 10000, 2 layers), 35 steps a window, batch 64,
+#: TimeDistributedCriterion(CrossEntropyCriterion()), SGD at lr 0.1, the
+#: seeded ids their own targets (``_ptb_data``)
+PTB_VOCAB, PTB_HIDDEN, PTB_LAYERS, PTB_STEPS, PTB_BATCH = \
+    10000, 650, 2, 35, 64
+PTB_LR, PTB_ITERS, PTB_K, PTB_SEED = 0.1, 20, 8, 71
+#: card against CPU in float64 (full width): batch, steps, and the limit
+#: on the losses (relative) and the parameters (absolute)
+PTB_F64_BATCH, PTB_F64_STEPS, PTB_F64_TOL = 4, 3, 1e-9
+#: profiled steps at K = 1 (after a warm step) and windows at K = 8
+PTB_PROFILE_STEPS, PTB_PROFILE_WINDOWS = 3, 1
+#: the cuDNN LSTM yardstick's timed forward and backward calls
+PTB_CUDNN_CALLS = 10
+#: (b) the rnn CLIs: synthetic training and test ids, and their widths
+RNN_CLI_TRAIN, RNN_CLI_TEST, RNN_CLI_BATCH = 40000, 4000, 32
+RNN_CLI_FLAGS = ["--vocabSize", "1000", "--hiddenSize", "128",
+                 "--numSteps", "5"]
+RNN_CLI_RTOL = 1e-5
+#: (c) the dropout LSTM: p, steps, and the other seed's steps
+RNN_DROP_P, RNN_DROP_STEPS, RNN_DROP_OTHER_STEPS = 0.1, 16, 4
+#: (d), (e) LeNet5_graph: the weights' seed, batch, steps, the -g
+#: recipe's rows, batch, epochs and rate, the forwards timed for the
+#: __call__ check, the int8 forwards
+LENET_G_SEED, LENET_G_BATCH, LENET_G_STEPS = 43, 128, 10
+LENET_G_ROWS, LENET_G_HELD, LENET_G_CLI = 4096, 1024, ["-b", "32", "-e", "4",
+                                                       "-r", "0.1"]
+LENET_G_CALLS, LENET_G_INT8_FORWARDS = 1000, 4
+#: K5's two calls an int8 LeNet5_graph forward, [M, N, K]
+LENET_G_FC_SHAPES = {"fc1": (LENET_G_BATCH, 100, 192),
+                     "fc2": (LENET_G_BATCH, 10, 100)}
+
+
+def _ptb_data(rows: int, seed: int):
+    """``rows`` windows of ``PTB_STEPS`` integer ids in ``[1, V]`` from a
+    seeded generator, each window its own target (ceiling.py:737-739:
+    ``y = x``). The ids follow a Zipf law (``p ~ 1 / rank``), as a
+    corpus's words do, so 20 steps have something to learn (uniform ids
+    leave the loss at ``T ln V``)."""
+    p = 1.0 / np.arange(1, PTB_VOCAB + 1)
+    x = np.random.RandomState(seed).choice(
+        PTB_VOCAB, (rows, PTB_STEPS), p=p / p.sum()).astype(np.int64) + 1
+    return x, x.copy()
+
+
+def _ptb_model(device, layers=PTB_LAYERS, p=0.0):
+    """``PTBModel`` at the reference's width from ``PTB_SEED`` on
+    ``device``, ``layers`` deep; with ``p > 0`` the LSTMs drop with
+    probability ``p`` (the model is the same Sequential otherwise)."""
+    import torch
+
+    from bigdl_tpu_torch import nn
+    from bigdl_tpu_torch.models import PTBModel
+
+    model = PTBModel(PTB_VOCAB, PTB_HIDDEN, PTB_VOCAB, num_layers=layers,
+                     device="cpu",
+                     generator=torch.Generator().manual_seed(PTB_SEED))
+    for m in model.modules():
+        if isinstance(m, nn.LSTM):
+            m.p = p
+    return model.to(device)
+
+
+def _ptb_run(device, k, seed, steps, precision=None, p=0.0, layers=None):
+    """``steps`` LocalOptimizer iterations of the PTB configuration at
+    ``K = k`` (``set_steps_per_sync``), from ``RandomGenerator`` seed
+    ``seed`` (the shuffle and the step's generator)."""
+    import torch
+
+    from bigdl_tpu_torch import nn
+    from bigdl_tpu_torch.models._cli import arrays_to_dataset
+    from bigdl_tpu_torch.optim import SGD, LocalOptimizer, max_iteration
+    from bigdl_tpu_torch.utils.random import RandomGenerator
+
+    RandomGenerator.set_seed(seed)
+    model = _ptb_model(device, layers or PTB_LAYERS, p)
+    x, y = _ptb_data(PTB_BATCH * steps, seed=PTB_SEED)
+    opt = LocalOptimizer(model, arrays_to_dataset(x, y, PTB_BATCH),
+                         nn.TimeDistributedCriterion(
+                             nn.CrossEntropyCriterion()),
+                         batch_size=PTB_BATCH)
+    opt.set_optim_method(SGD(learning_rate=PTB_LR))
+    opt.set_end_when(max_iteration(steps))
+    opt.set_steps_per_sync(k)
+    if precision is not None:
+        opt.set_precision(precision)
+    t0 = time.perf_counter()
+    opt.optimize()
+    if device == "cuda":
+        torch.cuda.synchronize()
+    step_ms = [h["seconds"] * 1e3 for h in opt.history]
+    # the first window holds the capture (K = 8), the first step the
+    # warm-up (K = 1)
+    steady = step_ms[k:] if len(step_ms) > k else step_ms
+    ms = float(np.median(steady))
+    return {"k": k, "seconds": time.perf_counter() - t0,
+            "losses": [h["loss"] for h in opt.history],
+            "ms_per_step_median": ms,
+            "tokens_per_s": PTB_BATCH * PTB_STEPS / ms * 1e3,
+            "params": _snapshot(model.parameters()),
+            "graphs": opt.window.captures if opt.window else 0,
+            "shapes": len(opt.window.shapes) if opt.window else 0,
+            "model": model}
+
+
+#: the roles phase 17 (a) splits a step's device time into
+PTB_ROLES = ("input products", "recurrent products", "gate passes",
+             "head product", "log-softmax", "other")
+_MATMULS = ("aten::mm", "aten::addmm", "aten::bmm", "aten::baddbmm")
+
+
+def _ptb_role(name: str, shapes) -> str:
+    """The role of one profiled op by its name and input shapes: a
+    product with the vocabulary among its dimensions is the head's, one
+    with the ``T x B`` rows the hoisted input products', any other the
+    recurrent ones'; an elementwise op on a ``[B, H]`` or ``[B, 4H]``
+    operand is a gate pass."""
+    dims = {d for s in shapes for d in s}
+    if "log_softmax" in name:
+        return "log-softmax"
+    if name in _MATMULS:
+        if PTB_VOCAB in dims:
+            return "head product"
+        return "input products" if PTB_STEPS * PTB_BATCH in dims \
+            else "recurrent products"
+    first = shapes[0] if shapes else ()
+    if len(first) == 2 and first[0] == PTB_BATCH \
+            and first[1] in (PTB_HIDDEN, 4 * PTB_HIDDEN):
+        return "gate passes"
+    return "other"
+
+
+def _ptb_profile(model, batches, k, device, phase, precision=None):
+    """A profiled window of the PTB step at ``K = k``: wall and device
+    ms a step, idle share and device kernels a step; at ``K = 1`` also
+    the device ms a step by role (:data:`PTB_ROLES`, from a second
+    window that records the ops' shapes: a graph replay has no ops)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from bigdl_tpu_torch import nn
+    from bigdl_tpu_torch.optim import SGD, build_train_step, make_host_window
+
+    step = build_train_step(model, nn.TimeDistributedCriterion(
+        nn.CrossEntropyCriterion()), SGD(learning_rate=PTB_LR),
+        precision=precision)
+    if k == 1:
+        float(step(*batches[0], PTB_LR))                 # warm
+
+        def run():
+            for x, y in batches[1:]:
+                float(step(x, y, PTB_LR))
+        steps = len(batches) - 1
+    else:
+        window = make_host_window(step)
+        stacked = [_stack(batches[i:i + k])
+                   for i in range(0, len(batches), k)]
+        lrs = [PTB_LR] * k
+        window(*stacked[0], lrs).tolist()                # capture, warm
+
+        def run():
+            for xs, ys in stacked:
+                window(xs, ys, lrs).tolist()
+        steps = k * len(stacked)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        time.sleep(WINDOW_MARGIN_S)
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize(device)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        time.sleep(WINDOW_MARGIN_S)
+    kernels = device_kernels(prof)
+    busy_ms = sum(kk[0] for kk in kernels)
+    read = bool(kernels) and busy_ms <= wall_ms
+    out = {"k": k, "steps": steps, "wall_ms_per_step": wall_ms / steps,
+           "device_ms_per_step": busy_ms / steps if read
+           else "not measured",
+           "device_idle_share": 1 - busy_ms / wall_ms if read
+           else "not measured",
+           "device_kernels_per_step": sum(kk[1] for kk in kernels) / steps,
+           "top": [[round(ms / steps, 4), n // steps, key[:70]]
+                   for ms, n, key in kernels[:6]]}
+    if k == 1:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     record_shapes=True) as prof:
+            time.sleep(WINDOW_MARGIN_S)
+            run()
+            torch.cuda.synchronize(device)
+            time.sleep(WINDOW_MARGIN_S)
+        roles = dict.fromkeys(PTB_ROLES, 0.0)
+        for ev in prof.key_averages(group_by_input_shape=True):
+            if ev.device_type != DeviceType.CPU:
+                continue
+            us = getattr(ev, "self_device_time_total", None)
+            if us is None:
+                us = ev.self_cuda_time_total
+            if us:
+                shapes = [tuple(s) for s in (ev.input_shapes or [])
+                          if isinstance(s, (list, tuple))]
+                roles[_ptb_role(ev.key, shapes)] += us / 1e3 / steps
+        out["device_ms_per_step_by_role"] = roles
+    log(phase, json.dumps(out))
+    return out
+
+
+def _ptb_cudnn_yardstick(recurrent_ms, device):
+    """``torch.nn.LSTM`` (cuDNN), 2 layers at the PTB width, forward and
+    backward on a ``[B, T, H]`` batch, timed with CUDA events beside the
+    port's two ``Recurrent(LSTM)`` layers on the same batch: a labelled
+    yardstick (the port never calls it)."""
+    import torch
+
+    from bigdl_tpu_torch import nn
+
+    torch.manual_seed(PTB_SEED)
+    x = torch.randn(PTB_BATCH, PTB_STEPS, PTB_HIDDEN, device=device,
+                    requires_grad=True)
+    g = torch.randn_like(x)
+    lstm = torch.nn.LSTM(PTB_HIDDEN, PTB_HIDDEN, num_layers=PTB_LAYERS,
+                         batch_first=True).to(device)
+    port = nn.Sequential(*[nn.Recurrent(nn.LSTM(PTB_HIDDEN, PTB_HIDDEN))
+                           for _ in range(PTB_LAYERS)]).to(device)
+
+    def timed(fn):
+        for _ in range(2):
+            fn()
+        torch.cuda.synchronize()
+        start, end = (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+        start.record()
+        for _ in range(PTB_CUDNN_CALLS):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / PTB_CUDNN_CALLS
+
+    out = {"cudnn_lstm_ms": timed(lambda: lstm(x)[0].backward(g)),
+           "port_recurrent_ms": timed(lambda: port(x).backward(g)),
+           "port_recurrent_device_ms_in_step": recurrent_ms}
+    out["port_over_cudnn"] = out["port_recurrent_ms"] / out["cudnn_lstm_ms"]
+    log("rnn-ptb", "yardstick (no gate): " + json.dumps(out))
+    return out
+
+
+def _ptb_f64(device):
+    """(a)'s card-against-CPU check: ``PTB_F64_STEPS`` SGD steps of the
+    full-width PTBModel in float64 at batch ``PTB_F64_BATCH`` on the CPU,
+    on the card, and on the card with layer 2's ``w_hh`` gradient zeroed
+    (a fault the check must catch). Returns each card run's (loss
+    relative difference, parameter absolute difference)."""
+    import torch
+
+    from bigdl_tpu_torch import nn
+    from bigdl_tpu_torch.optim import SGD, build_train_step
+
+    x, y = _ptb_data(PTB_F64_BATCH * PTB_F64_STEPS, seed=PTB_SEED + 1)
+    runs = {}
+    for label, dev in (("cpu", "cpu"), ("card", device),
+                       ("card, layer 2's w_hh gradient zeroed", device)):
+        model = _ptb_model(dev).to(torch.float64)
+        if "zeroed" in label:
+            model[2].cell.w_hh.register_hook(torch.zeros_like)
+        step = build_train_step(model, nn.TimeDistributedCriterion(
+            nn.CrossEntropyCriterion()), SGD(learning_rate=PTB_LR))
+        losses = []
+        for i in range(PTB_F64_STEPS):
+            rows = slice(i * PTB_F64_BATCH, (i + 1) * PTB_F64_BATCH)
+            losses.append(float(step(torch.from_numpy(x[rows]).to(dev),
+                                     torch.from_numpy(y[rows]).to(dev),
+                                     PTB_LR)))
+        runs[label] = (losses, model.get_parameters())
+    want = runs.pop("cpu")
+    gaps = {label: (max(abs(g - w) / abs(w)
+                        for g, w in zip(got[0], want[0])),
+                    _max_param_diff(got[1], want[1]))
+            for label, got in runs.items()}
+    log("rnn-ptb", "float64 card vs CPU (loss rel, param abs): "
+        + json.dumps(gaps))
+    return gaps
+
+
+def _rnn_ptb(device):
+    """(a): the PTB LSTM at full width through ``Optimizer.optimize()``."""
+    import torch
+
+    from bigdl_tpu_torch.precision import PrecisionPolicy
+
+    on_card = device == "cuda"
+    out = {}
+    runs = {"f32 K=1": _ptb_run(device, 1, PTB_SEED, PTB_ITERS),
+            "f32 K=8": _ptb_run(device, PTB_K, PTB_SEED, PTB_ITERS),
+            "bf16_mixed K=8": _ptb_run(device, PTB_K, PTB_SEED, PTB_ITERS,
+                                       precision="bf16_mixed")}
+    k1, k8 = runs["f32 K=1"], runs["f32 K=8"]
+    out["k8_equals_k1"] = {"losses": k8["losses"] == k1["losses"],
+                           "params": _bitwise(k8["params"], k1["params"])}
+    for label, r in runs.items():
+        out[label] = {key: r[key] for key in (
+            "losses", "ms_per_step_median", "tokens_per_s", "graphs",
+            "shapes", "seconds")}
+    # where a step's time goes: profiled windows from each run's weights
+    n = PTB_PROFILE_WINDOWS * PTB_K
+    x, y = _ptb_data(PTB_BATCH * n, seed=PTB_SEED + 2)
+    batches = [(torch.from_numpy(x[i * PTB_BATCH:(i + 1) * PTB_BATCH])
+                .to(device),
+                torch.from_numpy(y[i * PTB_BATCH:(i + 1) * PTB_BATCH])
+                .to(device)) for i in range(n)]
+    t0 = time.perf_counter()
+    if on_card:
+        bf16 = PrecisionPolicy.named("bf16_mixed")
+        out["profile"] = {
+            "f32 K=1": _ptb_profile(k1["model"],
+                                    batches[:1 + PTB_PROFILE_STEPS], 1,
+                                    device, "rnn-ptb"),
+            "f32 K=8": _ptb_profile(k8["model"], batches, PTB_K, device,
+                                    "rnn-ptb"),
+            "bf16_mixed K=1": _ptb_profile(
+                runs["bf16_mixed K=8"]["model"],
+                batches[:1 + PTB_PROFILE_STEPS], 1, device, "rnn-ptb",
+                precision=bf16),
+            "bf16_mixed K=8": _ptb_profile(
+                runs["bf16_mixed K=8"]["model"], batches, PTB_K, device,
+                "rnn-ptb", precision=bf16)}
+        roles = out["profile"]["f32 K=1"]["device_ms_per_step_by_role"]
+        out["yardstick"] = _ptb_cudnn_yardstick(
+            roles["input products"] + roles["recurrent products"]
+            + roles["gate passes"], device)
+    out["profile_seconds"] = time.perf_counter() - t0
+    for r in runs.values():
+        del r["model"], r["params"]
+    t0 = time.perf_counter()
+    out["f64"] = _ptb_f64(device)
+    out["f64_seconds"] = time.perf_counter() - t0
+    log("rnn-ptb", json.dumps(out))
+    falls = {label: _falls(r["losses"]) for label, r in runs.items()}
+    card = out["f64"]["card"]
+    fault = out["f64"]["card, layer 2's w_hh gradient zeroed"]
+    if not (all(falls.values()) and all(out["k8_equals_k1"].values())
+            and card[0] <= PTB_F64_TOL and card[1] <= PTB_F64_TOL
+            and not (fault[0] <= PTB_F64_TOL and fault[1] <= PTB_F64_TOL)):
+        raise AssertionError(f"PTB LSTM: falling {falls}, K = 8 vs 1 "
+                             f"{out['k8_equals_k1']}, float64 {out['f64']}")
+    if on_card and not all(runs[label]["graphs"] == runs[label]["shapes"]
+                           > 0 for label in ("f32 K=8", "bf16_mixed K=8")):
+        raise AssertionError(f"PTB windows: {out}")
+    return out
+
+
+def _rnn_clis(counters, device):
+    """(b): ``rnn.train --synthetic`` with ``--checkpoint``, its
+    snapshot scored by ``rnn.test`` (the printed perplexity against exp
+    of a direct float64 evaluation of the same windows),
+    ``--numOfWords`` twice, and ``--quantize`` (WordRNN stays float: the
+    same logits, no K5)."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+    import torch.nn.functional as F
+
+    from bigdl_tpu_torch.dataset.text import ptb_arrays
+    from bigdl_tpu_torch.models.rnn import test as rnn_test
+    from bigdl_tpu_torch.models.rnn import train as rnn_train
+    from bigdl_tpu_torch.nn.quantized import quantize
+    from bigdl_tpu_torch.utils.serialization import load_module, save_module
+
+    root = tempfile.mkdtemp(prefix="chip-smoke-rnn-")
+    try:
+        ck = os.path.join(root, "ck")
+        t0 = time.perf_counter()
+        trained, train_out = _run_cli("rnn-cli", rnn_train.main, [
+            "--synthetic", str(RNN_CLI_TRAIN), "-b", str(RNN_CLI_BATCH),
+            "-e", "1", "--checkpoint", ck, "--device", device]
+            + RNN_CLI_FLAGS)
+        train_s = time.perf_counter() - t0
+        snap = os.path.join(root, "snapshot")
+        save_module(snap, trained)
+        test_argv = ["--synthetic", str(RNN_CLI_TEST), "--model", snap,
+                     "--device", device] + RNN_CLI_FLAGS
+        _, test_out = _run_cli("rnn-cli", rnn_test.main, test_argv)
+        printed = float(re.search(r"^perplexity: (\S+)", test_out,
+                                  re.M).group(1))
+        # the test CLI's windows (its seeded stream, batch 8) in float64
+        vocab = int(RNN_CLI_FLAGS[RNN_CLI_FLAGS.index("--vocabSize") + 1])
+        num_steps = int(RNN_CLI_FLAGS[RNN_CLI_FLAGS.index("--numSteps")
+                                      + 1])
+        stream = np.random.RandomState(1).randint(
+            1, vocab + 1, RNN_CLI_TEST).astype(np.float32)
+        tx, ty = ptb_arrays(stream, 8, num_steps)
+        model = load_module(snap, device=device).evaluate().to(
+            torch.float64)
+        with torch.inference_mode():
+            logits = model(torch.from_numpy(tx).to(device))
+            nll = float(F.cross_entropy(
+                logits.reshape(-1, logits.shape[-1]),
+                torch.from_numpy(ty - 1).long().reshape(-1).to(device),
+                reduction="sum"))
+        direct = math.exp(nll / len(tx))
+        _, gen_a = _run_cli("rnn-cli", rnn_test.main,
+                            test_argv + ["--numOfWords", "5"])
+        _, gen_b = _run_cli("rnn-cli", rnn_test.main,
+                            test_argv + ["--numOfWords", "5"])
+        float_model = load_module(snap, device=device).evaluate()
+        for fn in counters.values():
+            fn.launches = 0
+        q = quantize(float_model)
+        x = torch.from_numpy(tx[:8]).to(device)
+        with torch.inference_mode():
+            same = bool(torch.equal(q(x), float_model(x)))
+        _, q_out = _run_cli("rnn-cli", rnn_test.main,
+                            test_argv + ["--quantize"])
+        k5 = counters["int8_gemm"].launches
+        out = {"train_seconds": train_s,
+               "train_line": re.search(r"final loss.*", train_out).group(0),
+               "checkpoints": sorted(os.listdir(ck)),
+               "perplexity": printed, "direct_float64": direct,
+               "perplexity_rel_diff": abs(printed - direct) / direct,
+               "completions_repeat": gen_a == gen_b,
+               "completion_rows": len(gen_a.strip().splitlines()),
+               "quantized_logits_equal_float": same,
+               "quantized_cli_perplexity_equal": re.findall(
+                   r"^perplexity: .*", q_out, re.M) == re.findall(
+                   r"^perplexity: .*", test_out, re.M),
+               "k5_launches": k5}
+        log("rnn-cli", json.dumps(out))
+        if not (any(n.startswith("checkpoint.") for n in out["checkpoints"])
+                and out["perplexity_rel_diff"] <= RNN_CLI_RTOL
+                and out["completions_repeat"]
+                and out["completion_rows"] == 4
+                and same and out["quantized_cli_perplexity_equal"]
+                and k5 == 0):
+            raise AssertionError(f"the rnn CLIs: {out}")
+        return out
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _rnn_dropout(device):
+    """(c): one LSTM layer at the PTB width with ``p = RNN_DROP_P``,
+    ``RNN_DROP_STEPS`` steps at K = 8 and at K = 1 (bitwise alike),
+    another seed (other losses), a drawn mask's keep fraction, and an
+    evaluation forward bitwise a ``p = 0`` model's."""
+    import torch
+
+    from bigdl_tpu_torch.nn.dropout import keep_mask
+
+    w = _ptb_run(device, PTB_K, PTB_SEED, RNN_DROP_STEPS, p=RNN_DROP_P,
+                 layers=1)
+    p = _ptb_run(device, 1, PTB_SEED, RNN_DROP_STEPS, p=RNN_DROP_P,
+                 layers=1)
+    o = _ptb_run(device, 1, PTB_SEED + 1, RNN_DROP_OTHER_STEPS,
+                 p=RNN_DROP_P, layers=1)
+    drop = _ptb_model(device, 1, RNN_DROP_P).evaluate()
+    plain = _ptb_model(device, 1, 0.0).evaluate()
+    x = torch.from_numpy(_ptb_data(PTB_BATCH, PTB_SEED + 3)[0]).to(device)
+    with torch.inference_mode():
+        eval_equal = bool(torch.equal(drop(x), plain(x)))
+    gen = torch.Generator(device=device).manual_seed(PTB_SEED)
+    mask = keep_mask((PTB_BATCH, PTB_HIDDEN), RNN_DROP_P, gen)
+    sigma = math.sqrt(RNN_DROP_P * (1 - RNN_DROP_P) / mask.numel())
+    out = {"steps": RNN_DROP_STEPS, "k": PTB_K,
+           "losses_equal": w["losses"] == p["losses"],
+           "params_equal": _bitwise(w["params"], p["params"]),
+           "graphs": w["graphs"], "shapes": w["shapes"],
+           "losses": p["losses"], "other_seed_losses": o["losses"],
+           "ms_per_step": {"k8": w["ms_per_step_median"],
+                           "k1": p["ms_per_step_median"]},
+           "eval_equals_p0": eval_equal,
+           "keep_fraction": float(mask.float().mean()),
+           "keep_fraction_sigma": sigma}
+    log("rnn-dropout", json.dumps(out))
+    if not (out["losses_equal"] and out["params_equal"]
+            and all(np.isfinite(p["losses"]))
+            and o["losses"] != p["losses"][:RNN_DROP_OTHER_STEPS]
+            and eval_equal
+            and abs(out["keep_fraction"] - (1 - RNN_DROP_P)) <= 4 * sigma):
+        raise AssertionError(f"dropout LSTM: {out}")
+    if device == "cuda" and not w["graphs"] == w["shapes"] > 0:
+        raise AssertionError(f"dropout LSTM windows: {out}")
+    return out
+
+
+def _write_mnist(folder, prefix, x, y):
+    """``x`` (``separable_digits``' rows) and 1-based ``y`` as MNIST idx
+    files ``{prefix}-images-idx3-ubyte`` and ``-labels-idx1-ubyte``
+    (pixels ``(x + 0.25) * 100``, clipped to bytes)."""
+    import os
+    import struct
+
+    imgs = np.clip((x[:, 0] + 0.25) * 100.0, 0, 255).astype(np.uint8)
+    with open(os.path.join(folder, f"{prefix}-images-idx3-ubyte"),
+              "wb") as f:
+        f.write(struct.pack(">IIII", 2051, len(imgs), 28, 28))
+        f.write(imgs.tobytes())
+    with open(os.path.join(folder, f"{prefix}-labels-idx1-ubyte"),
+              "wb") as f:
+        f.write(struct.pack(">II", 2049, len(y)))
+        f.write((y - 1).astype(np.uint8).tobytes())
+
+
+def _lenet_graph_pair(device):
+    import torch
+
+    from bigdl_tpu_torch.models import LeNet5, LeNet5_graph
+
+    return (LeNet5_graph(10, device=device, generator=torch.Generator()
+                         .manual_seed(LENET_G_SEED)),
+            LeNet5(10, device=device, generator=torch.Generator()
+                   .manual_seed(LENET_G_SEED)))
+
+
+def _call_cost_us(model, x):
+    """Host µs of the port's ``Module.__call__`` (its Node check) against
+    torch's own: a forward of ``model`` on ``x``, and one call of an
+    ``Identity`` on a CPU scalar, each timed over ``LENET_G_CALLS``
+    calls a turn, in turns (a, b, b, a, a, b, b, a) after a warm-up;
+    the medians, their differences and the module calls a forward
+    makes."""
+    import torch
+
+    from bigdl_tpu_torch import nn
+    from bigdl_tpu_torch.nn import module as port_module
+
+    ours = port_module.Module.__call__
+    identity, scalar = nn.Identity(), torch.zeros(())
+
+    def per_call(fn, arg, calls):
+        with torch.inference_mode():
+            if x.is_cuda:
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn(arg)
+            if x.is_cuda:
+                torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / calls * 1e6
+
+    times = {(what, which): [] for what in ("forward", "call")
+             for which in ("port", "torch")}
+    try:
+        for turn, which in enumerate(("port", "torch", "torch",
+                                      "port") * 2):
+            port_module.Module.__call__ = ours if which == "port" \
+                else torch.nn.Module.__call__
+            if turn == 0:
+                per_call(model, x, 200)                 # warm
+            times["forward", which].append(per_call(model, x,
+                                                    LENET_G_CALLS))
+            times["call", which].append(per_call(identity, scalar,
+                                                 20 * LENET_G_CALLS))
+    finally:
+        port_module.Module.__call__ = ours
+    med = {key: float(np.median(v)) for key, v in times.items()}
+    calls = sum(1 for _ in model.modules())
+    return {"forward_us": {"port": med["forward", "port"],
+                           "torch": med["forward", "torch"]},
+            "added_us_per_forward": med["forward", "port"]
+            - med["forward", "torch"],
+            "module_calls_per_forward": calls,
+            "identity_call_us": {"port": med["call", "port"],
+                                 "torch": med["call", "torch"]},
+            "added_us_per_call": med["call", "port"] - med["call", "torch"],
+            "turns": {f"{a} {b}": v for (a, b), v in times.items()}}
+
+
+def _lenet_graph(counters, device):
+    """(d): ``LeNet5_graph`` against ``LeNet5`` from the same weights:
+    bitwise forwards, ``LENET_G_STEPS`` bitwise steps, ``lenet.train -g``
+    on a separable MNIST-format folder to Top1 ``LENET_TOP1``, and the
+    host cost of ``__call__``'s Node check."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    from bigdl_tpu_torch.models.lenet import train as lenet_train
+
+    graph, seq = _lenet_graph_pair(device)
+    x, y = separable_digits(LENET_G_BATCH * LENET_G_STEPS, seed=46)
+    xb = torch.from_numpy(x[:LENET_G_BATCH]).to(device)
+    with torch.inference_mode():
+        fwd_equal = bool(torch.equal(graph(xb), seq(xb)))
+    batches = [(x[i * LENET_G_BATCH:(i + 1) * LENET_G_BATCH],
+                y[i * LENET_G_BATCH:(i + 1) * LENET_G_BATCH])
+               for i in range(LENET_G_STEPS)]
+    # cuDNN's deterministic algorithms: its default convolution backward
+    # differs from run to run in the last bits
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        g_losses = _lenet_steps(graph, batches, device)
+        s_losses = _lenet_steps(seq, batches, device)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    out = {"forward_equal": fwd_equal,
+           "losses_equal": g_losses == s_losses,
+           "params_equal": _bitwise(_snapshot(graph.parameters()),
+                                    _snapshot(seq.parameters())),
+           "losses": g_losses}
+    root = tempfile.mkdtemp(prefix="chip-smoke-lenet-g-")
+    try:
+        for prefix, rows, seed in (("train", LENET_G_ROWS, 47),
+                                   ("t10k", LENET_G_HELD, 48)):
+            _write_mnist(root, prefix, *separable_digits(rows, seed))
+        for fn in counters.values():
+            fn.launches = 0
+        model, cli_out = _run_cli("lenet-g", lenet_train.main,
+                                  ["-f", root, "-g", "--device", device]
+                                  + LENET_G_CLI)
+        launches = {n: fn.launches for n, fn in counters.items()}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    scores = dict(re.findall(r"(\w+) ([0-9.]+)", re.search(
+        r"validation: (.*)", cli_out).group(1)))
+    out.update(cli_model=type(model).__name__,
+               cli_top1=float(scores["Top1Accuracy"]),
+               cli_launches=launches)
+    out["call_cost"] = _call_cost_us(
+        graph.evaluate(), torch.from_numpy(x[:1]).to(device))
+    log("lenet-graph", json.dumps(out))
+    if not (fwd_equal and out["losses_equal"] and out["params_equal"]
+            and out["cli_model"] == "Graph"
+            and out["cli_top1"] >= LENET_TOP1
+            and not any(launches.values())):
+        raise AssertionError(f"LeNet5_graph: {out}")
+    return out, graph
+
+
+def _k5_per_forward(launches: int, forwards: int) -> bool:
+    """(e)'s launch-count gate: K5 twice an int8 LeNet5_graph forward."""
+    return launches == 2 * forwards
+
+
+def _lenet_graph_int8(counters, k5_rows, graph, device):
+    """(e): ``quantize`` over the trained ``LeNet5_graph``: the counts set
+    to 0 around ``LENET_G_INT8_FORWARDS`` int8 forwards (K5 twice a
+    forward), the profiler's count of one forward's K5 GEMMs, each call
+    bitwise K5's plain version, the logits bitwise the quantized
+    Sequential's and the kernels-off path's, a Graph with fc2 left
+    float failing the launch gate; top-1 agreement with the float Graph
+    printed. ``k5_rows`` (by fc, phase 3's timed rows) get the launches
+    and errors."""
+    import sys as _sys
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from bigdl_tpu_torch import kernels
+    from bigdl_tpu_torch.models import LeNet5
+    from bigdl_tpu_torch.nn.quantized import quantize
+
+    on_card = device == "cuda"
+    k5 = _sys.modules["bigdl_tpu_torch.kernels.int8_gemm"]
+    graph = graph.evaluate()
+    q = quantize(graph)
+    seq = LeNet5(10, device=device).evaluate()
+    with torch.no_grad():
+        for mine, theirs in zip(seq.parameters(), graph.parameters()):
+            mine.copy_(theirs)
+    q_seq = quantize(seq)
+    x = torch.from_numpy(separable_digits(LENET_G_BATCH, seed=49)[0]).to(
+        device)
+    dispatch = kernels.int8_matmul
+    calls = []
+
+    def recording(x_q, w_q, x_scale, w_scale, bias=None):
+        calls.append((x_q, w_q, x_scale, w_scale))
+        return dispatch(x_q, w_q, x_scale, w_scale, bias)
+
+    def count(model):
+        with torch.inference_mode():
+            float(model(x).sum())                      # warm
+            calls.clear()
+            for fn in counters.values():
+                fn.launches = 0
+            for _ in range(LENET_G_INT8_FORWARDS):
+                logits = model(x)
+            if on_card:
+                torch.cuda.synchronize()
+        return logits, {n: fn.launches for n, fn in counters.items()}
+
+    kernels.int8_matmul = recording
+    try:
+        logits, launches = count(q)
+        q_calls = list(calls)
+        shapes = [(a[0].shape[0], a[1].shape[0], a[0].shape[1])
+                  for a in q_calls]
+        # the fault: fc2 left float
+        faulty = quantize(graph)
+        pos = faulty.names.index("fc2")
+        float_fc2 = _lenet_graph_pair(device)[0].find("fc2")
+        float_fc2.load_state_dict(graph.find("fc2").state_dict())
+        faulty.exec_order[pos].element = float_fc2
+        faulty._modules["fc2"] = float_fc2.evaluate()
+        _, faulty_launches = count(faulty)
+    finally:
+        kernels.int8_matmul = dispatch
+    per_shape = {fc: shapes.count(s) for fc, s in LENET_G_FC_SHAPES.items()}
+    out = {"forwards": LENET_G_INT8_FORWARDS, "launches": launches,
+           "calls_by_shape": per_shape,
+           "fc2_float_launches": faulty_launches["int8_gemm"]}
+    if on_card:
+        out["gate"] = _k5_per_forward(launches["int8_gemm"],
+                                      LENET_G_INT8_FORWARDS)
+        out["gate_with_fc2_float"] = _k5_per_forward(
+            faulty_launches["int8_gemm"], LENET_G_INT8_FORWARDS)
+        for attempt in range(3):
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                time.sleep(WINDOW_MARGIN_S)
+                with torch.inference_mode():
+                    float(q(x).sum())
+                torch.cuda.synchronize()
+                time.sleep(WINDOW_MARGIN_S)
+            gemms = sum(n for _, n, key in device_kernels(prof)
+                        if "int8_gemm_kernel" in key)
+            if gemms >= 2:
+                break
+        out["profiled_k5_gemms"] = gemms
+    by_fc = {}
+    for fc, shape in LENET_G_FC_SHAPES.items():
+        args = q_calls[shapes.index(shape)] if shape in shapes else None
+        if args is None:
+            continue
+        got, want = k5.int8_gemm(*args), k5.int8_gemm_reference(*args)
+        by_fc[fc] = {"bitwise": bool(torch.equal(got, want)),
+                     "max_abs_err": float((got - want).abs().max())}
+    out["bitwise"] = by_fc
+    with torch.inference_mode():
+        with kernels.use(kernels.KernelConfig.off()):
+            off = q(x)
+        out["logits_equal_quantized_sequential"] = bool(
+            torch.equal(logits, q_seq(x)))
+        out["logits_equal_kernels_off"] = bool(torch.equal(logits, off))
+        out["top1_agreement_int8_vs_float"] = float(
+            (graph(x).argmax(1) == logits.argmax(1)).float().mean())
+    log("lenet-graph-int8", json.dumps(out))
+    if not (per_shape == {fc: LENET_G_INT8_FORWARDS
+                          for fc in LENET_G_FC_SHAPES}
+            and len(by_fc) == 2
+            and all(v["bitwise"] for v in by_fc.values())
+            and out["logits_equal_quantized_sequential"]
+            and out["logits_equal_kernels_off"]):
+        raise AssertionError(f"int8 LeNet5_graph: {out}")
+    others = {n: v for n, v in launches.items() if n != "int8_gemm" and v}
+    if others:
+        raise AssertionError(f"int8 LeNet5_graph launched {others}")
+    if on_card and not (out["gate"] and not out["gate_with_fc2_float"]
+                        and out["profiled_k5_gemms"] == 2):
+        raise AssertionError(f"K5 launches in the int8 LeNet5_graph: "
+                             f"{out}")
+    rows = []
+    for fc, row in k5_rows.items():
+        row.update(launches=per_shape[fc],
+                   max_abs_err=by_fc[fc]["max_abs_err"])
+        rows.append(row)
+    return rows, out
+
+
+def phase_rnn(counters, k5_rows, device="cuda"):
+    """The recurrent family and Graph (module docstring, phase 17):
+    (a) the PTB LSTM, (b) the rnn CLIs, (c) LSTM dropout in a window,
+    (d) LeNet5_graph against LeNet5, (e) LeNet5_graph in int8 through
+    K5. Returns the kernels-line rows of K5 at LeNet5_graph's fc1 and
+    fc2 and the summary."""
+    import torch
+
+    from bigdl_tpu_torch.utils.engine import full_float32
+
+    full_float32()
+    t_phase = time.perf_counter()
+    seconds = {}
+
+    def timed(part, fn, *args):
+        t0 = time.perf_counter()
+        value = fn(*args)
+        seconds[part] = time.perf_counter() - t0
+        return value
+    for fn in counters.values():
+        fn.launches = 0
+    summary = {"ptb": timed("a", _rnn_ptb, device),
+               "cli": timed("b", _rnn_clis, counters, device)}
+    for fn in counters.values():
+        fn.launches = 0
+    summary["dropout"] = timed("c", _rnn_dropout, device)
+    launches = {n: fn.launches for n, fn in counters.items()}
+    if any(launches.values()):
+        raise AssertionError(f"a kernel of the kernels line launched on "
+                             f"the recurrent path: {launches}")
+    summary["graph"], graph = timed("d", _lenet_graph, counters, device)
+    rows, summary["int8"] = timed("e", _lenet_graph_int8, counters,
+                                  k5_rows, graph, device)
+    summary["wall_s"] = time.perf_counter() - t_phase
+    summary["part_seconds"] = seconds
+    log("rnn", f"seconds by part: {json.dumps(seconds)}")
+    summary["max_memory_allocated"] = torch.cuda.max_memory_allocated() \
+        if device == "cuda" else "not measured"
+    log("rnn", f"phase wall {summary['wall_s']:.1f} s")
+    return rows, summary
+
+
 def main() -> int:
     import torch
 
@@ -6752,7 +7612,7 @@ def main() -> int:
     from bigdl_tpu_torch.kernels.paged_decode import paged_decode_attention
     from bigdl_tpu_torch.kernels.ragged_decode import ragged_decode_attention
 
-    kind, _ = phase_device()
+    kind, smi = phase_device()
     phase_build()
     greedy, topk = make_prompts()
     # the main path's steady state: the first 16 prompts' lengths,
@@ -6764,7 +7624,7 @@ def main() -> int:
     flash_fwd, flash_bwd = phase_flash(train_seg)
     blockwise_fwd, blockwise_bwd, bf16_fwd, bf16_bwd = phase_blockwise()
     phase_k6_route()
-    int8, k5_vgg_rows = phase_int8_gemm()
+    int8, k5_vgg_rows, k5_lenet_rows = phase_int8_gemm()
     paged = phase_paged_decode(main_lengths)
     counters = {"ragged_decode": ragged_decode_attention,
                 "flash_attention_fwd": flash_attention_forward,
@@ -6792,6 +7652,7 @@ def main() -> int:
     phase_lm(counters, corpus)
     phase_fleet(counters, greedy)
     zoo_rows, _ = phase_zoo(counters, k5_vgg_rows)
+    rnn_rows, _ = phase_rnn(counters, k5_lenet_rows)
     ragged["launches"] = serve_launches["ragged_decode"]
     flash_fwd["launches"] = train_launches["flash_attention_fwd"]
     flash_bwd["launches"] = train_launches["flash_attention_bwd"]
@@ -6818,9 +7679,12 @@ def main() -> int:
                      f"{WINDOWS['graph rows']} rows timed by graph "
                      f"replays; {WINDOWS['singles disagreed']} rows whose "
                      f"single-call windows disagreed")
+    # the card's name and power limit again, within the output's tail
+    print(smi, flush=True)
     print(json.dumps({"kernels": [ragged, flash_fwd, flash_bwd,
                                   blockwise_fwd, blockwise_bwd, bf16_fwd,
-                                  bf16_bwd, int8, paged] + zoo_rows}),
+                                  bf16_bwd, int8, paged] + zoo_rows
+                          + rnn_rows}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -422,13 +422,20 @@ def test_a_module_saved_by_the_jax_package_loads_in_the_port(tmp_path, name):
 
 
 def test_specs_round_trip_and_graphs_are_not_ported():
+    """A spec round-trips; a Graph spec (once refused, now ported)
+    builds a Graph whose spec is the same."""
     port = _resnet20()
     spec = to_spec(port)
     assert json.loads(json.dumps(spec)) == spec
     assert to_spec(from_spec(spec)) == spec
     assert "generator" not in json.dumps(spec)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        from_spec({"class": "Graph", "nodes": []})
+    graph = {"class": "Graph", "nodes": [{"class": "Input"},
+                                         {"class": "Tanh"}],
+             "edges": [[0, 1, None]], "inputs": [0], "outputs": [1]}
+    built = from_spec(graph)
+    assert type(built).__name__ == "Graph"
+    assert to_spec(built) == {**graph, "nodes": [
+        {"class": c, "args": [], "kwargs": {}} for c in ("Input", "Tanh")]}
 
 
 def test_model_registry_serves_a_saved_module(tmp_path):

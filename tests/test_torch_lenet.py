@@ -335,8 +335,11 @@ def test_train_and_test_cli_match_jax(monkeypatch):
 
 @pytest.mark.parametrize("flags", [["-g"]])
 def test_cli_unported_flags_raise(flags):
-    with pytest.raises(NotImplementedError, match="queue 1, item"):
-        lenet_train.main(["--synthetic", "16", "--device", "cpu"] + flags)
+    """``-g`` raised until the Graph was ported; it now trains the
+    Graph form of LeNet-5."""
+    model = lenet_train.main(["--synthetic", "16", "--device", "cpu"]
+                             + flags)
+    assert type(model).__name__ == "Graph"
 
 
 def test_cli_without_mnist_exits_naming_synthetic(tmp_path):

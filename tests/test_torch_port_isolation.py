@@ -68,7 +68,12 @@ def test_importing_the_port_loads_no_reference_module():
             "bigdl_tpu_torch.models.autoencoder.train, "
             "bigdl_tpu_torch.models.autoencoder.test, "
             "bigdl_tpu_torch.nn.norm, bigdl_tpu_torch.nn.criterion, "
-            "bigdl_tpu_torch.nn.initialization, bigdl_tpu_torch.tools.perf\n"
+            "bigdl_tpu_torch.nn.initialization, bigdl_tpu_torch.tools.perf, "
+            "bigdl_tpu_torch.nn.recurrent, bigdl_tpu_torch.nn.embedding, "
+            "bigdl_tpu_torch.nn.graph, bigdl_tpu_torch.nn.control_ops, "
+            "bigdl_tpu_torch.utils.directed_graph, "
+            "bigdl_tpu_torch.models.rnn, bigdl_tpu_torch.models.rnn.train, "
+            "bigdl_tpu_torch.models.rnn.test\n"
             "bad = sorted(m for m in sys.modules if m == 'bigdl_tpu' "
             "or m.startswith('bigdl_tpu.'))\n"
             "print(bad)\n"
