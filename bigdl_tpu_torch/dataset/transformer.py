@@ -4,9 +4,9 @@ of A to an iterator of B. Not ported yet: chaining (``>>``) and
 ``Lambda``."""
 from __future__ import annotations
 
-from typing import Iterator
+from typing import Iterator, Optional
 
-from bigdl_tpu_torch.dataset.sample import samples_to_minibatch
+from bigdl_tpu_torch.dataset.sample import PaddingParam, samples_to_minibatch
 
 __all__ = ["SampleToMiniBatch", "Transformer"]
 
@@ -22,19 +22,33 @@ class Transformer:
 
 
 class SampleToMiniBatch(Transformer):
-    """Group Samples into MiniBatches of ``batch_size`` records; a final
-    partial batch is emitted unless ``drop_remainder``."""
+    """Group Samples into MiniBatches of ``batch_size`` records
+    (Transformer.scala:309); a final partial batch is emitted unless
+    ``drop_remainder``. ``feature_padding`` / ``label_padding`` pad
+    records of differing sizes (a sparse feature's nnz among them), as
+    :func:`~bigdl_tpu_torch.dataset.sample.samples_to_minibatch` says.
+    ``partition_num`` is accepted as in the JAX package, where it does
+    nothing either: the batch is split at the sharding layer."""
 
-    def __init__(self, batch_size: int, drop_remainder: bool = False):
+    def __init__(self, batch_size: int,
+                 feature_padding: Optional[PaddingParam] = None,
+                 label_padding: Optional[PaddingParam] = None,
+                 partition_num: int = 1, drop_remainder: bool = False):
         self.batch_size = batch_size
+        self.feature_padding = feature_padding
+        self.label_padding = label_padding
         self.drop_remainder = drop_remainder
+
+    def _batch(self, buf):
+        return samples_to_minibatch(buf, self.feature_padding,
+                                    self.label_padding)
 
     def apply(self, it):
         buf = []
         for s in it:
             buf.append(s)
             if len(buf) == self.batch_size:
-                yield samples_to_minibatch(buf)
+                yield self._batch(buf)
                 buf = []
         if buf and not self.drop_remainder:
-            yield samples_to_minibatch(buf)
+            yield self._batch(buf)

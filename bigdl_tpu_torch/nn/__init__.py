@@ -9,10 +9,12 @@ from bigdl_tpu_torch.nn.activation import (
     Square, Tanh, TanhShrink, Threshold)
 from bigdl_tpu_torch.nn.attention import (MultiHeadAttention,
                                           dot_product_attention)
-from bigdl_tpu_torch.nn.container import (Concat, ConcatTable, Container,
+from bigdl_tpu_torch.nn.container import (Bottle, Concat, ConcatTable,
+                                          Container, MapTable, MixtureTable,
+                                          NarrowTable, ParallelTable,
                                           Sequential)
 from bigdl_tpu_torch.nn.control_ops import IfThenElse, MergeOps, SwitchOps
-from bigdl_tpu_torch.nn.conv import SpatialConvolution
+from bigdl_tpu_torch.nn.conv import SpatialConvolution, TemporalConvolution
 from bigdl_tpu_torch.nn.dropout import Dropout, L1Penalty, SpatialDropout2D
 from bigdl_tpu_torch.nn.criterion import (BCECriterion, ClassNLLCriterion,
                                           CrossEntropyCriterion,
@@ -38,28 +40,46 @@ from bigdl_tpu_torch.nn.recurrent import (GRU, LSTM, BiRecurrent, Cell,
                                           ConvLSTMPeephole3D, LSTMPeephole,
                                           Recurrent, RecurrentDecoder,
                                           RnnCell, TimeDistributed)
-from bigdl_tpu_torch.nn.shape import Reshape, View
-from bigdl_tpu_torch.nn.table_ops import CAddTable
+from bigdl_tpu_torch.nn.shape import (
+    BifurcateSplitTable, Contiguous, FlattenTable, Index, InferReshape,
+    JoinTable, MaskedSelect, Max, Mean, Min, Narrow, Nms, Pack, Padding,
+    Replicate, Reshape, ResizeBilinear, Reverse, Scale, Select, SelectTable,
+    SpatialZeroPadding, SplitTable, Squeeze, Sum, Tile, Transpose, Unsqueeze,
+    View)
+from bigdl_tpu_torch.nn.sparse import (DenseToSparse, SparseJoinTable,
+                                       SparseLinear)
+from bigdl_tpu_torch.nn.table_ops import (CAddTable, CDivTable, CMaxTable,
+                                          CMinTable, CMulTable, CSubTable)
+from bigdl_tpu_torch.nn.tree_lstm import BinaryTreeLSTM, TreeLSTM
 
 __all__ = ["Abs", "AddConstant", "BCECriterion", "BatchNormalization",
-           "BiRecurrent", "BinaryThreshold", "CAddTable", "Cell", "Clamp",
+           "BiRecurrent", "BifurcateSplitTable", "BinaryThreshold",
+           "BinaryTreeLSTM", "Bottle", "CAddTable", "CDivTable", "CMaxTable",
+           "CMinTable", "CMulTable", "CSubTable", "Cell", "Clamp",
            "ClassNLLCriterion", "Concat", "ConcatTable", "Container",
-           "ConvLSTMPeephole", "ConvLSTMPeephole3D", "Criterion",
-           "CrossEntropyCriterion", "Dropout", "ELU", "Echo", "Exp", "GRU",
-           "GaussianSampler", "GradientReversal", "Graph", "HardShrink",
-           "HardSigmoid", "HardTanh", "Identity", "IfThenElse", "Input",
-           "L1Penalty", "LSTM", "LSTMPeephole", "LayerNorm", "LeakyReLU",
-           "Linear", "Log", "Log1p", "LogSigmoid", "LogSoftMax",
-           "LookupTable", "MSECriterion", "MergeOps", "MoE", "Module",
-           "MulConstant", "MultiHeadAttention", "Negative", "PReLU", "Power",
-           "QuantizedLinear", "QuantizedSpatialConvolution", "RMSNorm",
-           "RReLU", "ReLU", "ReLU6", "Recurrent", "RecurrentDecoder",
-           "Reshape", "RnnCell", "SequenceCrossEntropyCriterion",
-           "Sequential", "Sigmoid", "SoftMax", "SoftMin", "SoftPlus",
-           "SoftShrink", "SoftSign", "SpatialAveragePooling",
-           "SpatialBatchNormalization", "SpatialConvolution",
-           "SpatialCrossMapLRN", "SpatialDropout2D", "SpatialMaxPooling",
-           "SpatialWithinChannelLRN", "Sqrt", "Square", "SwitchOps", "Tanh",
-           "TanhShrink", "Threshold", "TimeDistributed",
-           "TimeDistributedCriterion", "View", "dot_product_attention",
-           "quantize", "total_regularization"]
+           "Contiguous", "ConvLSTMPeephole", "ConvLSTMPeephole3D",
+           "Criterion", "CrossEntropyCriterion", "DenseToSparse", "Dropout",
+           "ELU", "Echo", "Exp", "FlattenTable", "GRU", "GaussianSampler",
+           "GradientReversal", "Graph", "HardShrink", "HardSigmoid",
+           "HardTanh", "Identity", "IfThenElse", "Index", "InferReshape",
+           "Input", "JoinTable", "L1Penalty", "LSTM", "LSTMPeephole",
+           "LayerNorm", "LeakyReLU", "Linear", "Log", "Log1p", "LogSigmoid",
+           "LogSoftMax", "LookupTable", "MSECriterion", "MapTable",
+           "MaskedSelect", "Max", "Mean", "MergeOps", "Min", "MixtureTable",
+           "MoE", "Module", "MulConstant", "MultiHeadAttention", "Narrow",
+           "NarrowTable", "Negative", "Nms", "PReLU", "Pack", "Padding",
+           "ParallelTable", "Power", "QuantizedLinear",
+           "QuantizedSpatialConvolution", "RMSNorm", "RReLU", "ReLU", "ReLU6",
+           "Recurrent", "RecurrentDecoder", "Replicate", "Reshape",
+           "ResizeBilinear", "Reverse", "RnnCell", "Scale", "Select",
+           "SelectTable", "SequenceCrossEntropyCriterion", "Sequential",
+           "Sigmoid", "SoftMax", "SoftMin", "SoftPlus", "SoftShrink",
+           "SoftSign", "SparseJoinTable", "SparseLinear",
+           "SpatialAveragePooling", "SpatialBatchNormalization",
+           "SpatialConvolution", "SpatialCrossMapLRN", "SpatialDropout2D",
+           "SpatialMaxPooling", "SpatialWithinChannelLRN",
+           "SpatialZeroPadding", "SplitTable", "Sqrt", "Square", "Squeeze",
+           "Sum", "SwitchOps", "Tanh", "TanhShrink", "TemporalConvolution",
+           "Threshold", "Tile", "TimeDistributed", "TimeDistributedCriterion",
+           "Transpose", "TreeLSTM", "Unsqueeze", "View",
+           "dot_product_attention", "quantize", "total_regularization"]

@@ -1,5 +1,5 @@
 """Convolution (counterpart of ``bigdl_tpu.nn.conv``; BigDL
-nn/SpatialConvolution.scala).
+nn/SpatialConvolution.scala, nn/TemporalConvolution.scala).
 
 NCHW activations and OIHW weights, as in the JAX package, so a weight
 carries over with no transpose. The product is PyTorch's float32
@@ -26,7 +26,8 @@ from bigdl_tpu_torch.nn.initialization import (InitializationMethod,
 from bigdl_tpu_torch.nn.module import Module, weight_penalty
 from bigdl_tpu_torch.utils.engine import full_float32
 
-__all__ = ["SpatialConvolution", "crop_negative_padding"]
+__all__ = ["SpatialConvolution", "TemporalConvolution",
+           "crop_negative_padding"]
 
 
 def crop_negative_padding(x, pad_h: int, pad_w: int):
@@ -100,6 +101,49 @@ class SpatialConvolution(Module):
                      (pad_h, pad_w), 1, self.n_group)
         if self.bias is not None:
             y = y + self.bias.reshape(1, -1, 1, 1)
+        return y[0] if squeeze else y
+
+    def regularization_loss(self):
+        return weight_penalty(self)
+
+
+class TemporalConvolution(Module):
+    """1-D convolution over ``[B, T, input_frame_size]`` (or ``[T,
+    input_frame_size]``, the batch of one dropped again) to ``[B, T',
+    output_frame_size]``, ``T' = (T - kernel_w) // stride_w + 1``: no
+    padding (nn/TemporalConvolution.scala). The weight is ``[out, in,
+    kernel_w]`` as in the JAX package; weight and bias default to
+    ``U(-1/sqrt(in * kernel_w), ...)``. Parameters are built on the CPU
+    from ``generator``."""
+
+    def __init__(self, input_frame_size: int, output_frame_size: int,
+                 kernel_w: int, stride_w: int = 1,
+                 w_regularizer=None, b_regularizer=None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.input_frame_size = input_frame_size
+        self.output_frame_size = output_frame_size
+        self.kernel_w = kernel_w
+        self.stride_w = stride_w
+        self.w_regularizer = w_regularizer
+        self.b_regularizer = b_regularizer
+        fan_in = input_frame_size * kernel_w
+        init = _DefaultConvInit()
+        self.weight = nn.Parameter(init(
+            (output_frame_size, input_frame_size, kernel_w), fan_in,
+            output_frame_size * kernel_w, generator))
+        self.bias = nn.Parameter(init((output_frame_size,), fan_in,
+                                      output_frame_size * kernel_w,
+                                      generator))
+
+    def forward(self, x):
+        squeeze = x.ndim == 2
+        if squeeze:
+            x = x[None]
+        if x.is_cuda:
+            full_float32()
+        y = F.conv1d(x.transpose(1, 2), self.weight, None, self.stride_w)
+        y = y.transpose(1, 2) + self.bias
         return y[0] if squeeze else y
 
     def regularization_loss(self):

@@ -62,6 +62,8 @@ def _map(fn, x):
 
 def _grad_leaf(x):
     t = torch.as_tensor(x)
+    if t.is_sparse:
+        return t        # a sparse input passes untouched (no gradient)
     if t.is_floating_point():
         return t.detach().clone().requires_grad_()
     return t

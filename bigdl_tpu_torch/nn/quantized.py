@@ -91,6 +91,13 @@ class QuantizedLinear(Module):
 
     def forward(self, x):
         _inference_only(self)
+        if isinstance(x, torch.Tensor) and x.is_sparse:
+            # a quantized SparseLinear: the int8 path takes dense rows
+            # only, and the JAX package's raises on the sparse input too
+            raise TypeError(
+                f"{type(self).__name__} takes a dense input; got a sparse "
+                f"COO input of shape {tuple(x.shape)} (the int8 path has "
+                f"no sparse product: keep a SparseLinear float)")
         squeeze = x.ndim == 1
         if squeeze:
             x = x[None]

@@ -28,7 +28,8 @@ from bigdl_tpu_torch.optim.trigger import (Trigger, every_epoch, max_epoch,
                                            min_loss, several_iteration)
 from bigdl_tpu_torch.optim.validation import (MAE, AccuracyResult, Loss,
                                               LossResult, Top1Accuracy,
-                                              Top5Accuracy, ValidationMethod,
+                                              Top5Accuracy, TreeNNAccuracy,
+                                              ValidationMethod,
                                               ValidationResult)
 
 __all__ = ["AccuracyResult", "Adadelta", "Adagrad", "Adam", "Adamax",
@@ -39,7 +40,7 @@ __all__ = ["AccuracyResult", "Adadelta", "Adagrad", "Adam", "Adamax",
            "Loss", "LossResult", "MAE", "MultiStep", "NaturalExp",
            "OptimMethod", "Optimizer", "Plateau", "Poly", "Predictor",
            "RMSprop", "Regime", "Regularizer", "SGD", "SequentialSchedule",
-           "Step", "Top1Accuracy", "Top5Accuracy", "Trigger",
+           "Step", "Top1Accuracy", "Top5Accuracy", "TreeNNAccuracy", "Trigger",
            "ValidationMethod", "ValidationResult", "Warmup",
            "build_eval_step", "build_train_step", "make_host_window",
            "seed_precision", "every_epoch", "max_epoch", "max_iteration",

@@ -72,7 +72,9 @@ from bigdl_tpu_torch.convert import (export_params, export_state,
 from bigdl_tpu_torch.dataset.dataset import AbstractDataSet
 from bigdl_tpu_torch.dataset.prefetch import (batch_signature,
                                               stack_minibatches)
-from bigdl_tpu_torch.dataset.sample import MiniBatch
+from bigdl_tpu_torch.dataset.sample import (HostBatchedCOO, MiniBatch,
+                                            SparseFeature,
+                                            minibatch_input_to_device)
 from bigdl_tpu_torch.faults.retry import backoff_delay, classify
 from bigdl_tpu_torch.nn.container import forward_takes_generator
 from bigdl_tpu_torch.nn.module import Criterion, Module
@@ -402,14 +404,6 @@ def build_eval_step(module: Module,
     return eval_step
 
 
-def _to_device(x, device):
-    if isinstance(x, (list, tuple)):
-        return [_to_device(e, device) for e in x]
-    if x is None:
-        return None
-    return torch.as_tensor(x).to(device, non_blocking=True)
-
-
 def _leaf_at(x, i: int):
     """Row ``i`` of a stacked ``[K, ...]`` leaf (lists walked)."""
     if isinstance(x, (list, tuple)):
@@ -513,7 +507,8 @@ class _HostWindow:
         key = (k, batch_signature(MiniBatch(xs, ys)))
         self.shapes.add(key)
         if device.type != "cuda":
-            xs, ys = _to_device(xs, device), _to_device(ys, device)
+            xs = minibatch_input_to_device(xs, device)
+            ys = minibatch_input_to_device(ys, device)
             lr_t = torch.tensor(list(lrs), dtype=self.step.lr_dtype,
                                 device=device)
             return torch.stack([self.step(_leaf_at(xs, i), _leaf_at(ys, i),
@@ -577,15 +572,17 @@ def make_host_window(step) -> _HostWindow:
 
 def _window_stackable(batch: MiniBatch) -> bool:
     """True when every leaf of the MiniBatch is a dense host array (numpy
-    or a CPU tensor): the only thing window stacking takes. A leaf
-    already on the card keeps the per-step path: stacking it on the host
-    would copy it back and forth with a sync a batch, the inverse of
-    what a window buys."""
+    or a CPU tensor): the only thing window stacking takes. A sparse
+    plane (a HostBatchedCOO) keeps the per-step path, and so does a leaf
+    already on the card: stacking it on the host would copy it back and
+    forth with a sync a batch, the inverse of what a window buys."""
     def ok(x):
         if x is None:
             return True
         if isinstance(x, (list, tuple)):
             return all(ok(e) for e in x)
+        if isinstance(x, (HostBatchedCOO, SparseFeature)):
+            return False
         return not (isinstance(x, torch.Tensor) and x.device.type != "cpu")
     return ok(batch.input) and ok(batch.target)
 
@@ -1149,8 +1146,8 @@ class Optimizer:
                 continue
 
             batch = window[0] if window else pull_batch()
-            inp = _to_device(batch.get_input(), device)
-            tgt = _to_device(batch.get_target(), device)
+            inp = minibatch_input_to_device(batch.get_input(), device)
+            tgt = minibatch_input_to_device(batch.get_target(), device)
             lr = self.optim_method.update_hyper_parameter()
             lr_t.fill_(lr)
             loss_f = float(step(inp, tgt, lr_t))   # the per-step sync

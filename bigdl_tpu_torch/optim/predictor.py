@@ -2,7 +2,8 @@
 optim/Predictor.scala:35, LocalPredictor.scala:37): the local path.
 
 A batched forward over a dataset in evaluation mode on the model's
-device. The last partial batch is padded to the batch size with
+device; a sparse plane (a HostBatchedCOO) goes to the model as a COO
+tensor. The last partial batch is padded to the batch size with
 :func:`pad_rows`, so every forward sees one batch shape, and the pad
 rows are dropped from the predictions.
 
@@ -17,9 +18,10 @@ from typing import Iterator, List
 import numpy as np
 
 from bigdl_tpu_torch.dataset.dataset import AbstractDataSet
-from bigdl_tpu_torch.dataset.sample import MiniBatch
+from bigdl_tpu_torch.dataset.sample import (HostBatchedCOO, MiniBatch,
+                                            minibatch_input_to_device)
 from bigdl_tpu_torch.dataset.transformer import SampleToMiniBatch
-from bigdl_tpu_torch.optim.optimizer import _to_device, build_eval_step
+from bigdl_tpu_torch.optim.optimizer import build_eval_step
 from bigdl_tpu_torch.utils.engine import model_device
 
 __all__ = ["LocalPredictor", "Predictor", "minibatches", "pad_rows"]
@@ -57,9 +59,16 @@ def pad_rows(a: np.ndarray, n: int) -> np.ndarray:
 
 def padded_input(inp, batch_size: int):
     """A batch's input padded to ``batch_size`` rows when it has fewer
-    (each plane of a multi-plane input alike)."""
+    (each plane of a multi-plane input alike; a sparse plane repeats
+    its last row's entries)."""
     if isinstance(inp, (list, tuple)):
         return [padded_input(p, batch_size) for p in inp]
+    if isinstance(inp, HostBatchedCOO):
+        if inp.shape[0] >= batch_size:
+            return inp
+        return HostBatchedCOO(pad_rows(inp.indices, batch_size),
+                              pad_rows(inp.values, batch_size),
+                              (batch_size,) + inp.shape[1:], inp.fixed_nnz)
     a = np.asarray(inp)
     return pad_rows(a, batch_size) if a.shape[0] < batch_size else a
 
@@ -81,8 +90,8 @@ class Predictor:
         step = build_eval_step(self.model, self.precision)
         device = model_device(self.model)
         for b in minibatches(dataset, batch_size):
-            out = step(_to_device(padded_input(b.get_input(), batch_size),
-                                  device))
+            out = step(minibatch_input_to_device(
+                padded_input(b.get_input(), batch_size), device))
             yield out[:b.size()].cpu().numpy(), b
 
     def predict(self, dataset, batch_size: int = 32) -> List[np.ndarray]:

@@ -5,8 +5,6 @@ Each method maps a batch's ``(output, target)`` to a
 :class:`ValidationResult`; results sum with ``+`` across batches. Scoring
 runs on the host in numpy, after one copy of the batch's output: the
 same arithmetic as the JAX package's, so the scores are equal.
-
-Not ported yet: ``TreeNNAccuracy`` (it waits for ``tree_lstm``).
 """
 from __future__ import annotations
 
@@ -14,7 +12,8 @@ import numpy as np
 import torch
 
 __all__ = ["AccuracyResult", "Loss", "LossResult", "MAE", "Top1Accuracy",
-           "Top5Accuracy", "ValidationMethod", "ValidationResult"]
+           "Top5Accuracy", "TreeNNAccuracy", "ValidationMethod",
+           "ValidationResult"]
 
 
 class ValidationResult:
@@ -91,6 +90,35 @@ class Top1Accuracy(ValidationMethod):
         pred = out.argmax(axis=-1) + 1
         correct = int((pred == t.astype(np.int64)).sum())
         return AccuracyResult(correct, t.shape[0])
+
+
+class TreeNNAccuracy(ValidationMethod):
+    """ValidationMethod.scala:118: the accuracy of a tree (recursive)
+    network, scored on the first node's output, the root, only.
+
+    ``output``: ``[batch, nodes, classes]``, or ``[nodes, classes]`` for
+    one tree; ``target``: ``[batch, nodes]`` (or ``[nodes]``), of which
+    the first column is read. A 1-wide output thresholds at 0.5 (class
+    1 at or above it, 0 below, as the JAX package compares it); a wider
+    one takes the 1-based argmax."""
+
+    name = "TreeNNAccuracy"
+
+    def __call__(self, output, target):
+        out = np.asarray(output)
+        t = np.asarray(target)
+        if out.ndim == 3:
+            root, tgt, count = out[:, 0, :], t[:, 0], out.shape[0]
+        elif out.ndim == 2:
+            root, tgt, count = out[0, :][None], t.reshape(-1)[:1], 1
+        else:
+            raise ValueError("TreeNNAccuracy needs 2-d or 3-d output")
+        if root.shape[-1] == 1:
+            pred = (root[..., 0] >= 0.5).astype(np.int64)
+        else:
+            pred = root.argmax(axis=-1) + 1
+        correct = int((pred == tgt.astype(np.int64)).sum())
+        return AccuracyResult(correct, count)
 
 
 class Top5Accuracy(ValidationMethod):

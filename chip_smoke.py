@@ -323,7 +323,48 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    that gate; each call bitwise K5's plain version; the logits bitwise
    the quantized Sequential's and the kernels-off path's; int8-against-
    float top-1 agreement printed. Rows ``int8_gemm_lenet5_graph_fc1`` /
-   ``_fc2`` of the kernels line (timed in phase 3).
+   ``_fc2`` of the kernels line (timed in phase 3);
+18. the sparse wide-and-deep feed, the tree LSTM and the text classifier
+   (``phase_sparse_tree_text``) — (a) wide-and-deep at the Criteo
+   display-advertising layout (13 dense features, 26 categorical fields
+   hashed into one wide space of 2^20 columns, one entry a field;
+   ``build_model(1048576, 13)``, ``ClassNLLCriterion``, SGD lr 0.5, batch
+   2048, rows from a vectorised seeded generator with the example's
+   labelling rule) through ``Optimizer.optimize()`` for 20 steps: falling
+   losses; at ``steps_per_sync = 8`` the sparse batches take the
+   per-step path, the fallback logged once, losses and parameters
+   bitwise K = 1's; ms a step, rows/s, two full-batch forwards and
+   backwards bitwise alike (the sparse weight gradient's scatter), a
+   profiled window (idle share, device kernels a step, busiest kernels);
+   3 steps at batch 8 card against CPU in float64 within 1e-9, which
+   SparseLinear's weight gradient zeroed must fail; the example main at
+   the JAX test's size to a held-out accuracy above 0.8; ``quantize`` of
+   the trained model: its int8 forward on a sparse batch raises, naming
+   the sparse input, and K5 launches 0 times; (b) the tree-LSTM example
+   at the SST constituency Tree-LSTM width (8,544 trees of 32 leaves,
+   63 nodes, vocabulary 21,701, memory 150, 20 full-batch epochs of SGD
+   with momentum 0.9): falling losses, ms a step, trees/s, peak device
+   memory, a profiled window; 3 steps at 8 trees card against CPU in
+   float64 within 1e-9, which ``w_comp``'s gradient zeroed must fail;
+   the example at the JAX test's size to a ``TreeNNAccuracy`` above
+   0.8; (c) the text classifier at the 20 Newsgroups CNN width (11,314
+   synthetic documents, 1,000 ids, a 20,000-word cap, 100-wide
+   embeddings, 20 classes, batch 128, ``TEXT_EPOCHS`` epochs validated
+   each): falling losses, held-out Top1 above 0.8, ms a step, a profiled
+   window; 3 steps at batch 8 and 40 ids card against CPU in float64
+   within 1e-9, which the head's weight gradient zeroed must fail; no
+   kernel of the kernels line may launch in (a)-(c) (K5 in (a)'s int8
+   forward included); (d) ``quantize`` over (c)'s trained classifier at
+   batch 128: K5 launched once an int8 forward (the head, ``[128, 128]
+   x [20, 128]``) and one K5 GEMM in a profiled forward, a model with
+   the head left float failing that gate, each call bitwise K5's plain
+   version, the logits bitwise the kernels-off path's; int8-against-
+   float top-1 agreement printed. Row ``int8_gemm_textclassifier_head``
+   of the kernels line (timed in phase 3; no library call: ``_int_mm``
+   takes N only in multiples of 8); (e) each of the slice's 43 classes
+   once card against CPU in float64 at the CPU tests' small shapes: the
+   outputs and the gradients of a seeded scalar loss within 1e-9
+   relative. The phase's wall time by part.
 
 Float32 throughout phases 1–10, with TF32 off for matrix products (set
 here) and for convolutions (PyTorch's default is on; the port's
@@ -334,7 +375,9 @@ phase 11's limits, (b)-(f) float32 (float64 for LBFGS's card-against-CPU
 check); phase 13 (a) runs bf16_mixed at phase 11's limits, (b) and (c)
 float32; phase 14 float32; phase 15 float64 in (a), float32 and
 bf16_mixed in (b), float32 in (c)-(e); phase 16 bf16_mixed at phase
-11's limits; phase 17 float32 (and bf16_mixed, float64 where (a) says).
+11's limits; phase 17 float32 (and bf16_mixed, float64 where (a) says);
+phase 18 float32, with float64 in (a)-(c)'s card-against-CPU checks and
+in (e), and int8 through K5 in (d).
 
 After the phases the card's name and power limit print again; then the
 line before the last is a JSON object ``{"kernels": [...]}`` with
@@ -3049,9 +3092,11 @@ def phase_int8_gemm():
     classifier shapes (``ZOO_FC_SHAPES``, phase 15 (e)) beside the plain
     version, ``torch._int_mm`` plus the same epilogue (the library
     yardstick) and the bound; the same at LeNet5_graph's fc1 and fc2
-    (``LENET_G_FC_SHAPES``, phase 17 (e)). Returns the kernels-line
-    entry at the main path's shape and the ``int8_gemm_vgg16_*`` and
-    ``int8_gemm_lenet5_graph_*`` rows, by fc (launches filled in
+    (``LENET_G_FC_SHAPES``, phase 17 (e)) and at the text classifier's
+    head (``TEXT_HEAD_SHAPE``, phase 18 (d)). Returns the kernels-line
+    entry at the main path's shape, the ``int8_gemm_vgg16_*`` and
+    ``int8_gemm_lenet5_graph_*`` rows, by fc, and the
+    ``int8_gemm_textclassifier_head`` row (launches filled in
     later)."""
     import torch
 
@@ -3095,12 +3140,14 @@ def phase_int8_gemm():
     for (m, n, k), n_sets in ((INT8_MAIN_SHAPE, 32), (INT8_BIG_SHAPE, 3)) \
             + tuple((shape, ZOO_INT8_SETS if fc == "fc6" else 12)
                     for fc, shape in ZOO_FC_SHAPES.items()) \
-            + tuple((shape, 12) for shape in LENET_G_FC_SHAPES.values()):
+            + tuple((shape, 12) for shape in LENET_G_FC_SHAPES.values()) \
+            + ((TEXT_HEAD_SHAPE, 12),):
         sets = [_int8_operands(gen, m, n, k) for _ in range(n_sets)]
         got = int8_gemm(*sets[0])
         want = int8_gemm_reference(*sets[0])
         # torch._int_mm takes M > 16 and N, K multiples of 8 on the card:
-        # at LeNet5_graph's fc1 / fc2 there is no one library call
+        # at LeNet5_graph's fc1 / fc2 and the text head (N = 20) there is
+        # no one library call
         has_library = m > 16 and n % 8 == 0 and k % 8 == 0
         lib = library(*sets[0]) if has_library else None
         torch.cuda.synchronize()
@@ -3170,7 +3217,9 @@ def phase_int8_gemm():
             {fc: line_row(f"int8_gemm_vgg16_{fc}", timed[shape])
              for fc, shape in ZOO_FC_SHAPES.items()},
             {fc: line_row(f"int8_gemm_lenet5_graph_{fc}", timed[shape])
-             for fc, shape in LENET_G_FC_SHAPES.items()})
+             for fc, shape in LENET_G_FC_SHAPES.items()},
+            line_row("int8_gemm_textclassifier_head",
+                     timed[TEXT_HEAD_SHAPE]))
 
 
 # ---- K4: paged decode ----
@@ -7598,6 +7647,800 @@ def phase_rnn(counters, k5_rows, device="cuda"):
     return rows, summary
 
 
+# ---- phase 18: the sparse wide-and-deep feed, the tree LSTM, the text
+# classifier ----
+
+#: (a) the Criteo display-advertising layout: 13 integer features (the
+#: deep input) and 26 categorical fields hashed into one wide space of
+#: 2^20 columns, one entry a field, so every row and batch has nnz 26
+#: (no PaddingParam: one pads every feature plane, the 13 deep features
+#: to 26 too, in both packages); batch, steps, the window tried, SGD's
+#: rate (the example's) and the seed
+WD_WIDE, WD_DEEP, WD_FIELDS = 1 << 20, 13, 26
+WD_BATCH, WD_STEPS, WD_K, WD_LR, WD_SEED = 2048, 20, 8, 0.5, 81
+WD_PROFILE_STEPS = 3
+#: card against CPU in float64: batch, steps, and the limit on the
+#: losses (relative) and the parameters (absolute), (a)-(c) alike
+F64_BATCH, F64_STEPS, F64_TOL = 8, 3, 1e-9
+#: the example main at the JAX test's size and its bar
+#: (tests/test_examples.py:110-113)
+WD_EXAMPLE = ["-n", "512", "--wideDim", "100", "-e", "3", "-b", "32"]
+EXAMPLE_MIN_ACC = 0.8
+#: (b) the SST constituency Tree-LSTM (Tai et al. 2015: memory 150;
+#: 8,544 training sentences, a 21,701-word vocabulary): full trees of
+#: 32 leaves (63 nodes), one full-batch step an epoch
+TREE_TREES, TREE_LEAVES, TREE_VOCAB, TREE_HIDDEN = 8544, 32, 21701, 150
+TREE_EPOCHS, TREE_LR, TREE_SEED, TREE_PROFILE_STEPS = 20, 0.5, 82, 2
+TREE_SMALL = ["--trees", "120"]      # tests/test_examples.py:39-42
+#: (c) the 20 Newsgroups CNN (the Keras example BigDL's
+#: textclassification follows): 1,000 ids, a 20,000-word cap, 100-wide
+#: embeddings, 20 classes, batch 128; 11,314 documents (the train
+#: split's size); epochs from a CPU rehearsal at 2,800 documents
+TEXT_DOCS, TEXT_CLASSES, TEXT_SEQ, TEXT_VOCAB = 11314, 20, 1000, 20000
+TEXT_EMBED, TEXT_BATCH, TEXT_EPOCHS, TEXT_SEED = 100, 128, 3, 83
+TEXT_PROFILE_STEPS, TEXT_F64_SEQ = 3, 40
+#: (d) K5's call an int8 forward of the classifier's head, [M, N, K],
+#: and the int8 forwards counted
+TEXT_HEAD_SHAPE = (TEXT_BATCH, TEXT_CLASSES, 128)
+TEXT_INT8_FORWARDS = 4
+
+
+@contextlib.contextmanager
+def _captured_log(name: str):
+    """The INFO records of logger ``name`` while the block runs."""
+    import logging
+
+    records = []
+
+    class Keep(logging.Handler):
+        def emit(self, record):
+            records.append(record.getMessage())
+
+    logger = logging.getLogger(name)
+    handler, level = Keep(logging.INFO), logger.level
+    logger.addHandler(handler)
+    logger.setLevel(logging.INFO)
+    try:
+        yield records
+    finally:
+        logger.removeHandler(handler)
+        logger.setLevel(level)
+
+
+def _profile_steps(step_fn, steps: int, device, phase: str) -> dict:
+    """A profiled window of ``steps`` calls of ``step_fn(i)`` (each ending
+    in a host read), after one warm call: wall and device ms a step,
+    idle share, device kernels a step, the busiest kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    step_fn(0)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        time.sleep(WINDOW_MARGIN_S)
+        t0 = time.perf_counter()
+        for i in range(steps):
+            step_fn(i + 1)
+        torch.cuda.synchronize(device)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        time.sleep(WINDOW_MARGIN_S)
+    kernels = device_kernels(prof)
+    busy_ms = sum(k[0] for k in kernels)
+    read = bool(kernels) and busy_ms <= wall_ms
+    out = {"steps": steps, "wall_ms_per_step": wall_ms / steps,
+           "device_ms_per_step": busy_ms / steps if read
+           else "not measured",
+           "device_idle_share": 1 - busy_ms / wall_ms if read
+           else "not measured",
+           "device_kernels_per_step": sum(k[1] for k in kernels) / steps,
+           "top": [[round(ms / steps, 4), n // steps, key[:70]]
+                   for ms, n, key in kernels[:6]]}
+    log(phase, "profile " + json.dumps(out))
+    return out
+
+
+def _f64_gaps(runs: dict, phase: str) -> dict:
+    """``{label: (loss relative gap, parameter absolute gap)}`` of each
+    run against ``runs["cpu"]``: (losses, parameter tree) each."""
+    want = runs.pop("cpu")
+    gaps = {label: (max(abs(g - w) / abs(w)
+                        for g, w in zip(got[0], want[0])),
+                    _max_param_diff(got[1], want[1]))
+            for label, got in runs.items()}
+    log(phase, "float64 card vs CPU (loss rel, param abs): "
+        + json.dumps(gaps))
+    return gaps
+
+
+def _f64_holds(gaps: dict) -> bool:
+    """The card run within ``F64_TOL`` and each faulty run outside it."""
+    return all((g[0] <= F64_TOL and g[1] <= F64_TOL) == (label == "card")
+               for label, g in gaps.items())
+
+
+def criteo_rows(n: int, seed: int):
+    """``n`` rows of the Criteo layout from a vectorised generator:
+    ``(wide columns [n, 26], deep features [n, 13], labels)``, each of
+    the 26 fields hashed to a uniform column of the 2^20 wide space, the
+    label the wide-and-deep example's rule (a sparse true wide vector
+    summed over the row's columns plus 0.5 x a dense true deep vector;
+    positive is class 1)."""
+    truth = np.random.RandomState(WD_SEED)
+    w_wide = truth.randn(WD_WIDE) * (truth.rand(WD_WIDE) < 0.1)
+    w_deep = truth.randn(WD_DEEP)
+    rng = np.random.RandomState(seed)
+    cols = rng.randint(0, WD_WIDE, (n, WD_FIELDS))
+    deep = rng.randn(n, WD_DEEP).astype(np.float32)
+    score = w_wide[cols].sum(1) + 0.5 * (deep @ w_deep)
+    return cols, deep, np.where(score > 0, 1.0, 2.0).astype(np.float32)
+
+
+def _criteo_samples(cols, deep, labels):
+    from bigdl_tpu_torch.dataset import Sample, SparseFeature
+
+    ones = np.ones(WD_FIELDS, np.float32)
+    return [Sample([SparseFeature(c[:, None], ones, (WD_WIDE,)), d], y)
+            for c, d, y in zip(cols, deep, labels)]
+
+
+def _criteo_batch(cols, deep, labels, device, dtype=None):
+    """One batch of rows as the model takes it on ``device``: ``[COO,
+    deep]`` (the deep plane in ``dtype``) and the labels."""
+    import torch
+
+    from bigdl_tpu_torch.dataset import (minibatch_input_to_device,
+                                         samples_to_minibatch)
+
+    mb = samples_to_minibatch(_criteo_samples(cols, deep, labels))
+    x = minibatch_input_to_device(mb.get_input(), device)
+    y = torch.from_numpy(labels).to(device)
+    if dtype is not None:
+        x[1], y = x[1].to(dtype), y.to(dtype)
+    return x, y
+
+
+def _wd_model(device, dtype=None):
+    import torch
+
+    from bigdl_tpu_torch.examples.wide_and_deep import build_model
+
+    model = build_model(WD_WIDE, WD_DEEP,
+                        generator=torch.Generator().manual_seed(WD_SEED))
+    return (model if dtype is None else model.to(dtype)).to(device)
+
+
+def _wd_run(device, k: int, data):
+    """``WD_STEPS`` steps of the wide-and-deep model through
+    ``Optimizer.optimize()`` at ``steps_per_sync = k``: losses, ms a
+    step, the driver's fallback log lines, the model."""
+    import torch
+
+    from bigdl_tpu_torch import nn
+    from bigdl_tpu_torch.dataset import DataSet, SampleToMiniBatch
+    from bigdl_tpu_torch.optim import SGD, LocalOptimizer, max_iteration
+    from bigdl_tpu_torch.utils.random import RandomGenerator
+
+    RandomGenerator.set_seed(WD_SEED)
+    model = _wd_model(device)
+    ds = DataSet.array(data).transform(SampleToMiniBatch(
+        WD_BATCH, drop_remainder=True))
+    opt = LocalOptimizer(model, ds, nn.ClassNLLCriterion(),
+                         batch_size=WD_BATCH)
+    opt.set_optim_method(SGD(learning_rate=WD_LR))
+    opt.set_end_when(max_iteration(WD_STEPS))
+    opt.set_steps_per_sync(k)
+    with _captured_log("bigdl_tpu_torch.optim.optimizer") as records:
+        t0 = time.perf_counter()
+        opt.optimize()
+        seconds = time.perf_counter() - t0
+    ms = [h["seconds"] * 1e3 for h in opt.history[1:]]
+    return {"losses": [h["loss"] for h in opt.history],
+            "ms_per_step_median": _p50(ms),
+            "rows_per_s": WD_BATCH / (_p50(ms) / 1e3), "seconds": seconds,
+            "fallback_logs": [r for r in records
+                              if "not window-stackable" in r],
+            "window_shapes": 0 if opt.window is None
+            else len(opt.window.shapes),
+            "params": [p.detach().clone() for p in model.parameters()],
+            "model": model}
+
+
+def _wd_f64(device):
+    """``F64_STEPS`` SGD steps of the full-width model in float64 at batch
+    ``F64_BATCH``: the CPU, the card, and the card with SparseLinear's
+    weight gradient zeroed."""
+    import torch
+
+    from bigdl_tpu_torch import nn
+    from bigdl_tpu_torch.optim import SGD, build_train_step
+
+    cols, deep, labels = criteo_rows(F64_BATCH * F64_STEPS, WD_SEED + 2)
+    runs = {}
+    for label, dev in (("cpu", "cpu"), ("card", device),
+                       ("card, SparseLinear's weight gradient zeroed",
+                        device)):
+        model = _wd_model(dev, torch.float64)
+        if "zeroed" in label:
+            model[0][0][1].weight.register_hook(torch.zeros_like)
+        step = build_train_step(model, nn.ClassNLLCriterion(),
+                                SGD(learning_rate=WD_LR))
+        losses = []
+        for i in range(F64_STEPS):
+            rows = slice(i * F64_BATCH, (i + 1) * F64_BATCH)
+            x, y = _criteo_batch(cols[rows], deep[rows], labels[rows], dev,
+                                 torch.float64)
+            losses.append(float(step(x, y, WD_LR)))
+        runs[label] = (losses, model.get_parameters())
+    return _f64_gaps(runs, "wide-and-deep")
+
+
+def _wd_repeatable(model, batch) -> dict:
+    """Two forwards and backwards of one full batch: the outputs and the
+    sparse weight's gradient bitwise alike?"""
+    import torch
+
+    from bigdl_tpu_torch import nn
+
+    crit = nn.ClassNLLCriterion()
+    outs, grads = [], []
+    for _ in range(2):
+        model.zero_grad_parameters()
+        out = model(batch[0])
+        crit(out, batch[1]).backward()
+        outs.append(out.detach().clone())
+        grads.append(model[0][0][1].weight.grad.clone())
+    model.zero_grad_parameters()
+    return {"forward_bitwise": bool(torch.equal(*outs)),
+            "sparse_weight_grad_bitwise": bool(torch.equal(*grads))}
+
+
+def _phase18_wide_and_deep(counters, device):
+    """(a): the Criteo layout through ``Optimizer.optimize()``, K = 8
+    falling back per step bitwise K = 1, a profile, float64 card vs
+    CPU, the example main, ``quantize`` raising on the sparse batch."""
+    import copy
+
+    import torch
+
+    from bigdl_tpu_torch import nn
+    from bigdl_tpu_torch.examples import wide_and_deep
+    from bigdl_tpu_torch.nn.quantized import quantize
+    from bigdl_tpu_torch.optim import SGD, build_train_step
+
+    on_card = device == "cuda"
+    t0 = time.perf_counter()
+    cols, deep, labels = criteo_rows(WD_BATCH * WD_STEPS, WD_SEED + 1)
+    data = _criteo_samples(cols, deep, labels)
+    out = {"rows_made_s": time.perf_counter() - t0,
+           "class1_share": float((labels == 1).mean())}
+    k1 = _wd_run(device, 1, data)
+    k8 = _wd_run(device, WD_K, data)
+    out["k1"] = {key: k1[key] for key in ("losses", "ms_per_step_median",
+                                          "rows_per_s", "seconds")}
+    out["k8"] = {"ms_per_step_median": k8["ms_per_step_median"],
+                 "fallback_logs": k8["fallback_logs"],
+                 "window_shapes": k8["window_shapes"],
+                 "losses_bitwise_k1": k8["losses"] == k1["losses"],
+                 "params_bitwise_k1": _bitwise(k8["params"], k1["params"])}
+    model = k1["model"]
+    pc, pd, pl = criteo_rows(WD_BATCH * (WD_PROFILE_STEPS + 1),
+                             WD_SEED + 3)
+    batches = [_criteo_batch(pc[i * WD_BATCH:(i + 1) * WD_BATCH],
+                             pd[i * WD_BATCH:(i + 1) * WD_BATCH],
+                             pl[i * WD_BATCH:(i + 1) * WD_BATCH], device)
+               for i in range(WD_PROFILE_STEPS + 1)]
+    if on_card:
+        out["repeatable"] = _wd_repeatable(model, batches[0])
+        step = build_train_step(copy.deepcopy(model), nn.ClassNLLCriterion(),
+                                SGD(learning_rate=WD_LR))
+        out["profile"] = _profile_steps(
+            lambda i: float(step(*batches[i], WD_LR)), WD_PROFILE_STEPS,
+            device, "wide-and-deep")
+    out["f64"] = _wd_f64(device)
+    acc, _ = _run_cli("wide-and-deep", wide_and_deep.main,
+                      WD_EXAMPLE + ["--device", device])
+    out["example_accuracy"] = acc
+    q = quantize(model)
+    before = counters["int8_gemm"].launches
+    try:
+        with torch.inference_mode():
+            q(batches[0][0])
+        out["int8_sparse_raised"] = None
+    except (TypeError, ValueError) as e:
+        out["int8_sparse_raised"] = f"{type(e).__name__}: {e}"
+    out["int8_k5_launches"] = counters["int8_gemm"].launches - before
+    out["quantized_layers"] = [type(m).__name__ for m in q.modules()
+                               if type(m).__name__.startswith("Quantized")]
+    log("wide-and-deep", json.dumps(out))
+    if not (_falls(k1["losses"]) and out["k8"]["losses_bitwise_k1"]
+            and out["k8"]["params_bitwise_k1"]
+            and len(k8["fallback_logs"]) == 1
+            and out["k8"]["window_shapes"] == 0
+            and _f64_holds(out["f64"]) and acc > EXAMPLE_MIN_ACC
+            and out["int8_sparse_raised"]
+            and "sparse" in out["int8_sparse_raised"]
+            and out["int8_k5_launches"] == 0):
+        raise AssertionError(f"wide-and-deep: {out}")
+    return out
+
+
+def _phase18_tree(device):
+    """(b): the tree-LSTM example at the SST width (its ``train`` wrapped
+    to record each step's loss and time), a profile, float64 card vs
+    CPU with ``w_comp``'s gradient zeroed as the fault, the example at
+    the JAX test's size."""
+    import torch
+
+    from bigdl_tpu_torch.examples import tree_lstm_sentiment as ts
+
+    on_card = device == "cuda"
+    train, rec = ts.train, {}
+
+    def recording(model, tokens, labels, epochs, lr, on_step=None):
+        marks = [time.perf_counter()]
+
+        def mark(grads):
+            if on_card:
+                torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+
+        losses = train(model, tokens, labels, epochs, lr, on_step=mark)
+        rec.update(model=model, tokens=tokens, labels=labels, marks=marks,
+                   losses=[float(v) for v in losses])
+        return losses
+
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    ts.train = recording
+    try:
+        acc, _ = _run_cli("tree-lstm", ts.main, [
+            "--trees", str(TREE_TREES), "--leaves", str(TREE_LEAVES),
+            "--vocab", str(TREE_VOCAB), "--hidden", str(TREE_HIDDEN),
+            "--epochs", str(TREE_EPOCHS), "--lr", str(TREE_LR),
+            "--device", device])
+    finally:
+        ts.train = train
+    ms = [(b - a) * 1e3 for a, b in zip(rec["marks"], rec["marks"][1:])]
+    out = {"losses": rec["losses"], "accuracy": acc,
+           "first_step_ms": ms[0], "ms_per_step_median": _p50(ms[1:]),
+           "trees_per_s": TREE_TREES / (_p50(ms[1:]) / 1e3),
+           "max_memory_allocated": torch.cuda.max_memory_allocated()
+           if on_card else "not measured"}
+    if on_card:
+        model, toks, y = rec["model"], rec["tokens"], rec["labels"]
+        out["profile"] = _profile_steps(
+            lambda i: float(train(model, toks, y, 1, TREE_LR)[-1]),
+            TREE_PROFILE_STEPS, device, "tree-lstm")
+    del rec["model"]
+    tokens, labels = ts.make_data(F64_BATCH, TREE_LEAVES, TREE_VOCAB)
+    runs = {}
+    for label, dev in (("cpu", "cpu"), ("card", device),
+                       ("card, w_comp's gradient zeroed", device)):
+        model = ts.TreeSentiment(
+            TREE_VOCAB, TREE_HIDDEN, TREE_LEAVES,
+            generator=torch.Generator().manual_seed(TREE_SEED)).to(
+                torch.float64).to(dev)
+        at = [n for n, _ in model.named_parameters()].index("tree.w_comp")
+        fault = (lambda g: g[at].zero_()) if "zeroed" in label else None
+        losses = train(model, torch.from_numpy(tokens).to(dev),
+                       torch.from_numpy(labels).to(dev), F64_STEPS,
+                       TREE_LR, on_step=fault)
+        runs[label] = ([float(v) for v in losses], model.get_parameters())
+    out["f64"] = _f64_gaps(runs, "tree-lstm")
+    out["example_accuracy"], _ = _run_cli(
+        "tree-lstm", ts.main, TREE_SMALL + ["--device", device])
+    log("tree-lstm", json.dumps(out))
+    if not (_falls(out["losses"]) and _f64_holds(out["f64"])
+            and out["example_accuracy"] > EXAMPLE_MIN_ACC):
+        raise AssertionError(f"tree LSTM: {out}")
+    return out
+
+
+def _phase18_text(device):
+    """(c): the text classifier at the 20 Newsgroups CNN width through
+    its main (the driver kept by a recording ``LocalOptimizer``), a
+    profile, float64 card vs CPU at ``TEXT_F64_SEQ``. Returns the
+    summary, the trained model and a held-out batch."""
+    import copy
+
+    import torch
+
+    from bigdl_tpu_torch import nn
+    from bigdl_tpu_torch.examples import text_classification as tc
+    from bigdl_tpu_torch.optim import SGD, build_train_step
+    from bigdl_tpu_torch.utils.random import RandomGenerator
+
+    on_card = device == "cuda"
+    opts, driver = [], tc.LocalOptimizer
+
+    class Recording(driver):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            opts.append(self)
+
+    RandomGenerator.set_seed(TEXT_SEED)
+    tc.LocalOptimizer = Recording
+    try:
+        state, _ = _run_cli("text", tc.main, [
+            "--synthetic", str(TEXT_DOCS), "--classes", str(TEXT_CLASSES),
+            "--seqLen", str(TEXT_SEQ), "--vocabSize", str(TEXT_VOCAB),
+            "--embedDim", str(TEXT_EMBED), "-b", str(TEXT_BATCH),
+            "-e", str(TEXT_EPOCHS), "--device", device])
+    finally:
+        tc.LocalOptimizer = driver
+    opt = opts[-1]
+    model = opt.model
+    ms = [h["seconds"] * 1e3 for h in opt.history[1:]]
+    out = {"losses_first_last": [opt.history[0]["loss"],
+                                 opt.history[-1]["loss"]],
+           "steps": len(opt.history), "score": state["score"],
+           "validations": opt.validation_history,
+           "ms_per_step_median": _p50(ms),
+           "docs_per_s": TEXT_BATCH / (_p50(ms) / 1e3),
+           "lookup_rows": model[0].n_index}
+    train_rows = opt.dataset.base.elements
+    val_rows = opt.validation_dataset.elements[:TEXT_BATCH]
+
+    def stack(rows):
+        return (torch.from_numpy(np.stack([r.features[0] for r in rows]))
+                .to(device),
+                torch.from_numpy(np.stack([r.labels[0] for r in rows]))
+                .to(device))
+
+    held = stack(val_rows)
+    if on_card:
+        batches = [stack(train_rows[i * TEXT_BATCH:(i + 1) * TEXT_BATCH])
+                   for i in range(TEXT_PROFILE_STEPS + 1)]
+        step = build_train_step(copy.deepcopy(model),
+                                nn.ClassNLLCriterion(), SGD(learning_rate=0.5))
+        out["profile"] = _profile_steps(
+            lambda i: float(step(*batches[i], 0.5)), TEXT_PROFILE_STEPS,
+            device, "text")
+    v = model[0].n_index
+    rng = np.random.RandomState(TEXT_SEED + 1)
+    ids = rng.randint(1, v + 1, (F64_BATCH * F64_STEPS, TEXT_F64_SEQ))
+    ys = rng.randint(1, TEXT_CLASSES + 1, F64_BATCH * F64_STEPS)
+    runs = {}
+    for label, dev in (("cpu", "cpu"), ("card", device),
+                       ("card, the head's weight gradient zeroed", device)):
+        m = tc.build_model(v, TEXT_EMBED, TEXT_CLASSES,
+                           generator=torch.Generator().manual_seed(
+                               TEXT_SEED)).to(torch.float64).to(dev)
+        if "zeroed" in label:
+            m[4].weight.register_hook(torch.zeros_like)
+        step = build_train_step(m, nn.ClassNLLCriterion(),
+                                SGD(learning_rate=0.5))
+        losses = []
+        for i in range(F64_STEPS):
+            rows = slice(i * F64_BATCH, (i + 1) * F64_BATCH)
+            losses.append(float(step(
+                torch.from_numpy(ids[rows].astype(np.float64)).to(dev),
+                torch.from_numpy(ys[rows].astype(np.float64)).to(dev),
+                0.5)))
+        runs[label] = (losses, m.get_parameters())
+    out["f64"] = _f64_gaps(runs, "text")
+    log("text", json.dumps(out))
+    losses = [h["loss"] for h in opt.history]
+    if not (_falls(losses) and state["score"] > EXAMPLE_MIN_ACC
+            and _f64_holds(out["f64"])):
+        raise AssertionError(f"text classifier: {out}")
+    return out, model, held
+
+
+def _phase18_int8(counters, k5_row, model, held, device):
+    """(d): ``quantize`` over (c)'s trained classifier at batch
+    ``TEXT_BATCH``: K5 once an int8 forward (the head) and one K5 GEMM
+    in a profiled forward, a model with the head left float failing that
+    gate, each call bitwise K5's plain version, the logits bitwise the
+    kernels-off path's; int8-against-float top-1 agreement printed."""
+    import copy
+    import sys as _sys
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from bigdl_tpu_torch import kernels
+    from bigdl_tpu_torch.nn.quantized import quantize
+
+    on_card = device == "cuda"
+    k5 = _sys.modules["bigdl_tpu_torch.kernels.int8_gemm"]
+    model = model.evaluate()
+    q = quantize(model)
+    x = held[0]
+    dispatch = kernels.int8_matmul
+    calls = []
+
+    def recording(x_q, w_q, x_scale, w_scale, bias=None):
+        calls.append((x_q, w_q, x_scale, w_scale))
+        return dispatch(x_q, w_q, x_scale, w_scale, bias)
+
+    def count(m):
+        with torch.inference_mode():
+            float(m(x).sum())                           # warm
+            calls.clear()
+            for fn in counters.values():
+                fn.launches = 0
+            for _ in range(TEXT_INT8_FORWARDS):
+                logits = m(x)
+            if on_card:
+                torch.cuda.synchronize()
+        return logits, {n: fn.launches for n, fn in counters.items()}
+
+    kernels.int8_matmul = recording
+    try:
+        logits, launches = count(q)
+        q_calls = list(calls)
+        faulty = quantize(model)
+        faulty._modules["4"] = copy.deepcopy(model[4]).evaluate()
+        _, faulty_launches = count(faulty)
+    finally:
+        kernels.int8_matmul = dispatch
+    shapes = [(a[0].shape[0], a[1].shape[0], a[0].shape[1])
+              for a in q_calls]
+    out = {"forwards": TEXT_INT8_FORWARDS, "launches": launches,
+           "calls_at_head_shape": shapes.count(TEXT_HEAD_SHAPE),
+           "calls": len(shapes),
+           "head_float_launches": faulty_launches["int8_gemm"],
+           "quantized": [type(m).__name__ for m in q]}
+    if on_card:
+        out["gate"] = launches["int8_gemm"] == TEXT_INT8_FORWARDS
+        out["gate_with_head_float"] = \
+            faulty_launches["int8_gemm"] == TEXT_INT8_FORWARDS
+        for attempt in range(3):
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                time.sleep(WINDOW_MARGIN_S)
+                with torch.inference_mode():
+                    float(q(x).sum())
+                torch.cuda.synchronize()
+                time.sleep(WINDOW_MARGIN_S)
+            gemms = sum(n for _, n, key in device_kernels(prof)
+                        if "int8_gemm_kernel" in key)
+            if gemms >= 1:
+                break
+        out["profiled_k5_gemms"] = gemms
+    bitwise = [bool(torch.equal(k5.int8_gemm(*a),
+                                k5.int8_gemm_reference(*a)))
+               for a in q_calls]
+    err = max(float((k5.int8_gemm(*a) - k5.int8_gemm_reference(*a))
+                    .abs().max()) for a in q_calls)
+    out.update(bitwise=all(bitwise), max_abs_err=err)
+    with torch.inference_mode():
+        with kernels.use(kernels.KernelConfig.off()):
+            off = q(x)
+        out["logits_equal_kernels_off"] = bool(torch.equal(logits, off))
+        out["top1_agreement_int8_vs_float"] = float(
+            (model(x).argmax(1) == logits.argmax(1)).float().mean())
+    log("text-int8", json.dumps(out))
+    if not (out["calls"] == out["calls_at_head_shape"] == TEXT_INT8_FORWARDS
+            and out["bitwise"] and out["logits_equal_kernels_off"]
+            and out["quantized"].count("QuantizedLinear") == 1):
+        raise AssertionError(f"int8 text classifier: {out}")
+    others = {n: v for n, v in launches.items() if n != "int8_gemm" and v}
+    if others:
+        raise AssertionError(f"int8 text classifier launched {others}")
+    if on_card and not (out["gate"] and not out["gate_with_head_float"]
+                        and out["profiled_k5_gemms"] == 1):
+        raise AssertionError(f"K5 launches in the int8 text classifier: "
+                             f"{out}")
+    k5_row.update(launches=launches["int8_gemm"], max_abs_err=err)
+    return k5_row, out
+
+
+def _sweep_cases():
+    """(e)'s cases: ``{name: (build, input)}`` for the 43 classes of the
+    slice at the CPU tests' small shapes; ``input(r)`` draws float64
+    leaves from ``r`` (a seeded ``torch.Generator``)."""
+    import torch
+
+    from bigdl_tpu_torch import nn
+
+    def f(*shape):
+        return lambda r: torch.randn(shape, generator=r,
+                                     dtype=torch.float64)
+
+    def table(*parts):
+        return lambda r: [p(r) for p in parts]
+
+    def ints(values):
+        return lambda r: torch.tensor(values)
+
+    def sparse(b, n):
+        def make(r):
+            x = torch.randn((b, n), generator=r, dtype=torch.float64)
+            return (x * (torch.rand((b, n), generator=r,
+                                    dtype=torch.float64) < 0.3)).to_sparse()
+        return make
+
+    def boxes(r):
+        xy = torch.rand((12, 2), generator=r, dtype=torch.float64) * 10
+        wh = torch.rand((12, 2), generator=r, dtype=torch.float64) * 3 + 1
+        return [torch.cat([xy, xy + wh], 1),
+                torch.rand(12, generator=r, dtype=torch.float64)]
+
+    def lin(i, o):
+        return nn.Linear(i, o, generator=torch.Generator().manual_seed(1))
+
+    t34 = table(f(3, 4), f(3, 4), f(3, 4))
+    return {
+        "SelectTable": (lambda: nn.SelectTable(-1), t34),
+        "Max": (lambda: nn.Max(2, 3), f(4, 5, 6)),
+        "Min": (lambda: nn.Min(2), f(4, 5)),
+        "Mean": (lambda: nn.Mean(2), f(3, 4, 5)),
+        "Sum": (lambda: nn.Sum(1, 1, True), f(3, 4)),
+        "JoinTable": (lambda: nn.JoinTable(2), table(f(3, 4), f(3, 2))),
+        "SplitTable": (lambda: nn.SplitTable(2), f(3, 4, 5)),
+        "Select": (lambda: nn.Select(1, -1), f(3, 4)),
+        "Narrow": (lambda: nn.Narrow(2, -3, 2), f(3, 6)),
+        "FlattenTable": (lambda: nn.FlattenTable(),
+                         lambda r: [f(3, 4)(r), [f(3, 4)(r), [f(2)(r)]]]),
+        "BifurcateSplitTable": (lambda: nn.BifurcateSplitTable(2),
+                                f(3, 5, 2)),
+        "Pack": (lambda: nn.Pack(2), t34),
+        "InferReshape": (lambda: nn.InferReshape((2, -1), True),
+                         f(3, 4, 5)),
+        "Squeeze": (lambda: nn.Squeeze(1, 0, True), f(3, 1, 4)),
+        "Unsqueeze": (lambda: nn.Unsqueeze(1, 1), f(3, 4)),
+        "Transpose": (lambda: nn.Transpose([(1, 2), (2, 3)]), f(2, 3, 4)),
+        "Contiguous": (lambda: nn.Contiguous(), f(2, 3)),
+        "Replicate": (lambda: nn.Replicate(3, 2), f(2, 4)),
+        "Padding": (lambda: nn.Padding(1, -1, 1, 0.5), f(3, 4)),
+        "SpatialZeroPadding": (lambda: nn.SpatialZeroPadding(1, 2, 0, 1),
+                               f(2, 3, 4, 5)),
+        "MaskedSelect": (lambda: nn.MaskedSelect(),
+                         lambda r: [f(3, 5)(r), (torch.rand(
+                             (3, 5), generator=r) > 0.5).double()]),
+        "Index": (lambda: nn.Index(2),
+                  lambda r: [f(3, 5)(r), ints([2, 5, 1, 2])(r)]),
+        "Scale": (lambda: nn.Scale((1, 4), generator=torch.Generator()
+                                   .manual_seed(2)), f(3, 4)),
+        "Tile": (lambda: nn.Tile(2, 3), f(2, 3)),
+        "Reverse": (lambda: nn.Reverse(2), f(3, 4)),
+        "ResizeBilinear": (lambda: nn.ResizeBilinear(5, 7), f(2, 3, 4, 6)),
+        "Nms": (lambda: nn.Nms(0.5, 6), boxes),
+        "CSubTable": (lambda: nn.CSubTable(), table(f(3, 4), f(3, 4))),
+        "CMulTable": (lambda: nn.CMulTable(), t34),
+        "CDivTable": (lambda: nn.CDivTable(),
+                      lambda r: [f(3, 4)(r), f(3, 4)(r).abs() + 0.5]),
+        "CMaxTable": (lambda: nn.CMaxTable(), t34),
+        "CMinTable": (lambda: nn.CMinTable(), t34),
+        "ParallelTable": (lambda: nn.ParallelTable().add(lin(4, 3))
+                          .add(lin(2, 3)), table(f(3, 4), f(3, 2))),
+        "MapTable": (lambda: nn.MapTable(lin(4, 3)), t34),
+        "Bottle": (lambda: nn.Bottle(lin(4, 3)), f(2, 3, 4)),
+        "NarrowTable": (lambda: nn.NarrowTable(2, -1),
+                        table(f(3, 4), f(3, 4), f(3, 4), f(3, 4))),
+        "MixtureTable": (lambda: nn.MixtureTable(),
+                         lambda r: [f(3, 2)(r), [f(3, 4)(r), f(3, 4)(r)]]),
+        "TemporalConvolution": (lambda: nn.TemporalConvolution(
+            4, 6, 3, 2, generator=torch.Generator().manual_seed(3)),
+            f(2, 9, 4)),
+        "SparseLinear": (lambda: nn.SparseLinear(
+            32, 8, generator=torch.Generator().manual_seed(4)),
+            sparse(4, 32)),
+        "DenseToSparse": (lambda: nn.DenseToSparse(), f(2, 8)),
+        "SparseJoinTable": (lambda: nn.SparseJoinTable(2),
+                            lambda r: [f(2, 8)(r), sparse(2, 6)(r)]),
+        "BinaryTreeLSTM": (lambda: nn.BinaryTreeLSTM(
+            5, 6, generator=torch.Generator().manual_seed(5)),
+            lambda r: [f(7, 5)(r), torch.tensor(
+                [[-1, -1], [-1, -1], [-1, -1], [-1, -1], [0, 1], [4, 2],
+                 [5, 3]])]),
+        "TreeLSTM": (lambda: nn.TreeLSTM(
+            5, 6, False, generator=torch.Generator().manual_seed(6)),
+            lambda r: [f(3, 5)(r), torch.tensor(
+                [[-1, -1], [-1, -1], [0, 1]])]),
+    }
+
+
+def _leaves_of(tree):
+    if isinstance(tree, (list, tuple)):
+        return [leaf for e in tree for leaf in _leaves_of(e)]
+    return [tree]
+
+
+def _mapped(fn, tree):
+    if isinstance(tree, (list, tuple)):
+        return [_mapped(fn, e) for e in tree]
+    return fn(tree)
+
+
+def _phase18_sweep(device):
+    """(e): each of the slice's 43 classes once on the card against the
+    CPU in float64: every output leaf and, where the output has one, the
+    gradients of a seeded scalar loss with respect to the floating dense
+    inputs and the parameters, within ``F64_TOL`` relative."""
+    import copy
+
+    import torch
+
+    cases = _sweep_cases()
+    gaps = {}
+    for name, (build, make) in cases.items():
+        cpu_mod = build().to(torch.float64)
+        card_mod = copy.deepcopy(cpu_mod).to(device)
+        inp = make(torch.Generator().manual_seed(len(name)))
+        runs = []
+        for mod, dev in ((cpu_mod, "cpu"), (card_mod, device)):
+            x = _mapped(lambda t: t.to(dev).requires_grad_()
+                        if t.is_floating_point() and not t.is_sparse
+                        else t.to(dev), inp)
+            outs = [o.to_dense() if o.is_sparse else o
+                    for o in _leaves_of(mod(x))]
+            w = torch.Generator().manual_seed(9)
+            loss = sum((o * torch.randn(o.shape, generator=w,
+                                        dtype=torch.float64).to(dev)).sum()
+                       for o in outs if o.is_floating_point())
+            grads = []
+            if isinstance(loss, torch.Tensor) and loss.requires_grad:
+                leaves = [t for t in _leaves_of(x) if t.requires_grad] \
+                    + list(mod.parameters())
+                grads = torch.autograd.grad(loss, leaves,
+                                            allow_unused=True)
+            runs.append(([o.detach().cpu() for o in outs],
+                         [None if g is None else g.cpu() for g in grads]))
+        (co, cg), (ko, kg) = runs
+        gap = 0.0
+        for a, b in list(zip(co, ko)) + [(a, b) for a, b in zip(cg, kg)
+                                          if a is not None]:
+            if a.shape != b.shape:
+                gap = math.inf
+                break
+            if a.numel():
+                gap = max(gap, float(((a.double() - b.double()).abs()
+                                      / (1 + a.double().abs())).max()))
+        gaps[name] = {"gap": gap, "outputs": len(co),
+                      "gradients": sum(g is not None for g in cg)}
+    log("layer-sweep", json.dumps(gaps))
+    bad = {n: g for n, g in gaps.items() if not g["gap"] <= F64_TOL}
+    if len(gaps) != 43 or bad:
+        raise AssertionError(f"layer sweep ({len(gaps)} classes): {bad}")
+    return gaps
+
+
+def phase_sparse_tree_text(counters, k5_row, device="cuda"):
+    """The sparse wide-and-deep feed, the tree LSTM and the text
+    classifier (module docstring, phase 18): (a) wide-and-deep at the
+    Criteo layout, (b) the tree LSTM at the SST width, (c) the text
+    classifier at the 20 Newsgroups CNN width, (d) its int8 head through
+    K5, (e) the layer sweep. Returns the kernels-line row of K5 at the
+    text head and the summary."""
+    import torch
+
+    from bigdl_tpu_torch.utils.engine import full_float32
+
+    full_float32()
+    t_phase = time.perf_counter()
+    seconds = {}
+
+    def timed(part, fn, *args):
+        t0 = time.perf_counter()
+        value = fn(*args)
+        seconds[part] = time.perf_counter() - t0
+        return value
+
+    for fn in counters.values():
+        fn.launches = 0
+    summary = {"wide_and_deep": timed("a", _phase18_wide_and_deep,
+                                      counters, device),
+               "tree": timed("b", _phase18_tree, device)}
+    summary["text"], model, held = timed("c", _phase18_text, device)
+    launches = {n: fn.launches for n, fn in counters.items()}
+    if any(launches.values()):
+        raise AssertionError(f"a kernel of the kernels line launched in "
+                             f"phase 18 (a)-(c): {launches}")
+    row, summary["int8"] = timed("d", _phase18_int8, counters, k5_row,
+                                 model, held, device)
+    summary["sweep"] = timed("e", _phase18_sweep, device)
+    summary["wall_s"] = time.perf_counter() - t_phase
+    summary["part_seconds"] = seconds
+    log("sparse-tree-text", f"seconds by part: {json.dumps(seconds)}")
+    summary["max_memory_allocated"] = torch.cuda.max_memory_allocated() \
+        if device == "cuda" else "not measured"
+    log("sparse-tree-text", f"phase wall {summary['wall_s']:.1f} s")
+    return row, summary
+
+
 def main() -> int:
     import torch
 
@@ -7624,7 +8467,7 @@ def main() -> int:
     flash_fwd, flash_bwd = phase_flash(train_seg)
     blockwise_fwd, blockwise_bwd, bf16_fwd, bf16_bwd = phase_blockwise()
     phase_k6_route()
-    int8, k5_vgg_rows, k5_lenet_rows = phase_int8_gemm()
+    int8, k5_vgg_rows, k5_lenet_rows, k5_text_row = phase_int8_gemm()
     paged = phase_paged_decode(main_lengths)
     counters = {"ragged_decode": ragged_decode_attention,
                 "flash_attention_fwd": flash_attention_forward,
@@ -7653,6 +8496,7 @@ def main() -> int:
     phase_fleet(counters, greedy)
     zoo_rows, _ = phase_zoo(counters, k5_vgg_rows)
     rnn_rows, _ = phase_rnn(counters, k5_lenet_rows)
+    text_row, _ = phase_sparse_tree_text(counters, k5_text_row)
     ragged["launches"] = serve_launches["ragged_decode"]
     flash_fwd["launches"] = train_launches["flash_attention_fwd"]
     flash_bwd["launches"] = train_launches["flash_attention_bwd"]
@@ -7684,7 +8528,7 @@ def main() -> int:
     print(json.dumps({"kernels": [ragged, flash_fwd, flash_bwd,
                                   blockwise_fwd, blockwise_bwd, bf16_fwd,
                                   bf16_bwd, int8, paged] + zoo_rows
-                          + rnn_rows}),
+                          + rnn_rows + [text_row]}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -17,8 +17,8 @@ from bigdl_tpu.utils.table import Table as JaxTable
 from bigdl_tpu_torch.convert import flatten_params
 from bigdl_tpu_torch.utils.table import Table
 
-__all__ = ["assert_parity", "assert_trees_close", "flat", "jax_eval",
-           "to_jax", "to_numpy", "to_torch"]
+__all__ = ["assert_parity", "assert_table_parity", "assert_trees_close",
+           "flat", "jax_eval", "to_jax", "to_numpy", "to_torch"]
 
 
 def _map(fn, tree, table):
@@ -159,3 +159,97 @@ def _pairs(port_tree, jax_tree, prefix="input"):
             out.update(_pairs(p, j, f"{prefix}.{i}"))
         return out
     return {prefix: (port_tree, jax_tree)}
+
+
+def _leaves(tree):
+    """A table tree's leaves in order (lists, tuples, either package's
+    Tables)."""
+    if isinstance(tree, (Table, JaxTable, list, tuple)):
+        return [leaf for e in tree for leaf in _leaves(e)]
+    return [tree]
+
+
+def _build(struct, leaves, table):
+    """``struct``'s shape (lists and port Tables) over ``leaves``, its
+    Tables built with ``table`` (either package's ``T``)."""
+    it = iter(leaves)
+
+    def rec(s):
+        if isinstance(s, Table):
+            return table(*[rec(e) for e in s])
+        if isinstance(s, (list, tuple)):
+            return [rec(e) for e in s]
+        return next(it)
+
+    return rec(struct)
+
+
+def assert_table_parity(ref, port, inp, atol, rtol=None, jit=True,
+                        grad=True, seed=7):
+    """:func:`assert_parity` for table inputs and outputs: ``inp`` is
+    numpy leaves in lists and port Tables (integer leaves allowed).
+    The port's parameters are carried into ``ref``; every output leaf
+    must agree (integer outputs exactly) and, with ``grad``, so must the
+    gradients of ``sum_i out_i * w_i`` (``w_i`` seeded normal) with
+    respect to every floating input leaf and every parameter, each
+    within ``atol + rtol * |JAX value|`` (``rtol`` defaults to
+    ``atol``). ``jit=False`` runs the JAX side eagerly (a layer whose
+    output size is the data's). Returns the port's output leaves."""
+    from bigdl_tpu.utils.table import T as JT
+    from bigdl_tpu_torch.utils.table import T as PT
+
+    rtol = atol if rtol is None else rtol
+    if list(port.parameters()):
+        ref.set_parameters(to_jax(port.get_parameters()))
+    ref.ensure_initialized()
+    params, state = ref.get_parameters(), ref.get_state()
+    leaves = _leaves(inp)
+    fl = [i for i, a in enumerate(leaves) if _floating(a)] if grad else []
+
+    def jfwd(p, fls):
+        ls = [jnp.asarray(a) for a in leaves]
+        for i, v in zip(fl, fls):
+            ls[i] = v
+        return _leaves(ref.apply(p, state, _build(inp, ls, JT))[0])
+
+    compiled = jax.jit if jit else (lambda f: f)
+    fls = [jnp.asarray(leaves[i]) for i in fl]
+    want = [np.asarray(o) for o in compiled(jfwd)(params, fls)]
+    rng = np.random.RandomState(seed)
+    ws = [rng.standard_normal(o.shape).astype(o.dtype)
+          if _floating(o) else None for o in want]
+
+    x = [torch.from_numpy(np.array(a)) for a in leaves]
+    for i in fl:
+        x[i].requires_grad_()
+    got = _leaves(port(_build(inp, x, PT)))
+    assert len(got) == len(want)
+    for k, (g, w) in enumerate(zip(got, want)):
+        assert tuple(g.shape) == w.shape, (k, tuple(g.shape), w.shape)
+        if _floating(w):
+            np.testing.assert_allclose(_np(g), w, atol=atol, rtol=rtol,
+                                       err_msg=f"output {k}")
+        else:
+            np.testing.assert_array_equal(_np(g), w, err_msg=f"output {k}")
+    if not fl and not list(port.parameters()) or all(
+            w is None for w in ws) or not grad:
+        return got
+
+    def jloss(p, fls):
+        return sum(jnp.sum(o * w) for o, w in zip(jfwd(p, fls), ws)
+                   if w is not None)
+
+    gp, gx = compiled(jax.grad(jloss, argnums=(0, 1)))(params, fls)
+    for p in port.parameters():
+        p.grad = None
+    loss = sum((g * torch.from_numpy(w)).sum()
+               for g, w in zip(got, ws) if w is not None)
+    if loss.requires_grad:
+        loss.backward()
+    if flat(params):
+        assert_trees_close(port.get_grad_parameters(), gp, atol, rtol)
+    for i, g in zip(fl, gx):
+        t = x[i].grad if x[i].grad is not None else torch.zeros_like(x[i])
+        np.testing.assert_allclose(_np(t), np.asarray(g), atol=atol,
+                                   rtol=rtol, err_msg=f"grad input {i}")
+    return got
