@@ -1,6 +1,7 @@
 """Normalization layers (counterpart of ``bigdl_tpu.nn.norm``): batch,
-layer and RMS normalization, and the two local response normalizations
-of AlexNet and GoogLeNet."""
+layer and RMS normalization, Lp normalization, the two local response
+normalizations of AlexNet and GoogLeNet, and the subtractive, divisive
+and contrastive local normalizations of the early Torch image nets."""
 from __future__ import annotations
 
 from typing import Optional
@@ -12,11 +13,12 @@ from torch import nn
 
 from bigdl_tpu_torch.nn.initialization import InitializationMethod
 from bigdl_tpu_torch.nn.module import Module
-from bigdl_tpu_torch.utils.engine import default_dtype
+from bigdl_tpu_torch.utils.engine import default_dtype, full_float32
 
-__all__ = ["BatchNormalization", "LayerNorm", "RMSNorm",
-           "SpatialBatchNormalization", "SpatialCrossMapLRN",
-           "SpatialWithinChannelLRN"]
+__all__ = ["BatchNormalization", "LayerNorm", "Normalize", "RMSNorm",
+           "SpatialBatchNormalization", "SpatialContrastiveNormalization",
+           "SpatialCrossMapLRN", "SpatialDivisiveNormalization",
+           "SpatialSubtractiveNormalization", "SpatialWithinChannelLRN"]
 
 
 def _in_dtype(value: float, dtype: torch.dtype) -> float:
@@ -230,3 +232,103 @@ class SpatialWithinChannelLRN(Module):
         denom = torch.pow(
             1.0 + self.alpha / (self.size * self.size) * summed, self.beta)
         return x / denom
+
+
+class Normalize(Module):
+    """Lp normalization along axis 1 (nn/Normalize.scala): ``x / (||x||_p
+    + eps)``, ``p = inf`` the largest magnitude."""
+
+    def __init__(self, p: float = 2.0, eps: float = 1e-10):
+        super().__init__()
+        self.p = p
+        self.eps = eps
+
+    def forward(self, x):
+        if self.p == float("inf"):
+            norm = x.abs().amax(dim=1, keepdim=True)
+        else:
+            norm = x.abs().pow(self.p).sum(dim=1, keepdim=True) \
+                .pow(1.0 / self.p)
+        return x / (norm + self.eps)
+
+
+def _gaussian_kernel_2d(kernel_size: int, dtype=torch.float32):
+    """The normalizations' default ``kernel_size`` square Gaussian
+    (sigma a quarter of the size), summing to 1, in ``dtype``: the JAX
+    package's ``_gaussian_kernel_2d``."""
+    xs = torch.arange(kernel_size, dtype=dtype) - (kernel_size - 1) / 2.0
+    g = torch.exp(-(xs ** 2) / (2 * (0.25 * kernel_size) ** 2))
+    k2 = g[:, None] * g[None, :]
+    return k2 / k2.sum()
+
+
+class SpatialSubtractiveNormalization(Module):
+    """Subtract a weighted local mean
+    (nn/SpatialSubtractiveNormalization.scala). ``kernel`` is a 2-D
+    array (default a 9 x 9 :func:`_gaussian_kernel_2d`), normalized to
+    sum 1.
+
+    As in the JAX package, the mean is one plane: the kernel's window
+    summed over every input plane and divided by ``n_input_plane``, and
+    subtracted from each plane (not Torch's per-plane form with border
+    coefficients). The window is padded ``(k // 2, (k - 1) // 2)``,
+    which is uneven for an even kernel."""
+
+    def __init__(self, n_input_plane: int = 1, kernel=None):
+        super().__init__()
+        self.n_input_plane = n_input_plane
+        self.kernel = kernel
+
+    def _local_mean(self, x):
+        if self.kernel is None:
+            k = _gaussian_kernel_2d(9, x.dtype).to(x.device)
+        else:
+            k = torch.as_tensor(np.asarray(self.kernel), dtype=x.dtype,
+                                device=x.device)
+        k = k / k.sum()
+        kh, kw = k.shape
+        w = k[None, None].expand(1, self.n_input_plane, kh, kw) \
+            / self.n_input_plane
+        if x.is_cuda:
+            full_float32()
+        x = F.pad(x, (kw // 2, (kw - 1) // 2, kh // 2, (kh - 1) // 2))
+        return F.conv2d(x, w)
+
+    def forward(self, x):
+        return x - self._local_mean(x)
+
+
+class SpatialDivisiveNormalization(SpatialSubtractiveNormalization):
+    """Divide by the local standard deviation
+    (nn/SpatialDivisiveNormalization.scala): ``std`` is the square root
+    of the local mean of ``x^2`` (:class:`SpatialSubtractiveNormalization`'s
+    window), the divisor ``max(std, its mean over the plane)``, and
+    ``thresval`` where that is below ``threshold``."""
+
+    def __init__(self, n_input_plane: int = 1, kernel=None,
+                 threshold: float = 1e-4, thresval: float = 1e-4):
+        super().__init__(n_input_plane, kernel)
+        self.threshold = threshold
+        self.thresval = thresval
+
+    def forward(self, x):
+        local_sq = self._local_mean(x * x)
+        std = torch.sqrt(torch.maximum(local_sq, local_sq.new_zeros(())))
+        denom = torch.maximum(std, std.mean(dim=(2, 3), keepdim=True))
+        denom = torch.where(denom < self.threshold, self.thresval, denom)
+        return x / denom
+
+
+class SpatialContrastiveNormalization(Module):
+    """Subtractive then divisive normalization with one kernel
+    (nn/SpatialContrastiveNormalization.scala)."""
+
+    def __init__(self, n_input_plane: int = 1, kernel=None,
+                 threshold: float = 1e-4, thresval: float = 1e-4):
+        super().__init__()
+        self.sub = SpatialSubtractiveNormalization(n_input_plane, kernel)
+        self.div = SpatialDivisiveNormalization(n_input_plane, kernel,
+                                                threshold, thresval)
+
+    def forward(self, x):
+        return self.div(self.sub(x))

@@ -1,21 +1,29 @@
 """Pooling layers (counterpart of ``bigdl_tpu.nn.pool``; BigDL
-nn/SpatialMaxPooling.scala, nn/SpatialAveragePooling.scala).
+nn/SpatialMaxPooling.scala et al.): spatial max and average, temporal
+and volumetric max, and Fast R-CNN's region-of-interest max pooling.
 
 Output sizes follow the reference's Torch rules in floor and ceil mode
 (:func:`_pool_pads`, the JAX package's); each pool pads explicitly —
 ``-inf`` for max, zeros for average — and then runs PyTorch's unpadded
 window op, so the windows are the JAX package's ``reduce_window``
-windows exactly.
+windows exactly, whatever the pad (PyTorch's own padding stops at half
+the kernel).
 """
 from __future__ import annotations
 
 import math
 
+import torch
 import torch.nn.functional as F
 
 from bigdl_tpu_torch.nn.module import Module
 
-__all__ = ["SpatialAveragePooling", "SpatialMaxPooling"]
+__all__ = ["RoiPooling", "SpatialAveragePooling", "SpatialMaxPooling",
+           "TemporalMaxPooling", "VolumetricMaxPooling"]
+
+#: elements of one chunk of RoiPooling's gathered windows
+#: (rois x bins x window x planes)
+ROI_CHUNK_ELEMENTS = 1 << 25
 
 
 def _pool_pads(in_size: int, k: int, d: int, pad: int, ceil_mode: bool):
@@ -117,3 +125,129 @@ class SpatialAveragePooling(Module):
         else:
             y = summed / self._sum(x.new_ones((1, 1) + x.shape[2:]), kh, kw)
         return y[0] if squeeze else y
+
+
+class TemporalMaxPooling(Module):
+    """1-D max pool over the time axis of ``[B, T, F]`` (or ``[T, F]``)
+    (nn/TemporalMaxPooling.scala): windows of ``k_w`` every ``d_w``
+    (default ``k_w``), no padding."""
+
+    def __init__(self, k_w: int, d_w: int = None):
+        super().__init__()
+        self.k_w = k_w
+        self.d_w = d_w if d_w is not None else k_w
+
+    def forward(self, x):
+        squeeze = x.ndim == 2
+        if squeeze:
+            x = x[None]
+        y = F.max_pool1d(x.transpose(1, 2), self.k_w, self.d_w)
+        y = y.transpose(1, 2)
+        return y[0] if squeeze else y
+
+
+class VolumetricMaxPooling(Module):
+    """3-D max pool over ``[B, C, D, H, W]``
+    (nn/VolumetricMaxPooling.scala); each pad is ``-inf`` on both sides,
+    any size, and the output size is the floor rule's."""
+
+    def __init__(self, kt: int, kw: int, kh: int,
+                 dt: int = None, dw: int = None, dh: int = None,
+                 pad_t: int = 0, pad_w: int = 0, pad_h: int = 0):
+        super().__init__()
+        self.kt, self.kw, self.kh = kt, kw, kh
+        self.dt = dt if dt is not None else kt
+        self.dw = dw if dw is not None else kw
+        self.dh = dh if dh is not None else kh
+        self.pad_t, self.pad_w, self.pad_h = pad_t, pad_w, pad_h
+
+    def forward(self, x):
+        squeeze = x.ndim == 4
+        if squeeze:
+            x = x[None]
+        pads = (self.pad_w, self.pad_w, self.pad_h, self.pad_h,
+                self.pad_t, self.pad_t)
+        if any(pads):
+            x = F.pad(x, pads, value=float("-inf"))
+        y = F.max_pool3d(x, (self.kt, self.kh, self.kw),
+                         (self.dt, self.dh, self.dw))
+        return y[0] if squeeze else y
+
+
+def _bin_bounds(lo, size, bins: int, extent: int):
+    """``(start, end)`` ``[R, bins]`` int64 of each roi's bins along one
+    axis, clipped to ``[0, extent]``: ``floor(i * size / bins) + lo`` to
+    ``ceil((i + 1) * size / bins) + lo``, in the rois' dtype as the JAX
+    package computes them."""
+    step = size / bins
+    i = torch.arange(bins, dtype=lo.dtype, device=lo.device)
+    start = torch.floor(i * step[:, None]) + lo[:, None]
+    end = torch.ceil((i + 1) * step[:, None]) + lo[:, None]
+    return (start.clamp(0, extent).long(), end.clamp(0, extent).long())
+
+
+def _window_index(start, end, width: int, extent: int):
+    """``(index, inside)`` ``[R, bins, width]``: each bin's positions
+    from ``start``, clamped into ``[0, extent)``, and whether each lies
+    before ``end``."""
+    idx = start[..., None] + torch.arange(width, device=start.device)
+    return idx.clamp(max=extent - 1), idx < end[..., None]
+
+
+class RoiPooling(Module):
+    """Region-of-interest max pooling (nn/RoiPooling.scala). Input: a
+    table ``(features [N, C, H, W], rois [R, 5])``, each roi ``(batch
+    index, x1, y1, x2, y2)`` in input pixels; output ``[R, C, pooled_h,
+    pooled_w]``.
+
+    As in the JAX package: corners ``round(coordinate * spatial_scale)``
+    (half to even), the roi at least 1 x 1, bin ``i`` of ``n`` spanning
+    ``floor(i * size / n)`` to ``ceil((i + 1) * size / n)`` from the
+    corner, clipped to the map; an empty bin gives 0; the gradient of a
+    window's maximum is spread evenly over its ties (``jnp.max``'s).
+
+    The JAX package masks the whole ``[C, H, W]`` map once per bin and
+    roi. Here each bin's window is gathered (``[R, bins, window, C]``,
+    the window as tall and wide as the largest bin), masked to its bin
+    and reduced, rois in chunks of ``ROI_CHUNK_ELEMENTS``. The bounds
+    are read on the host once a call."""
+
+    def __init__(self, pooled_w: int, pooled_h: int, spatial_scale: float):
+        super().__init__()
+        self.pooled_w = pooled_w
+        self.pooled_h = pooled_h
+        self.spatial_scale = spatial_scale
+
+    def forward(self, input):
+        data, rois = list(input)[:2]
+        rois = torch.as_tensor(rois, device=data.device)
+        n, c, h, w = data.shape
+        corners = torch.round(rois[:, 1:5] * self.spatial_scale)
+        x1, y1, x2, y2 = corners.unbind(1)
+        hs, he = _bin_bounds(y1, (y2 - y1 + 1.0).clamp(min=1.0),
+                             self.pooled_h, h)
+        ws, we = _bin_bounds(x1, (x2 - x1 + 1.0).clamp(min=1.0),
+                             self.pooled_w, w)
+        kh = max(int((he - hs).max()), 1)
+        kw = max(int((we - ws).max()), 1)
+        rows, row_in = _window_index(hs, he, kh, h)
+        cols, col_in = _window_index(ws, we, kw, w)
+        batch = rois[:, 0].to(torch.int32).long()
+        batch = torch.where(batch < 0, batch + n, batch).clamp(0, n - 1)
+        per_roi = self.pooled_h * kh * self.pooled_w * kw * c
+        chunk = max(1, ROI_CHUNK_ELEMENTS // max(per_roi, 1))
+        outs = []
+        for r0 in range(0, rois.shape[0], chunk):
+            sl = slice(r0, r0 + chunk)
+            b = batch[sl][:, None, None, None, None]
+            r = rows[sl][:, :, :, None, None]
+            q = cols[sl][:, None, None, :, :]
+            # [R, ph, kh, pw, kw, C]: the advanced indices' axes first
+            win = data[b, :, r, q]
+            inside = (row_in[sl][:, :, :, None, None]
+                      & col_in[sl][:, None, None, :, :])[..., None]
+            v = torch.where(inside, win, float("-inf")).amax(dim=(2, 4))
+            outs.append(torch.where(torch.isfinite(v), v, 0.0))
+        out = torch.cat(outs) if outs else data.new_zeros(
+            (0, self.pooled_h, self.pooled_w, c))
+        return out.permute(0, 3, 1, 2)

@@ -14,15 +14,13 @@ greedy pass over the boxes reads the overlap matrix on the host once.
 """
 from __future__ import annotations
 
-import math
 from typing import Optional, Sequence
 
 import numpy as np
 import torch
 import torch.nn.functional as F
-from torch import nn
 
-from bigdl_tpu_torch.nn.initialization import RandomUniform
+from bigdl_tpu_torch.nn.linear import CAdd, CMul
 from bigdl_tpu_torch.nn.module import Module
 from bigdl_tpu_torch.utils.table import Table
 
@@ -365,39 +363,19 @@ class Sum(Module):
         return out
 
 
-class _Elementwise(Module):
-    """A learned tensor of ``size``, ``U(-1/sqrt(n), 1/sqrt(n))`` with
-    ``n`` its element count, applied by ``op`` broadcast over the input:
-    Scale's two halves (the JAX ``CMul`` and ``CAdd``, whose parameter
-    is ``weight`` and ``bias``)."""
-
-    def __init__(self, size: Sequence[int], name: str, op,
-                 generator: Optional[torch.Generator] = None):
-        super().__init__()
-        self.size = tuple(size)
-        self.op = op
-        n = math.prod(self.size)
-        stdv = 1.0 / math.sqrt(n)
-        self.register_parameter(name, nn.Parameter(
-            RandomUniform(-stdv, stdv)(self.size, n, n, generator)))
-        self._param = name
-
-    def forward(self, x):
-        return self.op(x, getattr(self, self._param))
-
-
 class Scale(Module):
-    """nn/Scale.scala: ``x * weight + bias`` with ``size``-shaped
-    learned tensors broadcast over the input (the JAX tree
-    ``{"cmul": {"weight"}, "cadd": {"bias"}}``). Parameters are built
-    on the CPU from ``generator``."""
+    """nn/Scale.scala: a :class:`~bigdl_tpu_torch.nn.linear.CMul` then
+    a :class:`~bigdl_tpu_torch.nn.linear.CAdd` of ``size``, ``x *
+    weight + bias`` broadcast over the input (the JAX tree ``{"cmul":
+    {"weight"}, "cadd": {"bias"}}``). Parameters are built on the CPU
+    from ``generator``, the weight first."""
 
     def __init__(self, size: Sequence[int],
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.size = tuple(size)
-        self.cmul = _Elementwise(size, "weight", torch.mul, generator)
-        self.cadd = _Elementwise(size, "bias", torch.add, generator)
+        self.cmul = CMul(size, generator)
+        self.cadd = CAdd(size, generator)
 
     def forward(self, x):
         return self.cadd(self.cmul(x))

@@ -364,7 +364,39 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    takes N only in multiples of 8); (e) each of the slice's 43 classes
    once card against CPU in float64 at the CPU tests' small shapes: the
    outputs and the gradients of a seeded scalar loss within 1e-9
-   relative. The phase's wall time by part.
+   relative. The phase's wall time by part;
+19. the rest of ``nn`` and the language-model example
+   (``phase_nn_rest_lm``) — (a) ``examples.language_model`` at
+   PTBWordLM's defaults (the "small" PTB configuration of Zaremba et al.
+   2014: hidden 200, 2 layers, 20 steps, batch 20, Adagrad 0.1) for 200
+   driver steps from ``-f`` on a seeded corpus written to a temporary
+   folder (9,999 words and ``<eos>``, PTB's 10,000 tokens: each word once,
+   then Zipf draws; about 200k training and 20k validation tokens; the
+   model's 10,001 rows with the unknown slot): falling losses, ms a
+   step, tokens/s, the validation perplexity over ``valid.txt`` through
+   the Evaluator with the main's criterion, a profiled window of 10
+   driver steps (idle share, device kernels a step), peak memory; 2
+   steps of the full-width model card against CPU in float64 within
+   1e-12 relative (each loss, and each tensor of the first step's
+   gradients: largest difference over largest value; the parameters
+   after the steps printed, see ``NN_F64_TOL``), which layer 2's
+   ``w_hh`` gradient zeroed must fail; (b) ``examples.udf_predictor
+   --demo`` on the card: its 8 predictions equal the CPU's from a copy
+   of the same trained weights, hits printed; (c) each of the 47 classes
+   of the slice once card against CPU in float64 at its users' width
+   (Siamese rows of ``[4096, 128]``; a DCGAN generator layer and a
+   grouped transposed convolution with ``adj``; a DeepLab-v2 ASPP
+   branch; C3D's conv2 and pool2; a 3-D decoder layer; LeNet-5's C3
+   table; SSD's conv4_3 normalization; local contrast normalization with
+   the 9 x 9 Gaussian and an even 4 x 4 kernel; the text CNN's 996
+   positions; logits ``[1024, 1000]``; FCN on VOC with
+   ``ignore_label=255``; Fast R-CNN's roi pooling): outputs and the
+   gradients with respect to the floating inputs and the parameters
+   within 1e-12 relative (largest difference over largest value), which
+   ``SoftmaxWithCriterion`` dividing by every position must fail;
+   RoiPooling's float32 forward and backward device ms a call from a
+   profiled window. No kernel of the kernels line may launch. The
+   phase's wall time by part.
 
 Float32 throughout phases 1–10, with TF32 off for matrix products (set
 here) and for convolutions (PyTorch's default is on; the port's
@@ -377,7 +409,8 @@ float32; phase 14 float32; phase 15 float64 in (a), float32 and
 bf16_mixed in (b), float32 in (c)-(e); phase 16 bf16_mixed at phase
 11's limits; phase 17 float32 (and bf16_mixed, float64 where (a) says);
 phase 18 float32, with float64 in (a)-(c)'s card-against-CPU checks and
-in (e), and int8 through K5 in (d).
+in (e), and int8 through K5 in (d); phase 19 float32, with float64 in
+(a)'s card-against-CPU check and in (c).
 
 After the phases the card's name and power limit print again; then the
 line before the last is a JSON object ``{"kernels": [...]}`` with
@@ -8334,15 +8367,25 @@ def _sweep_cases():
 
 
 def _leaves_of(tree):
-    if isinstance(tree, (list, tuple)):
+    """The leaves of a table tree (lists, tuples, Tables; None has
+    none), in order."""
+    from bigdl_tpu_torch.utils.table import Table
+
+    if isinstance(tree, (list, tuple, Table)):
         return [leaf for e in tree for leaf in _leaves_of(e)]
-    return [tree]
+    return [] if tree is None else [tree]
 
 
 def _mapped(fn, tree):
+    """``fn`` over the leaves of a table tree, its shape kept (None
+    stays None)."""
+    from bigdl_tpu_torch.utils.table import Table
+
+    if isinstance(tree, Table):
+        return Table({k: _mapped(fn, v) for k, v in tree.items()})
     if isinstance(tree, (list, tuple)):
         return [_mapped(fn, e) for e in tree]
-    return fn(tree)
+    return None if tree is None else fn(tree)
 
 
 def _phase18_sweep(device):
@@ -8441,6 +8484,584 @@ def phase_sparse_tree_text(counters, k5_row, device="cuda"):
     return row, summary
 
 
+# ---- phase 19: the rest of nn and the language-model example ----
+#: (a) PTBWordLM's defaults, the "small" PTB configuration of Zaremba et
+#: al. 2014: hidden 200, 2 layers, 20 steps, batch 20, Adagrad 0.1. The
+#: corpus is seeded: 9,999 words and <eos> (PTB's 10,000 tokens; the
+#: Dictionary adds the unknown slot), each word once and then Zipf draws,
+#: about 200k training and 20k validation tokens
+WORDLM_WORDS, WORDLM_TRAIN, WORDLM_VALID = 9999, 200000, 20000
+WORDLM_HIDDEN, WORDLM_STEPS, WORDLM_BATCH, WORDLM_LR = 200, 20, 20, 0.1
+WORDLM_ITERS, WORDLM_PROFILE_STEPS, WORDLM_F64_STEPS = 200, 10, 2
+WORDLM_SEED, WORDLM_LINE = 91, (10, 31)
+#: card against CPU in float64: (a) each loss relative and each of the
+#: first step's gradient tensors, (c) each output and gradient tensor,
+#: max |card - CPU| / max |CPU|. (a)'s parameters after the steps are
+#: printed, not gated: Adagrad's update g / (sqrt(G) + 1e-10) turns the
+#: last-bit difference of a gradient element that cancels to ~1e-10 into
+#: an update ~1e-11 apart (two CPU runs on 1 and 8 threads: 2e-11)
+NN_F64_TOL = 1e-12
+#: (c) the widths of the classes' users, inputs ``[B, C, ...]`` and
+#: output planes: Siamese rows; a ResNet-50 conv2_x 3 x 3 layer; a
+#: DeepLab-v2 ASPP branch (dilation 12); a DCGAN generator layer; C3D's
+#: conv2 and pool2; a 3-D decoder layer; LeNet-5's C3; SSD's conv4_3
+#: L2 normalization; CIFAR-sized local contrast normalization; the text
+#: CNN's 996 positions; logits rows (64 for MultiLabelMargin's [B, C, C]
+#: terms); FCN on VOC; the Fast R-CNN roi pooling (VGG-16 conv5_3 at 600
+#: x 800, 128 rois, 7 x 7)
+SIAMESE_ROWS, SIAMESE_DIM, LOGITS, MULTILABEL_ROWS = 4096, 128, \
+    (1024, 1000), 64
+SHARE_IN, ASPP_IN, ASPP_OUT = (2, 64, 56, 56), (2, 512, 41, 41), 1024
+DCGAN_IN, DCGAN_OUT, DCGAN_GROUPED_IN = (64, 512, 8, 8), 256, \
+    (8, 64, 16, 16)
+C3D_IN, C3D_OUT, VFULL_IN, VFULL_OUT = (2, 64, 16, 56, 56), 128, \
+    (2, 128, 8, 28, 28), 64
+C3_IN, SSD_IN, LCN_IN = (128, 6, 14, 14), (8, 512, 38, 38), (32, 3, 32, 32)
+TEXT_POOL_IN, FCN_IN = (128, 996, 128), (4, 21, 256, 256)
+ROI_MAP, ROI_COUNT, ROI_BINS, ROI_SCALE = (1, 512, 38, 50), 128, 7, 1 / 16
+ROI_TIMED_CALLS = 5
+
+
+def _write_word_lm_corpus(folder: str, seed: int) -> None:
+    """``train.txt`` and ``valid.txt`` under ``folder``: lines of 10-30
+    words, every word once in the first lines, then draws from a Zipf
+    law (``p ~ 1 / rank``) over ``WORDLM_WORDS`` words."""
+    import os
+
+    r = np.random.RandomState(seed)
+    words = np.asarray([f"w{i}" for i in range(WORDLM_WORDS)])
+    p = 1.0 / np.arange(1, WORDLM_WORDS + 1)
+    p /= p.sum()
+    for name, tokens, cover in (("train.txt", WORDLM_TRAIN, True),
+                                ("valid.txt", WORDLM_VALID, False)):
+        drawn = r.choice(words, tokens, p=p)
+        if cover:
+            drawn = np.concatenate([r.permutation(words), drawn])[:tokens]
+        lines, at = [], 0
+        while at < len(drawn):
+            n = r.randint(*WORDLM_LINE)
+            lines.append(" ".join(drawn[at:at + n]))
+            at += n
+        with open(os.path.join(folder, name), "w") as f:
+            f.write("\n".join(lines) + "\n")
+
+
+def _relative_gap(got, want) -> float:
+    """``max |got - want| / max |want|`` of two tensors (0 for two zero
+    tensors, inf for a shape or finiteness mismatch)."""
+    import torch
+
+    got, want = got.detach().double().cpu(), want.detach().double().cpu()
+    if got.shape != want.shape or not torch.equal(got.isfinite(),
+                                                  want.isfinite()):
+        return math.inf
+    fin = want.isfinite()
+    if not fin.any():
+        return 0.0
+    scale = float(want[fin].abs().max())
+    diff = float((got[fin] - want[fin]).abs().max())
+    return diff / scale if scale > 0 else diff
+
+
+def _phase19_lm(device):
+    """(a): ``language_model.main`` at PTBWordLM's defaults on a seeded
+    corpus (``-f``), the driver kept by a recording ``LocalOptimizer``;
+    the validation loss over ``valid.txt`` through the Evaluator with the
+    main's criterion; a profiled window of the driver's step and the
+    same steps unprofiled; float64 card against CPU (``NN_F64_TOL``),
+    which layer 2's recurrent weight gradient zeroed must fail."""
+    import copy
+    import tempfile
+
+    import torch
+
+    from bigdl_tpu_torch import nn
+    from bigdl_tpu_torch.examples import language_model as lm
+    from bigdl_tpu_torch.models import PTBModel
+    from bigdl_tpu_torch.optim import Adagrad, Evaluator, build_train_step
+    from bigdl_tpu_torch.utils.random import RandomGenerator
+
+    on_card = device == "cuda"
+    opts, driver = [], lm.LocalOptimizer
+
+    class Recording(driver):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            opts.append(self)
+
+    RandomGenerator.set_seed(WORDLM_SEED)
+    with tempfile.TemporaryDirectory() as folder:
+        t0 = time.perf_counter()
+        _write_word_lm_corpus(folder, WORDLM_SEED)
+        corpus_s = time.perf_counter() - t0
+        lm.LocalOptimizer = Recording
+        try:
+            state, _ = _run_cli("nn-rest-lm", lm.main, [
+                "-f", folder, "--maxIterations", str(WORDLM_ITERS),
+                "--device", device])
+        finally:
+            lm.LocalOptimizer = driver
+    opt = opts[-1]
+    model = opt.model
+    vocab = model[0].n_index
+    losses = [h["loss"] for h in opt.history]
+    ms = [h["seconds"] * 1e3 for h in opt.history[1:]]
+    tokens = WORDLM_BATCH * WORDLM_STEPS
+    valid = Evaluator(model).test(opt.validation_dataset,
+                                  opt.validation_methods, WORDLM_BATCH)
+    valid_loss = valid["Loss"].result()[0]
+    out = {"vocab_rows": vocab, "corpus_seconds": corpus_s,
+           "train_batches": len(opt.dataset.base.elements) // WORDLM_BATCH,
+           "steps": len(opt.history),
+           "losses_first_last": [losses[0], losses[-1]],
+           "train_perplexity_last_20": float(np.exp(np.mean(losses[-20:]))),
+           "valid_loss": valid_loss,
+           "valid_perplexity": float(np.exp(valid_loss)),
+           "ms_per_step_median": _p50(ms),
+           "tokens_per_s": tokens / (_p50(ms) / 1e3)}
+    rows = opt.dataset.base.elements
+
+    def batch(i, dev, dtype):
+        part = rows[i * WORDLM_BATCH:(i + 1) * WORDLM_BATCH]
+        return tuple(torch.from_numpy(np.stack([getattr(r, k)[0]
+                                                for r in part]))
+                     .to(dev, dtype) for k in ("features", "labels"))
+
+    if on_card:
+        batches = [batch(i, device, torch.float32)
+                   for i in range(WORDLM_PROFILE_STEPS + 1)]
+        step = build_train_step(copy.deepcopy(model), opt.criterion,
+                                Adagrad(learning_rate=WORDLM_LR))
+
+        def step_fn(i):
+            return float(step(*batches[i], WORDLM_LR))
+
+        out["profile"] = _profile_steps(step_fn, WORDLM_PROFILE_STEPS,
+                                        device, "nn-rest-lm")
+        t0 = time.perf_counter()
+        for i in range(WORDLM_PROFILE_STEPS):
+            step_fn(i + 1)
+        out["profile"]["unprofiled_ms_per_step"] = \
+            (time.perf_counter() - t0) * 1e3 / WORDLM_PROFILE_STEPS
+        out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    runs = {}
+    for label, dev in (("cpu", "cpu"), ("card", device),
+                       ("card, layer 2's w_hh gradient zeroed", device)):
+        m = PTBModel(vocab, WORDLM_HIDDEN, vocab, num_layers=2, device=dev,
+                     generator=torch.Generator().manual_seed(WORDLM_SEED)
+                     ).to(torch.float64)
+        if "zeroed" in label:
+            m[2].cell.w_hh.register_hook(torch.zeros_like)
+        step = build_train_step(m, nn.TimeDistributedCriterion(
+            nn.CrossEntropyCriterion(), size_average=True),
+            Adagrad(learning_rate=WORDLM_LR))
+        f64, grads = [], {}
+        for i in range(WORDLM_F64_STEPS):
+            f64.append(float(step(*batch(i, dev, torch.float64),
+                                  WORDLM_LR)))
+            if i == 0:      # the first step's gradients, before an update
+                grads = {k: q.grad.detach().clone()
+                         for k, q in m.named_parameters()}
+        runs[label] = (f64, grads, dict(m.named_parameters()))
+    want = runs.pop("cpu")
+    out["f64"] = {label: {
+        "loss": max(abs(g - w) / abs(w) for g, w in zip(got[0], want[0])),
+        "gradients": max(_relative_gap(got[1][k], want[1][k])
+                         for k in want[1]),
+        "parameters": max(_relative_gap(got[2][k], want[2][k])
+                          for k in want[2])} for label, got in runs.items()}
+    log("nn-rest-lm", json.dumps(out))
+    held = all((max(gap["loss"], gap["gradients"]) <= NN_F64_TOL)
+               == (label == "card") for label, gap in out["f64"].items())
+    if not (_falls(losses) and held and len(opt.history) == WORDLM_ITERS
+            and vocab == WORDLM_WORDS + 2 and np.isfinite(valid_loss)):
+        raise AssertionError(f"language model: {out}")
+    return out
+
+
+def _phase19_udf(device):
+    """(b): ``udf_predictor --demo`` on ``device``; its 8 predictions
+    against the CPU's from a copy of the same trained weights."""
+    import copy
+
+    from bigdl_tpu_torch.examples import udf_predictor as up
+    from bigdl_tpu_torch.utils.random import RandomGenerator
+
+    made, make = [], up.make_text_udf
+
+    def recording(model, dictionary, seq_len):
+        made.append((model, dictionary, seq_len))
+        return make(model, dictionary, seq_len)
+
+    RandomGenerator.set_seed(WORDLM_SEED + 1)
+    up.make_text_udf = recording
+    try:
+        preds, _ = _run_cli("nn-rest-udf", up.main,
+                            ["--demo", "--device", device])
+    finally:
+        up.make_text_udf = make
+    model, dictionary, seq_len = made[-1]
+    texts, labels = up.synthetic_corpus(8, 2, np.random.RandomState(7))
+    cpu_preds = make(copy.deepcopy(model).cpu(), dictionary,
+                     seq_len)(texts)
+    out = {"predictions": preds, "cpu_predictions": cpu_preds,
+           "hits": sum(int(p == int(t)) for p, t in zip(preds, labels)),
+           "model_device": str(next(model.parameters()).device)}
+    log("nn-rest-udf", json.dumps(out))
+    if preds != cpu_preds or len(preds) != 8 \
+            or out["model_device"].split(":")[0] != device:
+        raise AssertionError(f"udf predictor: {out}")
+    return out
+
+
+def _rois(r, n: int, height: int, width: int):
+    """``n`` seeded rois ``(0, x1, y1, x2, y2)`` in input pixels on an
+    image ``ROI_SCALE`` times the map's size: 16 to 400 pixels a side,
+    some across the border."""
+    import torch
+
+    w_img, h_img = width / ROI_SCALE, height / ROI_SCALE
+    xy = torch.rand((n, 2), generator=r, dtype=torch.float64) \
+        * torch.tensor([w_img, h_img], dtype=torch.float64)
+    wh = 16 + torch.rand((n, 2), generator=r, dtype=torch.float64) * 384
+    return torch.cat([torch.zeros((n, 1), dtype=torch.float64),
+                      xy, xy + wh], 1).round()
+
+
+def _nn_rest_cases():
+    """(c)'s cases: ``{name: (build, make[, card build])}``, each of the
+    47 classes at its users' width; ``make(r)`` draws ``(input, target
+    or None)`` in float64 from ``r`` (a seeded ``torch.Generator``). A
+    third entry builds the card's module apart: the deliberately wrong
+    variant the gate must fail."""
+    import torch
+
+    from bigdl_tpu_torch import nn
+    from bigdl_tpu_torch.utils.table import T
+
+    def f(*shape, scale=1.0):
+        return lambda r: scale * torch.randn(shape, generator=r,
+                                             dtype=torch.float64)
+
+    def u(*shape, lo=0.0, hi=1.0):
+        return lambda r: lo + (hi - lo) * torch.rand(
+            shape, generator=r, dtype=torch.float64)
+
+    def signs(*shape):
+        return lambda r: torch.where(torch.rand(shape, generator=r) < 0.5,
+                                     -1.0, 1.0).double()
+
+    def labels(n, classes):
+        return lambda r: torch.randint(1, classes + 1, (n,), generator=r
+                                       ).double()
+
+    def layer(inp):
+        return lambda r: (inp(r), None)
+
+    def crit(inp, target):
+        return lambda r: (inp(r), target(r))
+
+    def table(*parts):
+        return lambda r: T(*[p(r) for p in parts])
+
+    def gen(seed):
+        return dict(generator=torch.Generator().manual_seed(seed))
+
+    def probs(*shape):
+        return lambda r: torch.softmax(f(*shape)(r), -1)
+
+    def log_probs(*shape):
+        return lambda r: torch.log_softmax(f(*shape)(r), -1)
+
+    def fcn_labels(r):
+        b, c, h, w = FCN_IN
+        t = torch.randint(1, c + 1, (b, h, w), generator=r).double()
+        return torch.where(torch.rand((b, h, w), generator=r) < 0.1,
+                           255.0, t)
+
+    def multi_labels(r):
+        """5 labels a row, a 0, then 3 more: every positive id counts, as
+        in the JAX package."""
+        c = LOGITS[1]
+        t = torch.zeros((MULTILABEL_ROWS, c), dtype=torch.float64)
+        ids = torch.stack([torch.randperm(c, generator=r)[:8] + 1
+                           for _ in range(MULTILABEL_ROWS)]).double()
+        t[:, :5], t[:, 6:9] = ids[:, :5], ids[:, 5:]
+        return t
+
+    def roi_input(r):
+        return T(torch.randn(ROI_MAP, generator=r, dtype=torch.float64),
+                 _rois(r, ROI_COUNT, *ROI_MAP[2:]))
+
+    b, d = SIAMESE_ROWS, SIAMESE_DIM
+    rows, classes = LOGITS
+    pair = table(f(b, d), f(b, d))
+    lpair = table(f(rows, classes), f(rows, classes))
+    logits = f(rows, classes)
+    c3 = [[i + 1, o + 1] for o, ins in enumerate(
+        [(0, 1, 2), (1, 2, 3), (2, 3, 4), (3, 4, 5), (0, 4, 5), (0, 1, 5),
+         (0, 1, 2, 3), (1, 2, 3, 4), (2, 3, 4, 5), (0, 3, 4, 5),
+         (0, 1, 4, 5), (0, 1, 2, 5), (0, 1, 3, 4), (1, 2, 4, 5),
+         (0, 2, 3, 5), (0, 1, 2, 3, 4, 5)]) for i in ins]
+    even = np.asarray([[1, 2, 2, 1], [2, 4, 4, 2], [2, 4, 4, 2],
+                       [1, 2, 2, 1]], np.float64)
+    softmax_with = crit(f(*FCN_IN), fcn_labels)
+    lcn = layer(f(*LCN_IN))
+    ssd = layer(f(*SSD_IN))
+    cases = {
+        # linear.py: Siamese rows
+        "Bilinear": (lambda: nn.Bilinear(d, d, 16, **gen(1)), layer(pair)),
+        "CMul": (lambda: nn.CMul((1, d), **gen(2)), layer(f(b, d))),
+        "CAdd": (lambda: nn.CAdd((1, d), **gen(3)), layer(f(b, d))),
+        "Mul": (lambda: nn.Mul(**gen(4)), layer(f(b, d))),
+        "Add": (lambda: nn.Add(d, **gen(5)), layer(f(b, d))),
+        "MM": (lambda: nn.MM(False, True), layer(pair)),
+        "MV": (lambda: nn.MV(), layer(table(f(b, d), f(d)))),
+        "Cosine": (lambda: nn.Cosine(d, 64, **gen(6)), layer(f(b, d))),
+        "Euclidean": (lambda: nn.Euclidean(d, 64, **gen(7)),
+                      layer(f(b, d))),
+        "DotProduct": (lambda: nn.DotProduct(), layer(pair)),
+        "PairwiseDistance": (lambda: nn.PairwiseDistance(2), layer(pair)),
+        "CosineDistance": (lambda: nn.CosineDistance(), layer(pair)),
+        # conv.py
+        "SpatialShareConvolution": (lambda: nn.SpatialShareConvolution(
+            SHARE_IN[1], SHARE_IN[1], 3, 3, 1, 1, 1, 1, **gen(8)),
+            layer(f(*SHARE_IN))),
+        "SpatialDilatedConvolution": (lambda: nn.SpatialDilatedConvolution(
+            ASPP_IN[1], ASPP_OUT, 3, 3, 1, 1, 12, 12, 12, 12, **gen(9)),
+            layer(f(*ASPP_IN))),
+        "SpatialFullConvolution": (lambda: nn.SpatialFullConvolution(
+            DCGAN_IN[1], DCGAN_OUT, 4, 4, 2, 2, 1, 1, **gen(10)),
+            layer(f(*DCGAN_IN))),
+        "SpatialFullConvolution grouped, adj": (
+            lambda: nn.SpatialFullConvolution(
+                DCGAN_GROUPED_IN[1], DCGAN_GROUPED_IN[1], 3, 3, 2, 2, 1, 1,
+                1, 1, 4, **gen(11)), layer(f(*DCGAN_GROUPED_IN))),
+        "VolumetricConvolution": (lambda: nn.VolumetricConvolution(
+            C3D_IN[1], C3D_OUT, 3, 3, 3, 1, 1, 1, 1, 1, 1, **gen(12)),
+            layer(f(*C3D_IN))),
+        "VolumetricFullConvolution": (lambda: nn.VolumetricFullConvolution(
+            VFULL_IN[1], VFULL_OUT, 3, 3, 3, 2, 2, 2, 1, 1, 1, 1, 1, 1,
+            **gen(13)), layer(f(*VFULL_IN))),
+        "SpatialConvolutionMap": (lambda: nn.SpatialConvolutionMap(
+            np.asarray(c3), 5, 5, **gen(14)), layer(f(*C3_IN))),
+        # norm.py
+        "Normalize p=1": (lambda: nn.Normalize(1.0), ssd),
+        "Normalize p=2": (lambda: nn.Normalize(2.0), ssd),
+        "Normalize p=inf": (lambda: nn.Normalize(float("inf")), ssd),
+        "SpatialSubtractiveNormalization": (
+            lambda: nn.SpatialSubtractiveNormalization(LCN_IN[1]), lcn),
+        "SpatialSubtractiveNormalization 4x4": (
+            lambda: nn.SpatialSubtractiveNormalization(LCN_IN[1], even),
+            lcn),
+        "SpatialDivisiveNormalization": (
+            lambda: nn.SpatialDivisiveNormalization(LCN_IN[1]), lcn),
+        "SpatialDivisiveNormalization 4x4": (
+            lambda: nn.SpatialDivisiveNormalization(LCN_IN[1], even), lcn),
+        "SpatialContrastiveNormalization": (
+            lambda: nn.SpatialContrastiveNormalization(LCN_IN[1]), lcn),
+        "SpatialContrastiveNormalization 4x4": (
+            lambda: nn.SpatialContrastiveNormalization(LCN_IN[1], even),
+            lcn),
+        # pool.py
+        "TemporalMaxPooling": (lambda: nn.TemporalMaxPooling(5),
+                               layer(f(*TEXT_POOL_IN))),
+        "VolumetricMaxPooling": (lambda: nn.VolumetricMaxPooling(2, 2, 2),
+                                 layer(f(C3D_IN[0], C3D_OUT,
+                                         *C3D_IN[2:]))),
+        "RoiPooling": (lambda: nn.RoiPooling(ROI_BINS, ROI_BINS, ROI_SCALE),
+                       layer(roi_input)),
+        # criterion.py: logits rows
+        "AbsCriterion": (lambda: nn.AbsCriterion(), crit(logits, logits)),
+        "SmoothL1Criterion": (lambda: nn.SmoothL1Criterion(),
+                              crit(f(rows, classes, scale=2.0), logits)),
+        "SmoothL1CriterionWithWeights": (
+            lambda: nn.SmoothL1CriterionWithWeights(3.0, rows),
+            crit(logits, table(logits, u(rows, classes),
+                               u(rows, classes)))),
+        "MarginCriterion": (lambda: nn.MarginCriterion(),
+                            crit(logits, signs(rows, classes))),
+        "MarginRankingCriterion": (lambda: nn.MarginRankingCriterion(0.5),
+                                   crit(lpair, signs(rows, classes))),
+        "MultiMarginCriterion": (lambda: nn.MultiMarginCriterion(),
+                                 crit(logits, labels(rows, classes))),
+        "MultiLabelMarginCriterion": (
+            lambda: nn.MultiLabelMarginCriterion(),
+            crit(f(MULTILABEL_ROWS, classes), multi_labels)),
+        "MultiLabelSoftMarginCriterion": (
+            lambda: nn.MultiLabelSoftMarginCriterion(),
+            crit(logits, lambda r: (torch.rand((rows, classes), generator=r)
+                                    < 0.01).double())),
+        "SoftMarginCriterion": (lambda: nn.SoftMarginCriterion(),
+                                crit(logits, signs(rows, classes))),
+        "HingeEmbeddingCriterion": (lambda: nn.HingeEmbeddingCriterion(),
+                                    crit(logits, signs(rows, classes))),
+        "L1HingeEmbeddingCriterion": (
+            lambda: nn.L1HingeEmbeddingCriterion(2e6),
+            crit(lpair, lambda r: torch.tensor(-1.0, dtype=torch.float64))),
+        "CosineEmbeddingCriterion": (
+            lambda: nn.CosineEmbeddingCriterion(0.01),
+            crit(lpair, signs(rows))),
+        "CosineDistanceCriterion": (lambda: nn.CosineDistanceCriterion(),
+                                    crit(logits, logits)),
+        "DistKLDivCriterion": (lambda: nn.DistKLDivCriterion(),
+                               crit(log_probs(rows, classes),
+                                    probs(rows, classes))),
+        "KLDCriterion": (lambda: nn.KLDCriterion(),
+                         crit(lpair, lambda r: None)),
+        "GaussianCriterion": (lambda: nn.GaussianCriterion(),
+                              crit(lpair, logits)),
+        "ClassSimplexCriterion": (lambda: nn.ClassSimplexCriterion(classes),
+                                  crit(logits, labels(rows, classes))),
+        "DiceCoefficientCriterion": (
+            lambda: nn.DiceCoefficientCriterion(),
+            crit(u(rows, classes), lambda r: (torch.rand(
+                (rows, classes), generator=r) < 0.5).double())),
+        "SoftmaxWithCriterion": (lambda: nn.SoftmaxWithCriterion(255),
+                                 softmax_with),
+        "L1Cost": (lambda: nn.L1Cost(), crit(logits, lambda r: None)),
+        "ParallelCriterion": (
+            lambda: nn.ParallelCriterion().add(nn.MSECriterion(), 0.5)
+            .add(nn.CrossEntropyCriterion(), 2.0),
+            crit(lpair, table(logits, labels(rows, classes)))),
+        "MultiCriterion": (
+            lambda: nn.MultiCriterion().add(nn.AbsCriterion())
+            .add(nn.SmoothL1Criterion(), 3.0), crit(logits, logits)),
+        # the deliberately wrong variant: the card divides by every
+        # position, the ignored ones too
+        "SoftmaxWithCriterion counting ignored positions (wrong)": (
+            lambda: nn.SoftmaxWithCriterion(255), softmax_with,
+            lambda: nn.SoftmaxWithCriterion(255, "FULL")),
+    }
+    return cases
+
+
+def _roi_device_ms(device) -> dict:
+    """RoiPooling's float32 forward and backward at the Fast R-CNN shape:
+    device ms a call from a profiled window (and its wall ms), and the
+    device's peak memory over it."""
+    import torch
+
+    from bigdl_tpu_torch import nn
+    from bigdl_tpu_torch.utils.table import T
+
+    r = torch.Generator().manual_seed(WORDLM_SEED + 2)
+    data = torch.randn(ROI_MAP, generator=r).to(device).requires_grad_()
+    rois = _rois(r, ROI_COUNT, *ROI_MAP[2:]).float().to(device)
+    layer = nn.RoiPooling(ROI_BINS, ROI_BINS, ROI_SCALE)
+    w = torch.randn((ROI_COUNT, ROI_MAP[1], ROI_BINS, ROI_BINS),
+                    generator=r).to(device)
+
+    def call(_):
+        data.grad = None
+        (layer(T(data, rois)) * w).sum().backward()
+        torch.cuda.synchronize(device)
+
+    torch.cuda.reset_peak_memory_stats(device)
+    out = _profile_steps(call, ROI_TIMED_CALLS, device, "nn-rest-roi")
+    out["max_memory_allocated"] = torch.cuda.max_memory_allocated(device)
+    return out
+
+
+def _phase19_sweep(device):
+    """(c): each of the 47 classes once on the card against the CPU in
+    float64 at its users' width: every output leaf and the gradients of
+    a seeded scalar loss (a criterion's loss itself) with respect to the
+    floating inputs and the parameters, each within ``NN_F64_TOL``
+    (:func:`_relative_gap`); the wrong variant must fail it."""
+    import copy
+
+    import torch
+
+    from bigdl_tpu_torch.nn.module import Criterion
+
+    gaps, seconds = {}, {}
+    for name, entry in _nn_rest_cases().items():
+        t0 = time.perf_counter()
+        build, make = entry[:2]
+        cpu_mod = build().to(torch.float64)
+        card_mod = (entry[2]().to(torch.float64) if len(entry) > 2
+                    else copy.deepcopy(cpu_mod)).to(device)
+        inp, target = make(torch.Generator().manual_seed(len(name)))
+        runs = []
+        for mod, dev in ((cpu_mod, "cpu"), (card_mod, device)):
+            x = _mapped(lambda t: t.to(dev).requires_grad_()
+                        if t.is_floating_point() else t.to(dev), inp)
+            if isinstance(mod, Criterion):
+                outs = [mod(x, _mapped(lambda t: t.to(dev), target))]
+                loss = outs[0]
+            else:
+                outs = _leaves_of(mod(x))
+                w = torch.Generator().manual_seed(9)
+                loss = sum((o * torch.randn(o.shape, generator=w,
+                                            dtype=torch.float64).to(dev)
+                            ).sum() for o in outs)
+            leaves = [t for t in _leaves_of(x) if t.requires_grad] \
+                + list(mod.parameters())
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+            runs.append(([o.detach().cpu() for o in outs],
+                         [g if g is None else g.cpu() for g in grads]))
+            del x, outs, loss, grads
+        (co, cg), (ko, kg) = runs
+        pairs = list(zip(co, ko)) + [(a, b) for a, b in zip(cg, kg)
+                                     if a is not None or b is not None]
+        gap = max(math.inf if a is None or b is None
+                  else _relative_gap(b, a) for a, b in pairs)
+        gaps[name] = {"gap": gap, "outputs": len(co),
+                      "gradients": sum(g is not None for g in cg)}
+        seconds[name] = time.perf_counter() - t0
+    log("nn-rest-sweep", json.dumps(gaps))
+    log("nn-rest-sweep", "seconds by class: " + json.dumps(
+        {n: round(t, 2) for n, t in seconds.items()}))
+    wrong = [n for n in gaps if n.endswith("(wrong)")]
+    bad = {n: g for n, g in gaps.items()
+           if (g["gap"] <= NN_F64_TOL) == (n in wrong)}
+    classes = {n.split(" ")[0] for n in gaps if n not in wrong}
+    if len(classes) != 47 or len(wrong) != 1 or bad:
+        raise AssertionError(f"nn sweep ({len(classes)} classes): {bad}")
+    return gaps
+
+
+def phase_nn_rest_lm(counters, device="cuda"):
+    """The rest of ``nn`` and the language-model example (module
+    docstring, phase 19): (a) ``language_model`` at PTBWordLM's
+    defaults, (b) ``udf_predictor --demo``, (c) the 47 classes card
+    against CPU in float64 and RoiPooling's float32 device ms. No kernel
+    of the kernels line may launch. Returns the summary."""
+    import torch
+
+    from bigdl_tpu_torch.utils.engine import full_float32
+
+    full_float32()
+    t_phase = time.perf_counter()
+    seconds = {}
+
+    def timed(part, fn, *args):
+        t0 = time.perf_counter()
+        value = fn(*args)
+        seconds[part] = time.perf_counter() - t0
+        return value
+
+    for fn in counters.values():
+        fn.launches = 0
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    summary = {"lm": timed("a", _phase19_lm, device),
+               "udf": timed("b", _phase19_udf, device),
+               "sweep": timed("c", _phase19_sweep, device)}
+    if device == "cuda":
+        summary["roi_float32"] = timed("roi", _roi_device_ms, device)
+    launches = {n: fn.launches for n, fn in counters.items()}
+    if any(launches.values()):
+        raise AssertionError(f"a kernel of the kernels line launched in "
+                             f"phase 19: {launches}")
+    summary["wall_s"] = time.perf_counter() - t_phase
+    summary["part_seconds"] = seconds
+    log("nn-rest", f"seconds by part: {json.dumps(seconds)}")
+    log("nn-rest", f"phase wall {summary['wall_s']:.1f} s")
+    return summary
+
+
 def main() -> int:
     import torch
 
@@ -8497,6 +9118,7 @@ def main() -> int:
     zoo_rows, _ = phase_zoo(counters, k5_vgg_rows)
     rnn_rows, _ = phase_rnn(counters, k5_lenet_rows)
     text_row, _ = phase_sparse_tree_text(counters, k5_text_row)
+    phase_nn_rest_lm(counters)
     ragged["launches"] = serve_launches["ragged_decode"]
     flash_fwd["launches"] = train_launches["flash_attention_fwd"]
     flash_bwd["launches"] = train_launches["flash_attention_bwd"]

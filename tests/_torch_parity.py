@@ -17,7 +17,8 @@ from bigdl_tpu.utils.table import Table as JaxTable
 from bigdl_tpu_torch.convert import flatten_params
 from bigdl_tpu_torch.utils.table import Table
 
-__all__ = ["assert_parity", "assert_table_parity", "assert_trees_close",
+__all__ = ["assert_criterion_parity", "assert_parity",
+           "assert_table_parity", "assert_trees_close",
            "flat", "jax_eval", "to_jax", "to_numpy", "to_torch"]
 
 
@@ -249,6 +250,46 @@ def assert_table_parity(ref, port, inp, atol, rtol=None, jit=True,
     if flat(params):
         assert_trees_close(port.get_grad_parameters(), gp, atol, rtol)
     for i, g in zip(fl, gx):
+        t = x[i].grad if x[i].grad is not None else torch.zeros_like(x[i])
+        np.testing.assert_allclose(_np(t), np.asarray(g), atol=atol,
+                                   rtol=rtol, err_msg=f"grad input {i}")
+    return got
+
+
+def assert_criterion_parity(ref, port, inp, target, atol, rtol=None,
+                            jit=True):
+    """Hold a port criterion to its JAX twin: ``inp`` is numpy leaves in
+    lists and port Tables, ``target`` the same or None. The losses
+    must agree, and so must their gradients with respect to every
+    floating input leaf, each within ``atol + rtol * |JAX value|``
+    (``rtol`` defaults to ``atol``). Returns the port's loss."""
+    from bigdl_tpu.utils.table import T as JT
+    from bigdl_tpu_torch.utils.table import T as PT
+
+    rtol = atol if rtol is None else rtol
+    leaves = _leaves(inp)
+    fl = [i for i, a in enumerate(leaves) if _floating(a)]
+    j_target = None if target is None else to_jax(target)
+
+    def jloss(fls):
+        ls = [jnp.asarray(a) for a in leaves]
+        for i, v in zip(fl, fls):
+            ls[i] = v
+        return ref.apply(_build(inp, ls, JT), j_target)
+
+    compiled = jax.jit if jit else (lambda f: f)
+    fls = [jnp.asarray(leaves[i]) for i in fl]
+    want, grads = compiled(jax.value_and_grad(jloss))(fls)
+    x = [torch.from_numpy(np.array(a)) for a in leaves]
+    for i in fl:
+        x[i].requires_grad_()
+    got = port(_build(inp, x, PT),
+               None if target is None else to_torch(target))
+    np.testing.assert_allclose(_np(got), np.asarray(want), atol=atol,
+                               rtol=rtol, err_msg="loss")
+    if got.requires_grad:
+        got.backward()
+    for i, g in zip(fl, grads):
         t = x[i].grad if x[i].grad is not None else torch.zeros_like(x[i])
         np.testing.assert_allclose(_np(t), np.asarray(g), atol=atol,
                                    rtol=rtol, err_msg=f"grad input {i}")

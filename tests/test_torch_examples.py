@@ -23,15 +23,18 @@ import torch
 import bigdl_tpu.nn as jnn
 from bigdl_tpu.utils import serialization as jser
 from bigdl_tpu.utils.random import RandomGenerator as JRandomGenerator
-from bigdl_tpu_torch.examples import (text_classification,
-                                      tree_lstm_sentiment, wide_and_deep)
+from bigdl_tpu_torch.examples import (language_model, text_classification,
+                                      tree_lstm_sentiment, udf_predictor,
+                                      wide_and_deep)
 from bigdl_tpu_torch.utils import serialization as ser
 from bigdl_tpu_torch.utils.random import RandomGenerator
 
 from _torch_parity import to_jax
 
+import examples.language_model as jax_lm
 import examples.text_classification as jax_text
 import examples.tree_lstm_sentiment as jax_tree
+import examples.udf_predictor as jax_udf
 import examples.wide_and_deep as jax_wd
 
 LOSS_ATOL = 2e-4
@@ -204,15 +207,137 @@ def test_text_classifier_quantizes_its_head_only_as_jax_does():
                                atol=1e-4, rtol=1e-4)
 
 
+#: the arguments each main runs with when asked for the card
+CARDLESS_ARGS = {text_classification.main: ["--synthetic", "8"],
+                 language_model.main: ["--synthetic", "400"],
+                 udf_predictor.main: ["--demo"]}
+
+
 @pytest.mark.parametrize("main", [wide_and_deep.main,
                                   tree_lstm_sentiment.main,
-                                  text_classification.main])
+                                  text_classification.main,
+                                  language_model.main,
+                                  udf_predictor.main])
 def test_a_main_without_a_card_names_the_device_flag(main):
     if torch.cuda.is_available():
         pytest.skip("a card is visible: the default device runs")
     with pytest.raises(SystemExit, match="--device cpu"):
-        main(["--synthetic", "8"] if main is text_classification.main
-             else [])
+        main(CARDLESS_ARGS.get(main, []))
+
+
+def _carry_ptb(monkeypatch):
+    """The JAX example's ``PTBModel`` built with the port's initial
+    weights (the port's ``PTBModel`` of the same arguments, drawn from
+    the seed's generator as the port's main draws them)."""
+    import bigdl_tpu.models as jax_models
+    from bigdl_tpu_torch.models import PTBModel
+    jax_build = jax_models.PTBModel
+
+    def build(*args, **kw):
+        ref = jax_build(*args, **kw)
+        ref.set_parameters(to_jax(PTBModel(*args, **kw, device="cpu",
+                                           generator=_gen())
+                                  .get_parameters()))
+        return ref
+
+    monkeypatch.setattr(jax_models, "PTBModel", build)
+
+
+LM_LOSS = r"train loss ([0-9.]+) perplexity ([0-9.]+)"
+LM_VALID = r"valid loss ([0-9.]+) perplexity ([0-9.]+)"
+
+
+def test_language_model_main_equals_jax(capsys, monkeypatch):
+    """``--synthetic``: the JAX example's stream over ``min(vocabSize,
+    50)`` ids, three Adagrad steps; the printed loss within 2e-4."""
+    argv = ["--synthetic", "400", "--hiddenSize", "16", "--numSteps", "5",
+            "-b", "4", "--maxIterations", "3"]
+    _seed()
+    state = language_model.main(argv + ["--device", "cpu"])
+    loss, _ = _printed(capsys, LM_LOSS)
+    _carry_ptb(monkeypatch)
+    _seed()
+    j_state = jax_lm.main(argv)
+    j_loss, _ = _printed(capsys, LM_LOSS)
+    assert abs(loss - j_loss) <= LOSS_ATOL, (loss, j_loss)
+    assert state["neval"] == j_state["neval"] == 4
+    assert state["Loss"] < np.log(50) + 0.5
+
+
+def _write_corpus(folder, words, n, seed):
+    rng = np.random.RandomState(seed)
+    lines = [" ".join(rng.choice(words, rng.randint(3, 12)))
+             for _ in range(n)]
+    (folder / f"{'train' if seed == 1 else 'valid'}.txt").write_text(
+        "\n".join(lines) + "\n")
+
+
+def test_language_model_reads_a_folder_as_jax_does(tmp_path, capsys,
+                                                   monkeypatch):
+    """``-f DIR``: PTB text in ``train.txt`` and ``valid.txt`` through the
+    port's ``load_ptb``; one epoch with its validation, the printed
+    training and validation losses within 2e-4 of the JAX main's."""
+    words = [f"w{i}" for i in range(60)]
+    _write_corpus(tmp_path, words, 150, 1)
+    _write_corpus(tmp_path, words, 40, 2)
+    argv = ["-f", str(tmp_path), "--vocabSize", "40", "--hiddenSize", "16",
+            "--numSteps", "5", "-b", "4", "-e", "1"]
+    _seed()
+    language_model.main(argv + ["--device", "cpu"])
+    out = capsys.readouterr().out
+    _carry_ptb(monkeypatch)
+    _seed()
+    jax_lm.main(argv)
+    j_out = capsys.readouterr().out
+    for pattern in (LM_LOSS, LM_VALID):
+        got = [float(v) for v in re.findall(pattern, out)[-1]]
+        want = [float(v) for v in re.findall(pattern, j_out)[-1]]
+        assert abs(got[0] - want[0]) <= LOSS_ATOL, (pattern, got, want)
+
+
+def test_language_model_without_valid_txt_warns_as_jax_does(tmp_path,
+                                                           capsys):
+    _write_corpus(tmp_path, [f"w{i}" for i in range(30)], 60, 1)
+    state = language_model.main(["-f", str(tmp_path), "--hiddenSize", "8",
+                                 "--numSteps", "4", "-b", "2",
+                                 "--maxIterations", "2", "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert "warning: no valid.txt found" in out and "valid loss" not in out
+    assert state["neval"] == 3
+
+
+def test_udf_predictor_demo_equals_jax(capsys, monkeypatch):
+    """The demo's 8 predictions equal the JAX main's from the same
+    initial weights (the JAX classifier built with the port's), and
+    the printed hits agree."""
+    _seed()
+    preds = udf_predictor.main(["--demo", "--device", "cpu"])
+    out = capsys.readouterr().out
+    _carry(monkeypatch, jax_text,
+           lambda *a: text_classification.build_model(*a, generator=_gen()))
+    _seed()
+    j_preds = jax_udf.main(["--demo"])
+    j_out = capsys.readouterr().out
+    assert preds == j_preds and len(preds) == 8
+    assert set(preds) <= {1, 2}
+    assert re.findall(r"(\d)/8 correct", out) == re.findall(
+        r"(\d)/8 correct", j_out)
+
+
+def test_udf_runs_the_forward_on_the_models_device():
+    """``make_text_udf`` feeds the model on its own device and hands back
+    plain labels; without ``--demo`` the main prints its help."""
+    from bigdl_tpu_torch.dataset import Dictionary, tokenize
+    texts, _ = text_classification.synthetic_corpus(
+        4, 2, np.random.RandomState(1))
+    d = Dictionary([tokenize(t) for t in texts], vocab_size=50)
+    model = text_classification.build_model(d.vocab_size() + 1, 8, 2,
+                                            generator=_gen())
+    udf = udf_predictor.make_text_udf(model, d, 12)
+    preds = udf(texts)
+    assert not model.training
+    assert len(preds) == 4 and all(type(p) is int for p in preds)
+    assert udf_predictor.main([]) is None
 
 
 def test_examples_import_only_the_port():
