@@ -16,8 +16,8 @@ Targets are next-token ids inside each document with ``ignore_index``
 at pad positions (pair with ``SequenceCrossEntropyCriterion(
 ignore_index=...)``). Every emitted slab sets the
 ``data/packing/padding_efficiency`` gauge (real tokens over slab
-capacity, cumulative per stage). Not ported yet: the pipeline the
-stages plug into (``datapipe.pipeline``, ROADMAP queue 1, item 10).
+capacity, cumulative per stage). The stages plug into
+:class:`~bigdl_tpu_torch.datapipe.Pipeline` (``.pack`` / ``.bucket``).
 """
 from __future__ import annotations
 

@@ -1,14 +1,14 @@
 """Transformer pipeline stages (counterpart of
 ``bigdl_tpu.dataset.transformer``): a ``Transformer`` maps an iterator
-of A to an iterator of B. Not ported yet: chaining (``>>``) and
-``Lambda``."""
+of A to an iterator of B; ``a >> b`` (or ``a.chain(b)``) composes, the
+reference's ``->`` (ChainedTransformer, Transformer.scala:86)."""
 from __future__ import annotations
 
 from typing import Iterator, Optional
 
 from bigdl_tpu_torch.dataset.sample import PaddingParam, samples_to_minibatch
 
-__all__ = ["SampleToMiniBatch", "Transformer"]
+__all__ = ["ChainedTransformer", "Lambda", "SampleToMiniBatch", "Transformer"]
 
 
 class Transformer:
@@ -19,6 +19,24 @@ class Transformer:
 
     def __call__(self, it):
         return self.apply(iter(it))
+
+    def chain(self, other: "Transformer") -> "ChainedTransformer":
+        return ChainedTransformer(self, other)
+
+    # the reference's `->`
+    def __rshift__(self, other: "Transformer") -> "ChainedTransformer":
+        return self.chain(other)
+
+
+class ChainedTransformer(Transformer):
+    """Composition of two transformers (Transformer.scala ``->``)."""
+
+    def __init__(self, first: Transformer, second: Transformer):
+        self.first = first
+        self.second = second
+
+    def apply(self, it):
+        return self.second.apply(self.first.apply(it))
 
 
 class SampleToMiniBatch(Transformer):
@@ -52,3 +70,14 @@ class SampleToMiniBatch(Transformer):
                 buf = []
         if buf and not self.drop_remainder:
             yield self._batch(buf)
+
+
+class Lambda(Transformer):
+    """Wrap a per-element function as a transformer."""
+
+    def __init__(self, fn):
+        self.fn = fn
+
+    def apply(self, it):
+        for x in it:
+            yield self.fn(x)

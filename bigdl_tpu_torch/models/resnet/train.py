@@ -5,21 +5,24 @@
     python -m bigdl_tpu_torch.models.resnet.train --synthetic 256 -e 1 --device cpu
     python -m bigdl_tpu_torch.models.resnet.train --dataset imagenet --depth 50 \\
         --synthetic 1024 -b 256 --checkpoint /tmp/ckpt
+    python -m bigdl_tpu_torch.models.resnet.train --dataset imagenet \\
+        -f /imagenet/train --valFolder /imagenet/val -b 256
 
 CIFAR-10: SGD lr 0.1, weight decay 1e-4, momentum 0.9, nesterov,
 ``EpochDecay(cifar10_decay)`` (x0.1 at epochs 81 and 122), batch 448,
 165 epochs, Top1, Top5 and Loss validation every epoch. ImageNet
 (BASELINE config 3): ResNet-50, batch 256, the same SGD under
-``EpochDecay(imagenet_decay)`` (x0.1 every 30 epochs), 90 epochs.
+``EpochDecay(imagenet_decay)`` (x0.1 every 30 epochs), 90 epochs, fed
+from the ``-f`` image folder by the threaded
+:class:`~bigdl_tpu_torch.dataset.imagenet.ImageFolderDataSet` (crop 224
+of the shorter side at 256, flips, ``--colorJitter`` and ``--lighting``
+on by default), with Top1 and Top5 on ``--valFolder`` every epoch.
 ``--synthetic N`` draws N seeded rows as the JAX recipes do (for
 ImageNet ``RandomState(0)``: ``rand`` then ``randint(1, classNum + 1)``).
 With ``--checkpoint DIR`` a checkpoint is written every epoch and a
 second call resumes from the newest one. Prints ``final loss`` as the
 JAX recipe does, then the checkpoint it resumed from, the last
 validation's scores and the steps' throughput.
-
-Not ported yet: ImageNet from a folder (``ImageFolderDataSet``, with
-its color jitter and lighting; queue item 10) raises NotImplementedError.
 """
 from __future__ import annotations
 
@@ -52,31 +55,46 @@ def _sgd(args, decay):
 
 
 def _train_imagenet(args, model_of):
-    """The ResNet-50 ImageNet recipe on ``--synthetic`` rows."""
+    """The ResNet-50 ImageNet recipe: ``--synthetic`` rows, or the
+    threaded image-folder feed with ColorJitter and Lighting
+    (dataset/image/ColorJitter.scala, Lighting.scala) and ``--valFolder``
+    Top1/Top5."""
     import numpy as np
 
     from bigdl_tpu_torch import nn
     from bigdl_tpu_torch.models._cli import (arrays_to_dataset, report,
                                              wire_optimizer)
-    from bigdl_tpu_torch.optim import LocalOptimizer
+    from bigdl_tpu_torch.optim import (LocalOptimizer, Top1Accuracy,
+                                       Top5Accuracy)
 
     bs = args.batchSize or 256
     depth = args.depth if args.depth is not None else 50
-    if not args.synthetic:
-        raise NotImplementedError(
-            "the ImageNet recipe from a folder (ImageFolderDataSet, color "
-            "jitter, lighting) is not ported yet (ROADMAP queue 1, item "
-            "10); use --synthetic N")
-    rng = np.random.RandomState(0)
-    imgs = rng.rand(args.synthetic, 3, 224, 224).astype(np.float32)
-    lbls = rng.randint(1, args.classNum + 1,
-                       args.synthetic).astype(np.float32)
+    val_ds = None
+    if args.synthetic:
+        rng = np.random.RandomState(0)
+        imgs = rng.rand(args.synthetic, 3, 224, 224).astype(np.float32)
+        lbls = rng.randint(1, args.classNum + 1,
+                           args.synthetic).astype(np.float32)
+        ds = arrays_to_dataset(imgs, lbls, bs)
+    else:
+        from bigdl_tpu_torch.dataset import ImageFolderDataSet
+        ds = ImageFolderDataSet(args.folder, batch_size=bs, crop=224,
+                                scale=256, color_jitter=args.colorJitter,
+                                lighting=args.lighting)
+        if args.valFolder:
+            val_ds = ImageFolderDataSet(args.valFolder, batch_size=bs,
+                                        crop=224, scale=256)
     model = model_of(args.classNum, depth, "ImageNet")
-    opt = LocalOptimizer(model, arrays_to_dataset(imgs, lbls, bs),
-                         nn.CrossEntropyCriterion(), batch_size=bs)
-    wire_optimizer(opt, args, _sgd(args, imagenet_decay),
+    opt = LocalOptimizer(model, ds, nn.CrossEntropyCriterion(),
+                         batch_size=bs)
+    wire_optimizer(opt, args, _sgd(args, imagenet_decay), val_ds=val_ds,
+                   val_methods=[Top1Accuracy(), Top5Accuracy()],
                    default_epochs=90)
-    opt.optimize()
+    try:
+        opt.optimize()
+    finally:
+        if not args.synthetic:
+            ds.close()
     report(opt)
     return model
 
@@ -99,6 +117,15 @@ def main(argv=None):
     ap.add_argument("--dataset", choices=("cifar10", "imagenet"),
                     default="cifar10")
     ap.add_argument("--classNum", type=int, default=1000)
+    ap.add_argument("--colorJitter", action=argparse.BooleanOptionalAction,
+                    default=True,
+                    help="ImageNet only: random b/c/s (ColorJitter.scala)")
+    ap.add_argument("--lighting", action=argparse.BooleanOptionalAction,
+                    default=True,
+                    help="ImageNet only: PCA noise (Lighting.scala)")
+    ap.add_argument("--valFolder", default=None,
+                    help="ImageNet only: val folder for per-epoch "
+                         "Top1/Top5")
     args = ap.parse_args(argv)
 
     from bigdl_tpu_torch import nn

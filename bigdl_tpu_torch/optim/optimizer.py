@@ -47,12 +47,23 @@ raises at once. Each pass of the loop goes through the ``train/step``
 fault point (:mod:`bigdl_tpu_torch.faults`), keyed on ``neval`` and
 ``epoch``.
 
+A dataset with ``continuous_stream`` (the threaded image feed, a
+streaming pipeline) keeps its iterator across the epoch rollover, and
+the driver carries a straddling batch's overshoot into the next epoch.
+A pipeline's read cursor (``pipeline_state()``, found through
+``TransformedDataSet`` wrappers) is checkpointed in
+``driver_state["datapipe"]`` and restored on resume. A
+:class:`~bigdl_tpu_torch.dataset.prefetch.StackedWindow` already on the
+card (``Pipeline.as_dataset(staged_k=K)``) is run as its K steps: the
+windowed driver copies its steps device to device into the window's
+graph inputs, the per-step loop takes them one at a time.
+
 Not ported yet: the elastic checkpoint options (``keep_last``,
 ``async_write``) and the flight recorder's post-mortem on a fatal
-failure (item 12), train and validation summaries, device-fed
-and rotating windows (item 10), ZeRO (and with it precision under ZeRO),
-sequence parallelism, preemption, and the multi-card
-``DistriOptimizer``.
+failure (item 12), train and validation summaries, the device-fed and
+rotating windows (``dataset.device_dataset``), ZeRO (and with it
+precision under ZeRO), sequence parallelism, preemption, and the
+multi-card ``DistriOptimizer``.
 """
 from __future__ import annotations
 
@@ -70,7 +81,8 @@ from bigdl_tpu_torch.convert import (export_params, export_state,
                                      flatten_params, jax_tree,
                                      load_jax_params)
 from bigdl_tpu_torch.dataset.dataset import AbstractDataSet
-from bigdl_tpu_torch.dataset.prefetch import (batch_signature,
+from bigdl_tpu_torch.dataset.prefetch import (StackedWindow, WindowRow,
+                                              batch_signature,
                                               stack_minibatches)
 from bigdl_tpu_torch.dataset.sample import (HostBatchedCOO, MiniBatch,
                                             SparseFeature,
@@ -555,7 +567,9 @@ class _HostWindow:
         cap.graph = torch.cuda.CUDAGraph()
         if drew:
             cap.graph.register_generator_state(gen)
-        with torch.cuda.graph(cap.graph):
+        # thread_local: a device_prefetch stager may be copying the next
+        # window on its own stream and thread while this one captures
+        with torch.cuda.graph(cap.graph, capture_error_mode="thread_local"):
             for i in range(k):
                 loss = self.step(_leaf_at(cap.xs, i), _leaf_at(cap.ys, i),
                                  cap.lrs[i])
@@ -872,21 +886,42 @@ class Optimizer:
     def _param_names(self) -> List[str]:
         return [name for name, _ in self.model.named_parameters()]
 
+    def _cursor_dataset(self):
+        """The dataset, behind any ``TransformedDataSet`` wrappers (the
+        ``.base`` chain), that carries a streaming pipeline's cursor, or
+        None."""
+        ds = self.dataset
+        for _ in range(32):  # a cycle guard
+            if ds is None:
+                return None
+            if callable(getattr(ds, "pipeline_state", None)) \
+                    and callable(getattr(ds, "restore_pipeline_state",
+                                         None)):
+                return ds
+            ds = getattr(ds, "base", None)
+        return None
+
     def _checkpoint(self, step) -> None:
         """Write the run's state as a format-2 checkpoint: the params,
         the OptimMethod's buffers and the model state as the JAX
-        package's trees, its host state and the driver's counters."""
+        package's trees, its host state and the driver's counters, with
+        a streaming pipeline's read cursor as ``driver_state["datapipe"]``
+        (the driver is one process, so the cursor is the run's)."""
         from bigdl_tpu_torch.utils.serialization import save_checkpoint
         suffix = "" if self.is_overwrite else f".{self.driver_state['neval']}"
         path = os.path.join(self.checkpoint_path, f"checkpoint{suffix}")
         names = self._param_names()
         opt_state = self.optim_method.state_tree(
             step.opt_state, lambda ts: jax_tree(self.model, zip(names, ts)))
+        driver_state = dict(self.driver_state)
+        cursor_ds = self._cursor_dataset()
+        if cursor_ds is not None:
+            driver_state["datapipe"] = cursor_ds.pipeline_state()
         save_checkpoint(path, params=export_params(self.model),
                         opt_state=opt_state,
                         model_state=export_state(self.model),
                         optim_host_state=self.optim_method.get_state(),
-                        driver_state=dict(self.driver_state))
+                        driver_state=driver_state)
         logger.info("checkpointed to %s", path)
 
     def _try_resume(self) -> Optional[Dict[str, Any]]:
@@ -962,8 +997,12 @@ class Optimizer:
                             resumed["model_state"])
             self.optim_method.load_state(resumed["optim_host_state"])
             state.update(resumed["driver_state"])
-            # a streaming pipeline's cursor: the port has no pipeline
-            state.pop("datapipe", None)
+            # a streaming pipeline's cursor resumes the data position;
+            # popped so the counters stay plain numbers
+            cursor = state.pop("datapipe", None)
+            cursor_ds = self._cursor_dataset()
+            if cursor is not None and cursor_ds is not None:
+                cursor_ds.restore_pipeline_state(cursor)
             self.resumed_from = {"path": resumed["path"],
                                  "neval": state["neval"]}
             # the steps a retry redoes are recorded once
@@ -1023,10 +1062,16 @@ class Optimizer:
         warned_unstackable = False
 
         def pull_batch() -> MiniBatch:
-            b = pending.pop(0) if pending else next(data_iter)
+            if pending:
+                return pending.pop(0)
+            b = next(data_iter)
             if not isinstance(b, MiniBatch):
                 raise ValueError(
                     "dataset must yield MiniBatch; add SampleToMiniBatch")
+            if isinstance(b, StackedWindow):
+                # a staged [K, B, ...] window: its K steps in order
+                b, *rest = b.split()
+                pending.extend(rest)
             return b
 
         def post_step(loss_f, lr, bsz, throughput, seconds):
@@ -1048,15 +1093,20 @@ class Optimizer:
             logger.info(
                 "Epoch %d iter %d: loss %.4f lr %.5f throughput %.1f rec/s",
                 state["epoch"], state["neval"] - 1, loss_f, lr, throughput)
-            # epoch rollover: a fresh permutation and iterator; the
-            # overshoot of a batch that straddles the boundary is
-            # dropped, as the JAX driver does for restartable iterators
+            # epoch rollover (DistriOptimizer.scala:368-380): while, as
+            # one batch can span several epochs. A continuous stream
+            # keeps its iterator and the overshoot of a batch that
+            # straddles the boundary, which tracks the stream's own
+            # epochs; a restartable iterator begins a fresh permutation,
+            # so the overshoot is dropped
             while state["recordsProcessedThisEpoch"] >= ds_size:
                 state["epoch"] += 1
                 self.optim_method.state["epoch"] = state["epoch"]
-                state["recordsProcessedThisEpoch"] = 0
-                self.dataset.shuffle()
-                data_iter = self.dataset.data(train=True)
+                state["recordsProcessedThisEpoch"] -= ds_size
+                if not getattr(self.dataset, "continuous_stream", False):
+                    state["recordsProcessedThisEpoch"] = 0
+                    self.dataset.shuffle()
+                    data_iter = self.dataset.data(train=True)
             # windows end at every plannable trigger boundary, so with
             # k > 1 these fire only on a window's last replayed step
             if (self.validation_trigger is not None
@@ -1091,13 +1141,15 @@ class Optimizer:
                 # by the actual sizes or exhaustion ends it early
                 first = pull_batch()
                 window = [first]
-                if not _window_stackable(first) and not warned_unstackable:
+                staged = isinstance(first, WindowRow)
+                if not staged and not _window_stackable(first) \
+                        and not warned_unstackable:
                     warned_unstackable = True
                     logger.info(
                         "steps_per_sync=%d: batches are not window-"
                         "stackable (sparse or device-resident leaves) — "
                         "running per-step", self.steps_per_sync)
-                if _window_stackable(first):
+                if staged or _window_stackable(first):
                     sig = batch_signature(first)
                     rec_sim = (state["recordsProcessedThisEpoch"]
                                + first.size())
@@ -1120,9 +1172,16 @@ class Optimizer:
                             b = pull_batch()
                         except StopIteration:
                             break
-                        if not _window_stackable(b) \
-                                or batch_signature(b) != sig:
-                            pending.append(b)
+                        if staged:
+                            # the next step of the same staged window
+                            fits = isinstance(b, WindowRow) \
+                                and b.window is first.window \
+                                and b.index == window[-1].index + 1
+                        else:
+                            fits = _window_stackable(b) \
+                                and batch_signature(b) == sig
+                        if not fits:
+                            pending.insert(0, b)
                             break
                         window.append(b)
                         rec_sim += b.size()
@@ -1131,7 +1190,13 @@ class Optimizer:
             if k_now > 1:
                 # one window: one graph replay, one host sync
                 sizes = [b.size() for b in window]
-                stacked = stack_minibatches(window)
+                if staged:
+                    # views of the window already on the card: the graph
+                    # call copies them device to device
+                    stacked = first.window.rows(first.index,
+                                                first.index + k_now)
+                else:
+                    stacked = stack_minibatches(window)
                 lr_list = self._window_lrs(k_now, state)
                 losses = self.window(stacked.get_input(),
                                      stacked.get_target(), lr_list)

@@ -396,7 +396,42 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    ``SoftmaxWithCriterion`` dividing by every position must fail;
    RoiPooling's float32 forward and backward device ms a call from a
    profiled window. No kernel of the kernels line may launch. The
-   phase's wall time by part.
+   phase's wall time by part;
+20. the data plane (``phase_data_plane``), on a temporary ImageNet-like
+   folder of seeded noise (640 train images in 10 class folders, 256
+   val, at 500 x 375, 375 x 500 and 500 x 333, PPM and BMP in turn: the
+   card's machine has no Pillow, so no JPEG), removed at the end — (a)
+   ``resnet.train -f --valFolder --dataset imagenet -b 256
+   --colorJitter --lighting`` at full width (ResNet-50, 1000 classes)
+   for 6 iterations, which cross two epochs: finite losses; the
+   driver's epoch and ``recordsProcessedThisEpoch`` equal the stream's
+   (epoch 3, 256); the last validation's Top1/Top5 counts equal an
+   ``Evaluator`` pass over the val folder with the model as it was
+   validated; (b) the 8-thread pool delivers every chunk of its index
+   stream's first epoch once, so the labels of that epoch are the
+   folder's; ``device_prefetch`` stages batches of the pool while
+   ResNet-50 steps run, and each staged tensor equals its host batch
+   bitwise (one changed element must fail the comparison); (c) 128
+   images as a folder, as one record shard and as 4 SequenceFiles: the
+   same items; bitwise train batches at one thread (folder against
+   records; SequenceFiles against records in their order) and bitwise
+   eval batches; a flipped byte raises the crc error; (d)
+   ``prefetch/stage`` and ``datapipe/read`` armed once: the consumer
+   and the Pipeline's iterator raise ``InjectedFault``, the stager ends,
+   one injection each in ``faults/point/injected``; (e) ragged text
+   documents through ``TextLineReader -> map -> shuffle(4096) ->
+   pack(512, 16) -> as_dataset`` into ``LocalOptimizer`` on a
+   TransformerLM at the training width for 16 steps: K1's forward and
+   backward launched layers x steps, the batches equal a CPU pass of
+   the same pipeline, ``as_dataset(staged_k=8)`` windows at K = 8 and a
+   resume from a checkpoint at the first epoch boundary bitwise the
+   per-step run (losses, parameters), the padding efficiency printed;
+   (f) the pool's images/s at 1, 4 and 8 threads with the host's CPU
+   count, ``fetch_wait_s`` p50 / p99, the ResNet-50 b256 step's ms and
+   idle share fed from the pool through ``device_prefetch`` against the
+   same step on a batch already on the card (profiled windows), the
+   packed LM step's ms at K = 1 and K = 8. No kernel of the kernels line
+   may launch in (a)-(d). The phase's wall time by part.
 
 Float32 throughout phases 1–10, with TF32 off for matrix products (set
 here) and for convolutions (PyTorch's default is on; the port's
@@ -410,7 +445,7 @@ bf16_mixed in (b), float32 in (c)-(e); phase 16 bf16_mixed at phase
 11's limits; phase 17 float32 (and bf16_mixed, float64 where (a) says);
 phase 18 float32, with float64 in (a)-(c)'s card-against-CPU checks and
 in (e), and int8 through K5 in (d); phase 19 float32, with float64 in
-(a)'s card-against-CPU check and in (c).
+(a)'s card-against-CPU check and in (c); phase 20 float32.
 
 After the phases the card's name and power limit print again; then the
 line before the last is a JSON object ``{"kernels": [...]}`` with
@@ -9062,6 +9097,628 @@ def phase_nn_rest_lm(counters, device="cuda"):
     return summary
 
 
+# ---- the data plane slice (phase 20) ----
+#: an ImageNet-like folder of seeded noise: classes, train images a
+#: class, val images, the (h, w) sizes in turn (PPM and BMP in turn)
+FOLDER_CLASSES, FOLDER_PER_CLASS, FOLDER_VAL = 10, 64, 256
+FOLDER_SIZES = ((375, 500), (500, 375), (333, 500))
+#: the recipe's batch, the iterations (6 x 256 crosses two epochs of
+#: 640), the seed of the folder and the pools
+FOLDER_BATCH, FOLDER_ITERS, FOLDER_SEED = 256, 6, 20
+#: (b) the label epoch's batch, ResNet-50 steps fed through
+#: device_prefetch before the profiled window (whose steps, after a
+#: warm one, are fed and checked too: 7 batches, one round of the 8
+#: workers; the ring of 4 pinned slots is reused from the fifth)
+LABEL_BATCH, FEED_STEPS, FEED_PROFILE_STEPS = 64, 2, 4
+#: (c) the three sources: classes, images a class, batch, train
+#: batches compared
+SOURCES_CLASSES, SOURCES_PER_CLASS, SOURCES_BATCH = 8, 16, 32
+SOURCES_TRAIN_BATCHES = 3
+#: (f) the pool's images/s: thread counts, batch, batches timed
+POOL_THREADS, POOL_RATE_BATCH, POOL_RATE_BATCHES = (1, 4, 8), 32, 8
+#: (e) the streaming LM: text shards, documents a shard, the range of a
+#: document's token count, iterations, window, shuffle buffer, seed; 72
+#: documents pack into 8 batches in epoch 0, so both K = 8 windows are
+#: whole (one graph, captured, then replayed)
+STREAM_SHARDS, STREAM_DOCS, STREAM_DOC_LEN = 8, 9, (32, 1200)
+STREAM_ITERS, STREAM_K, STREAM_SHUFFLE, STREAM_SEED = 16, 8, 4096, 20
+
+
+def _ppm_bytes(img) -> bytes:
+    """A binary PPM (P6, maxval 255) of an RGB HWC uint8 image."""
+    h, w = img.shape[:2]
+    return f"P6\n{w} {h}\n255\n".encode() + img.tobytes()
+
+
+def _bmp_bytes(img) -> bytes:
+    """A 24-bit uncompressed bottom-up BMP of an RGB HWC uint8 image."""
+    import struct
+
+    h, w = img.shape[:2]
+    stride = (w * 3 + 3) & ~3
+    rows = np.zeros((h, stride), np.uint8)
+    rows[:, :w * 3] = img[::-1, :, ::-1].reshape(h, w * 3)
+    return (struct.pack("<2sIHHI", b"BM", 54 + rows.nbytes, 0, 0, 54)
+            + struct.pack("<IiiHHIIiiII", 40, w, h, 1, 24, 0, rows.nbytes,
+                          2835, 2835, 0, 0)
+            + rows.tobytes())
+
+
+def write_image_folder(root: str, counts, seed: int, sizes=None) -> int:
+    """``root/n<class>/<i>.ppm|.bmp``: ``counts[c]`` seeded noise images
+    of class ``c`` at ``sizes`` in turn, PPM and BMP in turn. Returns
+    the bytes written."""
+    import os
+
+    rng = np.random.default_rng(seed)
+    sizes = sizes or FOLDER_SIZES
+    k = total = 0
+    for c, n in enumerate(counts):
+        folder = os.path.join(root, f"n{c:08d}")
+        os.makedirs(folder, exist_ok=True)
+        for i in range(n):
+            h, w = sizes[k % len(sizes)]
+            img = rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+            name, data = (f"{i:04d}.ppm", _ppm_bytes(img)) if k % 2 == 0 \
+                else (f"{i:04d}.bmp", _bmp_bytes(img))
+            with open(os.path.join(folder, name), "wb") as f:
+                f.write(data)
+            total += len(data)
+            k += 1
+    return total
+
+
+@contextlib.contextmanager
+def _recording_optimizers():
+    """``bigdl_tpu_torch.optim.LocalOptimizer`` replaced, while the
+    block runs, by a subclass that lists its instances and keeps a copy
+    of the model's state after each validation."""
+    from bigdl_tpu_torch import optim
+
+    runs = []
+    real = optim.LocalOptimizer
+
+    class Recorded(real):
+        def __init__(self, *args, **kw):
+            super().__init__(*args, **kw)
+            self.validated_states = []
+            runs.append(self)
+
+        def _validate(self):
+            scores = super()._validate()
+            self.validated_states.append(
+                {k: v.detach().clone()
+                 for k, v in self.model.state_dict().items()})
+            return scores
+
+    optim.LocalOptimizer = Recorded
+    try:
+        yield runs
+    finally:
+        optim.LocalOptimizer = real
+
+
+def _stagers():
+    return [t for t in threading.enumerate() if t.name == "device_prefetch"]
+
+
+def _phase20_folder(train, val, device) -> dict:
+    """(a) ``resnet.train -f`` at full width from the folder."""
+    from bigdl_tpu_torch.dataset import ImageFolderDataSet
+    from bigdl_tpu_torch.models.resnet import train as resnet_train
+    from bigdl_tpu_torch.optim import Evaluator, Top1Accuracy, Top5Accuracy
+
+    argv = ["-f", train, "--valFolder", val, "--dataset", "imagenet",
+            "--depth", "50", "-b", str(FOLDER_BATCH), "--maxIterations",
+            str(FOLDER_ITERS), "--colorJitter", "--lighting", "--device",
+            device]
+    t0 = time.perf_counter()
+    with _recording_optimizers() as runs:
+        model, _ = _run_cli("data-folder", resnet_train.main, argv)
+    wall = time.perf_counter() - t0
+    opt = runs[-1]
+    losses = [h["loss"] for h in opt.history]
+    n = opt.dataset.size()
+    consumed = sum(h["rows"] for h in opt.history)
+    stream = {"epoch": 1 + consumed // n,
+              "recordsProcessedThisEpoch": consumed % n}
+    driver = {k: opt.driver_state[k] for k in stream}
+    scores = opt.validation_history[-1] if opt.validation_history else {}
+    driver_counts = {k: round(v * FOLDER_VAL) for k, v in scores.items()}
+    model.load_state_dict(opt.validated_states[-1])
+    results = Evaluator(model).test(
+        ImageFolderDataSet(val, batch_size=FOLDER_BATCH, crop=224,
+                           scale=256),
+        [Top1Accuracy(), Top5Accuracy()], batch_size=FOLDER_BATCH)
+    counts = {k: r.correct for k, r in results.items()}
+    step_ms = [h["seconds"] * 1e3 for h in opt.history]
+    out = {"wall_s": wall, "losses": losses, "driver": driver,
+           "stream": stream, "validations": len(opt.validation_history),
+           "driver_counts": driver_counts, "evaluator_counts": counts,
+           "step_ms_fed_from_folder": step_ms,
+           "images_per_s": consumed / max(1e-9, sum(step_ms) / 1e3)}
+    log("data-folder", json.dumps(out))
+    if not (len(losses) == FOLDER_ITERS and all(np.isfinite(losses))
+            and driver == stream and len(opt.validation_history) == 2
+            and driver_counts == counts
+            and all(r.count == FOLDER_VAL for r in results.values())):
+        raise AssertionError(f"phase 20 (a): {out}")
+    return out
+
+
+def _phase20_feed(train, device) -> dict:
+    """(b) the 8-thread pool's epoch of labels; ResNet-50 steps fed by
+    ``device_prefetch``, each staged batch held against its host batch;
+    (f) the fed step against the step on a batch already on the card."""
+    import torch
+
+    from bigdl_tpu_torch import telemetry
+    from bigdl_tpu_torch.dataset import ImageFolderDataSet
+    from bigdl_tpu_torch.dataset.imagenet import _IndexStream
+    from bigdl_tpu_torch.dataset.prefetch import device_prefetch
+    from bigdl_tpu_torch.dataset.sample import minibatch_input_to_device
+    from bigdl_tpu_torch.nn import CrossEntropyCriterion
+    from bigdl_tpu_torch.optim import build_train_step
+
+    def on(x):
+        return minibatch_input_to_device(x, device)
+
+    out = {}
+    t0 = time.perf_counter()
+    # the label epoch: every chunk of the stream's first epoch arrives
+    # once from the 8 workers, its labels with it
+    ds = ImageFolderDataSet(train, batch_size=LABEL_BATCH, num_threads=8,
+                            seed=FOLDER_SEED, color_jitter=True,
+                            lighting=True)
+    labels = np.asarray([lbl for _, lbl in ds._items], np.float32)
+    n = len(labels)
+    perm = _IndexStream(n, FOLDER_SEED).perm
+    epoch = [tuple(labels[perm[i:i + LABEL_BATCH]])
+             for i in range(0, n, LABEL_BATCH)]
+    seen, pulled = [], 0
+    it = ds.data(train=True)
+    try:
+        while pulled < 3 * len(epoch) and not all(c in seen for c in epoch):
+            seen.append(tuple(next(it).target))
+            pulled += 1
+    finally:
+        ds.close()
+    got = [c for c in seen if c in epoch]
+    out["label_epoch"] = {"batches_pulled": pulled,
+                          "first_epoch_chunks": len(epoch)}
+    if sorted(got) != sorted(epoch) or sorted(np.concatenate(got)) \
+            != sorted(labels):
+        raise AssertionError(f"phase 20 (b): the 8-thread pool's first "
+                             f"epoch: {out['label_epoch']}")
+
+    out["seconds_label_epoch"] = time.perf_counter() - t0
+    # device_prefetch under ResNet-50 steps
+    t0 = time.perf_counter()
+    model = _resnet50(device)
+    method = _recipe_sgd()
+    step = build_train_step(model, CrossEntropyCriterion(), method)
+    ds = ImageFolderDataSet(train, batch_size=FOLDER_BATCH, num_threads=8,
+                            seed=FOLDER_SEED + 1, color_jitter=True,
+                            lighting=True)
+    hosts = []
+
+    def host_batches():
+        for b in ds.data(train=True):
+            hosts.append(b)
+            yield b
+
+    waits = telemetry.histogram("data/prefetch/fetch_wait_s")
+    n_waits = waits.count()
+    feed = device_prefetch(host_batches(), size=2, device=device)
+    staged = []
+
+    def fed(i):
+        b = next(feed)
+        staged.append(b)
+        lr = method.update_hyper_parameter()
+        return float(step(on(b.input), on(b.target), lr))
+
+    try:
+        losses = [fed(i) for i in range(FEED_STEPS)]
+        # the profiled window goes on with the same feed: its batches
+        # are checked too, once the window is read
+        out["fed_profile"] = _profile_steps(fed, FEED_PROFILE_STEPS,
+                                            device, "data-feed") \
+            if device == "cuda" else "not measured"
+    finally:
+        t1 = time.perf_counter()
+        feed.close()
+        ds.close()
+        out["seconds_close"] = time.perf_counter() - t1
+    out["seconds_fed"] = time.perf_counter() - t0
+    # each staged batch (a pinned slot is reused from the fifth on)
+    # against the host batch it was staged from, after the steps ran
+    checks = [torch.equal(torch.as_tensor(b.input).cpu(),
+                          torch.from_numpy(h.input))
+              and torch.equal(torch.as_tensor(b.target).cpu(),
+                              torch.from_numpy(h.target))
+              for b, h in zip(staged, hosts)]
+    bad = torch.as_tensor(staged[-1].input).cpu().flatten().clone()
+    bad[bad.numel() // 3] += 1.0
+    caught = not torch.equal(bad, torch.from_numpy(
+        hosts[len(staged) - 1].input).flatten())
+    wait_s = waits.samples()[-(waits.count() - n_waits):]
+    out["fetch_wait_s"] = telemetry.percentile_summary(wait_s)
+    x, y = on(hosts[0].input), on(hosts[0].target)
+    lr = method.update_hyper_parameter()
+    out["on_card_profile"] = _profile_steps(
+        lambda i: float(step(x, y, lr)), FEED_PROFILE_STEPS, device,
+        "data-feed") if device == "cuda" else "not measured"
+    out["seconds_total"] = time.perf_counter() - t0 \
+        + out["seconds_label_epoch"]
+    out["staged_equal_host"] = checks
+    out["changed_element_caught"] = caught
+    out["losses"] = losses
+    log("data-feed", json.dumps(out))
+    want = FEED_STEPS + (FEED_PROFILE_STEPS + 1) * (device == "cuda")
+    if not (all(checks) and len(checks) == want and caught
+            and all(np.isfinite(losses))):
+        raise AssertionError(f"phase 20 (b): {out}")
+    if not _wait_gone():
+        raise AssertionError("phase 20 (b): a device_prefetch stager "
+                             "outlived close()")
+    return out
+
+
+def _wait_gone(timeout_s: float = 5.0) -> bool:
+    deadline = time.time() + timeout_s
+    while _stagers() and time.time() < deadline:
+        time.sleep(0.02)
+    return not _stagers()
+
+
+def _phase20_sources(root, device) -> dict:
+    """(c) the same images as a folder, record shards and SequenceFile
+    shards: equal items, bitwise train batches at one thread in one item
+    order, bitwise eval batches; a flipped byte raises the crc error."""
+    import os
+
+    from bigdl_tpu_torch.dataset import (ImageFolderDataSet,
+                                         ImageRecordWriter,
+                                         list_image_folder,
+                                         read_image_records,
+                                         read_seq_image_records,
+                                         write_image_record_shards,
+                                         write_seq_image_shards)
+
+    folder = os.path.join(root, "sources")
+    write_image_folder(folder, [SOURCES_PER_CLASS] * SOURCES_CLASSES,
+                       FOLDER_SEED + 2)
+    records = write_image_record_shards(folder, os.path.join(root, "rec"),
+                                        num_shards=1)
+    seqs = write_seq_image_shards(folder, os.path.join(root, "seq"),
+                                  num_shards=4, seed=FOLDER_SEED)
+    # the SequenceFiles' items in their own order, as one record shard
+    seq_order = os.path.join(root, "seq-order.btir")
+    with ImageRecordWriter(seq_order) as w:
+        for s in seqs:
+            for data, label, name in read_seq_image_records(s):
+                w.write(data, label, name)
+
+    def read(raw):
+        if isinstance(raw, bytes):
+            return raw
+        with open(raw, "rb") as f:
+            return f.read()
+
+    def items(ds):
+        return sorted((float(lbl), read(raw)) for raw, lbl in ds._items)
+
+    kw = dict(batch_size=SOURCES_BATCH, seed=FOLDER_SEED,
+              color_jitter=True, lighting=True)
+    sources = {"folder": dict(folder=folder),
+               "records": dict(record_shards=records),
+               "seqfiles": dict(seq_files=seqs),
+               "records_in_seq_order": dict(record_shards=[seq_order])}
+    train, evals, item_sets = {}, {}, {}
+    n = len(list_image_folder(folder)[0])
+    for name, src in sources.items():
+        ds = ImageFolderDataSet(num_threads=1, **src, **kw)
+        item_sets[name] = items(ds)
+        it = ds.data(train=True)
+        train[name] = [next(it) for _ in range(SOURCES_TRAIN_BATCHES)]
+        ds.close()
+        evals[name] = list(ImageFolderDataSet(num_threads=8, **src, **kw)
+                           .data(train=False))
+
+    def same(a, b):
+        return len(a) == len(b) and all(
+            np.array_equal(x.input, y.input)
+            and np.array_equal(x.target, y.target) for x, y in zip(a, b))
+
+    bad = os.path.join(root, "flipped.btir")
+    with open(records[0], "rb") as f:
+        data = bytearray(f.read())
+    data[len(data) // 2] ^= 0x10
+    with open(bad, "wb") as f:
+        f.write(bytes(data))
+    try:
+        list(read_image_records(bad))
+        crc = "no error"
+    except ValueError as e:
+        crc = str(e)
+    out = {"images": n,
+           "items_equal": item_sets["folder"] == item_sets["records"]
+           == item_sets["seqfiles"],
+           "train_folder_records": same(train["folder"], train["records"]),
+           "train_seqfiles_records": same(train["seqfiles"],
+                                          train["records_in_seq_order"]),
+           "eval_folder_records": same(evals["folder"], evals["records"]),
+           "eval_seqfiles_records": same(evals["seqfiles"],
+                                         evals["records_in_seq_order"]),
+           "flipped_byte": crc}
+    log("data-sources", json.dumps(out))
+    if not (all(v is True for k, v in out.items()
+                if k not in ("images", "flipped_byte"))
+            and "crc" in crc and n == SOURCES_CLASSES * SOURCES_PER_CLASS):
+        raise AssertionError(f"phase 20 (c): {out}")
+    return out
+
+
+def _write_text_shards(root: str):
+    """``STREAM_SHARDS`` text files of ``STREAM_DOCS`` ragged documents
+    of token ids each, one a line, from ``STREAM_SEED``."""
+    import os
+
+    rng = np.random.default_rng(STREAM_SEED)
+    paths = []
+    for s in range(STREAM_SHARDS):
+        path = os.path.join(root, f"text-{s:03d}.txt")
+        with open(path, "w") as f:
+            for _ in range(STREAM_DOCS):
+                n = int(rng.integers(*STREAM_DOC_LEN))
+                f.write(" ".join(map(str, rng.integers(0, TRAIN_VOCAB, n)))
+                        + "\n")
+        paths.append(path)
+    return paths
+
+
+def _line_ids(line: str):
+    return np.asarray(line.split(), np.int32)
+
+
+def _stream_pipe(shards):
+    from bigdl_tpu_torch import datapipe as dp
+
+    return dp.Pipeline(dp.TextLineReader(shards, seed=STREAM_SEED)) \
+        .map(_line_ids).shuffle(STREAM_SHUFFLE, seed=STREAM_SEED) \
+        .pack(TRAIN_SEQ, TRAIN_BATCH)
+
+
+def _phase20_faults(shards, device) -> dict:
+    """(d) ``prefetch/stage`` and ``datapipe/read`` armed once each."""
+    from bigdl_tpu_torch import faults, telemetry
+    from bigdl_tpu_torch.dataset import MiniBatch
+    from bigdl_tpu_torch.dataset.prefetch import device_prefetch
+
+    counter = telemetry.counter("faults/point/injected")
+    before = {p: counter.value(point=p)
+              for p in ("prefetch/stage", "datapipe/read")}
+    batches = [MiniBatch(np.full((4, 3), i, np.float32),
+                         np.ones(4, np.float32)) for i in range(4)]
+    out = {}
+    with faults.armed("prefetch/stage=nth:1,raise"):
+        feed = device_prefetch(iter(batches), size=2, device=device)
+        try:
+            next(feed)
+            out["prefetch_stage"] = "no error"
+        except faults.InjectedFault as e:
+            out["prefetch_stage"] = type(e).__name__
+        finally:
+            feed.close()
+    out["stager_ended"] = _wait_gone()
+    with faults.armed("datapipe/read=nth:1,raise"):
+        try:
+            next(_stream_pipe(shards).iterate(loop=True))
+            out["datapipe_read"] = "no error"
+        except faults.InjectedFault as e:
+            out["datapipe_read"] = type(e).__name__
+    out["injected"] = {p: counter.value(point=p) - v
+                       for p, v in before.items()}
+    log("data-faults", json.dumps(out))
+    if not (out["prefetch_stage"] == out["datapipe_read"] == "InjectedFault"
+            and out["stager_ended"]
+            and out["injected"] == {"prefetch/stage": 1.0,
+                                    "datapipe/read": 1.0}):
+        raise AssertionError(f"phase 20 (d): {out}")
+    return out
+
+
+def _host_planes(batch):
+    """A MiniBatch's planes and target as numpy (rows of a staged window
+    come back from the card)."""
+    def arr(x):
+        return x.detach().cpu().numpy() if hasattr(x, "detach") \
+            else np.asarray(x)
+    return [arr(p) for p in batch.input] + [arr(batch.target)]
+
+
+def _phase20_stream(root, shards, counters, device) -> dict:
+    """(e) ``TextLineReader -> map -> shuffle -> pack -> as_dataset``
+    into ``LocalOptimizer`` on a TransformerLM at the training width:
+    K1 launches, the record order against a CPU pass of the pipeline,
+    staged K-step windows and a resume at an epoch boundary bitwise the
+    per-step run."""
+    import os
+
+    import torch
+
+    from bigdl_tpu_torch.dataset.prefetch import StackedWindow
+    from bigdl_tpu_torch.dataset.transformer import Lambda
+    from bigdl_tpu_torch.nn import SequenceCrossEntropyCriterion
+    from bigdl_tpu_torch.optim import (SGD, LocalOptimizer, every_epoch,
+                                       max_iteration)
+
+    crit = SequenceCrossEntropyCriterion(ignore_index=-1)
+
+    def run(ds, iters, k=1, checkpoint=None):
+        seen = []
+
+        def keep(b):
+            parts = b.split() if isinstance(b, StackedWindow) else [b]
+            seen.extend(_host_planes(p) for p in parts)
+            return b
+
+        model = _train_model(device)
+        opt = LocalOptimizer(model, ds.transform(Lambda(keep)), crit,
+                             batch_size=TRAIN_BATCH)
+        opt.set_optim_method(SGD(learning_rate=TRAIN_LR))
+        opt.set_end_when(max_iteration(iters))
+        if k > 1:
+            opt.set_steps_per_sync(k)
+        if checkpoint:
+            opt.set_checkpoint(checkpoint, every_epoch())
+        t0 = time.perf_counter()
+        opt.optimize()
+        return opt, seen, time.perf_counter() - t0
+
+    pipe = _stream_pipe(shards)
+    ds = pipe.as_dataset(device=device)
+    per_epoch = ds.size() // TRAIN_BATCH
+    for fn in counters.values():
+        fn.launches = 0
+    base, seen, wall = run(ds, STREAM_ITERS)
+    launches = {name: fn.launches for name, fn in counters.items()}
+    efficiency = pipe.stages[-1].efficiency
+    # the same pipeline on the CPU, without the driver
+    cpu = [_host_planes(b) for _, b in zip(range(STREAM_ITERS),
+                                           _stream_pipe(shards)
+                                           .iterate(loop=True))]
+    order_equal = len(seen) >= STREAM_ITERS and all(
+        all(np.array_equal(a, b) for a, b in zip(x, y))
+        for x, y in zip(seen, cpu))
+    losses = [h["loss"] for h in base.history]
+    params = [p.detach().clone() for p in base.model.parameters()]
+
+    staged, _, staged_wall = run(
+        _stream_pipe(shards).as_dataset(staged_k=STREAM_K, device=device),
+        STREAM_ITERS, k=STREAM_K)
+    staged_equal = [h["loss"] for h in staged.history] == losses and all(
+        torch.equal(a, b) for a, b in zip(staged.model.parameters(), params))
+
+    ck = os.path.join(root, "stream-checkpoints")
+    run(_stream_pipe(shards).as_dataset(device=device), per_epoch,
+        checkpoint=ck)
+    resumed, _, _ = run(_stream_pipe(shards).as_dataset(device=device),
+                        STREAM_ITERS, checkpoint=ck)
+    resume_equal = resumed.resumed_from is not None \
+        and resumed.resumed_from["neval"] == per_epoch + 1 \
+        and [h["loss"] for h in resumed.history] == losses[per_epoch:] \
+        and all(torch.equal(a, b)
+                for a, b in zip(resumed.model.parameters(), params))
+
+    def median_ms(history, skip):
+        ms = sorted(h["seconds"] * 1e3 for h in history[skip:])
+        return ms[len(ms) // 2]
+
+    out = {"steps": len(losses), "batches_an_epoch": per_epoch,
+           "padding_efficiency": efficiency, "launches": launches,
+           "record_order_equal_cpu": order_equal,
+           "staged_k_equal_per_step": staged_equal,
+           "resumed_equal_uninterrupted": resume_equal,
+           "ms_per_step_k1": median_ms(base.history, 1),
+           "ms_per_step_k8": median_ms(staged.history, STREAM_K),
+           "wall_s_k1": wall, "wall_s_k8": staged_wall,
+           "graph_captures_k8": staged.window.captures,
+           "losses": losses}
+    log("data-stream", json.dumps(out))
+    want = LAYERS * STREAM_ITERS
+    if not (per_epoch == STREAM_K and order_equal and staged_equal and resume_equal
+            and all(np.isfinite(losses)) and len(losses) == STREAM_ITERS
+            and launches["flash_attention_fwd"] == want
+            and launches["flash_attention_bwd"] == want
+            and STREAM_ITERS > per_epoch):
+        raise AssertionError(f"phase 20 (e): {out}")
+    return out
+
+
+def _pool_rates(train) -> dict:
+    """(f) the threaded pool's images/s at each thread count (recipe
+    augmentation, jitter and lighting on), from the pool's start to its
+    ``POOL_RATE_BATCHES``-th batch."""
+    import os
+
+    from bigdl_tpu_torch.dataset import ImageFolderDataSet
+
+    rates = {}
+    for threads in POOL_THREADS:
+        ds = ImageFolderDataSet(train, batch_size=POOL_RATE_BATCH,
+                                num_threads=threads, seed=FOLDER_SEED,
+                                color_jitter=True, lighting=True)
+        t0 = time.perf_counter()
+        it = ds.data(train=True)
+        for _ in range(POOL_RATE_BATCHES):
+            next(it)
+        seconds = time.perf_counter() - t0
+        ds.close()
+        rates[threads] = POOL_RATE_BATCH * POOL_RATE_BATCHES / seconds
+    out = {"images_per_s": rates, "cpu_count": os.cpu_count(),
+           "usable_cpus": len(os.sched_getaffinity(0))}
+    log("data-pool", json.dumps(out))
+    return out
+
+
+def phase_data_plane(counters, device="cuda"):
+    """The data plane's image and streaming paths (module docstring,
+    phase 20): (a) ``resnet.train -f`` from an ImageNet-like folder,
+    (b) feed integrity, (c) three sources, (d) fault points, (e) the
+    streaming pipeline into K1, (f) the feed's numbers. No kernel of
+    the kernels line may launch in (a)-(d). Returns the summary."""
+    import os
+    import shutil
+    import tempfile
+
+    from bigdl_tpu_torch.utils.engine import full_float32
+
+    full_float32()
+    t_phase = time.perf_counter()
+    seconds = {}
+
+    def timed(part, fn, *args):
+        t0 = time.perf_counter()
+        value = fn(*args)
+        seconds[part] = time.perf_counter() - t0
+        return value
+
+    root = tempfile.mkdtemp(prefix="chip-smoke-data-")
+    try:
+        train, val = os.path.join(root, "train"), os.path.join(root, "val")
+        per_val = [FOLDER_VAL // FOLDER_CLASSES
+                   + (c < FOLDER_VAL % FOLDER_CLASSES)
+                   for c in range(FOLDER_CLASSES)]
+        written = timed("folder", lambda: write_image_folder(
+            train, [FOLDER_PER_CLASS] * FOLDER_CLASSES, FOLDER_SEED)
+            + write_image_folder(val, per_val, FOLDER_SEED + 1))
+        log("data", f"wrote {FOLDER_CLASSES * FOLDER_PER_CLASS} train and "
+                    f"{FOLDER_VAL} val images, {written / 2**20:.1f} MiB")
+        shards = _write_text_shards(root)
+        for fn in counters.values():
+            fn.launches = 0
+        summary = {"folder": timed("a", _phase20_folder, train, val, device),
+                   "feed": timed("b", _phase20_feed, train, device),
+                   "sources": timed("c", _phase20_sources, root, device),
+                   "faults": timed("d", _phase20_faults, shards, device)}
+        launches = {n: fn.launches for n, fn in counters.items()}
+        if any(launches.values()):
+            raise AssertionError(f"a kernel of the kernels line launched "
+                                 f"in phase 20 (a)-(d): {launches}")
+        summary["stream"] = timed("e", _phase20_stream, root, shards,
+                                  counters, device)
+        summary["pool"] = timed("f", _pool_rates, train)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    summary["wall_s"] = time.perf_counter() - t_phase
+    summary["part_seconds"] = seconds
+    log("data", f"seconds by part: {json.dumps(seconds)}")
+    log("data", f"phase wall {summary['wall_s']:.1f} s")
+    return summary
+
+
 def main() -> int:
     import torch
 
@@ -9119,6 +9776,7 @@ def main() -> int:
     rnn_rows, _ = phase_rnn(counters, k5_lenet_rows)
     text_row, _ = phase_sparse_tree_text(counters, k5_text_row)
     phase_nn_rest_lm(counters)
+    phase_data_plane(counters)
     ragged["launches"] = serve_launches["ragged_decode"]
     flash_fwd["launches"] = train_launches["flash_attention_fwd"]
     flash_bwd["launches"] = train_launches["flash_attention_bwd"]

@@ -99,7 +99,8 @@ def test_known_points_are_the_jax_packages_and_cover_every_placed_point():
     assert placed == {"serving/dispatch", "serving/take_batch",
                       "serving/swap", "serving/decode", "train/step",
                       "ckpt/write_manifest", "fleet/route",
-                      "fleet/replica", "fleet/verify"}
+                      "fleet/replica", "fleet/verify", "prefetch/stage",
+                      "datapipe/read"}
     assert placed <= set(faults.KNOWN_POINTS)
 
 

@@ -1,6 +1,7 @@
 """The port stands alone: ``bigdl_tpu_torch`` and ``chip_smoke.py``
 import neither JAX nor anything of the JAX package ``bigdl_tpu``, not
-even its JAX-free modules."""
+even its JAX-free modules; and importing the port loads no Pillow (the
+card's machine has none: only a JPEG or PNG decode imports it)."""
 import ast
 import os
 import subprocess
@@ -50,7 +51,14 @@ def test_importing_the_port_loads_no_reference_module():
             "bigdl_tpu_torch.kernels.flash_attention, "
             "bigdl_tpu_torch.optim, bigdl_tpu_torch.dataset, "
             "bigdl_tpu_torch.precision, bigdl_tpu_torch.dataset.prefetch, "
-            "bigdl_tpu_torch.datapipe, "
+            "bigdl_tpu_torch.datapipe, bigdl_tpu_torch.datapipe.pipeline, "
+            "bigdl_tpu_torch.datapipe.readers, "
+            "bigdl_tpu_torch.datapipe.shuffle, "
+            "bigdl_tpu_torch.datapipe.stage, "
+            "bigdl_tpu_torch.dataset.imagenet, "
+            "bigdl_tpu_torch.dataset.image, "
+            "bigdl_tpu_torch.dataset.seqfile, bigdl_tpu_torch.utils.crc32c, "
+            "bigdl_tpu_torch.models.resnet.train, "
             "bigdl_tpu_torch.models.transformer.train, "
             "bigdl_tpu_torch.models.transformer.test, "
             "bigdl_tpu_torch.nn.dropout, bigdl_tpu_torch.nn.moe, "
@@ -76,6 +84,7 @@ def test_importing_the_port_loads_no_reference_module():
             "bigdl_tpu_torch.models.rnn.test\n"
             "bad = sorted(m for m in sys.modules if m == 'bigdl_tpu' "
             "or m.startswith('bigdl_tpu.'))\n"
+            "bad += ['PIL'] if 'PIL' in sys.modules else []\n"
             "print(bad)\n"
             "sys.exit(1 if bad else 0)\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT))

@@ -303,9 +303,15 @@ def test_imagenet_recipe_draws_the_jax_rows(monkeypatch):
     assert set(pl.tolist()) <= set(range(1, 8))
 
 
-def test_imagenet_recipe_from_a_folder_is_not_ported():
-    with pytest.raises(NotImplementedError, match="item 10"):
-        resnet_train.main(["--dataset", "imagenet", "--device", "cpu"])
+def test_imagenet_recipe_from_a_folder_is_not_ported(tmp_path):
+    """The ImageNet recipe reads its ``-f`` folder, as the JAX package's
+    does (training from one: ``test_torch_imagenet_pipeline.py``); a
+    folder without class directories raises in both."""
+    argv = ["--dataset", "imagenet", "-f", str(tmp_path)]
+    for main in (jax_resnet_train.main, resnet_train.main):
+        with pytest.raises(ValueError, match="no class directories"):
+            main(argv + (["--device", "cpu"] if main is resnet_train.main
+                         else []))
 
 
 def test_load_cifar10_matches_jax(tmp_path):
