@@ -10,8 +10,10 @@ equal float32 output. :func:`color_jitter_chw` and :func:`lighting_chw`
 are shared with the threaded ImageNet augmenter
 (:mod:`bigdl_tpu_torch.dataset.imagenet`).
 
-Not ported yet: the native idx and CIFAR parsers (the numpy readers
-here give the same arrays).
+:func:`load_mnist` parses with the native idx parser
+(:mod:`bigdl_tpu_torch.native`) where the native library builds, as the
+JAX package does, and with :func:`parse_idx` in numpy where it does not:
+the same arrays either way.
 """
 from __future__ import annotations
 
@@ -26,8 +28,8 @@ from bigdl_tpu_torch.dataset.transformer import Transformer
 
 __all__ = ["BytesToImg", "ColorJitter", "HFlip", "ImgCropper",
            "ImgNormalizer", "LIGHTING_EIGVAL", "LIGHTING_EIGVEC", "Lighting",
-           "color_jitter_chw", "lighting_chw", "load_cifar10", "load_mnist",
-           "parse_idx"]
+           "color_jitter_chw", "idx_parser", "lighting_chw", "load_cifar10",
+           "load_mnist", "parse_idx"]
 
 
 def _label(s: Sample):
@@ -197,6 +199,14 @@ def parse_idx(buf: bytes) -> np.ndarray:
         .astype(np.float32)
 
 
+def idx_parser():
+    """The idx parser to use: the native one where the native library
+    builds (:mod:`bigdl_tpu_torch.native`), else :func:`parse_idx`;
+    both give the same arrays."""
+    from bigdl_tpu_torch import native
+    return native.parse_idx if native.native_available() else parse_idx
+
+
 def _read(path: str) -> bytes:
     op = gzip.open if path.endswith(".gz") else open
     with op(path, "rb") as f:
@@ -205,9 +215,11 @@ def _read(path: str) -> bytes:
 
 def load_mnist(images_path: str, labels_path: str):
     """MNIST idx files (plain or ``.gz``) -> ``(images [N, 1, 28, 28]
-    float32 in 0-255, labels [N] 1-based float32)``."""
-    imgs = parse_idx(_read(images_path))
-    lbls = parse_idx(_read(labels_path))
+    float32 in 0-255, labels [N] 1-based float32)``, through the native
+    idx parser when the native library is available."""
+    parse = idx_parser()
+    imgs = parse(_read(images_path))
+    lbls = parse(_read(labels_path))
     return imgs.reshape(-1, 1, 28, 28).astype(np.float32), \
         lbls.astype(np.float32) + 1.0
 

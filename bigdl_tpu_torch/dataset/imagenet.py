@@ -366,7 +366,9 @@ class _Augmenter:
         img = img[oy:oy + c, ox:ox + c]
         if self.train and rng.rand() < 0.5:
             img = img[:, ::-1]
-        chw = img.transpose(2, 0, 1).astype(np.float32)
+        # order="C": a transposed view's astype keeps its strides, and
+        # np.stack then hands the card an NHWC batch
+        chw = img.transpose(2, 0, 1).astype(np.float32, order="C")
         if self.train and self.color_jitter:
             chw = color_jitter_chw(chw, rng)
         if self.train and self.lighting:
@@ -475,7 +477,8 @@ class ImageFolderDataSet(AbstractDataSet):
         def make_batch(start):
             chunk = items[start:start + bs]
             rng = np.random.RandomState(0)  # unused: eval draws nothing
-            imgs = np.stack([aug(raw, rng) for raw, _ in chunk])
+            imgs = np.ascontiguousarray(
+                np.stack([aug(raw, rng) for raw, _ in chunk]))
             lbls = np.asarray([lbl for _, lbl in chunk], np.float32)
             return MiniBatch(imgs, lbls)
 
@@ -592,7 +595,8 @@ class _BatchPool:
                 img, lbl = self._sample(i, rng)
                 imgs.append(img)
                 lbls.append(lbl)
-            batch = MiniBatch(np.stack(imgs), np.asarray(lbls, np.float32))
+            batch = MiniBatch(np.ascontiguousarray(np.stack(imgs)),
+                              np.asarray(lbls, np.float32))
             while not self.stop.is_set():
                 try:
                     self.ready.put(batch, timeout=0.1)

@@ -18,10 +18,9 @@ Optimizer groups inline — it must also flush windows at trigger
 boundaries — with the same unit, ``stack_minibatches`` /
 ``batch_signature``. A window staged to the card comes as a
 :class:`StackedWindow`, which the windowed Optimizer copies device to
-device into its graph's inputs.
-
-Not ported yet: the device-fed and rotating windows
-(``dataset.device_dataset``).
+device into its graph's inputs. (A device-cached dataset,
+``dataset.device_dataset``, needs no staging: its batches are made on
+the card.)
 """
 from __future__ import annotations
 

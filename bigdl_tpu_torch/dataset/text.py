@@ -1,10 +1,11 @@
 """Text layouts (counterpart of ``bigdl_tpu.dataset.text``): the word
 tokenizer, the 1-based :class:`Dictionary` (its ``dictionary.json`` is
-the JAX package's byte for byte), the PTB reader and the contiguous LM
-window layout. Not ported yet: the sentence transformers
-(``SentenceSplitter``, ``SentenceTokenizer``, ``SentenceBiPadding``,
-``TextToLabeledSentence``, ``LabeledSentenceToSample``; ROADMAP queue
-1, item 10).
+the JAX package's byte for byte), the PTB reader, the contiguous LM
+window layout, and the sentence transformers of dataset/text/ in the
+reference (:class:`SentenceSplitter`, :class:`SentenceTokenizer`,
+:class:`SentenceBiPadding`, :class:`LabeledSentence`,
+:class:`TextToLabeledSentence`, :class:`LabeledSentenceToSample`), which
+compose with ``>>`` into Samples for LookupTable language models.
 """
 from __future__ import annotations
 
@@ -12,12 +13,20 @@ import json
 import os
 import re
 from collections import Counter
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-__all__ = ["Dictionary", "load_ptb", "ptb_arrays", "read_words",
-           "tokenize"]
+from bigdl_tpu_torch.dataset.sample import Sample
+from bigdl_tpu_torch.dataset.transformer import Transformer
+
+__all__ = ["Dictionary", "LabeledSentence", "LabeledSentenceToSample",
+           "SENTENCE_END", "SENTENCE_START", "SentenceBiPadding",
+           "SentenceSplitter", "SentenceTokenizer", "TextToLabeledSentence",
+           "load_ptb", "ptb_arrays", "read_words", "tokenize"]
+
+SENTENCE_START = "SENTENCESTART"
+SENTENCE_END = "SENTENCEEND"
 
 _TOKEN_RE = re.compile(r"[A-Za-z0-9'<>$#-]+|[^\sA-Za-z0-9]")
 
@@ -27,6 +36,47 @@ def tokenize(line: str) -> List[str]:
     survives) and standalone punctuation (SentenceTokenizer.scala:35's
     role)."""
     return _TOKEN_RE.findall(line.lower())
+
+
+class SentenceSplitter(Transformer):
+    """Paragraph strings -> sentence strings (SentenceSplitter.scala):
+    split after ``.``, ``!`` or ``?`` and the whitespace that follows."""
+
+    _SPLIT_RE = re.compile(r"(?<=[.!?])\s+")
+
+    def apply(self, it: Iterator[str]) -> Iterator[str]:
+        for text in it:
+            for s in self._SPLIT_RE.split(text.strip()):
+                if s:
+                    yield s
+
+
+class SentenceTokenizer(Transformer):
+    """Sentence strings -> token lists (SentenceTokenizer.scala:35); a
+    sentence with no token is dropped."""
+
+    def apply(self, it: Iterator[str]) -> Iterator[List[str]]:
+        for line in it:
+            toks = tokenize(line)
+            if toks:
+                yield toks
+
+
+class SentenceBiPadding(Transformer):
+    """Token lists wrapped in :data:`SENTENCE_START` / :data:`SENTENCE_END`
+    (the reference's SentenceToken and readSentence)."""
+
+    def __init__(self, start: bool = True, end: bool = True):
+        self.start, self.end = start, end
+
+    def apply(self, it: Iterator[List[str]]) -> Iterator[List[str]]:
+        for toks in it:
+            out = list(toks)
+            if self.start:
+                out = [SENTENCE_START] + out
+            if self.end:
+                out = out + [SENTENCE_END]
+            yield out
 
 
 class Dictionary:
@@ -131,3 +181,63 @@ def ptb_arrays(words: Sequence[int], batch_size: int, num_steps: int
     y = np.concatenate([ys[:, i * num_steps:(i + 1) * num_steps]
                         for i in range(n_batches)])
     return x, y
+
+
+class LabeledSentence:
+    """A token-index pair of sequences: ``data[t]`` predicts ``label[t]``
+    (LabeledSentence.scala); both float32."""
+
+    def __init__(self, data: Sequence[int], label: Sequence[int]):
+        self.data = np.asarray(data, np.float32)
+        self.label = np.asarray(label, np.float32)
+
+    def __len__(self) -> int:
+        return len(self.data)
+
+
+class TextToLabeledSentence(Transformer):
+    """Token lists -> LabeledSentences of (current, next) indices in
+    ``dictionary`` (TextToLabeledSentence.scala); a list of fewer than
+    two tokens is dropped."""
+
+    def __init__(self, dictionary: Dictionary):
+        self.dictionary = dictionary
+
+    def apply(self, it: Iterator[List[str]]) -> Iterator[LabeledSentence]:
+        for toks in it:
+            idx = [self.dictionary.get_index(w) for w in toks]
+            if len(idx) < 2:
+                continue
+            yield LabeledSentence(idx[:-1], idx[1:])
+
+
+class LabeledSentenceToSample(Transformer):
+    """LabeledSentences -> Samples (LabeledSentenceToSample.scala): with
+    ``one_hot_size`` the inputs become one-hot rows (a Linear input
+    layer), else they stay indices (a LookupTable); ``fixed_length``
+    truncates, or pads by repeating the last index."""
+
+    def __init__(self, one_hot_size: Optional[int] = None,
+                 fixed_length: Optional[int] = None):
+        self.one_hot_size = one_hot_size
+        self.fixed_length = fixed_length
+
+    def apply(self, it: Iterator[LabeledSentence]) -> Iterator[Sample]:
+        for ls in it:
+            data, label = ls.data, ls.label
+            if self.fixed_length is not None:
+                n = self.fixed_length
+                if len(data) >= n:
+                    data, label = data[:n], label[:n]
+                else:
+                    pad = n - len(data)
+                    data = np.concatenate(
+                        [data, np.full(pad, data[-1], np.float32)])
+                    label = np.concatenate(
+                        [label, np.full(pad, label[-1], np.float32)])
+            if self.one_hot_size is not None:
+                eye = np.zeros((len(data), self.one_hot_size), np.float32)
+                eye[np.arange(len(data)), data.astype(int) - 1] = 1.0
+                yield Sample(eye, label)
+            else:
+                yield Sample(data, label)

@@ -123,8 +123,10 @@ def mnist_arrays(folder: str, train: bool,
     """MNIST idx files under ``folder`` -> normalized ``[N, 1, 28, 28]``
     images and 1-based labels (lenet/Utils.scala's train and test mean
     and std), or with ``synthetic`` N seeded uniform rows as the JAX
-    recipe draws them. Without the files the recipe exits and names
-    ``--synthetic``: nothing is downloaded."""
+    recipe draws them. Without the image file the recipe downloads the
+    idx files into ``folder`` as the JAX recipe does
+    (:func:`bigdl_tpu_torch.dataset.fetch.mnist_read_data_sets`); when
+    that fails it exits and names ``--synthetic``."""
     if synthetic:
         from bigdl_tpu_torch.tools.synthetic import (SEED_EVAL, SEED_TRAIN,
                                                      image_batch)
@@ -133,17 +135,30 @@ def mnist_arrays(folder: str, train: bool,
     from bigdl_tpu_torch.dataset.image import load_mnist
 
     prefix = "train" if train else "t10k"
-    paths = []
-    for kind in ("images-idx3", "labels-idx1"):
-        path = os.path.join(folder, f"{prefix}-{kind}-ubyte")
-        if not os.path.exists(path):
-            path += ".gz"
-        if not os.path.exists(path):
+    img_path = os.path.join(folder, f"{prefix}-images-idx3-ubyte")
+    if not os.path.exists(img_path) and \
+            not os.path.exists(img_path + ".gz"):
+        # the reference's recipes materialize their corpus from nothing
+        # (pyspark/bigdl/models/lenet/lenet5.py:24-30)
+        from bigdl_tpu_torch.dataset import fetch
+        try:
+            imgs, lbls = fetch.mnist_read_data_sets(
+                folder, "train" if train else "test")
+        except Exception as e:
             raise SystemExit(
-                f"MNIST not found under '{folder}' ({prefix}-{kind}-ubyte"
-                f"[.gz]); stage the idx files there, or use --synthetic N")
-        paths.append(path)
-    imgs, lbls = load_mnist(*paths)
+                f"MNIST not found under '{folder}' and auto-download "
+                f"failed ({type(e).__name__}: {e}). Pre-stage the idx "
+                "files there, or use --synthetic N.")
+        imgs = imgs[:, None, :, :].astype(np.float32)
+        lbls = (lbls + 1).astype(np.float32)  # 1-based criterion labels
+    else:
+        paths = []
+        for kind in ("images-idx3", "labels-idx1"):
+            path = os.path.join(folder, f"{prefix}-{kind}-ubyte")
+            if not os.path.exists(path):
+                path += ".gz"
+            paths.append(path)
+        imgs, lbls = load_mnist(*paths)
     mean, std = ((0.13066047, 0.3081078) if train
                  else (0.13251461, 0.31048024))
     return ((imgs / 255.0 - mean) / std).astype(np.float32), lbls

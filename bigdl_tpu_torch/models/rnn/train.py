@@ -17,8 +17,10 @@ with ``--ptb`` the two-layer LSTM ``PTBModel``; SGD (``-r``, default
 loss`` and ``perplexity`` as the JAX recipe does: the loss is the sum
 over the window's steps of the per-step means, and the perplexity its
 ``exp`` (the reference's scale). ``--model``, ``--state`` and
-``--checkpoint`` work as in the other recipes. Nothing is downloaded: a
-missing corpus exits and names ``--synthetic``.
+``--checkpoint`` work as in the other recipes. A missing corpus is
+downloaded into ``-f`` as the JAX recipe does
+(:func:`bigdl_tpu_torch.dataset.fetch.get_text_corpus`); when that fails
+the recipe exits and names ``--synthetic``.
 """
 from __future__ import annotations
 
@@ -63,8 +65,16 @@ def main(argv=None):
         train_txt = args.folder if os.path.isfile(args.folder) else \
             os.path.join(args.folder, "train.txt")
         if not os.path.exists(train_txt):
-            raise SystemExit(f"no corpus at '{train_txt}'. Stage a "
-                             f"train.txt there, or use --synthetic N")
+            # recipes run from nothing on a networked host (the
+            # reference's readme download step, Train.scala:60-133)
+            from bigdl_tpu_torch.dataset import fetch
+            try:
+                train_txt = fetch.get_text_corpus(args.folder)
+            except Exception as e:
+                raise SystemExit(
+                    f"no corpus at '{train_txt}' and auto-download "
+                    f"failed ({type(e).__name__}: {e}). Pre-stage a "
+                    "train.txt there, or use --synthetic N.")
         splits, d = load_ptb(train_txt, vocab_size=args.vocabSize)
         stream, vocab = splits["train"], d.vocab_size()
         if args.checkpoint:

@@ -25,8 +25,8 @@ sets no validation and no summaries.
 
 Not ported yet: pipeline (``--pp``), tensor (``--tp``) and sequence
 (``--sp``) parallelism, which raise NotImplementedError (ROADMAP queue
-1, item 11). Nothing is downloaded: a missing corpus exits and names
-``--synthetic``.
+1, item 11). A missing corpus is downloaded into ``-f`` as the JAX CLI
+does; when that fails the CLI exits and names ``--synthetic``.
 """
 from __future__ import annotations
 
@@ -122,8 +122,15 @@ def text_corpus(args):
     train_txt = args.folder if os.path.isfile(args.folder) else \
         os.path.join(args.folder, "train.txt")
     if not os.path.exists(train_txt):
-        raise SystemExit(f"no corpus at '{train_txt}'. Stage a train.txt "
-                         f"there, or use --synthetic N.")
+        # download-if-missing, as the JAX CLI does
+        from bigdl_tpu_torch.dataset import fetch
+        try:
+            train_txt = fetch.get_text_corpus(args.folder)
+        except Exception as e:
+            raise SystemExit(
+                f"no corpus at '{train_txt}' and auto-download failed "
+                f"({type(e).__name__}: {e}). Pre-stage a train.txt there, "
+                "or use --synthetic N.")
     splits, d = load_ptb(train_txt, vocab_size=args.vocabSize)
     if args.checkpoint:
         os.makedirs(args.checkpoint, exist_ok=True)

@@ -5,8 +5,8 @@ optim/Evaluator.scala:37): the local path.
 and scores each batch's host copy with every method, summing the
 results over batches.
 
-Not ported yet: the mesh path (queue item 11), its cross-process reduce
-and device-cached datasets.
+Not ported yet: the mesh path, its cross-process reduce and its
+device-cached sweep (ROADMAP queue 1, item 11).
 """
 from __future__ import annotations
 

@@ -58,10 +58,24 @@ card (``Pipeline.as_dataset(staged_k=K)``) is run as its K steps: the
 windowed driver copies its steps device to device into the window's
 graph inputs, the per-step loop takes them one at a time.
 
+A device-cached dataset (``dataset.device_dataset``:
+:class:`~bigdl_tpu_torch.dataset.device_dataset.DeviceCachedArrayDataSet`,
+or a :class:`~bigdl_tpu_torch.dataset.device_dataset.RotatingDeviceDataSet`
+over two shard slots) feeds the steps on the card: each step gathers,
+crops, flips and normalizes its batch from the cache at the cursor
+``(epoch, pos)`` of its ``neval`` (for rotating shards, ``(visit, pos
+in shard)``), its draws from the step's generator, then trains on it.
+A window of such steps is one CUDA graph a ``(K, slot)``, reading the K
+cursors and rates from static buffers, with one memory pool for all
+its graphs; windows end at epoch rollovers and shard boundaries, an
+epoch's visit order is built on the host at its first use, and a
+rotating dataset pumps a piece of the next shard and rotates after
+each step's loss fetch. ``set_validation`` with a device cache scores
+its centre crops on the card at the cache's batch size.
+
 Not ported yet: the elastic checkpoint options (``keep_last``,
 ``async_write``) and the flight recorder's post-mortem on a fatal
-failure (item 12), train and validation summaries, the device-fed and
-rotating windows (``dataset.device_dataset``), ZeRO (and with it
+failure (item 12), train and validation summaries, ZeRO (and with it
 precision under ZeRO), sequence parallelism, preemption, and the
 multi-card ``DistriOptimizer``.
 """
@@ -485,6 +499,10 @@ class _HostWindow:
     buffers' values: the planning and the host replay are what the CPU
     sees."""
 
+    #: whether this window's graphs share one memory pool (each graph
+    #: of a host window has its own)
+    shares_pool = False
+
     def __init__(self, step):
         self.step = step
         self.module = step.module
@@ -495,6 +513,7 @@ class _HostWindow:
         self.captures = 0
         #: every ``(K, signature)`` a call met, on any device
         self.shapes = set()
+        self._pool = None
 
     def close(self) -> None:
         """Drop the captured graphs and their memory pools (the next call
@@ -544,7 +563,14 @@ class _HostWindow:
         cap.lrs = torch.zeros((k,), dtype=self.step.lr_dtype,
                               device=device)
         cap.losses = torch.zeros((k,), dtype=torch.float32, device=device)
+        self._record(cap, k, device, lambda i: self.step(
+            _leaf_at(cap.xs, i), _leaf_at(cap.ys, i), cap.lrs[i]))
+        return cap
 
+    def _record(self, cap, k: int, device, run_step) -> None:
+        """Warm up, then capture ``cap.graph``: the K calls
+        ``run_step(i)`` (step i of the window, returning its loss), each
+        loss written to ``cap.losses[i]``."""
         # warm-up: one step on a side stream from saved state, put back
         state = self._state_tensors()
         saved = [t.detach().clone() for t in state]
@@ -553,7 +579,7 @@ class _HostWindow:
         side = torch.cuda.Stream(device)
         side.wait_stream(torch.cuda.current_stream(device))
         with torch.cuda.stream(side):
-            self.step(_leaf_at(cap.xs, 0), _leaf_at(cap.ys, 0), cap.lrs[0])
+            run_step(0)
         torch.cuda.current_stream(device).wait_stream(side)
         with torch.no_grad():
             for t, s in zip(state, saved):
@@ -564,17 +590,78 @@ class _HostWindow:
         if gen is not None:
             gen.set_state(gen_saved)
 
+        pool = None
+        if self.shares_pool:
+            # the warm-up's blocks go back to the card before the pool
+            # grows (the allocator frees no cached block during a
+            # capture)
+            torch.cuda.empty_cache()
+            pool = self._pool
         cap.graph = torch.cuda.CUDAGraph()
         if drew:
             cap.graph.register_generator_state(gen)
         # thread_local: a device_prefetch stager may be copying the next
         # window on its own stream and thread while this one captures
-        with torch.cuda.graph(cap.graph, capture_error_mode="thread_local"):
+        with torch.cuda.graph(cap.graph, pool=pool,
+                              capture_error_mode="thread_local"):
             for i in range(k):
-                loss = self.step(_leaf_at(cap.xs, i), _leaf_at(cap.ys, i),
-                                 cap.lrs[i])
-                cap.losses[i].copy_(loss)
-        return cap
+                cap.losses[i].copy_(run_step(i))
+        if self.shares_pool and self._pool is None:
+            self._pool = cap.graph.pool()
+
+
+class _FedCaptured:
+    """One captured device-fed window: the graph, the K cursors and
+    rates it reads, the losses it writes."""
+
+    __slots__ = ("graph", "cursors", "lrs", "losses")
+
+
+class _DeviceWindow(_HostWindow):
+    """K device-fed steps per call, ``window(cursors, lrs) -> losses``:
+    step i draws its batch from the device cache with ``feed(cursor)``
+    at ``cursors[i]`` (``(epoch, pos)``, exact host integers) and trains
+    on it at rate ``lrs[i]``.
+
+    On a CUDA module one window is one CUDA graph a ``(K, slot())``
+    (``slot`` names the cache tensor the feed reads now: a rotating
+    dataset's two slots get a graph each, so a graph never reads a slot
+    that is not resident), with the warm-up, generator and counting
+    rules of :class:`_HostWindow`; its graphs share one memory pool.
+    The caller builds the cursors' visit orders first
+    (``ready_epochs``). On the CPU the K steps run one by one."""
+
+    shares_pool = True
+
+    def __init__(self, step, feed, slot):
+        super().__init__(step)
+        self.feed = feed
+        self.slot = slot
+
+    def __call__(self, cursors, lrs: Sequence[float]) -> torch.Tensor:
+        device = self._device()
+        k = len(lrs)
+        key = (k, self.slot())
+        self.shapes.add(key)
+        cur = torch.tensor(cursors, dtype=torch.int64).reshape(k, 2)
+        lr_t = torch.tensor(list(lrs), dtype=self.step.lr_dtype)
+        if device.type != "cuda":
+            return torch.stack([self.step(*self.feed(cur[i]), lr_t[i])
+                                for i in range(k)])
+        cap = self.graphs.get(key)
+        if cap is None:
+            cap = self.graphs[key] = _FedCaptured()
+            cap.cursors = cur.to(device)
+            cap.lrs = lr_t.to(device)
+            cap.losses = torch.zeros((k,), dtype=torch.float32,
+                                     device=device)
+            self._record(cap, k, device, lambda i: self.step(
+                *self.feed(cap.cursors[i]), cap.lrs[i]))
+            self.captures += 1
+        cap.cursors.copy_(cur)
+        cap.lrs.copy_(lr_t)
+        cap.graph.replay()
+        return cap.losses.clone()
 
 
 def make_host_window(step) -> _HostWindow:
@@ -694,7 +781,19 @@ class Optimizer:
         """Score ``dataset`` (MiniBatches or Samples) with ``methods``
         whenever ``trigger`` fires after a step (Optimizer.scala
         setValidation); the first method's value becomes
-        ``driver_state["score"]``."""
+        ``driver_state["score"]``. A device-cached dataset is scored at
+        its own batch size, and a different ``batch_size`` raises."""
+        # a device cache's centre-crop batches are cut at its batch size:
+        # a conflicting request would be dropped, so it raises before any
+        # state changes
+        ds_bs = getattr(dataset, "batch_size", None)
+        if batch_size is not None and ds_bs is not None \
+                and hasattr(dataset, "eval_batch_fn_on") \
+                and batch_size != ds_bs:
+            raise ValueError(
+                f"device-cached validation runs at the dataset's own "
+                f"batch_size={ds_bs}; got conflicting batch_size="
+                f"{batch_size} (omit it or rebuild the dataset)")
         self.validation_trigger = trigger
         self.validation_dataset = dataset
         self.validation_methods = list(methods)
@@ -845,21 +944,26 @@ class Optimizer:
         return k, ""
 
     def _plan_window(self, k_max: int, state, bsz: int, ds_size: int,
-                     end_when) -> int:
+                     end_when, shard_size: Optional[int] = None) -> int:
         """Largest ``k <= k_max`` such that the per-step loop would do no
-        host work (a trigger firing, an epoch rollover) after steps
-        1..k-1. The k-th step may land on a boundary: the window ends
-        there and the host replay handles it with the window's final
-        parameters."""
+        host work (a trigger firing, an epoch rollover, a shard rotation
+        when ``shard_size`` is given) after steps 1..k-1. The k-th step
+        may land on a boundary: the window ends there and the host
+        replay handles it with the window's final parameters."""
         if k_max <= 1:
             return 1
         n0 = state["neval"]
         ep0 = state["epoch"]
         rec = state["recordsProcessedThisEpoch"]
+        spos = ((n0 - 1) * bsz) % shard_size if shard_size else None
         for i in range(1, k_max):
             rec += bsz
             if rec >= ds_size:
                 return i  # epoch rollover: the reshuffle
+            if spos is not None:
+                spos += bsz
+                if spos >= shard_size:
+                    return i  # the next shard rotates in before step i+1
             sim = {"epoch": ep0, "neval": n0 + i,
                    "recordsProcessedThisEpoch": rec}
             for t in (end_when, self.validation_trigger,
@@ -1051,13 +1155,51 @@ class Optimizer:
         if k_cap < self.steps_per_sync:
             logger.info("steps_per_sync=%d: falling back to per-step "
                         "sync — %s", self.steps_per_sync, why)
-        self.window = make_host_window(step) if k_cap > 1 else None
         # the per-step rate is staged as the window's are, a 0-d tensor
         # in step.lr_dtype on the device, so both run one arithmetic
         lr_t = torch.zeros((), dtype=step.lr_dtype, device=device)
         ds_size = self.dataset.size()
-        plan_bsz = self.batch_size
-        data_iter = self.dataset.data(train=True)
+        # a device-cached feed: each step samples and augments its batch
+        # on the card from the cache (a rotating one's resident slot)
+        rotating = getattr(self.dataset, "rotating", False)
+        device_feed = rotating or hasattr(self.dataset, "batch_fn")
+        shard_size = self.dataset.rot.shard_size if rotating else None
+        if device_feed:
+            feed_ds = self.dataset.template if rotating else self.dataset
+            if torch.device(feed_ds.device) != device:
+                raise ValueError(
+                    f"the device cache lives on {feed_ds.device}, the "
+                    f"model on {device}: build it with device="
+                    f"'{device}'")
+            if step.generator is None:
+                # the crops and flips draw from a generator the step
+                # owns, so a window's graph registers it
+                step.generator = torch.Generator(device=device)
+                step.generator.manual_seed(RandomGenerator.get_seed())
+            gen = step.generator
+            ds = self.dataset
+
+            def feed(cursor):
+                return feed_ds.batch_fn_on(ds.images, ds.labels, gen,
+                                           cursor=cursor)
+
+            def device_cursor(neval):
+                """``(epoch, pos)`` of iteration ``neval`` (1-based; for
+                rotating shards ``(visit, pos in shard)``), exact host
+                integers, so no device integer ever overflows."""
+                if rotating:
+                    return ds.shard_cursor(neval)
+                return divmod((neval - 1) * plan_bsz, ds_size)
+
+            plan_bsz = ds.batch_size
+            data_iter = None
+            self.window = _DeviceWindow(
+                step, feed, lambda: ds.images.data_ptr()) \
+                if k_cap > 1 else None
+        else:
+            plan_bsz = self.batch_size
+            data_iter = self.dataset.data(train=True)
+            self.window = make_host_window(step) if k_cap > 1 else None
         pending: List[MiniBatch] = []   # batches pulled ahead of a window
         warned_unstackable = False
 
@@ -1080,6 +1222,10 @@ class Optimizer:
             fetch, so counters, triggers and records see the per-step
             sequence either way."""
             nonlocal data_iter
+            if rotating:
+                # after this step's loss fetch: a piece of the next shard,
+                # and the rotation at a shard boundary
+                self.dataset.after_step(state["neval"])
             state["neval"] += 1
             self.optim_method.state["neval"] = state["neval"]
             state["recordsProcessedThisEpoch"] += bsz
@@ -1103,7 +1249,8 @@ class Optimizer:
                 state["epoch"] += 1
                 self.optim_method.state["epoch"] = state["epoch"]
                 state["recordsProcessedThisEpoch"] -= ds_size
-                if not getattr(self.dataset, "continuous_stream", False):
+                if not device_feed and not getattr(
+                        self.dataset, "continuous_stream", False):
                     state["recordsProcessedThisEpoch"] = 0
                     self.dataset.shuffle()
                     data_iter = self.dataset.data(train=True)
@@ -1132,8 +1279,32 @@ class Optimizer:
             faults.point("train/step", neval=state["neval"],
                          epoch=state["epoch"])
             k_now = 1 if k_cap <= 1 else self._plan_window(
-                k_cap, state, plan_bsz, ds_size, end_when)
+                k_cap, state, plan_bsz, ds_size, end_when,
+                shard_size=shard_size)
             t0 = time.perf_counter()
+            if device_feed:
+                # one graph replay a window, or one eager step, each
+                # batch drawn on the card at its cursor
+                cursors = [device_cursor(state["neval"] + i)
+                           for i in range(k_now)]
+                feed_ds.ready_epochs(cursors[0][0])
+                if k_now > 1:
+                    lr_list = self._window_lrs(k_now, state)
+                    loss_vals = self.window(cursors, lr_list).tolist()
+                else:
+                    lr_list = [self.optim_method.update_hyper_parameter()]
+                    lr_t.fill_(lr_list[0])
+                    cursor = torch.tensor(cursors[0], dtype=torch.int64)
+                    loss_vals = [float(step(*feed(cursor.to(device)),
+                                            lr_t))]
+                seconds = time.perf_counter() - t0
+                if scaler is not None:
+                    self._record_scaler(step)
+                rate = k_now * plan_bsz / max(1e-9, seconds)
+                for i in range(k_now):
+                    post_step(loss_vals[i], lr_list[i], plan_bsz, rate,
+                              seconds / k_now)
+                continue
             window = None
             if k_now > 1:
                 # gather a window of stackable equal-shaped batches; a
@@ -1246,13 +1417,41 @@ class Optimizer:
     def _validate(self) -> Dict[str, float]:
         """One pass over the validation set through the Evaluator's
         sweep (each batch's output copied to the host once and scored
-        there), under the precision policy when ``set_precision`` set
-        one; the model is back in training mode after."""
+        there), or a device cache's centre crops on the card, under the
+        precision policy when ``set_precision`` set one; the model is
+        back in training mode after."""
         from bigdl_tpu_torch.optim.evaluator import Evaluator
+        if hasattr(self.validation_dataset, "eval_batch_fn_on"):
+            return self._validate_device_cached(self.validation_dataset)
         try:
             results = Evaluator(self.model, self._precision).results(
                 self.validation_dataset, self.validation_methods,
                 self._val_batch_size)
+        finally:
+            self.model.train()
+        return {} if results is None else self._score_summary(results)
+
+    def _validate_device_cached(self, ds) -> Dict[str, float]:
+        """Validation off the device cache: batch by batch from row 0,
+        ``eval_batch_fn_on`` (centre crops, rows modulo n) and the
+        evaluation forward on the card, the wrapped tail of the last
+        batch trimmed, each batch's output scored on the host."""
+        if torch.device(ds.device) != self._device():
+            raise ValueError(
+                f"the validation cache lives on {ds.device}, the model on "
+                f"{self._device()}")
+        eval_step = build_eval_step(self.model, self._precision)
+        n, b = ds.size(), ds.batch_size
+        results = None
+        try:
+            for start in range(0, n, b):
+                x, y = ds.eval_batch_fn_on(ds.images, ds.labels, start)
+                valid = min(b, n - start)
+                out = eval_step(x)[:valid].cpu().numpy()
+                tgt = y[:valid].cpu().numpy()
+                batch_res = [m(out, tgt) for m in self.validation_methods]
+                results = batch_res if results is None \
+                    else [r + br for r, br in zip(results, batch_res)]
         finally:
             self.model.train()
         return {} if results is None else self._score_summary(results)

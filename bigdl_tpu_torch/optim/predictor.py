@@ -7,8 +7,8 @@ tensor. The last partial batch is padded to the batch size with
 :func:`pad_rows`, so every forward sees one batch shape, and the pad
 rows are dropped from the predictions.
 
-Not ported yet: the mesh path (``Predictor(model, mesh=...)``, queue
-item 11) and device-cached datasets.
+Not ported yet: the mesh path (``Predictor(model, mesh=...)``) and its
+device-cached sweep, ROADMAP queue 1, item 11.
 """
 from __future__ import annotations
 

@@ -91,12 +91,42 @@ def crc32c(data: bytes, crc: int = 0) -> int:
     return reg ^ 0xFFFFFFFF
 
 
+#: the CRC a masked crc reads: the numpy one, or the native library's
+#: once it is loaded and checked (:func:`adopt_native`)
+_crc_impl = crc32c
+
+
+def adopt_native(lib) -> bool:
+    """Take the native library's CRC (``bigdl_crc32c`` of ``lib``) for
+    :func:`masked_crc32c` if it gives the check value on
+    ``b"123456789"``; returns whether it did. The native library calls
+    this when it loads; importing this module loads it only where it is
+    built already (nothing compiles here)."""
+    global _crc_impl
+    if lib.bigdl_crc32c(b"123456789", 9, 0) != 0xE3069283:
+        return False
+    _crc_impl = lambda data: lib.bigdl_crc32c(bytes(data), len(data), 0)
+    return True
+
+
 def masked_crc32c(data: bytes) -> int:
     """TFRecord masked crc: rotate right 15 then add the mask delta."""
-    crc = crc32c(data)
+    crc = _crc_impl(data)
     return (((crc >> 15) | (crc << 17)) + _MASK_DELTA) & 0xFFFFFFFF
 
 
 def unmask(masked: int) -> int:
     rot = (masked - _MASK_DELTA) & 0xFFFFFFFF
     return ((rot << 15) | (rot >> 17)) & 0xFFFFFFFF
+
+
+def _try_native() -> None:
+    """Bind the native CRC when the library is already built."""
+    from bigdl_tpu_torch import native
+    try:
+        native.load_library(build=False)
+    except (native.NativeBuildError, OSError):
+        pass
+
+
+_try_native()

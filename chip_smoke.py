@@ -411,7 +411,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    stream's first epoch once, so the labels of that epoch are the
    folder's; ``device_prefetch`` stages batches of the pool while
    ResNet-50 steps run, and each staged tensor equals its host batch
-   bitwise (one changed element must fail the comparison); (c) 128
+   bitwise (one changed element must fail the comparison), both
+   contiguous NCHW (since PR 21; the on-card step also runs on the
+   same values in NHWC memory); (c) 128
    images as a folder, as one record shard and as 4 SequenceFiles: the
    same items; bitwise train batches at one thread (folder against
    records; SequenceFiles against records in their order) and bitwise
@@ -432,6 +434,32 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    same step on a batch already on the card (profiled windows), the
    packed LM step's ms at K = 1 and K = 8. No kernel of the kernels line
    may launch in (a)-(d). The phase's wall time by part.
+21. The image cache on the card (``dataset.device_dataset``) and the
+   native loader: (a) at CIFAR shape, a 50,000-image uint8 cache (pad 4,
+   crop 32, flip) feeding ResNet-20 b128 through
+   ``Optimizer.optimize()``: the card's indices and batch equal the CPU
+   dataset's for the same draws (bitwise), one epoch's indices read back
+   from the card visit every index once, K = 8 equals K = 1 bitwise
+   (losses, parameters), ``set_validation`` on a cache equals the
+   Evaluator's host sweep of the same rows; (b) four shards tagged by
+   their number in their pixels through a ``RotatingDeviceDataSet``, per
+   step and at K = 3: a probe layer records every batch's tag on the
+   card, and every batch must read the shard the rotation order puts
+   resident; the same gate with the slot swap stubbed out must fail; (c)
+   ResNet-50 b256 from a 4,096-image cache at 3 x 256 x 256, crop 224,
+   flip, ImageNet mean and std, the recipe's SGD: 8 steps at K = 1 and 8
+   at K = 4 in one ``optimize()`` call each after its warm steps (ms a
+   step profiled and not, idle share, device kernels a step, peak
+   memory), the augmentation alone (device ms a batch), then 12 steps
+   through a ``RotatingDeviceDataSet`` of 4 shards of 1,024 (ms a step
+   while a piece of the next shard is in flight and while not, pumped
+   bytes, rotations); (d) the transfer probe's chunk and rates; (e) the
+   native loader built from the port's sources: its evaluation batch
+   equal to a numpy centre crop and normalize, images/s at 1, 4 and 8
+   threads at 3 x 256 x 256 -> 224 in float32 and uint8 (decoded arrays,
+   no JPEG decode; phase 20 (b) gates that the folder feed's batches are
+   contiguous and profiles its on-card step in both layouts). No kernel
+   of the kernels line may launch. The phase's wall time by part.
 
 Float32 throughout phases 1–10, with TF32 off for matrix products (set
 here) and for convolutions (PyTorch's default is on; the port's
@@ -445,7 +473,7 @@ bf16_mixed in (b), float32 in (c)-(e); phase 16 bf16_mixed at phase
 11's limits; phase 17 float32 (and bf16_mixed, float64 where (a) says);
 phase 18 float32, with float64 in (a)-(c)'s card-against-CPU checks and
 in (e), and int8 through K5 in (d); phase 19 float32, with float64 in
-(a)'s card-against-CPU check and in (c); phase 20 float32.
+(a)'s card-against-CPU check and in (c); phases 20 and 21 float32.
 
 After the phases the card's name and power limit print again; then the
 line before the last is a JSON object ``{"kernels": [...]}`` with
@@ -889,7 +917,7 @@ WINDOWS = {"read": 0, "retaken": 0, "pairs read again": 0,
            "graph rows": 0, "singles disagreed": 0}
 #: retakes of a window that lost kernels (each window's own); fresh pairs
 #: read after a pair that disagreed; the largest spread of a kept pair
-WINDOW_RETAKES, PAIR_RETAKES, WINDOW_SPREAD = 2, 2, 0.10
+WINDOW_RETAKES, PAIR_RETAKES, WINDOW_SPREAD = 4, 2, 0.10
 #: single-call windows whose median count is the kernels a call launches
 SINGLES = 3
 #: least device time (ms) a window times: a row of long calls repeats
@@ -9107,9 +9135,9 @@ FOLDER_SIZES = ((375, 500), (500, 375), (333, 500))
 FOLDER_BATCH, FOLDER_ITERS, FOLDER_SEED = 256, 6, 20
 #: (b) the label epoch's batch, ResNet-50 steps fed through
 #: device_prefetch before the profiled window (whose steps, after a
-#: warm one, are fed and checked too: 7 batches, one round of the 8
-#: workers; the ring of 4 pinned slots is reused from the fifth)
-LABEL_BATCH, FEED_STEPS, FEED_PROFILE_STEPS = 64, 2, 4
+#: warm one, are fed and checked too: 5 batches; the ring of 4 pinned
+#: slots is reused at the fifth)
+LABEL_BATCH, FEED_STEPS, FEED_PROFILE_STEPS = 64, 2, 2
 #: (c) the three sources: classes, images a class, batch, train
 #: batches compared
 SOURCES_CLASSES, SOURCES_PER_CLASS, SOURCES_BATCH = 8, 16, 32
@@ -9349,15 +9377,26 @@ def _phase20_feed(train, device) -> dict:
     out["on_card_profile"] = _profile_steps(
         lambda i: float(step(x, y, lr)), FEED_PROFILE_STEPS, device,
         "data-feed") if device == "cuda" else "not measured"
+    # the same values in NHWC memory, the layout the feed built before
+    # PR 21 (phase 20's on-card step then read about 56 device ms more)
+    x_nhwc = x.contiguous(memory_format=torch.channels_last)
+    out["on_card_nhwc_profile"] = _profile_steps(
+        lambda i: float(step(x_nhwc, y, lr)), FEED_PROFILE_STEPS, device,
+        "data-feed-nhwc") if device == "cuda" else "not measured"
     out["seconds_total"] = time.perf_counter() - t0 \
         + out["seconds_label_epoch"]
     out["staged_equal_host"] = checks
     out["changed_element_caught"] = caught
     out["losses"] = losses
+    # the pool's batches are NCHW-contiguous as built and as staged
+    out["fed_and_staged_contiguous"] = bool(
+        torch.as_tensor(hosts[0].input).is_contiguous()
+        and torch.as_tensor(staged[0].input).is_contiguous())
     log("data-feed", json.dumps(out))
     want = FEED_STEPS + (FEED_PROFILE_STEPS + 1) * (device == "cuda")
     if not (all(checks) and len(checks) == want and caught
-            and all(np.isfinite(losses))):
+            and all(np.isfinite(losses))
+            and out["fed_and_staged_contiguous"]):
         raise AssertionError(f"phase 20 (b): {out}")
     if not _wait_gone():
         raise AssertionError("phase 20 (b): a device_prefetch stager "
@@ -9719,6 +9758,526 @@ def phase_data_plane(counters, device="cuda"):
     return summary
 
 
+# ---- the image cache on the card (phase 21) ----
+#: (a) CIFAR shape: train and validation cache rows, batch, steps of
+#: each K = 1 / K = 8 run, the window, the seed
+CACHE_ROWS, CACHE_VAL_ROWS, CACHE_BATCH = 50000, 10000, 128
+CACHE_STEPS, CACHE_K, CACHE_SEED = 16, 8, 21
+CIFAR_MEAN, CIFAR_STD = (125.3, 123.0, 113.9), (63.0, 62.1, 66.7)
+#: (b) tagged shards: shards, rows a shard (4 steps of a batch), batch,
+#: image side, steps of each run, the window
+TAG_SHARDS, TAG_ROWS, TAG_BATCH, TAG_SIDE = 4, 64, 16, 8
+TAG_STEPS, TAG_K = 24, 3
+#: (c) ImageNet shape: cache rows, side, crop, batch, profiled steps a
+#: run (after 2 warm steps at K = 1, a first window at K = 4; then as
+#: many unprofiled), the rotating run's shard rows and steps (three
+#: rotations), the augmentation's calls
+IN_ROWS, IN_SIDE, IN_CROP, IN_BATCH, IN_STEPS = 4096, 256, 224, 256, 8
+IN_K, IN_SHARD_ROWS, IN_ROT_STEPS, AUG_CALLS = 4, 1024, 12, 8
+#: (e) the native loader: rows, batch, batches timed, thread counts
+NATIVE_ROWS, NATIVE_BATCH, NATIVE_BATCHES = 512, 32, 16
+NATIVE_THREADS = (1, 4, 8)
+
+
+def _profiled_run(fn, steps: int, device, phase: str) -> dict:
+    """``fn()`` (``steps`` calls) in a ``torch.profiler`` window: wall
+    and device ms a call (the union of the device intervals), idle
+    share, device kernels a call; ``not measured`` off the card."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    if device != "cuda":
+        return {"steps": steps, "device_idle_share": "not measured"}
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        time.sleep(WINDOW_MARGIN_S)
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        time.sleep(WINDOW_MARGIN_S)
+    kernels = device_kernels(prof)
+    busy = _device_union_ms(prof)
+    out = {"steps": steps, "wall_ms_per_step": wall_ms / steps,
+           "device_busy_ms_per_step": busy / steps,
+           "device_idle_share": 1 - busy / wall_ms,
+           "device_kernels_per_step": sum(k[1] for k in kernels) / steps,
+           "top": [[round(ms / steps, 4), n // steps, key[:60]]
+                   for ms, n, key in kernels[:5]]}
+    log(phase, "profile " + json.dumps(out))
+    return out
+
+
+def _profiled_optimize(opt, warm: int, steps: int, device,
+                       phase: str) -> dict:
+    """``opt.optimize()`` for ``warm + 2 * steps`` steps in one call,
+    steps ``warm + 1 .. warm + steps`` in a ``torch.profiler`` window
+    (started and stopped by the end trigger at the loop's top, where a
+    window ends): wall and device ms a step, idle share, device kernels
+    a step; then the unprofiled ms a step of the last ``steps`` (the
+    driver's ``history``) and ``max_memory_allocated`` over the run."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from bigdl_tpu_torch.optim.trigger import Trigger
+
+    on_card = device == "cuda"
+    first, last, end = warm + 1, warm + steps + 1, warm + 2 * steps
+    prof = profile(activities=[ProfilerActivity.CPU,
+                               ProfilerActivity.CUDA]) if on_card else None
+    marks = {}
+
+    def fn(state):
+        n = state["neval"]
+        if n in (first, last) and n not in marks:
+            if on_card:
+                torch.cuda.synchronize()
+            if n == first and on_card:
+                prof.start()
+                time.sleep(WINDOW_MARGIN_S)
+            marks[n] = time.perf_counter()
+            if n == last and on_card:
+                time.sleep(WINDOW_MARGIN_S)
+                prof.stop()
+        return n > end
+
+    opt.set_end_when(Trigger(
+        fn, depends_on=frozenset({"neval"}),
+        peek=lambda s: s["neval"] in (first, last) or s["neval"] > end))
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    opt.optimize()
+    wall_ms = (marks[last] - marks[first]) * 1e3
+    plain = [h["seconds"] for h in opt.history if h["neval"] >= last]
+    out = {"steps": steps, "wall_ms_per_step": wall_ms / steps,
+           "unprofiled_ms_per_step": 1e3 * sum(plain) / len(plain),
+           "max_memory_allocated": torch.cuda.max_memory_allocated()
+           if on_card else "not measured"}
+    if on_card:
+        kernels = device_kernels(prof)
+        busy = _device_union_ms(prof)
+        out.update({"device_busy_ms_per_step": busy / steps,
+                    "device_idle_share": 1 - busy / wall_ms,
+                    "device_kernels_per_step":
+                    sum(k[1] for k in kernels) / steps,
+                    "top": [[round(ms / steps, 4), n // steps, key[:60]]
+                            for ms, n, key in kernels[:5]]})
+    else:
+        out["device_idle_share"] = "not measured"
+    log(phase, "profile " + json.dumps(out))
+    return out
+
+
+def _cache_images(n: int, side: int, seed: int):
+    """``n`` seeded uint8 images ``[n, 3, side, side]`` and 1-based
+    labels of 10 classes."""
+    rng = np.random.default_rng(seed)
+    return (rng.integers(0, 256, (n, 3, side, side), dtype=np.uint8),
+            rng.integers(1, 11, n).astype(np.float32))
+
+
+def _cache_optimizer(model, ds, k: int, steps: int, criterion=None,
+                     lr: float = 0.05, method=None):
+    """An Optimizer over a device cache: ``method`` (SGD with momentum
+    at ``lr`` by default), ``steps`` steps at window ``k``,
+    cross-entropy unless ``criterion``."""
+    from bigdl_tpu_torch.nn import CrossEntropyCriterion
+    from bigdl_tpu_torch.optim import SGD, Optimizer, max_iteration
+
+    opt = Optimizer(model, ds, criterion or CrossEntropyCriterion(),
+                    batch_size=ds.batch_size)
+    opt.set_optim_method(method or SGD(learning_rate=lr, momentum=0.9))
+    opt.set_end_when(max_iteration(steps)).set_steps_per_sync(k)
+    return opt
+
+
+def _phase21_cifar(device) -> dict:
+    """(a) the card's batch against the CPU dataset's; one epoch's
+    indices; K = 8 == K = 1; ``set_validation`` on a cache."""
+    import torch
+
+    from bigdl_tpu_torch.dataset import DeviceCachedArrayDataSet, MiniBatch
+    from bigdl_tpu_torch.models import ResNet
+    from bigdl_tpu_torch.optim import (Evaluator, Top1Accuracy,
+                                       several_iteration)
+    from bigdl_tpu_torch.utils.random import RandomGenerator
+
+    out = {}
+    imgs, lbls = _cache_images(CACHE_ROWS, 32, CACHE_SEED)
+    geo = dict(crop=(32, 32), pad=4, flip=True, mean=CIFAR_MEAN,
+               std=CIFAR_STD, shuffle_seed=CACHE_SEED)
+    ds = DeviceCachedArrayDataSet(imgs, lbls, CACHE_BATCH, device=device,
+                                  put_chunk_bytes=64 << 20, **geo)
+    host = DeviceCachedArrayDataSet(imgs, lbls, CACHE_BATCH, device="cpu",
+                                    **geo)
+    # the same draws on the card and on the CPU: a straddling batch
+    gen = torch.Generator(device=device).manual_seed(CACHE_SEED)
+    ds.ready_epochs(3)
+    pos = CACHE_ROWS - CACHE_BATCH // 2
+    idx = ds.cursor_indices(torch.tensor([3, pos], device=device))
+    oys, oxs, flips = ds.draws(gen)
+    x, y = ds.assemble(ds.images, ds.labels, idx, oys, oxs, flips)
+    want_idx = host.sample_indices(epoch=3, pos=pos)
+    hx, hy = host.assemble(host.images, host.labels, idx.cpu(), oys.cpu(),
+                           oxs.cpu(), flips.cpu())
+    out["batch_equal_cpu"] = bool(
+        torch.equal(idx.cpu(), want_idx) and torch.equal(x.cpu(), hx)
+        and torch.equal(y.cpu(), hy) and x.is_contiguous())
+    # one epoch's indices, read back from the card
+    ds.ready_epochs(0)
+    seen = torch.cat([ds.cursor_indices(torch.tensor([0, p], device=device))
+                      for p in range(0, CACHE_ROWS, CACHE_BATCH)])
+    seen = seen[:CACHE_ROWS].cpu()
+    out["epoch_visits_each_once"] = bool(torch.equal(
+        torch.sort(seen).values, torch.arange(CACHE_ROWS)))
+    del host
+
+    # K = 8 against K = 1, and set_validation on a cache
+    val_imgs, val_lbls = _cache_images(CACHE_VAL_ROWS, 32, CACHE_SEED + 1)
+    val = DeviceCachedArrayDataSet(val_imgs, val_lbls, CACHE_BATCH,
+                                   device=device, **geo)
+    runs = {}
+    # cuDNN's deterministic algorithms: two runs over the same state agree
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    for k in (1, CACHE_K):
+        RandomGenerator.set_seed(CACHE_SEED)
+        model = ResNet(10, depth=20, dataset="CIFAR10", device=device,
+                       generator=torch.Generator().manual_seed(CACHE_SEED))
+        opt = _cache_optimizer(model, ds, k, CACHE_STEPS)
+        if k == 1:
+            # fires after the last step (neval 17 follows step 16)
+            opt.set_validation(several_iteration(CACHE_STEPS + 1), val,
+                               [Top1Accuracy()])
+        t0 = time.perf_counter()
+        opt.optimize()
+        runs[k] = {"losses": [h["loss"] for h in opt.history],
+                   "params": [p.detach().clone()
+                              for p in model.parameters()],
+                   "seconds": time.perf_counter() - t0,
+                   "captures": getattr(opt.window, "captures", 0)}
+        if k == 1:
+            scores = opt.validation_history[-1]
+            # the Evaluator's host sweep of the same rows: numpy centre
+            # crops (the pad is 4 on every side: the crop is the image)
+            xs = ((val_imgs.astype(np.float32)
+                   - np.float32(CIFAR_MEAN).reshape(1, 3, 1, 1))
+                  / np.float32(CIFAR_STD).reshape(1, 3, 1, 1))
+            batches = [MiniBatch(xs[i:i + CACHE_BATCH],
+                                 val_lbls[i:i + CACHE_BATCH])
+                       for i in range(0, CACHE_VAL_ROWS, CACHE_BATCH)]
+            host_top1 = Evaluator(model).test(
+                batches, [Top1Accuracy()], CACHE_BATCH)["Top1Accuracy"]
+            out["validation"] = {"set_validation": scores,
+                                 "host_sweep": host_top1.result()[0]}
+    torch.backends.cudnn.deterministic = deterministic
+    a, b = runs[1], runs[CACHE_K]
+    out["k8_equals_k1"] = bool(a["losses"] == b["losses"] and all(
+        torch.equal(p, q) for p, q in zip(a["params"], b["params"])))
+    out["losses"] = a["losses"]
+    out[f"losses_k{CACHE_K}"] = b["losses"]
+    out["seconds"] = {k: r["seconds"] for k, r in runs.items()}
+    out["captures"] = b["captures"]
+    log("cache-a", json.dumps(out))
+    ok = (out["batch_equal_cpu"] and out["epoch_visits_each_once"]
+          and out["k8_equals_k1"]
+          and out["validation"]["set_validation"]["Top1Accuracy"]
+          == out["validation"]["host_sweep"]
+          and all(np.isfinite(a["losses"]))
+          and (device != "cuda" or b["captures"] == 1))
+    if not ok:
+        raise AssertionError(f"phase 21 (a): {out}")
+    return out
+
+
+def _tag_provider(i: int):
+    """Shard ``i``: every pixel ``40 * (i + 1)``, every label ``i + 1``."""
+    return (np.full((TAG_ROWS, 3, TAG_SIDE, TAG_SIDE), 40 * (i + 1),
+                    np.uint8), np.full(TAG_ROWS, float(i + 1), np.float32))
+
+
+def _tag_model(device, steps: int):
+    """A linear classifier behind a probe that records each batch's
+    smallest and largest first pixel on the card, a row a step (a
+    buffer written in place: graph replays record too)."""
+    import torch
+
+    from bigdl_tpu_torch import nn
+
+    class ShardProbe(nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.register_buffer("seen", torch.zeros((steps, 2),
+                                                     device=device))
+            self.register_buffer("count", torch.zeros(
+                (1,), dtype=torch.int64, device=device))
+
+        def forward(self, x):
+            with torch.no_grad():
+                tag = x[:, 0, 0, 0]
+                self.seen.index_copy_(0, self.count, torch.stack(
+                    [tag.min(), tag.max()]).view(1, 2))
+                self.count.add_(1)
+            return x
+
+    side = TAG_SIDE
+    probe = ShardProbe()
+    model = (nn.Sequential().add(probe)
+             .add(nn.Reshape((3 * side * side,)))
+             .add(nn.Linear(3 * side * side, TAG_SHARDS))
+             .add(nn.LogSoftMax()))
+    return model.to(device), probe
+
+
+def _tag_run(device, k: int, stub: bool) -> dict:
+    """One rotating run of ``TAG_STEPS`` steps at window ``k``; with
+    ``stub`` the rotation does everything but swap the slot in."""
+    from bigdl_tpu_torch.dataset import RotatingDeviceDataSet, ShardRotator
+    from bigdl_tpu_torch.nn import ClassNLLCriterion
+
+    rot = ShardRotator(_tag_provider, TAG_SHARDS, TAG_BATCH,
+                       crop=(TAG_SIDE, TAG_SIDE), flip=True,
+                       chunk_bytes=TAG_ROWS // 3 * 3 * TAG_SIDE ** 2,
+                       seed=CACHE_SEED, device=device)
+    if stub:
+        def no_swap():
+            rot._stager.finish()
+            rot._cycle_pos = (rot._cycle_pos + 1) % rot.n_shards
+            rot.rotations += 1
+            rot._begin_stage()
+        rot.rotate = no_swap
+    ds = RotatingDeviceDataSet(rot)
+    model, probe = _tag_model(device, TAG_STEPS)
+    opt = _cache_optimizer(model, ds, k, TAG_STEPS, ClassNLLCriterion(),
+                           lr=0.1)
+    opt.optimize()
+    seen = probe.seen.cpu().numpy()
+    want = [40.0 * (rot.order[(s * TAG_BATCH // TAG_ROWS) % TAG_SHARDS] + 1)
+            for s in range(TAG_STEPS)]
+    right = [bool(lo == hi == w) for (lo, hi), w in zip(seen, want)]
+    return {"k": k, "stub": stub, "rotations": rot.rotations,
+            "order": rot.order.tolist(), "batches_right": sum(right),
+            "steps": TAG_STEPS, "all_right": all(right),
+            "first_wrong": right.index(False) if not all(right) else None,
+            "graphs": sorted(str(s) for s in opt.window.shapes)
+            if opt.window is not None else []}
+
+
+def _phase21_rotation(device) -> dict:
+    """(b) every batch after each rotation reads the new shard, per step
+    and in windows; the gate fails with the swap stubbed out."""
+    out = {"per_step": _tag_run(device, 1, False),
+           "windows": _tag_run(device, TAG_K, False),
+           "stubbed": _tag_run(device, TAG_K, True)}
+    log("cache-b", json.dumps(out))
+    if not (out["per_step"]["all_right"] and out["windows"]["all_right"]
+            and not out["stubbed"]["all_right"]):
+        raise AssertionError(f"phase 21 (b): {out}")
+    return out
+
+
+def _phase21_imagenet(device) -> dict:
+    """(c) ResNet-50 b256 from a 4,096-image cache at K = 1 and K = 4,
+    the augmentation alone, then rotating shards; (d) the probe."""
+    import torch
+
+    from bigdl_tpu_torch.dataset import (IMAGENET_MEAN, IMAGENET_STD,
+                                         DeviceCachedArrayDataSet,
+                                         RotatingDeviceDataSet, ShardRotator)
+    from bigdl_tpu_torch.utils import transfer
+
+    on_card = device == "cuda"
+    out = {}
+    # (d) the transfer probe, fresh
+    transfer._cached_chunk.clear()
+    t0 = time.perf_counter()
+    chunk = transfer.probe_device_put_chunk(device=device)
+    out["probe"] = {"chunk_bytes": chunk, "seconds":
+                    time.perf_counter() - t0,
+                    "gb_per_s": {str(b): r / 1e9 for b, r in
+                                 transfer.probe_rates.get(str(
+                                     torch.device(device)), {}).items()}}
+    log("cache-d", json.dumps(out["probe"]))
+
+    imgs = np.random.default_rng(CACHE_SEED).integers(
+        0, 256, (IN_ROWS, 3, IN_SIDE, IN_SIDE), dtype=np.uint8)
+    lbls = np.random.default_rng(CACHE_SEED + 1).integers(
+        1, RESNET_CLASSES + 1, IN_ROWS).astype(np.float32)
+    geo = dict(crop=(IN_CROP, IN_CROP), flip=True, mean=IMAGENET_MEAN,
+               std=IMAGENET_STD)
+    t0 = time.perf_counter()
+    ds = DeviceCachedArrayDataSet(imgs, lbls, IN_BATCH, device=device,
+                                  shuffle_seed=CACHE_SEED,
+                                  put_chunk_bytes=chunk, **geo)
+    out["cache_bytes"] = int(ds.images.numel())
+    out["cache_put_s"] = time.perf_counter() - t0
+    model = _resnet50(device)
+    if on_card:
+        torch.cuda.empty_cache()
+    for k in (1, IN_K):
+        # one optimize() call: warm steps (at K = 4 the window's
+        # capture), IN_STEPS profiled, IN_STEPS unprofiled
+        opt = _cache_optimizer(model, ds, k, 0, method=_recipe_sgd())
+        prof = _profiled_optimize(opt, 2 if k == 1 else IN_K, IN_STEPS,
+                                  device, f"cache-c-k{k}")
+        prof["losses_finite"] = bool(np.all(np.isfinite(
+            [h["loss"] for h in opt.history])))
+        prof["captures"] = getattr(opt.window, "captures", 0)
+        out[f"k{k}"] = prof
+        del opt
+        if on_card:
+            torch.cuda.empty_cache()
+    # the augmentation alone: gather, crop, flip, normalize a batch
+    gen = torch.Generator(device=device).manual_seed(CACHE_SEED)
+    ds.ready_epochs(0)
+    cursors = [torch.tensor([0, i * IN_BATCH], device=device)
+               for i in range(AUG_CALLS)]
+
+    def augment():
+        for c in cursors:
+            ds.batch_fn_on(ds.images, ds.labels, gen, cursor=c)
+    augment()
+    out["augment"] = _profiled_run(augment, AUG_CALLS, device, "cache-aug")
+    del ds
+
+    # rotating shards: 4 of 1,024, one piece pumped after each step
+    def provider(i):
+        rows = slice(i * IN_SHARD_ROWS, (i + 1) * IN_SHARD_ROWS)
+        return imgs[rows], lbls[rows]
+
+    # pieces of half a shard: of a shard's four steps, two follow a pump
+    # and two do not
+    half = IN_SHARD_ROWS // 2 * 3 * IN_SIDE * IN_SIDE
+    rot = ShardRotator(provider, IN_ROWS // IN_SHARD_ROWS, IN_BATCH,
+                       chunk_bytes=half, seed=CACHE_SEED, device=device,
+                       **geo)
+    rds = RotatingDeviceDataSet(rot)
+    marks = []     # (time, bytes pumped so far) after each step
+    after = rds.after_step
+
+    def timed_after(neval):
+        after(neval)
+        if on_card:
+            torch.cuda.synchronize()
+        marks.append((time.perf_counter(), rot.pumped_bytes))
+
+    rds.after_step = timed_after
+    opt = _cache_optimizer(model, rds, 1, IN_ROT_STEPS,
+                           method=_recipe_sgd())
+    marks.append((time.perf_counter(), rot.pumped_bytes))
+    opt.optimize()
+    staging, quiet = [], []
+    for (t_a, b_a), (t_b, _), (_, b_prev) in zip(marks[1:], marks[2:],
+                                                 marks[:-2]):
+        # a step's wall: from the mark after the step before it; a piece
+        # pumped by that mark was in flight during the step
+        (staging if b_a > b_prev else quiet).append((t_b - t_a) * 1e3)
+    out["rotating"] = {
+        "steps": IN_ROT_STEPS, "rotations": rot.rotations,
+        "pumped_bytes": rot.pumped_bytes, "chunk_bytes": half,
+        "ms_per_step_staging": float(np.median(staging)) if staging
+        else None, "ms_per_step_not_staging": float(np.median(quiet))
+        if quiet else None, "staging_steps": len(staging),
+        "quiet_steps": len(quiet),
+        "losses_finite": bool(np.all(np.isfinite(
+            [h["loss"] for h in opt.history])))}
+    log("cache-c", json.dumps(out))
+    win = out[f"k{IN_K}"]
+    ok = (out["k1"]["losses_finite"] and win["losses_finite"]
+          and out["rotating"]["losses_finite"] and rot.rotations >= 1
+          and (not on_card or win["captures"] == 1))
+    if not ok:
+        raise AssertionError(f"phase 21 (c): {out}")
+    return out
+
+
+def _phase21_native() -> dict:
+    """(e) the native loader from the port's sources: its build, its
+    evaluation batch against numpy, its images/s."""
+    from bigdl_tpu_torch import native
+    from bigdl_tpu_torch.dataset import IMAGENET_MEAN, IMAGENET_STD
+
+    t0 = time.perf_counter()
+    path = native.build_library()
+    out = {"build_s": time.perf_counter() - t0, "library": path.name}
+    native.load_library()
+    imgs, lbls = _cache_images(NATIVE_ROWS, IN_SIDE, CACHE_SEED + 2)
+    imgs_f = imgs.astype(np.float32)
+    mean = np.float32(IMAGENET_MEAN).reshape(1, 3, 1, 1)
+    std = np.float32(IMAGENET_STD).reshape(1, 3, 1, 1)
+    off = (IN_SIDE - IN_CROP) // 2
+    want = (imgs_f[:NATIVE_BATCH, :, off:off + IN_CROP, off:off + IN_CROP]
+            - mean) / std
+    loader = native.NativeBatchLoader(
+        imgs_f, lbls, NATIVE_BATCH, crop=(IN_CROP, IN_CROP), train=False,
+        mean=IMAGENET_MEAN, std=IMAGENET_STD, num_threads=1)
+    try:
+        got, got_l = loader.next_batch()
+    finally:
+        loader.close()
+    out["eval_batch_equal_numpy"] = bool(
+        np.array_equal(got, want) and np.array_equal(got_l,
+                                                     lbls[:NATIVE_BATCH]))
+    rates = {}
+    for kind, cls, data, kw in (
+            ("float32", native.NativeBatchLoader, imgs_f,
+             dict(mean=IMAGENET_MEAN, std=IMAGENET_STD)),
+            ("uint8", native.NativeBatchLoaderU8, imgs, {})):
+        for threads in NATIVE_THREADS:
+            t0 = time.perf_counter()
+            loader = cls(data, lbls, NATIVE_BATCH, crop=(IN_CROP, IN_CROP),
+                         num_threads=threads, seed=CACHE_SEED, **kw)
+            try:
+                for _ in range(NATIVE_BATCHES):
+                    loader.next_batch()
+            finally:
+                loader.close()
+            rates[f"{kind}_{threads}"] = NATIVE_BATCH * NATIVE_BATCHES / (
+                time.perf_counter() - t0)
+    out["images_per_s"] = rates
+    log("cache-e", json.dumps(out))
+    if not out["eval_batch_equal_numpy"]:
+        raise AssertionError(f"phase 21 (e): {out}")
+    return out
+
+
+def phase_device_cache(counters, device="cuda"):
+    """The image cache on the card and the native loader (module
+    docstring, phase 21): (a)-(e). No kernel of the kernels line may
+    launch. Returns the summary."""
+    import torch
+
+    from bigdl_tpu_torch.utils.engine import full_float32
+
+    full_float32()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    seconds = {}
+
+    def timed(part, fn, *args):
+        t0 = time.perf_counter()
+        value = fn(*args)
+        seconds[part] = time.perf_counter() - t0
+        return value
+
+    for fn in counters.values():
+        fn.launches = 0
+    summary = {"cifar": timed("a", _phase21_cifar, device),
+               "rotation": timed("b", _phase21_rotation, device),
+               "imagenet": timed("c+d", _phase21_imagenet, device),
+               "native": timed("e", _phase21_native)}
+    launches = {n: fn.launches for n, fn in counters.items()}
+    if any(launches.values()):
+        raise AssertionError(f"a kernel of the kernels line launched in "
+                             f"phase 21: {launches}")
+    summary["wall_s"] = time.perf_counter() - t_phase
+    summary["part_seconds"] = seconds
+    log("cache", f"seconds by part: {json.dumps(seconds)}")
+    log("cache", f"phase wall {summary['wall_s']:.1f} s")
+    return summary
+
+
 def main() -> int:
     import torch
 
@@ -9733,8 +10292,14 @@ def main() -> int:
     from bigdl_tpu_torch.kernels.paged_decode import paged_decode_attention
     from bigdl_tpu_torch.kernels.ragged_decode import ragged_decode_attention
 
+    t_start = time.perf_counter()
+
+    def lap(name):
+        log("time", f"{name} done at {time.perf_counter() - t_start:.1f} s")
+
     kind, smi = phase_device()
     phase_build()
+    lap("build")
     greedy, topk = make_prompts()
     # the main path's steady state: the first 16 prompts' lengths,
     # half-way through their 32 new tokens
@@ -9747,6 +10312,7 @@ def main() -> int:
     phase_k6_route()
     int8, k5_vgg_rows, k5_lenet_rows, k5_text_row = phase_int8_gemm()
     paged = phase_paged_decode(main_lengths)
+    lap("kernel phases")
     counters = {"ragged_decode": ragged_decode_attention,
                 "flash_attention_fwd": flash_attention_forward,
                 "flash_attention_bwd": flash_attention_backward,
@@ -9757,26 +10323,45 @@ def main() -> int:
                 "int8_gemm": int8_gemm,
                 "paged_decode": paged_decode_attention}
     serve_launches, _ = phase_main_path(counters, greedy, topk)
+    lap("main_path")
     train_launches, train_summary = phase_train(counters, corpus)
+    lap("train")
     longctx_launches, _ = phase_longctx_train(counters)
+    lap("longctx_train")
     bf16_launches, _ = phase_longctx_bf16(counters)
+    lap("longctx_bf16")
     longserve_launches, _ = phase_longctx_serve(counters)
+    lap("longctx_serve")
     int8_launches, _ = phase_int8_serve(counters)
+    lap("int8_serve")
     lenet_launches, _ = phase_lenet(counters)
+    lap("lenet")
     resnet_launches, _ = phase_resnet_train(counters)
+    lap("resnet_train")
     _, prec_summary = phase_precision(counters, corpus, train_summary)
+    lap("precision")
     bf16 = prec_summary["bf16_profile"]
     phase_optim(counters, corpus, {
         "ms_per_step": bf16["k8_ms_per_step"],
         "unprofiled_ms_per_step": bf16["k8_unprofiled_ms_per_step"],
         "idle_share": bf16["k8_idle_share"]})
+    lap("optim")
     phase_lm(counters, corpus)
+    lap("lm")
     phase_fleet(counters, greedy)
+    lap("fleet")
     zoo_rows, _ = phase_zoo(counters, k5_vgg_rows)
+    lap("zoo")
     rnn_rows, _ = phase_rnn(counters, k5_lenet_rows)
+    lap("rnn")
     text_row, _ = phase_sparse_tree_text(counters, k5_text_row)
+    lap("sparse_tree_text")
     phase_nn_rest_lm(counters)
+    lap("nn_rest_lm")
     phase_data_plane(counters)
+    lap("data_plane")
+    phase_device_cache(counters)
+    lap("device_cache")
     ragged["launches"] = serve_launches["ragged_decode"]
     flash_fwd["launches"] = train_launches["flash_attention_fwd"]
     flash_bwd["launches"] = train_launches["flash_attention_bwd"]

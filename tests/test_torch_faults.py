@@ -100,7 +100,7 @@ def test_known_points_are_the_jax_packages_and_cover_every_placed_point():
                       "serving/swap", "serving/decode", "train/step",
                       "ckpt/write_manifest", "fleet/route",
                       "fleet/replica", "fleet/verify", "prefetch/stage",
-                      "datapipe/read"}
+                      "datapipe/read", "fetch/download"}
     assert placed <= set(faults.KNOWN_POINTS)
 
 

@@ -342,7 +342,12 @@ def test_cli_unported_flags_raise(flags):
     assert type(model).__name__ == "Graph"
 
 
-def test_cli_without_mnist_exits_naming_synthetic(tmp_path):
+def test_cli_without_mnist_exits_naming_synthetic(tmp_path, monkeypatch):
+    # the recipes download a missing corpus: a mirror that has nothing
+    # stands in for an offline host (no network is touched)
+    from bigdl_tpu_torch.dataset import fetch
+    monkeypatch.setattr(fetch, "MNIST_URL",
+                        (tmp_path / "no-mirror").as_uri() + "/")
     with pytest.raises(SystemExit, match="--synthetic"):
         lenet_train.main(["-f", str(tmp_path), "--device", "cpu"])
     with pytest.raises(SystemExit, match="--synthetic"):

@@ -81,7 +81,12 @@ def test_importing_the_port_loads_no_reference_module():
             "bigdl_tpu_torch.nn.graph, bigdl_tpu_torch.nn.control_ops, "
             "bigdl_tpu_torch.utils.directed_graph, "
             "bigdl_tpu_torch.models.rnn, bigdl_tpu_torch.models.rnn.train, "
-            "bigdl_tpu_torch.models.rnn.test\n"
+            "bigdl_tpu_torch.models.rnn.test, "
+            "bigdl_tpu_torch.dataset.device_dataset, "
+            "bigdl_tpu_torch.dataset.native_dataset, "
+            "bigdl_tpu_torch.dataset.fetch, bigdl_tpu_torch.native, "
+            "bigdl_tpu_torch.utils.transfer, "
+            "bigdl_tpu_torch.tools.imagenet_seqfile_generator\n"
             "bad = sorted(m for m in sys.modules if m == 'bigdl_tpu' "
             "or m.startswith('bigdl_tpu.'))\n"
             "bad += ['PIL'] if 'PIL' in sys.modules else []\n"
@@ -92,3 +97,38 @@ def test_importing_the_port_loads_no_reference_module():
                           env=env, capture_output=True, text=True,
                           timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def _port_sources():
+    files = _port_files()
+    files += sorted((ROOT / "bigdl_tpu_torch").rglob("*.cpp"))
+    return files
+
+
+def test_no_port_file_names_the_reference_native_library():
+    bad = [str(f.relative_to(ROOT)) for f in _port_sources()
+           if "bigdl_tpu/native" in f.read_text()
+           or "libbigdl_native.so" in f.read_text()]
+    assert bad == []
+
+
+def test_the_port_loads_its_own_native_library():
+    """The native library the port loads is built from the port's own
+    sources into its own build directory; the JAX package's is never
+    opened."""
+    code = ("import sys\n"
+            "from bigdl_tpu_torch import native\n"
+            "from bigdl_tpu_torch.dataset import load_mnist\n"
+            "lib = native.load_library()\n"
+            "print(lib._name)\n"
+            "maps = open('/proc/self/maps').read()\n"
+            "sys.exit(1 if 'libbigdl_native.so' in maps else 0)\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT),
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    path = Path(proc.stdout.strip().splitlines()[-1])
+    build = ROOT / "bigdl_tpu_torch" / "native" / "_build"
+    assert path.parent == build and path.name.startswith(
+        "libbigdl_torch_native-")

@@ -241,7 +241,12 @@ def test_text_clis_equal_jax(snapshots, capsys, monkeypatch):
                                   got)
 
 
-def test_clis_without_a_corpus_name_synthetic(tmp_path):
+def test_clis_without_a_corpus_name_synthetic(tmp_path, monkeypatch):
+    # the train recipe downloads a missing corpus: a mirror that has
+    # nothing stands in for an offline host (no network is touched)
+    from bigdl_tpu_torch.dataset import fetch
+    monkeypatch.setattr(fetch, "SHAKESPEARE_URL",
+                        (tmp_path / "no-mirror.txt").as_uri())
     with pytest.raises(SystemExit, match="--synthetic"):
         train_cli.main(["-f", str(tmp_path), "--device", "cpu"])
     with pytest.raises(SystemExit, match="--synthetic"):

@@ -264,7 +264,13 @@ def test_test_cli_equals_jax_cli(source, corpus_and_snapshot, capsys,
     assert abs(got - want) <= 1e-5 * want
 
 
-def test_train_cli_without_a_corpus_names_synthetic(tmp_path):
+def test_train_cli_without_a_corpus_names_synthetic(tmp_path,
+                                                   monkeypatch):
+    # the train CLI downloads a missing corpus: a mirror that has
+    # nothing stands in for an offline host (no network is touched)
+    from bigdl_tpu_torch.dataset import fetch
+    monkeypatch.setattr(fetch, "SHAKESPEARE_URL",
+                        (tmp_path / "no-mirror.txt").as_uri())
     with pytest.raises(SystemExit, match="--synthetic"):
         train_cli.main(["-f", str(tmp_path), "--device", "cpu"])
     with pytest.raises(SystemExit, match="--synthetic"):
