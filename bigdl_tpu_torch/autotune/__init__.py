@@ -5,7 +5,9 @@ from bigdl_tpu_torch.autotune.config import (TUNED_SCHEMA_VERSION,
                                              Fingerprint,
                                              FingerprintMismatchError,
                                              TunedConfig, TunedConfigError,
+                                             apply_tuned_optimizer,
                                              load_tuned, save_tuned)
 
 __all__ = ["TUNED_SCHEMA_VERSION", "Fingerprint", "FingerprintMismatchError",
-           "TunedConfig", "TunedConfigError", "load_tuned", "save_tuned"]
+           "TunedConfig", "TunedConfigError", "apply_tuned_optimizer",
+           "load_tuned", "save_tuned"]

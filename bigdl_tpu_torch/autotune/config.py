@@ -15,8 +15,9 @@ wrote loads in the other.
 Serialization is canonical (sorted keys, indent 2, trailing newline),
 so equal sweeps are equal bytes.
 
-Not ported yet: the sweep itself and ``apply_to_perf_args`` (the tools,
-ROADMAP queue 1, item 14), ``apply_tuned_optimizer`` (ZeRO, item 11).
+:func:`apply_tuned_optimizer` applies an artifact's train winner onto a
+live ``Optimizer`` through its own setters. Not ported yet: the sweep
+itself and ``apply_to_perf_args`` (the tools, ROADMAP queue 1, item 14).
 """
 from __future__ import annotations
 
@@ -26,6 +27,7 @@ from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
 
 __all__ = ["TUNED_SCHEMA_VERSION", "TunedConfigError",
+           "apply_tuned_optimizer",
            "FingerprintMismatchError", "Fingerprint", "TunedConfig",
            "save_tuned", "load_tuned"]
 
@@ -215,3 +217,22 @@ def load_tuned(path: str, *, fingerprint: Optional[Fingerprint] = None,
         pruned=list(raw.get("pruned", [])),
         decisions=dict(raw.get("decisions", {})),
         schema_version=int(version))
+
+
+def apply_tuned_optimizer(cfg: TunedConfig, optimizer):
+    """Apply the train winner onto a live ``Optimizer`` through its own
+    setters (``set_steps_per_sync`` / ``set_zero`` / ``set_precision``),
+    in the JAX package's order: the artifact configures, it never
+    bypasses."""
+    winner = cfg.winner("train")
+    if "steps_per_sync" in winner:
+        optimizer.set_steps_per_sync(int(winner["steps_per_sync"]))
+    if "zero_stage" in winner:
+        from bigdl_tpu_torch.parallel import ZeroConfig
+
+        stage = int(winner["zero_stage"])
+        optimizer.set_zero(ZeroConfig(stage=stage) if stage else None)
+    if "precision" in winner:
+        prec = winner["precision"]
+        optimizer.set_precision(None if prec == "f32" else prec)
+    return optimizer

@@ -11,9 +11,10 @@ block's state (``block_{i}/mlp/{__bigdl_aux_loss__,expert_frac}``) is
 its buffers.
 
 The recipes are :mod:`bigdl_tpu_torch.models.transformer.train` and
-``.test``. Not ported yet: sequence parallelism (``ring_axis``,
-``mesh``), the sharding rules and the pipelined LM (ROADMAP queue 1,
-item 11).
+``.test``. Sequence parallelism (``ring_axis``, ``sp_impl``, ``mesh``)
+runs each rank on its slice of the sequence. Not ported yet: the
+sharding rules, MoE on a mesh of more than one rank and the pipelined
+LM (ROADMAP queue 1, item 11).
 """
 from __future__ import annotations
 
@@ -29,6 +30,19 @@ from bigdl_tpu_torch.nn.moe import MoE, pop_aux_losses
 from bigdl_tpu_torch.nn.module import Module
 from bigdl_tpu_torch.nn.norm import LayerNorm
 from bigdl_tpu_torch.utils.engine import default_dtype, resolve_device
+
+_ITEM_11 = "(ROADMAP queue 1, item 11)"
+
+
+def _mesh_ranks(mesh) -> int:
+    """Ranks of a port mesh (1 for None or anything without a shape)."""
+    shape = getattr(mesh, "shape", None)
+    if not isinstance(shape, dict):
+        return 1
+    n = 1
+    for v in shape.values():
+        n *= int(v)
+    return n
 
 __all__ = ["FeedForward", "TransformerBlock", "TransformerLM"]
 
@@ -68,12 +82,14 @@ class TransformerBlock(Module):
     def __init__(self, hidden_size: int, num_heads: int, ffn_size: int,
                  generator: Optional[torch.Generator] = None,
                  dropout: float = 0.0, moe_experts: int = 0,
-                 moe_top_k: int = 2):
+                 moe_top_k: int = 2, ring_axis: Optional[str] = None,
+                 sp_impl: str = "ring", mesh=None):
         super().__init__()
         self.ln1 = LayerNorm(hidden_size)
         self.attn = MultiHeadAttention(hidden_size, num_heads,
                                        causal=True, generator=generator,
-                                       dropout=dropout)
+                                       dropout=dropout, ring_axis=ring_axis,
+                                       sp_impl=sp_impl, mesh=mesh)
         self.ln2 = LayerNorm(hidden_size)
         if moe_experts > 0:
             self.mlp = MoE(hidden_size, ffn_size, moe_experts, moe_top_k,
@@ -114,9 +130,16 @@ class TransformerLM(Module):
     targets with the criterion's ``ignore_index``.
 
     ``ring_axis``, ``sp_impl`` and ``mesh`` are the JAX package's
-    sequence-parallel arguments, taken so that a snapshot either package
-    wrote rebuilds here; a ``ring_axis`` or ``mesh`` raises
-    NotImplementedError (ROADMAP queue 1, item 11).
+    sequence-parallel arguments (:class:`MultiHeadAttention`): where
+    the axis splits, each rank runs the model on its slice of every row,
+    ``S / n`` consecutive tokens whose positional embeddings start at
+    ``seq_rank * S_local`` (so do a module without ``ring_axis`` under a
+    training step's
+    :class:`~bigdl_tpu_torch.parallel.sequence.SeqParallelConfig`); where
+    it does not (world 1, or a ``mesh`` with no such axis) the dense
+    path runs, as ``resolve_axis_mesh`` has the JAX package do. MoE
+    blocks on a mesh of more than one rank and :meth:`sharding_rules`
+    raise NotImplementedError (ROADMAP queue 1, item 11).
 
     ``device`` defaults to the card (``None`` → ``"cuda"``, raising when
     CUDA is missing); pass ``device="cpu"`` to run on the CPU.
@@ -133,11 +156,12 @@ class TransformerLM(Module):
                  device: Optional[Union[str, torch.device]] = None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if ring_axis is not None or mesh is not None:
+        if moe_experts and _mesh_ranks(mesh) > 1:
             raise NotImplementedError(
-                f"TransformerLM(ring_axis={ring_axis!r}, mesh=...): "
-                f"sequence parallelism and meshes are not ported yet "
-                f"(ROADMAP queue 1, item 11)")
+                f"TransformerLM(moe_experts={moe_experts}) on a mesh of "
+                f"{_mesh_ranks(mesh)} ranks: expert parallelism and the "
+                f"Switch aux term over global token means are not ported "
+                f"yet {_ITEM_11}")
         if sp_impl not in ("ring", "ulysses"):
             raise ValueError(f"sp_impl must be ring|ulysses, got {sp_impl}")
         device = resolve_device(device)
@@ -151,6 +175,9 @@ class TransformerLM(Module):
         self.dropout = dropout
         self.moe_experts = moe_experts
         self.tie_embeddings = tie_embeddings
+        self.ring_axis = ring_axis
+        self.sp_impl = sp_impl
+        self.mesh = mesh
         dt = default_dtype()
         s = 1.0 / math.sqrt(hidden_size)
         self.embed = nn.Parameter(torch.randn(
@@ -164,7 +191,8 @@ class TransformerLM(Module):
                 and i % moe_every == moe_every - 1 else 0
             blk = TransformerBlock(hidden_size, num_heads, self.ffn_size,
                                    generator=generator, dropout=dropout,
-                                   moe_experts=moe)
+                                   moe_experts=moe, ring_axis=ring_axis,
+                                   sp_impl=sp_impl, mesh=mesh)
             # block_{i}, not a ModuleList: the JAX tree's names
             self.add_module(f"block_{i}", blk)
             self.blocks.append(blk)
@@ -182,6 +210,25 @@ class TransformerLM(Module):
     def jax_tree_children(self):
         """Every ``block_{i}``: the JAX state tree holds each block."""
         return [f"block_{i}" for i in range(self.num_layers)]
+
+    def sharding_rules(self, model_axis: str = "model",
+                       expert_axis: Optional[str] = None):
+        """The JAX package's megatron-style tensor- and expert-parallel
+        rules: not ported yet."""
+        raise NotImplementedError(
+            f"TransformerLM.sharding_rules: tensor- and expert-parallel "
+            f"layouts are not ported yet {_ITEM_11}")
+
+    def seq_shard(self):
+        """``(rank, n)`` along the sequence axis this forward runs on
+        (the blocks' attention decides), or None for the dense path."""
+        if not self.blocks:
+            return None
+        sp = self.blocks[0].attn.sequence_parallel()
+        if sp is None:
+            return None
+        axis, _, mesh = sp
+        return mesh.axis_index(axis), mesh.shape[axis]
 
     def aux_loss(self):
         """The sum of the MoE blocks' load-balance terms from the last
@@ -223,7 +270,14 @@ class TransformerLM(Module):
                 raise ValueError(f"sequence of {s} exceeds max_len "
                                  f"{self.max_len}")
             if seg is None:
-                x = self.embed[tokens] + self.pos_embed[:s][None]
+                # a sequence-parallel rank holds positions r * s ..
+                shard = self.seq_shard()
+                off = 0 if shard is None else shard[0] * s
+                if off + s > self.max_len:
+                    raise ValueError(
+                        f"sequence of {s * shard[1]} exceeds max_len "
+                        f"{self.max_len}")
+                x = self.embed[tokens] + self.pos_embed[off:off + s][None]
             else:
                 # per-document positions (restarting at 0 per segment)
                 idx = packed_pos.long().clamp(0, self.max_len - 1)

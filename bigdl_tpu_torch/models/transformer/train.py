@@ -1,4 +1,4 @@
-"""TransformerLM training recipe on one card (counterpart of
+"""TransformerLM training recipe (counterpart of
 ``bigdl_tpu.models.transformer.train``)::
 
     python -m bigdl_tpu_torch.models.transformer.train --synthetic 20000
@@ -6,6 +6,10 @@
         --checkpoint ck/ --inputMode packed --moeExperts 4 --dropout 0.1
     python -m bigdl_tpu_torch.models.transformer.train --synthetic 20000 \\
         --inputMode packed --device cpu --maxIterations 3
+    # two ranks, ring-attention sequence parallelism over them
+    python -m bigdl_tpu_torch.tools.launch --nproc 2 \\
+        bigdl_tpu_torch/models/transformer/train.py --synthetic 20000 \\
+        --sp ring --spSize 2 --seqLen 2048
 
 The corpus is ``-f dir``'s ``train.txt`` read through the PTB reader and
 its Dictionary (written to ``--checkpoint``'s ``dictionary.json``, which
@@ -23,10 +27,23 @@ recipes. The script prints ``final loss`` as the JAX CLI does (and,
 after a resume, the checkpoint it resumed from); like the JAX CLI it
 sets no validation and no summaries.
 
-Not ported yet: pipeline (``--pp``), tensor (``--tp``) and sequence
-(``--sp``) parallelism, which raise NotImplementedError (ROADMAP queue
-1, item 11). A missing corpus is downloaded into ``-f`` as the JAX CLI
-does; when that fails the CLI exits and names ``--synthetic``.
+Launched as a gang (``tools.launch``: ``WORLD_SIZE`` and the rest in
+the environment) the script starts the process group
+(``utils.engine.init_distributed``) and carves the ranks into a mesh
+(:func:`build_mesh_for`): a ``seq`` axis of ``--spSize`` ranks when
+``--sp ring|ulysses`` is set (``--spSize`` is raised to 2 when smaller,
+as in the JAX CLI), and ``data`` over the rest, each data rank feeding
+its ``DataSet.sharded`` share of the rows (``-b`` is the global batch).
+The model is built with ``ring_axis="seq"`` then. Besides the JAX
+CLI's line, a run on a mesh prints ``mesh: ...`` with the backend and
+the final loss in full. ``--sp`` with a non-contiguous ``--inputMode``
+raises ValueError, as in the JAX CLI; so does a world that the
+requested degrees do not divide.
+
+Not ported yet: pipeline (``--pp``) and tensor (``--tp``) parallelism,
+which raise NotImplementedError (ROADMAP queue 1, item 11). A missing
+corpus is downloaded into ``-f`` as the JAX CLI does; when that fails
+the CLI exits and names ``--synthetic``.
 """
 from __future__ import annotations
 
@@ -34,10 +51,34 @@ import os
 
 import numpy as np
 
-__all__ = ["main", "synthetic_corpus", "text_corpus"]
+__all__ = ["build_mesh_for", "main", "synthetic_corpus", "text_corpus"]
 
 #: seed of the weights' generator: fixed, as the JAX recipe's init key is
 _WEIGHT_SEED = 1
+
+
+def build_mesh_for(pp: int, tp: int, sp_size: int):
+    """Carve the ranks into ``(data[, seq])``: data parallelism takes
+    whatever ``pp * tp * sp_size`` leaves. Returns ``(mesh, axes)``, the
+    mesh None for one rank with no parallelism asked for (the JAX CLI's
+    ``build_mesh_for`` over ranks instead of devices)."""
+    import torch.distributed as dist
+
+    from bigdl_tpu_torch.parallel import make_mesh
+
+    n = dist.get_world_size() if dist.is_available() \
+        and dist.is_initialized() else 1
+    need = pp * tp * sp_size
+    if n % need:
+        raise ValueError(
+            f"device count {n} not divisible by pp*tp*spSize={need}")
+    sizes, names = [n // need], ["data"]
+    if sp_size > 1:
+        sizes.append(sp_size)
+        names.append("seq")
+    if sizes == [1]:
+        return None, names
+    return make_mesh(sizes, names), names
 
 
 def _split_documents(stream, eos_index):
@@ -158,28 +199,48 @@ def main(argv=None):
                     "row padded to seqLen")
     ap.add_argument("--dropout", type=float, default=0.0)
     ap.add_argument("--moeExperts", type=int, default=0)
-    # the JAX CLI's parallelism flags raise (item 11)
+    # pipeline and tensor parallelism raise (item 11)
     ap.add_argument("--pp", type=int, default=1)
     ap.add_argument("--tp", type=int, default=1)
     ap.add_argument("--sp", choices=("none", "ring", "ulysses"),
-                    default="none")
+                    default="none", help="sequence parallelism kernel")
+    ap.add_argument("--spSize", type=int, default=1,
+                    help="sequence-parallel degree (mesh 'seq' axis)")
     args = ap.parse_args(argv)
 
-    for flag, value, default in (("--pp", args.pp, 1), ("--tp", args.tp, 1),
-                                 ("--sp", args.sp, "none")):
-        if value != default:
+    for flag, value in (("--pp", args.pp), ("--tp", args.tp)):
+        if value != 1:
             raise NotImplementedError(
-                f"{flag} {value}: pipeline, tensor and sequence "
-                f"parallelism are not ported yet (ROADMAP queue 1, "
-                f"item 11)")
+                f"{flag} {value}: pipeline and tensor parallelism are not "
+                f"ported yet (ROADMAP queue 1, item 11)")
+    if args.sp != "none" and args.spSize < 2:
+        args.spSize = 2
+    if args.inputMode != "contiguous" and args.sp != "none":
+        raise ValueError(
+            "--inputMode packed/padded needs the dense TransformerLM "
+            "(segment masks are unsupported on the pipelined and "
+            "sequence-parallel paths)")
 
     import torch
+    import torch.distributed as dist
+
+    from bigdl_tpu_torch.utils import engine
 
     from bigdl_tpu_torch.dataset import DataSet, Sample, SampleToMiniBatch
     from bigdl_tpu_torch.models import TransformerLM
     from bigdl_tpu_torch.nn import SequenceCrossEntropyCriterion
-    from bigdl_tpu_torch.optim import SGD, LocalOptimizer
+    from bigdl_tpu_torch.optim import SGD, Optimizer
 
+    if "WORLD_SIZE" in os.environ and not dist.is_initialized():
+        # a launched gang (tools.launch): one process a rank
+        if args.device == "cpu":
+            torch.set_num_threads(1)
+        engine.init_distributed(
+            backend=None if args.device != "cpu" else "gloo")
+    mesh, _ = build_mesh_for(args.pp, args.tp,
+                             args.spSize if args.sp != "none" else 1)
+    device = engine.rank_device(args.device) if mesh is not None \
+        or dist.is_initialized() else args.device
     bs = args.batchSize or 8
     if args.synthetic:
         x, y = synthetic_corpus(args.synthetic, args.vocabSize,
@@ -194,19 +255,40 @@ def main(argv=None):
     else:
         samples = [Sample(x[i], y[i]) for i in range(len(x))]
         criterion = SequenceCrossEntropyCriterion()
-    ds = DataSet.array(samples).transform(SampleToMiniBatch(bs))
+    ndata = mesh.shape["data"] if mesh is not None else 1
+    if bs % ndata:
+        raise ValueError(f"batch {bs} does not split over the {ndata}-rank "
+                         f"data axis")
+    if ndata > 1:
+        ds = DataSet.sharded(samples, mesh.axis_index("data"), ndata) \
+            .transform(SampleToMiniBatch(bs // ndata))
+    else:
+        ds = DataSet.array(samples).transform(SampleToMiniBatch(bs))
+    sp = args.sp != "none"
     model = load_model_or(args, lambda: TransformerLM(
         vocab, hidden_size=args.hiddenSize, num_layers=args.layers,
         num_heads=args.heads, max_len=args.seqLen, dropout=args.dropout,
-        moe_experts=args.moeExperts, device=args.device,
+        moe_experts=args.moeExperts, device=device,
+        ring_axis="seq" if sp else None,
+        sp_impl=args.sp if sp else "ring", mesh=mesh,
         generator=torch.Generator().manual_seed(_WEIGHT_SEED)))
+    # a snapshot carries no mesh (runtime placement): reattach it, so a
+    # resumed run keeps its parallelism
+    for blk in model.blocks:
+        blk.attn.mesh = mesh
+        if sp:
+            blk.attn.ring_axis, blk.attn.sp_impl = "seq", args.sp
     optim = SGD(learning_rate=args.learningRate or 0.1,
                 learning_rate_decay=args.learningRateDecay or 0.0)
-    opt = LocalOptimizer(model, ds, criterion, batch_size=bs)
+    opt = Optimizer(model, ds, criterion, batch_size=bs, mesh=mesh)
     wire_optimizer(opt, args, optim, default_epochs=1)
     opt.optimize()
     loss = opt.driver_state["Loss"]
     print(f"final loss: {loss:.4f} perplexity: {np.exp(loss):.2f}")
+    if dist.is_initialized():
+        print(f"mesh: {None if mesh is None else mesh.shape} backend: "
+              f"{dist.get_backend()} rank: {dist.get_rank()} loss: "
+              f"{loss!r}", flush=True)
     if opt.resumed_from is not None:
         print(f"resumed from {opt.resumed_from['path']} at neval "
               f"{opt.resumed_from['neval']}")

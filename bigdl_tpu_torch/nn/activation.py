@@ -18,6 +18,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from bigdl_tpu_torch.nn.module import Module
+from bigdl_tpu_torch.parallel.global_batch import draw_rows
 from bigdl_tpu_torch.utils.engine import default_dtype
 
 __all__ = ["Abs", "BinaryThreshold", "Clamp", "ELU", "Echo", "Exp",
@@ -173,8 +174,9 @@ class RReLU(Module):
 
     def forward(self, x):
         if self.training:
-            a = torch.empty_like(x).uniform_(self.lower, self.upper,
-                                             generator=self.generator)
+            a = draw_rows(x.shape, lambda s: torch.empty(
+                s, dtype=x.dtype, device=x.device).uniform_(
+                    self.lower, self.upper, generator=self.generator))
         else:
             a = (self.lower + self.upper) / 2.0
         return torch.where(x >= 0, x, a * x)
@@ -343,5 +345,7 @@ class GaussianSampler(Module):
 
     def forward(self, x):
         mean, log_var = list(x)[:2]
-        eps = torch.empty_like(mean).normal_(generator=self.generator)
+        eps = draw_rows(mean.shape, lambda s: torch.empty(
+            s, dtype=mean.dtype, device=mean.device).normal_(
+                generator=self.generator))
         return mean + torch.exp(0.5 * log_var) * eps

@@ -12,8 +12,12 @@ JAX package sends them to its bundled TPU flash kernel,
 :class:`MultiHeadAttention` with its full-sequence and KV-cached
 forwards, and attention dropout (in training, on the einsum path, with
 masks from :func:`bigdl_tpu_torch.nn.dropout.keep_mask` on a
-``torch.Generator`` the caller passes). Not ported yet: the
-sequence-parallel (ring / Ulysses) paths (ROADMAP queue 1, item 11).
+``torch.Generator`` the caller passes), and the sequence-parallel
+paths: a ``ring_axis`` (or, for a module without one, the training
+step's :class:`~bigdl_tpu_torch.parallel.sequence.SeqParallelConfig`)
+runs attention across the mesh axis by ring or Ulysses
+(:mod:`bigdl_tpu_torch.parallel`), each rank holding its slice of the
+sequence.
 """
 from __future__ import annotations
 
@@ -125,16 +129,42 @@ class MultiHeadAttention(Module):
     and ``bq, bk, bv, bo``: the JAX param tree's names. ``generator``
     seeds the uniform(-1/sqrt(E), 1/sqrt(E)) init (None: torch's
     global generator). ``dropout`` is the attention-weight dropout rate
-    of a training forward (see :func:`dot_product_attention`)."""
+    of a training forward (see :func:`dot_product_attention`).
+
+    ``ring_axis`` names the mesh axis the sequence is split over, and
+    ``sp_impl`` the kernel across it: ``"ring"``
+    (:func:`~bigdl_tpu_torch.parallel.ring_attention.ring_attention`) or
+    ``"ulysses"``
+    (:func:`~bigdl_tpu_torch.parallel.ulysses.ulysses_attention`), on
+    ``mesh`` (None: the Engine's). Where the axis splits more than one
+    way, the input is this rank's slice of the sequence; elsewhere the
+    dense path runs. A module without ``ring_axis`` adopts the training
+    step's policy
+    (:func:`~bigdl_tpu_torch.parallel.sequence.use_sequence_parallel`).
+    ``ring_axis`` with dropout raises, and so does a custom ``mask`` on
+    the sequence-parallel path; a module that adopts the policy and has
+    dropout raises in training (its dense path would attend within one
+    rank's slice only)."""
 
     def __init__(self, hidden_size: int, num_heads: int,
                  causal: bool = False,
                  generator: Optional[torch.Generator] = None,
-                 dropout: float = 0.0):
+                 dropout: float = 0.0, ring_axis: Optional[str] = None,
+                 sp_impl: str = "ring", mesh=None):
         super().__init__()
         if hidden_size % num_heads:
             raise ValueError(f"hidden_size {hidden_size} is not a "
                              f"multiple of num_heads {num_heads}")
+        if ring_axis is not None and dropout > 0.0:
+            raise ValueError(
+                "attention dropout is not supported on the ring-attention "
+                "path (it would change the objective vs the unsharded "
+                "model); use dropout=0.0 with ring_axis")
+        if sp_impl not in ("ring", "ulysses"):
+            raise ValueError(f"sp_impl must be ring|ulysses, got {sp_impl}")
+        self.ring_axis = ring_axis
+        self.sp_impl = sp_impl
+        self.mesh = mesh
         self.hidden_size = hidden_size
         self.num_heads = num_heads
         self.head_dim = hidden_size // num_heads
@@ -159,7 +189,7 @@ class MultiHeadAttention(Module):
     def forward(self, x, *, cache: Optional[Dict[str, torch.Tensor]] = None,
                 positions=None, attend_len: Optional[int] = None,
                 segments=None,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None, mask=None):
         """Full-sequence attention, or — with ``cache=`` — one
         incremental (KV-cached) step. ``generator`` draws the dropout
         masks of a training forward.
@@ -179,25 +209,67 @@ class MultiHeadAttention(Module):
         query at absolute position ``p`` attends the cached keys
         ``j <= p`` among the first ``attend_len`` slots. A one-token
         step goes through the ragged decode kernel with lengths
-        ``positions + 1``."""
+        ``positions + 1``. ``mask`` (a boolean tensor broadcastable to
+        ``[B, H, S, S]``) is ANDed with the causal structure on the dense
+        path, never with ``segments`` nor on the sequence-parallel
+        path."""
         b, s, e = x.shape
         q = self._split(self._proj(x, "q"), b, s)
         k = self._split(self._proj(x, "k"), b, s)
         v = self._split(self._proj(x, "v"), b, s)
         if cache is None:
-            out = dot_product_attention(q, k, v, causal=self.causal,
-                                        segments=segments,
-                                        dropout_rate=self.dropout,
-                                        generator=generator,
-                                        training=self.training)
+            out = self._sequence_parallel(q, k, v, segments, mask)
+            if out is None:
+                out = dot_product_attention(q, k, v, causal=self.causal,
+                                            segments=segments, mask=mask,
+                                            dropout_rate=self.dropout,
+                                            generator=generator,
+                                            training=self.training)
         else:
-            if segments is not None:
+            if segments is not None or mask is not None:
                 raise ValueError(
                     "segment masks are not supported on the KV-cached "
                     "decode path (pack training slabs, not decode steps)")
             out = self._attend_cached(q, k, v, cache, positions, attend_len)
         out = out.transpose(1, 2).reshape(b, s, e)
         return self._proj(out, "o")
+
+    def sequence_parallel(self):
+        """``(axis, impl, mesh)`` of the sequence-parallel path this
+        module takes now (its own ``ring_axis``, else the installed
+        policy's), with the mesh resolved; None for the dense path."""
+        from bigdl_tpu_torch.parallel.mesh import resolve_axis_mesh
+        axis, impl, mesh = self.ring_axis, self.sp_impl, self.mesh
+        if axis is None:
+            from bigdl_tpu_torch.parallel.sequence import \
+                active_sequence_parallel
+            sp = active_sequence_parallel()
+            if sp is None:
+                return None
+            axis, impl, mesh = sp.axis, sp.impl, sp.mesh
+        mesh = resolve_axis_mesh(mesh, axis)
+        return None if mesh is None else (axis, impl, mesh)
+
+    def _sequence_parallel(self, q, k, v, segments, mask):
+        if mask is not None and self.ring_axis is not None:
+            raise ValueError(
+                "custom masks are not supported on the sequence-parallel "
+                "path (ring/ulysses kernels shard the key axis the mask "
+                "indexes); packed segments= ride the SP path, or use "
+                "ring_axis=None for arbitrary masks")
+        sp = self.sequence_parallel() if mask is None else None
+        if sp is None:
+            return None
+        if self.dropout > 0.0 and self.training:
+            raise ValueError(
+                "attention dropout is not supported on the sequence-"
+                "parallel path: each rank holds a slice of the sequence; "
+                "use dropout=0.0 under a SeqParallelConfig")
+        from bigdl_tpu_torch.parallel.sequence import SeqParallelConfig
+        axis, impl, mesh = sp
+        kern = SeqParallelConfig(axis, impl, mesh).kernel()
+        return kern(q, k, v, axis_name=axis, mesh=mesh, causal=self.causal,
+                    segments=segments)
 
     def _attend_cached(self, q, k, v, cache, positions, attend_len):
         if positions is None:

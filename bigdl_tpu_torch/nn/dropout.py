@@ -14,6 +14,7 @@ from typing import Optional
 import torch
 
 from bigdl_tpu_torch.nn.module import Module
+from bigdl_tpu_torch.parallel.global_batch import draw_rows
 
 __all__ = ["Dropout", "L1Penalty", "SpatialDropout2D", "keep_mask"]
 
@@ -21,9 +22,11 @@ __all__ = ["Dropout", "L1Penalty", "SpatialDropout2D", "keep_mask"]
 def keep_mask(shape, p: float, generator: torch.Generator) -> torch.Tensor:
     """A boolean mask of ``shape`` on ``generator``'s device, each
     element True with probability ``1 - p`` (``jax.random.bernoulli(rng,
-    1 - p, shape)``: a uniform draw below ``1 - p``)."""
-    u = torch.rand(tuple(shape), generator=generator,
-                   device=generator.device)
+    1 - p, shape)``: a uniform draw below ``1 - p``). In a mesh step,
+    this rank's rows of the global batch's mask
+    (:func:`~bigdl_tpu_torch.parallel.global_batch.draw_rows`)."""
+    u = draw_rows(shape, lambda s: torch.rand(s, generator=generator,
+                                              device=generator.device))
     return u < (1.0 - p)
 
 

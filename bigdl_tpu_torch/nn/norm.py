@@ -13,6 +13,8 @@ from torch import nn
 
 from bigdl_tpu_torch.nn.initialization import InitializationMethod
 from bigdl_tpu_torch.nn.module import Module
+from bigdl_tpu_torch.parallel.global_batch import (active_batch_slice,
+                                                   sum_over_batch)
 from bigdl_tpu_torch.utils.engine import default_dtype, full_float32
 
 __all__ = ["BatchNormalization", "LayerNorm", "Normalize", "RMSNorm",
@@ -85,7 +87,12 @@ class BatchNormalization(Module):
     place, outside autograd:
     ``running = (1 - momentum) * running + momentum * batch``, the
     variance times the Bessel factor ``n / max(n - 1, 1)``. (Not
-    ``F.batch_norm``: its two-pass variance rounds otherwise.) The
+    ``F.batch_norm``: its two-pass variance rounds otherwise.) In a
+    mesh step the batch is the global one: the sums of ``x`` and
+    ``x^2`` are summed over the ranks
+    (:func:`~bigdl_tpu_torch.parallel.global_batch.sum_over_batch`) and
+    ``n`` counts every rank's rows, so every rank normalizes alike and
+    keeps equal buffers. The
     weight defaults to ``U(0, 1)`` and the bias to zeros, as in the
     reference's ``reset()``; parameters are built on the CPU from
     ``generator``."""
@@ -130,11 +137,19 @@ class BatchNormalization(Module):
         # float32 statistics, as the JAX package's; a float64 input keeps
         # float64, so a float64 run is float64 throughout
         x32 = x.to(torch.promote_types(x.dtype, torch.float32))
-        mean32 = x32.mean(dim=axes)
-        ex2 = x32.square().mean(dim=axes)
+        n = x.numel() // self.n_output
+        part = active_batch_slice()
+        if part is None:
+            mean32 = x32.mean(dim=axes)
+            ex2 = x32.square().mean(dim=axes)
+        else:
+            # on a mesh, the global batch's: the sums over every rank
+            n *= part.ranks
+            sums = sum_over_batch(torch.stack(
+                [x32.sum(dim=axes), x32.square().sum(dim=axes)]))
+            mean32, ex2 = sums[0] / n, sums[1] / n
         var32 = torch.clamp(ex2 - mean32.square(), min=0.0)
         mean, var = mean32.to(x.dtype), var32.to(x.dtype)
-        n = x.numel() // self.n_output
         # float32 division, as JAX's, then rounded to the statistics'
         # dtype as the JAX package casts its factor; the momentum is
         # rounded so too (a Python float meeting a bfloat16 array). The

@@ -1,7 +1,7 @@
 """Optimization (counterpart of ``bigdl_tpu.optim``): the OptimMethods
 and their learning-rate schedules, LBFGS, regularizers, triggers,
-validation methods, the single-card training driver, and the local
-Predictor and Evaluator."""
+validation methods, the training driver (one card, or a mesh of ranks:
+``DistriOptimizer``), and the local Predictor and Evaluator."""
 from bigdl_tpu_torch.optim.evaluator import Evaluator
 from bigdl_tpu_torch.optim.lbfgs import LBFGS
 from bigdl_tpu_torch.optim.optim_method import (SGD, Adadelta, Adagrad, Adam,
@@ -14,7 +14,8 @@ from bigdl_tpu_torch.optim.optim_method import (SGD, Adadelta, Adagrad, Adam,
                                                 Regime, RMSprop,
                                                 SequentialSchedule, Step,
                                                 Warmup)
-from bigdl_tpu_torch.optim.optimizer import (LocalOptimizer, Optimizer,
+from bigdl_tpu_torch.optim.optimizer import (DistriOptimizer,
+                                             LocalOptimizer, Optimizer,
                                              build_eval_step,
                                              build_train_step,
                                              make_host_window,
@@ -33,7 +34,7 @@ from bigdl_tpu_torch.optim.validation import (MAE, AccuracyResult, Loss,
                                               ValidationResult)
 
 __all__ = ["AccuracyResult", "Adadelta", "Adagrad", "Adam", "Adamax",
-           "Default", "EpochDecay", "EpochSchedule", "EpochStep",
+           "Default", "DistriOptimizer", "EpochDecay", "EpochSchedule", "EpochStep",
            "Evaluator", "Exponential", "Ftrl", "L1L2Regularizer",
            "L1Regularizer", "L2Regularizer", "LBFGS",
            "LearningRateSchedule", "LocalOptimizer", "LocalPredictor",

@@ -73,14 +73,29 @@ rotating dataset pumps a piece of the next shard and rotates after
 each step's loss fetch. ``set_validation`` with a device cache scores
 its centre crops on the card at the cache's batch size.
 
+On a mesh of ranks (``Optimizer(mesh=...)``, :class:`DistriOptimizer`
+on the Engine's), one process a rank, each rank feeds its own rows and
+the step's distribution points are
+:class:`~bigdl_tpu_torch.optim.mesh_step.MeshSpread`'s
+(data parallelism, ZeRO stages 1-3 by ``set_zero``, sequence
+parallelism by ``set_sequence_parallel``; the gradient is the global
+objective's). The driver checks at the start that every rank holds
+the same parameters, counts the global rows, logs on rank 0 only, runs
+a window's steps eagerly whatever the backend (the collectives are not
+captured into a CUDA graph, NCCL's neither), writes checkpoints from rank 0 (gathered and unsharded, the
+JAX package's format 2, so a checkpoint of a sharded run resumes in a
+``LocalOptimizer`` of either package, or onto another stage) while
+the other ranks wait at a barrier, and all-reduces the validation
+counts of the rows each rank scored.
+
 Not ported yet: the elastic checkpoint options (``keep_last``,
 ``async_write``) and the flight recorder's post-mortem on a fatal
-failure (item 12), train and validation summaries, ZeRO (and with it
-precision under ZeRO), sequence parallelism, preemption, and the
-multi-card ``DistriOptimizer``.
+failure (item 12), train and validation summaries, preemption, tensor
+parallel ``sharding_rules`` and the device cache over a mesh (item 11).
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import functools
 import logging
@@ -115,7 +130,8 @@ from bigdl_tpu_torch.precision.scaler import DynamicLossScaler
 from bigdl_tpu_torch.utils.engine import default_dtype
 from bigdl_tpu_torch.utils.random import RandomGenerator
 
-__all__ = ["LocalOptimizer", "Optimizer", "build_eval_step",
+__all__ = ["DistriOptimizer", "LocalOptimizer", "Optimizer",
+           "build_eval_step",
            "build_train_step", "make_host_window", "seed_precision"]
 
 logger = logging.getLogger(__name__)
@@ -157,7 +173,9 @@ def build_train_step(module: Module, criterion: Criterion,
                      optim_method: OptimMethod, gradient_clip=None, *,
                      precision: Optional[PrecisionPolicy] = None,
                      loss_scaler: Optional[DynamicLossScaler] = None,
-                     aux_loss_weight: float = 0.01):
+                     aux_loss_weight: float = 0.01, mesh=None, zero=None,
+                     seq_parallel=None, data_axis: str = "data",
+                     seq_axis: Optional[str] = None):
     """One training step, ``step(inputs, targets, lr) -> loss``, in the
     JAX package's order: forward, loss plus
     ``module.regularization_loss()`` plus ``aux_loss_weight`` times the
@@ -214,7 +232,17 @@ def build_train_step(module: Module, criterion: Criterion,
     ``step.opt_state``; ``step.module`` is the module, ``step.lr_dtype``
     the dtype a driver stages the rate in. Nothing in a step
     reads a value back to the host, so a step can be captured into a
-    CUDA graph (:func:`make_host_window`)."""
+    CUDA graph (:func:`make_host_window`).
+
+    On a ``mesh`` of more than one rank the step is the same code with
+    :class:`~bigdl_tpu_torch.optim.mesh_step.MeshSpread`'s distribution
+    points: this rank's rows, the global objective (batch statistics and
+    random draws of the global batch), the gradients summed over the
+    ``data_axis`` and ``seq_axis`` groups, ``zero`` (a
+    :class:`~bigdl_tpu_torch.parallel.zero.ZeroConfig`) sharding the
+    update, ``seq_parallel`` (a
+    :class:`~bigdl_tpu_torch.parallel.sequence.SeqParallelConfig`)
+    installed around the forward; it returns the global loss."""
     if gradient_clip is not None and gradient_clip[0] not in (
             "constant", "l2norm"):
         raise ValueError(
@@ -226,15 +254,19 @@ def build_train_step(module: Module, criterion: Criterion,
     if policy.needs_loss_scaling:
         scaler = loss_scaler if loss_scaler is not None \
             else DynamicLossScaler()
-    plain = policy.is_noop and policy.param_dtype == torch.float32
     named = list(module.named_parameters())
     params = [p for _, p in named]
-    # the buffers of an update on the float32 master are float32 too,
-    # whatever dtype the parameters are stored in
-    opt_state = optim_method.init_state([
-        p.detach().to(policy.accum_dtype)
-        if policy.needs_master and p.is_floating_point() else p.detach()
-        for p in params])
+    if mesh is not None and mesh.size > 1:
+        from bigdl_tpu_torch.optim.mesh_step import MeshSpread
+        spread = MeshSpread(module, criterion, mesh=mesh, policy=policy,
+                            scaler=scaler, zero=zero, data_axis=data_axis,
+                            seq_axis=seq_axis, seq_parallel=seq_parallel)
+    else:
+        spread = _OneRank(params, policy)
+    plain = (isinstance(spread, _OneRank) and policy.is_noop
+             and policy.param_dtype == torch.float32)
+    opt_state = optim_method.init_state(spread.state_leaves())
+    spread.seed(opt_state)
     scales = module.param_scales()
     factors = [scales[name] for name, _ in named]
     scaled = any(f != 1.0 for f in factors)
@@ -264,14 +296,14 @@ def build_train_step(module: Module, criterion: Criterion,
             if gradient_clip[0] == "constant":
                 lo, hi = gradient_clip[1], gradient_clip[2]
                 return [g.clamp(lo, hi) for g in grads]
-            nrm = torch.sqrt(sum(g.float().square().sum() for g in grads))
+            nrm = torch.sqrt(spread.square_norm(grads))
             scale = torch.clamp(
                 gradient_clip[1] / torch.clamp(nrm, min=1e-12), max=1.0)
             return [g * scale.to(g.dtype) for g in grads]
 
-    def gradients():
-        return [p.grad if p.grad is not None else torch.zeros_like(p)
-                for p in params]
+    def gradients(sources):
+        return [t.grad if t.grad is not None else torch.zeros_like(t)
+                for t in sources]
 
     def scale(grads):
         if not scaled:
@@ -294,7 +326,7 @@ def build_train_step(module: Module, criterion: Criterion,
             p.grad = None
         loss = criterion(module(inputs, **forward_kw), targets)
         objective(loss, module.regularization_loss()).backward()
-        update(clip(scale(gradients())), opt_state, params, lr)
+        update(clip(scale(gradients(params))), opt_state, params, lr)
         return loss.detach()
 
     def policy_step(inputs, targets, lr):
@@ -313,31 +345,41 @@ def build_train_step(module: Module, criterion: Criterion,
                 "low-precision param_dtype needs the f32 master copy "
                 "in opt_state[precision.MASTER_KEY] "
                 "(Optimizer.set_precision seeds it automatically)")
-        for p in params:
-            p.grad = None
+        inputs, targets = spread.batch(inputs, targets)
+        # the tensors the gradients are taken for: the parameters, or
+        # on a mesh compute-dtype copies of the whole parameters
+        sources = spread.sources()
         x_c = policy.cast_to_compute(inputs)
-        if any(p.is_floating_point() and p.dtype != policy.compute_dtype
-               for p in params):
-            out, reg = torch.func.functional_call(
-                body, {f"module.{name}": policy.cast_to_compute(p)
-                       for name, p in named}, (x_c,), forward_kw)
-        else:
-            out, reg = body(x_c, **forward_kw)
+        with spread.scope():
+            if spread.functional or any(
+                    t.is_floating_point() and t.dtype != policy.compute_dtype
+                    for t in sources):
+                out, reg = torch.func.functional_call(
+                    body, {f"module.{name}": policy.cast_to_compute(t)
+                           for (name, _), t in zip(named, sources)},
+                    (x_c,), forward_kw)
+            else:
+                out, reg = body(x_c, **forward_kw)
         loss = criterion(policy.cast_output(out), targets)
-        total = objective(loss, reg)
+        share = spread.share(loss, targets)
+        total = objective(share, spread.penalty(reg))
         if scaler is not None:
             total = scaler.scale_loss(total, scaler_state)
         total.backward()
         with torch.no_grad():
-            grads = policy.cast_to_accum(gradients())
+            grads = policy.cast_to_accum(spread.reduce(gradients(sources)))
+            del sources
             finite = None
             if scaler is not None:
                 # checked after unscaling, so an overflowed scale's inf
                 # is caught even where the float16 gradients were finite
                 grads = scaler.unscale(grads, scaler_state)
-                finite = scaler.all_finite(grads)
+                finite = spread.agree(scaler.all_finite(grads))
             grads = clip(scale(grads))
-            base = master if master is not None else params
+            # what the update writes: the parameters, or on a mesh this
+            # rank's shard of each
+            stored = spread.stored()
+            base = master if master is not None else stored
             if master is None and policy.param_dtype != policy.accum_dtype:
                 # no master (the legacy Engine path): the update runs in
                 # the parameters' dtype, the pre-policy program
@@ -347,16 +389,17 @@ def build_train_step(module: Module, criterion: Criterion,
                 # the skip-step select's old values: the parameters, the
                 # master and every OptimMethod buffer
                 kept = [(t, t.clone()) for t in
-                        [*params, *(master or []), *_buffers(inner)]]
+                        [*stored, *(master or []), *_buffers(inner)]]
             update(grads, inner, base, lr)
             if master is not None:
-                for p, m in zip(params, master):
-                    p.copy_(m)           # the master cast down
+                for t, m in zip(stored, master):
+                    t.copy_(m)           # the master cast down
             for t, old in kept:
                 t.copy_(torch.where(finite, t, old))
             if scaler is not None:
                 scaler.advance(scaler_state, finite)
-        return loss.detach()
+            spread.finish()
+        return spread.result(loss, share)
 
     step = plain_step if plain else policy_step
     # the dtype a driver stages the rate in: default_dtype(), as the JAX
@@ -369,7 +412,71 @@ def build_train_step(module: Module, criterion: Criterion,
     step.policy = policy
     step.scaler = scaler
     step.generator = generator
+    spread.attach(step)
     return step
+
+
+class _OneRank:
+    """The distribution points of a step on one rank, each the plain
+    computation (a mesh's are
+    :class:`~bigdl_tpu_torch.optim.mesh_step.MeshSpread`'s)."""
+
+    #: whether the forward always swaps its sources in through
+    #: ``functional_call`` (else only where a cast is due)
+    functional = False
+
+    def __init__(self, params, policy):
+        self.params = params
+        self.policy = policy
+
+    def state_leaves(self):
+        """The tensors the OptimMethod's buffers are made like: the
+        float32 master's under a policy with one."""
+        policy = self.policy
+        return [p.detach().to(policy.accum_dtype)
+                if policy.needs_master and p.is_floating_point()
+                else p.detach() for p in self.params]
+
+    def seed(self, opt_state) -> None:
+        """Nothing: :func:`seed_precision` seeds the precision state."""
+
+    def batch(self, inputs, targets):
+        return inputs, targets
+
+    def sources(self):
+        for p in self.params:
+            p.grad = None
+        return self.params
+
+    def scope(self):
+        return contextlib.nullcontext()
+
+    def share(self, loss, targets):
+        return loss
+
+    def penalty(self, reg):
+        return reg
+
+    def reduce(self, grads):
+        return grads
+
+    def agree(self, finite):
+        return finite
+
+    def square_norm(self, grads):
+        return sum(g.float().square().sum() for g in grads)
+
+    def stored(self):
+        return self.params
+
+    def finish(self) -> None:
+        pass
+
+    def result(self, loss, share):
+        return loss.detach()
+
+    def attach(self, step) -> None:
+        pass
 
 
 def seed_precision(step, cast_params: bool = True) -> None:
@@ -495,9 +602,10 @@ class _HostWindow:
     a replay calls no wrapper and counts nothing. A capture that fails
     raises: there is no quiet per-step fallback.
 
-    On the CPU the K steps run one by one (no graph), from the same
-    buffers' values: the planning and the host replay are what the CPU
-    sees."""
+    On the CPU, and for a step that is not ``capturable`` (a mesh step:
+    its collectives are not captured), the K steps run one by one (no
+    graph), from the same buffers' values: the planning and the host
+    replay are what they see."""
 
     #: whether this window's graphs share one memory pool (each graph
     #: of a host window has its own)
@@ -537,7 +645,8 @@ class _HostWindow:
         k = len(lrs)
         key = (k, batch_signature(MiniBatch(xs, ys)))
         self.shapes.add(key)
-        if device.type != "cuda":
+        if device.type != "cuda" or not getattr(self.step, "capturable",
+                                                True):
             xs = minibatch_input_to_device(xs, device)
             ys = minibatch_input_to_device(ys, device)
             lr_t = torch.tensor(list(lrs), dtype=self.step.lr_dtype,
@@ -707,10 +816,34 @@ class Optimizer:
     ``train_step`` the last run's step (its ``opt_state`` holds the
     OptimMethod's buffers, the master copy and the scaler state) and
     ``window`` its :func:`make_host_window` window (None in per-step mode; closed
-    when the run ends, its ``captures`` and ``shapes`` kept)."""
+    when the run ends, its ``captures`` and ``shapes`` kept).
+
+    ``mesh`` (a :class:`~bigdl_tpu_torch.parallel.mesh.Mesh`) trains
+    across its ranks, ``data_axis`` naming the batch axis; ``zero1`` is
+    ``set_zero(ZeroConfig(1))``. ``sharding_rules`` raises (item 11).
+    On a mesh ``batch_size`` is the global batch (each data rank feeds
+    its share), ``history``'s ``rows``, the throughput and the epoch's
+    records count the global rows, the loss is the global one, and
+    ``memory`` holds the bytes of parameters and optimizer state a rank
+    keeps at rest (``record_memory_gauges``)."""
 
     def __init__(self, model: Module, dataset: AbstractDataSet,
-                 criterion: Criterion, batch_size: int = 32):
+                 criterion: Criterion, batch_size: int = 32, mesh=None,
+                 data_axis: str = "data", sharding_rules=None,
+                 zero1: bool = False):
+        if sharding_rules is not None:
+            raise NotImplementedError(
+                "Optimizer(sharding_rules=...): tensor- and expert-parallel "
+                "layouts are not ported yet (ROADMAP queue 1, item 11)")
+        self.mesh = mesh
+        self.data_axis = data_axis
+        self.sharding_rules = None
+        self.zero1 = zero1
+        self.zero_config = None
+        if zero1:
+            from bigdl_tpu_torch.parallel.zero import ZeroConfig
+            self.zero_config = ZeroConfig(stage=1, data_axis=data_axis)
+        self._seq_parallel = None
         self.model = model
         self.dataset = dataset
         self.criterion = criterion
@@ -882,6 +1015,94 @@ class Optimizer:
         self.steps_per_sync = k
         return self
 
+    def set_zero(self, config) -> "Optimizer":
+        """Weight-update sharding (a
+        :class:`~bigdl_tpu_torch.parallel.zero.ZeroConfig`, or None / stage
+        0 for plain data parallelism): stage 1 shards the optimizer
+        state over the data axis, stage 2 also reduce-scatters the
+        gradients, stage 3 also keeps the parameters sharded between
+        steps. A no-op off a mesh or where the data axis does not
+        split. The config's ``data_axis`` is made this Optimizer's.
+        Checkpoints hold the gathered, unsharded state, so a run may
+        resume onto another stage or into a ``LocalOptimizer``."""
+        import dataclasses
+
+        from bigdl_tpu_torch.parallel.zero import ZeroConfig
+        if config is not None and not isinstance(config, ZeroConfig):
+            raise TypeError(
+                f"set_zero expects a parallel.ZeroConfig or None, got "
+                f"{type(config).__name__}")
+        if config is not None and config.data_axis != self.data_axis:
+            config = dataclasses.replace(config, data_axis=self.data_axis)
+        self.zero_config = config if config is not None \
+            and config.stage > 0 else None
+        self.zero1 = self.zero_config is not None \
+            and self.zero_config.stage == 1
+        return self
+
+    def set_sequence_parallel(self, config) -> "Optimizer":
+        """Sequence-parallel attention for this run (a
+        :class:`~bigdl_tpu_torch.parallel.sequence.SeqParallelConfig`, or
+        None for dense): every ``MultiHeadAttention`` without its own
+        ``ring_axis`` runs the ring or Ulysses kernel over the config's
+        mesh axis, each rank on its slice of every row (the driver
+        slices the rows, which every rank of the axis feeds whole).
+        A quiet no-op where the axis does not split; the
+        ``train/seq_parallel/degree`` gauge reads the degree reached."""
+        from bigdl_tpu_torch.parallel.sequence import SeqParallelConfig
+        if config is not None and not isinstance(config,
+                                                 SeqParallelConfig):
+            raise TypeError(
+                f"set_sequence_parallel expects a "
+                f"parallel.SeqParallelConfig or None, got "
+                f"{type(config).__name__}")
+        self._seq_parallel = config
+        return self
+
+    def _mesh_on(self) -> bool:
+        return self.mesh is not None and self.mesh.size > 1
+
+    def _seq_axis(self):
+        """``(axis, policy)``: the mesh axis the sequence is split over
+        in this run (the ``set_sequence_parallel`` policy's, else a
+        ``ring_axis`` of the model's attention) and the policy to
+        install (None for the model's own)."""
+        from bigdl_tpu_torch.parallel.mesh import resolve_axis_mesh
+        from bigdl_tpu_torch.parallel.sequence import record_degree
+        sp = self._seq_parallel
+        if sp is not None and sp.active_on(self.mesh):
+            if sp.mesh is None:
+                import dataclasses
+                sp = dataclasses.replace(sp, mesh=self.mesh)
+            record_degree(sp.degree())
+            return sp.axis, sp
+        for m in self.model.modules():
+            axis = getattr(m, "ring_axis", None)
+            if axis is not None and resolve_axis_mesh(
+                    getattr(m, "mesh", None) or self.mesh, axis) is not None:
+                record_degree(self.mesh.shape.get(axis, 1))
+                return axis, None
+        record_degree(1)
+        return None, None
+
+    def _check_mesh(self) -> None:
+        """What a mesh run cannot do yet raises before any step."""
+        # an axis that neither splits the batch nor the sequence holds
+        # replicas (every rank of it feeds the same rows), unless it is
+        # one of the JAX package's model axes
+        other = [a for a, n in self.mesh.shape.items()
+                 if n > 1 and a in ("model", "pipe", "expert")]
+        if other:
+            raise NotImplementedError(
+                f"mesh axes {other} split the model: tensor, expert and "
+                f"pipeline parallelism are not ported yet (ROADMAP queue "
+                f"1, item 11)")
+        if getattr(self.dataset, "rotating", False) \
+                or hasattr(self.dataset, "batch_fn"):
+            raise NotImplementedError(
+                "a device-cached dataset over a mesh is not ported yet "
+                "(ROADMAP queue 1, item 11)")
+
     def set_precision(self, policy, scaler=None) -> "Optimizer":
         """Mixed-precision policy for this run
         (:class:`~bigdl_tpu_torch.precision.PrecisionPolicy`, a preset
@@ -1015,8 +1236,18 @@ class Optimizer:
         suffix = "" if self.is_overwrite else f".{self.driver_state['neval']}"
         path = os.path.join(self.checkpoint_path, f"checkpoint{suffix}")
         names = self._param_names()
+        buffers = step.opt_state
+        mesh_step = getattr(step, "mesh", None) is not None
+        if mesh_step:
+            # every rank gathers; rank 0 writes; the others wait
+            step.materialize()
+            buffers = step.full_opt_state()
+            if self.mesh.rank != 0:
+                step.release()
+                self._barrier()
+                return
         opt_state = self.optim_method.state_tree(
-            step.opt_state, lambda ts: jax_tree(self.model, zip(names, ts)))
+            buffers, lambda ts: jax_tree(self.model, zip(names, ts)))
         driver_state = dict(self.driver_state)
         cursor_ds = self._cursor_dataset()
         if cursor_ds is not None:
@@ -1027,6 +1258,15 @@ class Optimizer:
                         optim_host_state=self.optim_method.get_state(),
                         driver_state=driver_state)
         logger.info("checkpointed to %s", path)
+        if mesh_step:
+            step.release()
+            self._barrier()
+
+    def _barrier(self) -> None:
+        """Every rank of the mesh waits here (a gloo / NCCL barrier on
+        the default group)."""
+        import torch.distributed as dist
+        dist.barrier()
 
     def _try_resume(self) -> Optional[Dict[str, Any]]:
         """The newest intact checkpoint under the checkpoint path, or
@@ -1069,15 +1309,19 @@ class Optimizer:
         the run goes on from the parameters and counters the failure
         left. A fatal failure (a ``TypeError``, a shape mismatch...), the
         failure after the last retry, and any failure of a run with no
-        checkpoint path raise unchanged."""
+        checkpoint path raise unchanged, and so does any failure on a mesh
+        of more than one rank (``tools.launch --max-restarts`` restarts
+        the gang, which resumes from the newest checkpoint)."""
         retries = 0
         while True:
             try:
                 return self._optimize_impl()
             except Exception as e:
                 retries += 1
+                # on a mesh a rank cannot retry alone (its peers wait in
+                # a collective): the launcher's gang restart does it
                 if classify(e) == "fatal" or retries > self.retry_times \
-                        or self.checkpoint_path is None:
+                        or self.checkpoint_path is None or self._mesh_on():
                     # the JAX package's flight recorder writes its
                     # post-mortem here; the port's waits for item 12
                     raise
@@ -1115,10 +1359,21 @@ class Optimizer:
         # epoch/iteration-driven schedules read the OptimMethod's state
         for k in ("epoch", "neval"):
             self.optim_method.state[k] = state[k]
+        mesh_on = self._mesh_on()
+        seq_axis, sp = self._seq_axis() if mesh_on else (None, None)
+        if mesh_on:
+            self._check_mesh()
+        ndata = self.mesh.shape.get(self.data_axis, 1) if mesh_on else 1
+        rank0 = not mesh_on or self.mesh.rank == 0
+        log = logger.info if rank0 else (lambda *a, **k: None)
         step = build_train_step(model, self.criterion, self.optim_method,
                                 self._gradient_clip,
                                 precision=self._precision,
-                                loss_scaler=self._loss_scaler)
+                                loss_scaler=self._loss_scaler,
+                                mesh=self.mesh if mesh_on else None,
+                                zero=self.zero_config,
+                                seq_parallel=sp, data_axis=self.data_axis,
+                                seq_axis=seq_axis)
         policy, scaler = step.policy, step.scaler
         if resumed is not None:
             names = self._param_names()
@@ -1132,13 +1387,38 @@ class Optimizer:
                         f", unexpected {sorted(set(flat) - set(names))}")
                 return [flat[n] for n in names]
 
-            self.optim_method.load_state_tree(
-                step.opt_state, resumed["opt_state"], leaves_of,
-                device=device)
+            if getattr(step, "mesh", None) is not None:
+                # the checkpoint is unsharded: load it whole, then keep
+                # this rank's shard of each buffer
+                master = MASTER_KEY in step.opt_state
+                full = self.optim_method.init_state([
+                    torch.zeros(shape, dtype=torch.float32 if master
+                                else p.dtype, device=device)
+                    for shape, p in zip(step.full_shapes,
+                                        model.parameters())])
+                if master:
+                    full[MASTER_KEY] = [torch.zeros(sh, device=device)
+                                        for sh in step.full_shapes]
+                if SCALER_KEY in step.opt_state:
+                    full[SCALER_KEY] = {
+                        k: v.clone()
+                        for k, v in step.opt_state[SCALER_KEY].items()}
+                self.optim_method.load_state_tree(
+                    full, resumed["opt_state"], leaves_of, device=device)
+                step.load_full_opt_state(full)
+            else:
+                self.optim_method.load_state_tree(
+                    step.opt_state, resumed["opt_state"], leaves_of,
+                    device=device)
         seed_precision(step, cast_params=self._precision is not None)
         self.train_step = step
+        if mesh_on:
+            from bigdl_tpu_torch.parallel.zero import record_memory_gauges
+            self.memory = record_memory_gauges(*step.memory())
+            log("mesh %s: ZeRO stage %d, sequence axis %s, %s",
+                self.mesh.shape, step.stage, seq_axis, self.memory)
         if not policy.is_noop:
-            logger.info("precision policy: %s", policy.describe())
+            log("precision policy: %s", policy.describe())
             # value 1 marks the active policy; series of earlier runs in
             # this process drop to 0
             for key in _POLICY_INFO.series():
@@ -1153,8 +1433,14 @@ class Optimizer:
         end_when = self.end_when or max_epoch(10)
         k_cap, why = self._window_limit(self.steps_per_sync, end_when)
         if k_cap < self.steps_per_sync:
-            logger.info("steps_per_sync=%d: falling back to per-step "
-                        "sync — %s", self.steps_per_sync, why)
+            log("steps_per_sync=%d: falling back to per-step sync — %s",
+                self.steps_per_sync, why)
+        if mesh_on and k_cap > 1:
+            import torch.distributed as dist
+            log("steps_per_sync=%d: a mesh of %d ranks runs each "
+                "window's steps eagerly under any backend (%s here): its "
+                "collectives are not captured into a CUDA graph", k_cap,
+                self.mesh.size, dist.get_backend())
         # the per-step rate is staged as the window's are, a 0-d tensor
         # in step.lr_dtype on the device, so both run one arithmetic
         lr_t = torch.zeros((), dtype=step.lr_dtype, device=device)
@@ -1226,6 +1512,8 @@ class Optimizer:
                 # after this step's loss fetch: a piece of the next shard,
                 # and the rotation at a shard boundary
                 self.dataset.after_step(state["neval"])
+            bsz *= ndata             # the global rows on a mesh
+            throughput *= ndata
             state["neval"] += 1
             self.optim_method.state["neval"] = state["neval"]
             state["recordsProcessedThisEpoch"] += bsz
@@ -1236,8 +1524,7 @@ class Optimizer:
                                  "epoch": state["epoch"], "loss": loss_f,
                                  "lr": lr, "rows": bsz,
                                  "seconds": seconds})
-            logger.info(
-                "Epoch %d iter %d: loss %.4f lr %.5f throughput %.1f rec/s",
+            log("Epoch %d iter %d: loss %.4f lr %.5f throughput %.1f rec/s",
                 state["epoch"], state["neval"] - 1, loss_f, lr, throughput)
             # epoch rollover (DistriOptimizer.scala:368-380): while, as
             # one batch can span several epochs. A continuous stream
@@ -1316,14 +1603,14 @@ class Optimizer:
                 if not staged and not _window_stackable(first) \
                         and not warned_unstackable:
                     warned_unstackable = True
-                    logger.info(
+                    log(
                         "steps_per_sync=%d: batches are not window-"
                         "stackable (sparse or device-resident leaves) — "
                         "running per-step", self.steps_per_sync)
                 if staged or _window_stackable(first):
                     sig = batch_signature(first)
                     rec_sim = (state["recordsProcessedThisEpoch"]
-                               + first.size())
+                               + first.size() * ndata)
 
                     def boundary_after(steps_done, rec):
                         # _plan_window simulated the configured batch
@@ -1355,7 +1642,7 @@ class Optimizer:
                             pending.insert(0, b)
                             break
                         window.append(b)
-                        rec_sim += b.size()
+                        rec_sim += b.size() * ndata
                 k_now = len(window)
 
             if k_now > 1:
@@ -1392,11 +1679,15 @@ class Optimizer:
                 self._record_scaler(step)
             bsz = batch.size()
             post_step(loss_f, lr, bsz, bsz / max(1e-9, seconds), seconds)
-        logger.info("training done in %.1fs",
-                    time.perf_counter() - wall_start)
+        log("training done in %.1fs", time.perf_counter() - wall_start)
         if self.window is not None:
             self.window.close()       # the graphs' memory, not the counts
+        if mesh_on:
+            step.materialize()        # stage 3: the whole parameters
         master = step.opt_state.get(MASTER_KEY)
+        if master is not None and mesh_on:
+            # the master's shards gathered whole (every rank)
+            master = step.full_opt_state()[MASTER_KEY]
         if master is not None:
             # the float32 master is the run's result; the at-rest
             # low-precision parameters are its rounding
@@ -1423,12 +1714,32 @@ class Optimizer:
         from bigdl_tpu_torch.optim.evaluator import Evaluator
         if hasattr(self.validation_dataset, "eval_batch_fn_on"):
             return self._validate_device_cached(self.validation_dataset)
+        step = self.train_step
+        mesh_step = getattr(step, "mesh", None) is not None
+        if mesh_step:
+            if step.seq_group is not None:
+                raise NotImplementedError(
+                    "validation under sequence parallelism is not ported "
+                    "yet (ROADMAP queue 1, item 11)")
+            step.materialize()
         try:
             results = Evaluator(self.model, self._precision).results(
                 self.validation_dataset, self.validation_methods,
                 self._val_batch_size)
         finally:
             self.model.train()
+            if mesh_step:
+                step.release()
+        if mesh_step and step.data_group is not None:
+            # each rank scored its own rows: the counts are summed
+            import torch.distributed as dist
+            seen = [None] * dist.get_world_size(step.data_group)
+            dist.all_gather_object(seen, results, group=step.data_group)
+            results = None
+            for r in seen:
+                if r is not None:
+                    results = r if results is None else \
+                        [a + b for a, b in zip(results, r)]
         return {} if results is None else self._score_summary(results)
 
     def _validate_device_cached(self, ds) -> Dict[str, float]:
@@ -1467,10 +1778,26 @@ class Optimizer:
                 key = f"{m.name}-{k}"
                 k += 1
             summary[key] = value
-            logger.info("validation %s: %s", key, r)
+            if self.mesh is None or self.mesh.rank == 0:
+                logger.info("validation %s: %s", key, r)
         return summary
 
 
 class LocalOptimizer(Optimizer):
     """Single-process training on the model's device (one card, or the
     CPU)."""
+
+
+class DistriOptimizer(Optimizer):
+    """Synchronous data-parallel training over a mesh of ranks
+    (``optim/DistriOptimizer.scala`` in the reference; the JAX package's
+    ``DistriOptimizer``): ``mesh`` defaults to the Engine's
+    (``utils.engine.mesh()``, one ``data`` axis over every rank once
+    ``init_distributed`` has run). Each rank passes its own dataset
+    (``DataSet.sharded(samples, rank, world)``)."""
+
+    def __init__(self, model, dataset, criterion, batch_size: int = 32,
+                 mesh=None):
+        from bigdl_tpu_torch.utils import engine
+        super().__init__(model, dataset, criterion, batch_size,
+                         mesh=mesh or engine.mesh())

@@ -26,9 +26,19 @@ host sync through :func:`~bigdl_tpu_torch.optim.make_host_window` (one
 CUDA graph a window on the card). ``--device`` is the port's:
 ``cuda`` (default; raises without a card) or ``cpu``.
 
+``--zero STAGE`` (train mode) trains over a data-parallel mesh of every
+rank of the launched world (``tools.launch --nproc N``; one process
+alone is a world of one), each rank stepping its slice of the batch
+under ``ZeroConfig(STAGE)``; the rate and ``achieved_tflops`` are the
+global batch's (every rank's rows, one step's time), and the tail
+carries the per-rank
+``params_bytes_per_chip`` / ``opt_state_bytes_per_chip`` gauges,
+``zero_stage`` and ``zero_devices``, and a batch the world does not
+divide exits, as the JAX tool does.
+
 Not ported yet (each raises NotImplementedError naming its ROADMAP
-queue 1 item): ``--zero`` (item 11), ``--metrics-jsonl`` (item 12),
-``--sync-compare`` and ``--config`` (item 14).
+queue 1 item): ``--metrics-jsonl`` (item 12), ``--sync-compare`` and
+``--config`` (item 14).
 """
 from __future__ import annotations
 
@@ -51,8 +61,7 @@ _WARMUP_S = telemetry.histogram(
     "tools/perf/warmup_s", "seconds per warm-up iteration")
 
 #: the flags of the JAX tool that wait for a later slice
-_NOT_PORTED = {"zero": ("--zero", 11, "ZeRO sharding over a data mesh"),
-               "metrics_jsonl": ("--metrics-jsonl", 12,
+_NOT_PORTED = {"metrics_jsonl": ("--metrics-jsonl", 12,
                                  "the telemetry snapshot export"),
                "sync_compare": ("--sync-compare", 14,
                                 "the K = 1 against K = 8 comparison"),
@@ -172,6 +181,8 @@ class Runner(NamedTuple):
     flops_per_iter: int
     dtype: str
     device: torch.device
+    #: ``--zero``'s fields for the JSON tail
+    zero_meta: Optional[dict] = None
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -201,7 +212,10 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a card) or cpu")
     ap.add_argument("--zero", type=int, choices=(0, 1, 2, 3), default=0,
-                    metavar="STAGE", help="not ported yet (item 11)")
+                    metavar="STAGE",
+                    help="train mode: ZeRO stage over a data mesh of every "
+                    "rank of the launched world; the tail reports the "
+                    "opt-state / params bytes per rank")
     ap.add_argument("--metrics-jsonl", default=None, metavar="PATH",
                     help="not ported yet (item 12)")
     ap.add_argument("--sync-compare", action="store_true",
@@ -235,8 +249,11 @@ def prepare(args) -> Runner:
     from bigdl_tpu_torch.tools import synthetic
     from bigdl_tpu_torch.utils.engine import model_device
 
+    mesh = None
+    if args.zero and args.mode == "train":
+        mesh = _zero_mesh(args)
     model, in_shape, class_num = build_model(
-        args.model, device=args.device,
+        args.model, device=_rank_device(args.device, mesh),
         generator=torch.Generator().manual_seed(42))
     device = model_device(model)
     is_lm = len(in_shape) == 1
@@ -247,6 +264,11 @@ def prepare(args) -> Runner:
     else:
         xs, ys = synthetic.image_batch(args.batch_size, in_shape, class_num)
         criterion = nn.CrossEntropyCriterion()
+    if mesh is not None:
+        # this rank's rows of the global batch
+        n, r = mesh.shape["data"], mesh.axis_index("data")
+        rows = args.batch_size // n
+        xs, ys = xs[r * rows:(r + 1) * rows], ys[r * rows:(r + 1) * rows]
     x = torch.from_numpy(xs).to(device)
     y = torch.from_numpy(ys).to(device)
     policy = (PrecisionPolicy.named(args.precision) if args.precision
@@ -254,13 +276,28 @@ def prepare(args) -> Runner:
     train = args.mode == "train"
     if args.quantize:
         model = quantize(model.eval())
-    flops = flops_per_step(model, x, train)
+    # the global batch's operations: on a mesh every rank counts its
+    # rows, so the rate and the TFLOP/s are both the global batch's
+    flops = flops_per_step(model, x, train) * (
+        1 if mesh is None else mesh.shape["data"])
     k = args.steps_per_sync if train else 1
+    zero_meta = None
     if train:
+        from bigdl_tpu_torch.parallel import ZeroConfig, tree_bytes
+        from bigdl_tpu_torch.parallel.zero import record_memory_gauges
         step = build_train_step(model, criterion,
                                 SGD(learning_rate=0.01, momentum=0.9),
-                                precision=policy)
+                                precision=policy, mesh=mesh,
+                                zero=ZeroConfig(args.zero)
+                                if args.zero else None)
         seed_precision(step)
+        if args.zero:
+            held = step.memory() if hasattr(step, "memory") else (
+                tree_bytes(model.parameters()), tree_bytes([step.opt_state]))
+            zero_meta = dict(record_memory_gauges(*held),
+                             zero_stage=args.zero,
+                             zero_devices=mesh.shape["data"] if mesh
+                             is not None else 1)
         if k > 1:
             window = make_host_window(step)
             x_k = x.unsqueeze(0).expand(k, *x.shape)
@@ -281,7 +318,35 @@ def prepare(args) -> Runner:
     return Runner(run, args.batch_size * k
                   * (in_shape[0] if is_lm else 1),
                   "tok/s" if is_lm else "img/s", k, flops * k, prec,
-                  device)
+                  device, zero_meta)
+
+
+def _zero_mesh(args):
+    """The data mesh over the launched world (started here when the
+    environment names one), or None for a world of one; a batch the
+    world does not divide exits."""
+    import os
+
+    import torch.distributed as dist
+
+    from bigdl_tpu_torch.parallel import data_parallel_mesh
+    from bigdl_tpu_torch.utils import engine
+
+    if "WORLD_SIZE" in os.environ and not dist.is_initialized():
+        engine.init_distributed(
+            backend="gloo" if args.device == "cpu" else None)
+    mesh = data_parallel_mesh()
+    ndev = mesh.shape["data"]
+    if args.batch_size % ndev:
+        raise SystemExit(
+            f"--zero needs --batch-size divisible by the {ndev}-device "
+            f"data mesh, got {args.batch_size}")
+    return mesh if ndev > 1 else None
+
+
+def _rank_device(device, mesh):
+    from bigdl_tpu_torch.utils import engine
+    return engine.rank_device(device) if mesh is not None else device
 
 
 def _sync(out) -> float:
@@ -325,6 +390,8 @@ def measure(runner: Runner, args) -> dict:
             "achieved_tflops": tflops}
     if args.mode == "train":
         tail["steps_per_sec"] = runner.steps_per_sync / med
+    if runner.zero_meta:
+        tail.update(runner.zero_meta)
     return tail
 
 

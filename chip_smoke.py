@@ -126,10 +126,10 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    frozen ``fc2`` must fail it), the Evaluator and Predictor against the
    driver's validation, and a profiled window;
 10. ResNet-50 training (``phase_resnet_train``, BASELINE config 3) — the
-   ImageNet recipe's ``train.main`` at batch 256 on 1024 synthetic rows,
+   ImageNet recipe's ``train.main`` at batch 256 on 512 synthetic rows,
    2 epochs with a checkpoint at each epoch's end, then a second call
    with ``-e 3`` that must resume from the newest checkpoint (its neval
-   printed) and take 4 steps; 4 epochs of one 64-row batch straight
+   printed) and take 2 steps; 4 epochs of one 64-row batch straight
    against 2, a resume and 2 more (parameters and BN statistics within
    1e-5, the last loss within 1e-5 relative; cuDNN's deterministic
    algorithms for these runs); a flipped byte in the newest checkpoint
@@ -138,7 +138,7 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    float64 within 1e-4 (losses relative, parameters and BN statistics
    absolute; float32's own rounding on this problem is as large as the
    gap, so float32 is reported, not gated), one BN in evaluation mode
-   must fail it; a profiled window of 10 steps at batch 256 (ms a step,
+   must fail it; a profiled window of 5 steps at batch 256 (ms a step,
    idle share, busiest kernels, peak memory), checkpoint bytes and
    save / load seconds. No kernel of the ``kernels`` line may launch
    in phases 9 and 10;
@@ -252,7 +252,7 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    LRN's beta raised by 1e-3 must fail it; (b) ``tools.perf``'s
    ``prepare`` / ``measure`` for vgg16 at batch 64, inception_v1 and
    inception_v2 at 128 and alexnet at 128 (227 x 227), float32 and
-   bf16_mixed, 3 warm-up and 10 timed steps: ms a step, images/s, the
+   bf16_mixed, 2 warm-up and 5 timed steps: ms a step, images/s, the
    layer-shape TFLOP/s, peak memory, a profiled window's idle share;
    (c) ``Inception_v1_NoAuxClassifier`` (its ``Dropout(0.4)`` in the top
    ``Sequential``, which hands the step's generator on) at batch 32, 16
@@ -368,7 +368,7 @@ Phases (any failure raises and exits non-zero; nothing is caught):
 19. the rest of ``nn`` and the language-model example
    (``phase_nn_rest_lm``) — (a) ``examples.language_model`` at
    PTBWordLM's defaults (the "small" PTB configuration of Zaremba et al.
-   2014: hidden 200, 2 layers, 20 steps, batch 20, Adagrad 0.1) for 200
+   2014: hidden 200, 2 layers, 20 steps, batch 20, Adagrad 0.1) for 100
    driver steps from ``-f`` on a seeded corpus written to a temporary
    folder (9,999 words and ``<eos>``, PTB's 10,000 tokens: each word once,
    then Zipf draws; about 200k training and 20k validation tokens; the
@@ -398,14 +398,14 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    profiled window. No kernel of the kernels line may launch. The
    phase's wall time by part;
 20. the data plane (``phase_data_plane``), on a temporary ImageNet-like
-   folder of seeded noise (640 train images in 10 class folders, 256
+   folder of seeded noise (320 train images in 10 class folders, 256
    val, at 500 x 375, 375 x 500 and 500 x 333, PPM and BMP in turn: the
    card's machine has no Pillow, so no JPEG), removed at the end — (a)
    ``resnet.train -f --valFolder --dataset imagenet -b 256
    --colorJitter --lighting`` at full width (ResNet-50, 1000 classes)
-   for 6 iterations, which cross two epochs: finite losses; the
+   for 3 iterations, which cross two epochs: finite losses; the
    driver's epoch and ``recordsProcessedThisEpoch`` equal the stream's
-   (epoch 3, 256); the last validation's Top1/Top5 counts equal an
+   (epoch 3, 128); the last validation's Top1/Top5 counts equal an
    ``Evaluator`` pass over the val folder with the model as it was
    validated; (b) the 8-thread pool delivers every chunk of its index
    stream's first epoch once, so the labels of that epoch are the
@@ -428,7 +428,7 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    the same pipeline, ``as_dataset(staged_k=8)`` windows at K = 8 and a
    resume from a checkpoint at the first epoch boundary bitwise the
    per-step run (losses, parameters), the padding efficiency printed;
-   (f) the pool's images/s at 1, 4 and 8 threads with the host's CPU
+   (f) the pool's images/s at 1 and 8 threads with the host's CPU
    count, ``fetch_wait_s`` p50 / p99, the ResNet-50 b256 step's ms and
    idle share fed from the pool through ``device_prefetch`` against the
    same step on a batch already on the card (profiled windows), the
@@ -460,6 +460,44 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    no JPEG decode; phase 20 (b) gates that the folder feed's batches are
    contiguous and profiles its on-card step in both layouts). No kernel
    of the kernels line may launch. The phase's wall time by part.
+22. Distribution on ``torch.distributed`` (``phase_distributed``), its
+   gangs started by the port's ``tools.launch.run_gang``; an API gang
+   runs this script in worker mode (``--p22-worker MODE DIR``), each
+   rank printing ``P22 {...}`` lines the parent gates, and a failed,
+   hung (past the wall limit) or silent rank fails the phase. The
+   parent first trains its one-process references. (a) The train CLI
+   at the training width, 8 steps, on a one-rank NCCL gang: the backend
+   is NCCL, one all-reduce goes through it, the losses are bitwise the
+   same CLI run in this process, and K1 launches 6 forwards and 6
+   backwards a step. (b) Two ranks sharing the card (gloo; the one-card
+   note prints once), each feeding 8 of the 16 packed rows through
+   ``DataSet.sharded``: ZeRO stages 0-3, 4 steps of SGD with momentum,
+   each rank's losses and parameters within ``TRAIN_PARITY_TOL`` of the
+   one-process run and its first step's gradients (each rank's shard)
+   within ``TRAIN_GRAD_RTOL``; stages 1-3 within ``P22_STAGE_TOL`` of
+   stage 0 (and whether bitwise); Adam at stage 2 against stage 0;
+   bf16_mixed at stage 2 against its stage 0 at phase 11's limits; the
+   optimizer state halved at every stage >= 1 and the parameters at
+   rest at stage 3; rank 0's checkpoints of stages 0 and 2 resumed in a
+   one-process ``LocalOptimizer`` bitwise each other and within the
+   parity limit of the uninterrupted run; the validation loss summed
+   over the ranks equal to the one-process Evaluator's over the same
+   rows; rank 1 keeping its own gradients (a monkeypatched all-reduce)
+   must fail the gate; per rank the peak memory, the state bytes, the
+   collective calls, bytes and host-staged bytes a step and the ms a
+   step. (c) Two ranks on a ``seq`` axis at the long-context width (S
+   8192, batch 1), ring and Ulysses, 4 steps of SGD each: losses within
+   ``TRAIN_PARITY_TOL`` and the first step's gradients within
+   ``TRAIN_GRAD_RTOL`` of the one-process dense run; under Ulysses the
+   kernel the route takes launches once a layer and step forward and
+   backward on each rank (counted into the kernels line), the ring
+   launches no kernel of the kernels line, and a ring whose backward
+   skips its last hop must fail the gradient gate. (d) a two-rank gang
+   of ``tools.launch`` runs the train CLI's ``main`` at ``--sp ulysses
+   --spSize 2`` at the long-context width (rank 0's final loss equals
+   (c)'s within 1e-5), then ``tools.perf``'s ``main`` with ``--zero 2``
+   in the same processes (its memory gauges in each rank's tail). The
+   phase's wall time by part.
 
 Float32 throughout phases 1–10, with TF32 off for matrix products (set
 here) and for convolutions (PyTorch's default is on; the port's
@@ -473,7 +511,8 @@ bf16_mixed in (b), float32 in (c)-(e); phase 16 bf16_mixed at phase
 11's limits; phase 17 float32 (and bf16_mixed, float64 where (a) says);
 phase 18 float32, with float64 in (a)-(c)'s card-against-CPU checks and
 in (e), and int8 through K5 in (d); phase 19 float32, with float64 in
-(a)'s card-against-CPU check and in (c); phases 20 and 21 float32.
+(a)'s card-against-CPU check and in (c); phases 20 and 21 float32;
+phase 22 float32, bf16_mixed in (b) at phase 11's limits.
 
 After the phases the card's name and power limit print again; then the
 line before the last is a JSON object ``{"kernels": [...]}`` with
@@ -534,7 +573,7 @@ LENET_PROFILE_STEPS = 20
 
 # ---- the ResNet-50 training slice (BASELINE config 3: ImageNet, batch 256,
 # SGD lr 0.1, momentum 0.9, nesterov, weight decay 1e-4, EpochDecay) ----
-RT_ROWS, RT_BATCH, RT_EPOCHS, RT_PROFILE_STEPS = 1024, 256, 2, 10
+RT_ROWS, RT_BATCH, RT_EPOCHS, RT_PROFILE_STEPS = 512, 256, 2, 5
 #: (b) resume against an uninterrupted run: one batch of rows (an epoch
 #: a step), epochs, and the limits on parameters and BN statistics
 #: (absolute) and the last loss (relative)
@@ -674,11 +713,11 @@ ZOO_PARITY_BATCH, ZOO_SEED, ZOO_ROWS_SEED = 2, 31, 32
 #: parameters by ~5e-6 (CPU runs of the port), under the 1e-4 a float32
 #: check would need, so float64 is gated at 1e-8
 ZOO_F64_TOL, ZOO_LRN_FAULT = 1e-8, 1e-3
-#: (b) tools/perf at full width: model, batch; 3 warm-up and 10 timed
-#: iterations in float32 and bf16_mixed, a profiled window of 5
+#: (b) tools/perf at full width: model, batch; 2 warm-up and 5 timed
+#: iterations in float32 and bf16_mixed, a profiled window of 3
 ZOO_PERF = (("vgg16", 64), ("inception_v1", 128), ("inception_v2", 128),
             ("alexnet", 128))
-ZOO_PERF_WARMUP, ZOO_PERF_ITERS, ZOO_PERF_PROFILE = 3, 10, 5
+ZOO_PERF_WARMUP, ZOO_PERF_ITERS, ZOO_PERF_PROFILE = 2, 5, 3
 #: (c) dropout through the containers: Inception v1 without the aux heads
 #: (its Dropout(0.4) in the top Sequential) at batch 32, steps, window,
 #: seeds, the other seed's steps
@@ -3997,8 +4036,8 @@ def phase_resnet_train(counters, device="cuda"):
     summary = {}
     root = tempfile.mkdtemp(prefix="chip-smoke-resnet-")
     try:
-        # (a) the recipe: 2 epochs of 4 steps, a checkpoint at each
-        # epoch's end; then -e 3 resumes from the newest and takes 4 more
+        # (a) the recipe: 2 epochs of 2 steps, a checkpoint at each
+        # epoch's end; then -e 3 resumes from the newest and takes 2 more
         ck = os.path.join(root, "recipe")
         argv = ["--dataset", "imagenet", "--depth", "50", "--synthetic",
                 str(RT_ROWS), "-b", str(RT_BATCH), "--checkpoint", ck,
@@ -8555,7 +8594,7 @@ def phase_sparse_tree_text(counters, k5_row, device="cuda"):
 #: about 200k training and 20k validation tokens
 WORDLM_WORDS, WORDLM_TRAIN, WORDLM_VALID = 9999, 200000, 20000
 WORDLM_HIDDEN, WORDLM_STEPS, WORDLM_BATCH, WORDLM_LR = 200, 20, 20, 0.1
-WORDLM_ITERS, WORDLM_PROFILE_STEPS, WORDLM_F64_STEPS = 200, 10, 2
+WORDLM_ITERS, WORDLM_PROFILE_STEPS, WORDLM_F64_STEPS = 100, 10, 2
 WORDLM_SEED, WORDLM_LINE = 91, (10, 31)
 #: card against CPU in float64: (a) each loss relative and each of the
 #: first step's gradient tensors, (c) each output and gradient tensor,
@@ -9127,12 +9166,13 @@ def phase_nn_rest_lm(counters, device="cuda"):
 
 # ---- the data plane slice (phase 20) ----
 #: an ImageNet-like folder of seeded noise: classes, train images a
-#: class, val images, the (h, w) sizes in turn (PPM and BMP in turn)
-FOLDER_CLASSES, FOLDER_PER_CLASS, FOLDER_VAL = 10, 64, 256
+#: class, val images, the (h, w) sizes in turn (PPM and BMP in turn):
+#: an ImageNet photo's sides
+FOLDER_CLASSES, FOLDER_PER_CLASS, FOLDER_VAL = 10, 32, 256
 FOLDER_SIZES = ((375, 500), (500, 375), (333, 500))
-#: the recipe's batch, the iterations (6 x 256 crosses two epochs of
-#: 640), the seed of the folder and the pools
-FOLDER_BATCH, FOLDER_ITERS, FOLDER_SEED = 256, 6, 20
+#: the recipe's batch, the iterations (3 x 256 crosses two epochs of
+#: 320), the seed of the folder and the pools
+FOLDER_BATCH, FOLDER_ITERS, FOLDER_SEED = 256, 3, 20
 #: (b) the label epoch's batch, ResNet-50 steps fed through
 #: device_prefetch before the profiled window (whose steps, after a
 #: warm one, are fed and checked too: 5 batches; the ring of 4 pinned
@@ -9143,7 +9183,7 @@ LABEL_BATCH, FEED_STEPS, FEED_PROFILE_STEPS = 64, 2, 2
 SOURCES_CLASSES, SOURCES_PER_CLASS, SOURCES_BATCH = 8, 16, 32
 SOURCES_TRAIN_BATCHES = 3
 #: (f) the pool's images/s: thread counts, batch, batches timed
-POOL_THREADS, POOL_RATE_BATCH, POOL_RATE_BATCHES = (1, 4, 8), 32, 8
+POOL_THREADS, POOL_RATE_BATCH, POOL_RATE_BATCHES = (1, 8), 32, 8
 #: (e) the streaming LM: text shards, documents a shard, the range of a
 #: document's token count, iterations, window, shuffle buffer, seed; 72
 #: documents pack into 8 batches in epoch 0, so both K = 8 windows are
@@ -10278,6 +10318,704 @@ def phase_device_cache(counters, device="cuda"):
     return summary
 
 
+
+# ---- the distributed slice (phase 22) ----
+#: ranks that share the card, the wall limit of a gang (seconds)
+P22_RANKS, P22_GANG_TIMEOUT = 2, 420
+#: (a) the train CLI's steps on a one-rank NCCL gang; its synthetic
+#: tokens (8 batches of 16 contiguous windows of 512)
+P22_CLI_STEPS, P22_CLI_SYNTHETIC = 8, 70000
+#: (b) steps a scenario, the global batch (16 packed rows of the
+#: training slice, every step the same rows: one batch an epoch), SGD's
+#: rate and momentum, Adam's rate, the stages' limit against stage 0
+P22_STEPS, P22_LR, P22_MOMENTUM, P22_ADAM_LR = 4, 0.1, 0.9, 1e-3
+P22_STAGE_TOL = 1e-6
+#: (c) the long-context rows (4 contiguous windows of 8192 from the
+#: train CLI's synthetic stream) and the weight seed (the CLI's), so
+#: (d)'s CLI run trains the same model on the same rows
+P22_LC_SYNTHETIC, P22_LC_WEIGHT_SEED = 40000, 1
+#: the note printed once: why the ranks on this card use gloo
+P22_NOTE = ("one card: the two ranks that share it use gloo, which "
+            "carries each collective through pinned host memory (NCCL "
+            "refuses two ranks on one device: 'Duplicate GPU detected'); "
+            "a one-rank gang runs NCCL; every product, attention kernel "
+            "and update runs on the card; these runs check results "
+            "across ranks, not scaling")
+
+
+def _p22_cli_argv(width: str):
+    """The train CLI's arguments at the training (``"train"``) or the
+    long-context (``"lc"``) width."""
+    if width == "train":
+        return ["--synthetic", str(P22_CLI_SYNTHETIC), "--vocabSize",
+                str(TRAIN_VOCAB), "--hiddenSize", str(HIDDEN), "--layers",
+                str(LAYERS), "--heads", str(HEADS), "--seqLen",
+                str(TRAIN_SEQ), "-b", str(TRAIN_BATCH), "--maxIterations",
+                str(P22_CLI_STEPS)]
+    return ["--synthetic", str(P22_LC_SYNTHETIC), "--vocabSize",
+            str(LC_VOCAB), "--hiddenSize", str(HIDDEN), "--layers",
+            str(LC_LAYERS), "--heads", str(HEADS), "--seqLen", str(LC_SEQ),
+            "-b", "1", "--maxIterations", str(P22_STEPS)]
+
+
+class _P22Recorder:
+    """An OptimMethod wrapper that keeps the gradients of its first
+    update (float32 copies on the card), then updates as ``method``."""
+
+    def __new__(cls, method, sink):
+        base = type(method)
+
+        class Recording(base):
+            def update(self, grads, state, params, lr):
+                if not sink:
+                    sink.append([g.detach().float().clone() for g in grads])
+                return base.update(self, grads, state, params, lr)
+
+        method.__class__ = Recording
+        return method
+
+
+def _p22_rel_grads(got, want, dims=None, rank=0, n=1):
+    """The largest gradient difference over the largest element of the
+    reference's gradient of that parameter (floored at
+    ``TRAIN_GRAD_FLOOR`` of the model's largest), per parameter; a
+    sharded gradient is held against its shard of the reference."""
+    from bigdl_tpu_torch.parallel import shard_view
+
+    floor = TRAIN_GRAD_FLOOR * max(float(w.abs().max()) for w in want)
+    out = []
+    for i, (g, w) in enumerate(zip(got, want)):
+        w = w.to(g.device)
+        if dims is not None:
+            w = shard_view(w, dims[i], rank, n)
+        out.append(float((g - w).abs().max())
+                   / max(float(w.abs().max()), floor))
+    return max(out)
+
+
+def _p22_train(model, rows, crit, mesh, *, stage=0, method="sgd",
+               precision=None, seq_parallel=None, steps=P22_STEPS,
+               ckdir=None, val=None, batch=TRAIN_BATCH, counters=None):
+    """One ``Optimizer`` run on a mesh (None: one process); returns the
+    optimizer, the first step's gradients and the run's numbers."""
+    import torch
+
+    from bigdl_tpu_torch.dataset import DataSet, Sample, SampleToMiniBatch
+    from bigdl_tpu_torch.nn import SequenceCrossEntropyCriterion
+    from bigdl_tpu_torch.optim import (SGD, Adam, Loss, Optimizer,
+                                       max_iteration, several_iteration)
+    from bigdl_tpu_torch.parallel import SeqParallelConfig, ZeroConfig, comm
+    from bigdl_tpu_torch.utils.random import RandomGenerator
+
+    x, y = rows
+    if isinstance(x, list):
+        samples = [Sample([p[i] for p in x], y[i]) for i in range(len(y))]
+    else:
+        samples = [Sample(x[i], y[i]) for i in range(len(y))]
+    nd = 1 if mesh is None else mesh.shape.get("data", 1)
+    dr = 0 if mesh is None else mesh.axis_index("data")
+    RandomGenerator.set_seed(4)
+    ds = (DataSet.sharded(samples, dr, nd) if nd > 1
+          else DataSet.array(samples)).transform(SampleToMiniBatch(
+              batch // nd))
+    opt = Optimizer(model, ds, crit, batch_size=batch, mesh=mesh)
+    sink = []
+    base = (SGD(learning_rate=P22_LR, momentum=P22_MOMENTUM)
+            if method == "sgd" else
+            SGD(learning_rate=P22_LR) if method == "plain"
+            else Adam(learning_rate=P22_ADAM_LR))
+    opt.set_optim_method(_P22Recorder(base, sink))
+    if stage:
+        opt.set_zero(ZeroConfig(stage))
+    if precision:
+        opt.set_precision(precision)
+    if seq_parallel:
+        opt.set_sequence_parallel(SeqParallelConfig(impl=seq_parallel))
+    if ckdir:
+        opt.set_checkpoint(ckdir, several_iteration(3))
+    if val is not None:
+        vs = [Sample([p[i] for p in val[0]], val[1][i])
+              for i in range(len(val[1]))]
+        opt.set_validation(several_iteration(steps + 1),
+                           DataSet.sharded(vs, dr, nd) if nd > 1
+                           else DataSet.array(vs),
+                           [Loss(SequenceCrossEntropyCriterion(
+                               ignore_index=-1))], batch_size=batch // nd)
+    opt.set_end_when(max_iteration(steps))
+    for fn in (counters or {}).values():
+        fn.launches = 0
+    before = comm.counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    opt.optimize()
+    torch.cuda.synchronize()
+    after = comm.counts()
+    calls = {op: (after[op]["calls"] - before.get(op, {}).get("calls", 0))
+             / steps for op in after}
+    nbytes = {op: (after[op]["bytes"] - before.get(op, {}).get("bytes", 0))
+              / steps for op in after}
+    staged = sum(after[op]["host_staged_bytes"]
+                 - before.get(op, {}).get("host_staged_bytes", 0)
+                 for op in after) / steps
+    ms = sorted(h["seconds"] * 1e3 for h in opt.history)
+    info = {"losses": [h["loss"] for h in opt.history],
+            "ms_per_step_median": ms[len(ms) // 2],
+            "max_memory_allocated": torch.cuda.max_memory_allocated(),
+            "memory": getattr(opt, "memory", None),
+            "collective_calls_per_step": {k: v for k, v in calls.items()
+                                          if v},
+            "collective_bytes_per_step": {k: v for k, v in nbytes.items()
+                                          if v},
+            "host_staged_bytes_per_step": staged,
+            "launches": {k: fn.launches for k, fn in
+                         (counters or {}).items()}}
+    return opt, (sink[0] if sink else None), info
+
+
+def _p22_params(model):
+    return [p.detach().float().clone() for p in model.parameters()]
+
+
+def _p22_diff(a, b) -> float:
+    return max(float((x - y.to(x.device)).abs().max())
+               for x, y in zip(a, b))
+
+
+def _p22_emit(tag, **out):
+    print("P22 " + json.dumps(dict(out, tag=tag), default=float),
+          flush=True)
+
+
+def _p22_counters():
+    from bigdl_tpu_torch.kernels.flash_attention import (
+        blockwise_flash_attention_backward, blockwise_flash_attention_forward,
+        flash_attention_backward, flash_attention_forward)
+    return {"flash_attention_fwd": flash_attention_forward,
+            "flash_attention_bwd": flash_attention_backward,
+            "blockwise_flash_attention_fwd":
+                blockwise_flash_attention_forward,
+            "blockwise_flash_attention_bwd":
+                blockwise_flash_attention_backward}
+
+
+def _p22_worker_cli(tmp):
+    """(a): the train CLI in this rank's process, its losses read off the
+    driver, K1's launches counted."""
+    import torch
+    import torch.distributed as dist
+
+    import bigdl_tpu_torch.optim.optimizer as om
+    from bigdl_tpu_torch.models.transformer import train
+
+    seen = []
+    orig = om.Optimizer.optimize
+
+    def optimize(self):
+        seen.append(self)
+        return orig(self)
+    om.Optimizer.optimize = optimize
+    counters = _p22_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    train.main(_p22_cli_argv("train"))
+    one = torch.ones(1, device="cuda")
+    dist.all_reduce(one)             # one collective through the group
+    _p22_emit("cli", rank=dist.get_rank(), backend=dist.get_backend(),
+              all_reduce=float(one), device=str(seen[0]._device()),
+              losses=[h["loss"] for h in seen[0].history],
+              launches={k: fn.launches for k, fn in counters.items()})
+
+
+def _p22_worker_dp(tmp):
+    """(b): data parallelism and ZeRO on the ranks sharing the card,
+    every scenario held against the parent's one-process reference."""
+    import os
+
+    import torch
+
+    import bigdl_tpu_torch.optim.mesh_step as ms
+    from bigdl_tpu_torch.nn import SequenceCrossEntropyCriterion
+    from bigdl_tpu_torch.parallel import comm, make_mesh
+
+    ref = torch.load(os.path.join(tmp, "ref_dp.pt"), weights_only=False)
+    mesh = make_mesh([P22_RANKS], ["data"])
+    r = mesh.rank
+    counters = _p22_counters()
+    crit = SequenceCrossEntropyCriterion(ignore_index=-1)
+    rows, val = ref["rows"], ref["val"]
+    _p22_emit("note", rank=r, note=P22_NOTE,
+              backend=torch.distributed.get_backend())
+    base = {}
+    for stage in (0, 1, 2, 3):
+        model = _train_model("cuda")
+        opt, grads, info = _p22_train(
+            model, rows, crit, mesh, stage=stage, counters=counters,
+            ckdir=os.path.join(tmp, f"ck_s{stage}_r{r}")
+            if stage in (0, 2) else None,
+            val=val if stage == 0 else None)
+        params = _p22_params(model)
+        if stage == 0:
+            base["sgd"] = params
+        dims = opt.train_step.dims
+        out = dict(info, stage=stage, rank=r, method="sgd",
+                   loss_diff=max(abs(a - b) for a, b in
+                                 zip(info["losses"], ref["losses"])),
+                   param_diff=_p22_diff(params, ref["params"]),
+                   grad_rel_diff=_p22_rel_grads(grads, ref["grads"], dims,
+                                                r, P22_RANKS),
+                   vs_stage0=_p22_diff(params, base["sgd"]),
+                   bitwise_stage0=all(torch.equal(a, b) for a, b in
+                                      zip(params, base["sgd"])))
+        if stage == 0:
+            out["validation"] = opt.validation_history[-1]
+        _p22_emit("dp", **out)
+        del opt, model
+    for method, precision in (("adam", None), ("sgd", "bf16_mixed")):
+        key = method if precision is None else precision
+        for stage in (0, 2):
+            model = _train_model("cuda")
+            start = _p22_params(model)
+            opt, _, info = _p22_train(model, rows, crit, mesh, stage=stage,
+                                      method=method, precision=precision,
+                                      counters=counters)
+            params = _p22_params(model)
+            if stage == 0:
+                base[key] = (params, info["losses"])
+                continue
+            p0, l0 = base[key]
+            upd = _p22_diff(p0, start)
+            _p22_emit("dp", **dict(
+                info, stage=stage, rank=r, method=key,
+                vs_stage0=_p22_diff(params, p0),
+                param_rel_diff=_p22_diff(params, p0) / upd,
+                loss_rel_diff=max(abs(a - b) / abs(b) for a, b in
+                                  zip(info["losses"], l0))))
+            del opt, model
+    # the fault: rank 1 keeps its own gradients (it still joins the
+    # all-reduce, so no rank waits on another)
+    if r == 1:
+        ms._sum_gradients = lambda flat, group: comm.all_reduce(
+            flat.clone(), group)
+    model = _train_model("cuda")
+    opt, grads, info = _p22_train(model, rows, crit, mesh, steps=2,
+                                  counters=counters)
+    params = _p22_params(model)
+    _p22_emit("dp_fault", rank=r,
+              loss_diff=max(abs(a - b) for a, b in
+                            zip(info["losses"], ref["losses"][:2])),
+              param_diff=_p22_diff(params, ref["params_2"]),
+              grad_rel_diff=_p22_rel_grads(grads, ref["grads"]))
+
+
+def _p22_worker_sp(tmp):
+    """(c): sequence parallelism at the long-context width, ring and
+    Ulysses, against the parent's one-process dense run."""
+    import importlib
+    import os
+
+    import torch
+
+    from bigdl_tpu_torch.nn import SequenceCrossEntropyCriterion
+    from bigdl_tpu_torch.parallel import make_mesh
+
+    ref = torch.load(os.path.join(tmp, "ref_sp.pt"), weights_only=False)
+    mesh = make_mesh([1, P22_RANKS], ["data", "seq"])
+    r = mesh.rank
+    counters = _p22_counters()
+    crit = SequenceCrossEntropyCriterion()
+    for impl in ("ring", "ulysses"):
+        model = _p22_lc_model()
+        _, grads, info = _p22_train(model, ref["rows"], crit, mesh,
+                                    method="plain", seq_parallel=impl,
+                                    batch=1, counters=counters)
+        _p22_emit("sp", **dict(
+            info, impl=impl, rank=r,
+            loss_diff=max(abs(a - b) for a, b in
+                          zip(info["losses"], ref["losses"])),
+            param_diff=_p22_diff(_p22_params(model), ref["params"]),
+            grad_rel_diff=_p22_rel_grads(grads, ref["grads"])))
+        del model
+    ring = importlib.import_module("bigdl_tpu_torch.parallel.ring_attention")
+    ring._return_hop = lambda ts, group: list(ts)     # the fault
+    model = _p22_lc_model()
+    _, grads, info = _p22_train(model, ref["rows"], crit, mesh,
+                                method="plain", seq_parallel="ring",
+                                batch=1, steps=1, counters=counters)
+    _p22_emit("sp_fault", rank=r,
+              grad_rel_diff=_p22_rel_grads(grads, ref["grads"]))
+
+
+def _p22_worker_cli_perf(tmp):
+    """(d): the train CLI at the long-context width with Ulysses, then
+    ``tools.perf --zero 2`` over the same gang (its process group)."""
+    from bigdl_tpu_torch.models.transformer import train
+    from bigdl_tpu_torch.tools import perf
+
+    train.main(_p22_cli_argv("lc") + ["--sp", "ulysses", "--spSize", "2"])
+    perf.main(["--model", "transformer", "--zero", "2", "--batch-size",
+               str(TRAIN_BATCH), "--iterations", "3", "--warmup", "1",
+               "--dtype", "f32"])
+
+
+def p22_worker(mode: str, tmp: str) -> int:
+    """A rank of one of phase 22's gangs (``python3 chip_smoke.py
+    --p22-worker MODE DIR`` under ``tools.launch``): the process group
+    from the launcher's environment, the mode's runs, one ``P22 {...}``
+    line a result."""
+    import torch
+
+    from bigdl_tpu_torch.utils import engine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if mode in ("dp", "sp"):
+        engine.init_distributed()
+    {"cli": _p22_worker_cli, "dp": _p22_worker_dp, "sp": _p22_worker_sp,
+     "cli_perf": _p22_worker_cli_perf}[mode](tmp)
+    engine.shutdown()
+    return 0
+
+
+def _p22_gang(args, nproc):
+    """Run this script in worker mode as a gang through the port's
+    launcher; every rank must exit 0. Returns the reports."""
+    import os
+
+    from bigdl_tpu_torch.tools.launch import build_args, run_gang
+
+    res = run_gang(build_args(os.path.abspath(__file__), args, nproc=nproc,
+                              timeout=P22_GANG_TIMEOUT, echo=False))
+    if not res.ok:
+        tails = "\n".join(f"--- rank {r.rank} ({r.kind}, rc "
+                          f"{r.returncode}):\n{r.output_tail}"
+                          for r in res.reports)
+        raise AssertionError(f"phase 22 gang {args[:2]} failed:\n{tails}")
+    return res.reports
+
+
+def _p22_lines(reports, tag):
+    """The ``P22`` results with ``tag`` of every rank."""
+    out = []
+    for rep in reports:
+        for line in rep.lines:
+            if line.startswith("P22 "):
+                d = json.loads(line[4:])
+                if d["tag"] == tag:
+                    out.append(d)
+    return out
+
+
+def phase_distributed(counters):
+    """Phase 22 (module docstring): (a) the train CLI on a one-rank NCCL
+    gang, (b) data parallelism and ZeRO 0-3 on two ranks sharing the
+    card, (c) ring and Ulysses sequence parallelism at the long-context
+    width on two ranks, (d) the train CLI and ``tools.perf --zero 2`` in
+    one two-rank gang. Returns the K1 / K2 launches a rank counted on each
+    path and the summary."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    import bigdl_tpu_torch.optim.optimizer as om
+    from bigdl_tpu_torch.dataset import DataSet, Sample, SampleToMiniBatch
+    from bigdl_tpu_torch.models.transformer import train
+    from bigdl_tpu_torch.models.transformer.train import synthetic_corpus
+    from bigdl_tpu_torch.nn import SequenceCrossEntropyCriterion
+    from bigdl_tpu_torch.optim import (SGD, Evaluator, LocalOptimizer, Loss,
+                                       max_iteration)
+    from bigdl_tpu_torch.utils.random import RandomGenerator
+
+    t_phase = time.perf_counter()
+    seconds = {}
+    log("distributed", P22_NOTE)
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-dist-")
+    summary = {}
+    try:
+        # -- the parent's references ------------------------------------
+        t0 = time.perf_counter()
+        cx, cy = train_corpus()
+        n = TRAIN_BATCH
+        rows = ([p[:n] for p in cx], cy[:n])
+        val = ([p[n:2 * n] for p in cx], cy[n:2 * n])
+        crit = SequenceCrossEntropyCriterion(ignore_index=-1)
+        model = _train_model("cuda")
+        opt, grads, info = _p22_train(model, rows, crit, None)
+        ref_dp = {"rows": rows, "val": val, "losses": info["losses"],
+                  "params": [p.cpu() for p in _p22_params(model)],
+                  "grads": [g.cpu() for g in grads]}
+        ref_params_4 = _p22_params(model)
+        model2 = _train_model("cuda")
+        _p22_train(model2, rows, crit, None, steps=2)
+        ref_dp["params_2"] = [p.cpu() for p in _p22_params(model2)]
+        torch.save(ref_dp, os.path.join(tmp, "ref_dp.pt"))
+        del model2, opt
+        lx, ly = synthetic_corpus(P22_LC_SYNTHETIC, LC_VOCAB, LC_SEQ,
+                                  "contiguous", 1)
+        lrows = (lx[:P22_STEPS], ly[:P22_STEPS])
+        lmodel = _p22_lc_model()
+        _, lgrads, linfo = _p22_train(lmodel, lrows,
+                                      SequenceCrossEntropyCriterion(), None,
+                                      method="plain", batch=1,
+                                      counters=counters)
+        torch.save({"rows": lrows, "losses": linfo["losses"],
+                    "params": [p.cpu() for p in _p22_params(lmodel)],
+                    "grads": [g.cpu() for g in lgrads]},
+                   os.path.join(tmp, "ref_sp.pt"))
+        summary["dense_longctx"] = {k: linfo[k] for k in
+                                    ("losses", "ms_per_step_median",
+                                     "launches")}
+        del lmodel
+        torch.cuda.empty_cache()
+        seconds["references"] = time.perf_counter() - t0
+        log("distributed", f"(references) done in "
+                           f"{seconds['references']:.1f} s")
+
+        # -- (a) the train CLI on a one-rank NCCL gang ---------------
+        t0 = time.perf_counter()
+        reps = _p22_gang(["--p22-worker", "cli", tmp], 1)
+        (got,) = _p22_lines(reps, "cli")
+        seen = []
+        orig = om.Optimizer.optimize
+
+        def optimize(self):
+            seen.append(self)
+            return orig(self)
+        om.Optimizer.optimize = optimize
+        try:
+            train.main(_p22_cli_argv("train") + ["--device", "cuda"])
+        finally:
+            om.Optimizer.optimize = orig
+        want = [h["loss"] for h in seen[0].history]
+        k1 = P22_CLI_STEPS * LAYERS
+        out_a = {"backend": got["backend"], "losses": got["losses"],
+                 "bitwise_local": got["losses"] == want,
+                 "launches": got["launches"],
+                 "all_reduce": got["all_reduce"]}
+        log("distributed", f"(a) {json.dumps(out_a)}")
+        if not (got["backend"] == "nccl" and got["losses"] == want
+                and got["launches"]["flash_attention_fwd"] == k1
+                and got["launches"]["flash_attention_bwd"] == k1
+                and got["all_reduce"] == 1.0):
+            raise AssertionError(f"phase 22 (a): {out_a}; local {want}")
+        summary["a"] = out_a
+        seconds["a"] = time.perf_counter() - t0
+        log("distributed", f"(a) done in "
+                           f"{seconds['a']:.1f} s")
+
+        # -- (b) data parallelism and ZeRO on two ranks -------------
+        t0 = time.perf_counter()
+        reps = _p22_gang(["--p22-worker", "dp", tmp], P22_RANKS)
+        notes = _p22_lines(reps, "note")
+        dp = _p22_lines(reps, "dp")
+        for d in dp:
+            log("distributed", f"(b) {json.dumps(d)}")
+        sgd = {(d["stage"], d["rank"]): d for d in dp
+               if d["method"] == "sgd"}
+        bad = []
+        for (stage, rank), d in sgd.items():
+            if not (d["loss_diff"] <= TRAIN_PARITY_TOL
+                    and d["param_diff"] <= TRAIN_PARITY_TOL
+                    and d["grad_rel_diff"] <= TRAIN_GRAD_RTOL
+                    and d["vs_stage0"] <= P22_STAGE_TOL):
+                bad.append((stage, rank))
+            # a forward and a backward a layer and step; stage 0's run
+            # also validates (one batch a rank: a forward a layer)
+            k1 = P22_STEPS * LAYERS
+            if d["launches"]["flash_attention_fwd"] != k1 + (
+                    LAYERS if stage == 0 else 0) \
+                    or d["launches"]["flash_attention_bwd"] != k1:
+                bad.append(("K1 launches", stage, rank))
+        o0 = sgd[(0, 0)]["memory"]
+        for (stage, rank), d in sgd.items():
+            m = d["memory"]
+            if stage >= 1 and m["opt_state_bytes_per_chip"] * P22_RANKS \
+                    != o0["opt_state_bytes_per_chip"]:
+                bad.append(("opt state not halved", stage, rank))
+            want_p = o0["params_bytes_per_chip"] // (
+                P22_RANKS if stage == 3 else 1)
+            if m["params_bytes_per_chip"] != want_p:
+                bad.append(("params at rest", stage, rank))
+        for d in dp:
+            if d["method"] == "adam" and d["vs_stage0"] > P22_STAGE_TOL:
+                bad.append(("adam", d["rank"]))
+            if d["method"] == "bf16_mixed" and not (
+                    d["loss_rel_diff"] <= PREC_LOSS_RTOL
+                    and d["param_rel_diff"] <= PREC_PARAM_RTOL):
+                bad.append(("bf16_mixed", d["rank"]))
+        # validation: the ranks' summed counts against the one-process
+        # Evaluator over each rank's rows, with the parent's parameters
+        vs = [Sample([p[i] for p in val[0]], val[1][i])
+              for i in range(len(val[1]))]
+        meth = [Loss(SequenceCrossEntropyCriterion(ignore_index=-1))]
+        total = None
+        for rank in range(P22_RANKS):
+            res = Evaluator(model).results(
+                DataSet.sharded(vs, rank, P22_RANKS), meth,
+                TRAIN_BATCH // P22_RANKS)
+            total = res if total is None else \
+                [a + b for a, b in zip(total, res)]
+        want_val = total[0].result()[0]
+        for rank in range(P22_RANKS):
+            got_val = sgd[(0, rank)]["validation"]["Loss"]
+            if abs(got_val - want_val) > TRAIN_PARITY_TOL:
+                bad.append(("validation", rank, got_val, want_val))
+        # the stage-2 and stage-0 checkpoints (rank 0's), resumed in a
+        # one-process LocalOptimizer: bitwise each other, and within the
+        # parity limit of the uninterrupted run
+        resumed = {}
+        for stage in (0, 2):
+            src = os.path.join(tmp, f"ck_s{stage}_r0")
+            m = _train_model("cuda")
+            RandomGenerator.set_seed(4)
+            samples = [Sample([p[i] for p in rows[0]], rows[1][i])
+                       for i in range(len(rows[1]))]
+            o = LocalOptimizer(m, DataSet.array(samples).transform(
+                SampleToMiniBatch(TRAIN_BATCH)), crit,
+                batch_size=TRAIN_BATCH)
+            o.set_optim_method(SGD(learning_rate=P22_LR,
+                                   momentum=P22_MOMENTUM))
+            o.set_checkpoint(src, max_iteration(10 ** 6))
+            o.set_end_when(max_iteration(P22_STEPS))
+            o.optimize()
+            resumed[stage] = (o.resumed_from, _p22_params(m))
+        ck = {"resumed_from": [resumed[s][0] for s in (0, 2)],
+              "bitwise": all(torch.equal(a, b) for a, b in
+                             zip(resumed[0][1], resumed[2][1])),
+              "vs_uninterrupted": _p22_diff(resumed[2][1], ref_params_4)}
+        log("distributed", f"(b) checkpoint {json.dumps(ck)}")
+        if not (ck["bitwise"] and ck["vs_uninterrupted"] <= TRAIN_PARITY_TOL
+                and all(r is not None and r["neval"] == 3
+                        for r in ck["resumed_from"])):
+            bad.append(("checkpoint", ck))
+        faults = _p22_lines(reps, "dp_fault")
+        log("distributed", f"(b) fault {json.dumps(faults)}")
+        if all(f["loss_diff"] <= TRAIN_PARITY_TOL
+               and f["param_diff"] <= TRAIN_PARITY_TOL for f in faults):
+            bad.append(("the skipped all-reduce passed the gate", faults))
+        if bad or len(sgd) != 4 * P22_RANKS or not notes:
+            raise AssertionError(f"phase 22 (b): {bad}")
+        summary["b"] = {"bitwise_stages": {
+            f"{s}": all(sgd[(s, r)]["bitwise_stage0"]
+                        for r in range(P22_RANKS)) for s in (1, 2, 3)},
+            "per_rank": {f"s{s}r{r}": {k: d[k] for k in (
+                "ms_per_step_median", "max_memory_allocated", "memory",
+                "collective_calls_per_step", "collective_bytes_per_step",
+                "host_staged_bytes_per_step")} for (s, r), d in sgd.items()},
+            "checkpoint": ck, "backend": notes[0]["backend"]}
+        seconds["b"] = time.perf_counter() - t0
+        log("distributed", f"(b) done in "
+                           f"{seconds['b']:.1f} s")
+        del model
+        torch.cuda.empty_cache()
+
+        # -- (c) ring and Ulysses at the long-context width ----------
+        t0 = time.perf_counter()
+        reps = _p22_gang(["--p22-worker", "sp", tmp], P22_RANKS)
+        sp = _p22_lines(reps, "sp")
+        bad = []
+        observed = {}
+        for d in sp:
+            log("distributed", f"(c) {json.dumps(d)}")
+            if not (d["loss_diff"] <= TRAIN_PARITY_TOL
+                    and d["grad_rel_diff"] <= TRAIN_GRAD_RTOL):
+                bad.append((d["impl"], d["rank"]))
+            launched = {k: v for k, v in d["launches"].items() if v}
+            if d["impl"] == "ring" and launched:
+                bad.append(("the ring launched", launched))
+            if d["impl"] == "ulysses":
+                # whichever kernel the route takes: a forward and a
+                # backward a layer and step
+                want = P22_STEPS * LC_LAYERS
+                kern = {k.rsplit("_", 1)[0] for k in launched}
+                if len(kern) != 1 or sorted(launched.values()) != [want,
+                                                                   want]:
+                    bad.append(("ulysses launches", launched))
+                observed[d["rank"]] = launched
+        faults = _p22_lines(reps, "sp_fault")
+        log("distributed", f"(c) fault {json.dumps(faults)}")
+        if all(f["grad_rel_diff"] <= TRAIN_GRAD_RTOL for f in faults):
+            bad.append(("the ring without its last hop passed", faults))
+        if bad or len(sp) != 2 * P22_RANKS:
+            raise AssertionError(f"phase 22 (c): {bad}")
+        ulysses_loss = [d for d in sp if d["impl"] == "ulysses"
+                        and d["rank"] == 0][0]["losses"][-1]
+        summary["c"] = {"ulysses_launches": observed,
+                        "per_rank": {f"{d['impl']}r{d['rank']}": {
+                            k: d[k] for k in (
+                                "ms_per_step_median", "max_memory_allocated",
+                                "collective_calls_per_step",
+                                "collective_bytes_per_step",
+                                "host_staged_bytes_per_step", "loss_diff",
+                                "grad_rel_diff")} for d in sp}}
+        seconds["c"] = time.perf_counter() - t0
+        log("distributed", f"(c) done in "
+                           f"{seconds['c']:.1f} s")
+
+        # -- (d) the CLIs on a two-rank gang --------------------------
+        t0 = time.perf_counter()
+        reps = _p22_gang(["--p22-worker", "cli_perf", tmp], P22_RANKS)
+        cli_loss = None
+        for line in reps[0].lines:
+            m = re.search(r"^mesh: .* backend: (\w+) rank: 0 loss: (\S+)$",
+                          line.strip())
+            if m:
+                cli_loss = float(m.group(2))
+        tails = []
+        for rep in reps:
+            for line in rep.lines:
+                if line.startswith("{") and '"tool": "perf"' in line:
+                    tails.append(json.loads(line))
+        out_d = {"cli_loss": cli_loss, "api_loss": ulysses_loss,
+                 "perf": [{k: t.get(k) for k in (
+                     "params_bytes_per_chip", "opt_state_bytes_per_chip",
+                     "zero_stage", "zero_devices", "median_s")}
+                     for t in tails]}
+        log("distributed", f"(d) {json.dumps(out_d)}")
+        if cli_loss is None or abs(cli_loss - ulysses_loss) > 1e-5 \
+                or len(tails) != P22_RANKS \
+                or any(t.get("zero_devices") != P22_RANKS
+                       or not t.get("opt_state_bytes_per_chip")
+                       for t in tails):
+            raise AssertionError(f"phase 22 (d): {out_d}")
+        summary["d"] = out_d
+        seconds["d"] = time.perf_counter() - t0
+        log("distributed", f"(d) done in "
+                           f"{seconds['d']:.1f} s")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log("distributed", f"seconds by part: {json.dumps(seconds)}")
+    log("distributed", f"phase wall {time.perf_counter() - t_phase:.1f} s")
+    # each kernel's launches on each rank of the new paths, for the
+    # kernels line: (a) the CLI's rank, (b) every rank in each stage,
+    # (c) every Ulysses rank
+    launches = {}
+    for name in ("flash_attention_fwd", "flash_attention_bwd",
+                 "blockwise_flash_attention_fwd",
+                 "blockwise_flash_attention_bwd"):
+        per = {"a_rank0": summary["a"]["launches"].get(name, 0)}
+        per.update({f"b_stage{s}_rank{r}": d["launches"][name]
+                    for (s, r), d in sgd.items()})
+        per.update({f"c_ulysses_rank{r}": got.get(name, 0)
+                    for r, got in summary["c"]["ulysses_launches"].items()})
+        launches[name] = per
+    return launches, summary
+
+
+def _p22_lc_model():
+    """The long-context width as the train CLI builds it (its weight
+    seed), on the card."""
+    import torch
+
+    from bigdl_tpu_torch.models import TransformerLM
+
+    return TransformerLM(LC_VOCAB, hidden_size=HIDDEN, num_layers=LC_LAYERS,
+                         num_heads=HEADS, max_len=LC_SEQ, device="cuda",
+                         generator=torch.Generator().manual_seed(
+                             P22_LC_WEIGHT_SEED))
+
+
 def main() -> int:
     import torch
 
@@ -10362,6 +11100,14 @@ def main() -> int:
     lap("data_plane")
     phase_device_cache(counters)
     lap("device_cache")
+    p22_launches, _ = phase_distributed(counters)
+    lap("distributed")
+    # the launches each rank of phase 22's paths counted
+    for row, name in ((flash_fwd, "flash_attention_fwd"),
+                      (flash_bwd, "flash_attention_bwd"),
+                      (blockwise_fwd, "blockwise_flash_attention_fwd"),
+                      (blockwise_bwd, "blockwise_flash_attention_bwd")):
+        row["launches_distributed"] = p22_launches[name]
     ragged["launches"] = serve_launches["ragged_decode"]
     flash_fwd["launches"] = train_launches["flash_attention_fwd"]
     flash_bwd["launches"] = train_launches["flash_attention_bwd"]
@@ -10402,4 +11148,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 4 and sys.argv[1] == "--p22-worker":
+        sys.exit(p22_worker(sys.argv[2], sys.argv[3]))
     sys.exit(main())

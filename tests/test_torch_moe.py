@@ -341,12 +341,36 @@ def test_module_snapshots_load_in_either_package(tmp_path):
 
 
 def test_sequence_parallel_arguments_raise():
-    with pytest.raises(NotImplementedError, match="item 11"):
-        TransformerLM(**GEOM, ring_axis="seq", device="cpu")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        TransformerLM(**GEOM, mesh=object(), device="cpu")
+    """The sequence-parallel arguments are ported: at world 1 a
+    ``ring_axis`` runs the dense path (``resolve_axis_mesh`` finds no
+    axis that splits), and so does a ``mesh`` that is no mesh at all, as
+    the JAX package's TransformerLM does with the same argument (it
+    stores it and never reads it without a ``ring_axis``); both give
+    the plain model's logits. An unknown ``sp_impl`` still raises, and
+    MoE blocks on a mesh of more than one rank raise (item 11)."""
+    from bigdl_tpu.models.transformer import TransformerLM as JaxLM
+    from bigdl_tpu_torch.parallel import Mesh
+
+    tokens = np.random.RandomState(0).randint(0, GEOM["vocab_size"],
+                                              (2, 8))
+    plain = TransformerLM(**GEOM, device="cpu",
+                          generator=torch.Generator().manual_seed(0))
+    want = plain.evaluate()(torch.from_numpy(tokens)).detach().numpy()
+    for kw in (dict(ring_axis="seq"), dict(mesh=object())):
+        port = TransformerLM(**GEOM, device="cpu", **kw,
+                             generator=torch.Generator().manual_seed(0))
+        got = port.evaluate()(torch.from_numpy(tokens)).detach().numpy()
+        np.testing.assert_array_equal(got, want)
+    ref = JaxLM(**GEOM, mesh=object())
+    ref.set_parameters(to_jax(export_params(plain)))
+    np.testing.assert_allclose(
+        np.asarray(ref.evaluate().forward(jnp.asarray(tokens))), want,
+        atol=ATOL, rtol=0)
     with pytest.raises(ValueError, match="sp_impl"):
         TransformerLM(**GEOM, sp_impl="zigzag", device="cpu")
+    with pytest.raises(NotImplementedError, match="item 11"):
+        TransformerLM(**{**GEOM, "moe_experts": 2}, device="cpu",
+                      mesh=Mesh([2], ["data"]))
 
 
 # -------------------------------------------------------------- RMSNorm
